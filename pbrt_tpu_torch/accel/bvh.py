@@ -1,0 +1,464 @@
+"""Wide BVH over the triangle soup: host build and device traversal.
+
+Counterpart of pbrt_tpu/accel/bvh.py (reference accelerator/hlbvh.cu).
+
+Build (host, numpy, scene-compile time): the same binned-SAH binary build,
+8-wide collapse and leaf padding as the JAX package, so the `rows` and `src`
+tables come out byte-identical. One unified row table of ROW_W float32:
+  - internal row i < n_int: 8 x [lo(3) hi(3)] child boxes, then 8 child ids
+    as exact small floats (empty slots: inverted box, id -1);
+  - leaf row n_int + c: the LEAF_K triangles of chunk c, [p0 p1 p2] each.
+
+Traversal (device): `closest_hit_tris` / `any_hit_tris` launch the CUDA
+kernel of csrc/bvh_traverse.cu on CUDA tensors (one thread per ray with a
+stack of (node, child-mask) entries, see that file). On CPU tensors they run
+the kernel's plain version, a chunked dense watertight sweep over the padded
+leaf soup, which computes the same (t, prim) function. The TPU's compaction
+ladder, dense tail sweep, one-hot child select and PBRT_TPU_BVH_* tuning
+knobs are not ported: they existed because masked-dense execution on the TPU
+is gated by the worst lane.
+"""
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pbrt_tpu_torch.utils.math import INFINITY, encode_morton3
+from pbrt_tpu_torch.geometry import intersect as ix
+
+LEAF_K = 8          # triangles per leaf row
+WIDTH = 8           # children per internal row
+ROW_W = 72          # max(7 * WIDTH, 9 * LEAF_K) float32 per row
+MIN_TRIS_FOR_BVH = 64  # below this the JAX package uses the dense kernel
+
+_SAH_BINS = 16
+_SAH_MIN = 17          # ranges smaller than this split at the median instead
+_MAX_DEPTH = 48        # beyond this, force median splits (degenerate scenes)
+
+
+class BvhBuild(NamedTuple):
+    """Host-side build result."""
+
+    rows: np.ndarray       # (n_int + n_leaves, ROW_W) f32 unified table
+    src: np.ndarray        # (n_leaves*K,) i32: source tri index per padded
+                           # leaf-order row, -1 for padding
+    n_int: int             # internal row count (leaf chunk c = row n_int+c)
+    n_padded: int          # n_leaves * K
+    max_depth: int         # deepest internal chain (stack bound)
+
+
+def _surface_area(lo, hi):
+    d = np.maximum(hi - lo, 0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                  + d[..., 2] * d[..., 0])
+
+
+def _build_binary(tri_lo, tri_hi, cent, order, leaf_k, big_from=None):
+    """Binned-SAH binary BVH. Returns (nodes, leaves, root):
+    nodes: list of (lo, hi, left, right) with child refs ('n', i)/('l', j)/
+    ('i', prim_id); leaves: list of id arrays (each <= leaf_k source ids).
+
+    Ids >= `big_from` are "big" primitives (instances): they always become
+    SINGLETON ('i', id) leaves — a range containing one is force-split until
+    the instance is alone, so triangle leaf chunks stay homogeneous."""
+    nodes = []   # (lo, hi, left_ref, right_ref)
+    leaves = []
+
+    # explicit stack of (ids, slot_setter); build root iteratively
+    result_root = [None]
+
+    def setter_of(parent_idx, side):
+        def set_ref(ref):
+            lo, hi, l, r = nodes[parent_idx]
+            nodes[parent_idx] = (lo, hi, ref if side == 0 else l,
+                                 ref if side == 1 else r)
+        return set_ref
+
+    stack = [(order, (lambda ref: result_root.__setitem__(0, ref)), 0)]
+    while stack:
+        ids, set_ref, depth = stack.pop()
+        n = ids.shape[0]
+        has_big = big_from is not None and bool(np.any(ids >= big_from))
+        if n == 1 and has_big:
+            set_ref(("i", int(ids[0])))
+            continue
+        if n <= leaf_k and not has_big:
+            leaves.append(ids)
+            set_ref(("l", len(leaves) - 1))
+            continue
+        if n <= leaf_k and has_big:
+            # force-split mixed/instance ranges down to singleton instances
+            c_ax = cent[ids]
+            axis0 = int(np.argmax(c_ax.max(0) - c_ax.min(0)))
+            s = np.argsort(c_ax[:, axis0], kind="stable")
+            ids = ids[s]
+            mid = max(1, n // 2)
+            me = len(nodes)
+            lo = tri_lo[ids].min(0).astype(np.float32)
+            hi = tri_hi[ids].max(0).astype(np.float32)
+            nodes.append((lo, hi, None, None))
+            set_ref(("n", me))
+            stack.append((ids[:mid], setter_of(me, 0), depth + 1))
+            stack.append((ids[mid:], setter_of(me, 1), depth + 1))
+            continue
+
+        lo = tri_lo[ids].min(0)
+        hi = tri_hi[ids].max(0)
+        c = cent[ids]
+        clo = c.min(0)
+        chi = c.max(0)
+        ext = chi - clo
+        axis = int(np.argmax(ext))
+
+        split = None
+        if n >= _SAH_MIN and depth < _MAX_DEPTH and ext[axis] > 0:
+            # ---- binned SAH over ALL THREE centroid axes (the reference
+            # bins only along each treelet axis, hlbvh.cu:636-813; sweeping
+            # all axes at 16 bins measurably tightens boxes on anisotropic
+            # meshes like height fields — fewer node visits per ray)
+            best_cost, best_split = np.inf, None
+            for ax in range(3):
+                if ext[ax] <= 0:
+                    continue
+                t = (c[:, ax] - clo[ax]) * (_SAH_BINS / ext[ax])
+                b = np.minimum(t.astype(np.int32), _SAH_BINS - 1)
+                counts = np.bincount(b, minlength=_SAH_BINS)
+                sort = np.argsort(b, kind="stable")
+                ids_sorted = ids[sort]
+                starts = np.zeros(_SAH_BINS, np.int64)
+                starts[1:] = np.cumsum(counts)[:-1]
+                nonempty = counts > 0
+                # reduceat needs strictly valid starts; use nonempty bins
+                ne_starts = starts[nonempty]
+                blo = np.full((_SAH_BINS, 3), np.inf, np.float64)
+                bhi = np.full((_SAH_BINS, 3), -np.inf, np.float64)
+                blo[nonempty] = np.minimum.reduceat(
+                    tri_lo[ids_sorted], ne_starts, axis=0)
+                bhi[nonempty] = np.maximum.reduceat(
+                    tri_hi[ids_sorted], ne_starts, axis=0)
+                # prefix/suffix bounds + counts over bins
+                plo = np.minimum.accumulate(blo, axis=0)
+                phi = np.maximum.accumulate(bhi, axis=0)
+                slo = np.minimum.accumulate(blo[::-1], axis=0)[::-1]
+                shi = np.maximum.accumulate(bhi[::-1], axis=0)[::-1]
+                cl = np.cumsum(counts)
+                cr = n - cl
+                # split after bin i (i = 0.._SAH_BINS-2)
+                costs = np.where(
+                    (cl[:-1] > 0) & (cr[:-1] > 0),
+                    _surface_area(plo[:-1], phi[:-1]) * cl[:-1]
+                    + _surface_area(slo[1:], shi[1:]) * cr[:-1],
+                    np.inf,
+                )
+                bi = int(np.argmin(costs))
+                if costs[bi] < best_cost:
+                    best_cost = costs[bi]
+                    mid = int(cl[bi])
+                    best_split = (ids_sorted[:mid], ids_sorted[mid:])
+            if best_split is not None:
+                split = best_split
+        if split is None:
+            # median of the current (morton / bin-sorted) order; for tiny or
+            # degenerate ranges this is the LBVH topology
+            if n >= _SAH_MIN and ext[axis] > 0:
+                sort = np.argsort(c[:, axis], kind="stable")
+                ids = ids[sort]
+            mid = n // 2
+            split = (ids[:mid], ids[mid:])
+
+        me = len(nodes)
+        nodes.append((lo.astype(np.float32), hi.astype(np.float32), None, None))
+        set_ref(("n", me))
+        stack.append((split[0], setter_of(me, 0), depth + 1))
+        stack.append((split[1], setter_of(me, 1), depth + 1))
+
+    return nodes, leaves, result_root[0]
+
+
+def _collapse_wide(nodes, leaves, root_ref, tri_lo, tri_hi, width):
+    """Collapse the binary tree into width-wide nodes (largest-area slot
+    expanded first). Returns (wide, order): wide = list of slot lists, each
+    slot = (lo, hi, ref) with ref ('w', wide_idx) or ('l', leaf_idx);
+    leaves re-emitted in DFS order for locality via `leaf_order`."""
+
+    def bounds_of(ref):
+        if ref[0] == "n":
+            lo, hi, _, _ = nodes[ref[1]]
+            return lo, hi
+        if ref[0] == "i":
+            return (tri_lo[ref[1]].astype(np.float32),
+                    tri_hi[ref[1]].astype(np.float32))
+        ids = leaves[ref[1]]
+        return tri_lo[ids].min(0).astype(np.float32), tri_hi[ids].max(0).astype(np.float32)
+
+    wide = []        # slot lists; refs into wide/leaf, patched below
+    leaf_order = []  # binary-leaf index per emitted chunk
+
+    def emit(ref):
+        """Emit the subtree at `ref` as a wide node; returns ('w', idx),
+        ('l', chunk) or ('i', prim_id) (instance pseudo-leaf)."""
+        if ref[0] == "i":
+            return ref
+        if ref[0] == "l":
+            leaf_order.append(ref[1])
+            return ("l", len(leaf_order) - 1)
+        # gather up to `width` slot refs by expanding the largest-area
+        # internal slot until full
+        slots = [ref]
+        while len(slots) < width:
+            best, best_area = -1, -1.0
+            for i, s in enumerate(slots):
+                if s[0] == "n":
+                    lo, hi, _, _ = nodes[s[1]]
+                    a = float(_surface_area(lo, hi))
+                    if a > best_area:
+                        best, best_area = i, a
+            if best < 0:
+                break
+            _, _, l, r = nodes[slots[best][1]]
+            slots[best: best + 1] = [l, r]
+        me = len(wide)
+        wide.append(None)
+        out = []
+        for s in slots:
+            lo, hi = bounds_of(s)
+            out.append((lo, hi, emit(s)))
+        wide[me] = out
+        return ("w", me)
+
+    import sys
+    old = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old, 100000))
+    try:
+        root = emit(root_ref)
+    finally:
+        sys.setrecursionlimit(old)
+    return wide, leaf_order, root
+
+
+def build_bvh(p0, p1, p2, leaf_k=LEAF_K):
+    """Build the SAH wide BVH over triangles (T, 3)x3 -> BvhBuild.
+
+    The caller must reorder all per-triangle scene columns into padded leaf
+    order via `src` (src[i] < 0 rows are degenerate never-hit padding).
+    """
+    T = p0.shape[0]
+    p0 = np.asarray(p0, np.float32)
+    p1 = np.asarray(p1, np.float32)
+    p2 = np.asarray(p2, np.float32)
+    tri_lo = np.minimum(np.minimum(p0, p1), p2)
+    tri_hi = np.maximum(np.maximum(p0, p1), p2)
+    cent = 0.5 * (tri_lo + tri_hi)
+
+    # initial morton order: keeps median-fallback splits spatial and gives
+    # bin sorts a good secondary order (reference hlbvh.cu:229)
+    lo = cent.min(0)
+    extent = np.maximum(cent.max(0) - lo, 1e-30)
+    q = np.clip(((cent - lo) / extent) * 1023.0, 0.0, 1023.0).astype(np.uint32)
+    codes = encode_morton3(q[:, 0], q[:, 1], q[:, 2])
+    order = np.argsort(codes, kind="stable").astype(np.int64)
+
+    nodes, leaves, root_ref = _build_binary(tri_lo, tri_hi, cent, order, leaf_k)
+    wide, leaf_order, root = _collapse_wide(
+        nodes, leaves, root_ref, tri_lo, tri_hi, WIDTH
+    )
+
+    n_leaves = len(leaf_order)
+    n_padded = n_leaves * leaf_k
+    src = np.full(n_padded, -1, np.int32)
+    for chunk, bleaf in enumerate(leaf_order):
+        ids = leaves[bleaf]
+        src[chunk * leaf_k: chunk * leaf_k + ids.shape[0]] = ids
+
+    row_w = max(6 * WIDTH + WIDTH, 9 * leaf_k)
+    BIG = np.float32(3e38)
+
+    if not wide:
+        # single-leaf scene: no internal rows
+        n_int = 0
+        rows = np.zeros((n_leaves, row_w), np.float32)
+        max_depth = 1
+    else:
+        n_int = len(wide)
+        rows = np.zeros((n_int + n_leaves, row_w), np.float32)
+        # internal rows: 8x [lo hi] + 8 child ids (unified: leaf chunk c ->
+        # id n_int + c)
+        for i, slots in enumerate(wide):
+            r = rows[i]
+            r[0: 6 * WIDTH: 6] = BIG      # default: inverted boxes
+            r[3: 6 * WIDTH: 6] = -BIG
+            r[6 * WIDTH:] = -1.0
+            for s, (slo, shi, ref) in enumerate(slots):
+                r[s * 6: s * 6 + 3] = slo
+                r[s * 6 + 3: s * 6 + 6] = shi
+                cid = ref[1] if ref[0] == "w" else n_int + ref[1]
+                r[6 * WIDTH + s] = float(cid)
+        # depth of the wide tree (stack bound): longest internal chain
+        depth = np.ones(n_int, np.int32)
+        for i in range(n_int - 1, -1, -1):
+            d = 1
+            for _, _, ref in wide[i]:
+                if ref[0] == "w":
+                    d = max(d, 1 + depth[ref[1]])
+            depth[i] = d
+        max_depth = int(depth[0]) if n_int else 1
+
+    # leaf rows: K triangles, [p0 p1 p2] per triangle; padding rows keep
+    # all-zero vertices (degenerate, never pass the watertight test)
+    mask = src >= 0
+    si = np.maximum(src, 0)
+    tri9 = np.concatenate([p0[si], p1[si], p2[si]], axis=1)
+    tri9[~mask] = 0.0
+    rows[n_int:, : leaf_k * 9] = tri9.reshape(n_leaves, leaf_k * 9)
+
+    return BvhBuild(
+        rows=rows, src=src, n_int=n_int, n_padded=n_padded,
+        max_depth=max_depth,
+    )
+
+
+def reorder_pad(build: BvhBuild, a, fill):
+    """Reorder a per-triangle column (T, ...) into padded leaf order."""
+    a = np.asarray(a)
+    out = np.full((build.n_padded,) + a.shape[1:], fill, a.dtype)
+    mask = build.src >= 0
+    out[mask] = a[build.src[mask]]
+    return out
+
+
+# --------------------------------------------------------------- traversal
+
+# launches of the CUDA traversal kernel (plain ints, added to where it launches)
+launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0}
+_OVERFLOW = {}
+
+
+def overflow_counter(device):
+    """int32 device tensor: lanes that ran past the kernel's iteration
+    bound or stack since the process started (0 for a correct tree)."""
+    device = torch.device(device)
+    if device not in _OVERFLOW:
+        _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _OVERFLOW[device]
+
+
+def _sweep_block(R, device):
+    budget = (1 << 25) if device.type == "cuda" else (1 << 21)
+    return max(8, budget // max(R, 1))
+
+
+def traverse_plain(rows, n_int, o, d, t_max, any_hit=False):
+    """Plain version of the traversal kernel: a chunked dense watertight
+    sweep over the padded leaf soup rows[n_int:, :72] seen as (P*8, 9)
+    triangles (the function JAX's `dense_finish` computes, bvh.py:1010-1047).
+    -> (t (R,), prim (R,) int64 leaf-order index, -1 on a miss); for
+    any_hit, prim is 0 where something blocks."""
+    soup = rows[n_int:, : LEAF_K * 9].reshape(-1, 9)
+    shear = ix.ray_shear(d)
+    t_best = t_max.clone()
+    prim = torch.full(t_max.shape, -1, dtype=torch.int64, device=o.device)
+    TB = _sweep_block(o.shape[0], o.device)
+    for s in range(0, soup.shape[0], TB):
+        blk = soup[s: s + TB]
+        t, hit = ix.intersect_tri_block(o, shear, t_max if any_hit else t_best,
+                                        blk[:, 0:3], blk[:, 3:6], blk[:, 6:9])
+        if any_hit:
+            prim = torch.where(hit.any(dim=1), 0, prim)
+            continue
+        t = torch.where(hit, t, torch.inf)
+        best = torch.argmin(t, dim=1)
+        tb = torch.gather(t, 1, best[:, None])[:, 0]
+        better = tb < t_best
+        t_best = torch.where(better, tb, t_best)
+        prim = torch.where(better, s + best, prim)
+    return t_best, prim
+
+
+def _kernel_lib():
+    """The built traversal library, its C functions declared once."""
+    from pbrt_tpu_torch import kernels
+
+    lib = kernels.load("bvh_traverse")
+    if not hasattr(lib, "declared"):
+        lib.pbrt_bvh_max_stack.argtypes = []
+        lib.pbrt_bvh_max_stack.restype = ctypes.c_int
+        lib.pbrt_bvh_traverse.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        lib.pbrt_bvh_traverse.restype = ctypes.c_int
+        lib.declared = True
+    return lib
+
+
+def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
+    """Launch csrc/bvh_traverse.cu on the current stream and count the
+    launch. Same contract as traverse_plain; prim is -1 on a miss. `stats`,
+    an optional int64 (2,) device tensor, accumulates the internal rows
+    visited and the leaf triangles tested."""
+    from pbrt_tpu_torch import kernels
+
+    R = o.shape[0]
+    dev = o.device
+    for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,)),
+                           ("rows", rows, (rows.shape[0], ROW_W))):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"bvh traversal: {name} must be a contiguous float32 "
+                             f"{shape} tensor on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if not 0 <= n_int < rows.shape[0] or rows.shape[0] >= 1 << 23:
+        raise ValueError(f"bvh traversal: n_int {n_int} outside a table of "
+                         f"{rows.shape[0]} rows (at most 2^23 rows)")
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
+                              or stats.numel() != 2):
+        raise ValueError("bvh traversal: stats must be an int64 (2,) tensor on the device")
+    lib = _kernel_lib()
+    stack = depth + 2
+    if stack > lib.pbrt_bvh_max_stack():
+        raise ValueError(f"BVH depth {depth} needs a stack of {stack} entries; the "
+                         f"kernel is compiled for {lib.pbrt_bvh_max_stack()}")
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    prim = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return t, prim.long()
+    err = lib.pbrt_bvh_traverse(
+        rows.data_ptr(), rows.shape[0], n_int, o.data_ptr(), d.data_ptr(),
+        t_max.data_ptr(), R, t.data_ptr(), prim.data_ptr(),
+        overflow_counter(dev).data_ptr(), int(any_hit), stack,
+        None if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "bvh_traverse")
+    launches["bvh_any_hit" if any_hit else "bvh_closest_hit"] += 1
+    return t, prim.long()
+
+
+def _traverse(scene, meta, o, d, t_max, any_hit):
+    if o.is_cuda:
+        return traverse_cuda(scene.bvh_rows, meta.bvh_nint, meta.bvh_depth,
+                             o, d, t_max, any_hit)
+    return traverse_plain(scene.bvh_rows, meta.bvh_nint, o, d, t_max, any_hit)
+
+
+def closest_hit_tris(scene, meta, o, d, t_max):
+    """BVH closest hit -> TriHit. t and the barycentrics are recomputed
+    against the winning triangle (the refit of bvh.py:1193-1215); prim
+    indexes the leaf-ordered triangle columns."""
+    _, prim = _traverse(scene, meta, o, d, t_max, any_hit=False)
+    found = prim >= 0
+    pc = torch.clamp(prim, min=0)
+    t_ref, bary, hit_ref = ix.intersect_tri_lanes(
+        o, d, t_max, scene.tri_p0[pc], scene.tri_p1[pc], scene.tri_p2[pc])
+    ok = found & hit_ref
+    return ix.TriHit(
+        t=torch.where(ok, t_ref, INFINITY),
+        prim=torch.where(ok, prim, -1),
+        b=torch.where(ok[:, None], bary, 0.0),
+    )
+
+
+def any_hit_tris(scene, meta, o, d, t_max):
+    """BVH shadow query: True where some triangle blocks (R,)."""
+    _, prim = _traverse(scene, meta, o, d, t_max, any_hit=True)
+    return prim >= 0

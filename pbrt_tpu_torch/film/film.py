@@ -1,0 +1,57 @@
+"""RGB film: spectral samples -> sensor RGB accumulation -> image
+(counterpart of pbrt_tpu/film/film.py; reference film/rgb_film.cu).
+
+The film is two accumulators, rgb_sum (H*W, 3) and weight_sum (H*W,),
+updated in place (the JAX package returns a new film per add). On CUDA
+tensors `add_samples` launches the fused Triton kernel of film_kernel.py;
+on CPU tensors it runs the kernel's plain version.
+"""
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pbrt_tpu_torch.film import film_kernel
+from pbrt_tpu_torch.spectral import colorspace
+
+
+class Film(NamedTuple):
+    rgb_sum: torch.Tensor     # (H*W, 3) sensor rgb
+    weight_sum: torch.Tensor  # (H*W,)
+
+
+def new_film(resolution, device):
+    w, h = resolution
+    return Film(rgb_sum=torch.zeros((w * h, 3), dtype=torch.float32, device=device),
+                weight_sum=torch.zeros((w * h,), dtype=torch.float32, device=device))
+
+
+def add_samples(film: Film, pixel_idx, L, lam, pdf, weight):
+    """Weighted add of (R,) samples into the film, in place (reference
+    rgb_film.cu:64-80)."""
+    if film.rgb_sum.is_cuda:
+        film_kernel.add_samples_triton(film.rgb_sum, film.weight_sum, pixel_idx,
+                                       L, lam, pdf, weight)
+    else:
+        film_kernel.add_samples_plain(film.rgb_sum, film.weight_sum, pixel_idx,
+                                      L, lam, pdf, weight)
+    return film
+
+
+def develop(film: Film, resolution, out_matrix=None, imaging_ratio=1.0):
+    """-> (H, W, 3) linear output RGB (reference rgb_film.cu:108-122).
+    |weight_sum| is clamped to at least 0.25, keeping its sign, as in the
+    JAX package (film.py:92-95): mitchell's signed weights can leave a
+    pixel's weight sum near 0 at low spp."""
+    w, h = resolution
+    ws = film.weight_sum[:, None]
+    mag = torch.clamp(torch.abs(ws), min=0.25)
+    rgb = film.rgb_sum / torch.where(ws < 0, -mag, mag) * imaging_ratio
+    m = colorspace.srgb().rgb_from_xyz if out_matrix is None else out_matrix
+    return colorspace.apply_matrix(m, rgb).reshape(h, w, 3)
+
+
+def to_srgb8(linear_rgb):
+    """(H, W, 3) linear -> uint8 sRGB numpy."""
+    enc = colorspace.srgb_encode(torch.clamp(torch.as_tensor(linear_rgb), 0.0, 1.0))
+    return np.asarray(torch.round(enc * 255.0).to(torch.uint8).cpu())

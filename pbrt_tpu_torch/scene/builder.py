@@ -1,0 +1,472 @@
+"""SceneBuilder: .pbrt token stream -> host-side scene description.
+
+Counterpart of pbrt_tpu/scene/builder.py (reference scene/scene_builder.cu),
+trimmed to what the port renders so far: transforms, the perspective camera,
+film, independent/stratified samplers, the path integrator, box and mitchell
+pixel filters, attribute blocks, diffuse/conductor/dielectric/
+diffusetransmission materials, diffuse area lights and triangle meshes
+(trianglemesh, loopsubdiv). Every other directive, type or parameter that
+would change the image raises NotImplementedError naming the slice of the
+port that will bring it; nothing is silently dropped.
+"""
+import copy
+import functools
+import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+from pbrt_tpu_torch.scene import lexer as lx
+from pbrt_tpu_torch.scene.params import ParameterDict, parse_parameters
+from pbrt_tpu_torch.geometry import transform as tf
+from pbrt_tpu_torch.spectral import cie, spectra
+
+# material type codes (device dispatch; same values as the JAX package)
+MAT_DIFFUSE = 0
+MAT_CONDUCTOR = 1
+MAT_DIELECTRIC = 2
+MAT_DIFFUSE_TRANSMISSION = 3
+
+LIGHT_AREA = 0
+
+PATH_INTEGRATORS = ("path", "volpath", "megakernelpath")
+
+
+def _later(what, slice_name):
+    return NotImplementedError(
+        f"{what} is not ported to pbrt_tpu_torch yet (planned slice: {slice_name})")
+
+
+@functools.lru_cache(None)
+def named_spectra():
+    """Built-in named spectra (reference scene_builder.cu:100-136): metal
+    eta/k and glass eta as dense rows, unnormalized piecewise-linear."""
+    import pathlib
+
+    data = pathlib.Path(__file__).resolve().parent.parent / "data"
+    out = {}
+    metal = np.load(data / "metal.npz")
+    for m in ["Ag", "Al", "Au", "Cu"]:
+        out[f"metal-{m}-eta"] = spectra.from_interleaved(metal[f"{m}_eta"], False)
+        out[f"metal-{m}-k"] = spectra.from_interleaved(metal[f"{m}_k"], False)
+    glass = np.load(data / "glass.npz")
+    out["glass-BK7"] = spectra.from_interleaved(glass["GlassBK7_eta"], False)
+    out["glass-SF11"] = spectra.from_interleaved(glass["GlassSF11_eta"], False)
+    return out
+
+
+@dataclass
+class MaterialSpec:
+    type: int
+    reflectance_rgb: Optional[np.ndarray] = None
+    eta_spec: int = -1                      # dense spectrum row
+    k_spec: int = -1
+    eta_float: float = 1.5
+    uroughness: float = 0.0
+    vroughness: float = 0.0
+    remap_roughness: bool = True
+    transmittance_rgb: Optional[np.ndarray] = None
+
+
+@dataclass
+class AreaLightSpec:
+    emission_dense: np.ndarray  # (471,)
+    scale: float
+    two_sided: bool
+
+
+@dataclass
+class LightSpec:
+    type: int
+    emission_dense: np.ndarray
+    scale: float
+    two_sided: bool = False
+    tri_index: int = -1
+
+
+@dataclass
+class GraphicsState:
+    ctm: np.ndarray = field(default_factory=tf.identity)
+    material_idx: int = 0
+    area_light: Optional[AreaLightSpec] = None
+    reverse_orientation: bool = False
+
+
+def _swaps_handedness(m):
+    return np.linalg.det(np.asarray(m)[:3, :3]) < 0
+
+
+def _no_textures(pd: ParameterDict, names):
+    for n in names:
+        if pd.get_texture_name(n) is not None:
+            raise _later(f"texture parameter {n!r}", "textures")
+
+
+class SceneBuilder:
+    def __init__(self):
+        self.state = GraphicsState()
+        self.stack = []
+        self.in_world = False
+        self._search_dir = "."
+
+        self.materials = [MaterialSpec(type=MAT_DIFFUSE, reflectance_rgb=np.array([0.5, 0.5, 0.5]))]
+        self.spectra_rows = []  # list of (471,) float64
+        self._spectra_index = {}
+        self.tri_p = []
+        self.tri_n = []
+        self.tri_uv = []
+        self.tri_mat = []
+        self.tri_light = []
+        self.tri_rev = []
+        self.lights = []
+
+        self.film = {"xresolution": 1920, "yresolution": 1080, "filename": "out.png"}
+        self.camera = {"type": "perspective", "fov": 90.0, "camera_from_world": tf.identity()}
+        self.sampler = {"type": "stratified", "pixelsamples": 4}
+        self.integrator = {"type": "path", "maxdepth": 5}
+        self.filter = {"type": "mitchell"}
+
+    # ------------------------------------------------------------- spectra
+
+    def add_spectrum_row(self, dense, key=None):
+        if key is not None and key in self._spectra_index:
+            return self._spectra_index[key]
+        idx = len(self.spectra_rows)
+        self.spectra_rows.append(np.asarray(dense, dtype=np.float64))
+        if key is not None:
+            self._spectra_index[key] = idx
+        return idx
+
+    def resolve_spectrum(self, pd: ParameterDict, name):
+        """A 'spectrum'-typed parameter -> dense row index, or None."""
+        raw = pd.get_spectrum_raw(name)
+        if raw is None:
+            if name in pd and pd.type_of(name) == "blackbody":
+                raise _later("blackbody spectra", "lights")
+            return None
+        kind, val = raw
+        if kind == "named":
+            reg = named_spectra()
+            if val not in reg:
+                raise ValueError(f"unknown named spectrum {val!r}")
+            return self.add_spectrum_row(reg[val], key=("named", val))
+        return self.add_spectrum_row(spectra.from_interleaved(val, False))
+
+    def illuminant_dense(self, pd: ParameterDict, name):
+        """Illuminant spectrum parameter -> (dense emission row, photometric
+        norm) (reference rgb_illuminant_spectrum.cu:27-28)."""
+        rgb = pd.get_rgb(name)
+        if rgb is not None:
+            from pbrt_tpu_torch.spectral import rgb2spec
+
+            s = 2.0 * float(np.max(rgb))
+            if s == 0.0:
+                return np.zeros(cie.LAMBDA_RANGE), cie.CIE_Y_INTEGRAL
+            c = rgb2spec.rgb_to_coefficients_np(rgb / s).astype(np.float64)
+            lam = cie.lambdas()
+            x = (c[0] * lam + c[1]) * lam + c[2]
+            sig = 0.5 * x / np.sqrt(1.0 + x * x) + 0.5
+            dense = s * sig * cie.illum_d65()
+            return dense, cie.inner_product(cie.illum_d65(), cie.Y())
+        spec_idx = self.resolve_spectrum(pd, name)
+        if spec_idx is not None:
+            dense = self.spectra_rows[spec_idx]
+            return dense, cie.inner_product(dense, cie.Y())
+        dense = cie.illum_d65()
+        return dense, cie.inner_product(dense, cie.Y())
+
+    # ------------------------------------------------------------ materials
+
+    def make_material(self, mtype: str, pd: ParameterDict) -> int:
+        """MaterialSpec factory (reference base/material.cu:34-76)."""
+        if mtype in ("", "interface", "none"):
+            raise _later("material-less interfaces", "media")
+        if mtype == "diffuse":
+            _no_textures(pd, ["reflectance"])
+            spec = MaterialSpec(
+                type=MAT_DIFFUSE,
+                reflectance_rgb=np.asarray(pd.get_rgb("reflectance", np.array([0.5, 0.5, 0.5]))),
+            )
+        elif mtype == "conductor":
+            _no_textures(pd, ["reflectance", "roughness", "uroughness", "vroughness"])
+            eta_idx = self.resolve_spectrum(pd, "eta")
+            k_idx = self.resolve_spectrum(pd, "k")
+            refl = pd.get_rgb("reflectance")
+            if refl is None and eta_idx is None:
+                eta_idx = self.add_spectrum_row(named_spectra()["metal-Cu-eta"],
+                                                key=("named", "metal-Cu-eta"))
+            if refl is None and k_idx is None:
+                k_idx = self.add_spectrum_row(named_spectra()["metal-Cu-k"],
+                                              key=("named", "metal-Cu-k"))
+            rough = pd.get_float("roughness", 0.0)
+            spec = MaterialSpec(
+                type=MAT_CONDUCTOR,
+                reflectance_rgb=None if refl is None else np.asarray(refl),
+                eta_spec=-1 if eta_idx is None else eta_idx,
+                k_spec=-1 if k_idx is None else k_idx,
+                uroughness=pd.get_float("uroughness", rough),
+                vroughness=pd.get_float("vroughness", rough),
+                remap_roughness=pd.get_bool("remaproughness", True),
+            )
+        elif mtype == "dielectric":
+            _no_textures(pd, ["roughness", "uroughness", "vroughness"])
+            eta_f = (pd.get_float("eta", None)
+                     if ("eta" not in pd or pd.type_of("eta") == "float")
+                     else None)
+            eta_idx = None
+            if eta_f is None:
+                eta_idx = self.resolve_spectrum(pd, "eta")
+            rough = pd.get_float("roughness", 0.0)
+            spec = MaterialSpec(
+                type=MAT_DIELECTRIC,
+                eta_float=1.5 if eta_f is None else float(eta_f),
+                eta_spec=-1 if eta_idx is None else eta_idx,
+                uroughness=pd.get_float("uroughness", rough),
+                vroughness=pd.get_float("vroughness", rough),
+                remap_roughness=pd.get_bool("remaproughness", True),
+            )
+        elif mtype == "diffusetransmission":
+            _no_textures(pd, ["reflectance", "transmittance"])
+            spec = MaterialSpec(
+                type=MAT_DIFFUSE_TRANSMISSION,
+                reflectance_rgb=np.asarray(pd.get_rgb("reflectance", np.array([0.25, 0.25, 0.25]))),
+                transmittance_rgb=np.asarray(
+                    pd.get_rgb("transmittance", np.array([0.25, 0.25, 0.25]))),
+            )
+        elif mtype in ("coateddiffuse", "coatedconductor"):
+            raise _later(f"material {mtype!r}", "layered BxDF (staircase, testball)")
+        elif mtype == "mix":
+            raise _later("material 'mix'", "textures")
+        else:
+            raise ValueError(f"material type {mtype!r} not implemented")
+        self.materials.append(spec)
+        return len(self.materials) - 1
+
+    # -------------------------------------------------------------- shapes
+
+    def add_triangle_mesh(self, pd: ParameterDict):
+        """reference shapes/triangle_mesh.cu + base/shape.cu trianglemesh."""
+        P = pd.get_points3("P")
+        indices = pd.get_integers("indices")
+        if P is None or indices is None:
+            raise ValueError("trianglemesh needs P and indices")
+        self._emit_mesh(P, np.asarray(indices).reshape(-1, 3),
+                        pd.get_normals("N"), pd.get_points2("uv"))
+
+    def _emit_mesh(self, P, idx, N=None, UV=None):
+        ctm = self.state.ctm
+        Pw = (P @ ctm[:3, :3].T) + ctm[:3, 3]
+        Nw = None
+        if N is not None:
+            inv = np.linalg.inv(ctm)
+            Nw = N @ inv[:3, :3]
+            Nw = Nw / np.maximum(np.linalg.norm(Nw, axis=-1, keepdims=True), 1e-30)
+        rev = self.state.reverse_orientation ^ _swaps_handedness(ctm)
+        if Nw is not None and rev:
+            Nw = -Nw
+        al = self.state.area_light
+        for tri in idx:
+            li = -1
+            if al is not None:
+                self.lights.append(LightSpec(
+                    type=LIGHT_AREA, emission_dense=al.emission_dense,
+                    scale=al.scale, two_sided=al.two_sided,
+                    tri_index=len(self.tri_p)))
+                li = len(self.lights) - 1
+            self.tri_p.append(Pw[tri])
+            self.tri_n.append(None if Nw is None else Nw[tri])
+            self.tri_uv.append(None if UV is None else UV[tri])
+            self.tri_mat.append(self.state.material_idx)
+            self.tri_light.append(li)
+            self.tri_rev.append(rev)
+
+    # ------------------------------------------------------------- parsing
+
+    def parse_file(self, path):
+        tokens = lx.tokenize_file(path)
+        self._search_dir = os.path.dirname(os.path.abspath(path))
+        self.parse_tokens(tokens)
+        return self
+
+    def parse_tokens(self, tokens):
+        i = 0
+        n = len(tokens)
+        while i < n:
+            tok = tokens[i]
+            if tok.kind != lx.KEYWORD:
+                raise ValueError(f"expected directive, got {tok}")
+            kw = tok.value
+            i += 1
+
+            if kw == "WorldBegin":
+                self.in_world = True
+                self.state.ctm = tf.identity()
+                continue
+            if kw == "AttributeBegin":
+                self.stack.append(copy.deepcopy(self.state))
+                continue
+            if kw == "AttributeEnd":
+                self.state = self.stack.pop()
+                continue
+            if kw == "ReverseOrientation":
+                self.state.reverse_orientation = not self.state.reverse_orientation
+                continue
+            if kw == "Identity":
+                self.state.ctm = tf.identity()
+                continue
+
+            if kw == "LookAt":
+                vals = [tokens[i + k].value for k in range(9)]
+                i += 9
+                self.state.ctm = self.state.ctm @ np.linalg.inv(
+                    tf.lookat(vals[0:3], vals[3:6], vals[6:9]))
+                continue
+            if kw == "Translate":
+                vals = [tokens[i + k].value for k in range(3)]
+                i += 3
+                self.state.ctm = self.state.ctm @ tf.translate(*vals)
+                continue
+            if kw == "Scale":
+                vals = [tokens[i + k].value for k in range(3)]
+                i += 3
+                self.state.ctm = self.state.ctm @ tf.scale(*vals)
+                continue
+            if kw == "Rotate":
+                vals = [tokens[i + k].value for k in range(4)]
+                i += 4
+                self.state.ctm = self.state.ctm @ tf.rotate(*vals)
+                continue
+            if kw in ("Transform", "ConcatTransform"):
+                assert tokens[i].kind == lx.LBRACKET
+                vals = [tokens[i + 1 + k].value for k in range(16)]
+                i += 18
+                m = np.asarray(vals, dtype=np.float64).reshape(4, 4).T
+                self.state.ctm = m if kw == "Transform" else self.state.ctm @ m
+                continue
+
+            if kw == "Include":
+                fname = tokens[i].value
+                i += 1
+                sub = lx.tokenize_file(os.path.join(self._search_dir, fname))
+                tokens = tokens[:i] + sub + tokens[i:]
+                n = len(tokens)
+                continue
+
+            if kw == "Camera":
+                ctype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                if ctype != "perspective":
+                    raise ValueError(f"camera {ctype!r} not supported")
+                self.camera = {
+                    "type": ctype,
+                    "fov": pd.get_float("fov", 90.0),
+                    "lensradius": pd.get_float("lensradius", 0.0),
+                    "focaldistance": pd.get_float("focaldistance", 1e6),
+                    "camera_from_world": self.state.ctm.copy(),
+                }
+                continue
+            if kw == "Film":
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                self.film = {
+                    "xresolution": pd.get_integer("xresolution", 1920),
+                    "yresolution": pd.get_integer("yresolution", 1080),
+                    "filename": pd.get_string("filename", "out.png"),
+                    "iso": pd.get_float("iso", 100.0),
+                    "whitebalance": pd.get_float("whitebalance", 0.0),
+                    "exposuretime": pd.get_float("exposuretime", 1.0),
+                }
+                continue
+            if kw == "Sampler":
+                stype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                if stype not in ("independent", "stratified"):
+                    raise ValueError(f"sampler {stype!r} not supported")
+                self.sampler = {"type": stype,
+                                "pixelsamples": pd.get_integer("pixelsamples", 4)}
+                continue
+            if kw == "Integrator":
+                itype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                if itype not in PATH_INTEGRATORS:
+                    raise _later(f"integrator {itype!r}",
+                                 "AOV" if itype in ("ambientocclusion", "surfacenormal")
+                                 else "BDPT/MLT")
+                self.integrator = {"type": itype,
+                                   "maxdepth": pd.get_integer("maxdepth", 5)}
+                continue
+            if kw == "PixelFilter":
+                ftype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                if ftype not in ("box", "mitchell"):
+                    raise _later(f"pixel filter {ftype!r}", "filters")
+                self.filter = {
+                    "type": ftype,
+                    "xradius": pd.get_float("xradius", None),
+                    "yradius": pd.get_float("yradius", None),
+                    "B": pd.get_float("B", 1.0 / 3.0),
+                    "C": pd.get_float("C", 1.0 / 3.0),
+                }
+                continue
+
+            if kw == "Material":
+                mtype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                self.state.material_idx = self.make_material(mtype, pd)
+                continue
+
+            if kw == "AreaLightSource":
+                ltype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                if ltype != "diffuse":
+                    raise ValueError("only diffuse area lights supported")
+                dense, photometric = self.illuminant_dense(pd, "L")
+                self.state.area_light = AreaLightSpec(
+                    emission_dense=dense,
+                    scale=pd.get_float("scale", 1.0) / photometric,
+                    two_sided=pd.get_bool("twosided", False))
+                continue
+
+            if kw == "Shape":
+                stype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                if stype == "trianglemesh":
+                    self.add_triangle_mesh(pd)
+                elif stype == "loopsubdiv":
+                    from pbrt_tpu_torch.scene.subdivide import loop_subdivide
+
+                    P = pd.get_points3("P")
+                    idx = np.asarray(pd.get_integers("indices"), np.int32).reshape(-1, 3)
+                    P2, idx2, N2 = loop_subdivide(np.asarray(P), idx,
+                                                  pd.get_integer("levels", 3))
+                    self._emit_mesh(P2, idx2, N2, None)
+                elif stype in ("sphere", "disk"):
+                    raise _later(f"shape {stype!r}", "plain cornell (dense quadrics K4)")
+                elif stype == "plymesh":
+                    raise _later("shape 'plymesh'", "wavefront loop / terrain")
+                else:
+                    raise ValueError(f"shape {stype!r} not supported yet")
+                continue
+
+            if kw == "LightSource":
+                raise _later("LightSource (infinite/distant/spot lights)",
+                             "wavefront loop / terrain")
+            if kw == "Texture":
+                raise _later("textures", "textures")
+            if kw in ("MakeNamedMaterial", "NamedMaterial"):
+                raise _later("named materials", "textures (mix and named materials)")
+            if kw in ("MakeNamedMedium", "MediumInterface"):
+                raise _later("participating media", "media")
+            if kw in ("ObjectBegin", "ObjectEnd", "ObjectInstance"):
+                raise _later("object instancing", "instancing")
+            if kw in ("CoordinateSystem", "CoordSysTransform"):
+                raise _later(kw, "CLI and operations")
+            raise ValueError(f"unknown directive {kw!r}")

@@ -1,0 +1,133 @@
+"""pbrt_tpu_torch scene compile vs pbrt_tpu: the port's own numpy compile
+of cornell_mesh_pbrt(levels=3) must equal pbrt_tpu.scene.compile field by
+field (BVH rows, hit records, integer columns and the light alias table
+exactly; float columns to 1e-6 relative), scene_from_arrays must
+round-trip, and what the port does not render yet must raise."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pbrt_tpu.scene import builder as jbd, lexer as jlx, testscenes as jts
+from pbrt_tpu.scene.compile import compile_scene as j_compile
+from pbrt_tpu_torch.scene import builder as tbd, lexer as tlx, testscenes as tts
+from pbrt_tpu_torch.scene.compile import (Scene, SceneMeta, compile_arrays, compile_scene,
+                                          scene_from_arrays)
+
+torch.set_num_threads(2)
+
+EXACT = ["bvh_rows", "tri_rec", "mat_type", "mat_remap",
+         "mat_eta_spec", "mat_k_spec", "mat_refl_mode", "lt_type", "lt_twosided",
+         "lt_tri", "lt_alias_rows", "tri_p0", "tri_p1", "tri_p2"]
+CLOSE = ["mat_refl_c", "mat_trans_c", "mat_urough", "mat_vrough", "mat_eta",
+         "spec_table", "lt_emission", "lt_scale", "lt_pmf", "camera_from_raster",
+         "render_from_camera", "camera_lens_radius", "camera_focal_distance",
+         "scene_radius", "ray_offset_scale"]
+
+
+def _jax_builder(text, res):
+    b = jbd.SceneBuilder()
+    b.parse_tokens(jlx.tokenize(text))
+    b.film["xresolution"] = b.film["yresolution"] = res
+    return b
+
+
+@pytest.fixture(scope="module", params=["mitchell", "box"])
+def both(request):
+    text = jts.cornell_mesh_pbrt(levels=3)
+    jb = _jax_builder(text, 40)
+    tb = tts.cornell_mesh_builder(levels=3, res=40)
+    if request.param == "box":
+        jb.filter = {"type": "box"}
+        tb.filter = {"type": "box"}
+    ja, jm = j_compile(jb, spp_override=4)
+    ta, tm = compile_arrays(tb, spp_override=4)
+    return ja, jm, ta, tm
+
+
+@pytest.mark.parametrize("field", EXACT)
+def test_field_exact(both, field):
+    ja, _, ta, _ = both
+    want = np.asarray(getattr(ja, field))
+    got = ta[field]
+    assert got.shape == want.shape and got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("field", CLOSE)
+def test_field_close(both, field):
+    ja, _, ta, _ = both
+    np.testing.assert_allclose(ta[field], np.asarray(getattr(ja, field)), rtol=1e-6)
+
+
+def test_filter_tables_and_meta(both):
+    ja, jm, ta, tm = both
+    for k in ta["filt"]._fields:
+        np.testing.assert_allclose(getattr(ta["filt"], k), np.asarray(getattr(ja.filt, k)),
+                                   rtol=1e-6)
+    assert tm.bvh_nint == ja.bvh_nint.shape[0]
+    assert tm.bvh_depth == ja.bvh_depth.shape[0]
+    for k in ("resolution", "spp", "sampler", "integrator", "max_depth", "n_tris",
+              "n_lights", "filter_kind", "film_imaging_ratio"):
+        assert getattr(tm, k) == getattr(jm, k), k
+    np.testing.assert_allclose(tm.film_out_matrix, jm.film_out_matrix, rtol=1e-6)
+
+
+def test_scene_from_arrays_round_trip(both):
+    ja, jm, ta, tm = both
+    scene, meta = scene_from_arrays(ta, tm, "cpu")
+    for f in dataclasses.fields(Scene):
+        if f.name != "filt":
+            np.testing.assert_array_equal(getattr(scene, f.name).numpy(), ta[f.name])
+    for k, v in ta["filt"]._asdict().items():
+        np.testing.assert_array_equal(getattr(scene.filt, k).numpy(), v)
+    assert meta == tm
+    # the JAX package's SceneArrays, field by field through np.asarray
+    j_dict = {k: np.asarray(v) if k != "filt" else v for k, v in ja._asdict().items()
+              if v is not None and k != "tex"}
+    js, jmeta = scene_from_arrays(j_dict, jm, "cpu")
+    assert (jmeta.bvh_nint, jmeta.bvh_depth) == (tm.bvh_nint, tm.bvh_depth)
+    assert torch.equal(js.bvh_rows, scene.bvh_rows) and torch.equal(js.tri_rec, scene.tri_rec)
+
+
+def test_entry_points_need_a_device_choice():
+    b = tts.cornell_mesh_builder(levels=1, res=8)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None means cuda here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_scene(b)
+    scene, meta = compile_scene(b, device="cpu")
+    assert isinstance(meta, SceneMeta) and scene.device == torch.device("cpu")
+
+
+UNPORTED = {
+    "sphere": 'WorldBegin\nShape "sphere" "float radius" [1]',
+    "disk": 'WorldBegin\nShape "disk" "float radius" [1]',
+    "plymesh": 'WorldBegin\nShape "plymesh" "string filename" ["x.ply"]',
+    "infinite light": 'WorldBegin\nLightSource "infinite" "rgb L" [1 1 1]',
+    "texture": 'WorldBegin\nTexture "t" "spectrum" "checkerboard"',
+    "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
+    "coated": 'WorldBegin\nMaterial "coateddiffuse"',
+    "interface": 'WorldBegin\nMaterial "interface"',
+    "bdpt": 'Integrator "bdpt"',
+    "gaussian filter": 'PixelFilter "gaussian"',
+    "instancing": 'WorldBegin\nObjectBegin "a"',
+    "named material": 'WorldBegin\nNamedMaterial "a"',
+}
+
+
+@pytest.mark.parametrize("what", sorted(UNPORTED))
+def test_unported_features_raise(what):
+    b = tbd.SceneBuilder()
+    with pytest.raises(NotImplementedError, match="planned slice"):
+        b.parse_tokens(tlx.tokenize(UNPORTED[what]))
+
+
+def test_small_dense_scene_raises():
+    b = tbd.SceneBuilder()
+    b.parse_tokens(tlx.tokenize(
+        'WorldBegin\nShape "trianglemesh" "integer indices" [0 1 2] '
+        '"point3 P" [0 0 1  1 0 1  0 1 1]'))
+    with pytest.raises(NotImplementedError, match="K3"):
+        compile_arrays(b)

@@ -5,23 +5,41 @@
 Phases, each printed on its own line; any failure exits non-zero before the
 result line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the kernels from the sources in this checkout (nvcc for the CUDA
-     source, Triton's JIT for the film kernel);
+  2. build the kernels from the sources in this checkout (one nvcc per CUDA
+     source, all started together; Triton's JIT for the film kernel);
   3. the BVH traversal kernel (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
   4. the film kernel against its plain version, 131,072 lanes with NaN and
      zero-pdf lanes into a 256^2 film;
-  5. a small render (cornell-mesh levels 3, 48^2, 4 spp, box filter) on the
-     card against tests/goldens.npz and against the same render on the CPU;
-  6. the full-width render through the normal entry point: cornell-mesh
-     levels 5, 256^2, 16 spp, max depth 5, mitchell filter, with every
-     kernel's launch count (each must be > 0) and the honest rays/s;
-  7. each kernel against its plain version again, and timed with CUDA
-     events beside its plain version, its bound and (for the film)
-     PyTorch's index_add_ alone, on the arguments of its first launch in the
-     full-width render: the shapes and data the main path gives it;
-  8. a `kernels` JSON line; the last line is the JSON result.
+  5. the dense kernels (K3 triangles, K4 spheres and disks) against their
+     plain versions on 131,072 camera and interior rays of the plain cornell
+     box and of caustic-glass, and on synthetic partial spheres and disks
+     (z window, phimax < 2 pi, inner radius) with masked lanes;
+  6. the wavefront recycle kernel (K8) against torch.cumsum's plain version
+     on random finished masks at the pool size, next_work near the end too;
+  7. small renders on the card against tests/goldens.npz and against the
+     same render on the CPU: cornell-mesh levels 3 at 48^2 x 4 spp, the plain
+     cornell box at 64^2 x 8 spp (box filter), and caustic-glass with the
+     path integrator at 48^2 x 4 spp (card against CPU; its disk light runs
+     the disk kernel);
+  8. the full-width renders through the normal entry point, 256^2, 16 spp,
+     max depth 5, mitchell filter: cornell-mesh levels 5 (BVH), the plain
+     cornell box (dense), terrain (130,050 PLY triangles, sky and sun: the
+     wavefront loop; its compile seconds, and its honest ray count equal to
+     the same frame through the batched loop). Each is driven with the launch
+     counts set to 0 just before it and read just after; every kernel of its
+     path must have launched;
+  9. each kernel against its plain version again, and timed beside its
+     plain version, its bound and (film: index_add_; recycle: torch.cumsum)
+     one PyTorch call: the kernel and the library call from CUDA-graph
+     replays (device time, without the host's time to launch each call,
+     which the log prints beside it), the plain version with CUDA events;
+     all on the arguments of its first
+     launch in the full-width render of its path: the shapes and data the
+     main path gives it (the BVH kernel on terrain is timed only: the plain
+     sweep over 130k triangles is not repeated);
+ 10. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
 import json
@@ -37,13 +55,21 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # float32 outside the tensor cores: the published 67 TFLOP/s counts a fused
 # multiply-add as two ops; the kernels count every mul and add on its own
-# (the CUDA source is built with --fmad=false), and those issue at one op a
-# lane a cycle: 132 SMs x 128 lanes x 1.98 GHz, half the published rate
+# (the CUDA sources are built with --fmad=false), and those run at one op
+# a lane a cycle: 132 SMs x 128 lanes x 1.98 GHz, half the published rate
 H100_F32_OPS_PER_S = 67e12 / 2
-# float ops of one internal-row visit (8 slab tests) and of one leaf
-# triangle test, counted from csrc/bvh_traverse.cu
+# float ops counted from the CUDA sources: one internal-row visit (8 slab
+# tests); a triangle test by how far it goes (watertight.cuh): every test
+# to the edge-sign exit, those past it to the det / t-range exit, those past
+# that to the t error bound, and the barycentrics of a refit winner; one
+# sphere and one disk candidate of dense_intersect.cu, and the reprojection
+# of a sphere hit
 SLAB_VISIT_OPS = 8 * 22
-TRI_TEST_OPS = 78
+TRI_EDGE_OPS, TRI_RANGE_OPS, TRI_BOUND_OPS, TRI_BARY_OPS = 30, 11, 33, 3
+TRI_FULL_OPS = TRI_EDGE_OPS + TRI_RANGE_OPS + TRI_BOUND_OPS
+SPHERE_TEST_OPS = 35
+SPHERE_HIT_OPS = 30
+DISK_TEST_OPS = 36
 # float ops of one film lane, counted from film/film_kernel.py
 FILM_LANE_OPS = 4 * 10 + 3 * 2 + 4
 
@@ -66,6 +92,40 @@ def events_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, calls=20, reps=5):
+    """Device milliseconds of one fn() call: `calls` calls captured in one
+    CUDA graph, replayed `reps` times between CUDA events, so the host's
+    time to launch each call (argument checks, output allocations, the
+    launch) is not counted. fn launches on the current stream and does not
+    synchronize."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * calls)
+
+
+def kernel_ms(fn, reps=50):
+    """(device ms of one call from graph_ms, ms of one call launched by
+    the host back to back, from events_ms)."""
+    return graph_ms(fn), events_ms(fn, reps)
+
+
 def require(ok, *what):
     """A phase check: raise (and so exit non-zero) when it does not hold."""
     if not ok:
@@ -84,24 +144,69 @@ def check_image(img, golden, name, atol=5e-3, rtol=0.05):
     return frac_bad
 
 
+def bound(nbytes, ops):
+    """(least ms, "bytes" or "operations") of the H100 for the work."""
+    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+    return (max(tb, to), "bytes" if tb >= to else "operations")
+
+
+def tri_test_ops(n_tests, n_edge, n_range):
+    """Float ops of n_tests watertight tests of which n_edge got past the
+    edge-sign test and n_range past the t-range test."""
+    return n_tests * TRI_EDGE_OPS + n_edge * TRI_RANGE_OPS + n_range * TRI_BOUND_OPS
+
+
+def tri_stages(o, d, t_max, p0, p1, p2):
+    """(R, T) masks of how far the watertight test of every ray against
+    every triangle goes at a fixed t_max (csrc/watertight.cuh, the plain
+    arithmetic of geometry/intersect.py): past the edge-sign test, and past
+    the det and t-range tests."""
+    from pbrt_tpu_torch.geometry import intersect as ix
+
+    kz, sx, sy, sz = (x[:, None] for x in ix.ray_shear(d))
+    a, b, c = (ix.permute_by_kz(p[None] - o[:, None], kz) for p in (p0, p1, p2))
+    ax, ay = a[0] + sx * a[2], a[1] + sy * a[2]
+    bx, by = b[0] + sx * b[2], b[1] + sy * b[2]
+    cx, cy = c[0] + sx * c[2], c[1] + sy * c[2]
+    e0, e1, e2 = cx * by - cy * bx, ax * cy - ay * cx, bx * ay - by * ax
+    edge = ~(((e0 < 0) | (e1 < 0) | (e2 < 0)) & ((e0 > 0) | (e1 > 0) | (e2 > 0)))
+    det = e0 + e1 + e2
+    ts = e0 * (sz * a[2]) + e1 * (sz * b[2]) + e2 * (sz * c[2])
+    tm = t_max[:, None] * det
+    in_range = torch.where(det < 0, (ts < 0) & (ts > tm), (ts > 0) & (ts < tm))
+    return edge, edge & (det != 0) & in_range
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    from quadric_edges import clip_edge_distance
     from pbrt_tpu_torch import kernels
     from pbrt_tpu_torch.accel import bvh
     from pbrt_tpu_torch.film import film as filmlib, film_kernel, png
     from pbrt_tpu_torch.geometry import intersect as ix
     from pbrt_tpu_torch.integrators import render as rd
     from pbrt_tpu_torch.sampling import samplers
-    from pbrt_tpu_torch.scene import testscenes as ts
-    from pbrt_tpu_torch.scene.compile import compile_scene
+    from pbrt_tpu_torch.scene import builder as bd, testscenes as ts
+    from pbrt_tpu_torch.scene.compile import compile_scene, load_scene
     from pbrt_tpu_torch.cameras import perspective
     from pbrt_tpu_torch.utils.math import INFINITY
 
     dev = torch.device("cuda")
     t_start = time.time()
+    counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches)
+
+    def reset_counts():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {k: v for c in counters for k, v in c.items()}
+
     # ---- 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -139,25 +244,39 @@ def main():
         require(all(torch.equal(a, b) for a, b in zip(*outs)), kind)
     log("sampler streams bit-exact on the card vs CPU: ok")
 
+    g = torch.Generator(device="cpu").manual_seed(1234)
+
+    def camera_and_interior_rays(scene, meta, n_cam=65536, n_in=65536):
+        """n_cam camera rays plus n_in random interior rays of the scene's
+        triangle bounds; every 97th lane masked (t_max = 0)."""
+        p_film = torch.rand((n_cam, 2), generator=g) * torch.tensor(meta.resolution,
+                                                                      dtype=torch.float32)
+        rays = perspective.generate_rays(scene, p_film.to(dev), torch.zeros((n_cam, 2),
+                                                                            device=dev))
+        pts = torch.cat([scene.tri_p0, scene.tri_p1, scene.tri_p2]).cpu()
+        lo, hi = pts.min(0).values, pts.max(0).values
+        o_in = lo + (hi - lo) * (0.05 + 0.9 * torch.rand((n_in, 3), generator=g))
+        d_in = torch.randn((n_in, 3), generator=g)
+        d_in = d_in / d_in.norm(dim=-1, keepdim=True)
+        o = torch.cat([rays.o, o_in.to(dev)]).contiguous()
+        d = torch.cat([rays.d, d_in.to(dev)]).contiguous()
+        t_max = torch.full((o.shape[0],), INFINITY, device=dev)
+        t_max[::97] = 0.0
+        return o, d, t_max
+
+    def shadow_t(t_closest):
+        """Shadow-ray lengths in [0, 2 t_closest], every 89th lane masked."""
+        u = torch.rand(t_closest.shape[0], generator=g).to(dev)
+        t = torch.where(t_closest < INFINITY, t_closest * 2.0 * u, 1e3)
+        t[::89] = 0.0
+        return t.contiguous()
+
     # ---- 3. BVH traversal vs plain on camera + interior rays, cornell-mesh l5
     scene, meta = compile_scene(ts.cornell_mesh_builder(levels=5, res=256), 16, device=dev)
     rows, n_int, depth = scene.bvh_rows, meta.bvh_nint, meta.bvh_depth
     log(f"cornell-mesh levels 5: {meta.n_tris} tris, {rows.shape[0]} rows "
         f"({rows.numel() * 4 / 1e6:.2f} MB), depth {depth}")
-    g = torch.Generator(device="cpu").manual_seed(1234)
-    n_cam = 65536
-    p_film = torch.rand((n_cam, 2), generator=g) * torch.tensor(meta.resolution,
-                                                                  dtype=torch.float32)
-    rays = perspective.generate_rays(scene, p_film.to(dev), torch.zeros((n_cam, 2), device=dev))
-    pts = torch.cat([scene.tri_p0, scene.tri_p1, scene.tri_p2]).cpu()
-    lo, hi = pts.min(0).values, pts.max(0).values
-    o_in = lo + (hi - lo) * (0.05 + 0.9 * torch.rand((65536, 3), generator=g))
-    d_in = torch.randn((65536, 3), generator=g)
-    d_in = d_in / d_in.norm(dim=-1, keepdim=True)
-    o = torch.cat([rays.o, o_in.to(dev)]).contiguous()
-    d = torch.cat([rays.d, d_in.to(dev)]).contiguous()
-    t_max = torch.full((o.shape[0],), INFINITY, device=dev)
-    t_max[::97] = 0.0                       # masked lanes
+    o, d, t_max = camera_and_interior_rays(scene, meta)
     ov0 = int(bvh.overflow_counter(dev).item())
 
     def compare_closest(o, d, t_max):
@@ -197,10 +316,7 @@ def main():
 
     n_hit, n_ties, t_err, b_err, _ = compare_closest(o, d, t_max)
     t_cl, _ = bvh.traverse_plain(rows, n_int, o, d, t_max)
-    u = torch.rand(o.shape[0], generator=g).to(dev)
-    t_sh = torch.where(t_cl < INFINITY, t_cl * 2.0 * u, 1e3)       # [0, 2 t_closest]
-    t_sh[::89] = 0.0
-    n_occ = compare_any(o, d, t_sh.contiguous())
+    n_occ = compare_any(o, d, shadow_t(t_cl))
     log(f"bvh vs plain on {o.shape[0]} camera+interior rays: {n_hit} hits, {n_ties} ties "
         f"(verified), max rel err t {t_err:.2e} b {b_err:.2e}; any hit {n_occ} occluded, "
         f"0 disagree")
@@ -230,108 +346,362 @@ def main():
     log(f"film_add_samples vs plain on {n_lanes} lanes with NaN/zero-pdf lanes: max abs err "
         f"{film_err:.2e} (rtol 1e-5: atomic order)")
 
-    # ---- 5. small render vs golden and vs CPU
-    golden = np.load(ROOT / "tests" / "goldens.npz")["cornell_mesh_l3_48_spp4"]
-    b_small = ts.cornell_mesh_builder(levels=3, res=48, filter_kind="box")
-    s_small, m_small = compile_scene(b_small, 4, device=dev)
-    img_gpu = rd.render(s_small, m_small).cpu().numpy()
-    img_cpu = rd.render(s_small, m_small, device="cpu").numpy()
-    fb_g = check_image(img_gpu, golden, "cuda render vs golden")
-    fb_c = check_image(img_gpu, img_cpu, "cuda render vs cpu render")
-    log(f"small render 48^2 x 4 spp: vs golden {fb_g:.4%} bad px, vs cpu {fb_c:.4%} bad px, "
-        f"means {img_gpu.mean():.5f} / {golden.mean():.5f} / {img_cpu.mean():.5f}")
+    # ---- 5. dense kernels (K3, K4) vs plain
+    def compare_dense_tris(o, d, t_max, tris, any_hit=False):
+        """K3 vs plain: prim ids, t and barycentrics bit for bit; any hit
+        identical. -> (lanes hit or occluded, max abs err of t)."""
+        if any_hit:
+            k = ix.dense_tris_cuda(o, d, t_max, *tris, any_hit=True)
+            require(torch.equal(k, ix.occluded_tris_dense_plain(o, d, t_max, *tris)),
+                    "dense any hit disagrees")
+            return int(k.sum()), 0.0
+        k = ix.dense_tris_cuda(o, d, t_max, *tris)
+        p = ix.intersect_tris_dense_plain(o, d, t_max, *tris)
+        require(torch.equal(k.prim, p.prim), "dense tri prim ids differ",
+                int((k.prim != p.prim).sum()))
+        require(torch.equal(k.t, p.t) and torch.equal(k.b, p.b), "dense tri t/b differ")
+        return int((p.prim >= 0).sum()), 0.0
 
-    # ---- 6. full width through the normal entry point. A first render keeps
-    # a copy of the arguments of each kernel's first launch (the shapes and
-    # data the main path gives the kernels, for phase 7); the second is the
-    # measured run, with the launch counts set to 0 just before it.
+    def compare_quadrics(kind, o, d, t_max, soa):
+        """K4 vs plain: winners equal but on lanes within 1e-5 of a clip edge
+        (atan2f vs torch.atan2); t, p, n to 1e-6 relative. -> (hits,
+        edge disagreements, max abs err of t)."""
+        cuda_fn = ix.dense_spheres_cuda if kind == "spheres" else ix.dense_disks_cuda
+        plain_fn = (ix.intersect_spheres_dense_plain if kind == "spheres"
+                    else ix.intersect_disks_dense_plain)
+        tk, ik, pk, nk = cuda_fn(o, d, t_max, soa)
+        tp, ip, pp, np_ = plain_fn(o, d, t_max, soa)
+        differ = ik != ip
+        n_edge = int(differ.sum())
+        if n_edge:
+            margin = clip_edge_distance(o[differ], d[differ],
+                                        soa if kind == "spheres" else None,
+                                        soa if kind == "disks" else None)
+            require(bool((margin < 1e-5).all()), f"{kind}: a disagreement off the clip edges",
+                    float(margin.max()))
+        same = ~differ & (ip >= 0)
+        require(torch.allclose(tk[same], tp[same], rtol=1e-6), kind, "t differs")
+        require(torch.allclose(pk[same], pp[same], rtol=1e-6, atol=1e-6), kind, "p differs")
+        require(torch.allclose(nk[same], np_[same], rtol=1e-6, atol=1e-6), kind, "n differs")
+        err = float((tk[same] - tp[same]).abs().max()) if bool(same.any()) else 0.0
+        return int((ip >= 0).sum()), n_edge, err
+
+    s_corn, m_corn = ts.cornell(res=256, spp=16, device=dev)
+    s_caus, m_caus = load_scene(str(ROOT / "scenes" / "caustic-glass.pbrt"), device=dev,
+                                spp=4, integrator="path")
+    for label, sc, mt in (("cornell", s_corn, m_corn), ("caustic-glass", s_caus, m_caus)):
+        o, d, t_max = camera_and_interior_rays(sc, mt)
+        tris = (sc.tri_p0, sc.tri_p1, sc.tri_p2)
+        n_h, _ = compare_dense_tris(o, d, t_max, tris)
+        t_cl = ix.intersect_tris_dense_plain(o, d, t_max, *tris).t
+        n_o, _ = compare_dense_tris(o, d, shadow_t(t_cl), tris, any_hit=True)
+        msg = f"dense kernels vs plain on {label} ({o.shape[0]} rays): tris {n_h} hits " \
+              f"(prim/t/b bit-exact), {n_o} occluded (identical)"
+        n_s = compare_quadrics("spheres", o, d, t_max, ix.SphereSoA(
+            sc.sph_center, sc.sph_radius, table=sc.sph_table))
+        msg += f"; spheres {n_s[0]} hits, max abs err t {n_s[2]:.2e}"
+        if mt.n_disks:
+            n_d = compare_quadrics("disks", o, d, t_max, ix.DiskSoA(
+                sc.dsk_center, sc.dsk_normal, sc.dsk_radius, sc.dsk_inner, table=sc.dsk_table))
+            msg += f"; disks {n_d[0]} hits, max abs err t {n_d[2]:.2e}"
+        log(msg)
+
+    # synthetic partial quadrics in [-1, 1]^3, masked and short lanes
+    rng = np.random.default_rng(7)
+    nq = 32
+    rot = np.linalg.qr(rng.normal(size=(nq, 3, 3)))[0]
+    rad = rng.uniform(0.1, 0.4, nq)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    sph_p = ix.with_table(ix.SphereSoA(f(rng.uniform(-0.8, 0.8, (nq, 3))), f(rad), f(rot),
+                         f(-rad * rng.uniform(0.2, 1.0, nq)), f(rad * rng.uniform(0.2, 1.0, nq)),
+                         f(rng.uniform(1.0, 2 * np.pi, nq))))
+    dsk_p = ix.with_table(ix.DiskSoA(f(rng.uniform(-0.8, 0.8, (nq, 3))), f(rot[:, 2]), f(rad),
+                       f(rad * rng.uniform(0.0, 0.5, nq)), f(rot[:, 0]),
+                       f(np.cross(rot[:, 2], rot[:, 0])), f(rng.uniform(1.0, 2 * np.pi, nq))))
+    o_q = f(rng.uniform(-1.0, 1.0, (131072, 3)))
+    d_q = f(rng.normal(size=(131072, 3)))
+    d_q = (d_q / d_q.norm(dim=-1, keepdim=True)).contiguous()
+    t_q = torch.full((131072,), INFINITY, device=dev)
+    t_q[::13] = 0.0
+    t_q[5::13] = f(rng.uniform(0.0, 2.0, t_q[5::13].shape[0]))
+    for kind, soa in (("spheres", sph_p), ("disks", dsk_p)):
+        n_h, n_edge, err = compare_quadrics(kind, o_q, d_q, t_q, soa)
+        log(f"partial {kind} ({nq}) vs plain on 131072 rays: {n_h} hits, {n_edge} "
+            f"disagreements, all within 1e-5 of a clip edge; max abs err t {err:.2e}")
+
+    # ---- 6. K8 vs torch.cumsum's plain version at the pool size
+    R = rd.POOL_LANES
+    for density, left in ((0.03, 10 ** 7), (0.5, 10 ** 7), (0.5, 1000), (1.0, 0), (0.4, -3)):
+        in_flight = (torch.rand(R, generator=g) < 0.95).to(dev)
+        finished = in_flight & (torch.rand(R, generator=g) < density).to(dev)
+        total = 1 << 26
+        ck = torch.tensor([total - left, 0], dtype=torch.int64, device=dev)
+        cp = ck.clone()
+        out_k = rd.recycle_cuda(finished, in_flight, ck, total)
+        out_p = rd.recycle_plain(finished, in_flight, cp, total)
+        require(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out_k, out_p))
+                and torch.equal(ck, cp), "recycle differs from cumsum", density, left)
+    log(f"wavefront_recycle vs torch.cumsum at {R} lanes, 5 masks (next_work up to 3 past "
+        f"the end): rank, work, recycle, in_flight and counters bit-exact")
+
+    # ---- 7. small renders vs golden and vs CPU
+    goldens = np.load(ROOT / "tests" / "goldens.npz")
+    for label, (sc, mt), key in (
+            ("cornell-mesh l3 48^2 x 4", compile_scene(
+                ts.cornell_mesh_builder(levels=3, res=48, filter_kind="box"), 4, device=dev),
+             "cornell_mesh_l3_48_spp4"),
+            ("cornell 64^2 x 8", ts.cornell(res=64, spp=8, device=dev, filter_kind="box"),
+             "cornell_path_64_spp8")):
+        img_gpu = rd.render(sc, mt).cpu().numpy()
+        img_cpu = rd.render(sc, mt, device="cpu").numpy()
+        fb_g = check_image(img_gpu, goldens[key], f"{label} vs golden")
+        fb_c = check_image(img_gpu, img_cpu, f"{label} vs cpu render")
+        log(f"small render {label}: vs golden {fb_g:.4%} bad px, vs cpu {fb_c:.4%} bad px, "
+            f"means {img_gpu.mean():.5f} / {goldens[key].mean():.5f} / {img_cpu.mean():.5f}")
+
+    # ---- 8. full-width renders through the normal entry point. A first
+    # render keeps a copy of the arguments of each kernel's first launch (the
+    # shapes and data the main path gives the kernels, for phase 9); the
+    # second is the measured run, with the launch counts set to 0 just before
+    # it and read just after.
+    patches = [
+        (bvh, "traverse_cuda",
+         lambda a, k: "bvh_any_hit" if (a[6] if len(a) > 6 else k.get("any_hit"))
+         else "bvh_closest_hit"),
+        (film_kernel, "add_samples_triton", lambda a, k: "film_add_samples"),
+        (ix, "dense_tris_cuda",
+         lambda a, k: "dense_tri_any" if k.get("any_hit") else "dense_tri_closest"),
+        (ix, "dense_spheres_cuda", lambda a, k: "dense_spheres"),
+        (ix, "dense_disks_cuda", lambda a, k: "dense_disks"),
+        (rd, "recycle_cuda", lambda a, k: "wavefront_recycle"),
+    ]
     captured = {}
-    orig_bvh, orig_film = bvh.traverse_cuda, film_kernel.add_samples_triton
 
-    def capture_bvh(rows_, n_int_, depth_, o_, d_, t_max_, any_hit=False, stats=None):
-        captured.setdefault(any_hit, (o_.clone(), d_.clone(), t_max_.clone()))
-        return orig_bvh(rows_, n_int_, depth_, o_, d_, t_max_, any_hit, stats)
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
 
-    def capture_film(rgb_sum, weight_sum, *args):
-        captured.setdefault("film", tuple(a.clone() for a in args))
-        return orig_film(rgb_sum, weight_sum, *args)
+    def render_captured(tag, sc, mt):
+        """One render with each kernel's first-launch arguments kept."""
+        origs = []
+        for mod, name, key_fn in patches:
+            orig = getattr(mod, name)
+            origs.append((mod, name, orig))
 
-    bvh.traverse_cuda, film_kernel.add_samples_triton = capture_bvh, capture_film
-    try:
-        rd.render(scene, meta)
-    finally:
-        bvh.traverse_cuda, film_kernel.add_samples_triton = orig_bvh, orig_film
-    for k in bvh.launches:
-        bvh.launches[k] = 0
-    film_kernel.launches["film_add_samples"] = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    img, stats = rd.render(scene, meta, return_stats=True)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = {**bvh.launches, **film_kernel.launches}
-    img = img.cpu().numpy()
-    n_rays = stats["closest"] + stats["shadow"]
-    require(img.shape == (256, 256, 3) and np.isfinite(img).all(), "non-finite pixels")
-    require(all(v > 0 for v in counts.values()), "kernel not launched", counts)
+            def wrapped(*a, _orig=orig, _key=key_fn, **k):
+                # the film kernel adds into its first two arguments in place
+                captured.setdefault(tag, {}).setdefault(
+                    _key(a, k), (tuple(clone(x) for x in a), dict(k), _orig))
+                return _orig(*a, **k)
+
+            setattr(mod, name, wrapped)
+        try:
+            return rd.render(sc, mt)
+        finally:
+            for mod, name, orig in origs:
+                setattr(mod, name, orig)
+
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out_png = kernels.BUILD_DIR / "cornell_mesh.png"
-    png.write_png(str(out_png), filmlib.to_srgb8(img))
-    log(f"full render 256^2 x 16 spp depth 5 mitchell: {wall:.3f} s wall, "
-        f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
-        f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts}; "
-        f"mean {img.mean():.5f}; all finite; peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB -> {out_png.relative_to(ROOT)}")
+    main_counts = {}
 
-    # ---- 7. each kernel against its plain version and timed, on the
+    def full_render(tag, sc, mt, must):
+        render_captured(tag, sc, mt)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, stats = rd.render(sc, mt, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        img = img.cpu().numpy()
+        n_rays = stats["closest"] + stats["shadow"]
+        require(img.shape == (256, 256, 3) and np.isfinite(img).all(), tag, "non-finite pixels")
+        require(all(counts.get(k, 0) > 0 for k in must), tag, "kernel not launched", counts)
+        for k in must:  # a kernel on several paths: counted on its first
+            main_counts.setdefault(k, counts[k])
+        out_png = kernels.BUILD_DIR / f"{tag}.png"
+        png.write_png(str(out_png), filmlib.to_srgb8(img))
+        log(f"full render {tag} 256^2 x 16 spp depth 5 mitchell: {wall:.3f} s wall, "
+            f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
+            f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts}; mean {img.mean():.5f}; "
+            f"all finite; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"-> {out_png.relative_to(ROOT)}")
+        return stats
+
+    full_render("cornell_mesh", scene, meta, ("bvh_closest_hit", "bvh_any_hit",
+                                              "film_add_samples"))
+    full_render("cornell", s_corn, m_corn, ("dense_tri_closest", "dense_tri_any",
+                                            "dense_spheres", "film_add_samples"))
+    t0 = time.time()
+    s_terr, m_terr = ts.terrain(res=256, spp=16, device=dev)
+    log(f"terrain compile: {time.time() - t0:.2f} s ({m_terr.n_tris} tris, PLY written and "
+        f"read, SAH BVH of {s_terr.bvh_rows.shape[0]} rows, depth {m_terr.bvh_depth})")
+    require(m_terr.open_scene, "terrain must take the wavefront loop")
+    st_w = full_render("terrain", s_terr, m_terr, ("bvh_closest_hit", "bvh_any_hit",
+                                                   "wavefront_recycle", "film_add_samples"))
+    t0 = time.time()
+    st_b = rd.render_batched(s_terr, m_terr, filmlib.new_film(m_terr.resolution, dev))
+    st_b = {k: int(v) for k, v in st_b.items()}
+    require(st_w == st_b, "wavefront and batched ray counts differ", st_w, st_b)
+    log(f"terrain through the batched loop: {time.time() - t0:.3f} s wall, the same "
+        f"{st_b['closest']} + {st_b['shadow']} rays as the wavefront loop (no work item "
+        f"dropped or repeated; render() raises on dropped != 0)")
+
+    # the disk kernel's path: caustic-glass (path) 48^2 x 4, card vs CPU
+    b_c48 = bd.SceneBuilder().parse_file(str(ROOT / "scenes" / "caustic-glass.pbrt"))
+    b_c48.film["xresolution"] = b_c48.film["yresolution"] = 48
+    s_c48, m_c48 = compile_scene(b_c48, 4, device=dev, integrator_override="path")
+    render_captured("caustic", s_c48, m_c48)
+    reset_counts()
+    img_gpu = rd.render(s_c48, m_c48).cpu().numpy()
+    counts = {k: v for k, v in read_counts().items() if v}
+    require(counts.get("dense_disks", 0) > 0, "disk kernel not launched", counts)
+    main_counts.setdefault("dense_disks", counts["dense_disks"])
+    img_cpu = rd.render(s_c48, m_c48, device="cpu").numpy()
+    fb_c = check_image(img_gpu, img_cpu, "caustic-glass vs cpu render")
+    log(f"caustic-glass (path) 48^2 x 4 spp: launches {counts}; vs cpu {fb_c:.4%} bad px, "
+        f"means {img_gpu.mean():.5f} / {img_cpu.mean():.5f}")
+
+    # ---- 9. each kernel against its plain version and timed, on the
     # arguments of its first main-path launch
-    def bound(nbytes, ops):
-        tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
-        return (max(tb, to), "bytes" if tb >= to else "operations")
-
     timing = {}
+
+    def first(tag, name):
+        a, k, orig = captured[tag][name]
+        return a, k, orig
+
     for any_hit in (False, True):
-        o_, d_, t_ = captured[any_hit]
-        R = o_.shape[0]
+        name = "bvh_any_hit" if any_hit else "bvh_closest_hit"
+        (_, _, _, o_, d_, t_, *_), _, _ = first("cornell_mesh", name)
+        R_ = o_.shape[0]
         if any_hit:
             err = 0.0
             n_live = compare_any(o_, d_, t_)
         else:
             n_live, _, _, _, err = compare_closest(o_, d_, t_)
-        work = torch.zeros(2, dtype=torch.int64, device=dev)
+        work = torch.zeros(4, dtype=torch.int64, device=dev)
         bvh.traverse_cuda(rows, n_int, depth, o_, d_, t_, any_hit, stats=work)
-        n_nodes, n_tris = (int(x) for x in work.cpu())
-        ms = events_ms(lambda: bvh.traverse_cuda(rows, n_int, depth, o_, d_, t_, any_hit), 20)
+        n_nodes, n_tris, n_edge, n_range = (int(x) for x in work.cpu())
+        ms, call = kernel_ms(lambda: bvh.traverse_cuda(rows, n_int, depth, o_, d_, t_, any_hit),
+                             20)
         ms_plain = events_ms(lambda: bvh.traverse_plain(rows, n_int, o_, d_, t_, any_hit), 1)
-        b = bound(rows.numel() * 4 + R * 7 * 4 + R * 8,
-                  n_nodes * SLAB_VISIT_OPS + n_tris * TRI_TEST_OPS)
-        name = "bvh_any_hit" if any_hit else "bvh_closest_hit"
+        b = bound(rows.numel() * 4 + R_ * 7 * 4 + R_ * 8,
+                  n_nodes * SLAB_VISIT_OPS + tri_test_ops(n_tris, n_edge, n_range))
         timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
                             library_ms=None, max_abs_err=err)
-        log(f"{name} at the main path's launch ({R} lanes, {n_live} "
+        log(f"{name} at the main path's launch ({R_} lanes, {n_live} "
             f"{'occluded' if any_hit else 'hits'}, {n_nodes} node visits, {n_tris} tri "
-            f"tests): kernel {ms:.3f} ms, plain {ms_plain:.1f} ms, bound {b[0]:.4f} ms "
+            f"tests, {n_edge} past the edge test, {n_range} past t range): kernel {ms:.3f} ms "
+            f"(host-paced {call:.3f} ms), plain {ms_plain:.1f} ms, bound {b[0]:.4f} ms "
             f"({b[1]}); matches plain")
-    args = captured["film"]
+        # the same kernel on terrain's first launch: timed only
+        (rows_t, nint_t, depth_t, o_t, d_t, t_t, *_), _, _ = first("terrain", name)
+        work = torch.zeros(4, dtype=torch.int64, device=dev)
+        bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t, t_t, any_hit, stats=work)
+        nn_t, nt_t, ne_t, nr_t = (int(x) for x in work.cpu())
+        ms_t, call_t = kernel_ms(lambda: bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t,
+                                                           t_t, any_hit), 20)
+        b_t = bound(rows_t.numel() * 4 + o_t.shape[0] * 36,
+                    nn_t * SLAB_VISIT_OPS + tri_test_ops(nt_t, ne_t, nr_t))
+        timing[name]["terrain_ms"] = ms_t
+        log(f"{name} on terrain's first launch ({o_t.shape[0]} lanes, {nn_t} node visits, "
+            f"{nt_t} tri tests, {ne_t} past the edge test, {nr_t} past t range; timed only): "
+            f"kernel {ms_t:.3f} ms (host-paced {call_t:.3f} ms), bound {b_t[0]:.4f} ms "
+            f"({b_t[1]})")
+
+    args = first("cornell_mesh", "film_add_samples")[0][2:]
     n_l = args[0].shape[0]
     err = compare_film(args)
     fk = filmlib.new_film((256, 256), dev)
-    ms = events_ms(lambda: film_kernel.add_samples_triton(fk.rgb_sum, fk.weight_sum, *args), 50)
+    ms, call = kernel_ms(lambda: film_kernel.add_samples_triton(fk.rgb_sum, fk.weight_sum,
+                                                                *args))
     ms_plain = events_ms(lambda: film_kernel.add_samples_plain(fk.rgb_sum, fk.weight_sum,
                                                                *args), 20)
     rgbw = torch.rand((n_l, 3), device=dev)
-    ms_lib = events_ms(lambda: fk.rgb_sum.index_add_(0, args[0], rgbw), 50)
+    ms_lib = graph_ms(lambda: fk.rgb_sum.index_add_(0, args[0], rgbw))
     b = bound(n_l * (8 + 13 * 4) + 3 * 471 * 4 + n_px * 4 * 4, n_l * FILM_LANE_OPS)
     timing["film_add_samples"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
                                       library_ms=ms_lib, max_abs_err=max(err, film_err))
-    log(f"film_add_samples at the main path's launch ({n_l} lanes): kernel {ms:.4f} ms, "
-        f"plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); "
-        f"max abs err {err:.2e}")
+    log(f"film_add_samples at the main path's launch ({n_l} lanes): kernel {ms:.4f} ms "
+        f"(host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms, "
+        f"bound {b[0]:.4f} ms ({b[1]}); max abs err {err:.2e}")
+
+    # K3 on cornell's first launches
+    for any_hit in (False, True):
+        name = "dense_tri_any" if any_hit else "dense_tri_closest"
+        (o_, d_, t_, *tris), _, _ = first("cornell", name)
+        R_, T_ = o_.shape[0], tris[0].shape[0]
+        n_h, err = compare_dense_tris(o_, d_, t_, tris, any_hit)
+        # each live lane tests every triangle against its fixed t_max, the
+        # any-hit sweep up to its first hit; the closest-hit winner is refit
+        edge, in_range = tri_stages(o_, d_, t_, *tris)
+        tested = (t_ > 0)[:, None].expand(R_, T_)
+        if any_hit:
+            _, hit = ix.intersect_tri_block(o_, ix.ray_shear(d_), t_, *tris)
+            first_hit = torch.where(hit.any(1), hit.int().argmax(1), T_)
+            tested = tested & (torch.arange(T_, device=dev)[None] <= first_hit[:, None])
+            out_b = R_ * 4
+        else:
+            out_b = R_ * 20
+        n_t, n_e, n_r = (int(x.sum()) for x in (tested, tested & edge, tested & in_range))
+        ops = tri_test_ops(n_t, n_e, n_r) + (0 if any_hit else n_h * (TRI_FULL_OPS
+                                                                        + TRI_BARY_OPS))
+        ms, call = kernel_ms(lambda: ix.dense_tris_cuda(o_, d_, t_, *tris, any_hit=any_hit))
+        plain = ix.occluded_tris_dense_plain if any_hit else ix.intersect_tris_dense_plain
+        ms_plain = events_ms(lambda: plain(o_, d_, t_, *tris), 3)
+        b = bound(R_ * 28 + T_ * 36 + out_b, ops)
+        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None, max_abs_err=err)
+        log(f"{name} at the main path's launch ({R_} lanes x {T_} tris, {n_h} "
+            f"{'occluded' if any_hit else 'hits'}, {n_t} tests, {n_e} past the edge test, "
+            f"{n_r} past t range): kernel {ms:.4f} ms (host-paced {call:.4f} ms), "
+            f"plain {ms_plain:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); bit-exact")
+
+    # K4 on the first launches of cornell (spheres) and caustic-glass (disks)
+    for name, tag, kind, test_ops, hit_ops, width in (
+            ("dense_spheres", "cornell", "spheres", SPHERE_TEST_OPS, SPHERE_HIT_OPS, 64),
+            ("dense_disks", "caustic", "disks", DISK_TEST_OPS, 0, 60)):
+        (o_, d_, t_, soa), _, orig = first(tag, name)
+        R_, n_q = o_.shape[0], soa.center.shape[0]
+        n_h, n_edge, err = compare_quadrics(kind, o_, d_, t_, soa)
+        ms, call = kernel_ms(lambda: orig(o_, d_, t_, soa))
+        plain = (ix.intersect_spheres_dense_plain if kind == "spheres"
+                 else ix.intersect_disks_dense_plain)
+        ms_plain = events_ms(lambda: plain(o_, d_, t_, soa), 3)
+        b = bound(R_ * 28 + n_q * width + R_ * 32,
+                  int((t_ > 0).sum()) * n_q * test_ops + n_h * hit_ops)
+        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None, max_abs_err=err)
+        log(f"{name} at the main path's launch ({R_} lanes x {n_q} {kind}, {n_h} hits, "
+            f"{n_edge} edge disagreements): kernel {ms:.4f} ms (host-paced {call:.4f} "
+            f"ms), plain {ms_plain:.3f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]}); max abs err t {err:.2e}")
+
+    # K8 on terrain's first launch
+    (fin, inf_, cnt, total), _, _ = first("terrain", "wavefront_recycle")
+    R_ = fin.shape[0]
+    ck, cp = cnt.clone(), cnt.clone()
+    out_k = rd.recycle_cuda(fin, inf_, ck, total)
+    out_p = rd.recycle_plain(fin, inf_, cp, total)
+    require(all(torch.equal(a, b) for a, b in zip(out_k, out_p)) and torch.equal(ck, cp),
+            "recycle differs from cumsum on the main path's launch")
+    ms, call = kernel_ms(lambda: rd.recycle_cuda(fin, inf_, cnt.clone(), total))
+    ms_plain = events_ms(lambda: rd.recycle_plain(fin, inf_, cnt.clone(), total), 20)
+    fin_i = fin.to(torch.int32)
+    ms_lib = graph_ms(lambda: torch.cumsum(fin_i, 0, dtype=torch.int32))
+    b = bound(R_ * 2 + R_ * 14 + 16, 2 * R_)
+    timing["wavefront_recycle"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                       library_ms=ms_lib, max_abs_err=0.0)
+    log(f"wavefront_recycle at the main path's launch ({R_} lanes, {int(fin.sum())} finished, "
+        f"work {int(cnt[0])} of {total}): kernel {ms:.4f} ms (host-paced {call:.4f} "
+        f"ms), plain {ms_plain:.3f} ms, "
+        f"torch.cumsum {ms_lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); bit-exact")
+
     ov = int(bvh.overflow_counter(dev).item()) - ov0
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
 
-    # ---- 8. kernels line and result
+    # ---- 10. kernels line and result
     meta_k = {
         "bvh_closest_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                             "pbrt_tpu/accel/bvh.py:909"),
@@ -339,8 +709,18 @@ def main():
                         "pbrt_tpu/accel/bvh.py:1218"),
         "film_add_samples": ("triton", "pbrt_tpu_torch/film/film_kernel.py",
                              "pbrt_tpu/film/film.py:44"),
+        "dense_tri_closest": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
+                              "pbrt_tpu/geometry/intersect.py:224"),
+        "dense_tri_any": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
+                          "pbrt_tpu/geometry/intersect.py:244"),
+        "dense_spheres": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
+                          "pbrt_tpu/geometry/intersect.py:267"),
+        "dense_disks": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
+                        "pbrt_tpu/geometry/intersect.py:358"),
+        "wavefront_recycle": ("cuda", "pbrt_tpu_torch/csrc/wavefront.cu",
+                              "pbrt_tpu/integrators/render.py:228"),
     }
-    kern = [dict(name=name, route=route, source=src, replaces=rep, launches=counts[name],
+    kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)
             for name, (route, src, rep) in meta_k.items()]
     log(f"total {time.time() - t_start:.1f} s")

@@ -395,8 +395,9 @@ def _kernel_lib():
 def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
     """Launch csrc/bvh_traverse.cu on the current stream and count the
     launch. Same contract as traverse_plain; prim is -1 on a miss. `stats`,
-    an optional int64 (2,) device tensor, accumulates the internal rows
-    visited and the leaf triangles tested."""
+    an optional int64 (4,) device tensor, accumulates the internal rows
+    visited, the leaf triangles tested, and of those the ones past the
+    watertight test's edge-sign and t-range exits (csrc/watertight.cuh)."""
     from pbrt_tpu_torch import kernels
 
     R = o.shape[0]
@@ -412,8 +413,8 @@ def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
         raise ValueError(f"bvh traversal: n_int {n_int} outside a table of "
                          f"{rows.shape[0]} rows (at most 2^23 rows)")
     if stats is not None and (stats.device != dev or stats.dtype != torch.int64
-                              or stats.numel() != 2):
-        raise ValueError("bvh traversal: stats must be an int64 (2,) tensor on the device")
+                              or stats.numel() != 4):
+        raise ValueError("bvh traversal: stats must be an int64 (4,) tensor on the device")
     lib = _kernel_lib()
     stack = depth + 2
     if stack > lib.pbrt_bvh_max_stack():

@@ -1,18 +1,23 @@
-"""Scene-level closest-hit and any-hit queries on triangle scenes
-(counterpart of pbrt_tpu/accel/dispatch.py `intersect`/`occluded`;
-reference accelerator/hlbvh.h + base/interaction.h). The hit record is
-assembled from the packed per-triangle `tri_rec` row exactly as the JAX
-package does (dispatch.py:146-219, 286-301); its medium and uv-derivative
-columns are read only by the media and texture slices and are not
-assembled here. Spheres, disks, instancing and scene sharding are later
-slices: the scene compiler refuses scenes that have them.
+"""Scene-level closest-hit and any-hit queries (counterpart of
+pbrt_tpu/accel/dispatch.py `intersect`/`occluded`; reference
+accelerator/hlbvh.h + base/interaction.h).
+
+Triangles go through the BVH kernel (K1) on scenes of at least
+MIN_TRIS_FOR_BVH triangles and through the dense sweep (K3) below that;
+spheres and disks always go through the dense quadric sweeps (K4). The
+three closest hits merge by t (triangle < sphere <= disk on ties, as in the
+JAX package), and the hit record is assembled as it does: from the packed
+per-triangle `tri_rec` row on BVH scenes, from the per-column tables on
+dense ones, with the sphere uv of reference sphere.h:74-81. Its medium and
+uv-derivative columns are read only by the media and texture slices and are
+not assembled here. Instancing and scene sharding are later slices.
 """
 from typing import NamedTuple
 
 import torch
 
-from pbrt_tpu_torch.utils.math import INFINITY
-from pbrt_tpu_torch.geometry import vecmath as vm
+from pbrt_tpu_torch.utils.math import INFINITY, PI
+from pbrt_tpu_torch.geometry import intersect as ix, vecmath as vm
 from pbrt_tpu_torch.accel import bvh
 
 
@@ -28,43 +33,156 @@ class SceneHit(NamedTuple):
     wo: torch.Tensor      # (R,3)
 
 
-def intersect(scene, meta, o, d, t_max) -> SceneHit:
-    th = bvh.closest_hit_tris(scene, meta, o, d, t_max)
-    valid = th.t < INFINITY
+def _spheres(scene, meta):
+    """SphereSoA with the scene's packed kernel table, and the clip fields
+    only when a partial sphere exists, so full-sphere scenes run the kernel
+    without the clip code."""
+    if meta.sph_partial:
+        return ix.SphereSoA(scene.sph_center, scene.sph_radius, rot=scene.sph_rot,
+                            zmin=scene.sph_zmin, zmax=scene.sph_zmax, phimax=scene.sph_phimax,
+                            table=scene.sph_table)
+    return ix.SphereSoA(scene.sph_center, scene.sph_radius, table=scene.sph_table)
+
+
+def _disks(scene, meta):
+    if meta.dsk_partial:
+        return ix.DiskSoA(scene.dsk_center, scene.dsk_normal, scene.dsk_radius,
+                          scene.dsk_inner, xaxis=scene.dsk_xaxis, yaxis=scene.dsk_yaxis,
+                          phimax=scene.dsk_phimax, table=scene.dsk_table)
+    return ix.DiskSoA(scene.dsk_center, scene.dsk_normal, scene.dsk_radius, scene.dsk_inner,
+                      table=scene.dsk_table)
+
+
+def _triangle_record(scene, th):
+    """Triangle hit record -> (p, ng (face-forwarded), ns, uv, mat, light)."""
     tri = torch.clamp(th.prim, min=0)
     p0, p1, p2 = scene.tri_p0[tri], scene.tri_p1[tri], scene.tri_p2[tri]
     b = th.b
     p_t = b[..., 0:1] * p0 + b[..., 1:2] * p1 + b[..., 2:3] * p2
     ng_t = vm.normalize(vm.cross(p1 - p0, p2 - p0))
-    rec = scene.tri_rec[tri]                       # (R, 27)
-    n0, n1, n2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
-    uv0, uv1, uv2 = rec[:, 9:11], rec[:, 11:13], rec[:, 13:15]
-    mat_t = rec[:, 15].long()
-    light_t = rec[:, 16].long()
-    rev = rec[:, 17] > 0.5
-    has_n = rec[:, 18] > 0.5
+    if scene.bvh_rows.shape[0] > 0:
+        # BVH scenes: one wide row gather for the whole record
+        rec = scene.tri_rec[tri]                       # (R, 27)
+        n0, n1, n2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
+        uv0, uv1, uv2 = rec[:, 9:11], rec[:, 11:13], rec[:, 13:15]
+        mat_t = rec[:, 15].long()
+        light_t = rec[:, 16].long()
+        rev = rec[:, 17] > 0.5
+        has_n = rec[:, 18] > 0.5
+    else:
+        n0, n1, n2 = scene.tri_n0[tri], scene.tri_n1[tri], scene.tri_n2[tri]
+        uv0, uv1, uv2 = scene.tri_uv0[tri], scene.tri_uv1[tri], scene.tri_uv2[tri]
+        mat_t = scene.tri_mat[tri].long()
+        light_t = scene.tri_light[tri].long()
+        rev = scene.tri_rev[tri]
+        has_n = scene.tri_has_n[tri]
     ng_t = torch.where(rev[..., None], -ng_t, ng_t)
     ns_t = vm.normalize(b[..., 0:1] * n0 + b[..., 1:2] * n1 + b[..., 2:3] * n2)
     ng_adj = torch.where(has_n[..., None], vm.face_forward(ng_t, ns_t), ng_t)
     ns_t = torch.where(has_n[..., None], ns_t, ng_adj)
     uv_t = b[..., 0:1] * uv0 + b[..., 1:2] * uv1 + b[..., 2:3] * uv2
+    return p_t, ng_adj, ns_t, uv_t, mat_t, light_t
 
-    zaxis = torch.zeros_like(ng_adj)
+
+def _sphere_uv(scene, sph, p_s):
+    """u = phi / phimax, v = (theta - theta(zmax)) / (theta(zmin) -
+    theta(zmax)) in the sphere's object frame (reference sphere.h:74-81)."""
+    rad = torch.clamp(scene.sph_radius[sph], min=1e-12)
+    rot, rel = scene.sph_rot[sph], p_s - scene.sph_center[sph]
+    # local_i = sum_j rot[j, i] rel_j, spelled out (a batched einsum of 3x3
+    # matrices goes to a cuBLAS gemv per chunk)
+    local = rel[:, 0:1] * rot[:, 0] + rel[:, 1:2] * rot[:, 1] + rel[:, 2:3] * rot[:, 2]
+    phi = torch.atan2(local[:, 1], local[:, 0])
+    phi = torch.where(phi < 0.0, phi + 2.0 * PI, phi)
+
+    def acos(x):
+        return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+    theta = acos(local[:, 2] / rad)
+    th_min = acos(scene.sph_zmax[sph] / rad)
+    th_max = acos(scene.sph_zmin[sph] / rad)
+    u = phi / torch.clamp(scene.sph_phimax[sph], min=1e-6)
+    v = (theta - th_min) / torch.clamp(th_max - th_min, min=1e-6)
+    return torch.stack([u, v], dim=-1)
+
+
+def intersect(scene, meta, o, d, t_max) -> SceneHit:
+    R = o.shape[0]
+    dev = o.device
+    have_tris = scene.tri_p0.shape[0] > 0
+    have_sph = scene.sph_center.shape[0] > 0
+    have_dsk = scene.dsk_center.shape[0] > 0
+    inf = torch.full((R,), INFINITY, device=dev)
+
+    t_tri = t_s = t_d = inf
+    if have_tris:
+        if scene.bvh_rows.shape[0] > 0:
+            th = bvh.closest_hit_tris(scene, meta, o, d, t_max)
+        else:
+            th = ix.intersect_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1, scene.tri_p2)
+        t_tri = th.t
+    if have_sph:
+        t_s, idx_s, p_s, n_s = ix.intersect_spheres_dense(o, d, t_max, _spheres(scene, meta))
+    if have_dsk:
+        t_d, idx_d, p_d, n_d = ix.intersect_disks_dense(o, d, t_max, _disks(scene, meta))
+
+    use_sphere = (t_s < t_tri) & (t_s <= t_d)
+    use_disk = (t_d < t_tri) & (t_d < t_s)
+    t = torch.minimum(torch.minimum(t_tri, t_s), t_d)
+    valid = t < INFINITY
+
+    if have_tris:
+        p_hit, ng, ns, uv, mat, light = _triangle_record(scene, th)
+    else:
+        p_hit, ng, ns = (torch.zeros((R, 3), device=dev) for _ in range(3))
+        uv = torch.zeros((R, 2), device=dev)
+        mat = light = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    if have_sph:
+        sph = torch.clamp(idx_s, min=0)
+        s3 = use_sphere[..., None]
+        p_hit = torch.where(s3, p_s, p_hit)
+        ng = torch.where(s3, n_s, ng)
+        ns = torch.where(s3, n_s, ns)
+        uv = torch.where(s3, _sphere_uv(scene, sph, p_s), uv)
+        mat = torch.where(use_sphere, scene.sph_mat[sph].long(), mat)
+        light = torch.where(use_sphere, scene.sph_light[sph].long(), light)
+    if have_dsk:
+        dk = torch.clamp(idx_d, min=0)
+        d3 = use_disk[..., None]
+        p_hit = torch.where(d3, p_d, p_hit)
+        ng = torch.where(d3, n_d, ng)
+        ns = torch.where(d3, n_d, ns)
+        mat = torch.where(use_disk, scene.dsk_mat[dk].long(), mat)
+        light = torch.where(use_disk, scene.dsk_light[dk].long(), light)
+
+    zaxis = torch.zeros_like(ng)
     zaxis[..., 2] = 1.0
     v3 = valid[..., None]
     return SceneHit(
         valid=valid,
-        t=torch.where(valid, th.t, 1.0),
-        p=torch.where(v3, p_t, o),
-        ng=torch.where(v3, ng_adj, zaxis),
-        ns=torch.where(v3, ns_t, zaxis),
-        uv=torch.where(v3, uv_t, 0.0),
-        mat=torch.where(valid, mat_t, -1),
-        light=torch.where(valid, light_t, -1),
+        t=torch.where(valid, t, 1.0),
+        p=torch.where(v3, p_hit, o),
+        ng=torch.where(v3, ng, zaxis),
+        ns=torch.where(v3, ns, zaxis),
+        uv=torch.where(v3, uv, 0.0),
+        mat=torch.where(valid, mat, -1),
+        light=torch.where(valid, light, -1),
         wo=-d,
     )
 
 
 def occluded(scene, meta, o, d, t_max):
-    """Any hit between o and o + t_max * d (R,)."""
-    return bvh.any_hit_tris(scene, meta, o, d, t_max)
+    """Any hit between o and o + t_max * d (R,) (reference integrator_base
+    unoccluded)."""
+    occ = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    if scene.tri_p0.shape[0] > 0:
+        if scene.bvh_rows.shape[0] > 0:
+            occ = occ | bvh.any_hit_tris(scene, meta, o, d, t_max)
+        else:
+            occ = occ | ix.occluded_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1,
+                                               scene.tri_p2)
+    if scene.sph_center.shape[0] > 0:
+        occ = occ | (ix.intersect_spheres_dense(o, d, t_max, _spheres(scene, meta))[1] >= 0)
+    if scene.dsk_center.shape[0] > 0:
+        occ = occ | (ix.intersect_disks_dense(o, d, t_max, _disks(scene, meta))[1] >= 0)
+    return occ

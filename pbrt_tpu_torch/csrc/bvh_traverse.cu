@@ -36,7 +36,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "watertight.cuh"
+
 namespace {
+
+using pbrt_wt::INF_T;
+using pbrt_wt::Shear;
+using pbrt_wt::ray_shear;
+using pbrt_wt::watertight;
 
 constexpr int LEAF_K = 8;
 constexpr int WIDTH = 8;
@@ -44,102 +51,7 @@ constexpr int ROW_W = 72;
 constexpr int MAX_STACK = 64;
 constexpr int DONE = -1;
 constexpr int FRESH = (1 << WIDTH) - 1;
-
-constexpr double MACHINE_EPSILON = 5.9604644775390625e-08;  // float eps / 2
-constexpr double gamma_d(int n) {
-  return (n * MACHINE_EPSILON) / (1 - n * MACHINE_EPSILON);
-}
-constexpr float G2 = (float)gamma_d(2);
-constexpr float G3 = (float)gamma_d(3);
-constexpr float G5 = (float)gamma_d(5);
-constexpr float SLAB_WIDEN = (float)(1.0 + 2.0 * gamma_d(3));
-constexpr float INF_T = 3.4028234663852886e+38f;
-
-struct Shear {
-  int kz;
-  float sx, sy, sz;
-};
-
-// (v[kz+1], v[kz+2], v[kz])
-__device__ __forceinline__ void permute(float x, float y, float z, int kz,
-                                        float& px, float& py, float& pz) {
-  px = kz == 0 ? y : (kz == 1 ? z : x);
-  py = kz == 0 ? z : (kz == 1 ? x : y);
-  pz = kz == 0 ? x : (kz == 1 ? y : z);
-}
-
-__device__ __forceinline__ float clamp_mag(float b, float eps) {
-  float mag = fmaxf(fabsf(b), eps);
-  return b < 0.f ? -mag : mag;
-}
-
-__device__ __forceinline__ Shear ray_shear(float dx, float dy, float dz) {
-  Shear s;
-  // argmax |d|, first index on ties
-  s.kz = 0;
-  float m = fabsf(dx);
-  if (fabsf(dy) > m) { s.kz = 1; m = fabsf(dy); }
-  if (fabsf(dz) > m) { s.kz = 2; }
-  float px, py, pz;
-  permute(dx, dy, dz, s.kz, px, py, pz);
-  float dzs = clamp_mag(pz, 1e-12f);
-  s.sx = -px / dzs;
-  s.sy = -py / dzs;
-  s.sz = 1.f / dzs;
-  return s;
-}
-
-// Watertight test of one triangle (vertices at v[0..8]) against the ray;
-// returns true and sets t when the ray hits it strictly inside (0, t_max).
-__device__ __forceinline__ bool watertight(const float* __restrict__ v,
-                                           float ox, float oy, float oz,
-                                           const Shear& s, float t_max,
-                                           float& t_out) {
-  float a0, a1, a2, b0, b1, b2, c0, c1, c2;
-  permute(v[0] - ox, v[1] - oy, v[2] - oz, s.kz, a0, a1, a2);
-  permute(v[3] - ox, v[4] - oy, v[5] - oz, s.kz, b0, b1, b2);
-  permute(v[6] - ox, v[7] - oy, v[8] - oz, s.kz, c0, c1, c2);
-  float ax = a0 + s.sx * a2;
-  float ay = a1 + s.sy * a2;
-  float bx = b0 + s.sx * b2;
-  float by = b1 + s.sy * b2;
-  float cx = c0 + s.sx * c2;
-  float cy = c1 + s.sy * c2;
-
-  float e0 = cx * by - cy * bx;
-  float e1 = ax * cy - ay * cx;
-  float e2 = bx * ay - by * ax;
-  if ((e0 < 0.f || e1 < 0.f || e2 < 0.f) && (e0 > 0.f || e1 > 0.f || e2 > 0.f))
-    return false;
-  float det = e0 + e1 + e2;
-  if (det == 0.f) return false;
-
-  float az = s.sz * a2;
-  float bz = s.sz * b2;
-  float cz = s.sz * c2;
-  float t_scaled = e0 * az + e1 * bz + e2 * cz;
-  if (det < 0.f) {
-    if (!(t_scaled < 0.f && t_scaled > t_max * det)) return false;
-  } else {
-    if (!(t_scaled > 0.f && t_scaled < t_max * det)) return false;
-  }
-  float max_e = fmaxf(fmaxf(fabsf(e0), fabsf(e1)), fabsf(e2));
-  float inv_det = 1.f / clamp_mag(det, 1e-8f * max_e + 1e-30f);
-  float t = t_scaled * inv_det;
-
-  float max_z = fmaxf(fmaxf(fabsf(az), fabsf(bz)), fabsf(cz));
-  float max_x = fmaxf(fmaxf(fabsf(ax), fabsf(bx)), fabsf(cx));
-  float max_y = fmaxf(fmaxf(fabsf(ay), fabsf(by)), fabsf(cy));
-  float delta_z = G3 * max_z;
-  float delta_x = G5 * (max_x + max_z);
-  float delta_y = G5 * (max_y + max_z);
-  float delta_e = 2.f * (G2 * max_x * max_y + delta_y * max_x + delta_x * max_y);
-  float delta_t = 3.f * (G3 * max_e * max_z + delta_e * max_z + delta_z * max_e) *
-                  fabsf(inv_det);
-  if (!(t > delta_t)) return false;
-  t_out = t;
-  return true;
-}
+constexpr float SLAB_WIDEN = (float)(1.0 + 2.0 * pbrt_wt::gamma_d(3));
 
 __device__ __forceinline__ float safe_inv(float d) {
   float mag = fmaxf(fabsf(d), 1e-30f);
@@ -176,7 +88,9 @@ traverse_kernel(const float* __restrict__ rows, int n_rows, int n_int,
   const long long max_iters = 4LL * n_rows + 16;
   long long it = 0;
   bool bad = false;
-  unsigned long long n_nodes = 0, n_tris = 0;  // work counts for `stats`
+  // work counts for `stats`: internal rows visited, triangle tests, and the
+  // tests that passed the edge-sign test and the t-range test
+  unsigned long long n_nodes = 0, n_tris = 0, n_edge = 0, n_range = 0;
 
   while (cur != DONE) {
     if (it++ >= max_iters) { bad = true; break; }
@@ -189,8 +103,12 @@ traverse_kernel(const float* __restrict__ rows, int n_rows, int n_int,
       bool found = false;
       for (int k = 0; k < LEAF_K; ++k) {
         float t;
+        int stage;
         ++n_tris;
-        if (watertight(row + 9 * k, ox, oy, oz, sh, t_best, t) && t < t_best) {
+        const bool hit = watertight(row + 9 * k, ox, oy, oz, sh, t_best, t, nullptr, &stage);
+        n_edge += stage >= 1;
+        n_range += stage >= 2;
+        if (hit && t < t_best) {
           t_best = t;
           prim = chunk * LEAF_K + k;
           found = true;
@@ -252,6 +170,8 @@ traverse_kernel(const float* __restrict__ rows, int n_rows, int n_int,
   if (stats) {
     atomicAdd(stats, n_nodes);
     atomicAdd(stats + 1, n_tris);
+    atomicAdd(stats + 2, n_edge);
+    atomicAdd(stats + 3, n_range);
   }
   t_out[r] = t_best;
   prim_out[r] = prim;
@@ -262,8 +182,9 @@ traverse_kernel(const float* __restrict__ rows, int n_rows, int n_int,
 extern "C" int pbrt_bvh_max_stack() { return MAX_STACK; }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
-// `stats`, when not null, receives the internal rows visited and the leaf
-// triangles tested, summed over the rays (for the operation count).
+// `stats`, when not null, receives four sums over the rays (for the
+// operation count): the internal rows visited, the leaf triangles tested,
+// and of those the ones past the edge-sign test and past the t-range test.
 extern "C" int pbrt_bvh_traverse(const float* rows, int n_rows, int n_int,
                                  const float* o, const float* d,
                                  const float* t_max, int n_rays, float* t_out,

@@ -75,6 +75,12 @@ def spherical_triangle_area(a, b, c):
     )
 
 
+def spherical_direction(sin_theta, cos_theta, phi):
+    st = torch.clamp(sin_theta, -1.0, 1.0)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi),
+                        torch.clamp(cos_theta, -1.0, 1.0)], dim=-1)
+
+
 def frame_from_z(z):
     """Orthonormal frame with given unit z; returns (x, y, z)."""
     z = normalize(z)

@@ -9,10 +9,16 @@ Semantics:
   - RR from depth 8, survive = min(max beta, 0.95), counter increments per
     check (util/russian_roulette.h:5-29)
   - NEE skipped for specular-only BSDFs; MIS power heuristic both ways
-  - area-light MIS pdf = light-sampler pmf * triangle pdf_li(ctx, wi)
+  - area-light MIS pdf = light-sampler pmf * the emitter's pdf_li(ctx, wi)
+    (triangle, sphere or disk)
+  - delta lights (distant, spot) get weight 1 in NEE; their shadow rays,
+    like those of infinite lights, end just short of the pseudo-position
+    two scene radii away
+  - an escaped ray collects the uniform infinite lights, MIS-weighted
+    against their sampling density (open scenes only)
   - emission at depth 0 or after a specular bounce is unweighted
-The scenes of this slice are closed triangle scenes with area lights; media
-and infinite lights are later slices and the scene compiler refuses them.
+Media and image infinite lights are later slices; the scene builder
+refuses them.
 """
 from typing import NamedTuple
 
@@ -81,7 +87,7 @@ def sample_ld(scene, meta, hit: dispatch.SceneHit, bsdf, wl, u_light, u2, mask):
     t_sh = torch.where(mask, t_sh, 0.0)
     visible = ~dispatch.occluded(scene, meta, o_sh, ls.wi, t_sh)
     contrib = f * ls.L / torch.clamp(pdf_light, min=1e-20)[..., None]
-    w = power_heuristic(1.0, pdf_light, 1.0, pdf_bsdf)
+    w = torch.where(ls.is_delta, 1.0, power_heuristic(1.0, pdf_light, 1.0, pdf_bsdf))
     ok = ls.valid & f_pos & visible & (pdf_light > 0.0)
     return torch.where(ok[..., None], w[..., None] * contrib, 0.0)
 
@@ -108,10 +114,20 @@ def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
 
     wl = sampled.Wavelengths(lam=state.lam, pdf=state.lam_pdf)
     L = state.L
+    first_or_spec = (state.depth == 0.0) | state.specular
+
+    # --- escaped rays collect the uniform infinite lights (MIS)
+    if meta.open_scene:
+        escaped = active & ~hit.valid
+        pdf_inf = lights.infinite_light_density(scene, state.d)
+        w_inf = torch.where(first_or_spec, 1.0,
+                            power_heuristic(1.0, state.prev_pdf, 1.0, pdf_inf))
+        L = torch.where(escaped[..., None],
+                        L + beta * w_inf[..., None] * lights.infinite_le(scene, state.d, wl.lam),
+                        L)
     active = active & hit.valid
 
     # --- emissive surface hit (MIS)
-    first_or_spec = (state.depth == 0.0) | state.specular
     hit_light = active & (hit.light >= 0)
     Le = lights.area_light_le(scene, hit.light, hit.ng, hit.wo, wl.lam)
     pdf_li = lights.area_light_pdf_li(
@@ -171,13 +187,12 @@ def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
     )
 
 
-def li(scene, meta, rays, wl: sampled.Wavelengths, r, skind="independent", spp=0):
-    """Radiance of a batch of camera rays -> (L (R,4), final wavelengths,
-    {"closest", "shadow"} counts of rays actually traced, as 0-dim tensors)."""
+def initial_state(rays, wl: sampled.Wavelengths, r) -> PathState:
+    """The path state of fresh camera rays, ray counters at 0."""
     R = rays.o.shape[0]
     dev = rays.o.device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    state = PathState(
+    return PathState(
         o=rays.o, d=rays.d,
         L=torch.zeros((R, 4), device=dev), beta=torch.ones((R, 4), device=dev),
         lam=wl.lam, lam_pdf=wl.pdf, smp=r,
@@ -190,6 +205,12 @@ def li(scene, meta, rays, wl: sampled.Wavelengths, r, skind="independent", spp=0
         prev_ns=torch.zeros((R, 3), device=dev),
         n_closest=zero, n_shadow=zero,
     )
+
+
+def li(scene, meta, rays, wl: sampled.Wavelengths, r, skind="independent", spp=0):
+    """Radiance of a batch of camera rays -> (L (R,4), final wavelengths,
+    {"closest", "shadow"} counts of rays actually traced, as 0-dim tensors)."""
+    state = initial_state(rays, wl, r)
     for _ in range(meta.max_depth):
         state = bounce_step(scene, meta, state, skind, spp)
     return (state.L, sampled.Wavelengths(state.lam, state.lam_pdf),

@@ -1,13 +1,21 @@
 """Render orchestration: (pixel, sample) lanes -> film -> image
 (counterpart of pbrt_tpu/integrators/render.py `render` for the path
-family, with one batched sample loop like its `_spp_loop`).
+family: its batched `_spp_loop` and its `_wavefront_loop`).
 
-The lanes of one wave are `k` replicates of the whole pixel grid, sample
-ids s0 .. s0+k-1. Every lane's sampler stream keys on its absolute
-(pixel, sample) ids, so the estimator does not depend on how the lanes are
-batched into waves; LANES_PER_WAVE is a memory/occupancy choice for the GPU
-(2^20 lanes: a 256x256 x 16 spp frame in one wave).
+Every lane's sampler stream keys on its absolute (pixel, sample) ids, so
+the estimator does not depend on how lanes are scheduled; only the order of
+the film sums does. Two schedules, chosen as the JAX package chooses:
+  - closed scenes: the batched loop. The lanes of one wave are `k`
+    replicates of the whole pixel grid, sample ids s0 .. s0+k-1, traced for
+    max_depth bounces (LANES_PER_WAVE = 2^20 lanes: a 256x256 x 16 spp frame
+    in one wave).
+  - open scenes (infinite lights: many paths escape early): the wavefront
+    loop. A persistent pool of POOL_LANES lanes takes one bounce step per
+    iteration; a lane whose path ended adds its radiance to the film and is
+    recycled with the next work item (K8, csrc/wavefront.cu), so the pool
+    stays full instead of decaying with the live fraction.
 """
+import ctypes
 import time
 
 import torch
@@ -17,55 +25,193 @@ from pbrt_tpu_torch.film import film as filmlib, png
 from pbrt_tpu_torch.filters import filters
 from pbrt_tpu_torch.integrators import path as path_integrator
 from pbrt_tpu_torch.sampling import samplers
-from pbrt_tpu_torch.scene.builder import PATH_INTEGRATORS
+from pbrt_tpu_torch.scene.builder import check_integrator
 from pbrt_tpu_torch.spectral import sampled
 from pbrt_tpu_torch.utils.device import resolve_device
 
 LANES_PER_WAVE = 1 << 20
+# lanes of the wavefront pool; below the 2^20 work items of a 256^2 x 16 spp
+# frame, so lanes are recycled there. Chosen on the H100 by the terrain frame
+# time (profile_render.py, PERF.md): 2^19 lanes 0.29 s, 2^18 0.41 s, 2^17
+# 0.61 s; each iteration costs the same ~2.5k eager launches at any width
+POOL_LANES = 1 << 19
+
+# launches of the recycle kernel (plain int, added to where it launches)
+launches = {"wavefront_recycle": 0}
+
+
+def camera_lanes(scene, meta, pixel_ids, sample_ids, use_lens):
+    """Camera samples of (pixel, sample) lanes, in the draw order of
+    reference evaluate_pixel_sample: pixel (2d), lambda (1d), lens (2d, only
+    with a lens). -> (rays, wavelengths, sampler, filter weight)."""
+    skind, spp = meta.sampler, meta.spp
+    r = samplers.start_pixel_sample(pixel_ids, sample_ids)
+    r, u_pixel = samplers.get_pixel_2d(r, None, skind, spp)
+    fp, weight = filters.sample(scene.filt, meta.filter_kind, u_pixel)
+    res_x = meta.resolution[0]
+    p_film = torch.stack([(pixel_ids % res_x).to(torch.float32),
+                          (pixel_ids // res_x).to(torch.float32)], dim=-1) + 0.5 + fp
+    r, u_lam = samplers.get_1d(r, None, skind, spp)
+    wl = sampled.sample_visible(u_lam)
+    if use_lens:
+        r, u_lens = samplers.get_2d(r, None, skind, spp)
+    else:
+        u_lens = torch.zeros((pixel_ids.shape[0], 2), device=pixel_ids.device)
+    return perspective.generate_rays(scene, p_film, u_lens), wl, r, weight.contiguous()
+
+
+def _use_lens(scene):
+    return float(scene.camera_lens_radius) > 0.0
 
 
 def render_wave(scene, meta, film, pixel_ids, s0, k):
     """Trace samples s0 .. s0+k-1 of every pixel in pixel_ids (n,) and add
     them to `film` in place. -> {"closest", "shadow"} ray counts (0-dim)."""
     n_pix = pixel_ids.shape[0]
-    dev = pixel_ids.device
     ids = pixel_ids.repeat(k)
-    sample_ids = s0 + torch.arange(k, device=dev).repeat_interleave(n_pix)
-    skind, spp = meta.sampler, meta.spp
-
-    # camera sample: pixel (2d), lambda (1d), lens (2d, only with a lens);
-    # draw order of reference evaluate_pixel_sample
-    r = samplers.start_pixel_sample(ids, sample_ids)
-    r, u_pixel = samplers.get_pixel_2d(r, None, skind, spp)
-    fp, weight = filters.sample(scene.filt, meta.filter_kind, u_pixel)
-    res_x = meta.resolution[0]
-    p_film = torch.stack([(ids % res_x).to(torch.float32),
-                          (ids // res_x).to(torch.float32)], dim=-1) + 0.5 + fp
-    r, u_lam = samplers.get_1d(r, None, skind, spp)
-    wl = sampled.sample_visible(u_lam)
-    if float(scene.camera_lens_radius) > 0.0:
-        r, u_lens = samplers.get_2d(r, None, skind, spp)
-    else:
-        u_lens = torch.zeros((ids.shape[0], 2), device=dev)
-    rays = perspective.generate_rays(scene, p_film, u_lens)
-    L, wl_out, stats = path_integrator.li(scene, meta, rays, wl, r, skind, spp)
-    filmlib.add_samples(film, ids, L, wl_out.lam, wl_out.pdf, weight.contiguous())
+    sample_ids = s0 + torch.arange(k, device=pixel_ids.device).repeat_interleave(n_pix)
+    rays, wl, r, weight = camera_lanes(scene, meta, ids, sample_ids, _use_lens(scene))
+    L, wl_out, stats = path_integrator.li(scene, meta, rays, wl, r, meta.sampler, meta.spp)
+    filmlib.add_samples(film, ids, L, wl_out.lam, wl_out.pdf, weight)
     return stats
 
 
-def render(scene, meta, device=None, return_stats=False):
-    """Full render -> (H, W, 3) linear RGB tensor on `device` (None means
-    "cuda"; without a card that raises). With return_stats, also returns
-    {"closest": n, "shadow": n} counts of the rays actually traced."""
-    device = resolve_device(device)
-    if meta.integrator not in PATH_INTEGRATORS:
-        raise NotImplementedError(f"integrator {meta.integrator!r} is not ported yet")
-    if scene.device != device:
-        scene = scene.to(device)
+# ------------------------------------------------------------ wavefront (K8)
+
+def recycle_plain(finished, in_flight, counters, total):
+    """Plain version of the recycle kernel. finished, in_flight (R,) bool;
+    counters (2,) int64 [next_work, n_in_flight], updated in place. ->
+    (rank (R,) int32 exclusive rank among finished lanes, work (R,) int64 =
+    next_work + rank, recycle (R,) bool = finished & (work < total),
+    in_flight (R,) bool = (in_flight & ~finished) | recycle)."""
+    f = finished.to(torch.int32)
+    rank = torch.cumsum(f, 0, dtype=torch.int32) - f
+    work = counters[0] + rank.long()
+    recycle = finished & (work < total)
+    in_flight = (in_flight & ~finished) | recycle
+    counters[0] += recycle.sum()
+    counters[1] = in_flight.sum()
+    return rank, work, recycle, in_flight
+
+
+def _recycle_lib():
+    from pbrt_tpu_torch import kernels
+
+    lib = kernels.load("wavefront")
+    if not hasattr(lib, "declared"):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.pbrt_wavefront_blocks.argtypes = [I]
+        lib.pbrt_wavefront_blocks.restype = I
+        lib.pbrt_wavefront_recycle.argtypes = [P, P, I, ctypes.c_longlong] + [P] * 8 + [P]
+        lib.pbrt_wavefront_recycle.restype = I
+        lib.declared = True
+    return lib
+
+
+def recycle_cuda(finished, in_flight, counters, total):
+    """Launch csrc/wavefront.cu on the current stream (two launches, counted
+    once); same contract as recycle_plain."""
+    from pbrt_tpu_torch import kernels
+
+    R, dev = finished.shape[0], finished.device
+    for name, x in (("finished", finished), ("in_flight", in_flight)):
+        if x.dtype != torch.bool or tuple(x.shape) != (R,) or x.device != dev \
+                or not x.is_contiguous():
+            raise ValueError(f"wavefront recycle: {name} must be a contiguous bool ({R},) "
+                             f"tensor on {dev}")
+    if counters.dtype != torch.int64 or counters.shape != (2,) or counters.device != dev:
+        raise ValueError("wavefront recycle: counters must be an int64 (2,) tensor on the device")
+    if not finished.is_cuda or not 0 < R < 1 << 30:
+        raise ValueError(f"wavefront recycle: needs 0 < R < 2^30 lanes on a CUDA device, "
+                         f"got {R} on {dev}")
+    lib = _recycle_lib()
+    scratch = torch.empty(2 * lib.pbrt_wavefront_blocks(R), dtype=torch.int32, device=dev)
+    base = torch.empty(1, dtype=torch.int64, device=dev)
+    rank = torch.empty(R, dtype=torch.int32, device=dev)
+    work = torch.empty(R, dtype=torch.int64, device=dev)
+    recycle = torch.empty(R, dtype=torch.bool, device=dev)
+    in_flight_out = torch.empty(R, dtype=torch.bool, device=dev)
+    err = lib.pbrt_wavefront_recycle(
+        finished.data_ptr(), in_flight.data_ptr(), R, int(total), scratch.data_ptr(),
+        base.data_ptr(), rank.data_ptr(), work.data_ptr(), recycle.data_ptr(),
+        in_flight_out.data_ptr(), counters.data_ptr(), counters.data_ptr() + 8,
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "wavefront_recycle")
+    launches["wavefront_recycle"] += 1
+    return rank, work, recycle, in_flight_out
+
+
+def recycle(finished, in_flight, counters, total):
+    """K8: the kernel on CUDA tensors, its plain version on CPU tensors."""
+    if finished.is_cuda:
+        return recycle_cuda(finished, in_flight, counters, total)
+    return recycle_plain(finished, in_flight, counters, total)
+
+
+def _merge(new, old, mask):
+    """Per-lane select of two PathStates (or Samplers); 0-dim fields (the
+    ray counters) keep `old`."""
+    out = []
+    for n, o in zip(new, old):
+        if isinstance(o, tuple):
+            out.append(_merge(n, o, mask))
+        elif o.dim() == 0:
+            out.append(o)
+        else:
+            out.append(torch.where(mask.reshape((-1,) + (1,) * (o.dim() - 1)), n, o))
+    return type(old)(*out)
+
+
+def render_wavefront(scene, meta, film):
+    """All meta.spp samples of every pixel through the wavefront loop
+    (pbrt_tpu/integrators/render.py:228-345), a pool of POOL_LANES lanes.
+    Work item w is (pixel w % n_pix, sample w // n_pix). -> ({"closest",
+    "shadow"} ray counts as 0-dim tensors, dropped work items as an int: 0 in
+    a correct run)."""
     res_x, res_y = meta.resolution
     n_pix = res_x * res_y
-    film = filmlib.new_film(meta.resolution, device)
-    pixel_ids = torch.arange(n_pix, device=device)
+    total = n_pix * meta.spp
+    R = min(POOL_LANES, total)
+    dev = film.rgb_sum.device
+    use_lens = _use_lens(scene)
+
+    def camera_lane(work):
+        pix = work % n_pix
+        rays, wl, r, weight = camera_lanes(scene, meta, pix, work // n_pix, use_lens)
+        return pix, weight, path_integrator.initial_state(rays, wl, r)
+
+    pix, weight, state = camera_lane(torch.arange(R, device=dev))
+    in_flight = torch.ones(R, dtype=torch.bool, device=dev)
+    counters = torch.tensor([R, R], dtype=torch.int64, device=dev)  # next_work, n_in_flight
+    # a path ends at the latest one step after its max_depth-th bounce; the
+    # loop leaves as soon as no lane is in flight
+    it_bound = (-(-total // R) + 2) * (meta.max_depth + 1)
+    n_in_flight, it = R, 0
+    while n_in_flight > 0 and it < it_bound:
+        st = path_integrator.bounce_step(scene, meta, state, meta.sampler, meta.spp)
+        finished = in_flight & ~st.active
+        filmlib.add_samples(film, pix, st.L, st.lam, st.lam_pdf,
+                            torch.where(finished, weight, 0.0))
+        _, work, rec, in_flight = recycle(finished, in_flight, counters, total)
+        pix_n, w_n, st_n = camera_lane(torch.clamp(work, max=total - 1))
+        state = _merge(st_n, st, rec)
+        pix = torch.where(rec, pix_n, pix)
+        weight = torch.where(rec, w_n, torch.where(finished, 0.0, weight))
+        # the loop's one host sync an iteration: the in-flight count
+        n_in_flight = int(counters[1])
+        it += 1
+    dropped = total - int(counters[0]) + n_in_flight
+    return {"closest": state.n_closest, "shadow": state.n_shadow}, dropped
+
+
+def render_batched(scene, meta, film):
+    """All meta.spp samples of every pixel through the batched loop
+    (pbrt_tpu/integrators/render.py `_spp_loop`): waves of up to
+    LANES_PER_WAVE lanes, each traced for max_depth bounces. -> {"closest",
+    "shadow"} ray counts as 0-dim tensors."""
+    res_x, res_y = meta.resolution
+    n_pix = res_x * res_y
+    pixel_ids = torch.arange(n_pix, device=film.rgb_sum.device)
     k_max = max(1, LANES_PER_WAVE // n_pix)
     n_closest = n_shadow = 0
     s0 = 0
@@ -80,10 +226,30 @@ def render(scene, meta, device=None, return_stats=False):
             n_closest = n_closest + st["closest"]
             n_shadow = n_shadow + st["shadow"]
         s0 += k
+    return {"closest": n_closest, "shadow": n_shadow}
+
+
+def render(scene, meta, device=None, return_stats=False):
+    """Full render -> (H, W, 3) linear RGB tensor on `device` (None means
+    "cuda"; without a card that raises). Open scenes take the wavefront
+    loop, closed ones the batched loop. With return_stats, also returns
+    {"closest": n, "shadow": n} counts of the rays actually traced."""
+    device = resolve_device(device)
+    check_integrator(meta.integrator)
+    if scene.device != device:
+        scene = scene.to(device)
+    film = filmlib.new_film(meta.resolution, device)
+    if meta.open_scene:
+        stats, dropped = render_wavefront(scene, meta, film)
+        if dropped != 0:
+            raise RuntimeError(f"wavefront loop dropped {dropped} work items "
+                               "(its iteration bound tripped)")
+    else:
+        stats = render_batched(scene, meta, film)
     img = filmlib.develop(film, meta.resolution, out_matrix=meta.film_out_matrix,
                           imaging_ratio=meta.film_imaging_ratio)
     if return_stats:
-        return img, {"closest": int(n_closest), "shadow": int(n_shadow)}
+        return img, {k: int(v) for k, v in stats.items()}
     return img
 
 

@@ -4,7 +4,8 @@ Every CUDA source under csrc/ is compiled by nvcc into a shared library with
 a plain C interface for Hopper (`-gencode arch=compute_90a,code=sm_90a`) and
 loaded with ctypes; pointers and the stream are passed as integers. The
 libraries go to build/pbrt_tpu_torch/ beside the package, named by a hash of
-the source and flags, so an unchanged source is built once per checkout.
+the source, the shared headers (csrc/*.cuh) and the flags, so an unchanged
+source is built once per checkout.
 `build()` starts one nvcc per source at the same time. Nothing is built when
 a module is imported: the first launch on a CUDA tensor builds what it needs.
 """
@@ -18,7 +19,8 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "pbrt_tpu_torch"
-SOURCES = {"bvh_traverse": PKG_DIR / "csrc" / "bvh_traverse.cu"}
+SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
+           for name in ("bvh_traverse", "dense_intersect", "wavefront")}
 # --fmad=false: no contraction into fused multiply-adds, so every float op
 # rounds as the plain torch version's does (the watertight test needs it)
 NVCC_FLAGS = [
@@ -38,8 +40,11 @@ def nvcc_path():
 
 
 def library_path(name):
-    src = SOURCES[name]
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(SOURCES[name].read_bytes())
+    for header in sorted((PKG_DIR / "csrc").glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{h}.so"
 
 

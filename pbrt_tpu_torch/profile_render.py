@@ -1,17 +1,24 @@
 """Where the time of a full-width render goes, on the GPU.
 
-    python -m pbrt_tpu_torch.profile_render [--out build/pbrt_tpu_torch/profile_render.json]
+    python -m pbrt_tpu_torch.profile_render [--scene cornell-mesh|cornell|terrain]
+        [--out build/pbrt_tpu_torch/profile_render.json]
 
-Renders cornell-mesh levels 5 at 256^2, 16 spp (the full-width frame of
-chip_smoke.py) through the normal `render()` entry: one warm-up render,
-REPS timed renders (host clock around a synchronized render; the honest
-rays/s of each, and their median and quartiles), then one render under
-torch.profiler. Prints the card's name and power limit, the device busy
-share (summed device time of all kernels in the profiled render over the
-median wall time of the unprofiled renders: the profiler slows the host, not
-the kernels), the device time of the two hand-written kernels and of the
-eager PyTorch ops around them, and the top kernels by device time; writes
-the same as JSON to --out.
+Renders the scene at 256^2, 16 spp, max depth 5, mitchell filter (the
+full-width frames of chip_smoke.py: cornell-mesh levels 5, the plain
+cornell box, terrain with 130,050 triangles) through the normal `render()`
+entry: one warm-up render, REPS timed renders (host clock around a
+synchronized render; the honest rays/s of each, and their median and
+quartiles), then one render under torch.profiler. For an open scene
+(terrain) the timed renders go round robin over the schedules: the
+wavefront loop with pools of 2^17, 2^18 and 2^19 lanes and the batched
+loop, all on the same frame, so the pool choice (render.POOL_LANES) and
+wavefront against batched are compared within one call. Prints the card's
+name and power limit, the device busy share (summed device time of all
+kernels in the profiled render over the median wall time of the unprofiled
+renders of the default schedule: the profiler slows the host, not the
+kernels), the device time of the hand-written kernels and of the eager
+PyTorch ops around them, and the top kernels by device time; writes the
+same as JSON to --out.
 """
 import argparse
 import json
@@ -23,6 +30,10 @@ import numpy as np
 import torch
 
 LEVELS, RES, SPP, REPS = 5, 256, 16, 11
+POOLS = (1 << 17, 1 << 18, 1 << 19)
+# hand-written kernels by a substring of their device symbol
+KERNELS = {"bvh": "traverse_kernel", "dense": "dense_", "recycle": "recycle_",
+           "film": "film_add_kernel"}
 
 
 def _device_us(e):
@@ -36,62 +47,107 @@ def _device_us(e):
     return 0.0
 
 
+def _scene(name):
+    from pbrt_tpu_torch.scene import testscenes as ts
+
+    if name == "cornell-mesh":
+        return ts.cornell_mesh(res=RES, spp=SPP, levels=LEVELS), f"cornell-mesh levels {LEVELS}"
+    if name == "cornell":
+        return ts.cornell(res=RES, spp=SPP), "cornell (12 tris, 2 spheres, dense)"
+    return ts.terrain(res=RES, spp=SPP), "terrain (130,050 tris, PLY, sky + sun)"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=("cornell-mesh", "cornell", "terrain"),
+                    default="cornell-mesh")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 
-    from pbrt_tpu_torch.integrators.render import render
-    from pbrt_tpu_torch.scene import testscenes as ts
+    from pbrt_tpu_torch.film import film as filmlib
+    from pbrt_tpu_torch.integrators import render as rd
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(card, flush=True)
-    scene, meta = ts.cornell_mesh(res=RES, spp=SPP, levels=LEVELS)
-    render(scene, meta)                                   # build + warm up
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        _, st = render(scene, meta, return_stats=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        runs.append(dict(wall_s=wall, rays=st["closest"] + st["shadow"],
-                         mrays_per_s=(st["closest"] + st["shadow"]) / wall / 1e6))
-        print(f"render {wall:.4f} s, {runs[-1]['rays']} rays, "
-              f"{runs[-1]['mrays_per_s']:.3f} M rays/s", flush=True)
+    (scene, meta), label = _scene(args.scene)
+    default = f"wavefront {rd.POOL_LANES}" if meta.open_scene else "batched"
+    schedules = {"batched": None}                          # name -> wavefront pool
+    if meta.open_scene:
+        schedules = {f"wavefront {p}": p for p in POOLS} | schedules
 
-    q = np.quantile([r["mrays_per_s"] for r in runs], [0.25, 0.5, 0.75])
-    median_wall = float(np.median([r["wall_s"] for r in runs]))
-    print(f"median {q[1]:.3f} M rays/s (quartiles {q[0]:.3f} .. {q[2]:.3f}, "
-          f"{len(runs)} renders); median frame {median_wall:.4f} s", flush=True)
+    def render(sched):
+        """One frame -> ray counts: the default schedule through render(),
+        the others through their loop with render()'s film and develop."""
+        if sched == default:
+            return rd.render(scene, meta, return_stats=True)[1]
+        film = filmlib.new_film(meta.resolution, "cuda")
+        if schedules[sched] is None:
+            st = rd.render_batched(scene, meta, film)
+        else:
+            old, rd.POOL_LANES = rd.POOL_LANES, schedules[sched]
+            try:
+                st, dropped = rd.render_wavefront(scene, meta, film)
+            finally:
+                rd.POOL_LANES = old
+            if dropped:
+                raise RuntimeError(f"{sched}: {dropped} work items dropped")
+        filmlib.develop(film, meta.resolution, meta.film_out_matrix, meta.film_imaging_ratio)
+        return {k: int(v) for k, v in st.items()}
+
+    for sched in schedules:                                # build + warm up
+        render(sched)
+    torch.cuda.synchronize()
+    runs = {sched: [] for sched in schedules}
+    for _ in range(REPS):
+        for sched in schedules:
+            t0 = time.perf_counter()
+            st = render(sched)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rays = st["closest"] + st["shadow"]
+            runs[sched].append(dict(wall_s=wall, rays=rays, mrays_per_s=rays / wall / 1e6))
+            print(f"{sched}: render {wall:.4f} s, {rays} rays, "
+                  f"{runs[sched][-1]['mrays_per_s']:.3f} M rays/s", flush=True)
+    summary = {}
+    for sched, rs in runs.items():
+        q = np.quantile([r["mrays_per_s"] for r in rs], [0.25, 0.5, 0.75])
+        summary[sched] = dict(mrays_per_s_quartiles=list(map(float, q)),
+                              median_wall_s=float(np.median([r["wall_s"] for r in rs])),
+                              rays=rs[0]["rays"])
+        print(f"{sched}: median {q[1]:.3f} M rays/s (quartiles {q[0]:.3f} .. {q[2]:.3f}, "
+              f"{len(rs)} renders); median frame {summary[sched]['median_wall_s']:.4f} s; "
+              f"{rs[0]['rays']} rays", flush=True)
+    median_wall = summary[default]["median_wall_s"]
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        render(scene, meta)
+        render(default)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     ev = prof.key_averages()
     rows = sorted(((e.key, _device_us(e), e.count) for e in ev if _device_us(e) > 0),
                   key=lambda r: -r[1])
     total_us = sum(r[1] for r in rows)
-    bvh_us = sum(r[1] for r in rows if "traverse_kernel" in r[0])
-    film_us = sum(r[1] for r in rows if "film_add_kernel" in r[0])
+    kern_us = {k: sum(r[1] for r in rows if sub in r[0]) for k, sub in KERNELS.items()}
+    kern_n = {k: sum(r[2] for r in rows if sub in r[0]) for k, sub in KERNELS.items()}
+    other_us = total_us - sum(kern_us.values())
     out = dict(
-        card=card, scene=f"cornell-mesh levels {LEVELS}", res=RES, spp=SPP,
-        runs=runs, mrays_per_s_quartiles=list(map(float, q)), median_wall_s=median_wall,
+        card=card, scene=label, res=RES, spp=SPP, default_schedule=default,
+        runs=runs, schedules=summary, mrays_per_s_quartiles=summary[default][
+            "mrays_per_s_quartiles"], median_wall_s=median_wall,
         profiled_wall_s=prof_wall, device_busy_s=total_us / 1e6,
         device_busy_share=total_us / 1e6 / median_wall,
-        bvh_kernel_s=bvh_us / 1e6, film_kernel_s=film_us / 1e6,
-        other_kernels_s=(total_us - bvh_us - film_us) / 1e6,
+        kernels_s={k: v / 1e6 for k, v in kern_us.items()}, kernel_launches=kern_n,
+        other_kernels_s=other_us / 1e6,
         top=[dict(name=k[:120], device_s=us / 1e6, count=c) for k, us, c in rows[:25]],
     )
-    print(f"profiled render {prof_wall:.4f} s wall; device busy {total_us / 1e6:.4f} s, "
-          f"{out['device_busy_share']:.1%} of the median frame; bvh kernel "
-          f"{bvh_us / 1e6:.4f} s, film kernel {film_us / 1e6:.5f} s, other kernels "
-          f"{out['other_kernels_s']:.4f} s", flush=True)
+    print(f"profiled render ({default}) {prof_wall:.4f} s wall; device busy "
+          f"{total_us / 1e6:.4f} s, {out['device_busy_share']:.1%} of the median frame; "
+          + ", ".join(f"{k} kernels {v / 1e6:.5f} s x{kern_n[k]}" for k, v in kern_us.items())
+          + f", other kernels {other_us / 1e6:.4f} s", flush=True)
     for r in out["top"][:15]:
         print(f"  {r['device_s'] * 1e3:9.3f} ms  x{r['count']:<6d} {r['name']}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -35,6 +35,17 @@ def sample_cosine_hemisphere(u):
     return torch.cat([d, z[..., None]], dim=-1)
 
 
+def sample_uniform_sphere(u):
+    """Uniform direction on the unit sphere; pdf UNIFORM_SPHERE_PDF."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+UNIFORM_SPHERE_PDF = 1.0 / (4.0 * PI)
+
+
 def sample_uniform_triangle(u):
     """Barycentric (b0, b1, b2) uniform on a triangle (sqrt-free form)."""
     u0, u1 = u[..., 0], u[..., 1]

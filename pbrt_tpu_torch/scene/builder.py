@@ -2,12 +2,15 @@
 
 Counterpart of pbrt_tpu/scene/builder.py (reference scene/scene_builder.cu),
 trimmed to what the port renders so far: transforms, the perspective camera,
-film, independent/stratified samplers, the path integrator, box and mitchell
-pixel filters, attribute blocks, diffuse/conductor/dielectric/
-diffusetransmission materials, diffuse area lights and triangle meshes
-(trianglemesh, loopsubdiv). Every other directive, type or parameter that
+film, independent/stratified samplers, box and mitchell pixel filters,
+attribute blocks, diffuse/conductor/dielectric/diffusetransmission
+materials, diffuse area lights, distant/uniform-infinite/spot light
+sources, triangle meshes (trianglemesh, loopsubdiv, plymesh) and full or
+partial spheres and disks. Every other directive, type or parameter that
 would change the image raises NotImplementedError naming the slice of the
-port that will bring it; nothing is silently dropped.
+port that will bring it; nothing is silently dropped. The integrator type is
+recorded as written; the compiler refuses what the port cannot render, so a
+scene file written for another integrator can be rendered with an override.
 """
 import copy
 import functools
@@ -29,6 +32,10 @@ MAT_DIELECTRIC = 2
 MAT_DIFFUSE_TRANSMISSION = 3
 
 LIGHT_AREA = 0
+LIGHT_DISTANT = 1
+LIGHT_UNIFORM_INFINITE = 2
+# 3 is the image-infinite light of the JAX package (textures slice)
+LIGHT_SPOT = 4
 
 PATH_INTEGRATORS = ("path", "volpath", "megakernelpath")
 
@@ -36,6 +43,13 @@ PATH_INTEGRATORS = ("path", "volpath", "megakernelpath")
 def _later(what, slice_name):
     return NotImplementedError(
         f"{what} is not ported to pbrt_tpu_torch yet (planned slice: {slice_name})")
+
+
+def check_integrator(itype):
+    """Raise for an integrator the port does not render yet."""
+    if itype not in PATH_INTEGRATORS:
+        raise _later(f"integrator {itype!r}",
+                     "AOV" if itype in ("ambientocclusion", "surfacenormal") else "BDPT/MLT")
 
 
 @functools.lru_cache(None)
@@ -83,6 +97,13 @@ class LightSpec:
     scale: float
     two_sided: bool = False
     tri_index: int = -1
+    sphere_index: int = -1
+    disk_index: int = -1
+    # distant / spot
+    direction: Optional[np.ndarray] = None
+    position: Optional[np.ndarray] = None
+    cos_falloff_start: float = 0.0
+    cos_falloff_end: float = 0.0
 
 
 @dataclass
@@ -119,6 +140,8 @@ class SceneBuilder:
         self.tri_mat = []
         self.tri_light = []
         self.tri_rev = []
+        self.spheres = []    # dict(center, radius, mat, light, rot, zmin, zmax, phimax, partial)
+        self.disks = []      # dict(center, normal, radius, inner, mat, light, xaxis, yaxis, ...)
         self.lights = []
 
         self.film = {"xresolution": 1920, "yresolution": 1080, "filename": "out.png"}
@@ -281,6 +304,110 @@ class SceneBuilder:
             self.tri_light.append(li)
             self.tri_rev.append(rev)
 
+    def _area_light_of(self, **shape_index):
+        """Append the current area light for a quadric -> its index, or -1."""
+        al = self.state.area_light
+        if al is None:
+            return -1
+        self.lights.append(LightSpec(type=LIGHT_AREA, emission_dense=al.emission_dense,
+                                     scale=al.scale, two_sided=al.two_sided, **shape_index))
+        return len(self.lights) - 1
+
+    def add_sphere(self, pd: ParameterDict):
+        """reference shapes/sphere.cu:13-26: radius, optional zmin/zmax
+        clipping and phimax (partial spheres); rotation and uniform scale."""
+        radius = pd.get_float("radius", 1.0)
+        ctm = self.state.ctm
+        s = abs(np.linalg.det(ctm[:3, :3])) ** (1.0 / 3.0)
+        rot = ctm[:3, :3] / max(s, 1e-30)
+        if not np.allclose(rot @ rot.T, np.eye(3), atol=1e-4):
+            raise NotImplementedError("sphere with non-uniform-scale transform not supported yet")
+        z_min = max(min(pd.get_float("zmin", -radius), radius), -radius)
+        z_max = min(max(pd.get_float("zmax", radius), -radius), radius)
+        if z_min > z_max:
+            z_min, z_max = z_max, z_min
+        phi_max = np.deg2rad(np.clip(pd.get_float("phimax", 360.0), 0.0, 360.0))
+        partial = (z_min > -radius + 1e-6 * radius or z_max < radius - 1e-6 * radius
+                   or phi_max < 2.0 * np.pi - 1e-6)
+        if partial and self.state.area_light is not None:
+            raise NotImplementedError("partial spheres as area lights not supported")
+        li = self._area_light_of(sphere_index=len(self.spheres))
+        self.spheres.append(dict(
+            center=ctm[:3, 3].copy(), radius=radius * s, mat=self.state.material_idx,
+            light=li, rot=rot.astype(np.float64), zmin=z_min * s, zmax=z_max * s,
+            phimax=float(phi_max), partial=partial))
+
+    def add_disk(self, pd: ParameterDict):
+        """reference shapes/disk.cu: annulus in the z = height plane of the
+        object frame, optional phimax < 360 (clipped on the in-plane angle
+        from the object x axis)."""
+        phi_max = np.deg2rad(np.clip(pd.get_float("phimax", 360.0), 0.0, 360.0))
+        ctm = self.state.ctm
+        height = pd.get_float("height", 0.0)
+        radius = pd.get_float("radius", 1.0)
+        inner = pd.get_float("innerradius", 0.0)
+        sc = abs(np.linalg.det(ctm[:3, :3])) ** (1.0 / 3.0)
+        n = ctm[:3, :3] @ np.array([0.0, 0.0, 1.0])
+        n = n / max(np.linalg.norm(n), 1e-12)
+        xax = ctm[:3, :3] @ np.array([1.0, 0.0, 0.0])
+        xax = xax / max(np.linalg.norm(xax), 1e-12)
+        yax = np.cross(n, xax)
+        partial = phi_max < 2.0 * np.pi - 1e-6
+        if partial and self.state.area_light is not None:
+            raise NotImplementedError("partial disks as area lights not supported")
+        center = ctm[:3, 3] + n * height * sc
+        if self.state.reverse_orientation ^ _swaps_handedness(ctm):
+            n = -n
+        li = self._area_light_of(disk_index=len(self.disks))
+        self.disks.append(dict(
+            center=center, normal=n, radius=radius * sc, inner=inner * sc,
+            mat=self.state.material_idx, light=li, xaxis=xax, yaxis=yax,
+            phimax=float(phi_max), partial=partial))
+
+    def _add_light_source(self, ltype, pd: ParameterDict):
+        """LightSource (reference lights/*.cu constructors)."""
+        ctm = self.state.ctm
+
+        def world(p):
+            return p @ ctm[:3, :3].T + ctm[:3, 3]
+
+        frm = world(pd.get_point3("from", np.zeros(3)))
+        to = world(pd.get_point3("to", np.array([0.0, 0.0, 1.0])))
+        if ltype == "distant":
+            dense, photometric = self.illuminant_dense(pd, "L")
+            d = frm - to  # direction TOWARDS the light
+            self.lights.append(LightSpec(
+                type=LIGHT_DISTANT, emission_dense=dense,
+                scale=pd.get_float("scale", 1.0) / photometric,
+                direction=d / np.linalg.norm(d)))
+        elif ltype == "infinite":
+            if pd.get_string("filename", None) is not None:
+                raise _later("image infinite lights", "textures")
+            dense, photometric = self.illuminant_dense(pd, "L")
+            self.lights.append(LightSpec(
+                type=LIGHT_UNIFORM_INFINITE, emission_dense=dense,
+                scale=pd.get_float("scale", 1.0) / photometric))
+        elif ltype == "spot":
+            dense, photometric = self.illuminant_dense(pd, "I")
+            scale = pd.get_float("scale", 1.0) / photometric
+            d = to - frm
+            cone = pd.get_float("coneangle", 30.0)
+            delta = pd.get_float("conedeltaangle", 5.0)
+            cos_end = float(np.cos(np.deg2rad(cone)))
+            cos_start = float(np.cos(np.deg2rad(cone - delta)))
+            # "power" overrides the intensity scale: phi = scale * k_e with
+            # k_e the cone integral of the smoothstep falloff
+            # (reference spot_light.cu:29-34)
+            phi_v = pd.get_float("power", -1.0)
+            if phi_v > 0:
+                scale *= phi_v / (2.0 * np.pi * ((1.0 - cos_start) + (cos_start - cos_end) / 2.0))
+            self.lights.append(LightSpec(
+                type=LIGHT_SPOT, emission_dense=dense, scale=scale, position=frm,
+                direction=d / np.linalg.norm(d), cos_falloff_start=cos_start,
+                cos_falloff_end=cos_end))
+        else:
+            raise ValueError(f"light {ltype!r} not supported")
+
     # ------------------------------------------------------------- parsing
 
     def parse_file(self, path):
@@ -392,10 +519,6 @@ class SceneBuilder:
                 itype = tokens[i].value
                 i += 1
                 pd, i = parse_parameters(tokens, i)
-                if itype not in PATH_INTEGRATORS:
-                    raise _later(f"integrator {itype!r}",
-                                 "AOV" if itype in ("ambientocclusion", "surfacenormal")
-                                 else "BDPT/MLT")
                 self.integrator = {"type": itype,
                                    "maxdepth": pd.get_integer("maxdepth", 5)}
                 continue
@@ -448,17 +571,26 @@ class SceneBuilder:
                     P2, idx2, N2 = loop_subdivide(np.asarray(P), idx,
                                                   pd.get_integer("levels", 3))
                     self._emit_mesh(P2, idx2, N2, None)
-                elif stype in ("sphere", "disk"):
-                    raise _later(f"shape {stype!r}", "plain cornell (dense quadrics K4)")
+                elif stype == "sphere":
+                    self.add_sphere(pd)
+                elif stype == "disk":
+                    self.add_disk(pd)
                 elif stype == "plymesh":
-                    raise _later("shape 'plymesh'", "wavefront loop / terrain")
+                    from pbrt_tpu_torch.scene.ply import read_ply
+
+                    P, idx, N, UV = read_ply(os.path.join(self._search_dir,
+                                                          pd.get_string("filename")))
+                    self._emit_mesh(P, idx, N, UV)
                 else:
                     raise ValueError(f"shape {stype!r} not supported yet")
                 continue
 
             if kw == "LightSource":
-                raise _later("LightSource (infinite/distant/spot lights)",
-                             "wavefront loop / terrain")
+                ltype = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                self._add_light_source(ltype, pd)
+                continue
             if kw == "Texture":
                 raise _later("textures", "textures")
             if kw in ("MakeNamedMaterial", "NamedMaterial"):

@@ -1,10 +1,20 @@
-"""Built-in test scenes (no external files needed): the Cornell box text
-and its BVH variant with the two spheres replaced by subdivided triangle
-meshes (counterpart of pbrt_tpu/scene/testscenes.py; the classic Cornell
-box dimensions are public-domain measurement data)."""
+"""Built-in test scenes (no external files needed): the Cornell box (12
+triangles and two spheres, the dense route), its BVH variant with the two
+spheres replaced by subdivided triangle meshes, and the terrain height field
+under a sky and a sun, written as a PLY file (counterpart of
+pbrt_tpu/scene/testscenes.py; the classic Cornell box dimensions are
+public-domain measurement data)."""
+import os
+from pathlib import Path
+
+import numpy as np
+
 from pbrt_tpu_torch.scene import builder as bd
 from pbrt_tpu_torch.scene import lexer as lx
 from pbrt_tpu_torch.scene.compile import compile_scene
+
+# build/pbrt_tpu_torch/scenes/ beside the package (git-ignored)
+SCENE_CACHE = Path(__file__).resolve().parents[2] / "build" / "pbrt_tpu_torch" / "scenes"
 
 CORNELL_PBRT = """
 Integrator "path" "integer maxdepth" [5]
@@ -97,6 +107,22 @@ def cornell_mesh_pbrt(levels=5):
     return txt
 
 
+def cornell_builder(res=128, filter_kind=None):
+    """SceneBuilder of CORNELL_PBRT at res x res, optionally with another
+    pixel filter."""
+    b = bd.SceneBuilder()
+    b.parse_tokens(lx.tokenize(CORNELL_PBRT))
+    b.film["xresolution"] = b.film["yresolution"] = res
+    if filter_kind is not None:
+        b.filter = {"type": filter_kind}
+    return b
+
+
+def cornell(res=128, spp=4, device=None, filter_kind=None):
+    """-> (Scene, SceneMeta) for the built-in Cornell box (dense route)."""
+    return compile_scene(cornell_builder(res, filter_kind), spp_override=spp, device=device)
+
+
 def cornell_mesh_builder(levels=5, res=None, filter_kind=None):
     """SceneBuilder of cornell_mesh_pbrt(levels), optionally at res x res
     and with another pixel filter."""
@@ -113,3 +139,67 @@ def cornell_mesh(res=128, spp=4, levels=5, device=None, filter_kind=None):
     """-> (Scene, SceneMeta): the BVH-exercising Cornell variant."""
     return compile_scene(cornell_mesh_builder(levels, res, filter_kind),
                          spp_override=spp, device=device)
+
+
+def terrain_ply_path(n=256, cache_dir=None):
+    """Write (once) and return a binary-little-endian PLY of an (n x n)
+    sine-displaced height-field grid: 2 (n-1)^2 triangles (n=256 -> 130,050),
+    byte-identical to the JAX package's. The file goes to cache_dir, by
+    default SCENE_CACHE."""
+    cache_dir = str(cache_dir or SCENE_CACHE)
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, f"terrain_{n}.ply")
+    if os.path.exists(path):
+        return path
+    xs = np.linspace(0.0, 100.0, n, dtype=np.float32)
+    zs = np.linspace(0.0, 100.0, n, dtype=np.float32)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    Y = (6.0 * np.sin(X * 0.11) * np.cos(Z * 0.13)
+         + 2.5 * np.sin(X * 0.31 + 1.0) * np.sin(Z * 0.27)
+         + 1.2 * np.cos(X * 0.83) * np.cos(Z * 0.71 + 0.5)).astype(np.float32)
+    V = np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
+    i = np.arange(n * n).reshape(n, n)
+    a, b, c, d = i[:-1, :-1], i[1:, :-1], i[1:, 1:], i[:-1, 1:]
+    F = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                        np.stack([a, c, d], -1).reshape(-1, 3)]).astype(np.int32)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        fh.write(b"ply\nformat binary_little_endian 1.0\n"
+                 + f"element vertex {V.shape[0]}\n".encode()
+                 + b"property float x\nproperty float y\nproperty float z\n"
+                 + f"element face {F.shape[0]}\n".encode()
+                 + b"property list uchar int vertex_indices\nend_header\n")
+        fh.write(V.astype("<f4").tobytes())
+        rows = np.zeros(F.shape[0], dtype=[("n", "u1"), ("v", "<i4", 3)])
+        rows["n"] = 3
+        rows["v"] = F
+        fh.write(rows.tobytes())
+    os.replace(tmp, path)
+    return path
+
+
+def terrain_pbrt(ply_path, spp=4, res=256):
+    """Sun (distant light) and sky (uniform infinite light) over the PLY
+    height field: an open scene, so the render takes the wavefront loop."""
+    return f"""
+Integrator "path" "integer maxdepth" [5]
+Sampler "independent" "integer pixelsamples" [{spp}]
+Film "rgb" "integer xresolution" [{res}] "integer yresolution" [{res}]
+    "string filename" ["terrain.png"]
+LookAt 50 40 -55   50 2 55   0 1 0
+Camera "perspective" "float fov" [48]
+WorldBegin
+LightSource "infinite" "rgb L" [0.25 0.32 0.45]
+LightSource "distant" "point3 from" [30 80 -20] "point3 to" [50 0 50]
+    "rgb L" [2.5 2.3 2.0]
+Material "diffuse" "rgb reflectance" [0.42 0.36 0.28]
+Shape "plymesh" "string filename" ["{ply_path}"]
+"""
+
+
+def terrain(res=256, spp=4, n=256, device=None, cache_dir=None):
+    """-> (Scene, SceneMeta): sun and sky over a 130k-triangle PLY height
+    field (n=256), the large open-scene benchmark of the JAX package."""
+    b = bd.SceneBuilder()
+    b.parse_tokens(lx.tokenize(terrain_pbrt(terrain_ply_path(n, cache_dir), res=res)))
+    return compile_scene(b, spp_override=spp, device=device)

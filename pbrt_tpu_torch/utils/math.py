@@ -54,6 +54,11 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     return torch.where(torch.isinf(f2), 1.0, safe_div(f2, f2 + sqr(g)))
 
 
+def smoothstep(x, a, b):
+    t = torch.clamp(safe_div(x - a, b - a), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
 def encode_morton3(x, y, z):
     """Interleave lower 10 bits of x,y,z into a 30-bit morton code (host
     numpy; reference util/math.h:206)."""

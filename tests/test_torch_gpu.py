@@ -11,10 +11,12 @@ import torch
 from pbrt_tpu_torch.accel import bvh
 from pbrt_tpu_torch.film import film as filmlib, film_kernel
 from pbrt_tpu_torch.geometry import intersect as ix
+from pbrt_tpu_torch.integrators import render as rd
 from pbrt_tpu_torch.integrators.render import render
 from pbrt_tpu_torch.sampling import samplers
 from pbrt_tpu_torch.scene import testscenes as ts
 from pbrt_tpu_torch.utils.math import INFINITY
+from quadric_edges import clip_edge_distance
 
 pytestmark = pytest.mark.gpu
 
@@ -103,3 +105,132 @@ def test_render_on_card_matches_cpu(cuda):
     err = np.abs(img_gpu - img_cpu)
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
+def quadric_soup(n, seed, device, partial=True):
+    """n spheres and n disks in the box [-1, 1]^3, clipped when `partial`
+    (z window, phimax < 2 pi, inner radius)."""
+    g = np.random.default_rng(seed)
+    rot = np.linalg.qr(g.normal(size=(n, 3, 3)))[0]
+    rad = g.uniform(0.1, 0.4, n)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    sph = ix.SphereSoA(
+        f(g.uniform(-0.8, 0.8, (n, 3))), f(rad),
+        *((f(rot), f(-rad * g.uniform(0.2, 1.0, n)), f(rad * g.uniform(0.2, 1.0, n)),
+           f(g.uniform(1.0, 2 * np.pi, n))) if partial else ()))
+    nrm = rot[:, 2]
+    dsk = ix.DiskSoA(
+        f(g.uniform(-0.8, 0.8, (n, 3))), f(nrm), f(rad),
+        f(rad * g.uniform(0.0, 0.5, n) if partial else np.zeros(n)),
+        *((f(rot[:, 0]), f(np.cross(nrm, rot[:, 0])), f(g.uniform(1.0, 2 * np.pi, n)))
+          if partial else ()))
+    return sph, dsk
+
+
+def uniform_rays(n, seed, device, scale=1.0):
+    g = np.random.default_rng(seed)
+    o = g.uniform(-scale, scale, (n, 3))
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.full(n, ix.INFINITY)
+    t_max[::13] = 0.0
+    t_max[5::13] = g.uniform(0.0, 2.0, len(t_max[5::13]))
+    return tuple(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (o, d, t_max))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_dense_tri_kernel_matches_plain(cuda, any_hit):
+    """K3: prim ids, t and barycentrics equal to the plain version bit for bit
+    (--fmad=false), ties to the lowest index."""
+    scene, _ = ts.cornell(res=16, spp=1, device=cuda)
+    pts = torch.cat([scene.tri_p0, scene.tri_p1, scene.tri_p2])
+    lo, hi = pts.min(0).values, pts.max(0).values
+    o, d, t_max = uniform_rays(20000, 7, cuda)
+    o = (lo + (hi - lo) * (0.5 + 0.45 * o)).contiguous()
+    tris = (scene.tri_p0, scene.tri_p1, scene.tri_p2)
+    n0 = ix.launches["dense_tri_any" if any_hit else "dense_tri_closest"]
+    k = ix.dense_tris_cuda(o, d, t_max, *tris, any_hit=any_hit)
+    assert ix.launches["dense_tri_any" if any_hit else "dense_tri_closest"] == n0 + 1
+    if any_hit:
+        assert torch.equal(k, ix.occluded_tris_dense_plain(o, d, t_max, *tris))
+        return
+    p = ix.intersect_tris_dense_plain(o, d, t_max, *tris)
+    assert torch.equal(k.prim, p.prim) and int((p.prim >= 0).sum()) > 5000
+    assert torch.equal(k.t, p.t) and torch.equal(k.b, p.b)
+
+
+@pytest.mark.parametrize("kind", ["spheres", "disks"])
+@pytest.mark.parametrize("partial", [False, True])
+def test_dense_quadric_kernels_match_plain(cuda, kind, partial):
+    """K4: the same winners as the plain version, but for lanes within 1e-5
+    of a clip edge (atan2f vs torch.atan2); t, p, n to 1e-6 relative."""
+    sph, dsk = quadric_soup(24, 11, cuda, partial)
+    o, d, t_max = uniform_rays(50000, 12, cuda)
+    soa = ix.with_table(sph if kind == "spheres" else dsk)
+    cuda_fn = ix.dense_spheres_cuda if kind == "spheres" else ix.dense_disks_cuda
+    plain_fn = ix.intersect_spheres_dense_plain if kind == "spheres" else \
+        ix.intersect_disks_dense_plain
+    tk, ik, pk, nk = cuda_fn(o, d, t_max, soa)
+    tp, ip, pp, np_ = plain_fn(o, d, t_max, soa)
+    differ = ik != ip
+    if bool(differ.any()):
+        margin = clip_edge_distance(o[differ], d[differ],
+                                       sph if kind == "spheres" else None,
+                                       dsk if kind == "disks" else None)
+        assert bool((margin < 1e-5).all()), margin.max()
+    same = ~differ & (ip >= 0)
+    assert int(same.sum()) > 1000
+    assert torch.allclose(tk[same], tp[same], rtol=1e-6)
+    assert torch.allclose(pk[same], pp[same], rtol=1e-6, atol=1e-6)
+    assert torch.allclose(nk[same], np_[same], rtol=1e-6, atol=1e-6)
+    assert bool((tk[ik < 0] == ix.INFINITY).all())
+
+
+@pytest.mark.parametrize("density,left", [(0.02, 10 ** 9), (0.5, 10 ** 9), (0.5, 777),
+                                          (1.0, 0), (0.3, -5)])
+def test_recycle_kernel_matches_cumsum(cuda, density, left):
+    """K8: rank, work, recycle, in_flight and the device counters equal the
+    plain torch.cumsum version bit for bit, including next_work near and
+    past the end of the work."""
+    R = 1 << 18
+    g = torch.Generator().manual_seed(int(density * 100) + left % 1000)
+    in_flight = (torch.rand(R, generator=g) < 0.9).to(cuda)
+    finished = in_flight & (torch.rand(R, generator=g) < density).to(cuda)
+    total = 5_000_000
+    start = torch.tensor([total - left, 123], dtype=torch.int64, device=cuda)
+    ck, cp = start.clone(), start.clone()
+    out_k = rd.recycle_cuda(finished, in_flight, ck, total)
+    out_p = rd.recycle_plain(finished, in_flight, cp, total)
+    for a, b in zip(out_k, out_p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(ck, cp)
+
+
+def test_dense_and_wavefront_renders_on_card(cuda):
+    """cornell (dense K3/K4) on the card against the CPU; terrain (n=16)
+    through the wavefront loop with a recycling pool against the batched
+    loop on the card: the same honest ray count, K8 launched."""
+    scene, meta = ts.cornell(res=24, spp=2, device=cuda, filter_kind="box")
+    n0 = dict(ix.launches)
+    img_gpu = render(scene, meta).cpu().numpy()
+    img_cpu = render(scene, meta, device="cpu").numpy()
+    assert all(ix.launches[k] > n0[k] for k in ("dense_tri_closest", "dense_tri_any",
+                                                 "dense_spheres"))
+    err = np.abs(img_gpu - img_cpu)
+    assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
+    scene, meta = ts.terrain(res=24, spp=4, n=16, device=cuda)
+    k0 = rd.launches["wavefront_recycle"]
+    old = rd.POOL_LANES
+    rd.POOL_LANES = 512
+    try:
+        img_w, st_w = render(scene, meta, return_stats=True)
+    finally:
+        rd.POOL_LANES = old
+    film_b = rd.filmlib.new_film(meta.resolution, cuda)
+    st_b = {k: int(v) for k, v in rd.render_batched(scene, meta, film_b).items()}
+    img_b = rd.filmlib.develop(film_b, meta.resolution, meta.film_out_matrix,
+                               meta.film_imaging_ratio).cpu().numpy()
+    assert rd.launches["wavefront_recycle"] > k0
+    assert st_w == st_b
+    err = np.abs(img_w.cpu().numpy() - img_b)
+    assert float((err > 5e-3 + 0.05 * np.abs(img_b)).mean()) < 0.005

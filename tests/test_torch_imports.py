@@ -1,5 +1,5 @@
-"""The port stands alone: no file of pbrt_tpu_torch/ and not chip_smoke.py
-imports jax or anything of the JAX package pbrt_tpu (AST scan), and the
+"""The port stands alone: no file of pbrt_tpu_torch/, not chip_smoke.py and
+not the test helper it imports (tests/quadric_edges.py) imports jax or anything of the JAX package pbrt_tpu (AST scan), and the
 port ships its own copies of the data tables."""
 import ast
 import pathlib
@@ -7,7 +7,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "pbrt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "pbrt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                          ROOT / "tests" / "quadric_edges.py"]
 
 
 def _imports(path):

@@ -1,9 +1,13 @@
 """pbrt_tpu_torch scene compile vs pbrt_tpu: the port's own numpy compile
-of cornell_mesh_pbrt(levels=3) must equal pbrt_tpu.scene.compile field by
-field (BVH rows, hit records, integer columns and the light alias table
-exactly; float columns to 1e-6 relative), scene_from_arrays must
+must equal pbrt_tpu.scene.compile field by field (BVH rows, hit records,
+integer columns and the light alias table exactly; float columns to 1e-6
+relative) on cornell_mesh_pbrt(levels=3) (BVH, two filters), the plain
+cornell box (dense, spheres), caustic-glass (a disk light, named glass
+spectrum), a scene of partial spheres and disks with a spot light, and
+terrain n=16 (PLY, distant and infinite lights); scene_from_arrays must
 round-trip, and what the port does not render yet must raise."""
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -19,11 +23,42 @@ torch.set_num_threads(2)
 
 EXACT = ["bvh_rows", "tri_rec", "mat_type", "mat_remap",
          "mat_eta_spec", "mat_k_spec", "mat_refl_mode", "lt_type", "lt_twosided",
-         "lt_tri", "lt_alias_rows", "tri_p0", "tri_p1", "tri_p2"]
+         "lt_tri", "lt_alias_rows", "tri_p0", "tri_p1", "tri_p2",
+         "tri_n0", "tri_n1", "tri_n2", "tri_has_n", "tri_uv0", "tri_uv1", "tri_uv2",
+         "tri_mat", "tri_light", "tri_rev", "sph_mat", "sph_light", "dsk_mat", "dsk_light",
+         "lt_sph", "lt_dsk"]
 CLOSE = ["mat_refl_c", "mat_trans_c", "mat_urough", "mat_vrough", "mat_eta",
          "spec_table", "lt_emission", "lt_scale", "lt_pmf", "camera_from_raster",
          "render_from_camera", "camera_lens_radius", "camera_focal_distance",
-         "scene_radius", "ray_offset_scale"]
+         "scene_radius", "ray_offset_scale",
+         "sph_center", "sph_radius", "sph_rot", "sph_zmin", "sph_zmax", "sph_phimax",
+         "dsk_center", "dsk_normal", "dsk_radius", "dsk_inner", "dsk_xaxis", "dsk_yaxis",
+         "dsk_phimax", "lt_direction", "lt_position", "lt_cos_start", "lt_cos_end"]
+SCENES = ["cornell-mesh mitchell", "cornell-mesh box", "cornell", "caustic-glass",
+          "partial quadrics", "terrain"]
+PARTIAL_PBRT = """
+LookAt 0 0 -5  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+LightSource "spot" "point3 from" [0 3 0] "point3 to" [0 0 0] "rgb I" [3 3 3]
+    "float power" [20]
+AttributeBegin
+  Rotate 30 0 1 0
+  Shape "sphere" "float radius" [1] "float zmin" [-0.5] "float zmax" [0.8]
+      "float phimax" [270]
+AttributeEnd
+AttributeBegin
+  Translate 2 0 0
+  Scale 2 2 2
+  Shape "disk" "float radius" [0.5] "float innerradius" [0.2] "float phimax" [200]
+      "float height" [0.1]
+AttributeEnd
+AttributeBegin
+  ReverseOrientation
+  Translate -2 0 0
+  Shape "disk" "float radius" [0.4]
+AttributeEnd
+"""
 
 
 def _jax_builder(text, res):
@@ -33,12 +68,27 @@ def _jax_builder(text, res):
     return b
 
 
-@pytest.fixture(scope="module", params=["mitchell", "box"])
-def both(request):
-    text = jts.cornell_mesh_pbrt(levels=3)
+def _scene_text(name, tmp_dir):
+    if name.startswith("cornell-mesh"):
+        return jts.cornell_mesh_pbrt(levels=3)
+    if name == "cornell":
+        return jts.CORNELL_PBRT
+    if name == "caustic-glass":
+        path = pathlib.Path(__file__).parent.parent / "scenes" / "caustic-glass.pbrt"
+        return path.read_text().replace('Integrator "bdpt"', 'Integrator "path"')
+    if name == "partial quadrics":
+        return PARTIAL_PBRT
+    return tts.terrain_pbrt(tts.terrain_ply_path(16, tmp_dir))
+
+
+@pytest.fixture(scope="module", params=SCENES)
+def both(request, tmp_path_factory):
+    text = _scene_text(request.param, tmp_path_factory.mktemp("ply"))
     jb = _jax_builder(text, 40)
-    tb = tts.cornell_mesh_builder(levels=3, res=40)
-    if request.param == "box":
+    tb = tbd.SceneBuilder()
+    tb.parse_tokens(tlx.tokenize(text))
+    tb.film["xresolution"] = tb.film["yresolution"] = 40
+    if request.param.endswith("box"):
         jb.filter = {"type": "box"}
         tb.filter = {"type": "box"}
     ja, jm = j_compile(jb, spp_override=4)
@@ -68,8 +118,11 @@ def test_filter_tables_and_meta(both):
                                    rtol=1e-6)
     assert tm.bvh_nint == ja.bvh_nint.shape[0]
     assert tm.bvh_depth == ja.bvh_depth.shape[0]
+    assert tm.sph_partial == (ja.sph_partial_marker.shape[0] > 0)
+    assert tm.dsk_partial == (ja.dsk_partial_marker.shape[0] > 0)
     for k in ("resolution", "spp", "sampler", "integrator", "max_depth", "n_tris",
-              "n_lights", "filter_kind", "film_imaging_ratio"):
+              "n_spheres", "n_disks", "n_lights", "filter_kind", "film_imaging_ratio",
+              "open_scene"):
         assert getattr(tm, k) == getattr(jm, k), k
     np.testing.assert_allclose(tm.film_out_matrix, jm.film_out_matrix, rtol=1e-6)
 
@@ -88,6 +141,7 @@ def test_scene_from_arrays_round_trip(both):
               if v is not None and k != "tex"}
     js, jmeta = scene_from_arrays(j_dict, jm, "cpu")
     assert (jmeta.bvh_nint, jmeta.bvh_depth) == (tm.bvh_nint, tm.bvh_depth)
+    assert (jmeta.sph_partial, jmeta.dsk_partial) == (tm.sph_partial, tm.dsk_partial)
     assert torch.equal(js.bvh_rows, scene.bvh_rows) and torch.equal(js.tri_rec, scene.tri_rec)
 
 
@@ -102,10 +156,7 @@ def test_entry_points_need_a_device_choice():
 
 
 UNPORTED = {
-    "sphere": 'WorldBegin\nShape "sphere" "float radius" [1]',
-    "disk": 'WorldBegin\nShape "disk" "float radius" [1]',
-    "plymesh": 'WorldBegin\nShape "plymesh" "string filename" ["x.ply"]',
-    "infinite light": 'WorldBegin\nLightSource "infinite" "rgb L" [1 1 1]',
+    "image infinite light": 'WorldBegin\nLightSource "infinite" "string filename" "sky.exr"',
     "texture": 'WorldBegin\nTexture "t" "spectrum" "checkerboard"',
     "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
     "coated": 'WorldBegin\nMaterial "coateddiffuse"',
@@ -119,15 +170,9 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
 def test_unported_features_raise(what):
+    """Parsing raises, or for an integrator (recorded as written, so that a
+    file can be rendered with another) compiling does."""
     b = tbd.SceneBuilder()
     with pytest.raises(NotImplementedError, match="planned slice"):
         b.parse_tokens(tlx.tokenize(UNPORTED[what]))
-
-
-def test_small_dense_scene_raises():
-    b = tbd.SceneBuilder()
-    b.parse_tokens(tlx.tokenize(
-        'WorldBegin\nShape "trianglemesh" "integer indices" [0 1 2] '
-        '"point3 P" [0 0 1  1 0 1  0 1 1]'))
-    with pytest.raises(NotImplementedError, match="K3"):
         compile_arrays(b)

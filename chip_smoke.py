@@ -18,18 +18,34 @@ result line:
      (z window, phimax < 2 pi, inner radius) with masked lanes;
   6. the wavefront recycle kernel (K8) against torch.cumsum's plain version
      on random finished masks at the pool size, next_work near the end too;
+     the layered BxDF kernel (K7: layered_f, layered_sample, layered_pdf)
+     against its plain version on 2^18 synthetic lanes (tests/
+     layered_cases.py: smooth and rough coats, a medium with g in {-0.5, 0,
+     0.7}, smooth and rough conductor bases, wo below the horizon and
+     grazing). K7 is not bit-exact (its transcendentals round apart from
+     torch's, and the walk compares its draws with them), so it is held
+     statistically: valid and flags equal on >= 99.9 % of lanes; f, wi and
+     pdf within rtol 1e-4, atol 1e-6 on >= 99.5 %; lane means of f, pdf and
+     f |cos| / pdf within 1e-3 relative; the fractions are printed;
   7. small renders on the card against tests/goldens.npz and against the
      same render on the CPU: cornell-mesh levels 3 at 48^2 x 4 spp, the plain
-     cornell box at 64^2 x 8 spp (box filter), and caustic-glass with the
-     path integrator at 48^2 x 4 spp (card against CPU; its disk light runs
-     the disk kernel);
+     cornell box at 64^2 x 8 spp (box filter), caustic-glass with the path
+     integrator at 48^2 x 4 spp (card against CPU; its disk light runs the
+     disk kernel), and material-testball at 32^2 x 4 spp (box filter, card
+     against CPU; the walk seeds on float bits, which differ between the two
+     by an ulp, so the renders are independent estimates and are compared on
+     16x16-pixel block means and the image mean);
   8. the full-width renders through the normal entry point, 256^2, 16 spp,
      max depth 5, mitchell filter: cornell-mesh levels 5 (BVH), the plain
      cornell box (dense), terrain (130,050 PLY triangles, sky and sun: the
      wavefront loop; its compile seconds, and its honest ray count equal to
-     the same frame through the batched loop). Each is driven with the launch
-     counts set to 0 just before it and read just after; every kernel of its
-     path must have launched;
+     the same frame through the batched loop); then the coated scenes at
+     their files' settings, each rendered once: staircase (63,212 triangles,
+     coateddiffuse; 256^2 x 256 spp stratified, max depth 8; its compile
+     seconds, rays/s and peak memory) and material-testball
+     (coatedconductor, partial-sphere pedestal; 256^2 x 64 spp, max depth
+     6). Each is driven with the launch counts set to 0 just before it and
+     read just after; every kernel of its path must have launched;
   9. each kernel against its plain version again, and timed beside its
      plain version, its bound and (film: index_add_; recycle: torch.cumsum)
      one PyTorch call: the kernel and the library call from CUDA-graph
@@ -37,8 +53,11 @@ result line:
      which the log prints beside it), the plain version with CUDA events;
      all on the arguments of its first
      launch in the full-width render of its path: the shapes and data the
-     main path gives it (the BVH kernel on terrain is timed only: the plain
-     sweep over 130k triangles is not repeated);
+     main path gives it (the BVH kernel on terrain and staircase is timed
+     only: the plain sweep over 63k-130k triangles is not repeated); K7's
+     three entry points on their first launches in the staircase and
+     testball frames, against the plain version on the coated lanes, timed
+     on staircase's;
  10. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
@@ -72,6 +91,18 @@ SPHERE_HIT_OPS = 30
 DISK_TEST_OPS = 36
 # float ops of one film lane, counted from film/film_kernel.py
 FILM_LANE_OPS = 4 * 10 + 3 * 2 + 4
+# float ops of K7, counted from csrc/layered.cu and csrc/bxdf.cuh for the
+# main path's lanes (a rough dielectric coat over a diffuse or rough
+# conductor base, no medium), rounded down: a rough dielectric sample ~150,
+# its f or pdf ~100; a diffuse sample ~20, its pdf ~10; a conductor sample
+# ~400 (four complex Fresnel terms). (per lane, per step): layered_f per
+# lane f_enter and two samples, per walk step a boundary event (an exit
+# resample, or NEE through the base plus a base resample and the coat's f
+# and pdf); layered_sample per lane the coat's sample, per step one
+# interface sample; layered_pdf per lane with wo and wi on one side the
+# coat's pdf and two samples, per lane that reaches the base its pdf
+LAYERED_OPS = {"layered_f": (400, 250), "layered_sample": (150, 100),
+               "layered_pdf": (400, 10)}
 
 
 def log(msg):
@@ -184,11 +215,15 @@ def main():
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
     from quadric_edges import clip_edge_distance
+    from layered_cases import (ATOL, BXDF_FIELDS, CASES as LAYERED_CASES, CLOSE_FRAC,
+                               EQUAL_FRAC, MEAN_RTOL, RTOL, blocks, frac_close,
+                               lanes as layered_lanes)
     from pbrt_tpu_torch import kernels
     from pbrt_tpu_torch.accel import bvh
     from pbrt_tpu_torch.film import film as filmlib, film_kernel, png
     from pbrt_tpu_torch.geometry import intersect as ix
     from pbrt_tpu_torch.integrators import render as rd
+    from pbrt_tpu_torch.materials import bxdfs, layered
     from pbrt_tpu_torch.sampling import samplers
     from pbrt_tpu_torch.scene import builder as bd, testscenes as ts
     from pbrt_tpu_torch.scene.compile import compile_scene, load_scene
@@ -197,7 +232,7 @@ def main():
 
     dev = torch.device("cuda")
     t_start = time.time()
-    counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches)
+    counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches)
 
     def reset_counts():
         for c in counters:
@@ -221,7 +256,9 @@ def main():
     for name, (sec, report) in built.items():
         log(f"build {name}: {sec:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:
+                log(f"  ptxas: {line.split(' for ', 1)[1].strip()}")
+            elif "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     probe = filmlib.new_film((4, 4), dev)
     film_kernel.add_samples_triton(
@@ -444,6 +481,73 @@ def main():
     log(f"wavefront_recycle vs torch.cumsum at {R} lanes, 5 masks (next_work up to 3 past "
         f"the end): rank, work, recycle, in_flight and counters bit-exact")
 
+    # ---- 6b. K7 vs plain on synthetic lanes
+    def sub_params(p, idx):
+        def bx(b):
+            return bxdfs.BxdfParams(*(x[idx] for x in b))
+        return layered.LayeredParams(bx(p.top), bx(p.bottom), p.thickness[idx], p.g[idx],
+                                     p.albedo[idx], p.max_depth, p.n_samples)
+
+    def compare_layered(name, p, args, mask=None):
+        """K7 entry point `name` against its plain version on the lanes of
+        `mask` (all lanes when None), held to the statistical criteria of
+        the module docstring. -> {lanes, agreement fraction of each output,
+        mean_rel: relative difference of the lane means, max_abs_err: the
+        largest error of f (or pdf) among the lanes within tolerance}."""
+        out_k = getattr(layered, f"{name}_cuda")(p, *args, mask)
+        idx = (torch.arange(args[0].shape[0], device=dev) if mask is None
+               else mask.nonzero()[:, 0])
+        out_p = getattr(layered, f"{name}_plain")(sub_params(p, idx), *(a[idx] for a in args))
+        res = {"lanes": int(idx.shape[0])}
+        if name == "layered_sample":
+            k = bxdfs.BSDFSample(*(x[idx] for x in out_k))
+            for f in ("valid", "flags"):
+                res[f] = float((getattr(k, f) == getattr(out_p, f)).float().mean())
+                require(res[f] >= EQUAL_FRAC, name, f, res[f])
+            pairs = {f: (getattr(k, f), getattr(out_p, f)) for f in ("f", "wi", "pdf")}
+
+            def est(s):
+                return torch.where(s.valid[:, None], s.f * s.wi[:, 2:3].abs()
+                                   / s.pdf.clamp(min=1e-12)[:, None], 0.0)
+            means = (est(k), est(out_p))
+        else:
+            k = out_k[idx]
+            pairs = {"f" if name == "layered_f" else "pdf": (k, out_p)}
+            means = (k, out_p)
+        err = 0.0
+        for f, (a, b) in pairs.items():
+            res[f] = frac_close(a, b)
+            require(res[f] >= CLOSE_FRAC, name, f, res[f])
+            d = (a.double() - b.double()).abs().reshape(a.shape[0], -1)
+            ok = (d <= ATOL + RTOL * b.double().abs().reshape(b.shape[0], -1)).all(1)
+            if f != "wi" and bool(ok.any()):
+                err = max(err, float(d[ok].max()))
+        m_k, m_p = float(means[0].double().mean()), float(means[1].double().mean())
+        res["mean_rel"] = abs(m_k - m_p) / max(abs(m_p), 1e-30)
+        require(res["mean_rel"] <= MEAN_RTOL, name, "lane means differ", m_k, m_p)
+        res["max_abs_err"] = err
+        return res
+
+    def agreement(res):
+        return ", ".join(f"{k} {v:.6f}" if isinstance(v, float) else f"{k} {v}"
+                         for k, v in res.items())
+
+    n7 = 1 << 18
+    lanes7 = {k: torch.as_tensor(v, device=dev) for k, v in layered_lanes(n7, 11).items()}
+
+    def bx7(tag):
+        return bxdfs.BxdfParams(*(lanes7[f"{tag}_{f}"] for f in BXDF_FIELDS))
+    p7 = layered.LayeredParams(bx7("top"), bx7("bottom"), lanes7["thickness"], lanes7["g"],
+                               lanes7["albedo"], 10, 1)
+    layered_err = {}
+    for name, args in (("layered_f", (lanes7["wo"], lanes7["wi"])),
+                       ("layered_sample", (lanes7["wo"], lanes7["uc"], lanes7["u2"])),
+                       ("layered_pdf", (lanes7["wo"], lanes7["wi"]))):
+        res = compare_layered(name, p7, args)
+        layered_err[name] = res["max_abs_err"]
+        log(f"{name} vs plain on {n7} synthetic lanes ({len(LAYERED_CASES)} cases: "
+            f"{'; '.join(LAYERED_CASES)}): {agreement(res)}")
+
     # ---- 7. small renders vs golden and vs CPU
     goldens = np.load(ROOT / "tests" / "goldens.npz")
     for label, (sc, mt), key in (
@@ -459,11 +563,29 @@ def main():
         log(f"small render {label}: vs golden {fb_g:.4%} bad px, vs cpu {fb_c:.4%} bad px, "
             f"means {img_gpu.mean():.5f} / {goldens[key].mean():.5f} / {img_cpu.mean():.5f}")
 
-    # ---- 8. full-width renders through the normal entry point. A first
+    # the layered kernel's path at a small size: material-testball 32^2 x 4,
+    # box filter, card against CPU (independent walks: block means)
+    b_tb = bd.SceneBuilder().parse_file(str(ROOT / "scenes" / "material-testball.pbrt"))
+    b_tb.film["xresolution"] = b_tb.film["yresolution"] = 32
+    b_tb.filter = {"type": "box"}
+    s_tb32, m_tb32 = compile_scene(b_tb, 4, device=dev)
+    reset_counts()
+    img_gpu = rd.render(s_tb32, m_tb32).cpu().numpy()
+    counts = {k: v for k, v in read_counts().items() if v}
+    require(all(counts.get(k, 0) > 0 for k in layered.launches), "K7 not launched", counts)
+    img_cpu = rd.render(s_tb32, m_tb32, device="cpu").numpy()
+    px_bad = float((np.abs(img_gpu - img_cpu) > 5e-3 + 0.05 * np.abs(img_cpu)).mean())
+    fb_c = check_image(blocks(img_gpu, 16), blocks(img_cpu, 16),
+                       "material-testball vs cpu render (16x16 block means)")
+    log(f"material-testball 32^2 x 4 spp box: launches {counts}; vs cpu on 16x16 block means "
+        f"{fb_c:.4%} bad, per pixel {px_bad:.4%} bad (independent walks), means "
+        f"{img_gpu.mean():.5f} / {img_cpu.mean():.5f}")
+
+    # ---- 8. full-width renders through the normal entry point, each once,
+    # with the launch counts set to 0 just before it and read just after. The
     # render keeps a copy of the arguments of each kernel's first launch (the
-    # shapes and data the main path gives the kernels, for phase 9); the
-    # second is the measured run, with the launch counts set to 0 just before
-    # it and read just after.
+    # shapes and data the main path gives the kernels, for phase 9); its wall
+    # time includes those copies.
     patches = [
         (bvh, "traverse_cuda",
          lambda a, k: "bvh_any_hit" if (a[6] if len(a) > 6 else k.get("any_hit"))
@@ -474,13 +596,20 @@ def main():
         (ix, "dense_spheres_cuda", lambda a, k: "dense_spheres"),
         (ix, "dense_disks_cuda", lambda a, k: "dense_disks"),
         (rd, "recycle_cuda", lambda a, k: "wavefront_recycle"),
+        (layered, "layered_f_cuda", lambda a, k: "layered_f"),
+        (layered, "layered_sample_cuda", lambda a, k: "layered_sample"),
+        (layered, "layered_pdf_cuda", lambda a, k: "layered_pdf"),
     ]
     captured = {}
 
     def clone(x):
-        return x.clone() if torch.is_tensor(x) else x
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):  # LayeredParams
+            return type(x)(*map(clone, x))
+        return x
 
-    def render_captured(tag, sc, mt):
+    def render_captured(tag, sc, mt, **kw):
         """One render with each kernel's first-launch arguments kept."""
         origs = []
         for mod, name, key_fn in patches:
@@ -489,13 +618,15 @@ def main():
 
             def wrapped(*a, _orig=orig, _key=key_fn, **k):
                 # the film kernel adds into its first two arguments in place
-                captured.setdefault(tag, {}).setdefault(
-                    _key(a, k), (tuple(clone(x) for x in a), dict(k), _orig))
+                first_args = captured.setdefault(tag, {})
+                if _key(a, k) not in first_args:
+                    first_args[_key(a, k)] = (tuple(clone(x) for x in a),
+                                              {n: clone(v) for n, v in k.items()}, _orig)
                 return _orig(*a, **k)
 
             setattr(mod, name, wrapped)
         try:
-            return rd.render(sc, mt)
+            return rd.render(sc, mt, **kw)
         finally:
             for mod, name, orig in origs:
                 setattr(mod, name, orig)
@@ -504,12 +635,13 @@ def main():
     main_counts = {}
 
     def full_render(tag, sc, mt, must):
-        render_captured(tag, sc, mt)
+        """The measured render of a full-width frame, its kernels'
+        first-launch arguments kept."""
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.time()
-        img, stats = rd.render(sc, mt, return_stats=True)
+        img, stats = render_captured(tag, sc, mt, return_stats=True)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {k: v for k, v in read_counts().items() if v}
@@ -521,7 +653,8 @@ def main():
             main_counts.setdefault(k, counts[k])
         out_png = kernels.BUILD_DIR / f"{tag}.png"
         png.write_png(str(out_png), filmlib.to_srgb8(img))
-        log(f"full render {tag} 256^2 x 16 spp depth 5 mitchell: {wall:.3f} s wall, "
+        log(f"full render {tag} {mt.resolution[0]}^2 x {mt.spp} spp depth {mt.max_depth} "
+            f"{mt.filter_kind}: {wall:.3f} s wall (first-launch copies included), "
             f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
             f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts}; mean {img.mean():.5f}; "
             f"all finite; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -551,9 +684,8 @@ def main():
     b_c48 = bd.SceneBuilder().parse_file(str(ROOT / "scenes" / "caustic-glass.pbrt"))
     b_c48.film["xresolution"] = b_c48.film["yresolution"] = 48
     s_c48, m_c48 = compile_scene(b_c48, 4, device=dev, integrator_override="path")
-    render_captured("caustic", s_c48, m_c48)
     reset_counts()
-    img_gpu = rd.render(s_c48, m_c48).cpu().numpy()
+    img_gpu = render_captured("caustic", s_c48, m_c48).cpu().numpy()
     counts = {k: v for k, v in read_counts().items() if v}
     require(counts.get("dense_disks", 0) > 0, "disk kernel not launched", counts)
     main_counts.setdefault("dense_disks", counts["dense_disks"])
@@ -561,6 +693,20 @@ def main():
     fb_c = check_image(img_gpu, img_cpu, "caustic-glass vs cpu render")
     log(f"caustic-glass (path) 48^2 x 4 spp: launches {counts}; vs cpu {fb_c:.4%} bad px, "
         f"means {img_gpu.mean():.5f} / {img_cpu.mean():.5f}")
+
+    # the coated scenes at their files' settings, each rendered once
+    k7 = tuple(layered.launches)
+    t0 = time.time()
+    s_st, m_st = load_scene(str(ROOT / "scenes" / "staircase.pbrt"), device=dev)
+    log(f"staircase compile: {time.time() - t0:.2f} s ({m_st.n_tris} tris, PLY read, SAH BVH "
+        f"of {s_st.bvh_rows.shape[0]} rows, depth {m_st.bvh_depth})")
+    require(not m_st.open_scene and m_st.layered, "staircase: closed coated scene")
+    full_render("staircase", s_st, m_st, ("bvh_closest_hit", "bvh_any_hit",
+                                          "film_add_samples") + k7)
+    s_tb, m_tb = load_scene(str(ROOT / "scenes" / "material-testball.pbrt"), device=dev)
+    require(m_tb.sph_partial and m_tb.layered, "testball: partial sphere, coated")
+    full_render("testball", s_tb, m_tb, ("bvh_closest_hit", "bvh_any_hit", "dense_spheres",
+                                         "film_add_samples") + k7)
 
     # ---- 9. each kernel against its plain version and timed, on the
     # arguments of its first main-path launch
@@ -594,20 +740,22 @@ def main():
             f"tests, {n_edge} past the edge test, {n_range} past t range): kernel {ms:.3f} ms "
             f"(host-paced {call:.3f} ms), plain {ms_plain:.1f} ms, bound {b[0]:.4f} ms "
             f"({b[1]}); matches plain")
-        # the same kernel on terrain's first launch: timed only
-        (rows_t, nint_t, depth_t, o_t, d_t, t_t, *_), _, _ = first("terrain", name)
-        work = torch.zeros(4, dtype=torch.int64, device=dev)
-        bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t, t_t, any_hit, stats=work)
-        nn_t, nt_t, ne_t, nr_t = (int(x) for x in work.cpu())
-        ms_t, call_t = kernel_ms(lambda: bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t,
-                                                           t_t, any_hit), 20)
-        b_t = bound(rows_t.numel() * 4 + o_t.shape[0] * 36,
-                    nn_t * SLAB_VISIT_OPS + tri_test_ops(nt_t, ne_t, nr_t))
-        timing[name]["terrain_ms"] = ms_t
-        log(f"{name} on terrain's first launch ({o_t.shape[0]} lanes, {nn_t} node visits, "
-            f"{nt_t} tri tests, {ne_t} past the edge test, {nr_t} past t range; timed only): "
-            f"kernel {ms_t:.3f} ms (host-paced {call_t:.3f} ms), bound {b_t[0]:.4f} ms "
-            f"({b_t[1]})")
+        # the same kernel on terrain's and staircase's first launches: timed only
+        for tag in ("terrain", "staircase"):
+            (rows_t, nint_t, depth_t, o_t, d_t, t_t, *_), _, _ = first(tag, name)
+            work = torch.zeros(4, dtype=torch.int64, device=dev)
+            bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t, t_t, any_hit, stats=work)
+            nn_t, nt_t, ne_t, nr_t = (int(x) for x in work.cpu())
+            ms_t, call_t = kernel_ms(lambda: bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t,
+                                                               d_t, t_t, any_hit), 20)
+            b_t = bound(rows_t.numel() * 4 + o_t.shape[0] * 36,
+                        nn_t * SLAB_VISIT_OPS + tri_test_ops(nt_t, ne_t, nr_t))
+            timing[name][f"{tag}_ms"] = ms_t
+            timing[name][f"{tag}_bound_ms"] = b_t[0]
+            log(f"{name} on {tag}'s first launch ({o_t.shape[0]} lanes, {nn_t} node visits, "
+                f"{nt_t} tri tests, {ne_t} past the edge test, {nr_t} past t range; timed "
+                f"only): kernel {ms_t:.3f} ms (host-paced {call_t:.3f} ms), bound "
+                f"{b_t[0]:.4f} ms ({b_t[1]})")
 
     args = first("cornell_mesh", "film_add_samples")[0][2:]
     n_l = args[0].shape[0]
@@ -697,6 +845,47 @@ def main():
         f"ms), plain {ms_plain:.3f} ms, "
         f"torch.cumsum {ms_lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); bit-exact")
 
+    # K7 on its first launches in the coated frames: against the plain
+    # version on the coated lanes of both, timed on staircase's (2^20 lanes)
+    for name, out_b in (("layered_f", 16), ("layered_sample", 41), ("layered_pdf", 4)):
+        for tag in ("testball", "staircase"):
+            (p_, *args_, mask_), _, _ = first(tag, name)
+            res = compare_layered(name, p_, args_, mask_)
+            log(f"{name} vs plain on {tag}'s first launch ({args_[0].shape[0]} lanes, the "
+                f"coated ones compared): {agreement(res)}")
+        cuda_fn = getattr(layered, f"{name}_cuda")
+        plain_fn = getattr(layered, f"{name}_plain")
+        R_, n_live = args_[0].shape[0], int(mask_.sum())
+        steps = torch.zeros(1, dtype=torch.int64, device=dev)
+        cuda_fn(p_, *args_, mask_, steps)
+        n_steps = int(steps.item())
+        ms, call = kernel_ms(lambda: cuda_fn(p_, *args_, mask_))
+        ms_plain = events_ms(lambda: plain_fn(p_, *args_), 1)
+        # each input read once, by the lanes that need it, and each output
+        # written once, every lane; every lane reads the mask. A coated lane
+        # of layered_f or layered_sample reads both interfaces (2 x 80
+        # bytes), thickness, g and albedo (24) and wo, wi (or wo, uc, u2:
+        # 24). One of layered_pdf reads wo, wi (24); with both on one side,
+        # the coat (80) too; and, where its estimate reaches the base (the
+        # step counter), the base (80)
+        lane_ops, step_ops = LAYERED_OPS[name]
+        if name == "layered_pdf":
+            n_same = int((mask_ & (args_[0][:, 2] * args_[1][:, 2] > 0)).sum())
+            n_bytes = n_live * 24 + n_same * 80 + n_steps * 80
+            n_ops = n_same * lane_ops + n_steps * step_ops
+            work = f"{n_same} with wo, wi on one side, {n_steps} reached the base"
+        else:
+            n_bytes = n_live * 208
+            n_ops = n_live * lane_ops + n_steps * step_ops
+            work = f"{n_steps} walk steps"
+        b = bound(R_ + n_bytes + R_ * out_b, n_ops)
+        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None, max_abs_err=max(res["max_abs_err"],
+                                                             layered_err[name]))
+        log(f"{name} at the main path's launch (staircase, {R_} lanes, {n_live} coated, "
+            f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms), plain "
+            f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]})")
+
     ov = int(bvh.overflow_counter(dev).item()) - ov0
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
@@ -719,6 +908,12 @@ def main():
                         "pbrt_tpu/geometry/intersect.py:358"),
         "wavefront_recycle": ("cuda", "pbrt_tpu_torch/csrc/wavefront.cu",
                               "pbrt_tpu/integrators/render.py:228"),
+        "layered_f": ("cuda", "pbrt_tpu_torch/csrc/layered.cu",
+                      "pbrt_tpu/materials/layered.py:82"),
+        "layered_sample": ("cuda", "pbrt_tpu_torch/csrc/layered.cu",
+                           "pbrt_tpu/materials/layered.py:334"),
+        "layered_pdf": ("cuda", "pbrt_tpu_torch/csrc/layered.cu",
+                        "pbrt_tpu/materials/layered.py:475"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

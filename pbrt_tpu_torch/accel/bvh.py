@@ -13,7 +13,8 @@ Traversal (device): `closest_hit_tris` / `any_hit_tris` launch the CUDA
 kernel of csrc/bvh_traverse.cu on CUDA tensors (one thread per ray with a
 stack of (node, child-mask) entries, see that file). On CPU tensors they run
 the kernel's plain version, a chunked dense watertight sweep over the padded
-leaf soup, which computes the same (t, prim) function. The TPU's compaction
+leaf soup (each chunk against the rays that meet its bounds), which computes
+the same (t, prim) function. The TPU's compaction
 ladder, dense tail sweep, one-hot child select and PBRT_TPU_BVH_* tuning
 knobs are not ported: they existed because masked-dense execution on the TPU
 is gated by the worst lane.
@@ -348,10 +349,29 @@ def _sweep_block(R, device):
     return max(8, budget // max(R, 1))
 
 
+def _lanes_near_block(blk, o, d, t_hi):
+    """Indices of the rays whose segment [0, t_hi] meets the bounds of the
+    triangles blk (T, 9), grown by 1e-4 of the scene's scale: a slab test
+    that no ray hitting one of them can fail (its rounding is ~1e-7 of the
+    same scale). Padding triangles (all-zero, never hit) are left out."""
+    v = blk[(blk != 0).any(dim=1)].reshape(-1, 3)
+    if v.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int64, device=o.device)
+    lo, hi = v.amin(dim=0), v.amax(dim=0)
+    grow = 1e-4 * (float((hi - lo).max()) + float(torch.maximum(lo.abs(), hi.abs()).max()))
+    inv = 1.0 / d                            # +-inf on an axis the ray runs along
+    t0, t1 = (lo - grow - o) * inv, (hi + grow - o) * inv
+    # fmin/fmax skip the NaN of 0 * inf (the ray on a slab's plane)
+    t_near = torch.fmin(t0, t1).amax(dim=1)
+    t_far = torch.fmax(t0, t1).amin(dim=1)
+    return ((t_near <= t_far) & (t_far >= 0) & (t_near <= t_hi)).nonzero()[:, 0]
+
+
 def traverse_plain(rows, n_int, o, d, t_max, any_hit=False):
     """Plain version of the traversal kernel: a chunked dense watertight
     sweep over the padded leaf soup rows[n_int:, :72] seen as (P*8, 9)
     triangles (the function JAX's `dense_finish` computes, bvh.py:1010-1047).
+    Each chunk tests only the rays that meet its bounds, which skips no hit.
     -> (t (R,), prim (R,) int64 leaf-order index, -1 on a miss); for
     any_hit, prim is 0 where something blocks."""
     soup = rows[n_int:, : LEAF_K * 9].reshape(-1, 9)
@@ -361,17 +381,21 @@ def traverse_plain(rows, n_int, o, d, t_max, any_hit=False):
     TB = _sweep_block(o.shape[0], o.device)
     for s in range(0, soup.shape[0], TB):
         blk = soup[s: s + TB]
-        t, hit = ix.intersect_tri_block(o, shear, t_max if any_hit else t_best,
+        t_hi = t_max if any_hit else t_best
+        lanes = _lanes_near_block(blk, o, d, t_hi)
+        if lanes.numel() == 0:
+            continue
+        t, hit = ix.intersect_tri_block(o[lanes], tuple(x[lanes] for x in shear), t_hi[lanes],
                                         blk[:, 0:3], blk[:, 3:6], blk[:, 6:9])
         if any_hit:
-            prim = torch.where(hit.any(dim=1), 0, prim)
+            prim[lanes] = torch.where(hit.any(dim=1), 0, prim[lanes])
             continue
         t = torch.where(hit, t, torch.inf)
         best = torch.argmin(t, dim=1)
         tb = torch.gather(t, 1, best[:, None])[:, 0]
-        better = tb < t_best
-        t_best = torch.where(better, tb, t_best)
-        prim = torch.where(better, s + best, prim)
+        better = tb < t_best[lanes]
+        t_best[lanes] = torch.where(better, tb, t_best[lanes])
+        prim[lanes] = torch.where(better, s + best, prim[lanes])
     return t_best, prim
 
 

@@ -17,6 +17,8 @@ Semantics:
   - an escaped ray collects the uniform infinite lights, MIS-weighted
     against their sampling density (open scenes only)
   - emission at depth 0 or after a specular bounce is unweighted
+  - coated materials (layered BxDF, K7) carry the stochastic pdf estimate,
+    not their sample's proportional pdf, into the next MIS weight
 Media and image infinite lights are later slices; the scene builder
 refuses them.
 """
@@ -138,11 +140,12 @@ def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
     L = torch.where(hit_light[..., None], L + beta * w_area[..., None] * Le, L)
 
     shade = active & (hit.mat >= 0)
-    bsdf, wl2 = materials.make_bsdf(scene, hit.mat, hit.ns, wl)
+    bsdf, wl2 = materials.make_bsdf(scene, hit.mat, hit.ns, wl, meta.layered)
     wl = sampled.Wavelengths(lam=wl.lam, pdf=torch.where(shade[..., None], wl2.pdf, wl.pdf))
 
-    # --- NEE (skipped for specular-only lobes); its draws are masked like
-    # the reference's, which consumes them only when sample_Ld runs
+    # --- NEE (skipped for specular-only lobes; coated kinds always run it);
+    # its draws are masked like the reference's, which consumes them only
+    # when sample_Ld runs
     kind = bsdf.params.kind
     spec_only = (((kind == bxdfs.K_CONDUCTOR) | (kind == bxdfs.K_DIELECTRIC))
                  & sc.effectively_smooth(bsdf.params.ax, bsdf.params.ay))
@@ -159,6 +162,9 @@ def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
     r, uc = samplers.get_1d(r, shade, skind, spp)
     r, u2 = samplers.get_2d(r, shade, skind, spp)
     bs = materials.bsdf_sample(bsdf, hit.wo, uc, u2)
+    # coated lanes: the MIS pdf is re-estimated, not the proportional walk
+    # pdf (megakernel_path.cu:162; see materials.mis_direction_pdf)
+    pdf_mis = materials.mis_direction_pdf(bsdf, hit.wo, bs)
     cos_term = vm.absdot(bs.wi, hit.ns)
     beta_new = beta * bs.f * (cos_term / torch.clamp(bs.pdf, min=1e-20))[..., None]
 
@@ -177,9 +183,7 @@ def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
         specular=torch.where(cont, bxdfs.is_specular(bs.flags), state.specular),
         depth=state.depth + torch.where(shade, 1.0, 0.0),
         rr_next=rr_next,
-        # the next bounce's MIS pdf: JAX's mis_direction_pdf returns bs.pdf
-        # for every non-coated kind, the only kinds of this slice
-        prev_pdf=torch.where(cont, bs.pdf, state.prev_pdf),
+        prev_pdf=torch.where(cont, pdf_mis, state.prev_pdf),
         prev_p=torch.where(shade[..., None], hit.p, state.prev_p),
         prev_ns=torch.where(shade[..., None], hit.ns, state.prev_ns),
         n_closest=n_closest,

@@ -18,6 +18,8 @@ K_DIFFUSE = 0
 K_CONDUCTOR = 1
 K_DIELECTRIC = 2
 K_DIFF_TRANS = 3
+K_COATED_DIFFUSE = 4    # layered: dielectric over diffuse (materials/layered.py)
+K_COATED_CONDUCTOR = 5  # layered: dielectric over conductor
 
 F_REFLECTION = 1
 F_TRANSMISSION = 2
@@ -115,8 +117,9 @@ def f(p: BxdfParams, wo, wi):
     return torch.where(degen[..., None], 0.0, out)
 
 
-def pdf(p: BxdfParams, wo, wi):
-    """(R,) solid-angle pdf of sample() for non-specular lobes."""
+def pdf(p: BxdfParams, wo, wi, allow_refl=True, allow_trans=True):
+    """(R,) solid-angle pdf of sample() for non-specular lobes. allow_*
+    restrict the dielectric lobe choice (BxDFReflTransFlags)."""
     cos_i = wi[..., 2]
     cos_o = wo[..., 2]
     same = _same_hemisphere(wo, wi)
@@ -147,8 +150,8 @@ def pdf(p: BxdfParams, wo, wi):
     wm_dn = torch.where((wm_dn[..., 2] < 0.0)[..., None], -wm_dn, wm_dn)
     backfacing = (vm.dot(wm_dn, wi) * cos_i < 0.0) | (vm.dot(wm_dn, wo) * cos_o < 0.0)
     Fd, _, _ = sc.fr_dielectric(vm.dot(wo, wm_dn), p.eta)
-    R = Fd
-    Tt = 1.0 - Fd
+    R = Fd if allow_refl else torch.zeros_like(Fd)
+    Tt = (1.0 - Fd) if allow_trans else torch.zeros_like(Fd)
     tot_d = torch.clamp(R + Tt, min=1e-12)
     pdf_d_r = sc.tr_pdf(wo, wm_dn, ax_s, ay_s) / torch.clamp(
         4.0 * vm.absdot(wo, wm_dn), min=1e-12) * (R / tot_d)
@@ -159,12 +162,19 @@ def pdf(p: BxdfParams, wo, wi):
     pdf_diel = torch.where(smooth | backfacing | (wm_d_len2 < 1e-18), 0.0, pdf_diel)
 
     out = _by_kind(p.kind, pdf_diff, pdf_cond, pdf_diel, pdf_dt)
+    if not allow_refl:
+        out = torch.where(p.kind == K_DIELECTRIC, out, 0.0)
     return torch.where((cos_o == 0.0) | (cos_i == 0.0), 0.0, out)
 
 
-def sample(p: BxdfParams, wo, uc, u2):
-    """Sample an outgoing direction (radiance transport). uc: (R,) lobe
-    choice; u2: (R,2). Specular events have pdf 1 and F_SPECULAR."""
+def sample(p: BxdfParams, wo, uc, u2, allow_refl=True, allow_trans=True,
+           mode_radiance=True):
+    """Sample an outgoing direction. uc: (R,) lobe choice; u2: (R,2).
+    Specular events have pdf 1 and F_SPECULAR. allow_refl/allow_trans
+    restrict the dielectric's lobe choice (the layered walk forces entry and
+    exit transmission); reflection-only kinds are invalid without
+    allow_refl. mode_radiance=False is importance transport: no 1/eta^2 on
+    refraction."""
     cos_o = wo[..., 2]
     smooth, ax_s, ay_s = _safe_alphas(p)
     flip_z = torch.tensor([1.0, 1.0, -1.0], device=wo.device)
@@ -208,15 +218,17 @@ def sample(p: BxdfParams, wo, uc, u2):
 
     # ---- dielectric, smooth
     Fsd, _, _ = sc.fr_dielectric(cos_o, p.eta)
-    Rs = Fsd
-    Ts = 1.0 - Fsd
+    Rs = Fsd if allow_refl else torch.zeros_like(Fsd)
+    Ts = (1.0 - Fsd) if allow_trans else torch.zeros_like(Fsd)
     choose_refl_s = uc < Rs / torch.clamp(Rs + Ts, min=1e-12)
     f_d_refl = Fsd / torch.clamp(vm.abs_cos_theta(wi_spec), min=1e-9)
     pdf_d_refl = Rs / torch.clamp(Rs + Ts, min=1e-12)
     n_local = torch.zeros_like(wo)
     n_local[..., 2] = 1.0
     wt, refr_valid, etap_s = sc.refract(wo, n_local, p.eta)
-    f_d_trans = (1.0 - Fsd) / torch.clamp(vm.abs_cos_theta(wt), min=1e-9) / sqr(etap_s)
+    f_d_trans = (1.0 - Fsd) / torch.clamp(vm.abs_cos_theta(wt), min=1e-9)
+    if mode_radiance:
+        f_d_trans = f_d_trans / sqr(etap_s)
     pdf_d_trans = Ts / torch.clamp(Rs + Ts, min=1e-12)
     wi_d_smooth = torch.where(choose_refl_s[..., None], wi_spec, wt)
     f_d_smooth = torch.where(choose_refl_s, f_d_refl, f_d_trans)
@@ -228,8 +240,8 @@ def sample(p: BxdfParams, wo, uc, u2):
 
     # ---- dielectric, rough: sample wm, Fresnel split, reflect/refract
     Frd, _, _ = sc.fr_dielectric(vm.dot(wo, wm), p.eta)
-    Rr = Frd
-    Tr = 1.0 - Frd
+    Rr = Frd if allow_refl else torch.zeros_like(Frd)
+    Tr = (1.0 - Frd) if allow_trans else torch.zeros_like(Frd)
     choose_refl_r = uc < Rr / torch.clamp(Rr + Tr, min=1e-12)
     wi_r_refl = sc.reflect(wo, wm)
     same_rr = _same_hemisphere(wo, wi_r_refl)
@@ -246,7 +258,8 @@ def sample(p: BxdfParams, wo, uc, u2):
     f_r_trans = D * (1.0 - Frd) * G_t * torch.abs(
         vm.dot(wt_r, wm) * vm.dot(wo, wm)
         / torch.clamp(torch.abs(cos_i_t * cos_o) * denom_t, min=1e-12))
-    f_r_trans = f_r_trans / sqr(etap_r)
+    if mode_radiance:
+        f_r_trans = f_r_trans / sqr(etap_r)
     dwm_dwi = vm.absdot(wt_r, wm) / torch.clamp(denom_t, min=1e-12)
     pdf_r_trans = sc.tr_pdf(wo, wm, ax_s, ay_s) * dwm_dwi * (
         Tr / torch.clamp(Rr + Tr, min=1e-12))
@@ -274,6 +287,8 @@ def sample(p: BxdfParams, wo, uc, u2):
                      flags_diel, torch.full_like(kind, F_DIFFUSE | F_REFLECTION | F_TRANSMISSION))
     nonzero = cos_o != 0.0
     valid = _by_kind(kind, nonzero, valid_cond, valid_diel, nonzero)
+    if not allow_refl:  # reflection-only kinds cannot produce transmission
+        valid = valid & (kind == K_DIELECTRIC)
     eta_event = torch.where(kind == K_DIELECTRIC, eta_diel, 1.0)
     valid = valid & (pdf_out > 0.0)
     return BSDFSample(f=f_out, wi=wi, pdf=pdf_out, flags=flags, eta=eta_event, valid=valid)
@@ -281,3 +296,7 @@ def sample(p: BxdfParams, wo, uc, u2):
 
 def is_specular(flags):
     return (flags & F_SPECULAR) != 0
+
+
+def is_transmission(flags):
+    return (flags & F_TRANSMISSION) != 0

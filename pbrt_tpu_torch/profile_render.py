@@ -1,14 +1,19 @@
 """Where the time of a full-width render goes, on the GPU.
 
-    python -m pbrt_tpu_torch.profile_render [--scene cornell-mesh|cornell|terrain]
+    python -m pbrt_tpu_torch.profile_render
+        [--scene cornell-mesh|cornell|terrain|staircase|testball]
         [--out build/pbrt_tpu_torch/profile_render.json]
 
-Renders the scene at 256^2, 16 spp, max depth 5, mitchell filter (the
-full-width frames of chip_smoke.py: cornell-mesh levels 5, the plain
-cornell box, terrain with 130,050 triangles) through the normal `render()`
-entry: one warm-up render, REPS timed renders (host clock around a
-synchronized render; the honest rays/s of each, and their median and
-quartiles), then one render under torch.profiler. For an open scene
+Renders the scene through the normal `render()` entry: cornell-mesh levels
+5, the plain cornell box and terrain (130,050 triangles) at 256^2, 16 spp,
+max depth 5, mitchell filter (the full-width frames of chip_smoke.py);
+staircase (scenes/staircase.pbrt: 256^2, 256 spp stratified, max depth 8)
+and testball (scenes/material-testball.pbrt: 256^2, 64 spp stratified, max
+depth 6) at their files' own settings. One warm-up render, REPS timed
+renders (11; 3 for staircase, whose frame is ~25x a cornell-mesh frame's
+work, and 5 for testball), host clock around a synchronized render (the
+honest rays/s of each, and their median and quartiles), then one render
+under torch.profiler. For an open scene
 (terrain) the timed renders go round robin over the schedules: the
 wavefront loop with pools of 2^17, 2^18 and 2^19 lanes and the batched
 loop, all on the same frame, so the pool choice (render.POOL_LANES) and
@@ -30,10 +35,12 @@ import numpy as np
 import torch
 
 LEVELS, RES, SPP, REPS = 5, 256, 16, 11
+SCENE_REPS = {"staircase": 3, "testball": 5}
+SCENE_FILES = {"staircase": "staircase.pbrt", "testball": "material-testball.pbrt"}
 POOLS = (1 << 17, 1 << 18, 1 << 19)
 # hand-written kernels by a substring of their device symbol
 KERNELS = {"bvh": "traverse_kernel", "dense": "dense_", "recycle": "recycle_",
-           "film": "film_add_kernel"}
+           "film": "film_add_kernel", "layered": "layered_"}
 
 
 def _device_us(e):
@@ -54,13 +61,18 @@ def _scene(name):
         return ts.cornell_mesh(res=RES, spp=SPP, levels=LEVELS), f"cornell-mesh levels {LEVELS}"
     if name == "cornell":
         return ts.cornell(res=RES, spp=SPP), "cornell (12 tris, 2 spheres, dense)"
+    if name in SCENE_FILES:
+        from pbrt_tpu_torch.scene.compile import load_scene
+
+        path = Path(__file__).resolve().parent.parent / "scenes" / SCENE_FILES[name]
+        return load_scene(str(path)), f"{name} ({SCENE_FILES[name]}, its own settings)"
     return ts.terrain(res=RES, spp=SPP), "terrain (130,050 tris, PLY, sky + sun)"
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("cornell-mesh", "cornell", "terrain"),
-                    default="cornell-mesh")
+    ap.add_argument("--scene", choices=("cornell-mesh", "cornell", "terrain", "staircase",
+                                        "testball"), default="cornell-mesh")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 
@@ -100,7 +112,7 @@ def main(argv=None):
         render(sched)
     torch.cuda.synchronize()
     runs = {sched: [] for sched in schedules}
-    for _ in range(REPS):
+    for _ in range(SCENE_REPS.get(args.scene, REPS)):
         for sched in schedules:
             t0 = time.perf_counter()
             st = render(sched)
@@ -135,19 +147,21 @@ def main(argv=None):
     kern_n = {k: sum(r[2] for r in rows if sub in r[0]) for k, sub in KERNELS.items()}
     other_us = total_us - sum(kern_us.values())
     out = dict(
-        card=card, scene=label, res=RES, spp=SPP, default_schedule=default,
+        card=card, scene=label, res=meta.resolution[0], spp=meta.spp,
+        max_depth=meta.max_depth, default_schedule=default,
         runs=runs, schedules=summary, mrays_per_s_quartiles=summary[default][
             "mrays_per_s_quartiles"], median_wall_s=median_wall,
         profiled_wall_s=prof_wall, device_busy_s=total_us / 1e6,
         device_busy_share=total_us / 1e6 / median_wall,
         kernels_s={k: v / 1e6 for k, v in kern_us.items()}, kernel_launches=kern_n,
-        other_kernels_s=other_us / 1e6,
+        other_kernels_s=other_us / 1e6, kernel_launches_total=sum(r[2] for r in rows),
         top=[dict(name=k[:120], device_s=us / 1e6, count=c) for k, us, c in rows[:25]],
     )
     print(f"profiled render ({default}) {prof_wall:.4f} s wall; device busy "
           f"{total_us / 1e6:.4f} s, {out['device_busy_share']:.1%} of the median frame; "
           + ", ".join(f"{k} kernels {v / 1e6:.5f} s x{kern_n[k]}" for k, v in kern_us.items())
-          + f", other kernels {other_us / 1e6:.4f} s", flush=True)
+          + f", other kernels {other_us / 1e6:.4f} s; {out['kernel_launches_total']} kernel "
+          f"launches in all", flush=True)
     for r in out["top"][:15]:
         print(f"  {r['device_s'] * 1e3:9.3f} ms  x{r['count']:<6d} {r['name']}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -46,6 +46,25 @@ def sample_uniform_sphere(u):
 UNIFORM_SPHERE_PDF = 1.0 / (4.0 * PI)
 
 
+def henyey_greenstein(cos_theta, g):
+    """Henyey-Greenstein phase function value (reference sampling.h)."""
+    denom = 1.0 + g * g + 2.0 * g * cos_theta
+    return UNIFORM_SPHERE_PDF * (1.0 - g * g) / (denom * safe_sqrt(denom))
+
+
+def sample_henyey_greenstein(wo, g, u):
+    """Sample the HG phase function about wo (reference sampling.cu:7-40)
+    -> (wi, pdf)."""
+    g = torch.where(torch.abs(g) < 1e-3, torch.where(g < 0, -1e-3, 1e-3), g)
+    sqr_term = (1.0 - g * g) / (1.0 + g - 2.0 * g * u[..., 0])
+    cos_theta = -(1.0 + g * g - sqr_term * sqr_term) / (2.0 * g)
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = 2.0 * PI * u[..., 1]
+    x, y, z = vm.frame_from_z(wo)
+    wi = vm.from_local(x, y, z, vm.spherical_direction(sin_theta, cos_theta, phi))
+    return wi, henyey_greenstein(cos_theta, g)
+
+
 def sample_uniform_triangle(u):
     """Barycentric (b0, b1, b2) uniform on a triangle (sqrt-free form)."""
     u0, u1 = u[..., 0], u[..., 1]

@@ -3,8 +3,8 @@
 Counterpart of pbrt_tpu/scene/builder.py (reference scene/scene_builder.cu),
 trimmed to what the port renders so far: transforms, the perspective camera,
 film, independent/stratified samplers, box and mitchell pixel filters,
-attribute blocks, diffuse/conductor/dielectric/diffusetransmission
-materials, diffuse area lights, distant/uniform-infinite/spot light
+attribute blocks, diffuse/conductor/dielectric/diffusetransmission and
+coateddiffuse/coatedconductor materials, diffuse area lights, distant/uniform-infinite/spot light
 sources, triangle meshes (trianglemesh, loopsubdiv, plymesh) and full or
 partial spheres and disks. Every other directive, type or parameter that
 would change the image raises NotImplementedError naming the slice of the
@@ -30,6 +30,8 @@ MAT_DIFFUSE = 0
 MAT_CONDUCTOR = 1
 MAT_DIELECTRIC = 2
 MAT_DIFFUSE_TRANSMISSION = 3
+MAT_COATED_DIFFUSE = 4
+MAT_COATED_CONDUCTOR = 5
 
 LIGHT_AREA = 0
 LIGHT_DISTANT = 1
@@ -81,6 +83,20 @@ class MaterialSpec:
     vroughness: float = 0.0
     remap_roughness: bool = True
     transmittance_rgb: Optional[np.ndarray] = None
+    # coated (layered) materials; max_depth and n_samples are parsed but the
+    # walk runs 10 steps of 1 sample, as the JAX package's make_bsdf does
+    thickness: float = 0.01
+    interface_eta: float = 1.5
+    g: float = 0.0
+    albedo_rgb: Optional[np.ndarray] = None
+    max_depth: int = 10
+    n_samples: int = 1
+    # a coated conductor's base: resolved, but (as in the JAX package) not
+    # carried into the material table
+    conductor_eta_spec: int = -1
+    conductor_k_spec: int = -1
+    crough_u: float = 0.0
+    crough_v: float = 0.0
 
 
 @dataclass
@@ -257,8 +273,54 @@ class SceneBuilder:
                 transmittance_rgb=np.asarray(
                     pd.get_rgb("transmittance", np.array([0.25, 0.25, 0.25]))),
             )
-        elif mtype in ("coateddiffuse", "coatedconductor"):
-            raise _later(f"material {mtype!r}", "layered BxDF (staircase, testball)")
+        elif mtype == "coateddiffuse":
+            _no_textures(pd, ["reflectance", "roughness", "uroughness", "vroughness",
+                              "thickness", "g", "albedo"])
+            rough = pd.get_float("roughness", 0.0)
+            spec = MaterialSpec(
+                type=MAT_COATED_DIFFUSE,
+                reflectance_rgb=np.asarray(pd.get_rgb("reflectance", np.array([0.5, 0.5, 0.5]))),
+                uroughness=pd.get_float("uroughness", rough),
+                vroughness=pd.get_float("vroughness", rough),
+                remap_roughness=pd.get_bool("remaproughness", True),
+                thickness=pd.get_float("thickness", 0.01),
+                interface_eta=pd.get_float("eta", 1.5),
+                g=pd.get_float("g", 0.0),
+                albedo_rgb=np.asarray(pd.get_rgb("albedo", np.array([0.0, 0.0, 0.0]))),
+                max_depth=pd.get_integer("maxdepth", 10),
+                n_samples=pd.get_integer("nsamples", 1),
+            )
+        elif mtype == "coatedconductor":
+            _no_textures(pd, ["interface.roughness", "interface.uroughness",
+                              "interface.vroughness", "conductor.roughness",
+                              "conductor.uroughness", "conductor.vroughness", "reflectance",
+                              "thickness", "g", "albedo"])
+            irough = pd.get_float("interface.roughness", 0.0)
+            crough = pd.get_float("conductor.roughness", 0.0)
+            ceta = self.resolve_spectrum(pd, "conductor.eta")
+            ck = self.resolve_spectrum(pd, "conductor.k")
+            if ceta is None:
+                ceta = self.add_spectrum_row(named_spectra()["metal-Cu-eta"],
+                                             key=("named", "metal-Cu-eta"))
+            if ck is None:
+                ck = self.add_spectrum_row(named_spectra()["metal-Cu-k"],
+                                           key=("named", "metal-Cu-k"))
+            spec = MaterialSpec(
+                type=MAT_COATED_CONDUCTOR,
+                uroughness=pd.get_float("interface.uroughness", irough),
+                vroughness=pd.get_float("interface.vroughness", irough),
+                remap_roughness=pd.get_bool("remaproughness", True),
+                thickness=pd.get_float("thickness", 0.01),
+                interface_eta=pd.get_float("interface.eta", 1.5),
+                g=pd.get_float("g", 0.0),
+                albedo_rgb=np.asarray(pd.get_rgb("albedo", np.array([0.0, 0.0, 0.0]))),
+                max_depth=pd.get_integer("maxdepth", 10),
+                n_samples=pd.get_integer("nsamples", 1),
+                conductor_eta_spec=ceta,
+                conductor_k_spec=ck,
+                crough_u=pd.get_float("conductor.uroughness", crough),
+                crough_v=pd.get_float("conductor.vroughness", crough),
+            )
         elif mtype == "mix":
             raise _later("material 'mix'", "textures")
         else:

@@ -8,8 +8,9 @@ scene order for the dense kernel, with empty BVH tables), sphere and disk
 tables, material/light tables, power-proportional light alias table and
 filter tables, so every array comes out equal to the JAX package's
 `SceneArrays` field of the same name. `Scene` holds only the fields the path
-integrator reads; the JAX package's zero-byte shape markers become plain
-ints and bools of `SceneMeta`.
+integrator reads; the JAX package's zero-byte shape markers (BVH depth,
+partial quadrics, coated materials) become plain ints and bools of
+`SceneMeta`.
 """
 from dataclasses import dataclass, fields
 from functools import cached_property
@@ -80,6 +81,13 @@ class Scene:
     mat_eta_spec: torch.Tensor   # (M,) i32 row into spec_table or -1
     mat_k_spec: torch.Tensor
     mat_refl_mode: torch.Tensor  # (M,) bool: conductor from reflectance
+    # coated (layered) materials; SceneMeta.layered says whether any is used
+    mat_thickness: torch.Tensor  # (M,)
+    mat_ieta: torch.Tensor       # (M,) interface (coat) eta
+    mat_lay_g: torch.Tensor      # (M,) medium HG asymmetry
+    mat_albedo_c: torch.Tensor   # (M, 3) medium albedo sigmoid coefficients
+    mat_crough_u: torch.Tensor   # (M,) conductor (bottom) roughness
+    mat_crough_v: torch.Tensor
     spec_table: torch.Tensor     # (NS, 471) f32
     # lights: area (triangle, sphere, disk), distant, uniform infinite, spot
     lt_type: torch.Tensor        # (L,) i32
@@ -154,6 +162,8 @@ class SceneMeta:
     bvh_depth: int                # deepest internal chain (traversal stack bound)
     sph_partial: bool             # some sphere is clipped (zmin/zmax/phimax)
     dsk_partial: bool             # some disk is clipped (phimax)
+    layered: bool                 # some material is coated: make_bsdf builds
+                                  # the layered parameters (K7)
 
 
 def scene_from_arrays(arrays, meta, device):
@@ -162,7 +172,8 @@ def scene_from_arrays(arrays, meta, device):
     `filt` may be a FilterTables or a dict). `meta` is any object with the
     SceneMeta attributes; bvh_nint/bvh_depth and sph_partial/dsk_partial
     come from the JAX zero-byte markers `arrays['bvh_nint']`, `['bvh_depth']`,
-    `['sph_partial_marker']`, `['dsk_partial_marker']` when present."""
+    `['sph_partial_marker']`, `['dsk_partial_marker']` and layered from
+    `['lay_marker']` when present."""
     device = torch.device(device)
     kw = {}
     for f in fields(Scene):
@@ -181,7 +192,7 @@ def scene_from_arrays(arrays, meta, device):
         if a is not None and np.ndim(a) == 2:
             m[marker] = int(np.shape(a)[0])
     for name, marker in (("sph_partial", "sph_partial_marker"),
-                         ("dsk_partial", "dsk_partial_marker")):
+                         ("dsk_partial", "dsk_partial_marker"), ("layered", "lay_marker")):
         if get(marker) is not None:
             m[name] = np.shape(get(marker))[0] > 0
     missing = [k for k, v in m.items() if v is None]
@@ -329,6 +340,10 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
     mat_trans_c = np.stack([coeffs_of(m.transmittance_rgb) for m in mats])
     mat_refl_mode = np.array(
         [m.type == bd.MAT_CONDUCTOR and m.reflectance_rgb is not None for m in mats])
+    # a coated conductor's conductor_eta_spec / conductor_k_spec are not
+    # carried here: its base conductor reads spectrum row 0 as both eta and k,
+    # as in the JAX package (ROADMAP.md R6)
+    mat_albedo_c = np.stack([coeffs_of(m.albedo_rgb) for m in mats])
 
     NS = max(1, len(b.spectra_rows))
     spec_table = np.zeros((NS, cie.LAMBDA_RANGE), f32)
@@ -414,6 +429,12 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         mat_eta_spec=np.array([m.eta_spec for m in mats], np.int32),
         mat_k_spec=np.array([m.k_spec for m in mats], np.int32),
         mat_refl_mode=mat_refl_mode,
+        mat_thickness=np.array([m.thickness for m in mats], f32),
+        mat_ieta=np.array([m.interface_eta for m in mats], f32),
+        mat_lay_g=np.array([m.g for m in mats], f32),
+        mat_albedo_c=mat_albedo_c.astype(f32),
+        mat_crough_u=np.array([m.crough_u for m in mats], f32),
+        mat_crough_v=np.array([m.crough_v for m in mats], f32),
         spec_table=spec_table,
         lt_type=np.array([l.type for l in lights], np.int32),
         lt_emission=(np.stack([l.emission_dense for l in lights]).astype(f32)
@@ -461,6 +482,7 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         bvh_depth=bvh_depth,
         sph_partial=any(sp["partial"] for sp in b.spheres),
         dsk_partial=any(dk["partial"] for dk in b.disks),
+        layered=any(m.type in (bd.MAT_COATED_DIFFUSE, bd.MAT_COATED_CONDUCTOR) for m in mats),
     )
     return arrays, meta
 

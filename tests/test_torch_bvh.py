@@ -108,10 +108,14 @@ def test_any_hit_matches_jax(scenes, rays):
     assert 0 < ot.sum() < R and not ot.numpy()[::13].any()
 
 
-@pytest.mark.parametrize("T", [70, 333])
+@pytest.mark.parametrize("T", [70, 333, 20000])
 def test_plain_sweep_matches_dense(T):
-    """The plain traversal against JAX's all-pairs intersect_tris_dense on a
-    random soup (rows built by the port's own host BVH build)."""
+    """The plain traversal, closest and any hit, against JAX's all-pairs
+    intersect_tris_dense and occluded_tris_dense on a random soup (rows built
+    by the port's own host BVH build). At 20,000
+    triangles the sweep runs several chunks, each against the rays that meet
+    its bounds; a sixteenth of the rays run along an axis (zero direction
+    components), the slab test's infinite-slope case."""
     g = np.random.default_rng(T)
     base = g.uniform(-10, 10, (T, 3)).astype(np.float32)
     p0, p1, p2 = base, base + g.normal(0, 0.7, (T, 3)).astype(np.float32), \
@@ -121,6 +125,8 @@ def test_plain_sweep_matches_dense(T):
     o = g.uniform(-15, 15, (512, 3)).astype(np.float32)
     cent = ((p0 + p1 + p2) / 3.0)[g.integers(0, T, 512)]
     d = cent + g.normal(0, 0.3, (512, 3)).astype(np.float32) - o
+    for axis in range(3):
+        d[axis * 11: axis * 11 + 11, [k for k in range(3) if k != axis]] = 0.0
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     t_max = np.full(512, INFINITY, np.float32)
     hd = jix.intersect_tris_dense(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max),
@@ -132,6 +138,17 @@ def test_plain_sweep_matches_dense(T):
     np.testing.assert_array_equal(prim.numpy(), pd_)
     hit = pd_ >= 0
     np.testing.assert_allclose(t.numpy()[hit], np.asarray(hd.t)[hit], rtol=1e-6)
+    # any hit: shadow segments ending short of, or past, the closest hit
+    u = g.random(512).astype(np.float32)
+    t_sh = np.where(hit, np.where(hit, t.numpy(), 0.0) * 2.0 * u, 1e3).astype(np.float32)
+    t_sh[::13] = 0.0
+    occ_d = jix.occluded_tris_dense(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_sh),
+                                    jix.TriangleSoA(*(jnp.asarray(p) for p in tp)))
+    _, occ = tbvh.traverse_plain(torch.from_numpy(build.rows), build.n_int,
+                                 torch.from_numpy(o), torch.from_numpy(d),
+                                 torch.from_numpy(t_sh), any_hit=True)
+    np.testing.assert_array_equal(occ.numpy() >= 0, np.asarray(occ_d))
+    assert 0 < (occ.numpy() >= 0).sum() < hit.sum()
 
 
 def test_watertight_lanes_match_jax():

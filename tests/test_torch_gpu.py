@@ -234,3 +234,80 @@ def test_dense_and_wavefront_renders_on_card(cuda):
     assert st_w == st_b
     err = np.abs(img_w.cpu().numpy() - img_b)
     assert float((err > 5e-3 + 0.05 * np.abs(img_b)).mean()) < 0.005
+
+
+def _layered_lanes(n, seed, device):
+    """K7 lanes of tests/layered_cases.py on the card, every 5th masked out."""
+    from layered_cases import BXDF_FIELDS, lanes
+    from pbrt_tpu_torch.materials import bxdfs, layered
+
+    a = {k: torch.as_tensor(v, device=device) for k, v in lanes(n, seed).items()}
+
+    def bx(tag):
+        return bxdfs.BxdfParams(*(a[f"{tag}_{f}"] for f in BXDF_FIELDS))
+    p = layered.LayeredParams(bx("top"), bx("bottom"), a["thickness"], a["g"], a["albedo"],
+                              10, 1)
+    mask = torch.arange(n, device=device) % 5 != 0
+    return p, a, mask
+
+
+@pytest.mark.parametrize("name", ["layered_f", "layered_sample", "layered_pdf"])
+def test_layered_kernel_matches_plain(cuda, name):
+    """K7 against its plain version on the masked lanes, statistically (its
+    transcendentals round apart from torch's, and the walk branches on
+    them): valid and flags equal on >= 99.9 % of lanes, each output within
+    rtol 1e-4, atol 1e-6 on >= 99.5 %, lane means within 1e-3 relative;
+    masked-out lanes get zeros; one launch counted."""
+    from layered_cases import CLOSE_FRAC, EQUAL_FRAC, MEAN_RTOL, frac_close
+    from pbrt_tpu_torch.materials import layered
+
+    n = 1 << 15
+    p, a, mask = _layered_lanes(n, 3, cuda)
+    args = (a["wo"], a["uc"], a["u2"]) if name == "layered_sample" else (a["wo"], a["wi"])
+    n0 = layered.launches[name]
+    steps = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out_k = getattr(layered, f"{name}_cuda")(p, *args, mask, steps)
+    torch.cuda.synchronize()
+    assert layered.launches[name] == n0 + 1
+    assert int(steps.item()) > (0 if name == "layered_pdf" else int(mask.sum()))
+    out_p = getattr(layered, f"{name}_plain")(p, *args)
+    m = mask
+    if name == "layered_sample":
+        for f in ("valid", "flags"):
+            assert float((getattr(out_k, f)[m] == getattr(out_p, f)[m]).float().mean()) >= EQUAL_FRAC
+        for f in ("f", "wi", "pdf"):
+            assert frac_close(getattr(out_k, f)[m], getattr(out_p, f)[m]) >= CLOSE_FRAC, f
+        assert not bool(out_k.valid[~m].any()) and bool((out_k.pdf[~m] == 0).all())
+
+        def est(s):
+            return torch.where(s.valid[m][:, None], s.f[m] * s.wi[m][:, 2:3].abs()
+                               / s.pdf[m].clamp(min=1e-12)[:, None], 0.0).double().mean()
+        k_mean, p_mean = est(out_k), est(out_p)
+    else:
+        assert frac_close(out_k[m], out_p[m]) >= CLOSE_FRAC
+        assert bool((out_k[~m] == 0).all())
+        k_mean, p_mean = out_k[m].double().mean(), out_p[m].double().mean()
+    assert abs(float(k_mean - p_mean)) <= MEAN_RTOL * abs(float(p_mean))
+
+
+def test_layered_kernel_in_coated_render(cuda):
+    """material-testball at 16^2 x 4 on the card launches K7's three entry
+    points; the walks seed on float bits, which differ between card and CPU
+    by an ulp, so the image is held to the CPU render's mean (1 %)."""
+    from pathlib import Path
+
+    from pbrt_tpu_torch.materials import layered
+    from pbrt_tpu_torch.scene import builder as bd
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    b = bd.SceneBuilder().parse_file(str(Path(__file__).parent.parent / "scenes"
+                                         / "material-testball.pbrt"))
+    b.film["xresolution"] = b.film["yresolution"] = 16
+    b.filter = {"type": "box"}
+    scene, meta = compile_scene(b, 4, device=cuda)
+    n0 = dict(layered.launches)
+    img_gpu = render(scene, meta).cpu().numpy()
+    assert all(layered.launches[k] > n0[k] for k in n0)
+    img_cpu = render(scene, meta, device="cpu").numpy()
+    assert np.isfinite(img_gpu).all()
+    assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()

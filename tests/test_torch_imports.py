@@ -1,6 +1,7 @@
 """The port stands alone: no file of pbrt_tpu_torch/, not chip_smoke.py and
-not the test helper it imports (tests/quadric_edges.py) imports jax or anything of the JAX package pbrt_tpu (AST scan), and the
-port ships its own copies of the data tables."""
+not the test helpers it imports (tests/quadric_edges.py,
+tests/layered_cases.py) imports jax or anything of the JAX package pbrt_tpu
+(AST scan), and the port ships its own copies of the data tables."""
 import ast
 import pathlib
 
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "pbrt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                          ROOT / "tests" / "quadric_edges.py"]
+                                                          ROOT / "tests" / "quadric_edges.py",
+                                                          ROOT / "tests" / "layered_cases.py"]
 
 
 def _imports(path):

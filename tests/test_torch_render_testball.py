@@ -1,0 +1,22 @@
+"""The coated-conductor slice end to end on the CPU: material-testball
+(a loop-subdivided ball in a coatedconductor over metal-Au, a partial-sphere
+pedestal, two area lights of very different power) through the port's
+normal entry points at 16^2 x 4 spp, max depth 3, box filter, against a live
+pbrt_tpu render of the same scene, under tests/test_parity.py's image
+criterion on 8x8-pixel block means and with honest ray counts within 1 %
+(tests/scene_render_check.py says why not per pixel and not equal). The
+CPU runs the layered BxDF's plain version (materials/layered.py)."""
+import pathlib
+
+import numpy as np
+import torch
+
+from scene_render_check import check_against_live_jax
+
+torch.set_num_threads(2)
+SCENE = pathlib.Path(__file__).parent.parent / "scenes" / "material-testball.pbrt"
+
+
+def test_testball_matches_live_jax_render():
+    meta = check_against_live_jax(SCENE, res=16, spp=4, max_depth=3)
+    assert meta.layered and meta.sph_partial and meta.n_tris >= 64

@@ -3,9 +3,11 @@ must equal pbrt_tpu.scene.compile field by field (BVH rows, hit records,
 integer columns and the light alias table exactly; float columns to 1e-6
 relative) on cornell_mesh_pbrt(levels=3) (BVH, two filters), the plain
 cornell box (dense, spheres), caustic-glass (a disk light, named glass
-spectrum), a scene of partial spheres and disks with a spot light, and
-terrain n=16 (PLY, distant and infinite lights); scene_from_arrays must
-round-trip, and what the port does not render yet must raise."""
+spectrum), a scene of partial spheres and disks with a spot light, terrain
+n=16 (PLY, distant and infinite lights), material-testball (coated
+conductor, loopsubdiv, partial sphere) and staircase (63k-triangle PLY,
+coated diffuse); scene_from_arrays must round-trip, and what the port does
+not render yet must raise."""
 import dataclasses
 import pathlib
 
@@ -33,9 +35,12 @@ CLOSE = ["mat_refl_c", "mat_trans_c", "mat_urough", "mat_vrough", "mat_eta",
          "scene_radius", "ray_offset_scale",
          "sph_center", "sph_radius", "sph_rot", "sph_zmin", "sph_zmax", "sph_phimax",
          "dsk_center", "dsk_normal", "dsk_radius", "dsk_inner", "dsk_xaxis", "dsk_yaxis",
-         "dsk_phimax", "lt_direction", "lt_position", "lt_cos_start", "lt_cos_end"]
+         "dsk_phimax", "lt_direction", "lt_position", "lt_cos_start", "lt_cos_end",
+         "mat_albedo_c", "mat_thickness", "mat_ieta", "mat_lay_g", "mat_crough_u", "mat_crough_v"]
 SCENES = ["cornell-mesh mitchell", "cornell-mesh box", "cornell", "caustic-glass",
-          "partial quadrics", "terrain"]
+          "partial quadrics", "terrain", "testball", "staircase"]
+SCENE_FILES = {"testball": "material-testball.pbrt", "staircase": "staircase.pbrt"}
+SCENES_DIR = pathlib.Path(__file__).parent.parent / "scenes"
 PARTIAL_PBRT = """
 LookAt 0 0 -5  0 0 0  0 1 0
 Camera "perspective" "float fov" [40]
@@ -83,11 +88,17 @@ def _scene_text(name, tmp_dir):
 
 @pytest.fixture(scope="module", params=SCENES)
 def both(request, tmp_path_factory):
-    text = _scene_text(request.param, tmp_path_factory.mktemp("ply"))
-    jb = _jax_builder(text, 40)
-    tb = tbd.SceneBuilder()
-    tb.parse_tokens(tlx.tokenize(text))
-    tb.film["xresolution"] = tb.film["yresolution"] = 40
+    if request.param in SCENE_FILES:   # read from the file: its PLY is beside it
+        path = str(SCENES_DIR / SCENE_FILES[request.param])
+        jb, tb = jbd.SceneBuilder().parse_file(path), tbd.SceneBuilder().parse_file(path)
+        for b in (jb, tb):
+            b.film["xresolution"] = b.film["yresolution"] = 40
+    else:
+        text = _scene_text(request.param, tmp_path_factory.mktemp("ply"))
+        jb = _jax_builder(text, 40)
+        tb = tbd.SceneBuilder()
+        tb.parse_tokens(tlx.tokenize(text))
+        tb.film["xresolution"] = tb.film["yresolution"] = 40
     if request.param.endswith("box"):
         jb.filter = {"type": "box"}
         tb.filter = {"type": "box"}
@@ -120,6 +131,7 @@ def test_filter_tables_and_meta(both):
     assert tm.bvh_depth == ja.bvh_depth.shape[0]
     assert tm.sph_partial == (ja.sph_partial_marker.shape[0] > 0)
     assert tm.dsk_partial == (ja.dsk_partial_marker.shape[0] > 0)
+    assert tm.layered == (ja.lay_marker.shape[0] > 0)
     for k in ("resolution", "spp", "sampler", "integrator", "max_depth", "n_tris",
               "n_spheres", "n_disks", "n_lights", "filter_kind", "film_imaging_ratio",
               "open_scene"):
@@ -141,7 +153,8 @@ def test_scene_from_arrays_round_trip(both):
               if v is not None and k != "tex"}
     js, jmeta = scene_from_arrays(j_dict, jm, "cpu")
     assert (jmeta.bvh_nint, jmeta.bvh_depth) == (tm.bvh_nint, tm.bvh_depth)
-    assert (jmeta.sph_partial, jmeta.dsk_partial) == (tm.sph_partial, tm.dsk_partial)
+    assert (jmeta.sph_partial, jmeta.dsk_partial, jmeta.layered) == (
+        tm.sph_partial, tm.dsk_partial, tm.layered)
     assert torch.equal(js.bvh_rows, scene.bvh_rows) and torch.equal(js.tri_rec, scene.tri_rec)
 
 
@@ -159,7 +172,7 @@ UNPORTED = {
     "image infinite light": 'WorldBegin\nLightSource "infinite" "string filename" "sky.exr"',
     "texture": 'WorldBegin\nTexture "t" "spectrum" "checkerboard"',
     "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
-    "coated": 'WorldBegin\nMaterial "coateddiffuse"',
+    "mix material": 'WorldBegin\nMaterial "mix"',
     "interface": 'WorldBegin\nMaterial "interface"',
     "bdpt": 'Integrator "bdpt"',
     "gaussian filter": 'PixelFilter "gaussian"',

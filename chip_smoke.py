@@ -11,7 +11,8 @@ result line:
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
   4. the film kernel against its plain version, 131,072 lanes with NaN and
-     zero-pdf lanes into a 256^2 film;
+     zero-pdf lanes into a 256^2 film; the splat kernel (K5s) likewise,
+     three strategies' splats over 43,690 lanes' wavelengths;
   5. the dense kernels (K3 triangles, K4 spheres and disks) against their
      plain versions on 131,072 camera and interior rays of the plain cornell
      box and of caustic-glass, and on synthetic partial spheres and disks
@@ -34,7 +35,11 @@ result line:
      disk kernel), and material-testball at 32^2 x 4 spp (box filter, card
      against CPU; the walk seeds on float bits, which differ between the two
      by an ulp, so the renders are independent estimates and are compared on
-     16x16-pixel block means and the image mean);
+     16x16-pixel block means and the image mean); then BDPT: cornell 24^2 x
+     8 (box filter) against tests/goldens.npz's cornell_bdpt_24_spp8 and
+     the CPU render, caustic-glass (its file's BDPT, max depth 7) at 32^2 x
+     4 and cornell-mesh levels 3 at 48^2 x 4 (the BVH route) against the CPU
+     render;
   8. the full-width renders through the normal entry point, 256^2, 16 spp,
      max depth 5, mitchell filter: cornell-mesh levels 5 (BVH), the plain
      cornell box (dense), terrain (130,050 PLY triangles, sky and sun: the
@@ -44,8 +49,13 @@ result line:
      coateddiffuse; 256^2 x 256 spp stratified, max depth 8; its compile
      seconds, rays/s and peak memory) and material-testball
      (coatedconductor, partial-sphere pedestal; 256^2 x 64 spp, max depth
-     6). Each is driven with the launch counts set to 0 just before it and
-     read just after; every kernel of its path must have launched;
+     6); then BDPT at the bench's settings: cornell-bdpt (128^2 x 8, max
+     depth 5, one wave) and caustic-glass at its file's (256^2 x 64, max
+     depth 7, four waves of 2^20 lanes). Each is driven with the launch
+     counts set to 0 just before it and read just after; every kernel of its
+     path must have launched (a BDPT frame: exactly K12's two entry points,
+     one K5, one K5s and one occluded dispatch a wave, and 2 max_depth + 1
+     closest-hit dispatches);
   9. each kernel against its plain version again, and timed beside its
      plain version, its bound and (film: index_add_; recycle: torch.cumsum)
      one PyTorch call: the kernel and the library call from CUDA-graph
@@ -57,7 +67,12 @@ result line:
      only: the plain sweep over 63k-130k triangles is not repeated); K7's
      three entry points on their first launches in the staircase and
      testball frames, against the plain version on the coated lanes, timed
-     on staircase's;
+     on staircase's; K12 on the first waves of the two BDPT frames and on a
+     24^2 x 2 wave of tests/bdpt_cases.py's four-light scene (distant, spot,
+     uniform infinite and three kinds of area light) against its plain
+     version (bdpt_cases: every strategy within rtol 1e-4, atol 1e-6 on >=
+     99.99 % of its live lanes, equal ray counts), both entry points timed
+     on caustic-glass's; K5s on caustic-glass's first launch;
  10. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
@@ -91,6 +106,13 @@ SPHERE_HIT_OPS = 30
 DISK_TEST_OPS = 36
 # float ops of one film lane, counted from film/film_kernel.py
 FILM_LANE_OPS = 4 * 10 + 3 * 2 + 4
+# float ops of K12 per lane and strategy, counted from csrc/bdpt.cu and
+# csrc/bxdf.cuh and rounded down: bdpt_connect_rays forms a strategy's
+# connection (one or two directions and BSDF values in local frames, the
+# geometry term, the offset shadow ray: ~100); bdpt_connect_weight forms it
+# again and the MIS weight (four junction pdfs, each a direction, a BSDF,
+# camera or light pdf and an area conversion, ~60, and the ratio walks)
+K12_OPS = {"bdpt_connect_rays": 100, "bdpt_connect_weight": 400}
 # float ops of K7, counted from csrc/layered.cu and csrc/bxdf.cuh for the
 # main path's lanes (a rough dielectric coat over a diffuse or rough
 # conductor base, no medium), rounded down: a rough dielectric sample ~150,
@@ -218,11 +240,12 @@ def main():
     from layered_cases import (ATOL, BXDF_FIELDS, CASES as LAYERED_CASES, CLOSE_FRAC,
                                EQUAL_FRAC, MEAN_RTOL, RTOL, blocks, frac_close,
                                lanes as layered_lanes)
+    import bdpt_cases
     from pbrt_tpu_torch import kernels
     from pbrt_tpu_torch.accel import bvh
     from pbrt_tpu_torch.film import film as filmlib, film_kernel, png
     from pbrt_tpu_torch.geometry import intersect as ix
-    from pbrt_tpu_torch.integrators import render as rd
+    from pbrt_tpu_torch.integrators import bdpt, render as rd
     from pbrt_tpu_torch.materials import bxdfs, layered
     from pbrt_tpu_torch.sampling import samplers
     from pbrt_tpu_torch.scene import builder as bd, testscenes as ts
@@ -232,7 +255,8 @@ def main():
 
     dev = torch.device("cuda")
     t_start = time.time()
-    counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches)
+    counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches,
+                bdpt.launches)
 
     def reset_counts():
         for c in counters:
@@ -265,6 +289,9 @@ def main():
         probe.rgb_sum, probe.weight_sum, torch.zeros(1, dtype=torch.int64, device=dev),
         torch.ones((1, 4), device=dev), torch.full((1, 4), 550.0, device=dev),
         torch.ones((1, 4), device=dev), torch.ones(1, device=dev))
+    film_kernel.add_splats_triton(
+        probe.splat, torch.zeros(1, dtype=torch.int64, device=dev), torch.ones((1, 4), device=dev),
+        torch.full((1, 4), 550.0, device=dev), torch.ones((1, 4), device=dev))
     torch.cuda.synchronize()
     log(f"build total (nvcc + triton jit): {time.time() - t0:.1f} s")
 
@@ -382,6 +409,22 @@ def main():
     film_err = compare_film((pix, L, lam, pdf, w))
     log(f"film_add_samples vs plain on {n_lanes} lanes with NaN/zero-pdf lanes: max abs err "
         f"{film_err:.2e} (rtol 1e-5: atomic order)")
+
+    def compare_splats(args):
+        """K5s vs its plain version into fresh 256^2 films -> max abs err."""
+        fk, fp = filmlib.new_film((256, 256), dev), filmlib.new_film((256, 256), dev)
+        film_kernel.add_splats_triton(fk.splat, *args)
+        film_kernel.add_splats_plain(fp.splat, *args)
+        scale = float(fp.splat.abs().max())
+        err = float((fk.splat - fp.splat).abs().max())
+        require(torch.allclose(fk.splat, fp.splat, rtol=1e-5, atol=1e-6 * scale), "K5s", err)
+        return err
+
+    # three strategies' splats over one wave's lanes: wavelength row i % n_lam
+    n_lam = n_lanes // 3
+    splat_err = compare_splats((pix[:3 * n_lam], L[:3 * n_lam], lam[:n_lam], pdf[:n_lam]))
+    log(f"film_add_splats vs plain on {3 * n_lam} splats over {n_lam} lanes' wavelengths with "
+        f"NaN/zero-pdf lanes: max abs err {splat_err:.2e} (rtol 1e-5: atomic order)")
 
     # ---- 5. dense kernels (K3, K4) vs plain
     def compare_dense_tris(o, d, t_max, tris, any_hit=False):
@@ -581,6 +624,36 @@ def main():
         f"{fb_c:.4%} bad, per pixel {px_bad:.4%} bad (independent walks), means "
         f"{img_gpu.mean():.5f} / {img_cpu.mean():.5f}")
 
+    # BDPT at small sizes: cornell against the golden and the CPU, caustic-
+    # glass (its own BDPT settings, disk light) and cornell-mesh (the BVH
+    # route) against the CPU
+    b_cg = bd.SceneBuilder().parse_file(str(ROOT / "scenes" / "caustic-glass.pbrt"))
+    b_cg.film["xresolution"] = b_cg.film["yresolution"] = 32
+    for label, (sc, mt), key in (
+            ("cornell bdpt 24^2 x 8", ts.cornell(res=24, spp=8, device=dev, filter_kind="box",
+                                                 integrator="bdpt"), "cornell_bdpt_24_spp8"),
+            ("caustic-glass bdpt 32^2 x 4", compile_scene(b_cg, 4, device=dev), None),
+            ("cornell-mesh l3 bdpt 48^2 x 4", compile_scene(
+                ts.cornell_mesh_builder(levels=3, res=48, filter_kind="box"), 4, device=dev,
+                integrator_override="bdpt"), None)):
+        require(mt.integrator == "bdpt", label)
+        reset_counts()
+        img_gpu, st_gpu = rd.render(sc, mt, return_stats=True)
+        img_gpu = img_gpu.cpu().numpy()
+        counts = {k: v for k, v in read_counts().items() if v}
+        require(all(counts.get(k, 0) > 0 for k in ("bdpt_connect_rays", "bdpt_connect_weight",
+                                                   "film_add_splats")), label, counts)
+        img_cpu, st_cpu = rd.render(sc, mt, device="cpu", return_stats=True)
+        img_cpu = img_cpu.numpy()
+        fb_c = check_image(img_gpu, img_cpu, f"{label} vs cpu render")
+        msg = f"small render {label}: vs cpu {fb_c:.4%} bad px"
+        if key:
+            msg += f", vs golden {check_image(img_gpu, goldens[key], f'{label} vs golden'):.4%}"
+        n_g, n_c = sum(st_gpu.values()), sum(st_cpu.values())
+        require(abs(n_g - n_c) <= 1e-3 * n_c, label, "ray counts", st_gpu, st_cpu)
+        log(f"{msg}; rays card {n_g} cpu {n_c}; means {img_gpu.mean():.5f} / "
+            f"{img_cpu.mean():.5f}; launches {counts}")
+
     # ---- 8. full-width renders through the normal entry point, each once,
     # with the launch counts set to 0 just before it and read just after. The
     # render keeps a copy of the arguments of each kernel's first launch (the
@@ -599,6 +672,10 @@ def main():
         (layered, "layered_f_cuda", lambda a, k: "layered_f"),
         (layered, "layered_sample_cuda", lambda a, k: "layered_sample"),
         (layered, "layered_pdf_cuda", lambda a, k: "layered_pdf"),
+        (film_kernel, "add_splats_triton", lambda a, k: "film_add_splats"),
+        (bdpt, "connect_rays_cuda", lambda a, k: "bdpt_connect_rays"),
+        (bdpt, "connect_weight_cuda", lambda a, k: "bdpt_connect_weight"),
+        (bdpt, "connect_all_cuda", lambda a, k: "bdpt_wave"),
     ]
     captured = {}
 
@@ -632,7 +709,7 @@ def main():
                 setattr(mod, name, orig)
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    main_counts = {}
+    main_counts, main_counts_frame = {}, {}
 
     def full_render(tag, sc, mt, must):
         """The measured render of a full-width frame, its kernels'
@@ -645,9 +722,12 @@ def main():
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {k: v for k, v in read_counts().items() if v}
+        main_counts_frame.clear()
+        main_counts_frame.update(counts)
         img = img.cpu().numpy()
         n_rays = stats["closest"] + stats["shadow"]
-        require(img.shape == (256, 256, 3) and np.isfinite(img).all(), tag, "non-finite pixels")
+        require(img.shape == (mt.resolution[1], mt.resolution[0], 3) and np.isfinite(img).all(),
+                tag, "non-finite pixels")
         require(all(counts.get(k, 0) > 0 for k in must), tag, "kernel not launched", counts)
         for k in must:  # a kernel on several paths: counted on its first
             main_counts.setdefault(k, counts[k])
@@ -707,6 +787,42 @@ def main():
     require(m_tb.sph_partial and m_tb.layered, "testball: partial sphere, coated")
     full_render("testball", s_tb, m_tb, ("bvh_closest_hit", "bvh_any_hit", "dense_spheres",
                                          "film_add_samples") + k7)
+
+    # BDPT at the bench's settings: every kernel of a wave launched exactly
+    # as often as the estimator needs
+    def bdpt_launches(mt):
+        """{kernel: launches} of a BDPT frame: per wave K12's two entry
+        points, one K5, one K5s, one occluded dispatch for every strategy's
+        shadow ray (K3a and K4), and max_depth + 1 camera and max_depth light
+        closest-hit dispatches (K3, K4)."""
+        waves = sum(1 for _ in rd.wave_lanes(mt.resolution[0] * mt.resolution[1], mt.spp,
+                                             "cpu"))
+        walk = 2 * mt.max_depth + 1
+        out = {"bdpt_connect_rays": waves, "bdpt_connect_weight": waves,
+               "film_add_samples": waves, "film_add_splats": waves,
+               "dense_tri_closest": waves * walk, "dense_tri_any": waves,
+               "dense_spheres": waves * (walk + 1)}
+        if mt.n_disks:
+            out["dense_disks"] = waves * (walk + 1)
+        return out, waves
+
+    s_cb, m_cb = ts.cornell(res=128, spp=8, device=dev, integrator="bdpt")
+    b_cgf = bd.SceneBuilder().parse_file(str(ROOT / "scenes" / "caustic-glass.pbrt"))
+    s_cgf, m_cgf = compile_scene(b_cgf, device=dev)
+    require((m_cb.max_depth, m_cgf.integrator, m_cgf.max_depth, m_cgf.spp, m_cgf.resolution)
+            == (5, "bdpt", 7, 64, (256, 256)), "BDPT frame settings")
+    bdpt_got = {}
+    for tag, sc, mt in (("cornell_bdpt", s_cb, m_cb), ("caustic_bdpt", s_cgf, m_cgf)):
+        want, waves = bdpt_launches(mt)
+        full_render(tag, sc, mt, tuple(want))
+        got = {k: main_counts_frame[k] for k in want}
+        require(got == want, tag, "launches", got, "expected", want)
+        bdpt_got[tag] = got
+        log(f"{tag}: {waves} wave(s) of {captured[tag]['bdpt_wave'][0][4].shape[0]} lanes, "
+            f"launches as expected {want}")
+    # the kernels line reports BDPT's kernels as caustic-glass's frame counted them
+    for k in ("bdpt_connect_rays", "bdpt_connect_weight", "film_add_splats"):
+        main_counts[k] = bdpt_got["caustic_bdpt"][k]
 
     # ---- 9. each kernel against its plain version and timed, on the
     # arguments of its first main-path launch
@@ -886,6 +1002,73 @@ def main():
             f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms), plain "
             f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]})")
 
+    # K12 on the first waves of the BDPT frames against its plain version;
+    # both entry points timed on caustic-glass's (graph replays of 5 calls:
+    # each call allocates its outputs, ~1 GB of shadow rays at 2^20 lanes)
+    # and on a 24^2 x 2 wave of the four-light scene (lens; distant, spot and
+    # uniform infinite lights, escaped camera rays, the delta-light rule)
+    s_fl, m_fl = compile_scene(bdpt_cases.four_lights_builder(24), 2, device=dev,
+                               integrator_override="bdpt")
+    pix_fl = torch.arange(24 * 24, device=dev).repeat(2)
+    smp_fl = torch.arange(2, device=dev).repeat_interleave(24 * 24)
+    waves_b = {"four_lights": (s_fl, m_fl) + bdpt_cases.wave_inputs(s_fl, m_fl, pix_fl, smp_fl)}
+    for tag in ("cornell_bdpt", "caustic_bdpt"):
+        waves_b[tag] = first(tag, "bdpt_wave")[0]
+    k12_err = 0.0
+    for tag, wave in waves_b.items():
+        res = bdpt_cases.compare(*wave)
+        bdpt_cases.require_agreement(res)
+        k12_err = max(k12_err, res["max_abs_err"])
+        log(f"K12 vs plain on {tag}'s {'first ' * (tag != 'four_lights')}wave ({res['lanes']} "
+            f"lanes x {res['strategies']} strategies, {res['strategies_live']} live on some "
+            f"lane, {res['live']} live contributions): worst strategy {res['worst']} agrees on "
+            f"{res['frac']:.6%} of its live lanes within rtol {bdpt_cases.RTOL:g}, atol "
+            f"{bdpt_cases.ATOL:g} (>= {bdpt_cases.CLOSE_FRAC:.2%} required of every strategy), "
+            f"L {res['L_frac']:.6%}; rays {res['rays_kernel']} = plain {res['rays_plain']}; "
+            f"splat pixels differing {res['splat_pix_differ']}; max abs err over all "
+            f"contributions {res['max_abs_err']:.3e}")
+    scene_b, meta_b, light_vs, cam_vs, lam_b, table_b, samples_b = waves_b["caustic_bdpt"]
+    a_rays = first("caustic_bdpt", "bdpt_connect_rays")[0]
+    a_wt = first("caustic_bdpt", "bdpt_connect_weight")[0]
+    verts, ends, st_b = a_rays[1], a_rays[2], a_rays[3]
+    R_, n_slots = verts.shape[2], verts.shape[0]
+    in_b = verts.numel() * 4 + ends.numel() * 4 + st_b.tab.numel() * 4
+    plain_rays = lambda: bdpt.connect_rays_plain(scene_b, light_vs, cam_vs, table_b, samples_b)
+    conns_b = plain_rays()[0]
+    plain_wt = lambda: bdpt.connect_weight_plain(scene_b, meta_b, light_vs, cam_vs, lam_b,
+                                                 table_b, samples_b, conns_b, a_wt[7])
+    n_con = st_b.n_ray
+    for name, fn, plain, out_b, extra_in, n_s in (
+            ("bdpt_connect_rays", lambda: bdpt.connect_rays_cuda(*a_rays), plain_rays,
+             n_con * R_ * 28 + 8, 0, n_con),
+            ("bdpt_connect_weight", lambda: bdpt.connect_weight_cuda(*a_wt), plain_wt,
+             R_ * 16 + st_b.n_t1 * R_ * 24, R_ * 16 + n_con * R_ + 471 * 4 * (
+                 1 + s_cgf.lt_type.shape[0]), len(table_b))):
+        ms = graph_ms(fn, calls=5)
+        ms_plain = events_ms(plain, 1)
+        b = bound(in_b + extra_in + out_b, R_ * n_s * K12_OPS[name])
+        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None, max_abs_err=k12_err)
+        log(f"{name} at caustic-glass's first wave ({R_} lanes, {n_slots} vertex slots, "
+            f"{n_s} strategies): kernel {ms:.3f} ms, plain {ms_plain:.1f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}; {(in_b + extra_in + out_b) / 1e9:.3f} GB)")
+
+    # K5s on caustic-glass's first launch
+    sp_args = first("caustic_bdpt", "film_add_splats")[0][1:]
+    n_s5, n_lam5 = sp_args[0].shape[0], sp_args[2].shape[0]
+    err = compare_splats(sp_args)
+    fk = filmlib.new_film((256, 256), dev)
+    ms = graph_ms(lambda: film_kernel.add_splats_triton(fk.splat, *sp_args))
+    ms_plain = events_ms(lambda: film_kernel.add_splats_plain(fk.splat, *sp_args), 20)
+    rgb_s = torch.rand((n_s5, 3), device=dev)
+    ms_lib = graph_ms(lambda: fk.splat.index_add_(0, sp_args[0], rgb_s))
+    b = bound(n_s5 * (8 + 16) + n_lam5 * 32 + 3 * 471 * 4 + n_px * 3 * 4, n_s5 * FILM_LANE_OPS)
+    timing["film_add_splats"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                     library_ms=ms_lib, max_abs_err=max(err, splat_err))
+    log(f"film_add_splats at caustic-glass's first launch ({n_s5} splats over {n_lam5} lanes): "
+        f"kernel {ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}); max abs err {err:.2e}")
+
     ov = int(bvh.overflow_counter(dev).item()) - ov0
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
@@ -914,6 +1097,12 @@ def main():
                            "pbrt_tpu/materials/layered.py:334"),
         "layered_pdf": ("cuda", "pbrt_tpu_torch/csrc/layered.cu",
                         "pbrt_tpu/materials/layered.py:475"),
+        "film_add_splats": ("triton", "pbrt_tpu_torch/film/film_kernel.py",
+                            "pbrt_tpu/film/film.py:70"),
+        "bdpt_connect_rays": ("cuda", "pbrt_tpu_torch/csrc/bdpt.cu",
+                              "pbrt_tpu/integrators/bdpt.py:731"),
+        "bdpt_connect_weight": ("cuda", "pbrt_tpu_torch/csrc/bdpt.cu",
+                                "pbrt_tpu/integrators/bdpt.py:608"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

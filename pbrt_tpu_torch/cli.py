@@ -4,7 +4,8 @@
 
 Renders on the GPU by default and raises without one; `--device cpu` runs
 the plain PyTorch versions of the kernels on the CPU (counterpart of
-pbrt_tpu/cli.py, path-family integrators only)."""
+pbrt_tpu/cli.py, for the path-family integrators and BDPT; the file's
+integrator is used, and MLT raises until its slice)."""
 import argparse
 import sys
 import time

@@ -1,10 +1,11 @@
 """RGB film: spectral samples -> sensor RGB accumulation -> image
 (counterpart of pbrt_tpu/film/film.py; reference film/rgb_film.cu).
 
-The film is two accumulators, rgb_sum (H*W, 3) and weight_sum (H*W,),
-updated in place (the JAX package returns a new film per add). On CUDA
-tensors `add_samples` launches the fused Triton kernel of film_kernel.py;
-on CPU tensors it runs the kernel's plain version.
+The film is three accumulators, rgb_sum (H*W, 3), weight_sum (H*W,) and
+BDPT's splat (H*W, 3), updated in place (the JAX package returns a new film
+per add). On CUDA tensors `add_samples` and `add_splats` launch the fused
+Triton kernels of film_kernel.py (K5, K5s); on CPU tensors they run the
+kernels' plain versions.
 """
 from typing import NamedTuple
 
@@ -18,12 +19,14 @@ from pbrt_tpu_torch.spectral import colorspace
 class Film(NamedTuple):
     rgb_sum: torch.Tensor     # (H*W, 3) sensor rgb
     weight_sum: torch.Tensor  # (H*W,)
+    splat: torch.Tensor       # (H*W, 3) BDPT's light-tracing splats
 
 
 def new_film(resolution, device):
     w, h = resolution
     return Film(rgb_sum=torch.zeros((w * h, 3), dtype=torch.float32, device=device),
-                weight_sum=torch.zeros((w * h,), dtype=torch.float32, device=device))
+                weight_sum=torch.zeros((w * h,), dtype=torch.float32, device=device),
+                splat=torch.zeros((w * h, 3), dtype=torch.float32, device=device))
 
 
 def add_samples(film: Film, pixel_idx, L, lam, pdf, weight):
@@ -38,15 +41,28 @@ def add_samples(film: Film, pixel_idx, L, lam, pdf, weight):
     return film
 
 
-def develop(film: Film, resolution, out_matrix=None, imaging_ratio=1.0):
+def add_splats(film: Film, pixel_idx, L, lam, pdf):
+    """Unnormalized add of (R,) splats (weight 1) into film.splat, in place;
+    lam and pdf may have fewer rows than L, which then reads row i % rows
+    (BDPT's t = 1 strategies of one wave share their lanes' wavelengths)."""
+    fn = film_kernel.add_splats_triton if film.splat.is_cuda else film_kernel.add_splats_plain
+    fn(film.splat, pixel_idx, L, lam, pdf)
+    return film
+
+
+def develop(film: Film, resolution, out_matrix=None, imaging_ratio=1.0, splat_scale=0.0):
     """-> (H, W, 3) linear output RGB (reference rgb_film.cu:108-122).
     |weight_sum| is clamped to at least 0.25, keeping its sign, as in the
     JAX package (film.py:92-95): mitchell's signed weights can leave a
-    pixel's weight sum near 0 at low spp."""
+    pixel's weight sum near 0 at low spp. The splats, times splat_scale,
+    are added after the division."""
     w, h = resolution
     ws = film.weight_sum[:, None]
     mag = torch.clamp(torch.abs(ws), min=0.25)
-    rgb = film.rgb_sum / torch.where(ws < 0, -mag, mag) * imaging_ratio
+    rgb = film.rgb_sum / torch.where(ws < 0, -mag, mag)
+    if splat_scale:
+        rgb = rgb + splat_scale * film.splat
+    rgb = rgb * imaging_ratio
     m = colorspace.srgb().rgb_from_xyz if out_matrix is None else out_matrix
     return colorspace.apply_matrix(m, rgb).reshape(h, w, 3)
 

@@ -1,19 +1,28 @@
 """Render orchestration: (pixel, sample) lanes -> film -> image
 (counterpart of pbrt_tpu/integrators/render.py `render` for the path
-family: its batched `_spp_loop` and its `_wavefront_loop`).
+family, its batched `_spp_loop` and its `_wavefront_loop`, and for BDPT).
 
 Every lane's sampler stream keys on its absolute (pixel, sample) ids, so
 the estimator does not depend on how lanes are scheduled; only the order of
-the film sums does. Two schedules, chosen as the JAX package chooses:
-  - closed scenes: the batched loop. The lanes of one wave are `k`
-    replicates of the whole pixel grid, sample ids s0 .. s0+k-1, traced for
-    max_depth bounces (LANES_PER_WAVE = 2^20 lanes: a 256x256 x 16 spp frame
-    in one wave).
+the film sums does. Waves of up to LANES_PER_WAVE = 2^20 lanes (`wave_lanes`:
+`k` replicates of the whole pixel grid, sample ids s0 .. s0+k-1, or pixel
+tiles of one sample where the grid is wider than a wave) serve the batched
+loop and BDPT. Two schedules for the path family, chosen as the JAX package
+chooses:
+  - closed scenes: the batched loop. Each wave is traced for max_depth
+    bounces (a 256x256 x 16 spp frame in one wave).
   - open scenes (infinite lights: many paths escape early): the wavefront
     loop. A persistent pool of POOL_LANES lanes takes one bounce step per
     iteration; a lane whose path ended adds its radiance to the film and is
     recycled with the next work item (K8, csrc/wavefront.cu), so the pool
     stays full instead of decaying with the live fraction.
+BDPT (`render_bdpt`) takes each wave through the two subpaths, the
+strategies (K12 on the card), the film add of L (K5) and of the t = 1
+splats (K5s); develop adds the splats scaled by 1 / spp. A BDPT lane holds
+(max_depth + 2) + (max_depth + 1) vertex records of ~50 floats, twice (the
+walk's and K12's packed copy), and its strategies' shadow rays and splats:
+caustic-glass (max depth 7, four waves) peaks at 11.25 GiB a frame on an
+NVIDIA H100 80GB HBM3 (profile_render, PERF.md).
 """
 import ctypes
 import time
@@ -23,12 +32,13 @@ import torch
 from pbrt_tpu_torch.cameras import perspective
 from pbrt_tpu_torch.film import film as filmlib, png
 from pbrt_tpu_torch.filters import filters
-from pbrt_tpu_torch.integrators import path as path_integrator
+from pbrt_tpu_torch.integrators import bdpt, path as path_integrator
 from pbrt_tpu_torch.sampling import samplers
 from pbrt_tpu_torch.scene.builder import check_integrator
 from pbrt_tpu_torch.spectral import sampled
 from pbrt_tpu_torch.utils.device import resolve_device
 
+# lanes a wave: a 128^2 x 8 BDPT frame in one wave, a 256^2 x 64 one in four
 LANES_PER_WAVE = 1 << 20
 # lanes of the wavefront pool; below the 2^20 work items of a 256^2 x 16 spp
 # frame, so lanes are recycled there. Chosen on the H100 by the terrain frame
@@ -40,10 +50,10 @@ POOL_LANES = 1 << 19
 launches = {"wavefront_recycle": 0}
 
 
-def camera_lanes(scene, meta, pixel_ids, sample_ids, use_lens):
-    """Camera samples of (pixel, sample) lanes, in the draw order of
-    reference evaluate_pixel_sample: pixel (2d), lambda (1d), lens (2d, only
-    with a lens). -> (rays, wavelengths, sampler, filter weight)."""
+def film_samples(scene, meta, pixel_ids, sample_ids):
+    """Film positions of (pixel, sample) lanes, in the draw order of
+    reference evaluate_pixel_sample: pixel (2d), then lambda (1d). ->
+    (p_film (R,2), wavelengths, sampler, filter weight)."""
     skind, spp = meta.sampler, meta.spp
     r = samplers.start_pixel_sample(pixel_ids, sample_ids)
     r, u_pixel = samplers.get_pixel_2d(r, None, skind, spp)
@@ -52,24 +62,45 @@ def camera_lanes(scene, meta, pixel_ids, sample_ids, use_lens):
     p_film = torch.stack([(pixel_ids % res_x).to(torch.float32),
                           (pixel_ids // res_x).to(torch.float32)], dim=-1) + 0.5 + fp
     r, u_lam = samplers.get_1d(r, None, skind, spp)
-    wl = sampled.sample_visible(u_lam)
+    return p_film, sampled.sample_visible(u_lam), r, weight.contiguous()
+
+
+def camera_lanes(scene, meta, pixel_ids, sample_ids, use_lens):
+    """Camera samples of (pixel, sample) lanes: film_samples, then the lens
+    (2d, only with a lens). -> (rays, wavelengths, sampler, filter weight)."""
+    p_film, wl, r, weight = film_samples(scene, meta, pixel_ids, sample_ids)
     if use_lens:
-        r, u_lens = samplers.get_2d(r, None, skind, spp)
+        r, u_lens = samplers.get_2d(r, None, meta.sampler, meta.spp)
     else:
         u_lens = torch.zeros((pixel_ids.shape[0], 2), device=pixel_ids.device)
-    return perspective.generate_rays(scene, p_film, u_lens), wl, r, weight.contiguous()
+    return perspective.generate_rays(scene, p_film, u_lens), wl, r, weight
 
 
 def _use_lens(scene):
     return float(scene.camera_lens_radius) > 0.0
 
 
-def render_wave(scene, meta, film, pixel_ids, s0, k):
-    """Trace samples s0 .. s0+k-1 of every pixel in pixel_ids (n,) and add
-    them to `film` in place. -> {"closest", "shadow"} ray counts (0-dim)."""
-    n_pix = pixel_ids.shape[0]
-    ids = pixel_ids.repeat(k)
-    sample_ids = s0 + torch.arange(k, device=pixel_ids.device).repeat_interleave(n_pix)
+def wave_lanes(n_pix, spp, device):
+    """The waves of a frame of n_pix pixels x spp samples: yields each
+    wave's (pixel ids, sample ids), (R,) int64, R <= LANES_PER_WAVE. A wave
+    is k = LANES_PER_WAVE // n_pix samples of every pixel or, where the
+    pixel grid is wider than a wave, a tile of LANES_PER_WAVE pixels at one
+    sample."""
+    k_max = max(1, LANES_PER_WAVE // n_pix)
+    tile = min(n_pix, LANES_PER_WAVE)
+    s0 = 0
+    while s0 < spp:
+        k = min(k_max, spp - s0)
+        for t0 in range(0, n_pix, tile):
+            pix = torch.arange(t0, min(t0 + tile, n_pix), device=device)
+            yield pix.repeat(k), s0 + torch.arange(k, device=device).repeat_interleave(
+                pix.shape[0])
+        s0 += k
+
+
+def render_wave(scene, meta, film, ids, sample_ids):
+    """Trace the (pixel, sample) lanes ids, sample_ids (R,) and add them to
+    `film` in place. -> {"closest", "shadow"} ray counts (0-dim)."""
     rays, wl, r, weight = camera_lanes(scene, meta, ids, sample_ids, _use_lens(scene))
     L, wl_out, stats = path_integrator.li(scene, meta, rays, wl, r, meta.sampler, meta.spp)
     filmlib.add_samples(film, ids, L, wl_out.lam, wl_out.pdf, weight)
@@ -210,36 +241,51 @@ def render_batched(scene, meta, film):
     LANES_PER_WAVE lanes, each traced for max_depth bounces. -> {"closest",
     "shadow"} ray counts as 0-dim tensors."""
     res_x, res_y = meta.resolution
-    n_pix = res_x * res_y
-    pixel_ids = torch.arange(n_pix, device=film.rgb_sum.device)
-    k_max = max(1, LANES_PER_WAVE // n_pix)
     n_closest = n_shadow = 0
-    s0 = 0
-    while s0 < meta.spp:
-        k = min(k_max, meta.spp - s0)
-        if n_pix > LANES_PER_WAVE:
-            stats = [render_wave(scene, meta, film, pixel_ids[t0:t0 + LANES_PER_WAVE], s0, 1)
-                     for t0 in range(0, n_pix, LANES_PER_WAVE)]
-        else:
-            stats = [render_wave(scene, meta, film, pixel_ids, s0, k)]
-        for st in stats:
-            n_closest = n_closest + st["closest"]
-            n_shadow = n_shadow + st["shadow"]
-        s0 += k
+    for ids, sample_ids in wave_lanes(res_x * res_y, meta.spp, film.rgb_sum.device):
+        st = render_wave(scene, meta, film, ids, sample_ids)
+        n_closest = n_closest + st["closest"]
+        n_shadow = n_shadow + st["shadow"]
+    return {"closest": n_closest, "shadow": n_shadow}
+
+
+def render_bdpt(scene, meta, film):
+    """All meta.spp samples of every pixel through BDPT
+    (pbrt_tpu/integrators/render.py:42-83, 677-695): waves of up to
+    LANES_PER_WAVE (pixel, sample) lanes (wave_lanes), each a camera sample
+    without a lens draw, li_bdpt, then K5 for L and K5s for the splats. ->
+    {"closest", "shadow"} ray counts as 0-dim tensors."""
+    res_x, res_y = meta.resolution
+    n_closest = n_shadow = 0
+    for ids, sample_ids in wave_lanes(res_x * res_y, meta.spp, film.rgb_sum.device):
+        p_film, wl, r, weight = film_samples(scene, meta, ids, sample_ids)
+        L, (splat_pix, splat_L), stats = bdpt.li_bdpt(scene, meta, p_film, r, wl,
+                                                      meta.sampler, meta.spp)
+        lam, pdf = wl.lam.contiguous(), wl.pdf.contiguous()
+        filmlib.add_samples(film, ids, L.contiguous(), lam, pdf, weight)
+        filmlib.add_splats(film, splat_pix, splat_L, lam, pdf)
+        n_closest = n_closest + stats["closest"]
+        n_shadow = n_shadow + stats["shadow"]
     return {"closest": n_closest, "shadow": n_shadow}
 
 
 def render(scene, meta, device=None, return_stats=False):
     """Full render -> (H, W, 3) linear RGB tensor on `device` (None means
-    "cuda"; without a card that raises). Open scenes take the wavefront
-    loop, closed ones the batched loop. With return_stats, also returns
-    {"closest": n, "shadow": n} counts of the rays actually traced."""
+    "cuda"; without a card that raises). BDPT scenes take render_bdpt; of
+    the path family, open scenes take the wavefront loop, closed ones the
+    batched loop. With return_stats, also returns {"closest": n, "shadow":
+    n} counts of the rays actually traced (BDPT: subpath segments and
+    attempted connections)."""
     device = resolve_device(device)
     check_integrator(meta.integrator)
     if scene.device != device:
         scene = scene.to(device)
     film = filmlib.new_film(meta.resolution, device)
-    if meta.open_scene:
+    splat_scale = 0.0
+    if meta.integrator == "bdpt":
+        stats = render_bdpt(scene, meta, film)
+        splat_scale = 1.0 / meta.spp
+    elif meta.open_scene:
         stats, dropped = render_wavefront(scene, meta, film)
         if dropped != 0:
             raise RuntimeError(f"wavefront loop dropped {dropped} work items "
@@ -247,7 +293,7 @@ def render(scene, meta, device=None, return_stats=False):
     else:
         stats = render_batched(scene, meta, film)
     img = filmlib.develop(film, meta.resolution, out_matrix=meta.film_out_matrix,
-                          imaging_ratio=meta.film_imaging_ratio)
+                          imaging_ratio=meta.film_imaging_ratio, splat_scale=splat_scale)
     if return_stats:
         return img, {k: int(v) for k, v in stats.items()}
     return img

@@ -10,6 +10,8 @@ selects by its type with torch.where:
   - distant lights (a direction, seen from a pseudo-position 2 scene radii
     away), uniform infinite lights (uniform sphere directions) and spot
     lights (a delta position with smoothstep falloff).
+BDPT's light subpaths start from `sample_le` (every light type above) and
+its MIS weights read `pdf_le` (lights.py:534-736 of the JAX package).
 Image infinite lights come with the textures slice; the builder refuses them.
 """
 from typing import NamedTuple
@@ -320,3 +322,152 @@ def disk_light_pdf_li(scene, light_idx, p_ref, hit_p, hit_n, wi):
     cos_l = vm.absdot(hit_n, -wi)
     pdf = d2 / torch.clamp(area * torch.clamp(cos_l, min=1e-9), min=1e-12)
     return torch.where(torch.isfinite(pdf), pdf, 0.0)
+
+
+# ------------------------------------------------------ light-path emission
+# (reference diffuse_area_light.cu:76-128, distant_light.cu,
+# uniform_infinite_light.cu, spot_light.cu sample_le / pdf_le: BDPT's
+# light-subpath starts)
+
+
+def _area_shape_sample(scene, light_idx, u2):
+    """Uniform-by-area point on the emitter shape of light_idx (R,) -> (p
+    (R,3), ng (R,3), area (R,), valid (R,)); shape kinds absent from the
+    scene are skipped."""
+    li = torch.clamp(light_idx, min=0).long()
+    R, dev = u2.shape[0], u2.device
+    p = torch.zeros((R, 3), device=dev)
+    n = torch.zeros((R, 3), device=dev)
+    n[:, 2] = 1.0
+    area = torch.ones((R,), device=dev)
+    valid = torch.zeros((R,), dtype=torch.bool, device=dev)
+    if scene.tri_p0.shape[0] > 0:
+        is_t = scene.lt_tri[li] >= 0
+        p0, p1, p2 = _tri_verts(scene, light_idx)
+        a_t, n_t = _tri_area_normal(p0, p1, p2)
+        b = warps.sample_uniform_triangle(u2)
+        p_t = b[..., 0:1] * p0 + b[..., 1:2] * p1 + b[..., 2:3] * p2
+        p = torch.where(is_t[..., None], p_t, p)
+        n = torch.where(is_t[..., None], n_t, n)
+        area = torch.where(is_t, a_t, area)
+        valid = valid | is_t
+    if scene.sph_center.shape[0] > 0:
+        is_s = scene.lt_sph[li] >= 0
+        c, rad = _sphere_of(scene, light_idx)
+        n_s = warps.sample_uniform_sphere(u2)
+        p = torch.where(is_s[..., None], c + rad[..., None] * n_s, p)
+        n = torch.where(is_s[..., None], n_s, n)
+        area = torch.where(is_s, 4.0 * PI * rad * rad, area)
+        valid = valid | is_s
+    if scene.dsk_center.shape[0] > 0:
+        is_d = scene.lt_dsk[li] >= 0
+        c, nd, rad, a_d = _disk_of(scene, light_idx)
+        pd = warps.sample_uniform_disk_concentric(u2)
+        fx, fy, _ = vm.frame_from_z(nd)
+        p_d = c + fx * (pd[..., 0] * rad)[..., None] + fy * (pd[..., 1] * rad)[..., None]
+        p = torch.where(is_d[..., None], p_d, p)
+        n = torch.where(is_d[..., None], nd, n)
+        area = torch.where(is_d, a_d, area)
+        valid = valid | is_d
+    return p, n, area, valid
+
+
+def _disk_pdf(scene):
+    return 1.0 / (PI * torch.clamp(scene.scene_radius * scene.scene_radius, min=1e-12))
+
+
+def sample_le(scene, light_idx, u_pos, u_dir, lam):
+    """Emit a ray from light light_idx (R,) -> (Le (R,4), p (R,3), ng (R,3),
+    w (R,3), pdf_pos (R,), pdf_dir (R,), valid (R,)). Area lights emit
+    cosine-weighted from a uniform point of their shape; distant and uniform
+    infinite lights start on the scene's bounding disk facing the emission
+    direction (pdf_pos = 1 / (pi r^2)); a spot light from its position
+    (pdf_pos 1) into a uniform cone. Delta quantities report pdf 1 (BDPT's
+    MIS handles the delta)."""
+    li = torch.clamp(light_idx, min=0).long()
+    ltype = scene.lt_type[li]
+    is_area = ltype == bd.LIGHT_AREA
+    is_distant = ltype == bd.LIGHT_DISTANT
+    is_uniform = ltype == bd.LIGHT_UNIFORM_INFINITE
+    is_spot = ltype == bd.LIGHT_SPOT
+    em = emission(scene, light_idx, lam)
+    radius = scene.scene_radius
+
+    # area emitters: cosine hemisphere about the shape normal (both sides
+    # for two-sided lights)
+    p_a, ng_a, area, shape_ok = _area_shape_sample(scene, light_idx, u_pos)
+    two = scene.lt_twosided[li]
+    u0 = u_dir[..., 0]
+    flipside = two & (u0 >= 0.5)
+    u0r = torch.where(two, torch.where(u0 < 0.5, u0 * 2.0, (u0 - 0.5) * 2.0), u0)
+    u0r = torch.clamp(u0r, max=1.0 - 1e-7)
+    w_local = warps.sample_cosine_hemisphere(torch.stack([u0r, u_dir[..., 1]], dim=-1))
+    w_local = torch.where(flipside[..., None],
+                          w_local * torch.tensor([1.0, 1.0, -1.0], device=w_local.device),
+                          w_local)
+    pdf_dir_a = warps.cosine_hemisphere_pdf(torch.abs(w_local[..., 2]))
+    pdf_dir_a = torch.where(two, pdf_dir_a / 2.0, pdf_dir_a)
+    fx, fy, fz = vm.frame_from_z(ng_a)
+    w_a = vm.from_local(fx, fy, fz, w_local)
+    Le_a = torch.where(((w_local[..., 2] > 0.0) | two)[..., None], em, 0.0)
+
+    # the other types' directions: distant -lt_direction, uniform infinite a
+    # uniform sphere direction, spot a uniform cone about its axis
+    w_dist = -scene.lt_direction[li]
+    w_unif = warps.sample_uniform_sphere(u_dir)
+    cos_end = scene.lt_cos_end[li]
+    cos_t = (1.0 - u_dir[..., 0]) + u_dir[..., 0] * cos_end
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * PI * u_dir[..., 1]
+    ax_x, ax_y, ax_z = vm.frame_from_z(scene.lt_direction[li])
+    w_spot = (ax_x * (sin_t * torch.cos(phi))[..., None]
+              + ax_y * (sin_t * torch.sin(phi))[..., None]
+              + ax_z * cos_t[..., None])
+    pdf_cone = 1.0 / (2.0 * PI * torch.clamp(1.0 - cos_end, min=1e-9))
+    Le_spot = em * smoothstep(cos_t, cos_end, scene.lt_cos_start[li])[..., None]
+    w = torch.where(is_area[..., None], w_a, torch.where(
+        is_distant[..., None], w_dist, torch.where(is_spot[..., None], w_spot, w_unif)))
+
+    # origins: the shape point, the spot position, or the bounding disk
+    dx, dy, _ = vm.frame_from_z(w)
+    cd = warps.sample_uniform_disk_concentric(u_pos)
+    p_disk = (scene.scene_center[None, :] + radius * (-w)
+              + radius * (dx * cd[..., 0:1] + dy * cd[..., 1:2]))
+    p = torch.where(is_area[..., None], p_a,
+                    torch.where(is_spot[..., None], scene.lt_position[li], p_disk))
+    ng = torch.where(is_area[..., None], ng_a, w)
+    Le = torch.where(is_area[..., None], Le_a, torch.where(is_spot[..., None], Le_spot, em))
+    pdf_pos = torch.where(is_area, 1.0 / torch.clamp(area, min=1e-12),
+                          torch.where(is_spot, 1.0, _disk_pdf(scene)))
+    pdf_dir = torch.where(is_area, pdf_dir_a, torch.where(
+        is_distant, 1.0, torch.where(is_uniform, warps.UNIFORM_SPHERE_PDF, pdf_cone)))
+    valid = (light_idx >= 0) & (pdf_dir > 0.0) & torch.where(
+        is_area, shape_ok & (pdf_dir_a > 0.0), True)
+    return Le, p, ng, w, pdf_pos, pdf_dir, valid
+
+
+def pdf_le(scene, light_idx, ng, w):
+    """(pdf_pos (R,), pdf_dir (R,)) of light light_idx emitting w from a
+    point with normal ng (reference pdf_le: cosine hemisphere for area
+    lights; the bounding-disk density for distant and infinite lights; delta
+    quantities 0)."""
+    li = torch.clamp(light_idx, min=0).long()
+    ltype = scene.lt_type[li]
+    is_area = ltype == bd.LIGHT_AREA
+    is_distant = ltype == bd.LIGHT_DISTANT
+    is_uniform = ltype == bd.LIGHT_UNIFORM_INFINITE
+    is_spot = ltype == bd.LIGHT_SPOT
+    _, _, area, _ = _area_shape_sample(scene, light_idx,
+                                       torch.full(ng.shape[:-1] + (2,), 0.5, device=ng.device))
+    cosw = vm.dot(ng, w)
+    pdf_dir_a = torch.where(scene.lt_twosided[li],
+                            warps.cosine_hemisphere_pdf(torch.abs(cosw)) / 2.0,
+                            warps.cosine_hemisphere_pdf(torch.clamp(cosw, min=0.0)))
+    cos_end = scene.lt_cos_end[li]
+    pdf_cone = torch.where(vm.dot(scene.lt_direction[li], w) >= cos_end,
+                           1.0 / (2.0 * PI * torch.clamp(1.0 - cos_end, min=1e-9)), 0.0)
+    pdf_pos = torch.where(is_area, 1.0 / torch.clamp(area, min=1e-12),
+                          torch.where(is_spot, 0.0, _disk_pdf(scene)))
+    pdf_dir = torch.where(is_area, pdf_dir_a, torch.where(
+        is_distant, 0.0, torch.where(is_uniform, warps.UNIFORM_SPHERE_PDF, pdf_cone)))
+    return pdf_pos, pdf_dir

@@ -1,7 +1,7 @@
 """Where the time of a full-width render goes, on the GPU.
 
     python -m pbrt_tpu_torch.profile_render
-        [--scene cornell-mesh|cornell|terrain|staircase|testball]
+        [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass]
         [--out build/pbrt_tpu_torch/profile_render.json]
 
 Renders the scene through the normal `render()` entry: cornell-mesh levels
@@ -9,9 +9,11 @@ Renders the scene through the normal `render()` entry: cornell-mesh levels
 max depth 5, mitchell filter (the full-width frames of chip_smoke.py);
 staircase (scenes/staircase.pbrt: 256^2, 256 spp stratified, max depth 8)
 and testball (scenes/material-testball.pbrt: 256^2, 64 spp stratified, max
-depth 6) at their files' own settings. One warm-up render, REPS timed
-renders (11; 3 for staircase, whose frame is ~25x a cornell-mesh frame's
-work, and 5 for testball), host clock around a synchronized render (the
+depth 6) at their files' own settings; with BDPT, cornell-bdpt (the plain
+cornell box at 128^2 x 8, max depth 5) and caustic-glass
+(scenes/caustic-glass.pbrt: 256^2 x 64, max depth 7). One warm-up render,
+REPS timed renders (11; 3 for staircase, whose frame is ~25x a cornell-mesh
+frame's work, and for caustic-glass; 5 for testball), host clock around a synchronized render (the
 honest rays/s of each, and their median and quartiles), then one render
 under torch.profiler. For an open scene
 (terrain) the timed renders go round robin over the schedules: the
@@ -21,9 +23,9 @@ wavefront against batched are compared within one call. Prints the card's
 name and power limit, the device busy share (summed device time of all
 kernels in the profiled render over the median wall time of the unprofiled
 renders of the default schedule: the profiler slows the host, not the
-kernels), the device time of the hand-written kernels and of the eager
-PyTorch ops around them, and the top kernels by device time; writes the
-same as JSON to --out.
+kernels), the peak device memory of one frame, the device time of the
+hand-written kernels and of the eager PyTorch ops around them, and the top
+kernels by device time; writes the same as JSON to --out.
 """
 import argparse
 import json
@@ -35,12 +37,14 @@ import numpy as np
 import torch
 
 LEVELS, RES, SPP, REPS = 5, 256, 16, 11
-SCENE_REPS = {"staircase": 3, "testball": 5}
-SCENE_FILES = {"staircase": "staircase.pbrt", "testball": "material-testball.pbrt"}
+SCENE_REPS = {"staircase": 3, "testball": 5, "caustic-glass": 3}
+SCENE_FILES = {"staircase": "staircase.pbrt", "testball": "material-testball.pbrt",
+               "caustic-glass": "caustic-glass.pbrt"}
 POOLS = (1 << 17, 1 << 18, 1 << 19)
 # hand-written kernels by a substring of their device symbol
 KERNELS = {"bvh": "traverse_kernel", "dense": "dense_", "recycle": "recycle_",
-           "film": "film_add_kernel", "layered": "layered_"}
+           "film": "film_add_kernel", "layered": "layered_", "bdpt": "connect_",
+           "splat": "film_splat_kernel"}
 
 
 def _device_us(e):
@@ -61,6 +65,9 @@ def _scene(name):
         return ts.cornell_mesh(res=RES, spp=SPP, levels=LEVELS), f"cornell-mesh levels {LEVELS}"
     if name == "cornell":
         return ts.cornell(res=RES, spp=SPP), "cornell (12 tris, 2 spheres, dense)"
+    if name == "cornell-bdpt":
+        return (ts.cornell(res=128, spp=8, integrator="bdpt"),
+                "cornell-bdpt (128^2 x 8, max depth 5, dense)")
     if name in SCENE_FILES:
         from pbrt_tpu_torch.scene.compile import load_scene
 
@@ -72,7 +79,8 @@ def _scene(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("cornell-mesh", "cornell", "terrain", "staircase",
-                                        "testball"), default="cornell-mesh")
+                                        "testball", "cornell-bdpt", "caustic-glass"),
+                    default="cornell-mesh")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 
@@ -88,6 +96,8 @@ def main(argv=None):
     schedules = {"batched": None}                          # name -> wavefront pool
     if meta.open_scene:
         schedules = {f"wavefront {p}": p for p in POOLS} | schedules
+    if meta.integrator == "bdpt":                          # render_bdpt's waves
+        default, schedules = "bdpt", {"bdpt": None}
 
     def render(sched):
         """One frame -> ray counts: the default schedule through render(),
@@ -133,6 +143,12 @@ def main(argv=None):
               f"{rs[0]['rays']} rays", flush=True)
     median_wall = summary[default]["median_wall_s"]
 
+    torch.cuda.reset_peak_memory_stats()
+    render(default)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"peak device memory of one {default} frame: {peak_gib:.2f} GiB", flush=True)
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -151,7 +167,7 @@ def main(argv=None):
         max_depth=meta.max_depth, default_schedule=default,
         runs=runs, schedules=summary, mrays_per_s_quartiles=summary[default][
             "mrays_per_s_quartiles"], median_wall_s=median_wall,
-        profiled_wall_s=prof_wall, device_busy_s=total_us / 1e6,
+        profiled_wall_s=prof_wall, device_busy_s=total_us / 1e6, peak_gib=peak_gib,
         device_busy_share=total_us / 1e6 / median_wall,
         kernels_s={k: v / 1e6 for k, v in kern_us.items()}, kernel_launches=kern_n,
         other_kernels_s=other_us / 1e6, kernel_launches_total=sum(r[2] for r in rows),

@@ -2,7 +2,7 @@
 that the path integrator uses; reference util/sampling.h/.cu)."""
 import torch
 
-from pbrt_tpu_torch.utils.math import PI, PI_OVER_2, PI_OVER_4, safe_sqrt
+from pbrt_tpu_torch.utils.math import INV_PI, PI, PI_OVER_2, PI_OVER_4, safe_sqrt
 from pbrt_tpu_torch.geometry import vecmath as vm
 
 
@@ -33,6 +33,10 @@ def sample_cosine_hemisphere(u):
     d = sample_uniform_disk_concentric(u)
     z = safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
     return torch.cat([d, z[..., None]], dim=-1)
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI
 
 
 def sample_uniform_sphere(u):

@@ -40,6 +40,7 @@ LIGHT_UNIFORM_INFINITE = 2
 LIGHT_SPOT = 4
 
 PATH_INTEGRATORS = ("path", "volpath", "megakernelpath")
+RENDERED_INTEGRATORS = PATH_INTEGRATORS + ("bdpt",)
 
 
 def _later(what, slice_name):
@@ -49,9 +50,9 @@ def _later(what, slice_name):
 
 def check_integrator(itype):
     """Raise for an integrator the port does not render yet."""
-    if itype not in PATH_INTEGRATORS:
+    if itype not in RENDERED_INTEGRATORS:
         raise _later(f"integrator {itype!r}",
-                     "AOV" if itype in ("ambientocclusion", "surfacenormal") else "BDPT/MLT")
+                     "AOV" if itype in ("ambientocclusion", "surfacenormal") else "MLT")
 
 
 @functools.lru_cache(None)

@@ -5,10 +5,11 @@ same render-space conversion (world translated so the camera sits at the
 origin), the same SAH wide BVH and leaf-order reordering for scenes of at
 least MIN_TRIS_FOR_BVH triangles (smaller ones keep their triangles in
 scene order for the dense kernel, with empty BVH tables), sphere and disk
-tables, material/light tables, power-proportional light alias table and
-filter tables, so every array comes out equal to the JAX package's
-`SceneArrays` field of the same name. `Scene` holds only the fields the path
-integrator reads; the JAX package's zero-byte shape markers (BVH depth,
+tables, material/light tables, power-proportional light alias table,
+filter tables and the camera importance constants of BDPT, so every array
+comes out equal to the JAX package's `SceneArrays` field of the same name.
+`Scene` holds only the fields the path and BDPT integrators read; the JAX
+package's zero-byte shape markers (BVH depth,
 partial quadrics, coated materials) become plain ints and bools of
 `SceneMeta`.
 """
@@ -109,7 +110,11 @@ class Scene:
     render_from_camera: torch.Tensor  # (4, 4)
     camera_lens_radius: torch.Tensor  # ()
     camera_focal_distance: torch.Tensor
+    camera_A: torch.Tensor       # () image plane area at z = 1 (pdf_we)
+    camera_cos_total: torch.Tensor  # () cosine of the frustum's corner angle
+    camera_res: torch.Tensor     # (2,) i32 raster bounds of we()
     scene_radius: torch.Tensor   # ()
+    scene_center: torch.Tensor   # (3,) bounding-sphere center (sample_le disks)
     ray_offset_scale: torch.Tensor  # () epsilon of spawned rays
 
     def to(self, device):
@@ -137,6 +142,16 @@ class Scene:
     def dsk_table(self):
         return ix.disk_table(self.dsk_center, self.dsk_normal, self.dsk_radius, self.dsk_inner,
                              self.dsk_xaxis, self.dsk_yaxis, self.dsk_phimax)
+
+    @cached_property
+    def camera_inverse(self):
+        """(camera_from_render, raster_from_camera) float32 (4, 4), inverted
+        once per scene in float64 from the float32 matrices (the camera's
+        importance functions map render-space points back to the raster)."""
+        def inv(m):
+            return torch.as_tensor(np.linalg.inv(m.double().cpu().numpy()).astype(np.float32),
+                                   device=m.device)
+        return inv(self.render_from_camera), inv(self.camera_from_raster)
 
 
 @dataclass
@@ -391,6 +406,19 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
 
     filter_kind, _, filt = filterlib.build_filter(b.filter)
 
+    # camera importance constants (reference perspective.cu:43-63): the area
+    # of the image rectangle projected to the z = 1 plane, and the smallest
+    # corner cosine (camera_from_raster's last row is not applied, as in the
+    # JAX package)
+    corners_raster = np.array([[0, 0, 0], [resolution[0], 0, 0], [0, resolution[1], 0],
+                               [resolution[0], resolution[1], 0]], np.float64)
+    corners_cam = (camera_from_raster[:3, :3] @ corners_raster.T).T + camera_from_raster[:3, 3]
+    corners_z1 = corners_cam[:, :2] / corners_cam[:, 2:3]
+    cam_A = float(abs((corners_z1[1, 0] - corners_z1[0, 0])
+                      * (corners_z1[2, 1] - corners_z1[0, 1])))
+    corner_dirs = corners_cam / np.linalg.norm(corners_cam, axis=-1, keepdims=True)
+    cos_total = float(corner_dirs[:, 2].min())
+
     # ---- PixelSensor (reference rgb_film.cu:27-48)
     iso = float(b.film.get("iso", 100.0))
     exposure = float(b.film.get("exposuretime", 1.0))
@@ -457,7 +485,11 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         render_from_camera=np.asarray(render_from_camera, f32),
         camera_lens_radius=np.asarray(b.camera.get("lensradius", 0.0), f32),
         camera_focal_distance=np.asarray(b.camera.get("focaldistance", 1e6), f32),
+        camera_A=np.asarray(cam_A, f32),
+        camera_cos_total=np.asarray(cos_total, f32),
+        camera_res=np.array(resolution, np.int32),
         scene_radius=np.asarray(radius, f32),
+        scene_center=np.asarray(center, f32),
         ray_offset_scale=np.asarray(min(radius * 1e-5, 1e-3) / max(radius, 1e-6), f32),
     )
     spp = spp_override or b.sampler["pixelsamples"]

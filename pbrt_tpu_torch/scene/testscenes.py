@@ -118,9 +118,12 @@ def cornell_builder(res=128, filter_kind=None):
     return b
 
 
-def cornell(res=128, spp=4, device=None, filter_kind=None):
-    """-> (Scene, SceneMeta) for the built-in Cornell box (dense route)."""
-    return compile_scene(cornell_builder(res, filter_kind), spp_override=spp, device=device)
+def cornell(res=128, spp=4, device=None, filter_kind=None, integrator=None):
+    """-> (Scene, SceneMeta) for the built-in Cornell box (dense route),
+    rendered by the file's path integrator unless `integrator` names
+    another ("bdpt")."""
+    return compile_scene(cornell_builder(res, filter_kind), spp_override=spp, device=device,
+                         integrator_override=integrator)
 
 
 def cornell_mesh_builder(levels=5, res=None, filter_kind=None):

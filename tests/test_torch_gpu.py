@@ -311,3 +311,84 @@ def test_layered_kernel_in_coated_render(cuda):
     img_cpu = render(scene, meta, device="cpu").numpy()
     assert np.isfinite(img_gpu).all()
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
+def test_splat_kernel_matches_plain(cuda):
+    """K5s: three strategies' splats over one wave's lanes (wavelength row
+    i % n_lam), NaN and zero-pdf lanes, zero splats (no atomic)."""
+    g = torch.Generator().manual_seed(4)
+    n_lam, reps = 7000, 3
+    n = n_lam * reps
+    pix = torch.randint(0, 64, (n,), generator=g)
+    L = torch.rand((n, 4), generator=g) * 4.0
+    L[::31, 1] = float("nan")
+    lam = 360.0 + 470.0 * torch.rand((n_lam, 4), generator=g)
+    pdf = 0.0005 + 0.005 * torch.rand((n_lam, 4), generator=g)
+    pdf[::29, 2] = 0.0
+    L[::5] = 0.0
+    pix, L, lam, pdf = (x.to(cuda) for x in (pix, L, lam, pdf))
+    fk, fp = filmlib.new_film((8, 8), cuda), filmlib.new_film((8, 8), cuda)
+    n0 = film_kernel.launches["film_add_splats"]
+    film_kernel.add_splats_triton(fk.splat, pix, L, lam, pdf)
+    assert film_kernel.launches["film_add_splats"] == n0 + 1
+    film_kernel.add_splats_plain(fp.splat, pix, L, lam, pdf)
+    scale = float(fp.splat.abs().max())
+    assert torch.allclose(fk.splat, fp.splat, rtol=1e-5, atol=1e-6 * scale)
+    assert float(fk.rgb_sum.abs().sum()) == 0.0 and float(fk.weight_sum.abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("name", ["cornell", "caustic-glass", "four lights"])
+def test_bdpt_kernel_matches_plain(cuda, name):
+    """K12 (both entry points around one occluded dispatch) against its
+    plain version on a wave of 24^2 x 2 lanes (tests/bdpt_cases.py: for
+    every strategy, its live lanes within rtol 1e-4, atol 1e-6; equal ray
+    counts and splat pixels); one launch of each entry point counted. The
+    four-light scene holds the distant, spot and uniform infinite lights,
+    escaped camera rays and the delta-light rule."""
+    from pathlib import Path
+
+    from bdpt_cases import compare, four_lights_builder, require_agreement, wave_inputs
+    from pbrt_tpu_torch.integrators import bdpt
+    from pbrt_tpu_torch.scene import builder as bd
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    if name == "cornell":
+        b = ts.cornell_builder(24, "box")
+    elif name == "four lights":
+        b = four_lights_builder(24)
+    else:
+        b = bd.SceneBuilder().parse_file(str(Path(__file__).parent.parent / "scenes"
+                                             / "caustic-glass.pbrt"))
+        b.film["xresolution"] = b.film["yresolution"] = 24
+    scene, meta = compile_scene(b, 2, device=cuda, integrator_override="bdpt")
+    pix = torch.arange(24 * 24, device=cuda).repeat(2)
+    sample = torch.arange(2, device=cuda).repeat_interleave(24 * 24)
+    n0 = dict(bdpt.launches)
+    res = compare(scene, meta, *wave_inputs(scene, meta, pix, sample))
+    assert all(bdpt.launches[k] == n0[k] + 1 for k in n0)
+    require_agreement(res)
+    assert res["rays_kernel"] > 0 and res["strategies_live"] > res["strategies"] // 2
+
+
+def test_bdpt_render_on_card_matches_cpu(cuda):
+    """cornell 16^2 x 4 with BDPT: K12 and K5s launched, the image within
+    tests/test_parity.py's criterion of the CPU render, ray counts within
+    0.1 % (an eager op may round apart between card and CPU and turn a
+    walk)."""
+    from pbrt_tpu_torch.integrators import bdpt
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    scene, meta = compile_scene(ts.cornell_builder(16, "box"), 4, device=cuda,
+                                integrator_override="bdpt")
+    n0 = dict(bdpt.launches)
+    s0 = film_kernel.launches["film_add_splats"]
+    img_gpu, st_gpu = render(scene, meta, return_stats=True)
+    assert all(bdpt.launches[k] > n0[k] for k in n0)
+    assert film_kernel.launches["film_add_splats"] > s0
+    img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
+    img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
+    n_gpu, n_cpu = sum(st_gpu.values()), sum(st_cpu.values())
+    assert abs(n_gpu - n_cpu) <= 1e-3 * n_cpu
+    err = np.abs(img_gpu - img_cpu)
+    assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
+    assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()

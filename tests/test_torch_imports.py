@@ -1,6 +1,6 @@
 """The port stands alone: no file of pbrt_tpu_torch/, not chip_smoke.py and
 not the test helpers it imports (tests/quadric_edges.py,
-tests/layered_cases.py) imports jax or anything of the JAX package pbrt_tpu
+tests/layered_cases.py, tests/bdpt_cases.py) imports jax or anything of the JAX package pbrt_tpu
 (AST scan), and the port ships its own copies of the data tables."""
 import ast
 import pathlib
@@ -10,7 +10,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "pbrt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                           ROOT / "tests" / "quadric_edges.py",
-                                                          ROOT / "tests" / "layered_cases.py"]
+                                                          ROOT / "tests" / "layered_cases.py",
+                                                          ROOT / "tests" / "bdpt_cases.py"]
 
 
 def _imports(path):
@@ -35,7 +36,8 @@ def test_no_jax_or_pbrt_tpu_imports(path):
 def test_scan_sees_the_whole_port():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for must in ("pbrt_tpu_torch/accel/bvh.py", "pbrt_tpu_torch/film/film_kernel.py",
-                 "pbrt_tpu_torch/integrators/render.py", "chip_smoke.py"):
+                 "pbrt_tpu_torch/integrators/render.py", "pbrt_tpu_torch/integrators/bdpt.py",
+                 "chip_smoke.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("pbrt_tpu.scene")
     assert not _forbidden("pbrt_tpu_torch.scene")

@@ -36,7 +36,8 @@ CLOSE = ["mat_refl_c", "mat_trans_c", "mat_urough", "mat_vrough", "mat_eta",
          "sph_center", "sph_radius", "sph_rot", "sph_zmin", "sph_zmax", "sph_phimax",
          "dsk_center", "dsk_normal", "dsk_radius", "dsk_inner", "dsk_xaxis", "dsk_yaxis",
          "dsk_phimax", "lt_direction", "lt_position", "lt_cos_start", "lt_cos_end",
-         "mat_albedo_c", "mat_thickness", "mat_ieta", "mat_lay_g", "mat_crough_u", "mat_crough_v"]
+         "mat_albedo_c", "mat_thickness", "mat_ieta", "mat_lay_g", "mat_crough_u", "mat_crough_v",
+         "camera_A", "camera_cos_total", "camera_res", "scene_center"]
 SCENES = ["cornell-mesh mitchell", "cornell-mesh box", "cornell", "caustic-glass",
           "partial quadrics", "terrain", "testball", "staircase"]
 SCENE_FILES = {"testball": "material-testball.pbrt", "staircase": "staircase.pbrt"}
@@ -174,7 +175,7 @@ UNPORTED = {
     "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
     "mix material": 'WorldBegin\nMaterial "mix"',
     "interface": 'WorldBegin\nMaterial "interface"',
-    "bdpt": 'Integrator "bdpt"',
+    "mlt": 'Integrator "mlt"',
     "gaussian filter": 'PixelFilter "gaussian"',
     "instancing": 'WorldBegin\nObjectBegin "a"',
     "named material": 'WorldBegin\nNamedMaterial "a"',

@@ -58,7 +58,8 @@ def _render_both(scene, meta, pool, monkeypatch):
     st_w, dropped = rd.render_wavefront(scene, meta, film_w)
     assert dropped == 0
     film_b = rd.filmlib.new_film(meta.resolution, "cpu")
-    st_b = rd.render_wave(scene, meta, film_b, torch.arange(n_pix), 0, meta.spp)
+    st_b = rd.render_wave(scene, meta, film_b, torch.arange(n_pix).repeat(meta.spp),
+                          torch.arange(meta.spp).repeat_interleave(n_pix))
     assert {k: int(v) for k, v in st_w.items()} == {k: int(v) for k, v in st_b.items()}
     np.testing.assert_allclose(float(film_w.weight_sum.sum()), float(film_b.weight_sum.sum()),
                                rtol=1e-5)

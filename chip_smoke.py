@@ -73,9 +73,23 @@ result line:
      version (bdpt_cases: every strategy within rtol 1e-4, atol 1e-6 on >=
      99.99 % of its live lanes, equal ray counts), both entry points timed
      on caustic-glass's; K5s on caustic-glass's first launch;
- 10. a `kernels` JSON line; the last line is the JSON result.
+ 10. MLT: cornell 24^2 with mltpath and mltbdpt (1024 chains, 18 passes)
+     on the card and on the CPU with one seed (tests/mlt_cases.py: >= 99 %
+     of the (chain, pass) accept decisions equal, 8x8 block means within
+     5 %); caustic-glass with mlt (MLT over BDPT, max depth 7) and
+     cornell-mesh levels 5 with mltpath (max depth 5) at 256^2 with 8192
+     chains through render(), cut from 100 to 4 and 8 mutations per pixel
+     (32 and 64 passes) so that the phase fits this script's time, each
+     with K12m-a and K12m-b launched exactly once a pass and its image mean
+     within mlt_cases.FRAME_MEAN_RTOL of phase 8's BDPT or path frame; both
+     kernels against their plain versions on those frames' first passes
+     (draws and chain state bit-exact, splat sums within 1e-5) and timed on
+     caustic-glass's beside their byte bounds, plain versions and (K12m-b)
+     index_add_;
+ 11. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -125,6 +139,10 @@ K12_OPS = {"bdpt_connect_rays": 100, "bdpt_connect_weight": 400}
 # coat's pdf and two samples, per lane that reaches the base its pdf
 LAYERED_OPS = {"layered_f": (400, 250), "layered_sample": (150, 100),
                "layered_pdf": (400, 10)}
+# float ops of K12m-a per chain and dimension, counted from csrc/mlt.cu:
+# two uniforms (a multiply and a min each), erfinv (~15 with its log and
+# two square roots), the perturbation, the wrap and the clip (~8)
+MUTATE_OPS = 25
 
 
 def log(msg):
@@ -241,11 +259,12 @@ def main():
                                EQUAL_FRAC, MEAN_RTOL, RTOL, blocks, frac_close,
                                lanes as layered_lanes)
     import bdpt_cases
+    import mlt_cases
     from pbrt_tpu_torch import kernels
     from pbrt_tpu_torch.accel import bvh
     from pbrt_tpu_torch.film import film as filmlib, film_kernel, png
     from pbrt_tpu_torch.geometry import intersect as ix
-    from pbrt_tpu_torch.integrators import bdpt, render as rd
+    from pbrt_tpu_torch.integrators import bdpt, mlt, render as rd
     from pbrt_tpu_torch.materials import bxdfs, layered
     from pbrt_tpu_torch.sampling import samplers
     from pbrt_tpu_torch.scene import builder as bd, testscenes as ts
@@ -256,7 +275,7 @@ def main():
     dev = torch.device("cuda")
     t_start = time.time()
     counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches,
-                bdpt.launches)
+                bdpt.launches, mlt.launches)
 
     def reset_counts():
         for c in counters:
@@ -676,13 +695,15 @@ def main():
         (bdpt, "connect_rays_cuda", lambda a, k: "bdpt_connect_rays"),
         (bdpt, "connect_weight_cuda", lambda a, k: "bdpt_connect_weight"),
         (bdpt, "connect_all_cuda", lambda a, k: "bdpt_wave"),
+        (mlt, "mutate_cuda", lambda a, k: "mlt_mutate"),
+        (mlt, "accept_and_splat_cuda", lambda a, k: "mlt_accept_splat"),
     ]
     captured = {}
 
     def clone(x):
         if torch.is_tensor(x):
             return x.clone()
-        if isinstance(x, tuple) and hasattr(x, "_fields"):  # LayeredParams
+        if isinstance(x, tuple) and hasattr(x, "_fields"):  # LayeredParams, mlt.Chains
             return type(x)(*map(clone, x))
         return x
 
@@ -709,7 +730,7 @@ def main():
                 setattr(mod, name, orig)
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    main_counts, main_counts_frame = {}, {}
+    main_counts, main_counts_frame, frame_means = {}, {}, {}
 
     def full_render(tag, sc, mt, must):
         """The measured render of a full-width frame, its kernels'
@@ -733,8 +754,11 @@ def main():
             main_counts.setdefault(k, counts[k])
         out_png = kernels.BUILD_DIR / f"{tag}.png"
         png.write_png(str(out_png), filmlib.to_srgb8(img))
-        log(f"full render {tag} {mt.resolution[0]}^2 x {mt.spp} spp depth {mt.max_depth} "
-            f"{mt.filter_kind}: {wall:.3f} s wall (first-launch copies included), "
+        frame_means[tag] = float(img.mean())
+        per = (f"{mt.mutations_per_pixel} mutations/pixel" if mt.integrator in bd.MLT_INTEGRATORS
+               else f"{mt.spp} spp {mt.filter_kind}")
+        log(f"full render {tag} {mt.integrator} {mt.resolution[0]}^2 x {per} depth "
+            f"{mt.max_depth}: {wall:.3f} s wall (first-launch copies included), "
             f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
             f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts}; mean {img.mean():.5f}; "
             f"all finite; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -1069,11 +1093,137 @@ def main():
         f"kernel {ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms, bound "
         f"{b[0]:.4f} ms ({b[1]}); max abs err {err:.2e}")
 
+    # ---- 10. MLT (K12m): cornell 24^2 on the card and the CPU with one
+    # seed; the two full-width frames, cut in mutations per pixel; both
+    # kernels against their plain versions at the frames' first passes, and
+    # timed on caustic-glass's
+    for integ in ("mltpath", "mltbdpt"):
+        sc, mt = ts.cornell(res=24, spp=1, device=dev, filter_kind="box", integrator=integ)
+        mt = dataclasses.replace(mt, mutations_per_pixel=mlt_cases.SMALL_MUTATIONS)
+        runs = {}
+        for d_ in (dev, torch.device("cpu")):
+            acc = []
+            reset_counts()
+            img, st = mlt.render_mlt(
+                sc, mt, n_chains=mlt_cases.SMALL_CHAINS, n_bootstrap=mlt_cases.SMALL_BOOTSTRAP,
+                device=d_, on_pass=lambda i, a, acc=acc, d_=d_: acc.append(
+                    mlt.accept_uniforms(0, i, mlt_cases.SMALL_CHAINS, d_) < a))
+            runs[d_.type] = (img.cpu().numpy(), torch.stack(acc).cpu(), st,
+                             {k: v for k, v in read_counts().items() if v})
+        (img_g, acc_g, st_g, counts), (img_c, acc_c, st_c, _) = runs["cuda"], runs["cpu"]
+        n_passes = acc_g.shape[0]
+        require(counts.get("mlt_mutate") == n_passes == counts.get("mlt_accept_splat"), integ,
+                counts)
+        res = mlt_cases.compare_renders(img_g, img_c, acc_g, acc_c)
+        log(f"small MLT render cornell {integ} 24^2, {mlt_cases.SMALL_CHAINS} chains x "
+            f"{n_passes} passes, card vs cpu with one seed: accept decisions equal on "
+            f"{res['decisions']:.4%} of (chain, pass) (>= {mlt_cases.DECISION_FRAC:.0%} "
+            f"required), 8x8 block means worst {res['block_rel']:.4%} apart (<= "
+            f"{mlt_cases.BLOCK_RTOL:.0%}), means {img_g.mean():.5f} / {img_c.mean():.5f}; rays "
+            f"card {st_g['closest'] + st_g['shadow']} cpu {st_c['closest'] + st_c['shadow']}; "
+            f"launches {counts}")
+
+    s_cgm, m_cgm = compile_scene(bd.SceneBuilder().parse_file(
+        str(ROOT / "scenes" / "caustic-glass.pbrt")), device=dev, integrator_override="mlt")
+    s_cmm, m_cmm = ts.cornell_mesh(res=256, levels=5, device=dev, integrator="mltpath")
+    require((m_cgm.resolution, m_cgm.max_depth, m_cgm.mutations_per_pixel, m_cmm.max_depth,
+             m_cmm.n_tris) == ((256, 256), 7, 100, 5, 16396), "MLT frame settings")
+    mlt_frames = (
+        ("caustic_mlt", s_cgm, dataclasses.replace(m_cgm, mutations_per_pixel=4), "caustic_bdpt",
+         ("dense_tri_closest", "dense_tri_any", "dense_spheres", "dense_disks",
+          "bdpt_connect_rays", "bdpt_connect_weight")),
+        ("cornell_mesh_mlt", s_cmm, dataclasses.replace(m_cmm, mutations_per_pixel=8),
+         "cornell_mesh", ("bvh_closest_hit", "bvh_any_hit")))
+    log("MLT frames at full width (256^2, the scene's max depth, 8192 chains), cut from 100 "
+        "mutations per pixel (800 passes) to 4 (caustic-glass mlt: 32 passes) and 8 "
+        "(cornell-mesh mltpath: 64 passes) so that this phase fits the script's time; "
+        "python -m pbrt_tpu_torch.profile_render runs them uncut")
+    for tag, sc, mt, ref, must in mlt_frames:
+        full_render(tag, sc, mt, must + ("mlt_mutate", "mlt_accept_splat"))
+        n_passes = max(1, mt.mutations_per_pixel * mt.resolution[0] * mt.resolution[1]
+                       // mlt.N_CHAINS)
+        got = {k: main_counts_frame[k] for k in mlt.launches}
+        require(got == {k: n_passes for k in mlt.launches}, tag, "launches", got, n_passes)
+        rel = abs(frame_means[tag] - frame_means[ref]) / frame_means[ref]
+        require(rel <= mlt_cases.FRAME_MEAN_RTOL[tag], tag, "image mean", frame_means[tag],
+                ref, frame_means[ref])
+        log(f"{tag}: K12m-a and K12m-b launched once a pass ({n_passes}); image mean "
+            f"{frame_means[tag]:.5f} vs the {ref} frame's {frame_means[ref]:.5f}: {rel:.3%} "
+            f"apart (<= {mlt_cases.FRAME_MEAN_RTOL[tag]:.0%})")
+
+    mlt_err = {}
+    for tag in ("caustic_mlt", "cornell_mesh_mlt"):
+        (x_, seed_, pass_), _, _ = first(tag, "mlt_mutate")
+        R_, D_ = x_.shape
+        draws = torch.empty((R_, 1 + 2 * D_), device=dev)
+        res_m = mlt_cases.compare_mutate(x_, mlt.mutate_cuda(x_, seed_, pass_, draws), draws,
+                                         mlt.mutate_from_uniforms, mlt.chain_uniforms, seed_,
+                                         pass_)
+        (sp_, ht_, cur_, prop_, _, _), _, _ = first(tag, "mlt_accept_splat")
+        res_a = mlt_cases.compare_accept(
+            lambda *a: mlt.accept_and_splat_cuda(*a, seed_, pass_),
+            lambda *a: mlt.accept_and_splat_from_uniforms(
+                *a, mlt.accept_uniforms(seed_, pass_, R_, dev)), sp_, ht_, cur_, prop_)
+        mlt_err["mlt_mutate"] = max(mlt_err.get("mlt_mutate", 0.0),
+                                    res_m["max_ulps"] * 2.0 ** -24)
+        mlt_err["mlt_accept_splat"] = max(mlt_err.get("mlt_accept_splat", 0.0),
+                                          res_a["max_abs_err"])
+        log(f"K12m vs plain on {tag}'s first pass ({R_} chains, D {D_}, C "
+            f"{cur_.pix.shape[0]}): mlt_mutate draws bit-exact, {res_m['large']} large steps "
+            f"equal, values within {res_m['max_ulps']:.0f} x 2^-24 (<= "
+            f"{mlt_cases.MUTATE_ULPS}); mlt_accept_splat acceptance and chain state exact "
+            f"({res_a['accepted']} accepted), splat and heat max abs err "
+            f"{res_a['max_abs_err']:.3e} (<= {mlt_cases.SPLAT_RTOL:g} of the largest sum)")
+
+    # timed on caustic-glass's first pass: x (8192, 160); C = 8
+    (x_, seed_, pass_), _, _ = first("caustic_mlt", "mlt_mutate")
+    R_, D_ = x_.shape
+    ms = graph_ms(lambda: mlt.mutate_cuda(x_, seed_, pass_))
+    ms_plain = events_ms(lambda: mlt.mutate_from_uniforms(
+        x_, *mlt.chain_uniforms(seed_, pass_, R_, D_, dev)), 3)
+    b = bound(R_ * D_ * 8, R_ * D_ * MUTATE_OPS)
+    timing["mlt_mutate"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                library_ms=None, max_abs_err=mlt_err["mlt_mutate"])
+    log(f"mlt_mutate at caustic-glass's first pass ({R_} chains x {D_}): kernel {ms:.4f} ms, "
+        f"plain {ms_plain:.3f} ms (its 1 + 2 D stream draws included), bound {b[0]:.5f} ms "
+        f"({b[1]}; {R_ * D_ * 8 / 1e6:.2f} MB)")
+    (sp_, ht_, cur_, prop_, seed_, pass_), _, _ = first("caustic_mlt", "mlt_accept_splat")
+    C_, n_pix_ = cur_.pix.shape[0], ht_.shape[0]
+    u_acc = mlt.accept_uniforms(seed_, pass_, R_, dev)
+    y_c, y_p = cur_.y, prop_.y
+    a_ = torch.where(y_c > 0, torch.clamp(y_p / torch.clamp(y_c, min=1e-12), max=1.0), 1.0)
+    n_acc = int((u_acc < a_).sum())
+    live = torch.cat([(cur_.rgb.abs().sum(-1) > 0) & (y_c > 0)[None],
+                      (prop_.rgb.abs().sum(-1) > 0) & (y_p > 0)[None]])
+    pix_all = torch.cat([cur_.pix, prop_.pix])
+    n_touched = int(torch.unique(torch.cat([pix_all[live], cur_.pix[0], prop_.pix[0]])).numel())
+    # reads: both states' y, pix and rgb; writes: a; an accepted chain's
+    # proposal row read and its state row written; the touched pixels of
+    # splat and heat read and written
+    nbytes = (R_ * 8 + 2 * C_ * R_ * 16 + R_ * 4 + n_acc * (D_ * 8 + C_ * 16 + 4)
+              + n_touched * 16 * 2)
+    b = bound(nbytes, R_ * 10 + int(live.sum()) * 3)
+    clone_ch = lambda ch: type(ch)(*(t.clone() for t in ch))
+    cur_k, sp_k, ht_k = clone_ch(cur_), sp_.clone(), ht_.clone()
+    ms = graph_ms(lambda: mlt.accept_and_splat_cuda(sp_k, ht_k, cur_k, prop_, seed_, pass_))
+    cur_p, sp_p, ht_p = clone_ch(cur_), sp_.clone(), ht_.clone()
+    ms_plain = events_ms(lambda: mlt.accept_and_splat_from_uniforms(
+        sp_p, ht_p, cur_p, prop_, mlt.accept_uniforms(seed_, pass_, R_, dev)), 3)
+    idx_all = pix_all.reshape(-1).long()
+    rgb_all = torch.rand((idx_all.shape[0], 3), device=dev)
+    ms_lib = graph_ms(lambda: sp_k.index_add_(0, idx_all, rgb_all))
+    timing["mlt_accept_splat"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                      library_ms=ms_lib, max_abs_err=mlt_err["mlt_accept_splat"])
+    log(f"mlt_accept_splat at caustic-glass's first pass ({R_} chains, C {C_}, {n_acc} "
+        f"accepted, {int(live.sum())} live contributions over {n_touched} pixels): kernel "
+        f"{ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ of its {idx_all.shape[0]} splats "
+        f"{ms_lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}; {nbytes / 1e6:.2f} MB)")
+
     ov = int(bvh.overflow_counter(dev).item()) - ov0
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
 
-    # ---- 10. kernels line and result
+    # ---- 11. kernels line and result
     meta_k = {
         "bvh_closest_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                             "pbrt_tpu/accel/bvh.py:909"),
@@ -1103,6 +1253,9 @@ def main():
                               "pbrt_tpu/integrators/bdpt.py:731"),
         "bdpt_connect_weight": ("cuda", "pbrt_tpu_torch/csrc/bdpt.cu",
                                 "pbrt_tpu/integrators/bdpt.py:608"),
+        "mlt_mutate": ("cuda", "pbrt_tpu_torch/csrc/mlt.cu", "pbrt_tpu/integrators/mlt.py:53"),
+        "mlt_accept_splat": ("cuda", "pbrt_tpu_torch/csrc/mlt.cu",
+                             "pbrt_tpu/integrators/mlt.py:106"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

@@ -1,6 +1,8 @@
 """Render orchestration: (pixel, sample) lanes -> film -> image
 (counterpart of pbrt_tpu/integrators/render.py `render` for the path
-family, its batched `_spp_loop` and its `_wavefront_loop`, and for BDPT).
+family, its batched `_spp_loop` and its `_wavefront_loop`, for BDPT, and
+its dispatch of the MLT integrators to integrators/mlt.py, which have no
+film and never take the wavefront loop).
 
 Every lane's sampler stream keys on its absolute (pixel, sample) ids, so
 the estimator does not depend on how lanes are scheduled; only the order of
@@ -32,9 +34,9 @@ import torch
 from pbrt_tpu_torch.cameras import perspective
 from pbrt_tpu_torch.film import film as filmlib, png
 from pbrt_tpu_torch.filters import filters
-from pbrt_tpu_torch.integrators import bdpt, path as path_integrator
+from pbrt_tpu_torch.integrators import bdpt, mlt, path as path_integrator
 from pbrt_tpu_torch.sampling import samplers
-from pbrt_tpu_torch.scene.builder import check_integrator
+from pbrt_tpu_torch.scene.builder import MLT_INTEGRATORS, check_integrator
 from pbrt_tpu_torch.spectral import sampled
 from pbrt_tpu_torch.utils.device import resolve_device
 
@@ -181,12 +183,12 @@ def recycle(finished, in_flight, counters, total):
 
 def _merge(new, old, mask):
     """Per-lane select of two PathStates (or Samplers); 0-dim fields (the
-    ray counters) keep `old`."""
+    ray counters) and absent ones keep `old`."""
     out = []
     for n, o in zip(new, old):
         if isinstance(o, tuple):
             out.append(_merge(n, o, mask))
-        elif o.dim() == 0:
+        elif o is None or o.dim() == 0:
             out.append(o)
         else:
             out.append(torch.where(mask.reshape((-1,) + (1,) * (o.dim() - 1)), n, o))
@@ -269,17 +271,33 @@ def render_bdpt(scene, meta, film):
     return {"closest": n_closest, "shadow": n_shadow}
 
 
-def render(scene, meta, device=None, return_stats=False):
+def write_heatmap_png(path, heat):
+    """Normalized grayscale PNG of an MLT sampling-density heatmap (H, W)
+    (reference film/grey_scale_film.cu write_to_png)."""
+    h = heat.detach().cpu().to(torch.float32)
+    g = h / max(float(h.max()), 1e-12)
+    g8 = torch.round(torch.clamp(g, 0.0, 1.0) * 255.0).to(torch.uint8)
+    png.write_png(path, g8[..., None].expand(*g8.shape, 3).numpy())
+
+
+def render(scene, meta, device=None, return_stats=False, heatmap_path=None):
     """Full render -> (H, W, 3) linear RGB tensor on `device` (None means
-    "cuda"; without a card that raises). BDPT scenes take render_bdpt; of
-    the path family, open scenes take the wavefront loop, closed ones the
-    batched loop. With return_stats, also returns {"closest": n, "shadow":
-    n} counts of the rays actually traced (BDPT: subpath segments and
-    attempted connections)."""
+    "cuda"; without a card that raises). MLT scenes take mlt.render_mlt
+    (and write their sampling-density heatmap to heatmap_path, if given);
+    BDPT scenes take render_bdpt; of the path family, open scenes take the
+    wavefront loop, closed ones the batched loop. With return_stats, also
+    returns {"closest": n, "shadow": n} counts of the rays actually traced
+    (BDPT: subpath segments and attempted connections; MLT: of every
+    evaluation, and "mutations")."""
     device = resolve_device(device)
     check_integrator(meta.integrator)
     if scene.device != device:
         scene = scene.to(device)
+    if meta.integrator in MLT_INTEGRATORS:
+        img, heat, stats = mlt.render_mlt(scene, meta, device=device, return_heatmap=True)
+        if heatmap_path:
+            write_heatmap_png(heatmap_path, heat)
+        return (img, stats) if return_stats else img
     film = filmlib.new_film(meta.resolution, device)
     splat_scale = 0.0
     if meta.integrator == "bdpt":
@@ -299,10 +317,12 @@ def render(scene, meta, device=None, return_stats=False):
     return img
 
 
-def render_to_png(scene, meta, out_path=None, device=None, verbose=False):
-    """Render and write an sRGB PNG -> (path, seconds, ray counts)."""
+def render_to_png(scene, meta, out_path=None, device=None, verbose=False, heatmap_path=None):
+    """Render and write an sRGB PNG (and, for MLT, the heatmap PNG to
+    heatmap_path if given) -> (path, seconds, ray counts)."""
     t0 = time.time()
-    img, stats = render(scene, meta, device=device, return_stats=True)
+    img, stats = render(scene, meta, device=device, return_stats=True,
+                        heatmap_path=heatmap_path)
     rgb8 = filmlib.to_srgb8(img)
     t1 = time.time()
     path = out_path or meta.filename

@@ -1,7 +1,8 @@
 """Where the time of a full-width render goes, on the GPU.
 
     python -m pbrt_tpu_torch.profile_render
-        [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass]
+        [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass
+                 |caustic-glass-mlt|cornell-mesh-mltpath]
         [--out build/pbrt_tpu_torch/profile_render.json]
 
 Renders the scene through the normal `render()` entry: cornell-mesh levels
@@ -26,6 +27,17 @@ renders of the default schedule: the profiler slows the host, not the
 kernels), the peak device memory of one frame, the device time of the
 hand-written kernels and of the eager PyTorch ops around them, and the top
 kernels by device time; writes the same as JSON to --out.
+
+The MLT frames, caustic-glass with "mlt" (MLT over BDPT, max depth 7) and
+cornell-mesh levels 5 with "mltpath" (max depth 5), both at 256^2 with
+8192 chains and 100 mutations per pixel (800 passes), take minutes each:
+after a warm-up frame cut to 1 mutation per pixel, the uncut frame is
+rendered once (frame seconds, mutations/s, honest rays/s, peak memory),
+with torch.profiler recording only PROFILED_PASSES passes from the middle
+of the frame: their device time (kernels only: the profiler's step
+annotations span the whole step on the device timeline and are left out)
+over PROFILED_PASSES times the median wall time of the unprofiled passes
+is the busy share.
 """
 import argparse
 import json
@@ -41,10 +53,11 @@ SCENE_REPS = {"staircase": 3, "testball": 5, "caustic-glass": 3}
 SCENE_FILES = {"staircase": "staircase.pbrt", "testball": "material-testball.pbrt",
                "caustic-glass": "caustic-glass.pbrt"}
 POOLS = (1 << 17, 1 << 18, 1 << 19)
+PROFILED_PASSES = 8
 # hand-written kernels by a substring of their device symbol
 KERNELS = {"bvh": "traverse_kernel", "dense": "dense_", "recycle": "recycle_",
            "film": "film_add_kernel", "layered": "layered_", "bdpt": "connect_",
-           "splat": "film_splat_kernel"}
+           "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel"}
 
 
 def _device_us(e):
@@ -58,6 +71,96 @@ def _device_us(e):
     return 0.0
 
 
+def _kernel_sums(rows):
+    """{kernel group: device us}, {kernel group: launches} of key_averages
+    rows (name, device us, count); a group's pattern lists alternatives
+    separated by "|"."""
+    def hit(name, pat):
+        return any(sub in name for sub in pat.split("|"))
+    return ({k: sum(r[1] for r in rows if hit(r[0], p)) for k, p in KERNELS.items()},
+            {k: sum(r[2] for r in rows if hit(r[0], p)) for k, p in KERNELS.items()})
+
+
+def _profile_mlt(scene, meta, label, card, out_path):
+    """The uncut MLT frame once, with PROFILED_PASSES passes from its middle
+    under torch.profiler (see the module docstring)."""
+    import dataclasses
+
+    from pbrt_tpu_torch.integrators import mlt
+
+    res_x, res_y = meta.resolution
+    n_passes = max(1, meta.mutations_per_pixel * res_x * res_y // mlt.N_CHAINS)
+    t0 = time.perf_counter()
+    mlt.render_mlt(scene, dataclasses.replace(meta, mutations_per_pixel=1))
+    torch.cuda.synchronize()
+    print(f"warm-up frame (1 mutation/px): {time.perf_counter() - t0:.2f} s", flush=True)
+    start = max(PROFILED_PASSES + 1, n_passes // 2)
+    if start + PROFILED_PASSES > n_passes:
+        raise ValueError(f"{n_passes} passes: too few for the profiled window")
+    window = {}
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=start - 1, warmup=1, active=PROFILED_PASSES,
+                                         repeat=1),
+        on_trace_ready=lambda p: window.setdefault("ev", p.key_averages()))
+    stamps = []
+
+    def on_pass(i, a):
+        # profiler step k is pass k: the bootstrap and pass 0 are step 0
+        stamps.append(time.perf_counter())
+        prof.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof:
+        img, stats = mlt.render_mlt(scene, meta, on_pass=on_pass)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = sorted(((e.key, _device_us(e), e.count) for e in window["ev"]
+                   if _device_us(e) > 0 and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])
+    dev_s = sum(r[1] for r in rows) / 1e6
+    # pass i ends at stamps[i]; passes start .. start + P - 1 were recorded,
+    # pass start - 1 warmed the profiler up
+    pass_s = np.diff(np.asarray(stamps))              # pass_s[i - 1]: pass i
+    outside = np.r_[pass_s[:start - 2], pass_s[start + PROFILED_PASSES:]]
+    plain_wall = float(np.median(outside)) * PROFILED_PASSES
+    prof_wall = stamps[start - 1 + PROFILED_PASSES] - stamps[start - 1]
+    kern_us, kern_n = _kernel_sums(rows)
+    rays = stats["closest"] + stats["shadow"]
+    out = dict(
+        card=card, scene=label, res=res_x, max_depth=meta.max_depth, chains=mlt.N_CHAINS,
+        passes=n_passes, mutations=stats["mutations"], wall_s=wall,
+        bootstrap_and_first_pass_s=stamps[0] - t0, rays=rays,
+        mrays_per_s=rays / wall / 1e6, mutations_per_s=stats["mutations"] / wall,
+        peak_gib=peak_gib, mean=float(img.mean()), finite=bool(torch.isfinite(img).all()),
+        profiled_passes=[start, start + PROFILED_PASSES - 1],
+        median_pass_s=plain_wall / PROFILED_PASSES, unprofiled_window_wall_s=plain_wall,
+        profiled_window_wall_s=prof_wall,
+        window_device_busy_s=dev_s, device_busy_share=dev_s / plain_wall,
+        window_kernels_s={k: v / 1e6 for k, v in kern_us.items()},
+        window_kernel_launches=kern_n, window_launches_total=sum(r[2] for r in rows),
+        top=[dict(name=k[:120], device_s=us / 1e6, count=c) for k, us, c in rows[:25]])
+    print(f"{label}: {n_passes} passes x {mlt.N_CHAINS} chains, frame {wall:.3f} s "
+          f"(bootstrap and first pass {out['bootstrap_and_first_pass_s']:.3f} s; median "
+          f"pass {out['median_pass_s']:.4f} s; the {PROFILED_PASSES} profiled passes "
+          f"{prof_wall:.3f} s), {out['mutations_per_s']:.0f} mutations/s, {rays} rays = "
+          f"{out['mrays_per_s']:.3f} M rays/s, peak {peak_gib:.2f} GiB, mean "
+          f"{out['mean']:.5f}, finite {out['finite']}", flush=True)
+    print(f"passes {start}..{start + PROFILED_PASSES - 1}: device busy {dev_s:.4f} s against "
+          f"{PROFILED_PASSES} median passes' {plain_wall:.4f} s = "
+          f"{out['device_busy_share']:.1%}; "
+          + ", ".join(f"{k} {v / 1e6:.5f} s x{kern_n[k]}" for k, v in kern_us.items() if v)
+          + f"; {out['window_launches_total']} launches", flush=True)
+    for r in out["top"][:15]:
+        print(f"  {r['device_s'] * 1e3:9.3f} ms  x{r['count']:<6d} {r['name']}")
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(out, indent=1))
+    return 0
+
+
 def _scene(name):
     from pbrt_tpu_torch.scene import testscenes as ts
 
@@ -65,6 +168,15 @@ def _scene(name):
         return ts.cornell_mesh(res=RES, spp=SPP, levels=LEVELS), f"cornell-mesh levels {LEVELS}"
     if name == "cornell":
         return ts.cornell(res=RES, spp=SPP), "cornell (12 tris, 2 spheres, dense)"
+    if name == "cornell-mesh-mltpath":
+        return (ts.cornell_mesh(res=RES, levels=LEVELS, integrator="mltpath"),
+                f"cornell-mesh levels {LEVELS} mltpath (256^2, max depth 5, 100 mutations/px)")
+    if name == "caustic-glass-mlt":
+        from pbrt_tpu_torch.scene.compile import load_scene
+
+        path = Path(__file__).resolve().parent.parent / "scenes" / "caustic-glass.pbrt"
+        return (load_scene(str(path), integrator="mlt"),
+                "caustic-glass mlt (caustic-glass.pbrt, MLT over BDPT, 100 mutations/px)")
     if name == "cornell-bdpt":
         return (ts.cornell(res=128, spp=8, integrator="bdpt"),
                 "cornell-bdpt (128^2 x 8, max depth 5, dense)")
@@ -79,19 +191,23 @@ def _scene(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("cornell-mesh", "cornell", "terrain", "staircase",
-                                        "testball", "cornell-bdpt", "caustic-glass"),
+                                        "testball", "cornell-bdpt", "caustic-glass",
+                                        "caustic-glass-mlt", "cornell-mesh-mltpath"),
                     default="cornell-mesh")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 
     from pbrt_tpu_torch.film import film as filmlib
     from pbrt_tpu_torch.integrators import render as rd
+    from pbrt_tpu_torch.scene.builder import MLT_INTEGRATORS
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(card, flush=True)
     (scene, meta), label = _scene(args.scene)
+    if meta.integrator in MLT_INTEGRATORS:
+        return _profile_mlt(scene, meta, label, card, args.out)
     default = f"wavefront {rd.POOL_LANES}" if meta.open_scene else "batched"
     schedules = {"batched": None}                          # name -> wavefront pool
     if meta.open_scene:
@@ -159,8 +275,7 @@ def main(argv=None):
     rows = sorted(((e.key, _device_us(e), e.count) for e in ev if _device_us(e) > 0),
                   key=lambda r: -r[1])
     total_us = sum(r[1] for r in rows)
-    kern_us = {k: sum(r[1] for r in rows if sub in r[0]) for k, sub in KERNELS.items()}
-    kern_n = {k: sum(r[2] for r in rows if sub in r[0]) for k, sub in KERNELS.items()}
+    kern_us, kern_n = _kernel_sums(rows)
     other_us = total_us - sum(kern_us.values())
     out = dict(
         card=card, scene=label, res=meta.resolution[0], spp=meta.spp,

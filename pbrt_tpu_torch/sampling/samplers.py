@@ -1,12 +1,17 @@
-"""Independent and stratified samplers on per-lane PCG32 streams, bit-exact
-with pbrt_tpu/sampling/samplers.py (reference samplers/independent.h:7-38,
-samplers/stratified.h:8-70).
+"""Independent, stratified and MLT samplers on per-lane PCG32 streams,
+bit-exact with pbrt_tpu/sampling/samplers.py (reference
+samplers/independent.h:7-38, samplers/stratified.h:8-70, samplers/mlt.h).
 
 A `Sampler` is a record of (R,) int64 lanes: the PCG32 state and increment
 plus the (pixel, sample, dimension) counters the stratified variant needs.
 The kind is a host string. Masked draws advance only the lanes where the
 mask is true, so every lane's stream stays aligned with the reference's
 conditional draws.
+
+The MLT kind (`from_primary_samples`) reads dimension `dim` of its lane's
+primary-sample vector while dim < D and its PCG32 stream beyond; the stream
+advances on every draw, also one served from the vector, as in the JAX
+package, so a lane that overflows D draws what the JAX lane draws.
 """
 from typing import NamedTuple
 
@@ -23,6 +28,8 @@ class Sampler(NamedTuple):
     pixel: torch.Tensor   # (R,) u32
     sample: torch.Tensor  # (R,) u32
     dim: torch.Tensor     # (R,) u32
+    # the MLT kind's primary-sample vectors (R, D) float32; None otherwise
+    mlt_x: object = None
 
 
 def start_pixel_sample(pixel_idx, sample_idx, dimension=0):
@@ -43,9 +50,21 @@ def _masked(s: Sampler, state, dim, mask):
                       dim=torch.where(mask, dim, s.dim))
 
 
+def from_primary_samples(x):
+    """MLT sampler over primary-sample vectors x (R, D): lane i keeps the
+    stream of pixel i, sample 0, for the dimensions beyond D."""
+    lanes = torch.arange(x.shape[0], device=x.device)
+    return start_pixel_sample(lanes, torch.zeros_like(lanes))._replace(mlt_x=x)
+
+
 def get_1d(s: Sampler, mask=None, kind="independent", spp=0):
     state, u = prng.uniform_float(s.state, s.inc)
-    if kind == "stratified":
+    if kind == "mlt":
+        D = s.mlt_x.shape[1]
+        idx = torch.clamp(s.dim, max=D - 1)
+        u_x = torch.gather(s.mlt_x, 1, idx[:, None])[:, 0]
+        u = torch.where(s.dim < D, u_x, u)
+    elif kind == "stratified":
         h = prng.hash_2int(s.pixel, s.dim) & M32
         stratum = permutation_element(s.sample, spp, h)
         u = (stratum.to(torch.float32) + u) / spp
@@ -55,6 +74,10 @@ def get_1d(s: Sampler, mask=None, kind="independent", spp=0):
 
 
 def get_2d(s: Sampler, mask=None, kind="independent", spp=0):
+    if kind == "mlt":
+        s, u1 = get_1d(s, mask, kind, spp)
+        s, u2 = get_1d(s, mask, kind, spp)
+        return s, torch.stack([u1, u2], dim=-1)
     state, u1 = prng.uniform_float(s.state, s.inc)
     state, u2 = prng.uniform_float(state, s.inc)
     if kind == "stratified":

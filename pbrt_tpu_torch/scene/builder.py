@@ -40,7 +40,8 @@ LIGHT_UNIFORM_INFINITE = 2
 LIGHT_SPOT = 4
 
 PATH_INTEGRATORS = ("path", "volpath", "megakernelpath")
-RENDERED_INTEGRATORS = PATH_INTEGRATORS + ("bdpt",)
+MLT_INTEGRATORS = ("mltpath", "mlt", "mltbdpt")
+RENDERED_INTEGRATORS = PATH_INTEGRATORS + ("bdpt",) + MLT_INTEGRATORS
 
 
 def _later(what, slice_name):
@@ -51,8 +52,9 @@ def _later(what, slice_name):
 def check_integrator(itype):
     """Raise for an integrator the port does not render yet."""
     if itype not in RENDERED_INTEGRATORS:
-        raise _later(f"integrator {itype!r}",
-                     "AOV" if itype in ("ambientocclusion", "surfacenormal") else "MLT")
+        if itype in ("ambientocclusion", "surfacenormal"):
+            raise _later(f"integrator {itype!r}", "AOV")
+        raise ValueError(f"unknown integrator {itype!r}")
 
 
 @functools.lru_cache(None)
@@ -582,8 +584,10 @@ class SceneBuilder:
                 itype = tokens[i].value
                 i += 1
                 pd, i = parse_parameters(tokens, i)
+                # MLT reads "mutationsperpixel" only, as the JAX package does
                 self.integrator = {"type": itype,
-                                   "maxdepth": pd.get_integer("maxdepth", 5)}
+                                   "maxdepth": pd.get_integer("maxdepth", 5),
+                                   "mutations": pd.get_integer("mutationsperpixel", 100)}
                 continue
             if kw == "PixelFilter":
                 ftype = tokens[i].value

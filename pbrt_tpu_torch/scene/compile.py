@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.accel import bvh as bvhlib
+from pbrt_tpu_torch.distribution.distributions import alias_table_build
 from pbrt_tpu_torch.filters import filters as filterlib
 from pbrt_tpu_torch.geometry import intersect as ix, transform as tf
 from pbrt_tpu_torch.scene import builder as bd
@@ -179,6 +180,7 @@ class SceneMeta:
     dsk_partial: bool             # some disk is clipped (phimax)
     layered: bool                 # some material is coated: make_bsdf builds
                                   # the layered parameters (K7)
+    mutations_per_pixel: int      # MLT: mutations per pixel of a frame
 
 
 def scene_from_arrays(arrays, meta, device):
@@ -244,34 +246,6 @@ def _dpduv(tp_, tuv_):
     dpdu = (duv2[:, 1:2] * dp1 - duv1[:, 1:2] * dp2) * inv
     dpdv = (-duv2[:, 0:1] * dp1 + duv1[:, 0:1] * dp2) * inv
     return dpdu.astype(np.float32), dpdv.astype(np.float32)
-
-
-def alias_table_build(values):
-    """Vose's O(N) alias table (reference alias_table.cu:9-104):
-    weights (N,) -> (q (N,) f32, alias (N,) i32, pdf (N,) f32)."""
-    values = np.asarray(values, np.float64).reshape(-1)
-    n = values.size
-    total = values.sum()
-    if total <= 0:
-        return (np.ones(n, np.float32), np.arange(n, dtype=np.int32),
-                np.full(n, 1.0 / n, np.float32))
-    pdf = values / total
-    scaled = pdf * n
-    q = np.ones(n, np.float64)
-    alias = np.arange(n, dtype=np.int32)
-    small = [i for i in range(n) if scaled[i] < 1.0]
-    large = [i for i in range(n) if scaled[i] >= 1.0]
-    while small and large:
-        s = small.pop()
-        l = large.pop()
-        q[s] = scaled[s]
-        alias[s] = l
-        scaled[l] = (scaled[l] + scaled[s]) - 1.0
-        (small if scaled[l] < 1.0 else large).append(l)
-    for i in small + large:
-        q[i] = 1.0
-        alias[i] = i
-    return q.astype(np.float32), alias, pdf.astype(np.float32)
 
 
 def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=None):
@@ -515,6 +489,7 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         sph_partial=any(sp["partial"] for sp in b.spheres),
         dsk_partial=any(dk["partial"] for dk in b.disks),
         layered=any(m.type in (bd.MAT_COATED_DIFFUSE, bd.MAT_COATED_CONDUCTOR) for m in mats),
+        mutations_per_pixel=b.integrator.get("mutations", 100),
     )
     return arrays, meta
 

@@ -138,10 +138,11 @@ def cornell_mesh_builder(levels=5, res=None, filter_kind=None):
     return b
 
 
-def cornell_mesh(res=128, spp=4, levels=5, device=None, filter_kind=None):
-    """-> (Scene, SceneMeta): the BVH-exercising Cornell variant."""
+def cornell_mesh(res=128, spp=4, levels=5, device=None, filter_kind=None, integrator=None):
+    """-> (Scene, SceneMeta): the BVH-exercising Cornell variant;
+    `integrator` overrides the file's "path"."""
     return compile_scene(cornell_mesh_builder(levels, res, filter_kind),
-                         spp_override=spp, device=device)
+                         spp_override=spp, device=device, integrator_override=integrator)
 
 
 def terrain_ply_path(n=256, cache_dir=None):

@@ -392,3 +392,72 @@ def test_bdpt_render_on_card_matches_cpu(cuda):
     err = np.abs(img_gpu - img_cpu)
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
+@pytest.mark.parametrize("D", [66, 160])
+def test_mlt_mutate_kernel_matches_plain(cuda, D):
+    """K12m-a at 8192 chains and the D of cornell-mesh (mltpath, depth 5)
+    and caustic-glass (mlt, depth 7): its draws and large-step flags
+    bit-exact with chain_uniforms, values within tests/mlt_cases.py's
+    MUTATE_ULPS; one launch counted."""
+    from mlt_cases import compare_mutate, primary_samples
+    from pbrt_tpu_torch.integrators import mlt
+
+    x = torch.from_numpy(primary_samples(8192, D, D)).to(cuda)
+    draws = torch.empty((8192, 1 + 2 * D), device=cuda)
+    n0 = mlt.launches["mlt_mutate"]
+    out = mlt.mutate_cuda(x, 7, 3, draws)
+    assert mlt.launches["mlt_mutate"] == n0 + 1
+    res = compare_mutate(x, out, draws, mlt.mutate_from_uniforms, mlt.chain_uniforms, 7, 3)
+    assert 0 < res["large"] < 8192
+
+
+@pytest.mark.parametrize("C", [1, 8])
+def test_mlt_accept_kernel_matches_plain(cuda, C):
+    """K12m-b for one contribution (mltpath) and eight (mlt at depth 7):
+    acceptance and chain state exact, splat and heat within
+    tests/mlt_cases.py's SPLAT_RTOL of the plain version with the stream's
+    accept uniforms; one launch counted."""
+    from mlt_cases import accept_inputs, compare_accept
+    from pbrt_tpu_torch.integrators import mlt
+
+    R, D, n_pix = 8192, 40, 4096
+    T = {k: torch.from_numpy(v).to(cuda) for k, v in accept_inputs(R, C, D, n_pix, C).items()}
+    cur = mlt.Chains(T["x_cur"], T["pix_cur"], T["rgb_cur"], T["y_cur"])
+    prop = mlt.Chains(T["x_prop"], T["pix_prop"], T["rgb_prop"], T["y_prop"])
+    n0 = mlt.launches["mlt_accept_splat"]
+    res = compare_accept(
+        lambda *a: mlt.accept_and_splat_cuda(*a, 5, 9),
+        lambda *a: mlt.accept_and_splat_from_uniforms(*a, mlt.accept_uniforms(5, 9, R, cuda)),
+        torch.rand((n_pix, 3), device=cuda), torch.rand(n_pix, device=cuda), cur, prop)
+    assert mlt.launches["mlt_accept_splat"] == n0 + 1
+    assert 0 < res["accepted"] < R
+
+
+def test_mlt_render_on_card_matches_cpu(cuda):
+    """mltpath on cornell 16^2, max depth 3, 512 chains, 4 passes, same seed
+    on the card and the CPU: both kernels launched once a pass; acceptances,
+    block means and image means under tests/mlt_cases.py's compare_renders
+    (the chains share their random numbers and part only where rounding
+    flips a decision)."""
+    import dataclasses
+
+    from mlt_cases import compare_renders
+    from pbrt_tpu_torch.integrators import mlt
+
+    scene, meta = ts.cornell(res=16, spp=1, device=cuda, filter_kind="box",
+                             integrator="mltpath")
+    meta = dataclasses.replace(meta, max_depth=3, mutations_per_pixel=8)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        acc = []
+        n0 = dict(mlt.launches)
+        img, _ = mlt.render_mlt(scene, meta, n_chains=512, n_bootstrap=4096, device=dev,
+                                on_pass=lambda i, a, acc=acc, dev=dev: acc.append(
+                                    (mlt.accept_uniforms(0, i, 512, dev) < a).cpu()))
+        if dev.type == "cuda":
+            assert all(mlt.launches[k] == n0[k] + 4 for k in n0)
+        out[dev.type] = (img.cpu().numpy(), torch.stack(acc))
+    (img_g, acc_g), (img_c, acc_c) = out["cuda"], out["cpu"]
+    assert np.isfinite(img_g).all()
+    compare_renders(img_g, img_c, acc_g, acc_c)

@@ -144,7 +144,8 @@ def test_bdpt_wave_batching_does_not_change_the_image(monkeypatch, lanes):
 
 def test_bdpt_entry_points(tmp_path):
     """load_scene takes the file's own integrator (caustic-glass: bdpt, max
-    depth 7); render_to_png and the CLI write its PNG; MLT still raises."""
+    depth 7); render_to_png and the CLI write its PNG; an MLT override
+    compiles with the default 100 mutations per pixel."""
     path = str(ROOT / "scenes" / "caustic-glass.pbrt")
     scene, meta = load_scene(path, device="cpu", spp=1)
     assert (meta.integrator, meta.max_depth) == ("bdpt", 7)
@@ -158,5 +159,5 @@ def test_bdpt_entry_points(tmp_path):
     p, _, stats = rd.render_to_png(scene, meta, out_path=str(tmp_path / "r.png"), device="cpu")
     assert png.read_png(p).shape == (8, 8, 3) and stats["shadow"] > 0
     for itype in ("mlt", "mltbdpt"):
-        with pytest.raises(NotImplementedError, match="planned slice: MLT"):
-            load_scene(path, device="cpu", integrator=itype)
+        _, meta = load_scene(path, device="cpu", integrator=itype)
+        assert (meta.integrator, meta.max_depth, meta.mutations_per_pixel) == (itype, 7, 100)

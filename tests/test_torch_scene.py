@@ -135,7 +135,7 @@ def test_filter_tables_and_meta(both):
     assert tm.layered == (ja.lay_marker.shape[0] > 0)
     for k in ("resolution", "spp", "sampler", "integrator", "max_depth", "n_tris",
               "n_spheres", "n_disks", "n_lights", "filter_kind", "film_imaging_ratio",
-              "open_scene"):
+              "open_scene", "mutations_per_pixel"):
         assert getattr(tm, k) == getattr(jm, k), k
     np.testing.assert_allclose(tm.film_out_matrix, jm.film_out_matrix, rtol=1e-6)
 
@@ -175,7 +175,8 @@ UNPORTED = {
     "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
     "mix material": 'WorldBegin\nMaterial "mix"',
     "interface": 'WorldBegin\nMaterial "interface"',
-    "mlt": 'Integrator "mlt"',
+    "mlt": 'Integrator "mlt"\nMakeNamedMedium "m" "string type" "homogeneous"',
+    "aov integrator": 'Integrator "ambientocclusion"',
     "gaussian filter": 'PixelFilter "gaussian"',
     "instancing": 'WorldBegin\nObjectBegin "a"',
     "named material": 'WorldBegin\nNamedMaterial "a"',

@@ -86,7 +86,35 @@ result line:
      (draws and chain state bit-exact, splat sums within 1e-5) and timed on
      caustic-glass's beside their byte bounds, plain versions and (K12m-b)
      index_add_;
- 11. a `kernels` JSON line; the last line is the JSON result.
+ 11. scene sharding (K11a `bvh_closest_hit_parts`, K11b `bvh_any_hit_parts`,
+     `shard_select`, csrc/scene_shard.cu): (a) cornell-mesh levels 5 split
+     into 8 morton parts (per-part tables under a quarter of the unsharded
+     ones); on phase 3's 131,072 camera and interior rays K11a's candidate
+     packs and K11b's bits bit-exact with their plain versions and with the
+     unfused yardstick (K1 over each part, then an argmin); against the
+     unsharded K1 equal hit sets, t within rtol 1e-5, the same triangle on
+     >= 99 % of hits and equal t on the rest; the select kernel bit-exact
+     with its plain version on 4 stacked packs with planted ties; (b) the
+     scene-sharded frames through render() of the scene split by
+     render.shard_scene (its host build timed alone): cornell-mesh (8 parts)
+     and terrain (4 parts, the batched loop) at phase 8's settings, K11a and
+     K11b launched and K1 not, the ray counts equal to phase 8's frames
+     (terrain: the batched loop's), the images within check_image of them;
+     (c) NCCL at world size 1 (a file store): the pixel-parallel cornell-mesh
+     frame (its film all-reduced) and the scene-sharded one through
+     render(shard_parts=8), as the CLI's --shard-scene calls it (every
+     closest hit through an all_gather and the select kernel, every shadow
+     batch through an all_reduce), each with phase 8's ray count and image;
+     (d) K11a and K11b at their first
+     launches in (b)'s cornell-mesh frame (2^20 lanes) and the select
+     kernel at its first in (c): held against their plain versions again
+     (K11a bit-exact but for verified ties, K1's criterion of phases 3 and
+     9: a winner that differs must hit at a t within 1e-6 relative of the
+     other's; over 2^20 lanes a tie decided by the traversal order or by
+     the bound carried across parts occurs), and timed beside them, their
+     operation or byte bounds and the unfused yardstick. Scaling across cards is not measurable on
+     one card;
+ 12. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
 import dataclasses
@@ -266,6 +294,7 @@ def main():
     from pbrt_tpu_torch.geometry import intersect as ix
     from pbrt_tpu_torch.integrators import bdpt, mlt, render as rd
     from pbrt_tpu_torch.materials import bxdfs, layered
+    from pbrt_tpu_torch.parallel import scene_shard as ss
     from pbrt_tpu_torch.sampling import samplers
     from pbrt_tpu_torch.scene import builder as bd, testscenes as ts
     from pbrt_tpu_torch.scene.compile import compile_scene, load_scene
@@ -275,7 +304,7 @@ def main():
     dev = torch.device("cuda")
     t_start = time.time()
     counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches,
-                bdpt.launches, mlt.launches)
+                bdpt.launches, mlt.launches, ss.launches)
 
     def reset_counts():
         for c in counters:
@@ -697,6 +726,9 @@ def main():
         (bdpt, "connect_all_cuda", lambda a, k: "bdpt_wave"),
         (mlt, "mutate_cuda", lambda a, k: "mlt_mutate"),
         (mlt, "accept_and_splat_cuda", lambda a, k: "mlt_accept_splat"),
+        (ss, "closest_parts_cuda", lambda a, k: "bvh_closest_hit_parts"),
+        (ss, "any_parts_cuda", lambda a, k: "bvh_any_hit_parts"),
+        (ss, "select_cuda", lambda a, k: "shard_select"),
     ]
     captured = {}
 
@@ -730,16 +762,17 @@ def main():
                 setattr(mod, name, orig)
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    main_counts, main_counts_frame, frame_means = {}, {}, {}
+    main_counts, main_counts_frame, frame_means, frame_imgs = {}, {}, {}, {}
 
-    def full_render(tag, sc, mt, must):
+    def full_render(tag, sc, mt, must, **kw):
         """The measured render of a full-width frame, its kernels'
         first-launch arguments kept."""
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.time()
-        img, stats = render_captured(tag, sc, mt, return_stats=True)
+        img, stats = render_captured(tag, sc, mt, return_stats=True, **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {k: v for k, v in read_counts().items() if v}
@@ -755,6 +788,7 @@ def main():
         out_png = kernels.BUILD_DIR / f"{tag}.png"
         png.write_png(str(out_png), filmlib.to_srgb8(img))
         frame_means[tag] = float(img.mean())
+        frame_imgs[tag] = img
         per = (f"{mt.mutations_per_pixel} mutations/pixel" if mt.integrator in bd.MLT_INTEGRATORS
                else f"{mt.spp} spp {mt.filter_kind}")
         log(f"full render {tag} {mt.integrator} {mt.resolution[0]}^2 x {per} depth "
@@ -762,11 +796,12 @@ def main():
             f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
             f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts}; mean {img.mean():.5f}; "
             f"all finite; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-            f"-> {out_png.relative_to(ROOT)}")
+            f"({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} over the "
+            f"{held / 2**30:.2f} held before it) -> {out_png.relative_to(ROOT)}")
         return stats
 
-    full_render("cornell_mesh", scene, meta, ("bvh_closest_hit", "bvh_any_hit",
-                                              "film_add_samples"))
+    st_cm = full_render("cornell_mesh", scene, meta, ("bvh_closest_hit", "bvh_any_hit",
+                                                      "film_add_samples"))
     full_render("cornell", s_corn, m_corn, ("dense_tri_closest", "dense_tri_any",
                                             "dense_spheres", "film_add_samples"))
     t0 = time.time()
@@ -777,11 +812,11 @@ def main():
     st_w = full_render("terrain", s_terr, m_terr, ("bvh_closest_hit", "bvh_any_hit",
                                                    "wavefront_recycle", "film_add_samples"))
     t0 = time.time()
-    st_b = rd.render_batched(s_terr, m_terr, filmlib.new_film(m_terr.resolution, dev))
-    st_b = {k: int(v) for k, v in st_b.items()}
-    require(st_w == st_b, "wavefront and batched ray counts differ", st_w, st_b)
+    st_terr_b = rd.render_batched(s_terr, m_terr, filmlib.new_film(m_terr.resolution, dev))
+    st_terr_b = {k: int(v) for k, v in st_terr_b.items()}
+    require(st_w == st_terr_b, "wavefront and batched ray counts differ", st_w, st_terr_b)
     log(f"terrain through the batched loop: {time.time() - t0:.3f} s wall, the same "
-        f"{st_b['closest']} + {st_b['shadow']} rays as the wavefront loop (no work item "
+        f"{st_terr_b['closest']} + {st_terr_b['shadow']} rays as the wavefront loop (no work item "
         f"dropped or repeated; render() raises on dropped != 0)")
 
     # the disk kernel's path: caustic-glass (path) 48^2 x 4, card vs CPU
@@ -1219,11 +1254,277 @@ def main():
         f"{ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ of its {idx_all.shape[0]} splats "
         f"{ms_lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}; {nbytes / 1e6:.2f} MB)")
 
+    # ---- 11. scene sharding: K11a, K11b and the select kernel
+    # (a) against their plain versions, the unfused yardstick and K1 on
+    # phase 3's rays over cornell-mesh levels 5 in 8 parts
+    sh8 = ss.build_scene_shard(scene, 8).to(dev)
+    full_b = sum(x.numel() * 4 for x in (scene.bvh_rows, scene.tri_rec, scene.tri_p0,
+                                         scene.tri_p1, scene.tri_p2))
+    part_b = ss.shard_bytes(sh8)
+    require(part_b < full_b / 4, "per-part tables not under a quarter", part_b, full_b)
+    log(f"cornell-mesh levels 5 in 8 parts: rows {tuple(sh8.rows.shape)}, recv "
+        f"{tuple(sh8.recv.shape)}, n_int {sh8.n_int}, depth {sh8.depth}; {part_b / 1e6:.3f} MB "
+        f"a part against {full_b / 1e6:.3f} MB of unsharded tables ({part_b / full_b:.3f})")
+
+    def unfused_pack(sh, o, d, t_max):
+        """The yardstick: K1 over each part, then an argmin over the parts
+        and a gather of the winner's recv row (closest_parts_plain's
+        arithmetic around bvh.traverse_cuda)."""
+        ts_, rvs = [], []
+        for p in range(sh.rows.shape[0]):
+            t, prim = bvh.traverse_cuda(sh.rows[p], sh.n_int, sh.depth, o, d, t_max)
+            found = prim >= 0
+            ts_.append(torch.where(found, t, torch.inf))
+            rvs.append(torch.where(found[:, None], sh.recv[p][prim.clamp(min=0)], 0.0))
+        t = torch.stack(ts_)
+        best = torch.argmin(t, dim=0)
+        rr = torch.arange(o.shape[0], device=o.device)
+        return torch.cat([t[best, rr][:, None], torch.stack(rvs)[best, rr]], dim=1)
+
+    def unfused_any(sh, o, d, t_max):
+        occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for p in range(sh.rows.shape[0]):
+            occ |= bvh.traverse_cuda(sh.rows[p], sh.n_int, sh.depth, o, d, t_max,
+                                     any_hit=True)[1] >= 0
+        return occ
+
+    def plain_ms_of(fn):
+        """(result, ms) of one call of a plain version, CUDA events around it."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def pack_ties(pk, ref, o, d, t_max, what, ties_ok):
+        """Lanes where the pack pk differs from ref: none, or (ties_ok) only
+        verified ties, as K1's in phases 3 and 9: both winners are hits
+        whose t agree within 1e-6 relative (a tie decided by the traversal
+        order, or by the bound carried across parts). -> their count."""
+        differ = (pk != ref).any(1)
+        n = int(differ.sum())
+        if n:
+            require(ties_ok, what, "differs on", n, "lanes")
+            ts_ = []
+            for pack in (pk[differ], ref[differ]):
+                tr, _, ok = ix.intersect_tri_lanes(o[differ], d[differ], t_max[differ],
+                                                   pack[:, 28:31], pack[:, 31:34],
+                                                   pack[:, 34:37])
+                require(bool(ok.all()) and bool(torch.isfinite(pack[:, 0]).all()), what,
+                        "a differing winner that misses")
+                ts_ += [tr, pack[:, 0]]
+            rel = max(float(((ts_[0] - ts_[2]).abs() / ts_[2].abs()).max()),
+                      float(((ts_[1] - ts_[3]).abs() / ts_[3].abs()).max()))
+            require(rel <= 1e-6, what, "a differing winner is not a tie", rel)
+        return n
+
+    def compare_parts(sh, o, d, t_max, ties_ok=False):
+        """K11a against its plain version and the yardstick (bit for bit; with
+        ties_ok, but for verified ties) and the unsharded K1 -> (hits, lanes
+        whose winner differs from K1's, max rel err of t against K1, tie
+        lanes against plain and yardstick, plain ms)."""
+        pk = ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, o, d, t_max)
+        pp, ms_p = plain_ms_of(lambda: ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d,
+                                                              t_max))
+        n_tp = pack_ties(pk, pp, o, d, t_max, "K11a against its plain version", ties_ok)
+        n_ty = pack_ties(pk, unfused_pack(sh, o, d, t_max), o, d, t_max,
+                         "K11a against the unfused K1-per-part yardstick", ties_ok)
+        t1, p1 = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
+        hit = p1 >= 0
+        require(torch.equal(hit, torch.isfinite(pk[:, 0])), "K11a: hit set differs from K1's")
+        rel = ((pk[hit, 0] - t1[hit]).abs() / t1[hit].abs()).max() if bool(hit.any()) else 0.0
+        require(float(rel) <= 1e-5, "K11a: t differs from K1's", float(rel))
+        pc = p1.clamp(min=0)
+        same = (pk[:, 28:] == torch.cat([scene.tri_p0[pc], scene.tri_p1[pc], scene.tri_p2[pc]],
+                                        dim=1)).all(1) & hit
+        n_hit, n_same = int(hit.sum()), int(same.sum())
+        require(n_same >= 0.99 * n_hit, "K11a: winners differ from K1's", n_same, n_hit)
+        other = hit & ~same
+        if ties_ok:
+            rel_o = ((pk[other, 0] - t1[other]).abs() / t1[other].abs()).max() \
+                if bool(other.any()) else 0.0
+            require(float(rel_o) <= 1e-6, "K11a: a different winner than K1's at another t")
+        else:
+            require(torch.equal(pk[other, 0], t1[other]), "K11a: a different winner at another t")
+        both = torch.isfinite(pk[:, 0]) & torch.isfinite(pp[:, 0])
+        err_t = float((pk[both, 0] - pp[both, 0]).abs().max()) if bool(both.any()) else 0.0
+        return n_hit, n_hit - n_same, float(rel), (n_tp, n_ty, err_t), ms_p
+
+    def compare_any_parts(sh, o, d, t_max):
+        """K11b against its plain version, the yardstick and K1a -> (occluded,
+        plain ms)."""
+        ok = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, o, d, t_max)
+        op, ms_p = plain_ms_of(lambda: ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_max))
+        require(torch.equal(ok, op), "K11b differs from its plain version",
+                int((ok != op).sum()))
+        require(torch.equal(ok, unfused_any(sh, o, d, t_max)), "K11b differs from the yardstick")
+        require(torch.equal(ok, bvh.traverse_cuda(rows, n_int, depth, o, d, t_max,
+                                                  any_hit=True)[1] >= 0),
+                "K11b differs from the unsharded K1a")
+        return int(ok.sum()), ms_p
+
+    o, d, t_max = camera_and_interior_rays(scene, meta)
+    n_hit, n_tie, rel, _, _ = compare_parts(sh8, o, d, t_max)
+    t_cl, _ = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
+    n_occ, _ = compare_any_parts(sh8, o, d, shadow_t(t_cl))
+    log(f"bvh_closest_hit_parts vs plain on {o.shape[0]} camera+interior rays over 8 parts: "
+        f"packs bit-exact (and with the unfused K1-per-part yardstick); against the unsharded "
+        f"K1 {n_hit} hits, the same triangle on all but {n_tie} (equal t), max rel err t "
+        f"{rel:.2e}; bvh_any_hit_parts {n_occ} occluded, bit-exact with plain, yardstick and "
+        f"K1a")
+
+    def planted_packs(pack, W=4):
+        """W packs from one: rank w's rows rolled by 17 w, and on every third
+        ray ranks 1 and 2 tied with rank 0's t."""
+        packs = torch.stack([pack.roll(17 * w, dims=0) for w in range(W)]).contiguous()
+        packs[1:3, ::3, 0] = packs[0, ::3, 0]
+        return packs
+
+    pk8 = ss.closest_parts_cuda(sh8.rows, sh8.recv, sh8.n_int, sh8.depth, o, d, t_max)
+    packs4 = planted_packs(pk8)
+    require(torch.equal(ss.select_cuda(packs4), ss.select_plain(packs4)),
+            "shard_select differs from its plain version")
+    log(f"shard_select vs plain on 4 stacked packs of {o.shape[0]} rays, ties planted on every "
+        f"third ray: bit-exact")
+
+    # (b) the scene-sharded full-width frames through render(shard_parts=N)
+    parts_k = ("bvh_closest_hit_parts", "bvh_any_hit_parts", "film_add_samples")
+
+    def sharded_frame(tag, sc, mt, n_parts, ref_tag, ref_stats, must=parts_k, prebuilt=True):
+        """A scene-sharded frame through render(): of the scene split by
+        rd.shard_scene first (its host build and upload timed alone, the
+        frame's wall time without it) or, prebuilt=False, through
+        render(shard_parts=n_parts) as the CLI's --shard-scene calls it."""
+        kw = {"shard_parts": n_parts}
+        if prebuilt:
+            t0 = time.time()
+            sc = rd.shard_scene(sc, n_parts)
+            torch.cuda.synchronize()
+            log(f"{tag}: shard_scene ({n_parts} parts of rows {tuple(sc.shard.rows.shape)}, "
+                f"host build and upload) {time.time() - t0:.2f} s")
+            kw = {}
+        st = full_render(tag, sc, mt, must, **kw)
+        k1 = {k: main_counts_frame.get(k, 0) for k in bvh.launches}
+        require(not any(k1.values()), tag, "K1 launched on a sharded frame", k1)
+        require(st == ref_stats, tag, "ray counts differ from the unsharded frame", st,
+                ref_stats)
+        fb = check_image(frame_imgs[tag], frame_imgs[ref_tag], f"{tag} vs {ref_tag}")
+        log(f"{tag}: {n_parts} parts, ray counts equal to the {ref_tag} frame's {ref_stats}, "
+            f"K1 not launched; vs that frame {fb:.4%} bad px, means {frame_means[tag]:.5f} / "
+            f"{frame_means[ref_tag]:.5f}")
+
+    sharded_frame("cornell_mesh_sharded", scene, meta, 8, "cornell_mesh", st_cm)
+    sharded_frame("terrain_sharded", s_terr, m_terr, 4, "terrain", st_terr_b)
+
+    # (c) NCCL at world size 1: the collectives are issued (and counted)
+    import torch.distributed as tdist
+
+    issued = {"all_reduce": 0, "all_gather": 0}
+
+    def counting(name):
+        orig = getattr(tdist, name)
+
+        def call(*a, **k):
+            issued[name] += 1
+            return orig(*a, **k)
+        return orig, call
+
+    store = kernels.BUILD_DIR / "nccl_world1"
+    store.unlink(missing_ok=True)
+    tdist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                             device_id=torch.device("cuda", torch.cuda.current_device()))
+    origs = {n: counting(n) for n in issued}
+    try:
+        for n, (_, call) in origs.items():
+            setattr(tdist, n, call)
+        st = full_render("cornell_mesh_dp_nccl", scene, meta, ("bvh_closest_hit", "bvh_any_hit",
+                                                               "film_add_samples"))
+        require(st == st_cm, "NCCL pixel-parallel frame: ray counts", st, st_cm)
+        require(issued["all_reduce"] >= 4, "NCCL pixel-parallel frame: no all_reduce", issued)
+        fb = check_image(frame_imgs["cornell_mesh_dp_nccl"], frame_imgs["cornell_mesh"],
+                         "NCCL pixel-parallel frame")
+        log(f"NCCL world size 1, pixel-parallel cornell-mesh: the cornell_mesh frame's ray "
+            f"counts, {issued['all_reduce']} all_reduce issued (film and counts), vs that frame "
+            f"{fb:.4%} bad px")
+        issued.update(all_reduce=0, all_gather=0)
+        sharded_frame("cornell_mesh_sharded_nccl", scene, meta, 8, "cornell_mesh", st_cm,
+                      must=parts_k + ("shard_select",), prebuilt=False)
+        n_sel = main_counts_frame["shard_select"]
+        require(issued["all_gather"] == n_sel == main_counts_frame["bvh_closest_hit_parts"]
+                and issued["all_reduce"] == main_counts_frame["bvh_any_hit_parts"],
+                "NCCL scene-sharded frame: collectives", issued, main_counts_frame)
+        log(f"NCCL world size 1, scene-sharded cornell-mesh: {issued['all_gather']} all_gather "
+            f"of the candidate packs, each resolved by shard_select, and {issued['all_reduce']} "
+            f"all_reduce(MAX) of the shadow bits")
+    finally:
+        for n, (orig, _) in origs.items():
+            setattr(tdist, n, orig)
+        tdist.destroy_process_group()
+    log("scaling across cards: not measurable on one card (one H100 in this machine; NCCL ran "
+        "at world size 1)")
+
+    # (d) timed at their first launches in (b)'s cornell-mesh frame and, the
+    # select kernel, in (c)'s
+    (rows_s, recv_s, nint_s, depth_s, o_, d_, t_), _, _ = first("cornell_mesh_sharded",
+                                                                "bvh_closest_hit_parts")
+    sh_f = sh8._replace(rows=rows_s, recv=recv_s)
+    R_ = o_.shape[0]
+    n_h, n_tie, rel, (n_tp, n_ty, err_t), ms_plain = compare_parts(sh_f, o_, d_, t_,
+                                                                   ties_ok=True)
+    work = torch.zeros(4, dtype=torch.int64, device=dev)
+    ss.closest_parts_cuda(rows_s, recv_s, nint_s, depth_s, o_, d_, t_, stats=work)
+    n_nodes, n_tris, n_edge, n_range = (int(x) for x in work.cpu())
+    ms, call = kernel_ms(lambda: ss.closest_parts_cuda(rows_s, recv_s, nint_s, depth_s, o_, d_,
+                                                       t_), 20)
+    ms_y = graph_ms(lambda: unfused_pack(sh_f, o_, d_, t_))
+    b = bound(rows_s.numel() * 4 + n_h * ss.REC_W * 4 + R_ * 28 + R_ * ss.PACK_W * 4,
+              n_nodes * SLAB_VISIT_OPS + tri_test_ops(n_tris, n_edge, n_range))
+    timing["bvh_closest_hit_parts"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0],
+                                           bound_by=b[1], library_ms=None, max_abs_err=err_t,
+                                           yardstick_ms=ms_y)
+    log(f"bvh_closest_hit_parts at the main path's launch ({R_} lanes x 8 parts, {n_h} hits, "
+        f"{n_nodes} node visits, {n_tris} tri tests, {n_edge} past the edge test, {n_range} "
+        f"past t range): kernel {ms:.3f} ms (host-paced {call:.3f} ms), unfused K1-per-part "
+        f"yardstick {ms_y:.3f} ms, plain {ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]}); "
+        f"packs bit-exact with plain but on {n_tp} and with the yardstick but on {n_ty} "
+        f"verified tie lanes; against the unsharded K1 the same triangle on all but {n_tie} "
+        f"hits, max rel err t {rel:.2e}; max abs err of t against plain {err_t:.2e}")
+    (rows_s, nint_s, depth_s, o_, d_, t_), _, _ = first("cornell_mesh_sharded",
+                                                        "bvh_any_hit_parts")
+    n_o, ms_plain = compare_any_parts(sh_f, o_, d_, t_)
+    work.zero_()
+    ss.any_parts_cuda(rows_s, nint_s, depth_s, o_, d_, t_, stats=work)
+    n_nodes, n_tris, n_edge, n_range = (int(x) for x in work.cpu())
+    ms, call = kernel_ms(lambda: ss.any_parts_cuda(rows_s, nint_s, depth_s, o_, d_, t_), 20)
+    ms_y = graph_ms(lambda: unfused_any(sh_f, o_, d_, t_))
+    b = bound(rows_s.numel() * 4 + o_.shape[0] * 29,
+              n_nodes * SLAB_VISIT_OPS + tri_test_ops(n_tris, n_edge, n_range))
+    timing["bvh_any_hit_parts"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                       library_ms=None, max_abs_err=0.0, yardstick_ms=ms_y)
+    log(f"bvh_any_hit_parts at the main path's launch ({o_.shape[0]} lanes x 8 parts, {n_o} "
+        f"occluded, {n_nodes} node visits, {n_tris} tri tests): kernel {ms:.3f} ms "
+        f"(host-paced {call:.3f} ms), unfused K1a-per-part yardstick {ms_y:.3f} ms, plain "
+        f"{ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]}); bit-exact")
+    (packs_s,), _, _ = first("cornell_mesh_sharded_nccl", "shard_select")
+    W_, R_ = packs_s.shape[0], packs_s.shape[1]
+    out_p, _ = plain_ms_of(lambda: ss.select_plain(packs_s))
+    require(torch.equal(ss.select_cuda(packs_s), out_p), "shard_select differs on the main "
+            "path's launch")
+    ms, call = kernel_ms(lambda: ss.select_cuda(packs_s))
+    ms_plain = events_ms(lambda: ss.select_plain(packs_s), 20)
+    b = bound((W_ + 1) * R_ * ss.PACK_W * 4, W_ * R_)
+    timing["shard_select"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                  library_ms=None, max_abs_err=0.0)
+    log(f"shard_select at the main path's launch ({W_} rank x {R_} packs): kernel {ms:.4f} ms "
+        f"(host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}); "
+        f"bit-exact")
+
     ov = int(bvh.overflow_counter(dev).item()) - ov0
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
 
-    # ---- 11. kernels line and result
+    # ---- 12. kernels line and result
     meta_k = {
         "bvh_closest_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                             "pbrt_tpu/accel/bvh.py:909"),
@@ -1256,6 +1557,12 @@ def main():
         "mlt_mutate": ("cuda", "pbrt_tpu_torch/csrc/mlt.cu", "pbrt_tpu/integrators/mlt.py:53"),
         "mlt_accept_splat": ("cuda", "pbrt_tpu_torch/csrc/mlt.cu",
                              "pbrt_tpu/integrators/mlt.py:106"),
+        "bvh_closest_hit_parts": ("cuda", "pbrt_tpu_torch/csrc/scene_shard.cu",
+                                  "pbrt_tpu/parallel/scene_shard.py:226"),
+        "bvh_any_hit_parts": ("cuda", "pbrt_tpu_torch/csrc/scene_shard.cu",
+                              "pbrt_tpu/parallel/scene_shard.py:256"),
+        "shard_select": ("cuda", "pbrt_tpu_torch/csrc/scene_shard.cu",
+                         "pbrt_tpu/parallel/scene_shard.py:226"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

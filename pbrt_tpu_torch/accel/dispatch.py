@@ -10,7 +10,10 @@ JAX package), and the hit record is assembled as it does: from the packed
 per-triangle `tri_rec` row on BVH scenes, from the per-column tables on
 dense ones, with the sphere uv of reference sphere.h:74-81. Its medium and
 uv-derivative columns are read only by the media and texture slices and are
-not assembled here. Instancing and scene sharding are later slices.
+not assembled here. On a scene-sharded render (Scene.shard set) triangles go
+through the parts' traversal of parallel/scene_shard.py (K11a/K11b) instead,
+whose winner arrives with its tri_rec row and vertices; the same record
+assembly serves both. Instancing is a later slice.
 """
 from typing import NamedTuple
 
@@ -19,6 +22,7 @@ import torch
 from pbrt_tpu_torch.utils.math import INFINITY, PI
 from pbrt_tpu_torch.geometry import intersect as ix, vecmath as vm
 from pbrt_tpu_torch.accel import bvh
+from pbrt_tpu_torch.parallel import scene_shard
 
 
 class SceneHit(NamedTuple):
@@ -53,35 +57,53 @@ def _disks(scene, meta):
                       table=scene.dsk_table)
 
 
-def _triangle_record(scene, th):
-    """Triangle hit record -> (p, ng (face-forwarded), ns, uv, mat, light)."""
-    tri = torch.clamp(th.prim, min=0)
-    p0, p1, p2 = scene.tri_p0[tri], scene.tri_p1[tri], scene.tri_p2[tri]
-    b = th.b
+def _record_fields(rec):
+    """The columns of packed tri_rec rows (R, 27) -> (n0, n1, n2, uv0, uv1,
+    uv2, mat, light, rev, has_n)."""
+    return (rec[:, 0:3], rec[:, 3:6], rec[:, 6:9], rec[:, 9:11], rec[:, 11:13], rec[:, 13:15],
+            rec[:, 15].long(), rec[:, 16].long(), rec[:, 17] > 0.5, rec[:, 18] > 0.5)
+
+
+def _triangle_record(p0, p1, p2, b, fields):
+    """Hit record of the winning triangles (p0, p1, p2 (R, 3), barycentrics
+    b, and their _record_fields) -> (p, ng (face-forwarded), ns, uv, mat,
+    light)."""
+    n0, n1, n2, uv0, uv1, uv2, mat_t, light_t, rev, has_n = fields
     p_t = b[..., 0:1] * p0 + b[..., 1:2] * p1 + b[..., 2:3] * p2
     ng_t = vm.normalize(vm.cross(p1 - p0, p2 - p0))
-    if scene.bvh_rows.shape[0] > 0:
-        # BVH scenes: one wide row gather for the whole record
-        rec = scene.tri_rec[tri]                       # (R, 27)
-        n0, n1, n2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
-        uv0, uv1, uv2 = rec[:, 9:11], rec[:, 11:13], rec[:, 13:15]
-        mat_t = rec[:, 15].long()
-        light_t = rec[:, 16].long()
-        rev = rec[:, 17] > 0.5
-        has_n = rec[:, 18] > 0.5
-    else:
-        n0, n1, n2 = scene.tri_n0[tri], scene.tri_n1[tri], scene.tri_n2[tri]
-        uv0, uv1, uv2 = scene.tri_uv0[tri], scene.tri_uv1[tri], scene.tri_uv2[tri]
-        mat_t = scene.tri_mat[tri].long()
-        light_t = scene.tri_light[tri].long()
-        rev = scene.tri_rev[tri]
-        has_n = scene.tri_has_n[tri]
     ng_t = torch.where(rev[..., None], -ng_t, ng_t)
     ns_t = vm.normalize(b[..., 0:1] * n0 + b[..., 1:2] * n1 + b[..., 2:3] * n2)
     ng_adj = torch.where(has_n[..., None], vm.face_forward(ng_t, ns_t), ng_t)
     ns_t = torch.where(has_n[..., None], ns_t, ng_adj)
     uv_t = b[..., 0:1] * uv0 + b[..., 1:2] * uv1 + b[..., 2:3] * uv2
     return p_t, ng_adj, ns_t, uv_t, mat_t, light_t
+
+
+def _closest_triangles(scene, meta, o, d, t_max):
+    """Closest triangle hit and its record on the scene's route -> (t (R,),
+    INFINITY on a miss, (p, ng, ns, uv, mat, light)).
+      - scene-sharded (scene.shard set; JAX dispatch.py:80-93, 122-145): the
+        parts' traversal (K11a) delivers the winner's record row and
+        vertices, and the hit is refit against them;
+      - BVH (K1): one wide tri_rec row gather for the whole record;
+      - dense (K3): the per-column tables."""
+    if scene.shard is not None:
+        _, rec, p0, p1, p2, valid = scene_shard.closest_hit_parts(scene.shard, o, d, t_max)
+        t_ref, b, hit_ref = ix.intersect_tri_lanes(o, d, t_max, p0, p1, p2)
+        t = torch.where(valid & hit_ref, t_ref, INFINITY)
+        return t, _triangle_record(p0, p1, p2, b, _record_fields(rec))
+    if scene.bvh_rows.shape[0] > 0:
+        th = bvh.closest_hit_tris(scene, meta, o, d, t_max)
+        tri = torch.clamp(th.prim, min=0)
+        fields = _record_fields(scene.tri_rec[tri])
+    else:
+        th = ix.intersect_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1, scene.tri_p2)
+        tri = torch.clamp(th.prim, min=0)
+        fields = (scene.tri_n0[tri], scene.tri_n1[tri], scene.tri_n2[tri], scene.tri_uv0[tri],
+                  scene.tri_uv1[tri], scene.tri_uv2[tri], scene.tri_mat[tri].long(),
+                  scene.tri_light[tri].long(), scene.tri_rev[tri], scene.tri_has_n[tri])
+    return th.t, _triangle_record(scene.tri_p0[tri], scene.tri_p1[tri], scene.tri_p2[tri],
+                                  th.b, fields)
 
 
 def _sphere_uv(scene, sph, p_s):
@@ -116,11 +138,7 @@ def intersect(scene, meta, o, d, t_max) -> SceneHit:
 
     t_tri = t_s = t_d = inf
     if have_tris:
-        if scene.bvh_rows.shape[0] > 0:
-            th = bvh.closest_hit_tris(scene, meta, o, d, t_max)
-        else:
-            th = ix.intersect_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1, scene.tri_p2)
-        t_tri = th.t
+        t_tri, tri_record = _closest_triangles(scene, meta, o, d, t_max)
     if have_sph:
         t_s, idx_s, p_s, n_s = ix.intersect_spheres_dense(o, d, t_max, _spheres(scene, meta))
     if have_dsk:
@@ -132,7 +150,7 @@ def intersect(scene, meta, o, d, t_max) -> SceneHit:
     valid = t < INFINITY
 
     if have_tris:
-        p_hit, ng, ns, uv, mat, light = _triangle_record(scene, th)
+        p_hit, ng, ns, uv, mat, light = tri_record
     else:
         p_hit, ng, ns = (torch.zeros((R, 3), device=dev) for _ in range(3))
         uv = torch.zeros((R, 2), device=dev)
@@ -176,7 +194,9 @@ def occluded(scene, meta, o, d, t_max):
     unoccluded)."""
     occ = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
     if scene.tri_p0.shape[0] > 0:
-        if scene.bvh_rows.shape[0] > 0:
+        if scene.shard is not None:
+            occ = occ | scene_shard.any_hit_parts(scene.shard, o, d, t_max)
+        elif scene.bvh_rows.shape[0] > 0:
             occ = occ | bvh.any_hit_tris(scene, meta, o, d, t_max)
         else:
             occ = occ | ix.occluded_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1,

@@ -7,18 +7,12 @@
 // `leaf_block_presheared` :176 and `ray_shear` :155).
 //
 // Design: one thread per ray. The ray's shear constants (kz, sx, sy, sz) and
-// 1/d are computed once, outside the loop. The per-ray state is the JAX
-// stepper's: the current node, the bitmask of its children still to visit,
-// and a stack of packed (node * 256 + child-mask) entries in local memory.
-// A visit to an internal row slab-tests its 8 child boxes, descends into the
-// nearest surviving child and pushes at most one entry: the single remaining
-// sibling with a fresh mask, or (this node, remaining-mask) when two or more
-// remain, which is re-culled against the shrunken t_best when popped. So the
-// stack never holds more entries than the tree is deep (SceneMeta.bvh_depth).
-// A leaf row holds 8 triangles; each goes through the watertight test against
-// the current t_best and replaces the best hit only when strictly nearer, so
-// the winner is the first nearest triangle: prim = chunk * 8 + k in leaf
-// order, the same contract as the dense sweep of accel/bvh.py.
+// 1/d are computed once, outside the loop; the loop itself is the stepper of
+// bvh_stepper.cuh (the JAX stepper's node, child-mask and stack state),
+// shared with the scene-sharded part traversal of scene_shard.cu. A leaf
+// triangle replaces the best hit only when strictly nearer, so the winner is
+// the first nearest triangle: prim = chunk * 8 + k in leaf order, the same
+// contract as the dense sweep of accel/bvh.py.
 //
 // Lanes with t_max <= 0 return a miss at once (masked shadow lanes). A lane
 // that runs past 4 * n_rows + 16 iterations, or would overflow the stack,
@@ -36,27 +30,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "watertight.cuh"
+#include "bvh_stepper.cuh"
 
 namespace {
 
-using pbrt_wt::INF_T;
-using pbrt_wt::Shear;
-using pbrt_wt::ray_shear;
-using pbrt_wt::watertight;
-
-constexpr int LEAF_K = 8;
-constexpr int WIDTH = 8;
-constexpr int ROW_W = 72;
-constexpr int MAX_STACK = 64;
-constexpr int DONE = -1;
-constexpr int FRESH = (1 << WIDTH) - 1;
-constexpr float SLAB_WIDEN = (float)(1.0 + 2.0 * pbrt_wt::gamma_d(3));
-
-__device__ __forceinline__ float safe_inv(float d) {
-  float mag = fmaxf(fabsf(d), 1e-30f);
-  return (d < 0.f ? -1.f : 1.f) / mag;
-}
+using pbrt_bvh::MAX_STACK;
 
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(128)
@@ -68,111 +46,18 @@ traverse_kernel(const float* __restrict__ rows, int n_rows, int n_int,
                 unsigned long long* __restrict__ stats) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-  const float tmax0 = t_max[r];
-  float t_best = tmax0;
+  float t_best = t_max[r];
   int prim = -1;
-  if (!(tmax0 > 0.f)) {
+  if (!(t_best > 0.f)) {
     t_out[r] = t_best;
     prim_out[r] = -1;
     return;
   }
-  const Shear sh = ray_shear(dx, dy, dz);
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-
-  int stack[MAX_STACK];
-  int sp = 0;
-  int cur = 0;
-  int cmask = FRESH;
-  const long long max_iters = 4LL * n_rows + 16;
-  long long it = 0;
-  bool bad = false;
-  // work counts for `stats`: internal rows visited, triangle tests, and the
-  // tests that passed the edge-sign test and the t-range test
-  unsigned long long n_nodes = 0, n_tris = 0, n_edge = 0, n_range = 0;
-
-  while (cur != DONE) {
-    if (it++ >= max_iters) { bad = true; break; }
-    const float* row = rows + (long long)cur * ROW_W;
-    bool descend = false;
-    int next = DONE;
-    if (cur >= n_int) {
-      // ---- leaf: 8 triangles
-      const int chunk = cur - n_int;
-      bool found = false;
-      for (int k = 0; k < LEAF_K; ++k) {
-        float t;
-        int stage;
-        ++n_tris;
-        const bool hit = watertight(row + 9 * k, ox, oy, oz, sh, t_best, t, nullptr, &stage);
-        n_edge += stage >= 1;
-        n_range += stage >= 2;
-        if (hit && t < t_best) {
-          t_best = t;
-          prim = chunk * LEAF_K + k;
-          found = true;
-          if (ANY_HIT) break;
-        }
-      }
-      if (ANY_HIT && found) break;
-    } else {
-      // ---- internal: slab test of the 8 child boxes
-      ++n_nodes;
-      int best_slot = -1;
-      float best_tn = INF_T;
-      int hit_mask = 0;
-      for (int s = 0; s < WIDTH; ++s) {
-        const int child = (int)row[6 * WIDTH + s];
-        if (child < 0 || !((cmask >> s) & 1)) continue;
-        const float* b = row + 6 * s;
-        if (!(b[0] <= b[3])) continue;  // empty slot: inverted box
-        float t0x = (b[0] - ox) * ix, t1x = (b[3] - ox) * ix;
-        float t0y = (b[1] - oy) * iy, t1y = (b[4] - oy) * iy;
-        float t0z = (b[2] - oz) * iz, t1z = (b[5] - oz) * iz;
-        float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-        float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-        tf = tf * SLAB_WIDEN;
-        tn = fmaxf(tn, 0.f);
-        if (tn <= tf && tf > 0.f && tn < t_best) {
-          hit_mask |= 1 << s;
-          if (tn < best_tn) { best_tn = tn; best_slot = s; }
-        }
-      }
-      if (best_slot >= 0) {
-        descend = true;
-        next = (int)row[6 * WIDTH + best_slot];
-        const int rem = hit_mask & ~(1 << best_slot);
-        if (rem) {
-          int push;
-          if ((rem & (rem - 1)) == 0) {  // one sibling left: push it fresh
-            push = (int)row[6 * WIDTH + (__ffs(rem) - 1)] * 256 + FRESH;
-          } else {                       // revisit this node later, re-culled
-            push = cur * 256 + rem;
-          }
-          if (sp >= stack_depth) { bad = true; break; }
-          stack[sp++] = push;
-        }
-      }
-    }
-    if (descend) {
-      cur = next;
-      cmask = FRESH;
-    } else if (sp > 0) {
-      const int e = stack[--sp];
-      cur = e >> 8;
-      cmask = e & 255;
-    } else {
-      cur = DONE;
-    }
-  }
-  if (bad) atomicAdd(overflow, 1);
-  if (stats) {
-    atomicAdd(stats, n_nodes);
-    atomicAdd(stats + 1, n_tris);
-    atomicAdd(stats + 2, n_edge);
-    atomicAdd(stats + 3, n_range);
-  }
+  const pbrt_bvh::Ray ray = pbrt_bvh::make_ray(o + 3 * r, d + 3 * r);
+  pbrt_bvh::Counts c;
+  if (!pbrt_bvh::traverse<ANY_HIT>(rows, n_rows, n_int, ray, stack_depth, t_best, prim, c))
+    atomicAdd(overflow, 1);
+  pbrt_bvh::add_counts(stats, c);
   t_out[r] = t_best;
   prim_out[r] = prim;
 }

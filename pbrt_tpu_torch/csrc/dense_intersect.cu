@@ -282,7 +282,10 @@ dense_disk_kernel(const float* __restrict__ dsk, int n_dsk,
   if (!live_lane) return;
   float px = 0.f, py = 0.f, pz = 0.f, nx = 0.f, ny = 0.f, nz = 0.f;
   if (best >= 0) {
-    px = ox + t_best * dx; py = oy + t_best * dy; pz = oz + t_best * dz;
+    // one rounding, as the plain version's float64 o + t * d (an explicit
+    // fma: --fmad=false forbids only the implicit contraction)
+    px = __fmaf_rn(t_best, dx, ox); py = __fmaf_rn(t_best, dy, oy);
+    pz = __fmaf_rn(t_best, dz, oz);
     nx = dsk[DSK_W * best + 3]; ny = dsk[DSK_W * best + 4]; nz = dsk[DSK_W * best + 5];
   }
   t_out[r] = t_best;

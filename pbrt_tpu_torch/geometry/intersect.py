@@ -287,6 +287,22 @@ def intersect_spheres_dense_plain(o, d, t_max, sph: SphereSoA):
     return t_best, idx, torch.where(f3, p, 0.0), torch.where(f3, n, 0.0)
 
 
+def fma_f32(a, b, c):
+    """a * b + c of float32 tensors rounded once to float32, as CUDA's
+    __fmaf_rn: the float64 product is exact, and where the float64 sum lies
+    exactly halfway between two floats its own rounding error (TwoSum)
+    decides the side."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    f = s.float()
+    r = s - f.double()
+    nb = torch.nextafter(f, torch.where(r > 0, torch.inf, -torch.inf).float())
+    half = (r != 0) & ((nb.double() - f.double()).abs() == 2.0 * r.abs())
+    return torch.where(half & (e * r > 0), nb, f)
+
+
 def intersect_disks_dense_plain(o, d, t_max, dsk: DiskSoA):
     """K4 plain version, disks: plane hit and annulus test (disk.cu
     intersect), phi window for partial disks -> (t, idx, p, n)."""
@@ -302,7 +318,10 @@ def intersect_disks_dense_plain(o, d, t_max, dsk: DiskSoA):
         ok = ok & (_phi(_dot3(rel, dsk.yaxis[None]), _dot3(rel, dsk.xaxis[None])) <= dsk.phimax)
     t_best, idx = _closest(t, ok)
     found = (idx >= 0)[:, None]
-    p = o + torch.where(found[:, 0], t_best, 0.0)[:, None] * d
+    # the hit point rounds once, as a fused multiply-add: XLA:CPU contracts
+    # the JAX package's `o + t * d` here (intersect.py:389), and the kernel
+    # computes it with __fmaf_rn
+    p = fma_f32(torch.where(found[:, 0], t_best, 0.0)[:, None], d, o)
     return (t_best, idx, torch.where(found, p, 0.0),
             torch.where(found, dsk.normal[idx.clamp(min=0)], 0.0))
 

@@ -18,6 +18,10 @@ chooses:
     iteration; a lane whose path ended adds its radiance to the film and is
     recycled with the next work item (K8, csrc/wavefront.cu), so the pool
     stays full instead of decaying with the live fraction.
+Under a process group (parallel/dist.py, one rank per card) the path family
+splits its pixels over the ranks and all-reduces films and ray counts
+(`render_pixel_parallel`), or, asked for N parts, splits its geometry and
+replicates its rays (`shard_scene`, K11a/K11b).
 BDPT (`render_bdpt`) takes each wave through the two subpaths, the
 strategies (K12 on the card), the film add of L (K5) and of the t = 1
 splats (K5s); develop adds the splats scaled by 1 / spp. A BDPT lane holds
@@ -30,13 +34,15 @@ import ctypes
 import time
 
 import torch
+import torch.distributed
 
 from pbrt_tpu_torch.cameras import perspective
 from pbrt_tpu_torch.film import film as filmlib, png
 from pbrt_tpu_torch.filters import filters
 from pbrt_tpu_torch.integrators import bdpt, mlt, path as path_integrator
+from pbrt_tpu_torch.parallel import dist as pdist, scene_shard
 from pbrt_tpu_torch.sampling import samplers
-from pbrt_tpu_torch.scene.builder import MLT_INTEGRATORS, check_integrator
+from pbrt_tpu_torch.scene.builder import MLT_INTEGRATORS, PATH_INTEGRATORS, check_integrator
 from pbrt_tpu_torch.spectral import sampled
 from pbrt_tpu_torch.utils.device import resolve_device
 
@@ -82,19 +88,19 @@ def _use_lens(scene):
     return float(scene.camera_lens_radius) > 0.0
 
 
-def wave_lanes(n_pix, spp, device):
-    """The waves of a frame of n_pix pixels x spp samples: yields each
-    wave's (pixel ids, sample ids), (R,) int64, R <= LANES_PER_WAVE. A wave
-    is k = LANES_PER_WAVE // n_pix samples of every pixel or, where the
-    pixel grid is wider than a wave, a tile of LANES_PER_WAVE pixels at one
-    sample."""
+def wave_lanes(n_pix, spp, device, pix0=0):
+    """The waves of n_pix pixels (pix0 .. pix0 + n_pix - 1) x spp samples:
+    yields each wave's (pixel ids, sample ids), (R,) int64, R <=
+    LANES_PER_WAVE. A wave is k = LANES_PER_WAVE // n_pix samples of every
+    pixel or, where the pixel range is wider than a wave, a tile of
+    LANES_PER_WAVE pixels at one sample."""
     k_max = max(1, LANES_PER_WAVE // n_pix)
     tile = min(n_pix, LANES_PER_WAVE)
     s0 = 0
     while s0 < spp:
         k = min(k_max, spp - s0)
-        for t0 in range(0, n_pix, tile):
-            pix = torch.arange(t0, min(t0 + tile, n_pix), device=device)
+        for t0 in range(pix0, pix0 + n_pix, tile):
+            pix = torch.arange(t0, min(t0 + tile, pix0 + n_pix), device=device)
             yield pix.repeat(k), s0 + torch.arange(k, device=device).repeat_interleave(
                 pix.shape[0])
         s0 += k
@@ -195,21 +201,22 @@ def _merge(new, old, mask):
     return type(old)(*out)
 
 
-def render_wavefront(scene, meta, film):
-    """All meta.spp samples of every pixel through the wavefront loop
-    (pbrt_tpu/integrators/render.py:228-345), a pool of POOL_LANES lanes.
-    Work item w is (pixel w % n_pix, sample w // n_pix). -> ({"closest",
+def render_wavefront(scene, meta, film, pix0=0, n_pix=None, pool=None):
+    """All meta.spp samples of the pixels pix0 .. pix0 + n_pix - 1 (default:
+    the whole frame) through the wavefront loop (pbrt_tpu/integrators/
+    render.py:228-345), a pool of `pool` lanes (default POOL_LANES). Work
+    item w is (pixel pix0 + w % n_pix, sample w // n_pix). -> ({"closest",
     "shadow"} ray counts as 0-dim tensors, dropped work items as an int: 0 in
     a correct run)."""
     res_x, res_y = meta.resolution
-    n_pix = res_x * res_y
+    n_pix = res_x * res_y if n_pix is None else n_pix
     total = n_pix * meta.spp
-    R = min(POOL_LANES, total)
+    R = min(POOL_LANES if pool is None else pool, total)
     dev = film.rgb_sum.device
     use_lens = _use_lens(scene)
 
     def camera_lane(work):
-        pix = work % n_pix
+        pix = pix0 + work % n_pix
         rays, wl, r, weight = camera_lanes(scene, meta, pix, work // n_pix, use_lens)
         return pix, weight, path_integrator.initial_state(rays, wl, r)
 
@@ -237,14 +244,16 @@ def render_wavefront(scene, meta, film):
     return {"closest": state.n_closest, "shadow": state.n_shadow}, dropped
 
 
-def render_batched(scene, meta, film):
-    """All meta.spp samples of every pixel through the batched loop
-    (pbrt_tpu/integrators/render.py `_spp_loop`): waves of up to
-    LANES_PER_WAVE lanes, each traced for max_depth bounces. -> {"closest",
-    "shadow"} ray counts as 0-dim tensors."""
+def render_batched(scene, meta, film, pix0=0, n_pix=None):
+    """All meta.spp samples of the pixels pix0 .. pix0 + n_pix - 1 (default:
+    the whole frame) through the batched loop (pbrt_tpu/integrators/
+    render.py `_spp_loop`): waves of up to LANES_PER_WAVE lanes, each traced
+    for max_depth bounces. -> {"closest", "shadow"} ray counts as 0-dim
+    tensors."""
     res_x, res_y = meta.resolution
+    n_pix = res_x * res_y if n_pix is None else n_pix
     n_closest = n_shadow = 0
-    for ids, sample_ids in wave_lanes(res_x * res_y, meta.spp, film.rgb_sum.device):
+    for ids, sample_ids in wave_lanes(n_pix, meta.spp, film.rgb_sum.device, pix0):
         st = render_wave(scene, meta, film, ids, sample_ids)
         n_closest = n_closest + st["closest"]
         n_shadow = n_shadow + st["shadow"]
@@ -280,19 +289,70 @@ def write_heatmap_png(path, heat):
     png.write_png(path, g8[..., None].expand(*g8.shape, 3).numpy())
 
 
-def render(scene, meta, device=None, return_stats=False, heatmap_path=None):
+def shard_scene(scene, n_parts):
+    """The scene with its triangle soup split into n_parts morton parts
+    (parallel/scene_shard.py, host numpy), of which Scene.shard holds this
+    rank's `part_range` on the scene's device. A render of such a scene is
+    scene-sharded (pbrt_tpu/integrators/render.py:460-540): rays are
+    replicated on every rank, each rank traverses only its parts (K11a/K11b),
+    and under a process group every closest hit and shadow ray is resolved
+    across ranks, so every rank's film comes out whole. render() takes the
+    path family only, as the JAX package does."""
+    shard = scene_shard.build_scene_shard(scene, n_parts)
+    return scene.with_shard(shard.local(pdist.rank(), pdist.world()).to(scene.device))
+
+
+def render_pixel_parallel(scene, meta, film):
+    """The path family under a process group of W ranks (pbrt_tpu/
+    integrators/render.py:361-450, `render_wavefront_sharded` and
+    `render_spp_fused_sharded`): rank r renders the pixels [r n / W, (r + 1)
+    n / W) with all their samples, the wavefront loop with a pool of
+    max(1024, POOL_LANES // W) lanes, then the films and ray counts are
+    all-reduced. Sample streams key on absolute (pixel, sample) ids, so the
+    image and the ray count are the single-process ones. A world size that
+    does not divide the pixel count renders the whole frame on every rank.
+    -> (ray counts, dropped work items), summed over the ranks."""
+    n_pix = meta.resolution[0] * meta.resolution[1]
+    W = pdist.world()
+    split = torch.distributed.is_initialized() and n_pix % W == 0
+    pix0, n_loc = (pdist.rank() * (n_pix // W), n_pix // W) if split else (0, n_pix)
+    dropped = 0
+    if meta.open_scene:
+        stats, dropped = render_wavefront(scene, meta, film, pix0, n_loc,
+                                          pool=max(1024, POOL_LANES // W) if split else None)
+    else:
+        stats = render_batched(scene, meta, film, pix0, n_loc)
+    if split:
+        pdist.all_reduce_film(film)
+        dev = film.rgb_sum.device
+        counts = torch.stack([torch.as_tensor(v, dtype=torch.int64, device=dev)
+                              for v in (stats["closest"], stats["shadow"], dropped)])
+        torch.distributed.all_reduce(counts)
+        stats, dropped = {"closest": counts[0], "shadow": counts[1]}, int(counts[2])
+    return stats, dropped
+
+
+def render(scene, meta, device=None, return_stats=False, heatmap_path=None, shard_parts=0):
     """Full render -> (H, W, 3) linear RGB tensor on `device` (None means
     "cuda"; without a card that raises). MLT scenes take mlt.render_mlt
     (and write their sampling-density heatmap to heatmap_path, if given);
     BDPT scenes take render_bdpt; of the path family, open scenes take the
-    wavefront loop, closed ones the batched loop. With return_stats, also
-    returns {"closest": n, "shadow": n} counts of the rays actually traced
-    (BDPT: subpath segments and attempted connections; MLT: of every
-    evaluation, and "mutations")."""
+    wavefront loop, closed ones the batched loop, split over the ranks of a
+    process group by pixels (render_pixel_parallel); with shard_parts = N >
+    0 (or a scene whose shard is set, see shard_scene) the geometry is split
+    into N parts over the ranks instead, and the batched loop renders the
+    frame, as in the JAX package. BDPT and MLT frames are not split: each
+    rank renders them whole. With return_stats, also returns {"closest": n,
+    "shadow": n} counts of the rays actually traced (BDPT: subpath segments
+    and attempted connections; MLT: of every evaluation, and "mutations")."""
     device = resolve_device(device)
     check_integrator(meta.integrator)
     if scene.device != device:
         scene = scene.to(device)
+    if (shard_parts or scene.shard is not None) and meta.integrator not in PATH_INTEGRATORS:
+        raise ValueError(f"scene sharding supports the path family, not {meta.integrator!r}")
+    if shard_parts:
+        scene = shard_scene(scene, shard_parts)
     if meta.integrator in MLT_INTEGRATORS:
         img, heat, stats = mlt.render_mlt(scene, meta, device=device, return_heatmap=True)
         if heatmap_path:
@@ -300,16 +360,16 @@ def render(scene, meta, device=None, return_stats=False, heatmap_path=None):
         return (img, stats) if return_stats else img
     film = filmlib.new_film(meta.resolution, device)
     splat_scale = 0.0
-    if meta.integrator == "bdpt":
+    if scene.shard is not None:
+        stats = render_batched(scene, meta, film)
+    elif meta.integrator == "bdpt":
         stats = render_bdpt(scene, meta, film)
         splat_scale = 1.0 / meta.spp
-    elif meta.open_scene:
-        stats, dropped = render_wavefront(scene, meta, film)
+    else:
+        stats, dropped = render_pixel_parallel(scene, meta, film)
         if dropped != 0:
             raise RuntimeError(f"wavefront loop dropped {dropped} work items "
                                "(its iteration bound tripped)")
-    else:
-        stats = render_batched(scene, meta, film)
     img = filmlib.develop(film, meta.resolution, out_matrix=meta.film_out_matrix,
                           imaging_ratio=meta.film_imaging_ratio, splat_scale=splat_scale)
     if return_stats:
@@ -317,15 +377,20 @@ def render(scene, meta, device=None, return_stats=False, heatmap_path=None):
     return img
 
 
-def render_to_png(scene, meta, out_path=None, device=None, verbose=False, heatmap_path=None):
+def render_to_png(scene, meta, out_path=None, device=None, verbose=False, heatmap_path=None,
+                  shard_parts=0):
     """Render and write an sRGB PNG (and, for MLT, the heatmap PNG to
-    heatmap_path if given) -> (path, seconds, ray counts)."""
+    heatmap_path if given; under a process group, rank 0 alone writes) ->
+    (path, seconds, ray counts)."""
     t0 = time.time()
     img, stats = render(scene, meta, device=device, return_stats=True,
-                        heatmap_path=heatmap_path)
+                        heatmap_path=heatmap_path if pdist.rank() == 0 else None,
+                        shard_parts=shard_parts)
     rgb8 = filmlib.to_srgb8(img)
     t1 = time.time()
     path = out_path or meta.filename
+    if pdist.rank() != 0:
+        return path, t1 - t0, stats
     png.write_png(path, rgb8)
     if verbose:
         rays = stats["closest"] + stats["shadow"]

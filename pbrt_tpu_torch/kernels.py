@@ -21,7 +21,7 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "pbrt_tpu_torch"
 SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
            for name in ("bvh_traverse", "dense_intersect", "wavefront", "layered", "bdpt",
-                        "mlt")}
+                        "mlt", "scene_shard")}
 # --fmad=false: no contraction into fused multiply-adds, so every float op
 # rounds as the plain torch version's does (the watertight test needs it)
 NVCC_FLAGS = [

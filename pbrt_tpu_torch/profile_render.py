@@ -3,7 +3,7 @@
     python -m pbrt_tpu_torch.profile_render
         [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass
                  |caustic-glass-mlt|cornell-mesh-mltpath]
-        [--out build/pbrt_tpu_torch/profile_render.json]
+        [--shard-scene N] [--out build/pbrt_tpu_torch/profile_render.json]
 
 Renders the scene through the normal `render()` entry: cornell-mesh levels
 5, the plain cornell box and terrain (130,050 triangles) at 256^2, 16 spp,
@@ -38,6 +38,11 @@ of the frame: their device time (kernels only: the profiler's step
 annotations span the whole step on the device timeline and are left out)
 over PROFILED_PASSES times the median wall time of the unprofiled passes
 is the busy share.
+
+With --shard-scene N (path family) the scene's triangles are split into N
+morton parts once (render.shard_scene, its host seconds printed), all on
+this card, and every frame is the scene-sharded render of the batched loop
+(K11a/K11b in place of K1).
 """
 import argparse
 import json
@@ -57,7 +62,8 @@ PROFILED_PASSES = 8
 # hand-written kernels by a substring of their device symbol
 KERNELS = {"bvh": "traverse_kernel", "dense": "dense_", "recycle": "recycle_",
            "film": "film_add_kernel", "layered": "layered_", "bdpt": "connect_",
-           "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel"}
+           "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
+           "shard": "parts_kernel|select_kernel"}
 
 
 def _device_us(e):
@@ -194,18 +200,22 @@ def main(argv=None):
                                         "testball", "cornell-bdpt", "caustic-glass",
                                         "caustic-glass-mlt", "cornell-mesh-mltpath"),
                     default="cornell-mesh")
+    ap.add_argument("--shard-scene", type=int, default=0, metavar="N",
+                    help="split the triangles into N parts (path family)")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 
     from pbrt_tpu_torch.film import film as filmlib
     from pbrt_tpu_torch.integrators import render as rd
-    from pbrt_tpu_torch.scene.builder import MLT_INTEGRATORS
+    from pbrt_tpu_torch.scene.builder import MLT_INTEGRATORS, PATH_INTEGRATORS
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(card, flush=True)
     (scene, meta), label = _scene(args.scene)
+    if args.shard_scene and meta.integrator not in PATH_INTEGRATORS:
+        ap.error(f"--shard-scene takes a path-family scene, not {args.scene}")
     if meta.integrator in MLT_INTEGRATORS:
         return _profile_mlt(scene, meta, label, card, args.out)
     default = f"wavefront {rd.POOL_LANES}" if meta.open_scene else "batched"
@@ -214,6 +224,15 @@ def main(argv=None):
         schedules = {f"wavefront {p}": p for p in POOLS} | schedules
     if meta.integrator == "bdpt":                          # render_bdpt's waves
         default, schedules = "bdpt", {"bdpt": None}
+    if args.shard_scene:                                   # the batched loop, sharded
+        t0 = time.perf_counter()
+        scene = rd.shard_scene(scene, args.shard_scene)
+        print(f"shard_scene: {args.shard_scene} parts of rows {tuple(scene.shard.rows.shape)}, "
+              f"recv {tuple(scene.shard.recv.shape)} in {time.perf_counter() - t0:.2f} s "
+              "(host build and upload)", flush=True)
+        label += f", geometry in {args.shard_scene} parts"
+        default = f"sharded {args.shard_scene}"
+        schedules = {default: None}
 
     def render(sched):
         """One frame -> ray counts: the default schedule through render(),
@@ -224,11 +243,7 @@ def main(argv=None):
         if schedules[sched] is None:
             st = rd.render_batched(scene, meta, film)
         else:
-            old, rd.POOL_LANES = rd.POOL_LANES, schedules[sched]
-            try:
-                st, dropped = rd.render_wavefront(scene, meta, film)
-            finally:
-                rd.POOL_LANES = old
+            st, dropped = rd.render_wavefront(scene, meta, film, pool=schedules[sched])
             if dropped:
                 raise RuntimeError(f"{sched}: {dropped} work items dropped")
         filmlib.develop(film, meta.resolution, meta.film_out_matrix, meta.film_imaging_ratio)

@@ -13,6 +13,7 @@ package's zero-byte shape markers (BVH depth,
 partial quadrics, coated materials) become plain ints and bools of
 `SceneMeta`.
 """
+import copy
 from dataclasses import dataclass, fields
 from functools import cached_property
 
@@ -117,15 +118,27 @@ class Scene:
     scene_radius: torch.Tensor   # ()
     scene_center: torch.Tensor   # (3,) bounding-sphere center (sample_le disks)
     ray_offset_scale: torch.Tensor  # () epsilon of spawned rays
+    # the parts of the triangle soup this rank traverses (parallel/
+    # scene_shard.SceneShard, JAX compile.py:170-174): None unless a
+    # scene-sharded render sets it (with_shard). Not a dataclass field: the
+    # fields are the compiled scene's tensors.
+    shard = None
 
     def to(self, device):
-        """A copy of the scene on `device`."""
+        """A copy of the scene (and its shard) on `device`."""
         kw = {}
         for f in fields(self):
             v = getattr(self, f.name)
             kw[f.name] = (filterlib.FilterTables(*(x.to(device) for x in v))
                           if f.name == "filt" else v.to(device))
-        return Scene(**kw)
+        return Scene(**kw).with_shard(None if self.shard is None else self.shard.to(device))
+
+    def with_shard(self, shard):
+        """A copy of the scene that traverses `shard` (a SceneShard or None)
+        for its triangles."""
+        out = copy.copy(self)
+        out.shard = shard
+        return out
 
     @property
     def device(self):

@@ -461,3 +461,47 @@ def test_mlt_render_on_card_matches_cpu(cuda):
     (img_g, acc_g), (img_c, acc_c) = out["cuda"], out["cpu"]
     assert np.isfinite(img_g).all()
     compare_renders(img_g, img_c, acc_g, acc_c)
+
+
+def test_scene_shard_kernels_match_plain(cuda):
+    """K11a's packs, K11b's bits and the select kernel bit-exact with their
+    plain versions: cornell-mesh levels 4 in 4 parts, interior rays with
+    masked lanes, shadow lengths up to the closest hit's twice, 3 stacked
+    packs with planted ties."""
+    from pbrt_tpu_torch.parallel import scene_shard as ss
+
+    scene, meta = ts.cornell_mesh(res=32, spp=1, levels=4, device=cuda)
+    sh = ss.build_scene_shard(scene, 4).to(cuda)
+    o, d, t_max = (x.to(cuda) for x in _rays(scene, 8192, 9))
+    n0 = dict(ss.launches)
+    pk = ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, o, d, t_max)
+    assert torch.equal(pk, ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d, t_max))
+    assert bool(torch.isfinite(pk[:, 0]).any())
+    t_sh = torch.where(torch.isfinite(pk[:, 0]), pk[:, 0] * 2.0 * torch.rand(8192, device=cuda),
+                       100.0).contiguous()
+    occ = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, o, d, t_sh)
+    assert torch.equal(occ, ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_sh))
+    packs = torch.stack([pk.roll(5 * w, dims=0) for w in range(3)]).contiguous()
+    packs[1:, ::4, 0] = packs[0, ::4, 0]
+    assert torch.equal(ss.select_cuda(packs), ss.select_plain(packs))
+    assert all(ss.launches[k] == n0[k] + 1 for k in n0)
+
+
+def test_sharded_render_on_card_matches_cpu(cuda):
+    """render(shard_parts=4) of cornell-mesh levels 3 at 48^2 x 4 on the card
+    (K11a and K11b, not K1) against the same sharded render on the CPU."""
+    from pbrt_tpu_torch.parallel import scene_shard as ss
+
+    scene, meta = ts.cornell_mesh(res=48, spp=4, levels=3, device=cuda, filter_kind="box")
+    n_bvh, n_ss = dict(bvh.launches), dict(ss.launches)
+    img_gpu, st_gpu = render(scene, meta, return_stats=True, shard_parts=4)
+    assert bvh.launches == n_bvh
+    assert ss.launches["bvh_closest_hit_parts"] > n_ss["bvh_closest_hit_parts"]
+    assert ss.launches["bvh_any_hit_parts"] > n_ss["bvh_any_hit_parts"]
+    img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True, shard_parts=4)
+    img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
+    n_gpu, n_cpu = sum(st_gpu.values()), sum(st_cpu.values())
+    assert abs(n_gpu - n_cpu) <= 1e-3 * n_cpu
+    err = np.abs(img_gpu - img_cpu)
+    assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
+    assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()

@@ -1,7 +1,9 @@
 """The port stands alone: no file of pbrt_tpu_torch/, not chip_smoke.py and
 not the test helpers it imports (tests/quadric_edges.py,
-tests/layered_cases.py, tests/bdpt_cases.py, tests/mlt_cases.py) imports jax or anything of the JAX package pbrt_tpu
-(AST scan), and the port ships its own copies of the data tables."""
+tests/layered_cases.py, tests/bdpt_cases.py, tests/mlt_cases.py) and not
+tests/parallel_cases.py, whose spawned ranks must not load JAX, imports jax
+or anything of the JAX package pbrt_tpu (AST scan), and the port ships its
+own copies of the data tables."""
 import ast
 import pathlib
 
@@ -12,7 +14,8 @@ FILES = sorted((ROOT / "pbrt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py
                                                           ROOT / "tests" / "quadric_edges.py",
                                                           ROOT / "tests" / "layered_cases.py",
                                                           ROOT / "tests" / "bdpt_cases.py",
-                                                          ROOT / "tests" / "mlt_cases.py"]
+                                                          ROOT / "tests" / "mlt_cases.py",
+                                                          ROOT / "tests" / "parallel_cases.py"]
 
 
 def _imports(path):
@@ -39,7 +42,9 @@ def test_scan_sees_the_whole_port():
     for must in ("pbrt_tpu_torch/accel/bvh.py", "pbrt_tpu_torch/film/film_kernel.py",
                  "pbrt_tpu_torch/integrators/render.py", "pbrt_tpu_torch/integrators/bdpt.py",
                  "pbrt_tpu_torch/integrators/mlt.py",
-                 "pbrt_tpu_torch/distribution/distributions.py", "chip_smoke.py"):
+                 "pbrt_tpu_torch/distribution/distributions.py",
+                 "pbrt_tpu_torch/parallel/scene_shard.py", "pbrt_tpu_torch/parallel/dist.py",
+                 "tests/parallel_cases.py", "chip_smoke.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("pbrt_tpu.scene")
     assert not _forbidden("pbrt_tpu_torch.scene")

@@ -114,7 +114,40 @@ result line:
      the bound carried across parts occurs), and timed beside them, their
      operation or byte bounds and the unfused yardstick. Scaling across cards is not measurable on
      one card;
- 12. a `kernels` JSON line; the last line is the JSON result.
+ 12. instancing (K1i `bvh_closest_hit_inst`, `bvh_any_hit_inst`, the
+     two-level variant of csrc/bvh_traverse.cu over csrc/bvh_stepper.cuh),
+     on the instanced cornell box of testscenes.instanced_cornell_pbrt (36
+     ball and 16 gem instances): (a) at levels (3, 2), every instance shared, on 131,072
+     camera and 131,072 interior rays: closest hit bit-exact with the plain
+     version (t, prim and inst) but on verified ties (K1's criterion), any
+     hit equal; against K1 on the same scene flattened: hit masks equal on
+     >= 99.99 % of lanes and t within rtol 1e-4 plus 1e-5 of the ray
+     origin's magnitude on every common hit (flattening rounds the vertices
+     in float64, K1i the ray in float32, both at the coordinates' scale; the
+     fraction within rtol 1e-4 alone is printed); (b) the scene at 48^2
+     x 4 (path) on the card against the CPU and against the card's
+     flattened render, at 24^2 x 8 through BDPT (K12, K5s and K1i launched)
+     against the CPU, and 1024 chains of mltpath at 24^2 on the card and the
+     CPU with one seed (tests/mlt_cases.py's criteria); (c) the full-width
+     frame cornell-instanced at levels (6, 5) under instancing "auto"
+     (1,310,732 world triangles: 253,964 flattened, 29 + 13 instances of 2
+     prototypes of 40,960 triangles) at 256^2 x 16, max depth 5, mitchell,
+     through render(): K1i launched and K1 not, its compile seconds, honest
+     rays/s (median and quartiles over repeated renders), frame seconds,
+     peak memory and table bytes; then the same file flattened (K1), its ray
+     count within 1 % and its image against the instanced one: means within
+     1 % and check_image's per-pixel tolerance on >= 98 % of pixel values
+     (the twins round their geometry apart, and a path that an ulp turns at
+     a glass or glossy surface moves its pixel at 16 spp), while the noise
+     floor, the flattened frame against its own second estimate (samples
+     16..31), must fall outside that 2 %; where the bad pixels lie (gems,
+     balls) is printed with the same numbers; (d) K1i at its first launches
+     in (c)'s frame (2^20 lanes): held against its plain version on those
+     arguments (closest hit bit-exact but on verified ties, any hit equal),
+     and timed beside its operation bound, the plain version and the
+     flattened frame's K1 on the same rays (a yardstick, not a library
+     call);
+ 13. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
 import dataclasses
@@ -167,6 +200,11 @@ K12_OPS = {"bdpt_connect_rays": 100, "bdpt_connect_weight": 400}
 # coat's pdf and two samples, per lane that reaches the base its pdf
 LAYERED_OPS = {"layered_f": (400, 250), "layered_sample": (150, 100),
                "layered_pdf": (400, 10)}
+# float ops of one instance entry of K1i, counted from csrc/bvh_stepper.cuh
+# and csrc/watertight.cuh: two 3x4 transforms (a dot product is a multiply
+# and two fused multiply-adds, 5 ops; the origin adds its translation: 18 +
+# 15), the shear (10) and 1/d (12)
+INST_ENTRY_OPS = 55
 # float ops of K12m-a per chain and dimension, counted from csrc/mlt.cu:
 # two uniforms (a multiply and a min each), erfinv (~15 with its log and
 # two square roots), the perturbation, the wrap and the clip (~8)
@@ -289,7 +327,7 @@ def main():
     import bdpt_cases
     import mlt_cases
     from pbrt_tpu_torch import kernels
-    from pbrt_tpu_torch.accel import bvh
+    from pbrt_tpu_torch.accel import bvh, dispatch
     from pbrt_tpu_torch.film import film as filmlib, film_kernel, png
     from pbrt_tpu_torch.geometry import intersect as ix
     from pbrt_tpu_torch.integrators import bdpt, mlt, render as rd
@@ -729,6 +767,9 @@ def main():
         (ss, "closest_parts_cuda", lambda a, k: "bvh_closest_hit_parts"),
         (ss, "any_parts_cuda", lambda a, k: "bvh_any_hit_parts"),
         (ss, "select_cuda", lambda a, k: "shard_select"),
+        (bvh, "traverse_inst_cuda",
+         lambda a, k: "bvh_any_hit_inst" if (a[8] if len(a) > 8 else k.get("any_hit"))
+         else "bvh_closest_hit_inst"),
     ]
     captured = {}
 
@@ -1520,11 +1561,295 @@ def main():
         f"(host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}); "
         f"bit-exact")
 
+    # ---- 12. instancing (K1i) on the instanced cornell box
+    def inst_scene(levels, mode, res=256, spp=16, filt=None, integrator=None):
+        """(builder, scene, meta) of the instanced cornell box under
+        instancing `mode`, compiled on the card."""
+        b = ts.instanced_cornell_builder(levels, res, spp, mode, filt)
+        sc, mt = compile_scene(b, device=dev, integrator_override=integrator)
+        return b, sc, mt
+
+    def inst_rays(sc, mt):
+        """131,072 camera rays and 131,072 rays from random points of the
+        box inside the scene's bounding sphere; every 97th lane masked."""
+        p_film = torch.rand((131072, 2), generator=g) * torch.tensor(mt.resolution,
+                                                                      dtype=torch.float32)
+        rays = perspective.generate_rays(sc, p_film.to(dev), torch.zeros((131072, 2),
+                                                                          device=dev))
+        c, r = sc.scene_center.cpu(), float(sc.scene_radius)
+        o_in = c + 0.55 * r * (2.0 * torch.rand((131072, 3), generator=g) - 1.0)
+        d_in = torch.randn((131072, 3), generator=g)
+        d_in = d_in / d_in.norm(dim=-1, keepdim=True)
+        o = torch.cat([rays.o, o_in.to(dev)]).contiguous()
+        d = torch.cat([rays.d, d_in.to(dev)]).contiguous()
+        t_max = torch.full((o.shape[0],), INFINITY, device=dev)
+        t_max[::97] = 0.0
+        return o, d, t_max
+
+    def inst_args(sc, mt):
+        return sc.bvh_rows, mt.bvh_nint, mt.bvh_ninst, mt.bvh_depth, mt.bvh_iterb
+
+    def compare_inst(args, leaves, o, d, t_max):
+        """K1i (launch arguments `args` but the rays) vs plain closest hit
+        (the scene's bvh_leaves): prim, inst and t bit-exact but on verified
+        ties (K1's criterion). -> (hits, instanced hits, ties, plain t, max
+        abs err of t, plain ms)."""
+        tk, pk, ik = bvh.traverse_inst_cuda(*args, o, d, t_max)
+        (tp, pp, ip), ms_p = plain_ms_of(lambda: bvh.traverse_inst_plain(
+            args[0], args[1], leaves, o, d, t_max))
+        require(torch.equal(pk >= 0, pp >= 0), "K1i closest hit: hit/miss disagree")
+        same = (pk == pp) & (ik == ip)
+        require(torch.equal(tk[same], tp[same]), "K1i: t differs on the same winner")
+        differ = ~same
+        if bool(differ.any()):
+            rel = (tk[differ] - tp[differ]).abs() / tp[differ].abs()
+            require(float(rel.max()) <= 1e-6, "K1i winner disagreement is not a tie",
+                    float(rel.max()))
+        hit = pp >= 0
+        err = float((tk - tp).abs()[hit].max()) if bool(hit.any()) else 0.0
+        return int(hit.sum()), int((ip >= 0).sum()), int(differ.sum()), tp, err, ms_p
+
+    def compare_inst_any(args, leaves, o, d, t_max):
+        """K1i any hit vs plain: the bits equal. -> (occluded, plain ms)."""
+        ak = bvh.traverse_inst_cuda(*args, o, d, t_max, any_hit=True)[1]
+        ap, ms_p = plain_ms_of(lambda: bvh.traverse_inst_plain(args[0], args[1], leaves, o, d,
+                                                               t_max, any_hit=True)[1])
+        require(torch.equal(ak >= 0, ap >= 0), "K1i any hit disagrees on",
+                int(((ak >= 0) != (ap >= 0)).sum()))
+        return int((ap >= 0).sum()), ms_p
+
+    # (a) levels (3, 2), every instance shared, against the plain version and
+    # against K1 on the same scene flattened
+    _, s_ia, m_ia = inst_scene((3, 2), "bvh")
+    _, s_fa, m_fa = inst_scene((3, 2), "flatten")
+    require(m_ia.bvh_ninst == 52 and m_fa.bvh_ninst == 0, "instanced (3, 2) scenes",
+            m_ia.bvh_ninst, m_fa.bvh_ninst)
+    o_a, d_a, t_a = inst_rays(s_ia, m_ia)
+    n_h, n_hi, n_tie, t_cl, _, _ = compare_inst(inst_args(s_ia, m_ia), m_ia.bvh_leaves, o_a, d_a,
+                                                t_a)
+    n_o, _ = compare_inst_any(inst_args(s_ia, m_ia), m_ia.bvh_leaves, o_a, d_a, shadow_t(t_cl))
+    tf_, pf_ = bvh.traverse_cuda(s_fa.bvh_rows, m_fa.bvh_nint, m_fa.bvh_depth, o_a, d_a, t_a)
+    ti_, pi_, _ = bvh.traverse_inst_cuda(*inst_args(s_ia, m_ia), o_a, d_a, t_a)
+    hi_, hf_ = pi_ >= 0, pf_ >= 0
+    mask_eq = float((hi_ == hf_).float().mean())
+    both = hi_ & hf_
+    # t rounds with the coordinates, not with t: an interior ray that starts
+    # near a surface has a t of ~1e-2 against coordinates of ~1e3 in render
+    # space, so the bound has a floor of 1e-5 of the origin's magnitude
+    dt = (ti_ - tf_).abs()[both]
+    t_rel = float((dt <= 1e-4 * tf_[both].abs()).float().mean())
+    t_ok = float((dt <= 1e-4 * tf_[both].abs() + 1e-5 * o_a.abs().amax(1)[both])
+                 .float().mean())
+    require(mask_eq >= 0.9999 and t_ok == 1.0, "K1i vs K1 flattened", mask_eq, t_ok)
+    log(f"instanced cornell (3, 2), {m_ia.bvh_ninst} instances, {s_ia.bvh_rows.shape[0]} rows "
+        f"(flattened: {m_fa.n_tris} tris, {s_fa.bvh_rows.shape[0]} rows): K1i vs plain on "
+        f"{o_a.shape[0]} camera+interior rays: {n_h} hits ({n_hi} in instances), {n_tie} "
+        f"verified ties, t bit-exact on the same winner; any hit {n_o} occluded, 0 disagree; "
+        f"against K1 on the flattened scene: hit masks equal on {mask_eq:.6%} of lanes, t "
+        f"within rtol 1e-4 on {t_rel:.4%} of common hits and within rtol 1e-4 plus 1e-5 of "
+        f"the origin's magnitude on {t_ok:.4%}")
+
+    # (b) small renders: path 48^2 x 4 (card, CPU, card flattened), BDPT
+    # 24^2 x 8 (card, CPU), mltpath 24^2 (card, CPU, one seed)
+    k1i = ("bvh_closest_hit_inst", "bvh_any_hit_inst")
+    k1 = ("bvh_closest_hit", "bvh_any_hit")
+    for label, mode, res, spp, integ in (("path 48^2 x 4", "bvh", 48, 4, None),
+                                          ("bdpt 24^2 x 8", "bvh", 24, 8, "bdpt")):
+        _, sc, mt = inst_scene((3, 2), mode, res=res, spp=spp, filt="box", integrator=integ)
+        reset_counts()
+        img_gpu, st_gpu = rd.render(sc, mt, return_stats=True)
+        img_gpu = img_gpu.cpu().numpy()
+        counts = {k: v for k, v in read_counts().items() if v}
+        must = k1i + (("bdpt_connect_rays", "bdpt_connect_weight", "film_add_splats")
+                      if integ else ("film_add_samples",))
+        require(all(counts.get(k, 0) > 0 for k in must) and not any(k in counts for k in k1),
+                label, "launches", counts)
+        img_cpu, st_cpu = rd.render(sc, mt, device="cpu", return_stats=True)
+        img_cpu = img_cpu.numpy()
+        fb_c = check_image(img_gpu, img_cpu, f"instanced {label} vs cpu render")
+        n_g, n_c = sum(st_gpu.values()), sum(st_cpu.values())
+        require(abs(n_g - n_c) <= 1e-3 * n_c, label, "ray counts", st_gpu, st_cpu)
+        msg = (f"small instanced render {label}: vs cpu {fb_c:.4%} bad px, rays card {n_g} cpu "
+               f"{n_c}, means {img_gpu.mean():.5f} / {img_cpu.mean():.5f}; launches {counts}")
+        if not integ:
+            _, sf, mf = inst_scene((3, 2), "flatten", res=res, spp=spp, filt="box")
+            img_f, st_f = rd.render(sf, mf, return_stats=True)
+            fb_f = check_image(img_gpu, img_f.cpu().numpy(), f"instanced {label} vs flattened")
+            require(abs(sum(st_f.values()) - n_g) <= 1e-3 * n_g, "flattened ray count", st_f)
+            msg += f"; vs the card's flattened render {fb_f:.4%} bad px, rays {sum(st_f.values())}"
+        log(msg)
+    _, sc, mt = inst_scene((3, 2), "bvh", res=24, spp=1, filt="box", integrator="mltpath")
+    mt = dataclasses.replace(mt, mutations_per_pixel=mlt_cases.SMALL_MUTATIONS)
+    runs = {}
+    for d_ in (dev, torch.device("cpu")):
+        acc = []
+        reset_counts()
+        img, st = mlt.render_mlt(
+            sc, mt, n_chains=mlt_cases.SMALL_CHAINS, n_bootstrap=mlt_cases.SMALL_BOOTSTRAP,
+            device=d_, on_pass=lambda i, a, acc=acc, d_=d_: acc.append(
+                mlt.accept_uniforms(0, i, mlt_cases.SMALL_CHAINS, d_) < a))
+        runs[d_.type] = (img.cpu().numpy(), torch.stack(acc).cpu(), st,
+                         {k: v for k, v in read_counts().items() if v})
+    (img_g, acc_g, st_g, counts), (img_c, acc_c, st_c, _) = runs["cuda"], runs["cpu"]
+    n_passes = acc_g.shape[0]
+    require(counts.get("mlt_mutate") == n_passes == counts.get("mlt_accept_splat")
+            and all(counts.get(k, 0) > 0 for k in k1i), "instanced mltpath", counts)
+    res = mlt_cases.compare_renders(img_g, img_c, acc_g, acc_c)
+    log(f"small instanced MLT render mltpath 24^2, {mlt_cases.SMALL_CHAINS} chains x {n_passes} "
+        f"passes, card vs cpu with one seed: accept decisions equal on {res['decisions']:.4%} "
+        f"(>= {mlt_cases.DECISION_FRAC:.0%} required), 8x8 block means worst "
+        f"{res['block_rel']:.4%} apart (<= {mlt_cases.BLOCK_RTOL:.0%}), means "
+        f"{img_g.mean():.5f} / {img_c.mean():.5f}; launches {counts}")
+
+    # (c) the full-width frame cornell-instanced, then its flattened twin
+    def repeat_frames(sc, mt, n=7):
+        """Honest rays/s and frame seconds of n more renders -> (rays/s
+        median, quartiles, frame seconds median)."""
+        rates, walls = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, st = rd.render(sc, mt, return_stats=True)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            rates.append((st["closest"] + st["shadow"]) / walls[-1])
+        q1, med, q3 = np.percentile(rates, [25, 50, 75])
+        return med, (q1, q3), float(np.median(walls))
+
+    def table_bytes(sc):
+        return (sc.bvh_rows.numel() + sc.tri_rec.numel()) * 4
+
+    inst_frame = {}
+    for tag, mode in (("cornell_instanced", "auto"), ("cornell_instanced_flat", "flatten")):
+        t0 = time.time()
+        b_, sc, mt = inst_scene((6, 5), mode)
+        compile_s = time.time() - t0
+        n_flat = len(b_.tri_p)
+        n_proto = sum(p["P"].shape[0] for p in b_.protos)
+        n_world = n_flat + sum(b_.protos[i["proto"]]["P"].shape[0] for i in b_.instances)
+        require(n_world == 1310732 and (mode == "flatten" or (
+            n_flat, len(b_.instances), len(b_.protos), n_proto) == (253964, 42, 2, 40960)),
+            tag, "triangle split", n_world, n_flat, len(b_.instances), n_proto)
+        log(f"{tag} compile: {compile_s:.2f} s (parse, loop subdivision, host build of "
+            f"{'both levels' if mt.bvh_ninst else 'one level'}): {n_world} world triangles, "
+            f"{n_flat} stored flat, {len(b_.instances)} instances of {len(b_.protos)} "
+            f"prototypes ({n_proto} triangles); {sc.bvh_rows.shape[0]} rows, depth "
+            f"{mt.bvh_depth}; bvh_rows + tri_rec {table_bytes(sc) / 2**20:.2f} MiB")
+        del b_
+        st = full_render(tag, sc, mt, (k1i if mt.bvh_ninst else k1) + ("film_add_samples",))
+        require(not any(k in main_counts_frame for k in (k1 if mt.bvh_ninst else k1i)), tag,
+                "launched the other traversal", main_counts_frame)
+        peak = torch.cuda.max_memory_allocated()
+        med, (q1, q3), wall = repeat_frames(sc, mt)
+        inst_frame[tag] = dict(scene=sc, meta=mt, stats=st, rate=med, wall=wall, peak=peak,
+                               bytes=table_bytes(sc), compile=compile_s)
+        log(f"{tag}: honest rays/s median {med / 1e6:.3f} M (quartiles {q1 / 1e6:.3f} .. "
+            f"{q3 / 1e6:.3f}) over 7 renders, frame {wall:.4f} s median, peak mem "
+            f"{peak / 2**30:.2f} GiB, tables {table_bytes(sc) / 2**20:.2f} MiB")
+    fi, ff = inst_frame["cornell_instanced"], inst_frame["cornell_instanced_flat"]
+    n_i, n_f = (sum(x["stats"].values()) for x in (fi, ff))
+    require(abs(n_i - n_f) <= 0.01 * n_f, "instanced vs flattened ray counts", n_i, n_f)
+    # the twins are not the same float32 geometry (flattening rounds the
+    # vertices in render space, K1i the ray in object space): nearly every
+    # path is the same (the ray counts differ by ~1e-6), but a path that an
+    # ulp turns apart at a glass or glossy surface moves its pixel at 16 spp.
+    # So the frames are held to check_image's mean rule and its per-pixel
+    # tolerance on >= 98 % of pixel values (0.82 % fell outside it in one
+    # run on an H100); (b) holds the small render to check_image itself. The
+    # noise floor shows what the 2 % rule tells apart: the flattened twin
+    # against its own second estimate (samples 16..31 of every pixel, the
+    # same batched loop) must fall outside it. Where the bad pixels lie is
+    # read from the material of each pixel centre's first hit.
+    img_i, img_f = frame_imgs["cornell_instanced"], frame_imgs["cornell_instanced_flat"]
+    s_ff, m_ff = ff["scene"], ff["meta"]
+    W_, H_ = m_ff.resolution
+    film2 = filmlib.new_film(m_ff.resolution, dev)
+    for ids, sids in rd.wave_lanes(W_ * H_, m_ff.spp, dev):
+        rd.render_wave(s_ff, m_ff, film2, ids, sids + m_ff.spp)
+    img_f2 = filmlib.develop(film2, m_ff.resolution, out_matrix=m_ff.film_out_matrix,
+                             imaging_ratio=m_ff.film_imaging_ratio).cpu().numpy()
+    ys, xs = torch.meshgrid(torch.arange(H_), torch.arange(W_), indexing="ij")
+    p_c = (torch.stack([xs.reshape(-1), ys.reshape(-1)], 1).float() + 0.5).to(dev)
+    rays_c = perspective.generate_rays(s_ff, p_c, torch.zeros_like(p_c))
+    hit_c = dispatch.intersect(s_ff, m_ff, rays_c.o, rays_c.d,
+                               torch.full((W_ * H_,), INFINITY, device=dev))
+    kind = torch.where(hit_c.valid, s_ff.mat_type[hit_c.mat.clamp(min=0)], -1)
+    kind = kind.reshape(H_, W_).cpu().numpy()
+    on_gem, on_ball = kind == bd.MAT_DIELECTRIC, kind == bd.MAT_CONDUCTOR
+
+    def twin_reading(img, ref):
+        """(share of pixel values outside check_image's tolerance, pixels
+        with such a value, their shares on the gems and on the balls)"""
+        bad = np.abs(img - ref) > 5e-3 + 0.05 * np.abs(ref)
+        px = bad.any(-1)
+        n = max(int(px.sum()), 1)
+        return float(bad.mean()), int(px.sum()), (px & on_gem).sum() / n, (px & on_ball).sum() / n
+
+    px_bad, n_px, gem_i, ball_i = twin_reading(img_i, img_f)
+    floor_bad, n_px_f, gem_f, ball_f = twin_reading(img_f2, img_f)
+    mean_rel = abs(float(img_i.mean()) / float(img_f.mean()) - 1.0)
+    require(np.isfinite(img_i).all() and px_bad < 0.02 < floor_bad and mean_rel < 0.01,
+            "cornell-instanced vs its flattened twin (and the twin's noise floor)", px_bad,
+            floor_bad, mean_rel)
+    log(f"cornell-instanced against its flattened twin: rays {n_i} / {n_f} "
+        f"({n_i / n_f - 1:+.4%}), per pixel value {px_bad:.4%} bad (< 2 %), means "
+        f"{img_i.mean():.5f} / {img_f.mean():.5f} ({mean_rel:.4%} apart); noise floor, the "
+        f"twin against its second estimate (samples 16..31): {floor_bad:.4%} bad (> 2 %), "
+        f"means {img_f2.mean():.5f} / {img_f.mean():.5f}; pixels with a bad value: twins "
+        f"{n_px}, {gem_i:.2%} on the gems and {ball_i:.2%} on the balls; floor {n_px_f}, "
+        f"{gem_f:.2%} / {ball_f:.2%}; the gems are {on_gem.mean():.2%} of the frame's "
+        f"pixels, the balls {on_ball.mean():.2%}; "
+        f"rays/s {fi['rate'] / 1e6:.3f} / "
+        f"{ff['rate'] / 1e6:.3f} M ({fi['rate'] / ff['rate']:.3f}x), frame {fi['wall']:.4f} / "
+        f"{ff['wall']:.4f} s, peak {fi['peak'] / 2**30:.2f} / {ff['peak'] / 2**30:.2f} GiB, "
+        f"tables {fi['bytes'] / 2**20:.2f} / {ff['bytes'] / 2**20:.2f} MiB "
+        f"({ff['bytes'] / fi['bytes']:.2f}x), compile {fi['compile']:.2f} / "
+        f"{ff['compile']:.2f} s")
+
+    # (d) K1i at its first launches in the instanced frame: held against
+    # its plain version on those arguments, and timed beside its bound, the
+    # plain version and the flattened frame's K1 on the same rays
+    leaves_i = fi["meta"].bvh_leaves
+    for any_hit, name in ((False, "bvh_closest_hit_inst"), (True, "bvh_any_hit_inst")):
+        (rows_, nint_, ninst_, depth_, iterb_, o_, d_, t_, *_), _, _ = first(
+            "cornell_instanced", name)
+        args_ = (rows_, nint_, ninst_, depth_, iterb_)
+        R_ = o_.shape[0]
+        if any_hit:
+            (n_live, ms_plain), n_tie, err = compare_inst_any(args_, leaves_i, o_, d_, t_), 0, 0.0
+        else:
+            n_live, _, n_tie, _, err, ms_plain = compare_inst(args_, leaves_i, o_, d_, t_)
+        tk, pk, ik = bvh.traverse_inst_cuda(*args_, o_, d_, t_, any_hit)
+        tf_, pf_ = bvh.traverse_cuda(s_ff.bvh_rows, m_ff.bvh_nint, m_ff.bvh_depth, o_, d_, t_,
+                                     any_hit)
+        agree = float(((pk >= 0) == (pf_ >= 0)).float().mean())
+        require(agree >= 0.9999, name, "against K1 on the flattened frame", agree)
+        work = torch.zeros(5, dtype=torch.int64, device=dev)
+        bvh.traverse_inst_cuda(*args_, o_, d_, t_, any_hit, stats=work)
+        n_nodes, n_tris, n_edge, n_range, n_ent = (int(x) for x in work.cpu())
+        ms, call = kernel_ms(lambda: bvh.traverse_inst_cuda(*args_, o_, d_, t_, any_hit), 20)
+        ms_y = graph_ms(lambda: bvh.traverse_cuda(s_ff.bvh_rows, m_ff.bvh_nint, m_ff.bvh_depth,
+                                                  o_, d_, t_, any_hit))
+        b = bound(rows_.numel() * 4 + R_ * 7 * 4 + R_ * (4 if any_hit else 12),
+                  n_nodes * SLAB_VISIT_OPS + tri_test_ops(n_tris, n_edge, n_range)
+                  + n_ent * INST_ENTRY_OPS)
+        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None, max_abs_err=err, yardstick_ms=ms_y)
+        log(f"{name} at the main path's launch ({R_} lanes, {n_live} "
+            f"{'occluded' if any_hit else 'hits'}, {int((ik >= 0).sum())} in instances, "
+            f"{n_nodes} node visits, {n_ent} instance entries, {n_tris} tri tests, {n_edge} past "
+            f"the edge test, {n_range} past t range): against its plain version on these "
+            f"arguments {'the bits equal' if any_hit else f'bit-exact but on {n_tie} verified ties'}"
+            f", max abs err of t {err:.3e}; kernel {ms:.3f} ms (host-paced {call:.3f} ms), the "
+            f"flattened frame's K1 on the same rays {ms_y:.3f} ms (yardstick; hit masks equal on "
+            f"{agree:.6%}), plain {ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    del inst_frame, fi, ff, s_ff, s_fa
+
     ov = int(bvh.overflow_counter(dev).item()) - ov0
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
 
-    # ---- 12. kernels line and result
+    # ---- 13. kernels line and result
     meta_k = {
         "bvh_closest_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                             "pbrt_tpu/accel/bvh.py:909"),
@@ -1563,6 +1888,10 @@ def main():
                               "pbrt_tpu/parallel/scene_shard.py:256"),
         "shard_select": ("cuda", "pbrt_tpu_torch/csrc/scene_shard.cu",
                          "pbrt_tpu/parallel/scene_shard.py:226"),
+        "bvh_closest_hit_inst": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
+                                 "pbrt_tpu/accel/bvh.py:794"),
+        "bvh_any_hit_inst": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
+                             "pbrt_tpu/accel/bvh.py:794"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

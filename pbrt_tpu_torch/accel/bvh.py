@@ -8,13 +8,19 @@ tables come out byte-identical. One unified row table of ROW_W float32:
   - internal row i < n_int: 8 x [lo(3) hi(3)] child boxes, then 8 child ids
     as exact small floats (empty slots: inverted box, id -1);
   - leaf row n_int + c: the LEAF_K triangles of chunk c, [p0 p1 p2] each.
+An instanced scene has a two-level table (`build_two_level`): a top tree
+over its static triangles and its instances' world boxes, instance rows
+between the internal and the leaf rows, and one shared bottom tree per
+prototype in object space.
 
 Traversal (device): `closest_hit_tris` / `any_hit_tris` launch the CUDA
 kernel of csrc/bvh_traverse.cu on CUDA tensors (one thread per ray with a
-stack of (node, child-mask) entries, see that file). On CPU tensors they run
-the kernel's plain version, a chunked dense watertight sweep over the padded
-leaf soup (each chunk against the rays that meet its bounds), which computes
-the same (t, prim) function. The TPU's compaction
+stack of (node, child-mask) entries, see that file; K1, or K1i on a
+two-level table). On CPU tensors they run the kernel's plain version, a
+chunked dense watertight sweep over the padded leaf soup (each chunk against
+the rays that meet its bounds; per instance over its prototype's rows with
+the rays in its object space), which computes the same (t, prim, inst)
+function. The TPU's compaction
 ladder, dense tail sweep, one-hot child select and PBRT_TPU_BVH_* tuning
 knobs are not ported: they existed because masked-dense execution on the TPU
 is gated by the worst lane.
@@ -47,6 +53,28 @@ class BvhBuild(NamedTuple):
     n_int: int             # internal row count (leaf chunk c = row n_int+c)
     n_padded: int          # n_leaves * K
     max_depth: int         # deepest internal chain (stack bound)
+
+
+class Bvh2Build(NamedTuple):
+    """Two-level (TLAS + per-prototype BLAS) build result (reference keeps a
+    sub-BVH per ObjectBegin definition wrapped in a TransformedPrimitive,
+    scene_builder.cu:70-90,809-876 + primitives/transformed_primitive.h:7-33).
+
+    Unified row table layout: [internal | instance | leaf] — row type is a
+    range check on the id, so traversal stays one gather per step. Instance
+    row: [w2o 3x4 row-major (12) | blas_root id | instance id | 0...].
+    """
+
+    rows: np.ndarray       # (n_int + n_inst + n_leaves, ROW_W)
+    src: np.ndarray        # (n_leaves*K,) i32 into the CONCATENATED source
+                           # soup [static tris | proto0 tris | proto1 ...]
+    n_int: int
+    n_inst: int
+    n_padded: int
+    max_depth: int         # top depth + max BLAS depth + restore margin
+    iter_bound: int        # safety-loop bound (sum of per-tree bounds)
+    leaf_ranges: tuple     # (first, end) leaf rows of the static triangles,
+                           # then of each prototype (the plain traversal's sweeps)
 
 
 def _surface_area(lo, hi):
@@ -319,6 +347,201 @@ def build_bvh(p0, p1, p2, leaf_k=LEAF_K):
     )
 
 
+def _transform_aabb(lo, hi, m):
+    """World AABB of an object-space box under affine m (3,4)."""
+    corners = np.array(
+        [[lo[0], lo[1], lo[2]], [lo[0], lo[1], hi[2]],
+         [lo[0], hi[1], lo[2]], [lo[0], hi[1], hi[2]],
+         [hi[0], lo[1], lo[2]], [hi[0], lo[1], hi[2]],
+         [hi[0], hi[1], lo[2]], [hi[0], hi[1], hi[2]]], np.float64
+    )
+    w = corners @ m[:, :3].T + m[:, 3]
+    return w.min(0), w.max(0)
+
+
+def build_two_level(static_p, protos, inst_proto, inst_o2w, leaf_k=LEAF_K):
+    """TLAS + per-prototype BLAS over shared object-space geometry.
+
+    static_p: (T_s, 3, 3) world-space non-instanced triangles;
+    protos: list of (T_p, 3, 3) object-space prototype triangles;
+    inst_proto: (I,) prototype index per instance;
+    inst_o2w: (I, 3, 4) object->world affine per instance.
+
+    Returns Bvh2Build. `src` indexes the CONCATENATED soup
+    [static | protos[0] | protos[1] | ...]; the caller reorders all
+    per-triangle columns (built in that concatenated order) through it.
+    Replaces the reference's TransformedPrimitive + sub-BVH design
+    (scene_builder.cu:809-876) without flattening geometry per instance.
+    """
+    static_p = np.asarray(static_p, np.float32).reshape(-1, 3, 3)
+    T_s = static_p.shape[0]
+    I = len(inst_proto)
+    inst_proto = np.asarray(inst_proto, np.int64)
+    inst_o2w = np.asarray(inst_o2w, np.float64).reshape(I, 3, 4)
+
+    # ---- BLAS per prototype (existing single-level machinery, local ids)
+    blas = []
+    proto_bounds = []
+    for P in protos:
+        P = np.asarray(P, np.float32).reshape(-1, 3, 3)
+        blas.append(build_bvh(P[:, 0], P[:, 1], P[:, 2], leaf_k))
+        lo = P.min(axis=(0, 1))
+        hi = P.max(axis=(0, 1))
+        proto_bounds.append((lo, hi))
+
+    # ---- top-tree primitive set: static tris + instance world boxes
+    s_lo = static_p.min(1)
+    s_hi = static_p.max(1)
+    i_lo = np.zeros((I, 3))
+    i_hi = np.zeros((I, 3))
+    for i in range(I):
+        lo, hi = proto_bounds[inst_proto[i]]
+        i_lo[i], i_hi[i] = _transform_aabb(lo, hi, inst_o2w[i])
+    prim_lo = np.concatenate([s_lo, i_lo.astype(np.float32)], 0)
+    prim_hi = np.concatenate([s_hi, i_hi.astype(np.float32)], 0)
+    cent = 0.5 * (prim_lo + prim_hi)
+
+    lo0 = cent.min(0)
+    extent = np.maximum(cent.max(0) - lo0, 1e-30)
+    q = np.clip(((cent - lo0) / extent) * 1023.0, 0.0, 1023.0).astype(np.uint32)
+    codes = encode_morton3(q[:, 0], q[:, 1], q[:, 2])
+    order = np.argsort(codes, kind="stable").astype(np.int64)
+
+    nodes, leaves, root_ref = _build_binary(
+        prim_lo, prim_hi, cent, order, leaf_k, big_from=T_s
+    )
+    wide, leaf_order, root = _collapse_wide(
+        nodes, leaves, root_ref, prim_lo, prim_hi, WIDTH
+    )
+    if root[0] != "w":
+        # degenerate top (single chunk / single instance): synthesize a root
+        # so row 0 is always an internal row
+        lo = prim_lo.min(0).astype(np.float32)
+        hi = prim_hi.max(0).astype(np.float32)
+        wide = [[(lo, hi, root)]] + wide
+        # 'w' refs inside the shifted list must move by one
+        wide = [
+            [(slo, shi, ("w", r[1] + 1) if r[0] == "w" else r)
+             for (slo, shi, r) in slots]
+            for slots in wide
+        ]
+        root = ("w", 0)
+
+    A = len(wide)
+    n_top_leaves = len(leaf_order)
+    int_off = []
+    acc = A
+    for b in blas:
+        int_off.append(acc)
+        acc += b.n_int
+    n_int = acc
+    L0 = n_int + I                              # first leaf row id
+    leaf_off = []
+    acc_l = n_top_leaves
+    for b in blas:
+        leaf_off.append(L0 + acc_l)
+        acc_l += b.n_padded // leaf_k
+    n_leaves = acc_l
+    n_rows = n_int + I + n_leaves
+    row_w = max(6 * WIDTH + WIDTH, 9 * leaf_k)
+    BIG = np.float32(3e38)
+    rows = np.zeros((n_rows, row_w), np.float32)
+
+    # ---- top internal rows
+    def top_cid(ref):
+        if ref[0] == "w":
+            return ref[1]
+        if ref[0] == "i":
+            return n_int + (ref[1] - T_s)
+        return L0 + ref[1]
+
+    for i, slots in enumerate(wide):
+        r = rows[i]
+        r[0: 6 * WIDTH: 6] = BIG
+        r[3: 6 * WIDTH: 6] = -BIG
+        r[6 * WIDTH:] = -1.0
+        for s, (slo, shi, ref) in enumerate(slots):
+            r[s * 6: s * 6 + 3] = slo
+            r[s * 6 + 3: s * 6 + 6] = shi
+            r[6 * WIDTH + s] = float(top_cid(ref))
+
+    # ---- BLAS rows, ids remapped into the global table
+    for p, b in enumerate(blas):
+        bi = b.rows[: b.n_int].copy()
+        child = bi[:, 6 * WIDTH:]
+        is_leaf_c = child >= b.n_int
+        child_new = np.where(
+            child < 0, -1.0,
+            np.where(is_leaf_c, child - b.n_int + leaf_off[p],
+                     child + int_off[p]),
+        )
+        bi[:, 6 * WIDTH:] = child_new
+        rows[int_off[p]: int_off[p] + b.n_int] = bi
+        nl = b.n_padded // leaf_k
+        rows[leaf_off[p]: leaf_off[p] + nl] = b.rows[b.n_int:]
+
+    # ---- instance rows: [w2o 12 | blas root | instance id]
+    for i in range(I):
+        p = int(inst_proto[i])
+        m = np.eye(4)
+        m[:3, :4] = inst_o2w[i]
+        w2o = np.linalg.inv(m)[:3, :4]
+        root_gid = int_off[p] if blas[p].n_int > 0 else leaf_off[p]
+        r = rows[n_int + i]
+        r[:12] = w2o.reshape(-1).astype(np.float32)
+        r[12] = float(root_gid)
+        r[13] = float(i)
+
+    # ---- top leaf rows (static tris) + global src
+    src = np.full(n_leaves * leaf_k, -1, np.int32)
+    for chunk, bleaf in enumerate(leaf_order):
+        ids = leaves[bleaf]
+        assert np.all(ids < T_s)
+        src[chunk * leaf_k: chunk * leaf_k + ids.shape[0]] = ids
+    src_off = T_s
+    for p, b in enumerate(blas):
+        base = (leaf_off[p] - L0) * leaf_k
+        bs = b.src
+        src[base: base + bs.shape[0]] = np.where(bs >= 0, bs + src_off, -1)
+        src_off += int(protos[p].reshape(-1, 3, 3).shape[0])
+
+    mask = src >= 0
+    si = np.maximum(src, 0)
+    allp = np.concatenate(
+        [static_p] + [np.asarray(P, np.float32).reshape(-1, 3, 3) for P in protos],
+        axis=0,
+    ) if protos else static_p
+    tri9 = allp[si].reshape(-1, 9).copy()
+    tri9[~mask] = 0.0
+    rows[L0:, : leaf_k * 9] = tri9.reshape(n_leaves, leaf_k * 9)
+
+    # depth bound: top chain + restore + deepest BLAS chain
+    if wide:
+        depth = np.ones(A, np.int32)
+        for i in range(A - 1, -1, -1):
+            d = 1
+            for _, _, ref in wide[i]:
+                if ref[0] == "w":
+                    d = max(d, 1 + depth[ref[1]])
+            depth[i] = d
+        top_depth = int(depth[0])
+    else:
+        top_depth = 1
+    max_depth = top_depth + max([b.max_depth for b in blas], default=0) + 2
+    iter_bound = 4 * (A + n_top_leaves) + 16
+    for i in range(I):
+        b = blas[int(inst_proto[i])]
+        iter_bound += 4 * (b.n_int + b.n_padded // leaf_k) + 8
+
+    ends = leaf_off[1:] + [L0 + n_leaves]
+    return Bvh2Build(
+        rows=rows, src=src, n_int=n_int, n_inst=I,
+        n_padded=n_leaves * leaf_k, max_depth=max_depth,
+        iter_bound=int(iter_bound),
+        leaf_ranges=((L0, L0 + n_top_leaves),) + tuple(zip(leaf_off, ends)),
+    )
+
+
 def reorder_pad(build: BvhBuild, a, fill):
     """Reorder a per-triangle column (T, ...) into padded leaf order."""
     a = np.asarray(a)
@@ -331,7 +554,8 @@ def reorder_pad(build: BvhBuild, a, fill):
 # --------------------------------------------------------------- traversal
 
 # launches of the CUDA traversal kernel (plain ints, added to where it launches)
-launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0}
+launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0, "bvh_closest_hit_inst": 0,
+            "bvh_any_hit_inst": 0}
 _OVERFLOW = {}
 
 
@@ -399,6 +623,74 @@ def traverse_plain(rows, n_int, o, d, t_max, any_hit=False):
     return t_best, prim
 
 
+def object_rays(w2o, o, d):
+    """Rays o, d (R, 3) in the object space of the affines w2o ((R, 12) or
+    (12,), row-major 3x4): o_obj = M[:, :3] o + M[:, 3], d_obj = M[:, :3] d,
+    with K1i's rounding (csrc/bvh_stepper.cuh `dot_row`): each dot product
+    a chain of fused multiply-adds, as XLA emits JAX's einsum on the CPU,
+    then the translation added, so the kernel and this agree bit for bit.
+    d_obj stays unnormalised, so a hit's t is the same in both spaces."""
+    m = w2o.reshape(-1, 3, 4)
+
+    def dot(v):
+        a = m[:, :, 0] * v[:, None, 0]
+        a = ix.fma_f32(m[:, :, 1], v[:, None, 1], a)
+        return ix.fma_f32(m[:, :, 2], v[:, None, 2], a)
+
+    return dot(o) + m[:, :, 3], dot(d)
+
+
+def traverse_inst_plain(rows, n_int, leaves, o, d, t_max, any_hit=False):
+    """Plain version of the two-level kernel (K1i): the chunked sweep of
+    traverse_plain over the static triangles' leaf rows leaves[0] with the
+    world rays, then for each instance i over its prototype's leaf rows
+    leaves[1 + i] with the rays moved into its object space (object_rays),
+    keeping strictly nearer winners in that order (each range against the
+    rays that meet its bounds, then block by block). `leaves` is the scene's
+    SceneMeta.bvh_leaves. -> (t, prim (R,) int64 leaf-order index, -1 on a
+    miss; inst (R,) int64 instance of the winner, -1 for a static triangle
+    or a miss); for any_hit, prim is 0 where something blocks."""
+    L0 = leaves[0][0]
+    t_best = t_max.clone()
+    prim = torch.full(t_max.shape, -1, dtype=torch.int64, device=o.device)
+    inst = torch.full(t_max.shape, -1, dtype=torch.int64, device=o.device)
+
+    def sweep(lo, hi, o_, d_, iid):
+        soup = rows[lo:hi, : LEAF_K * 9].reshape(-1, 9)
+        # the rays that meet the range's bounds at all (a block's bounds lie
+        # inside them, grown less), then block by block among those
+        near = _lanes_near_block(soup, o_, d_, t_max if any_hit else t_best)
+        if near.numel() == 0:
+            return
+        o_, d_ = o_[near], d_[near]
+        shear = ix.ray_shear(d_)
+        TB = _sweep_block(near.numel(), o.device)
+        for s in range(0, soup.shape[0], TB):
+            blk = soup[s: s + TB]
+            t_hi = (t_max if any_hit else t_best)[near]
+            lanes = _lanes_near_block(blk, o_, d_, t_hi)
+            if lanes.numel() == 0:
+                continue
+            t, hit = ix.intersect_tri_block(o_[lanes], tuple(x[lanes] for x in shear),
+                                            t_hi[lanes], blk[:, 0:3], blk[:, 3:6], blk[:, 6:9])
+            g = near[lanes]
+            if any_hit:
+                prim[g] = torch.where(hit.any(dim=1), 0, prim[g])
+                continue
+            t = torch.where(hit, t, torch.inf)
+            best = torch.argmin(t, dim=1)
+            tb = torch.gather(t, 1, best[:, None])[:, 0]
+            better = tb < t_best[g]
+            t_best[g] = torch.where(better, tb, t_best[g])
+            prim[g] = torch.where(better, (lo - L0) * LEAF_K + s + best, prim[g])
+            inst[g] = torch.where(better, iid, inst[g])
+
+    sweep(*leaves[0], o, d, -1)
+    for i, (lo, hi) in enumerate(leaves[1:]):
+        sweep(lo, hi, *object_rays(rows[n_int + i, :12], o, d), i)
+    return t_best, prim, inst
+
+
 def _kernel_lib():
     """The built traversal library, its C functions declared once."""
     from pbrt_tpu_torch import kernels
@@ -412,8 +704,40 @@ def _kernel_lib():
             + [ctypes.c_int] + [ctypes.c_void_p] * 3
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         lib.pbrt_bvh_traverse.restype = ctypes.c_int
+        lib.pbrt_bvh_traverse_inst.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        lib.pbrt_bvh_traverse_inst.restype = ctypes.c_int
         lib.declared = True
     return lib
+
+
+def _check_launch(rows, n_int, leaf0, o, d, t_max, stats, n_stats, depth):
+    """Validate a traversal launch's arguments (leaf0: the first leaf row)
+    -> (the library, stack size)."""
+    R = o.shape[0]
+    dev = o.device
+    for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,)),
+                           ("rows", rows, (rows.shape[0], ROW_W))):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"bvh traversal: {name} must be a contiguous float32 "
+                             f"{shape} tensor on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if not 0 <= n_int <= leaf0 < rows.shape[0] or rows.shape[0] >= 1 << 23:
+        raise ValueError(f"bvh traversal: n_int {n_int} outside a table of "
+                         f"{rows.shape[0]} rows (at most 2^23 rows)")
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
+                              or stats.numel() != n_stats):
+        raise ValueError(f"bvh traversal: stats must be an int64 ({n_stats},) tensor on the "
+                         "device")
+    lib = _kernel_lib()
+    stack = depth + 2
+    if stack > lib.pbrt_bvh_max_stack():
+        raise ValueError(f"BVH depth {depth} needs a stack of {stack} entries; the "
+                         f"kernel is compiled for {lib.pbrt_bvh_max_stack()}")
+    return lib, stack
 
 
 def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
@@ -424,26 +748,8 @@ def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
     watertight test's edge-sign and t-range exits (csrc/watertight.cuh)."""
     from pbrt_tpu_torch import kernels
 
-    R = o.shape[0]
-    dev = o.device
-    for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,)),
-                           ("rows", rows, (rows.shape[0], ROW_W))):
-        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape \
-                or not x.is_contiguous():
-            raise ValueError(f"bvh traversal: {name} must be a contiguous float32 "
-                             f"{shape} tensor on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    if not 0 <= n_int < rows.shape[0] or rows.shape[0] >= 1 << 23:
-        raise ValueError(f"bvh traversal: n_int {n_int} outside a table of "
-                         f"{rows.shape[0]} rows (at most 2^23 rows)")
-    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
-                              or stats.numel() != 4):
-        raise ValueError("bvh traversal: stats must be an int64 (4,) tensor on the device")
-    lib = _kernel_lib()
-    stack = depth + 2
-    if stack > lib.pbrt_bvh_max_stack():
-        raise ValueError(f"BVH depth {depth} needs a stack of {stack} entries; the "
-                         f"kernel is compiled for {lib.pbrt_bvh_max_stack()}")
+    lib, stack = _check_launch(rows, n_int, n_int, o, d, t_max, stats, 4, depth)
+    R, dev = o.shape[0], o.device
     t = torch.empty(R, dtype=torch.float32, device=dev)
     prim = torch.empty(R, dtype=torch.int32, device=dev)
     if R == 0:
@@ -459,31 +765,78 @@ def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
     return t, prim.long()
 
 
+def traverse_inst_cuda(rows, n_int, n_inst, depth, iter_bound, o, d, t_max, any_hit=False,
+                       stats=None):
+    """Launch the two-level kernel (K1i, csrc/bvh_traverse.cu
+    `pbrt_bvh_traverse_inst`) on the current stream and count the launch.
+    Same contract as traverse_inst_plain, with prim and inst -1 on a miss;
+    depth and iter_bound are the two-level build's max_depth and iter_bound.
+    `stats`, an optional int64 (5,) device tensor, accumulates traverse_cuda's
+    four sums and the instance rows entered."""
+    from pbrt_tpu_torch import kernels
+
+    lib, stack = _check_launch(rows, n_int, n_int + n_inst, o, d, t_max, stats, 5, depth)
+    R, dev = o.shape[0], o.device
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    prim = torch.empty(R, dtype=torch.int32, device=dev)
+    inst = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return t, prim.long(), inst.long()
+    err = lib.pbrt_bvh_traverse_inst(
+        rows.data_ptr(), rows.shape[0], n_int, n_inst, iter_bound, o.data_ptr(), d.data_ptr(),
+        t_max.data_ptr(), R, t.data_ptr(), prim.data_ptr(), inst.data_ptr(),
+        overflow_counter(dev).data_ptr(), int(any_hit), stack,
+        None if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "bvh_traverse_inst")
+    launches["bvh_any_hit_inst" if any_hit else "bvh_closest_hit_inst"] += 1
+    return t, prim.long(), inst.long()
+
+
 def _traverse(scene, meta, o, d, t_max, any_hit):
+    """-> (t, prim, inst); inst is None on a single-level table."""
+    if meta.bvh_ninst:
+        if o.is_cuda:
+            return traverse_inst_cuda(scene.bvh_rows, meta.bvh_nint, meta.bvh_ninst,
+                                      meta.bvh_depth, meta.bvh_iterb, o, d, t_max, any_hit)
+        return traverse_inst_plain(scene.bvh_rows, meta.bvh_nint, meta.bvh_leaves, o, d, t_max,
+                                   any_hit)
     if o.is_cuda:
-        return traverse_cuda(scene.bvh_rows, meta.bvh_nint, meta.bvh_depth,
-                             o, d, t_max, any_hit)
-    return traverse_plain(scene.bvh_rows, meta.bvh_nint, o, d, t_max, any_hit)
+        t, prim = traverse_cuda(scene.bvh_rows, meta.bvh_nint, meta.bvh_depth, o, d, t_max,
+                                any_hit)
+    else:
+        t, prim = traverse_plain(scene.bvh_rows, meta.bvh_nint, o, d, t_max, any_hit)
+    return t, prim, None
 
 
 def closest_hit_tris(scene, meta, o, d, t_max):
     """BVH closest hit -> TriHit. t and the barycentrics are recomputed
-    against the winning triangle (the refit of bvh.py:1193-1215); prim
-    indexes the leaf-ordered triangle columns."""
-    _, prim = _traverse(scene, meta, o, d, t_max, any_hit=False)
+    against the winning triangle (the refit of bvh.py:1193-1215), for an
+    instanced winner in its instance's object space (`_refit_ray`
+    bvh.py:1170); prim indexes the leaf-ordered triangle columns, inst the
+    instance (None on a single-level table)."""
+    _, prim, hin = _traverse(scene, meta, o, d, t_max, any_hit=False)
     found = prim >= 0
     pc = torch.clamp(prim, min=0)
+    o_r, d_r = o, d
+    if hin is not None:
+        # the traversal's object ray, bit for bit, so the refit meets the
+        # winner the traversal met (a ray rounded otherwise can miss it at
+        # an edge), formed on the instanced lanes only
+        lanes = (hin >= 0).nonzero()[:, 0]
+        o_r, d_r = o.clone(), d.clone()
+        o_r[lanes], d_r[lanes] = object_rays(scene.inst_w2o[hin[lanes]], o[lanes], d[lanes])
     t_ref, bary, hit_ref = ix.intersect_tri_lanes(
-        o, d, t_max, scene.tri_p0[pc], scene.tri_p1[pc], scene.tri_p2[pc])
+        o_r, d_r, t_max, scene.tri_p0[pc], scene.tri_p1[pc], scene.tri_p2[pc])
     ok = found & hit_ref
     return ix.TriHit(
         t=torch.where(ok, t_ref, INFINITY),
         prim=torch.where(ok, prim, -1),
         b=torch.where(ok[:, None], bary, 0.0),
+        inst=None if hin is None else torch.where(ok, hin, -1),
     )
 
 
 def any_hit_tris(scene, meta, o, d, t_max):
     """BVH shadow query: True where some triangle blocks (R,)."""
-    _, prim = _traverse(scene, meta, o, d, t_max, any_hit=True)
-    return prim >= 0
+    return _traverse(scene, meta, o, d, t_max, any_hit=True)[1] >= 0

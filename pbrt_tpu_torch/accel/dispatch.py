@@ -13,7 +13,10 @@ uv-derivative columns are read only by the media and texture slices and are
 not assembled here. On a scene-sharded render (Scene.shard set) triangles go
 through the parts' traversal of parallel/scene_shard.py (K11a/K11b) instead,
 whose winner arrives with its tri_rec row and vertices; the same record
-assembly serves both. Instancing is a later slice.
+assembly serves both. On an instanced scene (a two-level table) the BVH
+kernel is K1i, and an instanced winner's record, assembled in its
+prototype's object space, is mapped to render space with its instance's
+transforms.
 """
 from typing import NamedTuple
 
@@ -64,15 +67,51 @@ def _record_fields(rec):
             rec[:, 15].long(), rec[:, 16].long(), rec[:, 17] > 0.5, rec[:, 18] > 0.5)
 
 
-def _triangle_record(p0, p1, p2, b, fields):
+def _matvec(m, v):
+    """m (R, 3, 3) times v (R, 3), each row summed as (m0 v0 + m1 v1) + m2 v2."""
+    return (m[:, :, 0] * v[:, None, 0] + m[:, :, 1] * v[:, None, 1]) + m[:, :, 2] * v[:, None, 2]
+
+
+def _to_world(scene, inst):
+    """(p -> o2w p, n -> w2o^T n) of the instances `inst` (R,) (-1: the
+    identity), and the mask of instanced lanes with their mirror flags (JAX
+    dispatch.py:152-221)."""
+    is_i = inst >= 0
+    iw = torch.clamp(inst, min=0)
+    o2w = scene.inst_o2w[iw].reshape(-1, 3, 4)
+    w2o = scene.inst_w2o[iw].reshape(-1, 3, 4)
+
+    def point(p):
+        return torch.where(is_i[:, None], _matvec(o2w[:, :, :3], p) + o2w[:, :, 3], p)
+
+    def normal(n):
+        # (M^-T n)_i = sum_j w2o[j, i] n_j
+        return _matvec(w2o[:, :, :3].transpose(1, 2), n)
+
+    return point, normal, is_i, scene.inst_swap[iw] > 0.5
+
+
+def _triangle_record(p0, p1, p2, b, fields, inst=None):
     """Hit record of the winning triangles (p0, p1, p2 (R, 3), barycentrics
     b, and their _record_fields) -> (p, ng (face-forwarded), ns, uv, mat,
-    light)."""
+    light). `inst`, on an instanced scene, is (_to_world(...) of the
+    winners' instances): the record is mapped from object to render space,
+    p through o2w, the normals through w2o^T, the shading normal negated on a
+    mirrored instance. The geometric normal is not: the stored rev (def-space
+    orientation) and the sign of the transform's determinant cancel, see JAX
+    dispatch.py:155-160."""
     n0, n1, n2, uv0, uv1, uv2, mat_t, light_t, rev, has_n = fields
     p_t = b[..., 0:1] * p0 + b[..., 1:2] * p1 + b[..., 2:3] * p2
     ng_t = vm.normalize(vm.cross(p1 - p0, p2 - p0))
+    if inst is not None:
+        point, normal, is_i, swap = inst
+        p_t = point(p_t)
+        ng_t = torch.where(is_i[:, None], vm.normalize(normal(ng_t)), ng_t)
     ng_t = torch.where(rev[..., None], -ng_t, ng_t)
     ns_t = vm.normalize(b[..., 0:1] * n0 + b[..., 1:2] * n1 + b[..., 2:3] * n2)
+    if inst is not None:
+        ns_w = vm.normalize(normal(ns_t))
+        ns_t = torch.where(is_i[:, None], torch.where(swap[:, None], -ns_w, ns_w), ns_t)
     ng_adj = torch.where(has_n[..., None], vm.face_forward(ng_t, ns_t), ng_t)
     ns_t = torch.where(has_n[..., None], ns_t, ng_adj)
     uv_t = b[..., 0:1] * uv0 + b[..., 1:2] * uv1 + b[..., 2:3] * uv2
@@ -85,17 +124,21 @@ def _closest_triangles(scene, meta, o, d, t_max):
       - scene-sharded (scene.shard set; JAX dispatch.py:80-93, 122-145): the
         parts' traversal (K11a) delivers the winner's record row and
         vertices, and the hit is refit against them;
-      - BVH (K1): one wide tri_rec row gather for the whole record;
+      - BVH (K1, K1i on an instanced scene): one wide tri_rec row gather for
+        the whole record;
       - dense (K3): the per-column tables."""
     if scene.shard is not None:
         _, rec, p0, p1, p2, valid = scene_shard.closest_hit_parts(scene.shard, o, d, t_max)
         t_ref, b, hit_ref = ix.intersect_tri_lanes(o, d, t_max, p0, p1, p2)
         t = torch.where(valid & hit_ref, t_ref, INFINITY)
         return t, _triangle_record(p0, p1, p2, b, _record_fields(rec))
+    inst = None
     if scene.bvh_rows.shape[0] > 0:
         th = bvh.closest_hit_tris(scene, meta, o, d, t_max)
         tri = torch.clamp(th.prim, min=0)
         fields = _record_fields(scene.tri_rec[tri])
+        if th.inst is not None:
+            inst = _to_world(scene, th.inst)
     else:
         th = ix.intersect_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1, scene.tri_p2)
         tri = torch.clamp(th.prim, min=0)
@@ -103,7 +146,7 @@ def _closest_triangles(scene, meta, o, d, t_max):
                   scene.tri_uv1[tri], scene.tri_uv2[tri], scene.tri_mat[tri].long(),
                   scene.tri_light[tri].long(), scene.tri_rev[tri], scene.tri_has_n[tri])
     return th.t, _triangle_record(scene.tri_p0[tri], scene.tri_p1[tri], scene.tri_p2[tri],
-                                  th.b, fields)
+                                  th.b, fields, inst)
 
 
 def _sphere_uv(scene, sph, p_s):

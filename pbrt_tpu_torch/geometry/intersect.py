@@ -28,6 +28,7 @@ class TriHit(NamedTuple):
     t: torch.Tensor      # (R,) hit distance (INFINITY on a miss)
     prim: torch.Tensor   # (R,) int64 leaf-order triangle index (-1 on a miss)
     b: torch.Tensor      # (R, 3) barycentrics
+    inst: torch.Tensor = None  # (R,) int64 instance of a two-level hit (-1 static)
 
 
 def permute_by_kz(v, kz):

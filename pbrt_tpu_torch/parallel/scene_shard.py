@@ -149,10 +149,16 @@ class SceneShard(NamedTuple):
 
 
 def build_scene_shard(scene, n_parts, leaf_k=None):
-    """Split a compiled scene's triangle soup into n_parts morton chunks with
-    per-part BVHs and record tables (host numpy, JAX scene_shard.py:185).
-    -> SceneShard on the CPU."""
+    """Split a compiled non-instanced scene's triangle soup into n_parts
+    morton chunks with per-part BVHs and record tables (host numpy, JAX
+    scene_shard.py:185). -> SceneShard on the CPU."""
     leaf_k = leaf_k or bvhlib.LEAF_K
+    n_inst = getattr(scene, "inst_w2o", torch.zeros(0)).shape[0]
+    if n_inst:
+        # the parts hold world-space triangles; a prototype's rows are in its
+        # object space (JAX scene_shard.py:186 takes non-instanced scenes)
+        raise ValueError("scene sharding takes a non-instanced scene; this one has "
+                         f"{n_inst} instances under a two-level BVH")
     if scene.tri_rec.shape[0] == 0:
         raise ValueError("scene sharding needs a BVH scene (at least "
                          f"{bvhlib.MIN_TRIS_FOR_BVH} triangles)")

@@ -2,7 +2,8 @@
 
     python -m pbrt_tpu_torch.profile_render
         [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass
-                 |caustic-glass-mlt|cornell-mesh-mltpath]
+                 |caustic-glass-mlt|cornell-mesh-mltpath|cornell-instanced
+                 |cornell-instanced-flat]
         [--shard-scene N] [--out build/pbrt_tpu_torch/profile_render.json]
 
 Renders the scene through the normal `render()` entry: cornell-mesh levels
@@ -12,7 +13,10 @@ staircase (scenes/staircase.pbrt: 256^2, 256 spp stratified, max depth 8)
 and testball (scenes/material-testball.pbrt: 256^2, 64 spp stratified, max
 depth 6) at their files' own settings; with BDPT, cornell-bdpt (the plain
 cornell box at 128^2 x 8, max depth 5) and caustic-glass
-(scenes/caustic-glass.pbrt: 256^2 x 64, max depth 7). One warm-up render,
+(scenes/caustic-glass.pbrt: 256^2 x 64, max depth 7); cornell-instanced
+(testscenes.instanced_cornell_pbrt at levels (6, 5) under instancing
+"auto": 1,310,732 world triangles, 42 instances of 2 prototypes under the
+two-level BVH) and its flattened twin at cornell-mesh's settings. One warm-up render,
 REPS timed renders (11; 3 for staircase, whose frame is ~25x a cornell-mesh
 frame's work, and for caustic-glass; 5 for testball), host clock around a synchronized render (the
 honest rays/s of each, and their median and quartiles), then one render
@@ -60,8 +64,8 @@ SCENE_FILES = {"staircase": "staircase.pbrt", "testball": "material-testball.pbr
 POOLS = (1 << 17, 1 << 18, 1 << 19)
 PROFILED_PASSES = 8
 # hand-written kernels by a substring of their device symbol
-KERNELS = {"bvh": "traverse_kernel", "dense": "dense_", "recycle": "recycle_",
-           "film": "film_add_kernel", "layered": "layered_", "bdpt": "connect_",
+KERNELS = {"bvh": "traverse_kernel", "bvh_inst": "traverse_inst_kernel", "dense": "dense_",
+           "recycle": "recycle_", "film": "film_add_kernel", "layered": "layered_", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
            "shard": "parts_kernel|select_kernel"}
 
@@ -186,6 +190,12 @@ def _scene(name):
     if name == "cornell-bdpt":
         return (ts.cornell(res=128, spp=8, integrator="bdpt"),
                 "cornell-bdpt (128^2 x 8, max depth 5, dense)")
+    if name.startswith("cornell-instanced"):
+        from pbrt_tpu_torch.scene.compile import compile_scene
+
+        mode = "flatten" if name.endswith("flat") else "auto"
+        return (compile_scene(ts.instanced_cornell_builder(res=RES, spp=SPP, instancing=mode)),
+                f"cornell-instanced (levels (6, 5), instancing {mode!r}, 1,310,732 world tris)")
     if name in SCENE_FILES:
         from pbrt_tpu_torch.scene.compile import load_scene
 
@@ -198,7 +208,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("cornell-mesh", "cornell", "terrain", "staircase",
                                         "testball", "cornell-bdpt", "caustic-glass",
-                                        "caustic-glass-mlt", "cornell-mesh-mltpath"),
+                                        "caustic-glass-mlt", "cornell-mesh-mltpath",
+                                        "cornell-instanced", "cornell-instanced-flat"),
                     default="cornell-mesh")
     ap.add_argument("--shard-scene", type=int, default=0, metavar="N",
                     help="split the triangles into N parts (path family)")

@@ -5,8 +5,11 @@ trimmed to what the port renders so far: transforms, the perspective camera,
 film, independent/stratified samplers, box and mitchell pixel filters,
 attribute blocks, diffuse/conductor/dielectric/diffusetransmission and
 coateddiffuse/coatedconductor materials, diffuse area lights, distant/uniform-infinite/spot light
-sources, triangle meshes (trianglemesh, loopsubdiv, plymesh) and full or
-partial spheres and disks. Every other directive, type or parameter that
+sources, triangle meshes (trianglemesh, loopsubdiv, plymesh), full or
+partial spheres and disks, named coordinate systems and object instancing
+(ObjectBegin/ObjectEnd/ObjectInstance: small scenes replay the definition's
+geometry, larger ones share it as a prototype under a two-level BVH, as the
+JAX package does). Every other directive, type or parameter that
 would change the image raises NotImplementedError naming the slice of the
 port that will bring it; nothing is silently dropped. The integrator type is
 recorded as written; the compiler refuses what the port cannot render, so a
@@ -159,9 +162,27 @@ class SceneBuilder:
         self.tri_mat = []
         self.tri_light = []
         self.tri_rev = []
-        self.spheres = []    # dict(center, radius, mat, light, rot, zmin, zmax, phimax, partial)
+        self.spheres = []    # dict(center, radius, mat, light, rev, rot, zmin, zmax, phimax,
+                             #      partial)
         self.disks = []      # dict(center, normal, radius, inner, mat, light, xaxis, yaxis, ...)
         self.lights = []
+        # object instancing (reference scene_builder.cu:809-876): a definition
+        # records its shape chunks in the space of its definition; each
+        # ObjectInstance replays them under the instance CTM (flatten) or,
+        # for its triangles, records (prototype, o2w, swap) for compile.py's
+        # two-level BVH. `instancing` is set before parsing:
+        #   "auto"    - flatten while the scene stays under AUTO_FLATTEN_TRIS
+        #               triangles, then share the definition as a prototype;
+        #   "flatten" - always replay the geometry;
+        #   "bvh"     - always share triangles through the two-level BVH.
+        # Quadrics always flatten.
+        self.object_defs = {}        # name -> dict(tris=[chunk], spheres=[], disks=[])
+        self.active_object = None    # name while recording a definition
+        self.named_coordinate_systems = {}
+        self.instancing = "auto"
+        self.protos = []             # per-prototype per-triangle columns
+        self.instances = []          # dict(proto, o2w (3, 4), swap)
+        self._proto_index = {}       # definition name -> prototype index
 
         self.film = {"xresolution": 1920, "yresolution": 1080, "filename": "out.png"}
         self.camera = {"type": "perspective", "fov": 90.0, "camera_from_world": tf.identity()}
@@ -353,7 +374,16 @@ class SceneBuilder:
         rev = self.state.reverse_orientation ^ _swaps_handedness(ctm)
         if Nw is not None and rev:
             Nw = -Nw
-        al = self.state.area_light
+        if self.active_object is not None:
+            self._no_area_light_in_definition()
+            self.object_defs[self.active_object]["tris"].append(
+                dict(P=Pw, idx=np.asarray(idx), N=Nw, UV=UV, mat=self.state.material_idx,
+                     rev=rev))
+            return
+        self._append_tris(Pw, idx, Nw, UV, self.state.material_idx, rev,
+                          al=self.state.area_light)
+
+    def _append_tris(self, Pw, idx, Nw, UV, mat, rev, al=None):
         for tri in idx:
             li = -1
             if al is not None:
@@ -365,9 +395,101 @@ class SceneBuilder:
             self.tri_p.append(Pw[tri])
             self.tri_n.append(None if Nw is None else Nw[tri])
             self.tri_uv.append(None if UV is None else UV[tri])
-            self.tri_mat.append(self.state.material_idx)
+            self.tri_mat.append(mat)
             self.tri_light.append(li)
             self.tri_rev.append(rev)
+
+    def _no_area_light_in_definition(self):
+        if self.state.area_light is not None:
+            raise ValueError("area lights inside ObjectBegin/ObjectEnd are not supported")
+
+    # "flatten" mode: the most triangles a scene may replay
+    MAX_FLATTENED_TRIS = 4_000_000
+    # "auto" mode: replay instances while the scene stays under this many
+    # triangles, then share the definition as a prototype
+    AUTO_FLATTEN_TRIS = 262_144
+
+    def _promote_proto(self, name):
+        """Register object_defs[name]'s triangle chunks as a shared
+        prototype: per-triangle columns in definition space, read by
+        compile.py's two-level BVH branch -> its prototype index."""
+        if name in self._proto_index:
+            return self._proto_index[name]
+        default_uv = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]])
+        Ps, Ns, UVs, hn, mats, revs = [], [], [], [], [], []
+        for c in self.object_defs[name]["tris"]:
+            idx = np.asarray(c["idx"]).reshape(-1, 3)
+            n = idx.shape[0]
+            Ps.append(np.asarray(c["P"])[idx])
+            has = c["N"] is not None
+            Ns.append(np.asarray(c["N"])[idx] if has else np.zeros((n, 3, 3)))
+            hn.append(np.full(n, has, bool))
+            UVs.append(np.asarray(c["UV"])[idx] if c["UV"] is not None
+                       else np.tile(default_uv, (n, 1, 1)))
+            mats.append(np.full(n, c["mat"], np.int32))
+            revs.append(np.full(n, c["rev"], bool))
+        self.protos.append(dict(P=np.concatenate(Ps), N=np.concatenate(Ns),
+                                UV=np.concatenate(UVs), has_n=np.concatenate(hn),
+                                mat=np.concatenate(mats), rev=np.concatenate(revs)))
+        self._proto_index[name] = len(self.protos) - 1
+        return self._proto_index[name]
+
+    def _emit_instance(self, name):
+        """ObjectInstance: the definition under the current CTM (the final
+        transform is CTM_instance . CTM_definition, the reference's
+        TransformedPrimitive, scene_builder.cu:856-876). Triangles are
+        replayed in world space or shared as a prototype (see `instancing`);
+        quadrics are always replayed."""
+        if name not in self.object_defs:
+            raise ValueError(f"ObjectInstance {name!r} not defined")
+        ctm = self.state.ctm
+        M, t = ctm[:3, :3], ctm[:3, 3]
+        inv = np.linalg.inv(ctm)
+        swap = _swaps_handedness(ctm)
+        d = self.object_defs[name]
+        n_new = sum(len(c["idx"]) for c in d["tris"])
+        mode = self.instancing
+        use_proto = bool(d["tris"]) and (
+            mode == "bvh" or (mode == "auto" and (
+                name in self._proto_index or len(self.tri_p) + n_new > self.AUTO_FLATTEN_TRIS)))
+        if use_proto:
+            self.instances.append(dict(proto=self._promote_proto(name),
+                                       o2w=np.asarray(ctm[:3, :4], np.float64).copy(),
+                                       swap=bool(swap)))
+        else:
+            if len(self.tri_p) + n_new > self.MAX_FLATTENED_TRIS:
+                raise NotImplementedError(
+                    "instancing='flatten' replays past MAX_FLATTENED_TRIS; "
+                    "use instancing='auto' or 'bvh' (two-level BVH)")
+            for c in d["tris"]:
+                Nw = None
+                if c["N"] is not None:
+                    Nw = c["N"] @ inv[:3, :3]
+                    Nw = Nw / np.maximum(np.linalg.norm(Nw, axis=-1, keepdims=True), 1e-30)
+                    if swap:
+                        Nw = -Nw
+                self._append_tris(c["P"] @ M.T + t, c["idx"], Nw, c["UV"], c["mat"],
+                                  c["rev"] ^ swap)
+        sc = abs(np.linalg.det(M)) ** (1.0 / 3.0)
+        for s in d["spheres"]:
+            rot_i = M / max(sc, 1e-30)
+            if not np.allclose(rot_i @ rot_i.T, np.eye(3), atol=1e-4):
+                raise ValueError("sphere instances support uniform scaling only")
+            # a mirrored instance flips orientation, as rev ^ swap for triangles
+            self.spheres.append(dict(
+                s, center=np.asarray(s["center"]) @ M.T + t, radius=s["radius"] * sc,
+                rot=rot_i @ s["rot"], zmin=s["zmin"] * sc, zmax=s["zmax"] * sc,
+                rev=s["rev"] ^ swap))
+        for dk in d["disks"]:
+            n2 = dk["normal"] @ inv[:3, :3]
+            n2 = n2 / max(np.linalg.norm(n2), 1e-30)
+            if swap:
+                n2 = -n2  # a mirrored disk shades and emits on its other side
+            xax = M @ dk["xaxis"]
+            xax = xax / max(np.linalg.norm(xax), 1e-30)
+            self.disks.append(dict(dk, center=np.asarray(dk["center"]) @ M.T + t, normal=n2,
+                                   radius=dk["radius"] * sc, inner=dk["inner"] * sc,
+                                   xaxis=xax, yaxis=np.cross(n2, xax)))
 
     def _area_light_of(self, **shape_index):
         """Append the current area light for a quadric -> its index, or -1."""
@@ -396,11 +518,17 @@ class SceneBuilder:
                    or phi_max < 2.0 * np.pi - 1e-6)
         if partial and self.state.area_light is not None:
             raise NotImplementedError("partial spheres as area lights not supported")
-        li = self._area_light_of(sphere_index=len(self.spheres))
-        self.spheres.append(dict(
+        sphere = dict(
             center=ctm[:3, 3].copy(), radius=radius * s, mat=self.state.material_idx,
-            light=li, rot=rot.astype(np.float64), zmin=z_min * s, zmax=z_max * s,
-            phimax=float(phi_max), partial=partial))
+            light=-1, rev=bool(self.state.reverse_orientation ^ _swaps_handedness(ctm)),
+            rot=rot.astype(np.float64), zmin=z_min * s, zmax=z_max * s,
+            phimax=float(phi_max), partial=partial)
+        if self.active_object is not None:
+            self._no_area_light_in_definition()
+            self.object_defs[self.active_object]["spheres"].append(sphere)
+            return
+        sphere["light"] = self._area_light_of(sphere_index=len(self.spheres))
+        self.spheres.append(sphere)
 
     def add_disk(self, pd: ParameterDict):
         """reference shapes/disk.cu: annulus in the z = height plane of the
@@ -423,11 +551,16 @@ class SceneBuilder:
         center = ctm[:3, 3] + n * height * sc
         if self.state.reverse_orientation ^ _swaps_handedness(ctm):
             n = -n
-        li = self._area_light_of(disk_index=len(self.disks))
-        self.disks.append(dict(
+        disk = dict(
             center=center, normal=n, radius=radius * sc, inner=inner * sc,
-            mat=self.state.material_idx, light=li, xaxis=xax, yaxis=yax,
-            phimax=float(phi_max), partial=partial))
+            mat=self.state.material_idx, light=-1, xaxis=xax, yaxis=yax,
+            phimax=float(phi_max), partial=partial)
+        if self.active_object is not None:
+            self._no_area_light_in_definition()
+            self.object_defs[self.active_object]["disks"].append(disk)
+            return
+        disk["light"] = self._area_light_of(disk_index=len(self.disks))
+        self.disks.append(disk)
 
     def _add_light_source(self, ltype, pd: ParameterDict):
         """LightSource (reference lights/*.cu constructors)."""
@@ -664,8 +797,38 @@ class SceneBuilder:
                 raise _later("named materials", "textures (mix and named materials)")
             if kw in ("MakeNamedMedium", "MediumInterface"):
                 raise _later("participating media", "media")
-            if kw in ("ObjectBegin", "ObjectEnd", "ObjectInstance"):
-                raise _later("object instancing", "instancing")
-            if kw in ("CoordinateSystem", "CoordSysTransform"):
-                raise _later(kw, "CLI and operations")
+            if kw == "CoordinateSystem":
+                self.named_coordinate_systems[tokens[i].value] = self.state.ctm.copy()
+                i += 1
+                continue
+            if kw == "CoordSysTransform":
+                name = tokens[i].value
+                i += 1
+                if name not in self.named_coordinate_systems:
+                    raise ValueError(f"coordinate system {name!r} not defined")
+                # restores the saved CTM (reference scene_builder.cu:308-317)
+                self.state.ctm = self.named_coordinate_systems[name].copy()
+                continue
+            if kw == "ObjectBegin":
+                if self.active_object is not None:
+                    raise ValueError("ObjectBegin inside an instance definition")
+                name = tokens[i].value
+                i += 1
+                self.stack.append(copy.deepcopy(self.state))
+                self.object_defs[name] = dict(tris=[], spheres=[], disks=[])
+                self.active_object = name
+                continue
+            if kw == "ObjectEnd":
+                if self.active_object is None:
+                    raise ValueError("ObjectEnd without ObjectBegin")
+                self.active_object = None
+                self.state = self.stack.pop()
+                continue
+            if kw == "ObjectInstance":
+                name = tokens[i].value
+                i += 1
+                if self.active_object is not None:
+                    raise ValueError("ObjectInstance inside an instance definition")
+                self._emit_instance(name)
+                continue
             raise ValueError(f"unknown directive {kw!r}")

@@ -52,7 +52,12 @@ class Scene:
                                  # [n0 n1 n2 uv0 uv1 uv2 mat light rev has_n
                                  #  med_in med_out dpdu dpdv]; (0, 27) on dense
     bvh_rows: torch.Tensor       # (n_int + P, 72) f32 unified node/leaf table
-                                 # ((0, 72) on dense scenes)
+                                 # ((0, 72) on dense scenes; n_int + I + P rows
+                                 # with I instance rows on instanced ones)
+    # instances of a two-level table (render space; (0, ...) without)
+    inst_w2o: torch.Tensor       # (I, 12) f32 render -> object affine, row-major 3x4
+    inst_o2w: torch.Tensor       # (I, 12) f32 object -> render affine
+    inst_swap: torch.Tensor      # (I,) f32 1.0 where the transform mirrors
     # spheres (render space); the clip columns hold the full range on full
     # spheres, and SceneMeta.sph_partial says whether any sphere is clipped
     sph_center: torch.Tensor     # (S, 3) f32
@@ -189,6 +194,11 @@ class SceneMeta:
                                   # render takes the wavefront loop
     bvh_nint: int                 # internal BVH rows (leaf chunk c = row n_int + c)
     bvh_depth: int                # deepest internal chain (traversal stack bound)
+    bvh_ninst: int                # instance rows of a two-level table (0: one level)
+    bvh_iterb: int                # two-level traversal's iteration bound (0: one level)
+    bvh_leaves: tuple             # two-level: (first, end) leaf rows of the static
+                                  # triangles, then of each instance's prototype
+                                  # (the plain traversal's sweeps; () one level)
     sph_partial: bool             # some sphere is clipped (zmin/zmax/phimax)
     dsk_partial: bool             # some disk is clipped (phimax)
     layered: bool                 # some material is coated: make_bsdf builds
@@ -200,10 +210,12 @@ def scene_from_arrays(arrays, meta, device):
     """Scene + SceneMeta from a {field: array} mapping, e.g. the JAX
     package's `SceneArrays` converted field by field with np.asarray (its
     `filt` may be a FilterTables or a dict). `meta` is any object with the
-    SceneMeta attributes; bvh_nint/bvh_depth and sph_partial/dsk_partial
-    come from the JAX zero-byte markers `arrays['bvh_nint']`, `['bvh_depth']`,
+    SceneMeta attributes; bvh_nint/bvh_depth/bvh_ninst/bvh_iterb and
+    sph_partial/dsk_partial come from the JAX zero-byte markers
+    `arrays['bvh_nint']`, `['bvh_depth']`, `['bvh_ninst']`, `['bvh_iterb']`,
     `['sph_partial_marker']`, `['dsk_partial_marker']` and layered from
-    `['lay_marker']` when present."""
+    `['lay_marker']` when present. The JAX package has no bvh_leaves: a
+    two-level scene needs them in `meta`; one level takes ()."""
     device = torch.device(device)
     kw = {}
     for f in fields(Scene):
@@ -217,7 +229,7 @@ def scene_from_arrays(arrays, meta, device):
             kw[f.name] = torch.as_tensor(np.array(v)).to(device)
     m = {f.name: getattr(meta, f.name, None) for f in fields(SceneMeta)}
     get = arrays.get if hasattr(arrays, "get") else (lambda k: None)
-    for marker in ("bvh_nint", "bvh_depth"):
+    for marker in ("bvh_nint", "bvh_depth", "bvh_ninst", "bvh_iterb"):
         a = get(marker)
         if a is not None and np.ndim(a) == 2:
             m[marker] = int(np.shape(a)[0])
@@ -225,6 +237,8 @@ def scene_from_arrays(arrays, meta, device):
                          ("dsk_partial", "dsk_partial_marker"), ("layered", "lay_marker")):
         if get(marker) is not None:
             m[name] = np.shape(get(marker))[0] > 0
+    if m["bvh_leaves"] is None and m["bvh_ninst"] == 0:
+        m["bvh_leaves"] = ()
     missing = [k for k, v in m.items() if v is None]
     if missing:
         raise ValueError(f"scene_from_arrays: meta lacks {missing}")
@@ -288,12 +302,52 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
     tri_rev = np.asarray(b.tri_rev, bool).reshape(T)
     tri_med = np.full((T, 2), -1, np.int32)
     tri_newpos = np.arange(T, dtype=np.int32)
+    instances, protos = b.instances, b.protos
+    n_inst = len(instances)
+    inst_w2o = np.zeros((0, 12), f32)
+    inst_o2w = np.zeros((0, 12), f32)
+    inst_swap = np.zeros((0,), f32)
+    bvh_ninst = bvh_iterb = 0
+    bvh_leaves = ()
+    inst_bounds = []
+    bvh = None
 
-    if T >= bvhlib.MIN_TRIS_FOR_BVH:
+    if n_inst:
+        # ---- two-level BVH (JAX compile.py:318-383): a top tree over the
+        # static triangles and the instances' boxes, one shared tree per
+        # prototype in object space; the columns are concatenated as
+        # [static | proto 0 | proto 1 ...] (prototype rows carry no light)
+        o2w = np.stack([np.asarray(ins["o2w"], np.float64).reshape(3, 4) for ins in instances])
+        o2w[:, :, 3] -= cam_pos                       # render space
+        inst_proto = [ins["proto"] for ins in instances]
+        bvh = bvhlib.build_two_level(tp, [p["P"] for p in protos], inst_proto, o2w)
+        bvh_ninst, bvh_iterb = int(bvh.n_inst), min(int(bvh.iter_bound), 2 ** 24)
+        bvh_leaves = bvh.leaf_ranges[:1] + tuple(bvh.leaf_ranges[1 + p] for p in inst_proto)
+
+        def cat(static, key):
+            return np.concatenate([static] + [p[key] for p in protos], axis=0)
+
+        tp, tn, tuv, has_n, tri_mat, tri_rev = (
+            cat(tp, "P"), cat(tn, "N"), cat(tuv, "UV"), cat(has_n, "has_n"),
+            cat(tri_mat, "mat"), cat(tri_rev, "rev"))
+        tri_light = np.concatenate([tri_light, np.full(tp.shape[0] - T, -1, np.int32)])
+        tri_med = np.full((tp.shape[0], 2), -1, np.int32)
+        m4 = np.tile(np.eye(4), (n_inst, 1, 1))
+        m4[:, :3, :4] = o2w
+        inst_w2o = np.linalg.inv(m4)[:, :3, :4].reshape(n_inst, 12).astype(f32)
+        inst_o2w = o2w.reshape(n_inst, 12).astype(f32)
+        inst_swap = np.array([1.0 if ins["swap"] else 0.0 for ins in instances], f32)
+        # the instances' world boxes count in the scene bounds
+        for i, p in enumerate(inst_proto):
+            P = protos[p]["P"].reshape(-1, 3)
+            inst_bounds.append(np.stack(bvhlib._transform_aabb(P.min(0), P.max(0), o2w[i])))
+    elif T >= bvhlib.MIN_TRIS_FOR_BVH:
         bvh = bvhlib.build_bvh(tp[:, 0], tp[:, 1], tp[:, 2])
+
+    if bvh is not None:
         n_pad = int(bvh.n_padded)
-        live = bvh.src >= 0
-        tri_newpos[bvh.src[live]] = np.nonzero(live)[0].astype(np.int32)
+        static_rows = (bvh.src >= 0) & (bvh.src < T)
+        tri_newpos[bvh.src[static_rows]] = np.nonzero(static_rows)[0].astype(np.int32)
 
         def reorder_pad(a, fill):
             return bvhlib.reorder_pad(bvh, a, fill)
@@ -381,8 +435,13 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         lt_alias_rows = np.zeros((0, 3), f32)
 
     # ---- scene bounds -> epsilon (reference scene_builder.cu:914-918); tp[:T]
-    # as in the JAX package, plus the quadrics' bounding boxes
-    all_pts = [tp[:T].reshape(-1, 3)] if T else []
+    # as in the JAX package (on a two-level table the static rows, which
+    # tri_newpos names, and the instances' world boxes), plus the quadrics'
+    # bounding boxes
+    if n_inst:
+        all_pts = ([tp[tri_newpos].reshape(-1, 3)] if T else []) + inst_bounds
+    else:
+        all_pts = [tp[:T].reshape(-1, 3)] if T else []
     if S:
         all_pts += [sph_center + sph_radius[:, None], sph_center - sph_radius[:, None]]
     if D:
@@ -424,6 +483,7 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         tri_has_n=has_n, tri_uv0=tuv[:, 0].astype(f32), tri_uv1=tuv[:, 1].astype(f32),
         tri_uv2=tuv[:, 2].astype(f32), tri_mat=tri_mat, tri_light=tri_light, tri_rev=tri_rev,
         tri_rec=tri_rec, bvh_rows=bvh_rows,
+        inst_w2o=inst_w2o, inst_o2w=inst_o2w, inst_swap=inst_swap,
         sph_center=sph_center.astype(f32), sph_radius=sph_radius.astype(f32),
         sph_mat=col(b.spheres, "mat", (), np.int32),
         sph_light=col(b.spheres, "light", (), np.int32),
@@ -499,6 +559,9 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         open_scene=any(l.type == bd.LIGHT_UNIFORM_INFINITE for l in lights),
         bvh_nint=bvh_nint,
         bvh_depth=bvh_depth,
+        bvh_ninst=bvh_ninst,
+        bvh_iterb=bvh_iterb,
+        bvh_leaves=bvh_leaves,
         sph_partial=any(sp["partial"] for sp in b.spheres),
         dsk_partial=any(dk["partial"] for dk in b.disks),
         layered=any(m.type in (bd.MAT_COATED_DIFFUSE, bd.MAT_COATED_CONDUCTOR) for m in mats),

@@ -1,6 +1,7 @@
 """Built-in test scenes (no external files needed): the Cornell box (12
 triangles and two spheres, the dense route), its BVH variant with the two
-spheres replaced by subdivided triangle meshes, and the terrain height field
+spheres replaced by subdivided triangle meshes, an instanced variant of it
+(ObjectBegin/ObjectInstance), and the terrain height field
 under a sky and a sun, written as a PLY file (counterpart of
 pbrt_tpu/scene/testscenes.py; the classic Cornell box dimensions are
 public-domain measurement data)."""
@@ -105,6 +106,61 @@ def cornell_mesh_pbrt(levels=5):
         f"  {ball2}\nAttributeEnd",
     )
     return txt
+
+
+def _walls_and_light():
+    """CORNELL_PBRT up to its two spheres: the header, the light and five
+    walls (12 triangles)."""
+    return CORNELL_PBRT[: CORNELL_PBRT.index('AttributeBegin\n  Material "conductor"')]
+
+
+def instanced_cornell_pbrt(levels_a, levels_b, res=256, spp=16):
+    """The cornell box's walls and light with 36 instances of a subdivided
+    octahedron ball (conductor, levels_a) on a 6x6 floor grid, every fourth
+    mirrored, and 16 of a gem (dielectric, levels_b) on a raised 4x4 grid
+    placed through a named coordinate system; res^2, spp samples of the
+    independent sampler, max depth 5, mitchell filter, as cornell-mesh. At
+    levels (6, 5): 1,310,732 world triangles, of which instancing "auto"
+    flattens the first 7 balls and 3 gems (253,964) and shares the rest as 2
+    prototypes (40,960)."""
+    head = _walls_and_light()
+    head = head.replace('"integer pixelsamples" [4]', f'"integer pixelsamples" [{spp}]')
+    head = head.replace('"integer xresolution" [128] "integer yresolution" [128]',
+                        f'"integer xresolution" [{res}] "integer yresolution" [{res}]')
+    # the subdivided cage of radius 2.2 has a limit surface of radius ~0.6-1
+    out = [head, 'ObjectBegin "ball"\n  Material "conductor" "float roughness" [0.05]\n  ',
+           _octahedron_pbrt(0, 0, 0, 2.2, levels_a), '\nObjectEnd\n',
+           'ObjectBegin "gem"\n  Material "dielectric" "float eta" [1.5]\n  ',
+           _octahedron_pbrt(0, 0, 0, 2.2, levels_b), '\nObjectEnd\n']
+    axes = ("0 1 0", "1 0 0", "0 0 1", "1 1 0", "0 1 1", "1 0 1")
+    # back rows first: "auto" flattens the first instances, so the shared
+    # ones stand in front, where the camera sees them
+    for k in range(36):
+        i, j = divmod(k, 6)
+        out.append(f"AttributeBegin\n  Translate {78 + 80 * j} 37 {480 - 80 * i}\n"
+                   f"  Rotate {(37 * k) % 360} {axes[k % 6]}\n"
+                   + ("  Scale -1 1 1\n" if k % 4 == 3 else "")
+                   + '  Scale 36 36 36\n  ObjectInstance "ball"\nAttributeEnd\n')
+    out.append('AttributeBegin\n  Translate 278 300 280\n  CoordinateSystem "gems"\n')
+    for k in range(16):
+        i, j = divmod(k, 4)
+        out.append(f'  CoordSysTransform "gems"\n  Translate {-150 + 100 * j} {10 * (k % 3)} '
+                   f'{150 - 100 * i}\n  Rotate {(53 * k) % 360} {axes[(k + 2) % 6]}\n'
+                   '  Scale 30 30 30\n  ObjectInstance "gem"\n')
+    out.append("AttributeEnd\n")
+    return "".join(out)
+
+
+def instanced_cornell_builder(levels=(6, 5), res=256, spp=16, instancing="auto",
+                              filter_kind=None):
+    """SceneBuilder of instanced_cornell_pbrt under `instancing` ("auto",
+    "flatten" or "bvh"), optionally with another pixel filter."""
+    b = bd.SceneBuilder()
+    b.instancing = instancing
+    b.parse_tokens(lx.tokenize(instanced_cornell_pbrt(*levels, res=res, spp=spp)))
+    if filter_kind is not None:
+        b.filter = {"type": filter_kind}
+    return b
 
 
 def cornell_builder(res=128, filter_kind=None):

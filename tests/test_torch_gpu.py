@@ -64,6 +64,57 @@ def test_bvh_kernel_matches_plain(cuda, any_hit):
         assert torch.allclose(tk[same], tp[same], rtol=1e-6)
 
 
+def _instanced_cornell(levels, res, spp, device, mode="bvh"):
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    return compile_scene(ts.instanced_cornell_builder(levels, res, spp, mode, "box"),
+                         device=device)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_inst_kernel_matches_plain(cuda, any_hit):
+    """K1i on the instanced cornell box at levels (3, 2), every instance
+    shared: prim and inst bit-exact with the plain version but for verified
+    ties (equal t), t bit-exact on the same winner; any hit equal."""
+    scene, meta = _instanced_cornell((3, 2), 16, 1, cuda)
+    assert meta.bvh_ninst == 52
+    o, d, t_max = (x.to(cuda) for x in _rays(scene, 8192, 5))
+    if any_hit:
+        t_max = torch.where(t_max > 0, torch.rand(8192, device=cuda) * 400.0, 0.0)
+    args = (scene.bvh_rows, meta.bvh_nint, meta.bvh_ninst)
+    ov0 = int(bvh.overflow_counter(cuda).item())
+    n0 = bvh.launches["bvh_any_hit_inst" if any_hit else "bvh_closest_hit_inst"]
+    tk, pk, ik = bvh.traverse_inst_cuda(*args, meta.bvh_depth, meta.bvh_iterb, o, d, t_max,
+                                        any_hit)
+    tp, pp, ip = bvh.traverse_inst_plain(scene.bvh_rows, meta.bvh_nint, meta.bvh_leaves, o, d,
+                                         t_max, any_hit)
+    assert bvh.launches["bvh_any_hit_inst" if any_hit else "bvh_closest_hit_inst"] == n0 + 1
+    assert torch.equal(pk >= 0, pp >= 0) and int((pp >= 0).sum()) > 500
+    assert int(bvh.overflow_counter(cuda).item()) == ov0
+    if not any_hit:
+        same = (pk == pp) & (ik == ip)
+        assert torch.equal(tk[same], tp[same])
+        # a differing winner must be a tie (K1's criterion)
+        assert torch.allclose(tk[~same], tp[~same], rtol=1e-6, atol=0.0)
+        assert int((ip >= 0).sum()) > 100
+
+
+def test_instanced_render_on_card_matches_cpu(cuda):
+    """The instanced cornell box at levels (2, 1), 24^2 x 2: K1i launched
+    and K1 not; the card's image against the CPU's."""
+    scene, meta = _instanced_cornell((2, 1), 24, 2, cuda)
+    counts0 = dict(bvh.launches)
+    img_gpu, st_gpu = render(scene, meta, return_stats=True)
+    img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
+    grew = {k for k in counts0 if bvh.launches[k] > counts0[k]}
+    assert grew == {"bvh_closest_hit_inst", "bvh_any_hit_inst"}
+    assert st_gpu == st_cpu
+    img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
+    err = np.abs(img_gpu - img_cpu)
+    assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
+    assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
 def test_film_kernel_matches_plain(cuda):
     g = torch.Generator().manual_seed(3)
     n = 20000
@@ -101,7 +152,7 @@ def test_render_on_card_matches_cpu(cuda):
     counts0 = dict(bvh.launches)
     img_gpu = render(scene, meta).cpu().numpy()
     img_cpu = render(scene, meta, device="cpu").numpy()
-    assert all(bvh.launches[k] > counts0[k] for k in counts0)
+    assert all(bvh.launches[k] > counts0[k] for k in ("bvh_closest_hit", "bvh_any_hit"))
     err = np.abs(img_gpu - img_cpu)
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()

@@ -178,7 +178,6 @@ UNPORTED = {
     "mlt": 'Integrator "mlt"\nMakeNamedMedium "m" "string type" "homogeneous"',
     "aov integrator": 'Integrator "ambientocclusion"',
     "gaussian filter": 'PixelFilter "gaussian"',
-    "instancing": 'WorldBegin\nObjectBegin "a"',
     "named material": 'WorldBegin\nNamedMaterial "a"',
 }
 

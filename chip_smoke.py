@@ -6,19 +6,24 @@ Phases, each printed on its own line; any failure exits non-zero before the
 result line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the kernels from the sources in this checkout (one nvcc per CUDA
-     source, all started together; Triton's JIT for the film kernel);
+     source, all started together; Triton's JIT for the splat kernel);
   3. the BVH traversal kernel (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
-  4. the film kernel against its plain version, 131,072 lanes with NaN and
-     zero-pdf lanes into a 256^2 film; the splat kernel (K5s) likewise,
-     three strategies' splats over 43,690 lanes' wavelengths;
+  4. the film kernel's two entry points (K5, csrc/film.cu) against their
+     plain versions, 131,072 lanes with NaN, zero-pdf and zero-weight lanes
+     into a 256^2 film: the scatter entry on random pixel ids within rtol
+     1e-5 (the order of its atomic adds), the tiled one on two replicates of
+     the pixel grid bit for bit; the splat kernel (K5s) likewise, three
+     strategies' splats over 43,690 lanes' wavelengths;
   5. the dense kernels (K3 triangles, K4 spheres and disks) against their
      plain versions on 131,072 camera and interior rays of the plain cornell
      box and of caustic-glass, and on synthetic partial spheres and disks
      (z window, phimax < 2 pi, inner radius) with masked lanes;
-  6. the wavefront recycle kernel (K8) against torch.cumsum's plain version
-     on random finished masks at the pool size, next_work near the end too;
+  6. the wavefront recycle kernel (K8, a single-pass scan) against
+     torch.cumsum's plain version on random finished masks at the pool size
+     and at a size that is not a multiple of its tile, with and without the
+     rank, back to back on one scratch, next_work near the end too;
      the layered BxDF kernel (K7: layered_f, layered_sample, layered_pdf)
      against its plain version on 2^18 synthetic lanes (tests/
      layered_cases.py: smooth and rough coats, a medium with g in {-0.5, 0,
@@ -44,7 +49,11 @@ result line:
      max depth 5, mitchell filter: cornell-mesh levels 5 (BVH), the plain
      cornell box (dense), terrain (130,050 PLY triangles, sky and sun: the
      wavefront loop; its compile seconds, and its honest ray count equal to
-     the same frame through the batched loop); then the coated scenes at
+     the same frame through the batched loop; then both loops' frame times
+     in turns, for the wavefront loop's standing against the batched one);
+     the cornell-mesh frame's film twice through the batched loop, rgb_sum
+     and weight_sum bit-identical (the tiled film add has no atomics); then
+     the coated scenes at
      their files' settings, each rendered once: staircase (63,212 triangles,
      coateddiffuse; 256^2 x 256 spp stratified, max depth 8; its compile
      seconds, rays/s and peak memory) and material-testball
@@ -55,10 +64,13 @@ result line:
      counts set to 0 just before it and read just after; every kernel of its
      path must have launched (a BDPT frame: exactly K12's two entry points,
      one K5, one K5s and one occluded dispatch a wave, and 2 max_depth + 1
-     closest-hit dispatches);
+     closest-hit dispatches). The batched and BDPT frames launch K5's tiled
+     entry, the wavefront frame its scatter entry and K8;
   9. each kernel against its plain version again, and timed beside its
-     plain version, its bound and (film: index_add_; recycle: torch.cumsum)
-     one PyTorch call: the kernel and the library call from CUDA-graph
+     plain version, its bound and (film: index_add_ of the lanes' rgb, and of
+     their (w rgb, w) rows, which is K5's whole scatter; the tiled entry
+     also the sum over its k replicates; recycle: torch.cumsum) one PyTorch
+     call: the kernel and the library call from CUDA-graph
      replays (device time, without the host's time to launch each call,
      which the log prints beside it), the plain version with CUDA events;
      all on the arguments of its first
@@ -72,7 +84,9 @@ result line:
      uniform infinite and three kinds of area light) against its plain
      version (bdpt_cases: every strategy within rtol 1e-4, atol 1e-6 on >=
      99.99 % of its live lanes, equal ray counts), both entry points timed
-     on caustic-glass's; K5s on caustic-glass's first launch;
+     on caustic-glass's; K5s on caustic-glass's first launch; K8 on
+     terrain's first launch with and without the rank, and under
+     torch.profiler one device kernel a call;
  10. MLT: cornell 24^2 with mltpath and mltbdpt (1024 chains, 18 passes)
      on the card and on the CPU with one seed (tests/mlt_cases.py: >= 99 %
      of the (chain, pass) accept decisions equal, 8x8 block means within
@@ -179,7 +193,8 @@ TRI_FULL_OPS = TRI_EDGE_OPS + TRI_RANGE_OPS + TRI_BOUND_OPS
 SPHERE_TEST_OPS = 35
 SPHERE_HIT_OPS = 30
 DISK_TEST_OPS = 36
-# float ops of one film lane, counted from film/film_kernel.py
+# float ops of one film lane, counted from csrc/film.cu (the splat kernel of
+# film/film_kernel.py does the same per splat)
 FILM_LANE_OPS = 4 * 10 + 3 * 2 + 4
 # float ops of K12 per lane and strategy, counted from csrc/bdpt.cu and
 # csrc/bxdf.cuh and rounded down: bdpt_connect_rays forms a strategy's
@@ -261,6 +276,26 @@ def kernel_ms(fn, reps=50):
     """(device ms of one call from graph_ms, ms of one call launched by
     the host back to back, from events_ms)."""
     return graph_ms(fn), events_ms(fn, reps)
+
+
+def sass_memory_ops(sass):
+    """{kernel symbol: {opcode: count}} of the memory, atomic and shuffle
+    instructions in `cuobjdump -sass` output."""
+    import collections
+    import re
+
+    out, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            out[func] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
+        if m and func and m.group(1).startswith(("LDG", "STG", "ATOM", "RED", "LDS", "STS",
+                                                  "SHFL")):
+            out[func][m.group(1)] += 1
+    return out
 
 
 def require(ok, *what):
@@ -370,16 +405,29 @@ def main():
                 log(f"  ptxas: {line.split(' for ', 1)[1].strip()}")
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+    # K5's two entries and K8 as compiled: the scatter entry's adds must be
+    # RED (no returned value), the tiled entry must hold no atomic
+    cuobjdump = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    for name in ("film", "wavefront"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(kernels.library_path(name))],
+                              capture_output=True, text=True, timeout=120).stdout
+        ops = sass_memory_ops(sass)
+        for fn, c in ops.items():
+            short = next(k for k in ("film_add_scatter_kernel", "film_add_tiled_kernel",
+                                     "recycle_kernel") if k in fn)
+            log(f"  sass {short}: {dict(sorted(c.items()))}")
+            atomics = [k for k in c if k.startswith(("ATOM", "RED"))]
+            if short == "film_add_scatter_kernel":
+                require(atomics and all(k.startswith("RED") for k in atomics),
+                        "the scatter entry's adds are not RED", atomics)
+            elif short == "film_add_tiled_kernel":
+                require(not atomics, "the tiled entry holds atomics", atomics)
     probe = filmlib.new_film((4, 4), dev)
-    film_kernel.add_samples_triton(
-        probe.rgb_sum, probe.weight_sum, torch.zeros(1, dtype=torch.int64, device=dev),
-        torch.ones((1, 4), device=dev), torch.full((1, 4), 550.0, device=dev),
-        torch.ones((1, 4), device=dev), torch.ones(1, device=dev))
     film_kernel.add_splats_triton(
         probe.splat, torch.zeros(1, dtype=torch.int64, device=dev), torch.ones((1, 4), device=dev),
         torch.full((1, 4), 550.0, device=dev), torch.ones((1, 4), device=dev))
     torch.cuda.synchronize()
-    log(f"build total (nvcc + triton jit): {time.time() - t0:.1f} s")
+    log(f"build total (nvcc + triton jit of the splat kernel): {time.time() - t0:.1f} s")
 
     # sampler streams: bit-exact between the card and the CPU
     pix = torch.arange(4096, dtype=torch.int64) * 7919 % 65536
@@ -471,7 +519,8 @@ def main():
         f"(verified), max rel err t {t_err:.2e} b {b_err:.2e}; any hit {n_occ} occluded, "
         f"0 disagree")
 
-    # ---- 4. film kernel vs plain with NaN lanes and zero pdfs, 256^2 film
+    # ---- 4. film kernels vs plain with NaN lanes, zero pdfs and zero
+    # weights, 256^2 film
     n_lanes, n_px = 131072, 256 * 256
     pix = torch.randint(0, n_px, (n_lanes,), generator=g).to(dev)
     L = (torch.rand((n_lanes, 4), generator=g) * 3.0).to(dev)
@@ -480,10 +529,13 @@ def main():
     pdf[::37, 1] = 0.0
     L[::53, 2] = float("nan")
     w = (torch.rand(n_lanes, generator=g) * 2.0 - 0.5).to(dev)
+    w[::5] = 0.0
 
     def compare_film(args):
+        """K5's scatter entry vs its plain version into fresh 256^2 films ->
+        max abs err."""
         fk, fp = filmlib.new_film((256, 256), dev), filmlib.new_film((256, 256), dev)
-        film_kernel.add_samples_triton(fk.rgb_sum, fk.weight_sum, *args)
+        film_kernel.add_samples_cuda(fk.rgb_sum, fk.weight_sum, *args)
         film_kernel.add_samples_plain(fp.rgb_sum, fp.weight_sum, *args)
         scale = float(fp.rgb_sum.abs().max())
         err = max(float((fk.rgb_sum - fp.rgb_sum).abs().max()),
@@ -492,9 +544,25 @@ def main():
         require(torch.allclose(fk.weight_sum, fp.weight_sum, rtol=1e-5, atol=1e-6), err)
         return err
 
+    def compare_tiled(args, k):
+        """K5's tiled entry vs its plain version into fresh 256^2 films: bit
+        for bit."""
+        fk, fp = filmlib.new_film((256, 256), dev), filmlib.new_film((256, 256), dev)
+        film_kernel.add_samples_tiled_cuda(fk.rgb_sum, fk.weight_sum, *args, k)
+        film_kernel.add_samples_tiled_plain(fp.rgb_sum, fp.weight_sum, *args, k)
+        err = max(float((fk.rgb_sum - fp.rgb_sum).abs().max()),
+                  float((fk.weight_sum - fp.weight_sum).abs().max()))
+        require(torch.equal(fk.rgb_sum, fp.rgb_sum) and torch.equal(fk.weight_sum, fp.weight_sum),
+                "tiled film add differs from its plain version", err)
+        return err
+
     film_err = compare_film((pix, L, lam, pdf, w))
-    log(f"film_add_samples vs plain on {n_lanes} lanes with NaN/zero-pdf lanes: max abs err "
-        f"{film_err:.2e} (rtol 1e-5: atomic order)")
+    log(f"film_add_scatter vs plain on {n_lanes} lanes with NaN/zero-pdf/zero-weight lanes: max "
+        f"abs err {film_err:.2e} (rtol 1e-5: atomic order)")
+    compare_tiled((torch.arange(n_px, device=dev), L, lam, pdf, w), n_lanes // n_px)
+    log(f"film_add_samples (tiled) vs plain on {n_lanes // n_px} replicates of the {n_px} pixel "
+        f"ids with NaN/zero-pdf/zero-weight lanes: bit-exact (group of "
+        f"{film_kernel.tile_group(n_px, n_lanes // n_px)} lanes a pixel)")
 
     def compare_splats(args):
         """K5s vs its plain version into fresh 256^2 films -> max abs err."""
@@ -595,20 +663,31 @@ def main():
         log(f"partial {kind} ({nq}) vs plain on 131072 rays: {n_h} hits, {n_edge} "
             f"disagreements, all within 1e-5 of a clip edge; max abs err t {err:.2e}")
 
-    # ---- 6. K8 vs torch.cumsum's plain version at the pool size
+    # ---- 6. K8 vs torch.cumsum's plain version at the pool size and at a
+    # size that is not a multiple of its tile, with and without the rank,
+    # back to back on the kernel's scratch
+    # the masks at the pool size come from the script's generator g, as
+    # before this phase was extended; the two calls at a size that is not a
+    # multiple of the tile draw from their own, so that every later phase
+    # gets the random numbers it got before
     R = rd.POOL_LANES
-    for density, left in ((0.03, 10 ** 7), (0.5, 10 ** 7), (0.5, 1000), (1.0, 0), (0.4, -3)):
-        in_flight = (torch.rand(R, generator=g) < 0.95).to(dev)
-        finished = in_flight & (torch.rand(R, generator=g) < density).to(dev)
+    g6 = torch.Generator(device="cpu").manual_seed(6)
+    for i, (density, left, gen, R_i) in enumerate((
+            (0.03, 10 ** 7, g, R), (0.5, 10 ** 7, g, R), (0.5, 1000, g, R), (1.0, 0, g, R),
+            (0.4, -3, g, R), (0.6, 2, g6, R - 1234), (0.5, 1, g6, R - 1234))):
+        in_flight = (torch.rand(R_i, generator=gen) < 0.95).to(dev)
+        finished = in_flight & (torch.rand(R_i, generator=gen) < density).to(dev)
         total = 1 << 26
         ck = torch.tensor([total - left, 0], dtype=torch.int64, device=dev)
         cp = ck.clone()
-        out_k = rd.recycle_cuda(finished, in_flight, ck, total)
-        out_p = rd.recycle_plain(finished, in_flight, cp, total)
-        require(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out_k, out_p))
-                and torch.equal(ck, cp), "recycle differs from cumsum", density, left)
-    log(f"wavefront_recycle vs torch.cumsum at {R} lanes, 5 masks (next_work up to 3 past "
-        f"the end): rank, work, recycle, in_flight and counters bit-exact")
+        out_k = rd.recycle_cuda(finished, in_flight, ck, total, with_rank=i % 2 == 0)
+        out_p = rd.recycle_plain(finished, in_flight, cp, total, with_rank=i % 2 == 0)
+        require(all(a is b is None or (a.dtype == b.dtype and torch.equal(a, b))
+                    for a, b in zip(out_k, out_p)) and torch.equal(ck, cp),
+                "recycle differs from cumsum", density, left, R_i)
+    log(f"wavefront_recycle vs torch.cumsum at {R} and {R - 1234} lanes, 7 masks back to back "
+        f"(next_work up to 3 past the end, rank on every other call): rank, work, recycle, "
+        f"in_flight and counters bit-exact")
 
     # ---- 6b. K7 vs plain on synthetic lanes
     def sub_params(p, idx):
@@ -749,7 +828,8 @@ def main():
         (bvh, "traverse_cuda",
          lambda a, k: "bvh_any_hit" if (a[6] if len(a) > 6 else k.get("any_hit"))
          else "bvh_closest_hit"),
-        (film_kernel, "add_samples_triton", lambda a, k: "film_add_samples"),
+        (film_kernel, "add_samples_tiled_cuda", lambda a, k: "film_add_samples"),
+        (film_kernel, "add_samples_cuda", lambda a, k: "film_add_scatter"),
         (ix, "dense_tris_cuda",
          lambda a, k: "dense_tri_any" if k.get("any_hit") else "dense_tri_closest"),
         (ix, "dense_spheres_cuda", lambda a, k: "dense_spheres"),
@@ -843,6 +923,17 @@ def main():
 
     st_cm = full_render("cornell_mesh", scene, meta, ("bvh_closest_hit", "bvh_any_hit",
                                                       "film_add_samples"))
+    # the tiled film add has no atomics: the same frame's film twice, the
+    # same bits
+    films = [filmlib.new_film(meta.resolution, dev) for _ in range(2)]
+    for f_ in films:
+        rd.render_batched(scene, meta, f_)
+    require(torch.equal(films[0].rgb_sum, films[1].rgb_sum)
+            and torch.equal(films[0].weight_sum, films[1].weight_sum),
+            "cornell-mesh films differ between two renders on the card")
+    log("cornell-mesh frame rendered twice on the card through the batched loop: rgb_sum and "
+        "weight_sum bit-identical")
+    del films
     full_render("cornell", s_corn, m_corn, ("dense_tri_closest", "dense_tri_any",
                                             "dense_spheres", "film_add_samples"))
     t0 = time.time()
@@ -851,7 +942,9 @@ def main():
         f"read, SAH BVH of {s_terr.bvh_rows.shape[0]} rows, depth {m_terr.bvh_depth})")
     require(m_terr.open_scene, "terrain must take the wavefront loop")
     st_w = full_render("terrain", s_terr, m_terr, ("bvh_closest_hit", "bvh_any_hit",
-                                                   "wavefront_recycle", "film_add_samples"))
+                                                   "wavefront_recycle", "film_add_scatter"))
+    require("film_add_samples" not in main_counts_frame, "terrain's wavefront frame took the "
+            "tiled film add", main_counts_frame)
     t0 = time.time()
     st_terr_b = rd.render_batched(s_terr, m_terr, filmlib.new_film(m_terr.resolution, dev))
     st_terr_b = {k: int(v) for k, v in st_terr_b.items()}
@@ -859,6 +952,21 @@ def main():
     log(f"terrain through the batched loop: {time.time() - t0:.3f} s wall, the same "
         f"{st_terr_b['closest']} + {st_terr_b['shadow']} rays as the wavefront loop (no work item "
         f"dropped or repeated; render() raises on dropped != 0)")
+    # the standing of the wavefront loop (K5 scatter, K8) against the
+    # batched loop (K5 tiled) on terrain: three frames each, in turns
+    t_loops = {"wavefront": [], "batched": []}
+    for _ in range(3):
+        for name, loop in (("wavefront", rd.render_wavefront), ("batched", rd.render_batched)):
+            f_ = filmlib.new_film(m_terr.resolution, dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loop(s_terr, m_terr, f_)
+            torch.cuda.synchronize()
+            t_loops[name].append(time.time() - t0)
+    med = {k: float(np.median(v)) for k, v in t_loops.items()}
+    log(f"terrain frame, three each in turns: wavefront loop {t_loops['wavefront']} s (median "
+        f"{med['wavefront']:.4f}), batched loop {t_loops['batched']} s (median "
+        f"{med['batched']:.4f}); wavefront / batched {med['wavefront'] / med['batched']:.3f}")
 
     # the disk kernel's path: caustic-glass (path) 48^2 x 4, card vs CPU
     b_c48 = bd.SceneBuilder().parse_file(str(ROOT / "scenes" / "caustic-glass.pbrt"))
@@ -973,22 +1081,56 @@ def main():
                 f"only): kernel {ms_t:.3f} ms (host-paced {call_t:.3f} ms), bound "
                 f"{b_t[0]:.4f} ms ({b_t[1]})")
 
-    args = first("cornell_mesh", "film_add_samples")[0][2:]
-    n_l = args[0].shape[0]
-    err = compare_film(args)
+    # K5's tiled entry on cornell-mesh's first launch (k replicates of the
+    # pixel grid), its scatter entry on terrain's (the wavefront loop)
+    tile_c, L_c, lam_c, pdf_c, w_c, k_c = first("cornell_mesh", "film_add_samples")[0][2:]
+    n_c = tile_c.shape[0]
+    n_l = n_c * k_c
+    err = compare_tiled((tile_c, L_c, lam_c, pdf_c, w_c), k_c)
     fk = filmlib.new_film((256, 256), dev)
-    ms, call = kernel_ms(lambda: film_kernel.add_samples_triton(fk.rgb_sum, fk.weight_sum,
-                                                                *args))
-    ms_plain = events_ms(lambda: film_kernel.add_samples_plain(fk.rgb_sum, fk.weight_sum,
-                                                               *args), 20)
-    rgbw = torch.rand((n_l, 3), device=dev)
-    ms_lib = graph_ms(lambda: fk.rgb_sum.index_add_(0, args[0], rgbw))
-    b = bound(n_l * (8 + 13 * 4) + 3 * 471 * 4 + n_px * 4 * 4, n_l * FILM_LANE_OPS)
+    ms, call = kernel_ms(lambda: film_kernel.add_samples_tiled_cuda(
+        fk.rgb_sum, fk.weight_sum, tile_c, L_c, lam_c, pdf_c, w_c, k_c))
+    ms_plain = events_ms(lambda: film_kernel.add_samples_tiled_plain(
+        fk.rgb_sum, fk.weight_sum, tile_c, L_c, lam_c, pdf_c, w_c, k_c), 20)
+    pix_l = tile_c.repeat(k_c)
+    rgb_l, rows4 = torch.rand((n_l, 3), device=dev), torch.rand((n_l, 4), device=dev)
+    acc4 = torch.zeros((n_px, 4), device=dev)
+    ms_lib = graph_ms(lambda: fk.rgb_sum.index_add_(0, pix_l, rgb_l))
+    ms_lib4 = graph_ms(lambda: acc4.index_add_(0, pix_l, rows4))
+    ms_sum = graph_ms(lambda: rows4.view(k_c, n_c, 4).sum(0))
+    b = bound(n_l * 52 + n_c * (8 + 2 * 16) + 3 * 471 * 4, n_l * FILM_LANE_OPS)
     timing["film_add_samples"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                                      library_ms=ms_lib, max_abs_err=max(err, film_err))
-    log(f"film_add_samples at the main path's launch ({n_l} lanes): kernel {ms:.4f} ms "
-        f"(host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms, "
-        f"bound {b[0]:.4f} ms ({b[1]}); max abs err {err:.2e}")
+                                      library_ms=ms_lib, library_rgbw_ms=ms_lib4,
+                                      library_sum_ms=ms_sum, max_abs_err=err)
+    log(f"film_add_samples (tiled) at the main path's launch ({k_c} x {n_c} lanes, groups of "
+        f"{film_kernel.tile_group(n_c, k_c)}): bit-exact with its plain version; kernel "
+        f"{ms:.4f} ms (host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, index_add_ of the "
+        f"(R, 3) rgb {ms_lib:.4f} ms, of the (R, 4) (w rgb, w) rows {ms_lib4:.4f} ms, the sum "
+        f"over the {k_c} replicates {ms_sum:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+
+    pix_t, L_t, lam_t, pdf_t, w_t = first("terrain", "film_add_scatter")[0][2:]
+    R_t = pix_t.shape[0]
+    err = compare_film((pix_t, L_t, lam_t, pdf_t, w_t))
+    live_t = w_t != 0
+    n_live, n_touch = int(live_t.sum()), int(pix_t[live_t].unique().numel())
+    ms, call = kernel_ms(lambda: film_kernel.add_samples_cuda(fk.rgb_sum, fk.weight_sum, pix_t,
+                                                              L_t, lam_t, pdf_t, w_t))
+    ms_plain = events_ms(lambda: film_kernel.add_samples_plain(fk.rgb_sum, fk.weight_sum, pix_t,
+                                                               L_t, lam_t, pdf_t, w_t), 20)
+    rgb_t, rows4_t = torch.rand((R_t, 3), device=dev), torch.rand((R_t, 4), device=dev)
+    ms_lib = graph_ms(lambda: fk.rgb_sum.index_add_(0, pix_t, rgb_t))
+    ms_lib4 = graph_ms(lambda: acc4.index_add_(0, pix_t, rows4_t))
+    # every lane's weight; a live lane's id, L, lambda and pdf; each pixel
+    # it touches read and written once
+    b = bound(R_t * 4 + n_live * 56 + n_touch * 32 + 3 * 471 * 4, n_live * FILM_LANE_OPS)
+    timing["film_add_scatter"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                      library_ms=ms_lib, library_rgbw_ms=ms_lib4,
+                                      max_abs_err=max(err, film_err))
+    log(f"film_add_scatter at terrain's first launch ({R_t} lanes, {n_live} of weight != 0 "
+        f"into {n_touch} pixels): max abs err {err:.2e} against its plain version; kernel "
+        f"{ms:.4f} ms (host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, index_add_ of the "
+        f"(R, 3) rgb {ms_lib:.4f} ms, of the (R, 4) (w rgb, w) rows {ms_lib4:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]})")
 
     # K3 on cornell's first launches
     for any_hit in (False, True):
@@ -1041,25 +1183,48 @@ def main():
             f"ms), plain {ms_plain:.3f} ms, "
             f"bound {b[0]:.4f} ms ({b[1]}); max abs err t {err:.2e}")
 
-    # K8 on terrain's first launch
-    (fin, inf_, cnt, total), _, _ = first("terrain", "wavefront_recycle")
+    # K8 on terrain's first launch, as the main path calls it (no rank)
+    (fin, inf_, cnt, total, *_), _, _ = first("terrain", "wavefront_recycle")
     R_ = fin.shape[0]
-    ck, cp = cnt.clone(), cnt.clone()
-    out_k = rd.recycle_cuda(fin, inf_, ck, total)
-    out_p = rd.recycle_plain(fin, inf_, cp, total)
-    require(all(torch.equal(a, b) for a, b in zip(out_k, out_p)) and torch.equal(ck, cp),
-            "recycle differs from cumsum on the main path's launch")
-    ms, call = kernel_ms(lambda: rd.recycle_cuda(fin, inf_, cnt.clone(), total))
-    ms_plain = events_ms(lambda: rd.recycle_plain(fin, inf_, cnt.clone(), total), 20)
+    for with_rank in (True, False):
+        ck, cp = cnt.clone(), cnt.clone()
+        out_k = rd.recycle_cuda(fin, inf_, ck, total, with_rank)
+        out_p = rd.recycle_plain(fin, inf_, cp, total, with_rank)
+        require(all(a is b is None or torch.equal(a, b) for a, b in zip(out_k, out_p))
+                and torch.equal(ck, cp), "recycle differs from cumsum on the main path's launch")
+    # the device kernels of one call, from the script's only torch.profiler
+    # session (a second session in this process, after the CUDA graph
+    # replays above, recorded no device kernel)
+    cp = cnt.clone()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rd.recycle_cuda(fin, inf_, cp, total, False)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(len(names) == 1 and "recycle_kernel" in names[0], "K8 is not one launch", names)
+    # timed on one counters tensor, which the calls advance in place (the
+    # kernel's work does not depend on it); with_clone_ms adds a clone of the
+    # counters a call (a 16-byte device copy), as this script timed the
+    # two-launch kernel before it
+    ct = cnt.clone()
+    ms, call = kernel_ms(lambda: rd.recycle_cuda(fin, inf_, ct, total, False))
+    ms_rank = graph_ms(lambda: rd.recycle_cuda(fin, inf_, ct, total))
+    ms_clone = graph_ms(lambda: rd.recycle_cuda(fin, inf_, cnt.clone(), total, False))
+    ms_plain = events_ms(lambda: rd.recycle_plain(fin, inf_, cnt.clone(), total, False), 20)
     fin_i = fin.to(torch.int32)
     ms_lib = graph_ms(lambda: torch.cumsum(fin_i, 0, dtype=torch.int32))
-    b = bound(R_ * 2 + R_ * 14 + 16, 2 * R_)
+    # 2 bytes in and 10 out a lane (work, two masks), the two counters
+    b = bound(R_ * 2 + R_ * 10 + 16, 2 * R_)
+    b_rank = bound(R_ * 16 + 16, 2 * R_)
     timing["wavefront_recycle"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                                       library_ms=ms_lib, max_abs_err=0.0)
+                                       library_ms=ms_lib, with_rank_ms=ms_rank,
+                                       with_clone_ms=ms_clone,
+                                       with_rank_bound_ms=b_rank[0], max_abs_err=0.0)
     log(f"wavefront_recycle at the main path's launch ({R_} lanes, {int(fin.sum())} finished, "
-        f"work {int(cnt[0])} of {total}): kernel {ms:.4f} ms (host-paced {call:.4f} "
-        f"ms), plain {ms_plain:.3f} ms, "
-        f"torch.cumsum {ms_lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); bit-exact")
+        f"work {int(cnt[0])} of {total}): bit-exact with and without the rank, one device "
+        f"kernel; kernel {ms:.4f} ms without the rank (host-paced {call:.4f} ms), "
+        f"{ms_rank:.4f} ms with it, {ms_clone:.4f} ms with a clone of the counters a call, plain {ms_plain:.3f} ms, torch.cumsum {ms_lib:.4f} ms, "
+        f"bound {b[0]:.5f} ms ({b[1]}; with the rank {b_rank[0]:.5f} ms)")
 
     # K7 on its first launches in the coated frames: against the plain
     # version on the coated lanes of both, timed on staircase's (2^20 lanes)
@@ -1764,8 +1929,8 @@ def main():
     s_ff, m_ff = ff["scene"], ff["meta"]
     W_, H_ = m_ff.resolution
     film2 = filmlib.new_film(m_ff.resolution, dev)
-    for ids, sids in rd.wave_lanes(W_ * H_, m_ff.spp, dev):
-        rd.render_wave(s_ff, m_ff, film2, ids, sids + m_ff.spp)
+    for ids, sids, k_ in rd.wave_lanes(W_ * H_, m_ff.spp, dev):
+        rd.render_wave(s_ff, m_ff, film2, ids, sids + m_ff.spp, k_)
     img_f2 = filmlib.develop(film2, m_ff.resolution, out_matrix=m_ff.film_out_matrix,
                              imaging_ratio=m_ff.film_imaging_ratio).cpu().numpy()
     ys, xs = torch.meshgrid(torch.arange(H_), torch.arange(W_), indexing="ij")
@@ -1855,7 +2020,9 @@ def main():
                             "pbrt_tpu/accel/bvh.py:909"),
         "bvh_any_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                         "pbrt_tpu/accel/bvh.py:1218"),
-        "film_add_samples": ("triton", "pbrt_tpu_torch/film/film_kernel.py",
+        "film_add_samples": ("cuda", "pbrt_tpu_torch/csrc/film.cu",
+                             "pbrt_tpu/film/film.py:54"),
+        "film_add_scatter": ("cuda", "pbrt_tpu_torch/csrc/film.cu",
                              "pbrt_tpu/film/film.py:44"),
         "dense_tri_closest": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
                               "pbrt_tpu/geometry/intersect.py:224"),

@@ -3,8 +3,10 @@
 
 The film is three accumulators, rgb_sum (H*W, 3), weight_sum (H*W,) and
 BDPT's splat (H*W, 3), updated in place (the JAX package returns a new film
-per add). On CUDA tensors `add_samples` and `add_splats` launch the fused
-Triton kernels of film_kernel.py (K5, K5s); on CPU tensors they run the
+per add). On CUDA tensors `add_samples_tiled` and `add_samples` launch the
+two entry points of the CUDA film kernel (K5, csrc/film.cu: the tiled one
+without atomics, the scatter one with them) and `add_splats` the Triton
+splat kernel (K5s), all through film_kernel.py; on CPU tensors they run the
 kernels' plain versions.
 """
 from typing import NamedTuple
@@ -30,14 +32,23 @@ def new_film(resolution, device):
 
 
 def add_samples(film: Film, pixel_idx, L, lam, pdf, weight):
-    """Weighted add of (R,) samples into the film, in place (reference
-    rgb_film.cu:64-80)."""
-    if film.rgb_sum.is_cuda:
-        film_kernel.add_samples_triton(film.rgb_sum, film.weight_sum, pixel_idx,
-                                       L, lam, pdf, weight)
-    else:
-        film_kernel.add_samples_plain(film.rgb_sum, film.weight_sum, pixel_idx,
-                                      L, lam, pdf, weight)
+    """Weighted add of (R,) samples with any pixel ids into the film, in
+    place (reference rgb_film.cu:64-80); on the card the order of the sums
+    varies from run to run."""
+    fn = film_kernel.add_samples_cuda if film.rgb_sum.is_cuda else film_kernel.add_samples_plain
+    fn(film.rgb_sum, film.weight_sum, pixel_idx, L, lam, pdf, weight)
+    return film
+
+
+def add_samples_tiled(film: Film, pixel_idx, L, lam, pdf, weight, k):
+    """add_samples for a lane grid of k replicates of the n distinct pixel
+    ids pixel_idx (R = k n; lane j n + p is replicate j of pixel_idx[p]), in
+    place (pbrt_tpu/film/film.py:54). Each pixel's k lanes are summed in a
+    fixed order, so the film is the same bits on every run, on the card and
+    on the CPU."""
+    fn = (film_kernel.add_samples_tiled_cuda if film.rgb_sum.is_cuda
+          else film_kernel.add_samples_tiled_plain)
+    fn(film.rgb_sum, film.weight_sum, pixel_idx, L, lam, pdf, weight, k)
     return film
 
 

@@ -1,35 +1,41 @@
-"""Film sample and splat accumulation as fused Triton kernels (K5, K5s).
+"""Film sample and splat accumulation (K5, K5s): the wrappers of the CUDA
+film kernel csrc/film.cu (K5), the Triton splat kernel (K5s), and the plain
+versions of all three entry points.
 
-Replaces the TPU hot path pbrt_tpu/film/film.py:44 `add_samples` (and :54
-`add_samples_tiled`, with colorspace.py:50 `to_sensor_rgb`): per lane,
-look up the CIE X, Y, Z curves at the 4 wavelengths (nearest 1 nm bin),
-divide L by the wavelength pdf, average, zero non-finite components, weight,
-and scatter-add into the film's rgb_sum (H*W, 3) and weight_sum (H*W,) with
-atomics. The JAX package's k-fold pre-reduction of sample replicates was a
-workaround for the TPU's scalar-unit scatter and is not ported.
-
-What bounds it on the H100: bytes. Per lane it reads 13 floats and an index
-(56 B), gathers 12 curve values from a 5.6 KB table that stays in cache,
-and does 4 atomic adds into a film that fits in L2; a few dozen float ops
-per lane are nothing against that. Fusing the chain into one pass is the
-whole gain over the plain version's ~20 eager ops, each of which reads and
-writes the lanes again. Triton serves as well as CUDA here: an elementwise
-pass plus a scatter, with no data reuse and no matrix unit.
+K5 replaces the TPU hot path pbrt_tpu/film/film.py:44 `add_samples` and :54
+`add_samples_tiled` (with colorspace.py:50 `to_sensor_rgb`): per lane, look
+up the CIE X, Y, Z curves at the 4 wavelengths (nearest 1 nm bin), divide L
+by the wavelength pdf, average, zero non-finite components, weight, and add
+into the film's rgb_sum (H*W, 3) and weight_sum (H*W,). Two entry points
+(csrc/film.cu says how each is laid out on the card):
+  - tiled (`film_add_samples`): a wave of k replicates of n distinct pixel
+    ids, lane j n + p, as the batched loop, BDPT and the pixel-parallel
+    render lay out their waves. Each pixel's k lanes are summed in a fixed
+    order (`add_samples_tiled_plain` spells it out), then added to the
+    pixel once: no atomics, the same bits on every run and on the CPU.
+  - scatter (`film_add_scatter`): any pixel ids (the wavefront loop); one
+    relaxed atomic add a component, none for a lane of weight 0, so the
+    order of the sums, and their last bits, vary from run to run.
+The JAX package pre-reduces the k replicates with a reshape-sum before
+its scatter because the TPU's scatter is scalar-bound; the tiled entry
+takes the same layout and needs no scatter at all.
 
 K5s replaces pbrt_tpu/film/film.py:70 `add_splats`, BDPT's light-tracing
 (t = 1) contributions: the same pass into the film's splat (H*W, 3), with
-no weight sum and weight 1. The wave's splats are its lanes'
-t = 1 strategies stacked, so they read their wavelengths as row i % n_lam
-of the wave's (n_lam, 4) lam and pdf instead of a repeated copy.
+no weight sum and weight 1, as a Triton kernel with atomics. The wave's
+splats are its lanes' t = 1 strategies stacked, so they read their
+wavelengths as row i % n_lam of the wave's (n_lam, 4) lam and pdf instead
+of a repeated copy.
 """
+import ctypes
 import os
 
 import torch
 
-from pbrt_tpu_torch.spectral import cie, colorspace
+from pbrt_tpu_torch.spectral import cie, colorspace, spectra
 
-# launches of the Triton kernel (plain int, added to where it launches)
-launches = {"film_add_samples": 0, "film_add_splats": 0}
+# launches of each entry point (plain ints, added to where they launch)
+launches = {"film_add_samples": 0, "film_add_scatter": 0, "film_add_splats": 0}
 
 BLOCK = 256
 _KERNEL = []
@@ -44,12 +50,60 @@ def cie_table(device):
     return _CIE[device]
 
 
+def lane_values(L, lam, pdf, weight):
+    """(R, 4) (w x, w y, w z, w) of each lane, in csrc/film.cu's order: s =
+    L / pdf (0 where pdf == 0; where L == 0, +0, or NaN for a NaN pdf: the
+    kernel does not divide there, and a film sum cannot tell -0 from +0),
+    x = ((X0 s0 + X1 s1) + X2 s2) + X3 s3, x / 4, non-finite components
+    zeroed."""
+    q = L / torch.where(pdf == 0.0, 1.0, pdf)
+    s = torch.where(pdf == 0.0, 0.0,
+                    torch.where(L == 0.0, torch.where(torch.isnan(pdf), pdf, 0.0), q))
+    terms = cie_table(L.device)[:, spectra.lam_bins(lam)] * s      # (3, R, 4)
+    xyz = ((terms[..., 0] + terms[..., 1]) + terms[..., 2]) + terms[..., 3]
+    xyz = xyz * 0.25
+    xyz = torch.where(torch.isfinite(xyz), xyz, 0.0)
+    return torch.cat([weight[None] * xyz, weight[None]]).T
+
+
+def tile_group(n, k):
+    """G, the lanes of a warp that share one pixel's k replicates in the
+    tiled entry: the largest power of two up to min(k, 32) that is at most
+    2 or keeps the launch below 2^17 threads (n G), so that a wave of few
+    pixels and many samples still fills the card. (At cornell-mesh's n =
+    65,536 and k = 16: G = 2, 8 lanes a thread; G = 4 and G = 1 ran slower
+    on an H100.)"""
+    g = 1
+    while g < 32 and 2 * g <= k and (g < 2 or n * g < 1 << 17):
+        g *= 2
+    return g
+
+
 def add_samples_plain(rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight):
-    """Plain version: the torch op chain plus index_add_ (in place)."""
-    rgb = colorspace.to_sensor_rgb(L, lam, pdf, cie_table(L.device))
-    rgb = torch.where(torch.isfinite(rgb), rgb, 0.0)
-    rgb_sum.index_add_(0, pixel_idx, weight[..., None] * rgb)
-    weight_sum.index_add_(0, pixel_idx, weight)
+    """Plain version of the scatter entry: lane_values plus index_add_ (in
+    place)."""
+    v = lane_values(L, lam, pdf, weight)
+    rgb_sum.index_add_(0, pixel_idx, v[:, :3])
+    weight_sum.index_add_(0, pixel_idx, v[:, 3])
+
+
+def add_samples_tiled_plain(rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight, k):
+    """Plain version of the tiled entry, in its order of sums (in place):
+    lane j n + p is replicate j of the distinct pixel pixel_idx[p]. With G =
+    tile_group(n, k), partial sum a_g adds replicates g, g + G, g + 2G, ...
+    in order from +0; the pixel's total is ((a_0 + a_1) + (a_2 + a_3)) + ...
+    (pairs, level by level), added to the pixel once."""
+    n = pixel_idx.shape[0]
+    G = tile_group(n, k)
+    v = lane_values(L, lam, pdf, weight).view(k, n, 4)
+    acc = torch.zeros((G, n, 4), dtype=v.dtype, device=v.device)
+    for m in range(0, k, G):
+        rows = v[m:m + G]
+        acc[:rows.shape[0]] = acc[:rows.shape[0]] + rows
+    while acc.shape[0] > 1:
+        acc = acc[0::2] + acc[1::2]
+    rgb_sum[pixel_idx] = rgb_sum[pixel_idx] + acc[0, :, :3]
+    weight_sum[pixel_idx] = weight_sum[pixel_idx] + acc[0, :, 3]
 
 
 def add_splats_plain(splat, pixel_idx, L, lam, pdf):
@@ -64,7 +118,8 @@ def add_splats_plain(splat, pixel_idx, L, lam, pdf):
 
 
 def _build():
-    """Define the Triton kernels (triton is imported here, at first launch)."""
+    """Define the Triton splat kernel (triton is imported here, at first
+    launch)."""
     from pbrt_tpu_torch.kernels import BUILD_DIR
 
     os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
@@ -103,22 +158,6 @@ def _build():
         return x, y, z
 
     @triton.jit
-    def film_add_kernel(pix_ptr, L_ptr, lam_ptr, pdf_ptr, w_ptr, cie_ptr,
-                        rgb_ptr, wsum_ptr, n,
-                        LAMBDA_MIN: tl.constexpr, LAMBDA_RANGE: tl.constexpr,
-                        BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        m = offs < n
-        pix = tl.load(pix_ptr + offs, mask=m, other=0)
-        w = tl.load(w_ptr + offs, mask=m, other=0.0)
-        x, y, z = sensor_xyz(offs, offs, m, L_ptr, lam_ptr, pdf_ptr, cie_ptr,
-                             LAMBDA_MIN, LAMBDA_RANGE, BLOCK)
-        tl.atomic_add(rgb_ptr + pix * 3, w * x, mask=m)
-        tl.atomic_add(rgb_ptr + pix * 3 + 1, w * y, mask=m)
-        tl.atomic_add(rgb_ptr + pix * 3 + 2, w * z, mask=m)
-        tl.atomic_add(wsum_ptr + pix, w, mask=m)
-
-    @triton.jit
     def film_splat_kernel(pix_ptr, L_ptr, lam_ptr, pdf_ptr, cie_ptr, splat_ptr, n, n_lam,
                           LAMBDA_MIN: tl.constexpr, LAMBDA_RANGE: tl.constexpr,
                           BLOCK: tl.constexpr):
@@ -134,7 +173,7 @@ def _build():
         tl.atomic_add(splat_ptr + pix * 3 + 1, y, mask=live)
         tl.atomic_add(splat_ptr + pix * 3 + 2, z, mask=live)
 
-    return film_add_kernel, film_splat_kernel
+    return film_splat_kernel
 
 
 def _check_args(what, dev, checks):
@@ -146,26 +185,77 @@ def _check_args(what, dev, checks):
                              f"{tuple(x.shape)} on {x.device}")
 
 
-def add_samples_triton(rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight):
-    """Launch the fused kernel on the current stream (in place) and count
-    the launch."""
-    R = pixel_idx.shape[0]
+def _film_lib():
+    from pbrt_tpu_torch import kernels
+
+    lib = kernels.load("film")
+    if not hasattr(lib, "declared"):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.pbrt_film_add_tiled.argtypes = [P] * 5 + [I, I, I, P, I, I, P, P, P]
+        lib.pbrt_film_add_tiled.restype = I
+        lib.pbrt_film_add_scatter.argtypes = [P] * 5 + [I, P, I, I, P, P, P]
+        lib.pbrt_film_add_scatter.restype = I
+        lib.declared = True
+    return lib
+
+
+def _check_samples(what, rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight, R):
+    """The K5 entry points' argument checks: dtypes, shapes, contiguity, one
+    CUDA device, and 16-byte rows (read as float4)."""
     dev = rgb_sum.device
-    _check_args("film_add_samples", dev, (
+    _check_args(what, dev, (
         ("rgb_sum", rgb_sum, torch.float32, (rgb_sum.shape[0], 3)),
         ("weight_sum", weight_sum, torch.float32, (rgb_sum.shape[0],)),
-        ("pixel_idx", pixel_idx, torch.int64, (R,)),
+        ("pixel_idx", pixel_idx, torch.int64, (pixel_idx.shape[0],)),
         ("L", L, torch.float32, (R, 4)), ("lam", lam, torch.float32, (R, 4)),
         ("pdf", pdf, torch.float32, (R, 4)), ("weight", weight, torch.float32, (R,))))
-    if not _KERNEL:
-        _KERNEL.extend(_build())
+    if not rgb_sum.is_cuda or R >= 1 << 31:
+        raise ValueError(f"{what}: needs CUDA tensors and fewer than 2^31 lanes, got {R} "
+                         f"on {dev}")
+    for name, x in (("L", L), ("lam", lam), ("pdf", pdf)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} rows must be 16-byte aligned (read as float4)")
+
+
+def add_samples_cuda(rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight):
+    """Launch the scatter entry of csrc/film.cu on the current stream (in
+    place) and count the launch; same contract as add_samples_plain."""
+    from pbrt_tpu_torch import kernels
+
+    R = pixel_idx.shape[0]
+    _check_samples("film_add_scatter", rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight, R)
+    lib = _film_lib()
     if R == 0:
         return
-    grid = ((R + BLOCK - 1) // BLOCK,)
-    _KERNEL[0][grid](pixel_idx, L, lam, pdf, weight, cie_table(dev), rgb_sum,
-                     weight_sum, R,
-                     LAMBDA_MIN=cie.LAMBDA_MIN, LAMBDA_RANGE=cie.LAMBDA_RANGE,
-                     BLOCK=BLOCK, num_warps=4)
+    dev = rgb_sum.device
+    err = lib.pbrt_film_add_scatter(
+        pixel_idx.data_ptr(), L.data_ptr(), lam.data_ptr(), pdf.data_ptr(), weight.data_ptr(),
+        R, cie_table(dev).data_ptr(), cie.LAMBDA_MIN, cie.LAMBDA_RANGE, rgb_sum.data_ptr(),
+        weight_sum.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "film_add_scatter")
+    launches["film_add_scatter"] += 1
+
+
+def add_samples_tiled_cuda(rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight, k):
+    """Launch the tiled entry of csrc/film.cu on the current stream (in
+    place) and count the launch; same contract as add_samples_tiled_plain
+    (pixel_idx (n,) distinct ids, the other arguments k n rows)."""
+    from pbrt_tpu_torch import kernels
+
+    n = pixel_idx.shape[0]
+    _check_samples("film_add_samples", rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight,
+                   n * k)
+    if k < 1:
+        raise ValueError(f"film_add_samples: k must be >= 1, got {k}")
+    lib = _film_lib()
+    if n == 0:
+        return
+    dev = rgb_sum.device
+    err = lib.pbrt_film_add_tiled(
+        pixel_idx.data_ptr(), L.data_ptr(), lam.data_ptr(), pdf.data_ptr(), weight.data_ptr(),
+        n, k, tile_group(n, k), cie_table(dev).data_ptr(), cie.LAMBDA_MIN, cie.LAMBDA_RANGE,
+        rgb_sum.data_ptr(), weight_sum.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "film_add_samples")
     launches["film_add_samples"] += 1
 
 
@@ -183,11 +273,11 @@ def add_splats_triton(splat, pixel_idx, L, lam, pdf):
     if R and (n_lam == 0 or R % n_lam):
         raise ValueError(f"film_add_splats: {n_lam} wavelength rows do not divide {R} splats")
     if not _KERNEL:
-        _KERNEL.extend(_build())
+        _KERNEL.append(_build())
     if R == 0:
         return
     grid = ((R + BLOCK - 1) // BLOCK,)
-    _KERNEL[1][grid](pixel_idx, L, lam, pdf, cie_table(dev), splat, R, n_lam,
+    _KERNEL[0][grid](pixel_idx, L, lam, pdf, cie_table(dev), splat, R, n_lam,
                      LAMBDA_MIN=cie.LAMBDA_MIN, LAMBDA_RANGE=cie.LAMBDA_RANGE,
                      BLOCK=BLOCK, num_warps=4)
     launches["film_add_splats"] += 1

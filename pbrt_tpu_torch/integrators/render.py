@@ -9,21 +9,25 @@ the estimator does not depend on how lanes are scheduled; only the order of
 the film sums does. Waves of up to LANES_PER_WAVE = 2^20 lanes (`wave_lanes`:
 `k` replicates of the whole pixel grid, sample ids s0 .. s0+k-1, or pixel
 tiles of one sample where the grid is wider than a wave) serve the batched
-loop and BDPT. Two schedules for the path family, chosen as the JAX package
+loop and BDPT. A wave's film add is the tiled one (K5, csrc/film.cu): each
+pixel's k lanes summed in a fixed order, no atomics, so those films are the
+same bits on every run; the wavefront loop's add scatters with atomics.
+Two schedules for the path family, chosen as the JAX package
 chooses:
   - closed scenes: the batched loop. Each wave is traced for max_depth
     bounces (a 256x256 x 16 spp frame in one wave).
   - open scenes (infinite lights: many paths escape early): the wavefront
     loop. A persistent pool of POOL_LANES lanes takes one bounce step per
-    iteration; a lane whose path ended adds its radiance to the film and is
-    recycled with the next work item (K8, csrc/wavefront.cu), so the pool
+    iteration; a lane whose path ended adds its radiance to the film (K5's
+    scatter entry) and is recycled with the next work item (K8,
+    csrc/wavefront.cu, a single-pass scan), so the pool
     stays full instead of decaying with the live fraction.
 Under a process group (parallel/dist.py, one rank per card) the path family
 splits its pixels over the ranks and all-reduces films and ray counts
 (`render_pixel_parallel`), or, asked for N parts, splits its geometry and
 replicates its rays (`shard_scene`, K11a/K11b).
 BDPT (`render_bdpt`) takes each wave through the two subpaths, the
-strategies (K12 on the card), the film add of L (K5) and of the t = 1
+strategies (K12 on the card), the tiled film add of L (K5) and of the t = 1
 splats (K5s); develop adds the splats scaled by 1 / spp. A BDPT lane holds
 (max_depth + 2) + (max_depth + 1) vertex records of ~50 floats, twice (the
 walk's and K12's packed copy), and its strategies' shadow rays and splats:
@@ -90,10 +94,12 @@ def _use_lens(scene):
 
 def wave_lanes(n_pix, spp, device, pix0=0):
     """The waves of n_pix pixels (pix0 .. pix0 + n_pix - 1) x spp samples:
-    yields each wave's (pixel ids, sample ids), (R,) int64, R <=
-    LANES_PER_WAVE. A wave is k = LANES_PER_WAVE // n_pix samples of every
-    pixel or, where the pixel range is wider than a wave, a tile of
-    LANES_PER_WAVE pixels at one sample."""
+    yields each wave's (pixel ids, sample ids, k), (R,) int64, R <=
+    LANES_PER_WAVE. A wave is a tile of n distinct pixel ids repeated for k
+    samples (lane j n + p: pixel tile[p], sample s0 + j; the tile is
+    ids[:n]): k = LANES_PER_WAVE // n_pix samples of every pixel or, where
+    the pixel range is wider than a wave, a tile of LANES_PER_WAVE pixels at
+    one sample."""
     k_max = max(1, LANES_PER_WAVE // n_pix)
     tile = min(n_pix, LANES_PER_WAVE)
     s0 = 0
@@ -102,27 +108,31 @@ def wave_lanes(n_pix, spp, device, pix0=0):
         for t0 in range(pix0, pix0 + n_pix, tile):
             pix = torch.arange(t0, min(t0 + tile, pix0 + n_pix), device=device)
             yield pix.repeat(k), s0 + torch.arange(k, device=device).repeat_interleave(
-                pix.shape[0])
+                pix.shape[0]), k
         s0 += k
 
 
-def render_wave(scene, meta, film, ids, sample_ids):
-    """Trace the (pixel, sample) lanes ids, sample_ids (R,) and add them to
-    `film` in place. -> {"closest", "shadow"} ray counts (0-dim)."""
+def render_wave(scene, meta, film, ids, sample_ids, k):
+    """Trace the (pixel, sample) lanes ids, sample_ids (R,), a tile of R / k
+    distinct pixels repeated k times (wave_lanes), and add them to `film` in
+    place (the tiled film add). -> {"closest", "shadow"} ray counts
+    (0-dim)."""
     rays, wl, r, weight = camera_lanes(scene, meta, ids, sample_ids, _use_lens(scene))
     L, wl_out, stats = path_integrator.li(scene, meta, rays, wl, r, meta.sampler, meta.spp)
-    filmlib.add_samples(film, ids, L, wl_out.lam, wl_out.pdf, weight)
+    filmlib.add_samples_tiled(film, ids[:ids.shape[0] // k], L, wl_out.lam, wl_out.pdf,
+                              weight, k)
     return stats
 
 
 # ------------------------------------------------------------ wavefront (K8)
 
-def recycle_plain(finished, in_flight, counters, total):
+def recycle_plain(finished, in_flight, counters, total, with_rank=True):
     """Plain version of the recycle kernel. finished, in_flight (R,) bool;
     counters (2,) int64 [next_work, n_in_flight], updated in place. ->
-    (rank (R,) int32 exclusive rank among finished lanes, work (R,) int64 =
-    next_work + rank, recycle (R,) bool = finished & (work < total),
-    in_flight (R,) bool = (in_flight & ~finished) | recycle)."""
+    (rank (R,) int32 exclusive rank among finished lanes, or None without
+    with_rank; work (R,) int64 = next_work + rank, recycle (R,) bool =
+    finished & (work < total), in_flight (R,) bool = (in_flight & ~finished)
+    | recycle)."""
     f = finished.to(torch.int32)
     rank = torch.cumsum(f, 0, dtype=torch.int32) - f
     work = counters[0] + rank.long()
@@ -130,7 +140,7 @@ def recycle_plain(finished, in_flight, counters, total):
     in_flight = (in_flight & ~finished) | recycle
     counters[0] += recycle.sum()
     counters[1] = in_flight.sum()
-    return rank, work, recycle, in_flight
+    return (rank if with_rank else None), work, recycle, in_flight
 
 
 def _recycle_lib():
@@ -139,40 +149,55 @@ def _recycle_lib():
     lib = kernels.load("wavefront")
     if not hasattr(lib, "declared"):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.pbrt_wavefront_blocks.argtypes = [I]
-        lib.pbrt_wavefront_blocks.restype = I
-        lib.pbrt_wavefront_recycle.argtypes = [P, P, I, ctypes.c_longlong] + [P] * 8 + [P]
+        lib.pbrt_wavefront_tiles.argtypes = [I]
+        lib.pbrt_wavefront_tiles.restype = I
+        lib.pbrt_wavefront_recycle.argtypes = [P, P, I, ctypes.c_longlong, P, I] + [P] * 7
         lib.pbrt_wavefront_recycle.restype = I
         lib.declared = True
     return lib
 
 
-def recycle_cuda(finished, in_flight, counters, total):
-    """Launch csrc/wavefront.cu on the current stream (two launches, counted
-    once); same contract as recycle_plain."""
+# the recycle kernel's scratch on each device: its ticket word (the call's
+# epoch and tile count) and two status arrays of `cap` words, one for even
+# and one for odd epochs, each cleared by the call between two uses
+# (csrc/wavefront.cu); so it is zeroed once, when it is allocated or grown
+_SCRATCH = {}
+
+
+def _recycle_scratch(dev, tiles):
+    """-> (scratch, cap) for a call of `tiles` tiles on `dev`."""
+    s = _SCRATCH.get(dev)
+    if s is None or (s.shape[0] - 1) // 2 < tiles:
+        s = _SCRATCH[dev] = torch.zeros(1 + 2 * tiles, dtype=torch.int64, device=dev)
+    return s, (s.shape[0] - 1) // 2
+
+
+def recycle_cuda(finished, in_flight, counters, total, with_rank=True):
+    """Launch csrc/wavefront.cu on the current stream (one launch); same
+    contract as recycle_plain. Calls on one device share a scratch, so they
+    must be ordered (one stream)."""
     from pbrt_tpu_torch import kernels
 
     R, dev = finished.shape[0], finished.device
     for name, x in (("finished", finished), ("in_flight", in_flight)):
         if x.dtype != torch.bool or tuple(x.shape) != (R,) or x.device != dev \
-                or not x.is_contiguous():
-            raise ValueError(f"wavefront recycle: {name} must be a contiguous bool ({R},) "
-                             f"tensor on {dev}")
+                or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"wavefront recycle: {name} must be a contiguous, 16-byte "
+                             f"aligned bool ({R},) tensor on {dev}")
     if counters.dtype != torch.int64 or counters.shape != (2,) or counters.device != dev:
         raise ValueError("wavefront recycle: counters must be an int64 (2,) tensor on the device")
     if not finished.is_cuda or not 0 < R < 1 << 30:
         raise ValueError(f"wavefront recycle: needs 0 < R < 2^30 lanes on a CUDA device, "
                          f"got {R} on {dev}")
     lib = _recycle_lib()
-    scratch = torch.empty(2 * lib.pbrt_wavefront_blocks(R), dtype=torch.int32, device=dev)
-    base = torch.empty(1, dtype=torch.int64, device=dev)
-    rank = torch.empty(R, dtype=torch.int32, device=dev)
+    scratch, cap = _recycle_scratch(dev, lib.pbrt_wavefront_tiles(R))
+    rank = torch.empty(R, dtype=torch.int32, device=dev) if with_rank else None
     work = torch.empty(R, dtype=torch.int64, device=dev)
     recycle = torch.empty(R, dtype=torch.bool, device=dev)
     in_flight_out = torch.empty(R, dtype=torch.bool, device=dev)
     err = lib.pbrt_wavefront_recycle(
-        finished.data_ptr(), in_flight.data_ptr(), R, int(total), scratch.data_ptr(),
-        base.data_ptr(), rank.data_ptr(), work.data_ptr(), recycle.data_ptr(),
+        finished.data_ptr(), in_flight.data_ptr(), R, int(total), scratch.data_ptr(), cap,
+        rank.data_ptr() if with_rank else None, work.data_ptr(), recycle.data_ptr(),
         in_flight_out.data_ptr(), counters.data_ptr(), counters.data_ptr() + 8,
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "wavefront_recycle")
@@ -180,11 +205,11 @@ def recycle_cuda(finished, in_flight, counters, total):
     return rank, work, recycle, in_flight_out
 
 
-def recycle(finished, in_flight, counters, total):
+def recycle(finished, in_flight, counters, total, with_rank=True):
     """K8: the kernel on CUDA tensors, its plain version on CPU tensors."""
     if finished.is_cuda:
-        return recycle_cuda(finished, in_flight, counters, total)
-    return recycle_plain(finished, in_flight, counters, total)
+        return recycle_cuda(finished, in_flight, counters, total, with_rank)
+    return recycle_plain(finished, in_flight, counters, total, with_rank)
 
 
 def _merge(new, old, mask):
@@ -232,7 +257,8 @@ def render_wavefront(scene, meta, film, pix0=0, n_pix=None, pool=None):
         finished = in_flight & ~st.active
         filmlib.add_samples(film, pix, st.L, st.lam, st.lam_pdf,
                             torch.where(finished, weight, 0.0))
-        _, work, rec, in_flight = recycle(finished, in_flight, counters, total)
+        _, work, rec, in_flight = recycle(finished, in_flight, counters, total,
+                                          with_rank=False)
         pix_n, w_n, st_n = camera_lane(torch.clamp(work, max=total - 1))
         state = _merge(st_n, st, rec)
         pix = torch.where(rec, pix_n, pix)
@@ -253,8 +279,8 @@ def render_batched(scene, meta, film, pix0=0, n_pix=None):
     res_x, res_y = meta.resolution
     n_pix = res_x * res_y if n_pix is None else n_pix
     n_closest = n_shadow = 0
-    for ids, sample_ids in wave_lanes(n_pix, meta.spp, film.rgb_sum.device, pix0):
-        st = render_wave(scene, meta, film, ids, sample_ids)
+    for ids, sample_ids, k in wave_lanes(n_pix, meta.spp, film.rgb_sum.device, pix0):
+        st = render_wave(scene, meta, film, ids, sample_ids, k)
         n_closest = n_closest + st["closest"]
         n_shadow = n_shadow + st["shadow"]
     return {"closest": n_closest, "shadow": n_shadow}
@@ -268,12 +294,13 @@ def render_bdpt(scene, meta, film):
     {"closest", "shadow"} ray counts as 0-dim tensors."""
     res_x, res_y = meta.resolution
     n_closest = n_shadow = 0
-    for ids, sample_ids in wave_lanes(res_x * res_y, meta.spp, film.rgb_sum.device):
+    for ids, sample_ids, k in wave_lanes(res_x * res_y, meta.spp, film.rgb_sum.device):
         p_film, wl, r, weight = film_samples(scene, meta, ids, sample_ids)
         L, (splat_pix, splat_L), stats = bdpt.li_bdpt(scene, meta, p_film, r, wl,
                                                       meta.sampler, meta.spp)
         lam, pdf = wl.lam.contiguous(), wl.pdf.contiguous()
-        filmlib.add_samples(film, ids, L.contiguous(), lam, pdf, weight)
+        filmlib.add_samples_tiled(film, ids[:ids.shape[0] // k], L.contiguous(), lam, pdf,
+                                  weight, k)
         filmlib.add_splats(film, splat_pix, splat_L, lam, pdf)
         n_closest = n_closest + stats["closest"]
         n_shadow = n_shadow + stats["shadow"]

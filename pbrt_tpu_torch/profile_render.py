@@ -65,7 +65,8 @@ POOLS = (1 << 17, 1 << 18, 1 << 19)
 PROFILED_PASSES = 8
 # hand-written kernels by a substring of their device symbol
 KERNELS = {"bvh": "traverse_kernel", "bvh_inst": "traverse_inst_kernel", "dense": "dense_",
-           "recycle": "recycle_", "film": "film_add_kernel", "layered": "layered_", "bdpt": "connect_",
+           "recycle": "recycle_", "film": "film_add_tiled_kernel",
+           "film_scatter": "film_add_scatter_kernel", "layered": "layered_", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
            "shard": "parts_kernel|select_kernel"}
 

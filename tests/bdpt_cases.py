@@ -13,7 +13,11 @@ may round apart. For every strategy, CLOSE_FRAC of the lanes where either
 side is nonzero must agree (below 10^4 live lanes: all of them), so a
 strategy that is wrong on its few live lanes fails however rare it is.
 Shadow-ray counts must be equal, and so must the splat pixel ids of
-agreeing t = 1 contributions."""
+agreeing t = 1 contributions.
+
+It also converts the JAX package's subpath records and sampler lanes into
+the port's tensors (from their numpy arrays, with no JAX import), so that
+tests/test_torch_bdpt.py can run the port's `connect` on JAX's walks."""
 import torch
 
 RTOL, ATOL = 1e-4, 1e-6
@@ -67,6 +71,66 @@ AttributeBegin
   Shape "sphere" "float radius" [0.35]
 AttributeEnd
 """
+
+
+def vertices_from_arrays(vs):
+    """The JAX package's vertex records (any objects with its V fields whose
+    arrays numpy can read) as the port's CPU `bdpt.V` records, bit for bit:
+    ids widen to int64; uv and the medium ids, which the port does not
+    keep, are dropped."""
+    import numpy as np
+    from pbrt_tpu_torch.integrators import bdpt
+    from pbrt_tpu_torch.materials import bxdfs
+
+    def t(x, dtype=None):
+        x = torch.as_tensor(np.array(x))
+        return x if dtype is None else x.to(dtype)
+
+    out = []
+    for v in vs:
+        bx = bxdfs.BxdfParams(*(t(x, torch.int64 if f == "kind" else None)
+                                for f, x in zip(bxdfs.BxdfParams._fields, v.bx)))
+        out.append(bdpt.V(vtype=t(v.vtype, torch.int32), p=t(v.p), ng=t(v.ng), ns=t(v.ns),
+                          beta=t(v.beta), pdf_fwd=t(v.pdf_fwd), pdf_rev=t(v.pdf_rev),
+                          delta=t(v.delta, torch.bool), light=t(v.light, torch.int64),
+                          mat=t(v.mat, torch.int64), wo=t(v.wo), bx=bx, fx=t(v.fx),
+                          fy=t(v.fy), fz=t(v.fz)))
+    return out
+
+
+def sampler_from_arrays(r):
+    """The JAX package's PCG32 sampler lanes (state and stream as two
+    uint32 limbs) as the port's CPU `samplers.Sampler` (int64 words with the
+    same bits)."""
+    import numpy as np
+    from pbrt_tpu_torch.sampling import samplers
+
+    def u64(x):
+        hi = np.asarray(x.hi).astype(np.uint64)
+        lo = np.asarray(x.lo).astype(np.uint64)
+        return torch.as_tensor(((hi << np.uint64(32)) | lo).view(np.int64))
+
+    def u32(x):
+        return torch.as_tensor(np.asarray(x).astype(np.int64))
+
+    return samplers.Sampler(state=u64(r.state), inc=u64(r.inc), pixel=u32(r.pixel),
+                            sample=u32(r.sample), dim=u32(r.dim))
+
+
+def vertex_bits_differ(a, b):
+    """(R,) bool: lanes where two port vertex records differ in any bit of
+    any field (the BSDF parameters and the shading frame included)."""
+    def leaves(v):
+        for x in v:
+            yield from (leaves(x) if isinstance(x, tuple) else (x,))
+
+    out = torch.zeros(a.p.shape[0], dtype=torch.bool)
+    for x, y in zip(leaves(a), leaves(b)):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        d = x != y
+        out |= d.reshape(d.shape[0], -1).any(1)
+    return out
 
 
 def four_lights_builder(res):

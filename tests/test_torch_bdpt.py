@@ -9,9 +9,12 @@ lights/) against pbrt_tpu on the same numpy-seeded inputs, on the CPU:
 - the camera and light subpaths' vertex records, field by field, on
   cornell and on that scene, from the same sampler streams;
 - `connect` for every (s, t) strategy at max depth 5, with L, the splat
-  raster position and the honest ray count, on the same two scenes; and
-  K12's plain version (`connect_all_plain`, every strategy with one
-  visibility dispatch) against the strategies one by one.
+  raster position and the honest ray count, on the same two scenes: once
+  on JAX's own subpaths, wavelengths and sampler lanes converted to the
+  port's tensors (tests/bdpt_cases.py), so that it is tested on the same
+  inputs bit for bit, and once on each package's own walks; and K12's
+  plain version (`connect_all_plain`, every strategy with one visibility
+  dispatch) against the strategies one by one.
 
 Tolerances, with their reasons: the same float32 formulas on both sides,
 but XLA fuses and reorders a few (3-term dots, the inverse camera
@@ -32,14 +35,22 @@ moves a contribution by up to 6e-3 (measured: four lights, s = 6, t = 1, a
 camera pdf of 7214 at the raster's ulp). A vertex's uv is not compared:
 only textures read it (a later slice), and the JAX package leaves a disk
 hit's uv at that of the losing triangle or sphere candidate. Ray counts
-must be equal."""
+must be equal on the shared inputs. On the own walks a ray count may
+differ only by lanes whose shadow-ray `attempt` flips between the two
+walks, each with a vertex that differs from JAX's in some bit: one ulp can
+put a vertex into the plane of a light's sampled point (four lights, s = 1,
+t = 5, lane 121: the port traces 4 rays, JAX 5).
+
+On the shared inputs every live lane of every strategy must agree to
+STRATEGY_RTOL, with no exemption."""
 import pathlib
 
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
-from bdpt_cases import FOUR_LIGHTS_PBRT
+from bdpt_cases import (FOUR_LIGHTS_PBRT, sampler_from_arrays, vertex_bits_differ,
+                        vertices_from_arrays)
 
 from pbrt_tpu.cameras import perspective as jcam
 from pbrt_tpu.integrators import bdpt as jbdpt, render as jrender
@@ -204,7 +215,10 @@ _PATHS = {}
 
 def _paths(name):
     """Both packages' camera and light subpaths and every strategy's
-    connection on RES^2 x 1 lanes of sample 1, from the same streams."""
+    connection on RES^2 x 1 lanes of sample 1, from the same streams; and
+    the port's connections on JAX's subpaths ("shared"): JAX's vertex
+    records, wavelengths and sampler lanes where JAX's connect starts to
+    draw, as the port's tensors."""
     if name in _PATHS:
         return _PATHS[name]
     ja, jm, ts, tm = _scenes(name)
@@ -221,23 +235,38 @@ def _paths(name):
     t_cam, tr, tn_cam = tbdpt.camera_path(ts, tm, tp_film, tr, twl, tm.sampler, tm.spp)
     t_light, tr, tn_light = tbdpt.light_path(ts, tm, tr, twl, tm.sampler, tm.spp)
     table = tbdpt.strategies(len(t_cam), len(t_light), tm.max_depth)
+    s_cam, s_light = vertices_from_arrays(j_cam), vertices_from_arrays(j_light)
+    s_smp = sampler_from_arrays(jr)
+    s_wl = twl._replace(lam=torch.as_tensor(np.array(jwl.lam)),
+                        pdf=torch.as_tensor(np.array(jwl.pdf)))
+    smp_equal = all(torch.equal(a, b) for a, b in zip(tr[:5], s_smp[:5]))
     samples, tr = tbdpt.sample_endpoints(ts, t_light, t_cam, table, tr, twl, tm.sampler,
+                                          tm.spp)
+    s_samples, _ = tbdpt.sample_endpoints(ts, s_light, s_cam, table, s_smp, s_wl, tm.sampler,
                                           tm.spp)
     diverged = np.zeros(n_pix, bool)
     for jvs, tvs in ((j_cam, t_cam), (j_light, t_light)):
         for jv, tv in zip(jvs, tvs):
             diverged |= ~_vertex_agrees(jv, tv)
-    j_conn, t_conn = {}, {}
+    j_conn, t_conn, s_conn, attempts = {}, {}, {}, {}
     for s, t in table:
         L, raster, jr, n = jbdpt.connect(ja, j_light, j_cam, s, t, jwl, jr, jm.sampler, jm.spp)
         j_conn[(s, t)] = (np.asarray(L), None if raster is None else np.asarray(raster),
                           float(n))
         t_conn[(s, t)] = tbdpt.connect(ts, tm, t_light, t_cam, s, t, twl.lam,
                                        samples.get((s, t)))
+        s_conn[(s, t)] = tbdpt.connect(ts, tm, s_light, s_cam, s, t, s_wl.lam,
+                                       s_samples.get((s, t)))
+        if s > 0:
+            attempts[(s, t)] = tuple(
+                tbdpt._connection(ts, lv, cv, s, t, smp.get((s, t))).attempt
+                for lv, cv, smp in ((t_light, t_cam, samples), (s_light, s_cam, s_samples)))
     _PATHS[name] = dict(j_cam=j_cam, j_light=j_light, t_cam=t_cam, t_light=t_light,
+                        s_cam=s_cam, s_light=s_light, smp_equal=smp_equal,
                         counts=(float(jn_cam), float(jn_light), int(tn_cam), int(tn_light)),
                         table=table, samples=samples, lam=twl.lam, j_conn=j_conn,
-                        t_conn=t_conn, scenes=(ts, tm), diverged=diverged)
+                        t_conn=t_conn, s_conn=s_conn, attempts=attempts, scenes=(ts, tm),
+                        diverged=diverged)
     return _PATHS[name]
 
 
@@ -276,28 +305,71 @@ def test_subpaths_match_jax(name):
     assert len(p["t_cam"]) == 5 + 2 and len(p["t_light"]) == 5 + 1
 
 
+def _check_splats(traster, jraster, live, agree):
+    """t = 1: the splat raster on the live lanes, its pixel ids on those
+    that also agree."""
+    np.testing.assert_allclose(traster.numpy()[live], jraster[live], atol=1e-3)
+    assert (tbdpt.splat_pixels(traster, (RES, RES)).numpy()[live & agree]
+            == (np.clip(jraster[:, 1].astype(np.int32), 0, RES - 1) * RES
+                + np.clip(jraster[:, 0].astype(np.int32), 0, RES - 1))[live & agree]).all()
+
+
 @pytest.mark.parametrize("st", STRATEGIES, ids=[f"s{s}t{t}" for s, t in STRATEGIES])
 @pytest.mark.parametrize("name", ["cornell", "four lights"])
 def test_connect_matches_jax(name, st):
-    """One strategy: L per lane, the splat raster of t = 1, the ray count.
-    L within WALK_RTOL on LANE_FRAC of the lanes, and within STRATEGY_RTOL
-    on every live lane whose subpaths agree."""
+    """One strategy of the port's connect on JAX's own subpaths, wavelengths
+    and sampler lanes (the inputs bit for bit): the ray count exactly, L
+    within STRATEGY_RTOL on every live lane (either side nonzero), and the
+    splat raster and pixel ids of t = 1. The sampler streams are bit-exact,
+    so the port's walks end where JAX's do."""
     p = _paths(name)
     assert p["table"] == STRATEGIES
+    assert p["smp_equal"]
+    jL, jraster, jn = p["j_conn"][st]
+    sL, sraster, sn = p["s_conn"][st]
+    assert int(sn) == int(jn), (int(sn), jn)
+    live = (np.asarray(jL) != 0).any(1) | (sL.numpy() != 0).any(1)
+    wrong = live & ~_lanes_close(sL, jL, STRATEGY_RTOL)
+    assert not wrong.any(), (np.nonzero(wrong)[0], int(live.sum()))
+    if st[1] == 1:
+        live = (np.asarray(jL) != 0).any(1)
+        _check_splats(sraster, jraster, live, _lanes_close(sL, jL, WALK_RTOL))
+
+
+@pytest.mark.parametrize("st", STRATEGIES, ids=[f"s{s}t{t}" for s, t in STRATEGIES])
+@pytest.mark.parametrize("name", ["cornell", "four lights"])
+def test_connect_own_walks_match_jax(name, st):
+    """One strategy on each package's own subpaths: L within WALK_RTOL on
+    LANE_FRAC of the lanes, and within STRATEGY_RTOL on every live lane
+    whose subpaths agree; the splat raster of t = 1. The ray count may
+    differ from JAX's only by lanes whose `attempt` flips between the
+    port's own walks and JAX's, and each such lane has a vertex of the
+    strategy that differs from JAX's in some bit: the walks rounded apart
+    (XLA contracts multiply-adds, R7), not connect."""
+    p = _paths(name)
     jL, jraster, jn = p["j_conn"][st]
     tL, traster, tn = p["t_conn"][st]
-    assert int(tn) == int(jn), (int(tn), jn)
     ok = _lanes_close(tL, jL, WALK_RTOL)
     assert ok.mean() >= LANE_FRAC, float(ok.mean())
     live = (np.asarray(jL) != 0).any(1) | (tL.numpy() != 0).any(1)
     wrong = live & ~p["diverged"] & ~_lanes_close(tL, jL, STRATEGY_RTOL)
     assert not wrong.any(), (np.nonzero(wrong)[0], int(live.sum()))
-    if st[1] == 1:
-        live = (np.asarray(jL) != 0).any(1)
-        np.testing.assert_allclose(traster.numpy()[live], jraster[live], atol=1e-3)
-        assert (tbdpt.splat_pixels(traster, (RES, RES)).numpy()[live & ok]
-                == (np.clip(jraster[:, 1].astype(np.int32), 0, RES - 1) * RES
-                    + np.clip(jraster[:, 0].astype(np.int32), 0, RES - 1))[live & ok]).all()
+    s, t = st
+    if s == 0:
+        assert int(tn) == int(p["s_conn"][st][2]) == 0
+        return
+    own, shared = p["attempts"][st]
+    assert int(tn) == int(own.sum()) and int(p["s_conn"][st][2]) == int(shared.sum())
+    flipped = own != shared
+    net = int(own[flipped].sum()) - int(shared[flipped].sum())
+    assert int(tn) - int(p["s_conn"][st][2]) == net
+    differ = torch.zeros_like(flipped)
+    for tvs, svs, n in ((p["t_light"], p["s_light"], s), (p["t_cam"], p["s_cam"], t)):
+        for tv, sv in zip(tvs[:n], svs[:n]):
+            differ |= vertex_bits_differ(tv, sv)
+    assert not (flipped & ~differ).any(), np.nonzero((flipped & ~differ).numpy())[0]
+    if t == 1:
+        _check_splats(traster, jraster, (np.asarray(jL) != 0).any(1), ok)
 
 
 @pytest.mark.parametrize("name", ["cornell", "four lights"])

@@ -115,24 +115,62 @@ def test_instanced_render_on_card_matches_cpu(cuda):
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
 
 
-def test_film_kernel_matches_plain(cuda):
-    g = torch.Generator().manual_seed(3)
-    n = 20000
-    pix = torch.randint(0, 64, (n,), generator=g)
+def _film_lanes(n, seed, cuda, n_pix=64):
+    """n film lanes with NaN lanes, zero pdfs, zero radiance (also over a
+    NaN pdf), signed and zero weights, and wavelengths on the CIE table's
+    bin edges, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    pix = torch.randint(0, n_pix, (n,), generator=g)
     L = torch.rand((n, 4), generator=g) * 4.0
     lam = 360.0 + 470.0 * torch.rand((n, 4), generator=g)
     lam[:4] = torch.tensor([359.4, 360.5, 829.5, 830.6])
     pdf = 0.0005 + 0.005 * torch.rand((n, 4), generator=g)
     pdf[::29, 2] = 0.0
     L[::31, 1] = float("nan")
+    L[::23, 0] = 0.0
+    L[::43, 2] = -0.0
+    pdf[::86, 2] = float("nan")
     w = torch.rand(n, generator=g) * 2.0 - 0.4
-    args = [x.to(cuda) for x in (pix, L, lam, pdf, w)]
+    w[::3] = 0.0
+    return [x.to(cuda) for x in (pix, L, lam, pdf, w)]
+
+
+def test_film_kernel_matches_plain(cuda):
+    """K5's scatter entry (any pixel ids, atomics) against its plain version
+    within rtol 1e-5 (the order of the atomic adds), a third of the lanes
+    of weight 0 (skipped by the kernel); one launch counted."""
+    args = _film_lanes(20000, 3, cuda)
     fk, fp = filmlib.new_film((8, 8), cuda), filmlib.new_film((8, 8), cuda)
-    film_kernel.add_samples_triton(fk.rgb_sum, fk.weight_sum, *args)
+    n0 = film_kernel.launches["film_add_scatter"]
+    film_kernel.add_samples_cuda(fk.rgb_sum, fk.weight_sum, *args)
+    assert film_kernel.launches["film_add_scatter"] == n0 + 1
     film_kernel.add_samples_plain(fp.rgb_sum, fp.weight_sum, *args)
     scale = float(fp.rgb_sum.abs().max())
     assert torch.allclose(fk.rgb_sum, fp.rgb_sum, rtol=1e-5, atol=1e-6 * scale)
     assert torch.allclose(fk.weight_sum, fp.weight_sum, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,k", [(4097, 1), (300, 3), (5000, 16), (65536, 16), (256, 4096)])
+def test_film_tiled_kernel_bit_exact(cuda, n, k):
+    """K5's tiled entry (k replicates of a tile of n distinct pixel ids that
+    starts past 0, lane j n + p) against its plain version bit for bit, into
+    a film that already holds sums, and the same bits on a second run; one
+    launch counted."""
+    _, L, lam, pdf, w = _film_lanes(n * k, 7 + k, cuda)
+    pix = torch.arange(5, 5 + n, device=cuda)
+    base = torch.randn((n + 9, 4), generator=torch.Generator().manual_seed(k)).to(cuda)
+    out = []
+    for fn in (film_kernel.add_samples_tiled_cuda, film_kernel.add_samples_tiled_cuda,
+               film_kernel.add_samples_tiled_plain):
+        rgb, ws = base[:, :3].contiguous(), base[:, 3].contiguous()
+        n0 = film_kernel.launches["film_add_samples"]
+        fn(rgb, ws, pix, L, lam, pdf, w, k)
+        assert film_kernel.launches["film_add_samples"] == n0 + (fn is not
+                                                              film_kernel.add_samples_tiled_plain)
+        out.append((rgb, ws))
+    for rgb, ws in out[:2]:
+        assert torch.equal(rgb, out[2][0]) and torch.equal(ws, out[2][1])
+    assert not torch.equal(out[2][0], base[:, :3])
 
 
 def test_sampler_streams_bit_exact_on_card(cuda):
@@ -148,11 +186,16 @@ def test_sampler_streams_bit_exact_on_card(cuda):
 
 
 def test_render_on_card_matches_cpu(cuda):
+    """cornell-mesh on the card (K1, K5's tiled entry) against the CPU, and
+    bit-identical on a second render (no atomics in the film add)."""
     scene, meta = ts.cornell_mesh(res=24, spp=2, levels=3, device=cuda, filter_kind="box")
     counts0 = dict(bvh.launches)
+    f0 = film_kernel.launches["film_add_samples"]
     img_gpu = render(scene, meta).cpu().numpy()
+    assert np.array_equal(render(scene, meta).cpu().numpy(), img_gpu)
     img_cpu = render(scene, meta, device="cpu").numpy()
     assert all(bvh.launches[k] > counts0[k] for k in ("bvh_closest_hit", "bvh_any_hit"))
+    assert film_kernel.launches["film_add_samples"] == f0 + 2
     err = np.abs(img_gpu - img_cpu)
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
@@ -238,23 +281,31 @@ def test_dense_quadric_kernels_match_plain(cuda, kind, partial):
 
 
 @pytest.mark.parametrize("density,left", [(0.02, 10 ** 9), (0.5, 10 ** 9), (0.5, 777),
-                                          (1.0, 0), (0.3, -5)])
+                                          (0.5, 2), (1.0, 0), (0.3, -3)])
 def test_recycle_kernel_matches_cumsum(cuda, density, left):
-    """K8: rank, work, recycle, in_flight and the device counters equal the
-    plain torch.cumsum version bit for bit, including next_work near and
-    past the end of the work."""
-    R = 1 << 18
+    """K8 (one launch): rank, work, recycle, in_flight and the device
+    counters equal the plain torch.cumsum version bit for bit, on a pool
+    that is not a multiple of the tile (4096 lanes) and with next_work
+    within 3 of the end of the work or past it; then more calls back to
+    back on new masks and the advanced counters, every other one without
+    the rank, some with fewer tiles than the one before, and no reset of
+    the kernel's scratch in between."""
     g = torch.Generator().manual_seed(int(density * 100) + left % 1000)
-    in_flight = (torch.rand(R, generator=g) < 0.9).to(cuda)
-    finished = in_flight & (torch.rand(R, generator=g) < density).to(cuda)
     total = 5_000_000
-    start = torch.tensor([total - left, 123], dtype=torch.int64, device=cuda)
-    ck, cp = start.clone(), start.clone()
-    out_k = rd.recycle_cuda(finished, in_flight, ck, total)
-    out_p = rd.recycle_plain(finished, in_flight, cp, total)
-    for a, b in zip(out_k, out_p):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    assert torch.equal(ck, cp)
+    ck = torch.tensor([total - left, 123], dtype=torch.int64, device=cuda)
+    cp = ck.clone()
+    for call, R in enumerate((1 << 18) + np.array([1234, 1234, -200000, 1234, -250000, 99])):
+        R = int(R)
+        in_flight = (torch.rand(R, generator=g) < 0.9).to(cuda)
+        finished = in_flight & (torch.rand(R, generator=g) < density).to(cuda)
+        n0 = rd.launches["wavefront_recycle"]
+        out_k = rd.recycle_cuda(finished, in_flight, ck, total, with_rank=call % 2 == 0)
+        assert rd.launches["wavefront_recycle"] == n0 + 1
+        out_p = rd.recycle_plain(finished, in_flight, cp, total, with_rank=call % 2 == 0)
+        assert (out_k[0] is None) == (call % 2 == 1) == (out_p[0] is None)
+        for a, b in zip(out_k, out_p):
+            assert a is None or (a.dtype == b.dtype and torch.equal(a, b))
+        assert torch.equal(ck, cp)
 
 
 def test_dense_and_wavefront_renders_on_card(cuda):
@@ -271,6 +322,7 @@ def test_dense_and_wavefront_renders_on_card(cuda):
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     scene, meta = ts.terrain(res=24, spp=4, n=16, device=cuda)
     k0 = rd.launches["wavefront_recycle"]
+    f0 = dict(film_kernel.launches)
     old = rd.POOL_LANES
     rd.POOL_LANES = 512
     try:
@@ -282,6 +334,8 @@ def test_dense_and_wavefront_renders_on_card(cuda):
     img_b = rd.filmlib.develop(film_b, meta.resolution, meta.film_out_matrix,
                                meta.film_imaging_ratio).cpu().numpy()
     assert rd.launches["wavefront_recycle"] > k0
+    assert film_kernel.launches["film_add_scatter"] > f0["film_add_scatter"]
+    assert film_kernel.launches["film_add_samples"] == f0["film_add_samples"] + 1  # batched
     assert st_w == st_b
     err = np.abs(img_w.cpu().numpy() - img_b)
     assert float((err > 5e-3 + 0.05 * np.abs(img_b)).mean()) < 0.005

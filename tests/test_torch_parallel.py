@@ -108,13 +108,20 @@ def test_frame_matches_live_jax_scene_sharded_render(single):
 
 def test_wave_lanes_cover_a_pixel_range():
     """wave_lanes(n, spp, pix0) yields every (pixel, sample) of pixels pix0
-    .. pix0 + n - 1 once, also when the range is wider than a wave."""
+    .. pix0 + n - 1 once, also when the range is wider than a wave, each
+    wave laid out as the tiled film add reads it: k replicates of a tile of
+    distinct pixel ids, replicate j at one sample."""
     old = rd.LANES_PER_WAVE
     rd.LANES_PER_WAVE = 48
     try:
         for n, spp in ((20, 5), (100, 3)):
-            pairs = [(int(p), int(s)) for ids, sids in rd.wave_lanes(n, spp, "cpu", pix0=7)
-                     for p, s in zip(ids, sids)]
+            pairs = []
+            for ids, sids, k in rd.wave_lanes(n, spp, "cpu", pix0=7):
+                tile = ids[:ids.shape[0] // k]
+                assert ids.shape[0] == k * tile.shape[0] <= rd.LANES_PER_WAVE
+                assert torch.equal(ids, tile.repeat(k)) and tile.unique().shape == tile.shape
+                assert (sids.view(k, -1) == sids.view(k, -1)[:, :1]).all()
+                pairs += [(int(p), int(s)) for p, s in zip(ids, sids)]
             assert sorted(pairs) == [(p, s) for p in range(7, 7 + n) for s in range(spp)]
     finally:
         rd.LANES_PER_WAVE = old

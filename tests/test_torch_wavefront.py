@@ -49,6 +49,31 @@ def test_recycle_step_matches_jax_cumsum(density, left):
     assert int(counters[1]) == int(((in_flight & ~finished) | j_recycle).sum())
 
 
+@pytest.mark.parametrize("density,left", [(0.05, 10 ** 6), (0.6, 300), (1.0, 0), (0.4, -3)])
+def test_recycle_rank_is_optional(density, left):
+    """The recycle contract without the rank (the wavefront loop discards
+    it): rank None, and work, recycle, in_flight and both counters as with
+    it, through the dispatching `recycle` too; next_work may start past the
+    end (no lane recycled)."""
+    R, total = 5000, 10 ** 7
+    g = np.random.default_rng(int(density * 100) + abs(left) % 977)
+    in_flight = torch.as_tensor(g.uniform(size=R) < 0.9)
+    finished = in_flight & torch.as_tensor(g.uniform(size=R) < density)
+    c_with = torch.tensor([total - left, 0], dtype=torch.int64)
+    c_without, c_disp = c_with.clone(), c_with.clone()
+    with_rank = rd.recycle_plain(finished, in_flight, c_with, total)
+    without = rd.recycle_plain(finished, in_flight, c_without, total, with_rank=False)
+    disp = rd.recycle(finished, in_flight, c_disp, total, with_rank=False)
+    assert with_rank[0] is not None and without[0] is None and disp[0] is None
+    for a, b, c in zip(with_rank[1:], without[1:], disp[1:]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(c_with, c_without) and torch.equal(c_with, c_disp)
+    n_rec = int(with_rank[2].sum())
+    assert n_rec == max(0, min(int(finished.sum()), left))
+    assert int(c_with[0]) == total - left + n_rec
+    assert int(c_with[1]) == int((in_flight & ~finished).sum()) + n_rec
+
+
 def _render_both(scene, meta, pool, monkeypatch):
     """The frame through the wavefront loop and through one batched wave ->
     (films, ray counts) of both."""
@@ -59,7 +84,7 @@ def _render_both(scene, meta, pool, monkeypatch):
     assert dropped == 0
     film_b = rd.filmlib.new_film(meta.resolution, "cpu")
     st_b = rd.render_wave(scene, meta, film_b, torch.arange(n_pix).repeat(meta.spp),
-                          torch.arange(meta.spp).repeat_interleave(n_pix))
+                          torch.arange(meta.spp).repeat_interleave(n_pix), meta.spp)
     assert {k: int(v) for k, v in st_w.items()} == {k: int(v) for k, v in st_b.items()}
     np.testing.assert_allclose(float(film_w.weight_sum.sum()), float(film_b.weight_sum.sum()),
                                rtol=1e-5)

@@ -14,9 +14,10 @@ between the internal and the leaf rows, and one shared bottom tree per
 prototype in object space.
 
 Traversal (device): `closest_hit_tris` / `any_hit_tris` launch the CUDA
-kernel of csrc/bvh_traverse.cu on CUDA tensors (one thread per ray with a
-stack of (node, child-mask) entries, see that file; K1, or K1i on a
-two-level table). On CPU tensors they run the kernel's plain version, a
+kernels of csrc/bvh_traverse.cu on CUDA tensors: K1 (csrc/bvh_wide.cuh:
+persistent warps, whole-row 16-byte loads, one shared-memory stack entry per
+pending child), or K1i on a two-level table (csrc/bvh_stepper.cuh, one
+thread per ray). On CPU tensors they run the kernel's plain version, a
 chunked dense watertight sweep over the padded leaf soup (each chunk against
 the rays that meet its bounds; per instance over its prototype's rows with
 the rays in its object space), which computes the same (t, prim, inst)
@@ -31,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.utils.math import INFINITY, encode_morton3
+from pbrt_tpu_torch.utils.math import INFINITY, encode_morton3, gamma
 from pbrt_tpu_torch.geometry import intersect as ix
 
 LEAF_K = 8          # triangles per leaf row
@@ -553,16 +554,27 @@ def reorder_pad(build: BvhBuild, a, fill):
 
 # --------------------------------------------------------------- traversal
 
-# launches of the CUDA traversal kernel (plain ints, added to where it launches)
+# launches of the CUDA traversal kernels (plain ints, added to where they
+# launch); the *_stepper names count the yardstick entry, which no render
+# path calls
 launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0, "bvh_closest_hit_inst": 0,
-            "bvh_any_hit_inst": 0}
+            "bvh_any_hit_inst": 0, "bvh_closest_hit_stepper": 0, "bvh_any_hit_stepper": 0}
 _OVERFLOW = {}
+
+
+def _indexed(device):
+    """`device` with its index (torch.device("cuda") is the current card),
+    so that every spelling of one card finds its counters."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def overflow_counter(device):
     """int32 device tensor: lanes that ran past the kernel's iteration
     bound or stack since the process started (0 for a correct tree)."""
-    device = torch.device(device)
+    device = _indexed(device)
     if device not in _OVERFLOW:
         _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
     return _OVERFLOW[device]
@@ -621,6 +633,123 @@ def traverse_plain(rows, n_int, o, d, t_max, any_hit=False):
         t_best[lanes] = torch.where(better, tb, t_best[lanes])
         prim[lanes] = torch.where(better, s + best, prim[lanes])
     return t_best, prim
+
+
+# the slab test's widening of a box's far distance (csrc/bvh_stepper.cuh
+# SLAB_WIDEN): 1 + 2 gamma(3), rounded to float32
+_SLAB_WIDEN = float(np.float32(1.0 + 2.0 * gamma(3)))
+
+
+def safe_inv(d):
+    """1 / d with |d| clamped to 1e-30, as the traversal kernels form it
+    (csrc/bvh_stepper.cuh `safe_inv`): an axis the ray runs along gives
+    +-1e30, not inf."""
+    return torch.where(d < 0, -1.0, 1.0) / d.abs().clamp(min=1e-30)
+
+
+def watertight_stages(o, d, t_max, p0, p1, p2):
+    """How far the watertight test (csrc/watertight.cuh) of rays against
+    triangles goes, with the plain arithmetic of geometry/intersect.py:
+    o, d (..., 3), t_max (...) and the vertices (..., 3) broadcast against
+    each other. -> (past the edge-sign test, past the det and t-range
+    tests), boolean masks of the broadcast shape."""
+    kz, sx, sy, sz = ix.ray_shear(d)
+    a, b, c = (ix.permute_by_kz(p - o, kz) for p in (p0, p1, p2))
+    ax, ay = a[0] + sx * a[2], a[1] + sy * a[2]
+    bx, by = b[0] + sx * b[2], b[1] + sy * b[2]
+    cx, cy = c[0] + sx * c[2], c[1] + sy * c[2]
+    e0, e1, e2 = cx * by - cy * bx, ax * cy - ay * cx, bx * ay - by * ax
+    edge = ~(((e0 < 0) | (e1 < 0) | (e2 < 0)) & ((e0 > 0) | (e1 > 0) | (e2 > 0)))
+    det = e0 + e1 + e2
+    ts = e0 * (sz * a[2]) + e1 * (sz * b[2]) + e2 * (sz * c[2])
+    tm = t_max * det
+    in_range = torch.where(det < 0, (ts < 0) & (ts > tm), (ts > 0) & (ts < tm))
+    return edge, edge & (det != 0) & in_range
+
+
+def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
+                   chunk=1 << 15):
+    """The work of an oracle traversal of the table (rows, n_int) that knows
+    each ray's answer. Closest hit (occluded None): t_lim (R,) is the
+    nearest hit's t (traverse_plain's t, which is t_max on a miss); from the
+    root the oracle reads each internal row whose box the segment [0, t_lim]
+    meets (the kernels' slab test, with tn <= t_lim), once, and tests the 8
+    triangles of each leaf row so reached, the range test taken at the float
+    after t_lim so that the winner passes it. Any hit: t_lim is t_max, the
+    range test taken at it (a hit must lie below t_max), and occluded (R,)
+    bool marks the rays something blocks within it (traverse_plain's
+    any-hit answer). A blocked ray reads only the internal
+    rows on the root path of one leaf that holds a hit within t_max, and
+    tests that leaf's triangles in slot order up to its first such hit: of
+    all those leaves, the one of least work, weighed by `cost` (per internal
+    row read, triangle test, test past the edge-sign exit, past the range
+    exit; ties to the lower row). Any other ray reads what a closest-hit ray
+    with that t_lim reads. Rays with t_lim <= 0 do nothing. -> (internal
+    rows read, triangles tested, of those past the edge-sign test, past the
+    t-range test), the sums the kernels' `stats` report, for the same work
+    whatever implements it. Measurement code (chip_smoke.py's bound of K1
+    and K1a): rays `chunk` at a time, breadth first."""
+    inv = safe_inv(d)
+    if occluded is None:
+        blocked = torch.zeros_like(t_lim, dtype=torch.bool)
+        t_hi = torch.nextafter(t_lim, torch.full_like(t_lim, float("inf")))
+    else:
+        blocked, t_hi = occluded, t_lim
+    live = (t_lim > 0).nonzero()[:, 0]
+    w = torch.tensor(cost, dtype=torch.int64, device=o.device)
+    sums = torch.zeros(4, dtype=torch.int64, device=o.device)
+    for s in range(0, live.numel(), chunk):
+        lane = live[s: s + chunk]
+        node = torch.zeros_like(lane)
+        leaf_lane, leaf_row, leaf_path = [], [], []
+        if n_int == 0:                      # one leaf row, the root
+            leaf_lane.append(lane)
+            leaf_row.append(node)
+            leaf_path.append(torch.zeros_like(lane))
+            lane = lane[:0]
+        level = 0
+        while lane.numel():
+            level += 1
+            sums[0] += (~blocked[lane]).sum()
+            row = rows[node]
+            box = row[:, : 6 * WIDTH].reshape(-1, WIDTH, 6)
+            child = row[:, 6 * WIDTH: 7 * WIDTH].long()
+            oo, ii = o[lane][:, None], inv[lane][:, None]
+            t0, t1 = (box[..., :3] - oo) * ii, (box[..., 3:] - oo) * ii
+            # fmin/fmax skip NaN as the kernels' fminf/fmaxf do
+            tn = torch.fmin(t0, t1).amax(dim=-1).clamp(min=0.0)
+            tf = torch.fmax(t0, t1).amin(dim=-1) * _SLAB_WIDEN
+            meets = ((child >= 0) & (box[..., 0] <= box[..., 3]) & (tn <= tf) & (tf > 0)
+                     & (tn <= t_lim[lane][:, None]))
+            lanes = lane[:, None].expand_as(child)
+            inner = meets & (child < n_int)
+            leaf_lane.append(lanes[meets & ~inner])
+            leaf_row.append(child[meets & ~inner])
+            leaf_path.append(torch.full_like(leaf_row[-1], level))
+            lane, node = lanes[inner], child[inner]
+        lane, row, path = torch.cat(leaf_lane), torch.cat(leaf_row), torch.cat(leaf_path)
+        tri = rows[row, : LEAF_K * 9].reshape(-1, LEAF_K, 3, 3)
+        edge, rng = watertight_stages(o[lane][:, None], d[lane][:, None], t_hi[lane][:, None],
+                                      tri[:, :, 0], tri[:, :, 1], tri[:, :, 2])
+        free = ~blocked[lane]
+        sums[1:] += torch.stack([free.sum() * LEAF_K, edge[free].sum(), rng[free].sum()])
+        # a blocked ray's leaves that hold a hit: the slots up to the first
+        hold = ~free & rng.any(dim=1)
+        first = rng[hold].int().argmax(dim=1)
+        upto = torch.arange(LEAF_K, device=o.device)[None] <= first[:, None]
+        work = torch.stack([path[hold], upto.sum(1), (edge[hold] & upto).sum(1),
+                            (rng[hold] & upto).sum(1)], dim=1)
+        key = (work * w).sum(1) * rows.shape[0] + row[hold]
+        lane_h, none = lane[hold], torch.iinfo(torch.int64).max
+        least = torch.full((o.shape[0],), none, dtype=torch.int64,
+                           device=o.device).scatter_reduce(0, lane_h, key, "amin")
+        sums += work[key == least[lane_h]].sum(0)
+        ray = live[s: s + chunk]
+        short = blocked[ray] & (least[ray] == none)
+        if bool(short.any()):
+            raise ValueError(f"traversal_work: {int(short.sum())} occluded rays reach no leaf "
+                             "that holds a hit within t_max")
+    return tuple(int(x) for x in sums)
 
 
 def object_rays(w2o, o, d):
@@ -697,13 +826,17 @@ def _kernel_lib():
 
     lib = kernels.load("bvh_traverse")
     if not hasattr(lib, "declared"):
-        lib.pbrt_bvh_max_stack.argtypes = []
-        lib.pbrt_bvh_max_stack.restype = ctypes.c_int
-        lib.pbrt_bvh_traverse.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        for fn in ("pbrt_bvh_max_stack", "pbrt_bvh_wide_max_stack"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.pbrt_bvh_wide_stack.argtypes = [ctypes.c_int]
+        lib.pbrt_bvh_wide_stack.restype = ctypes.c_int
+        single = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int])
+        lib.pbrt_bvh_traverse.argtypes = single + [ctypes.c_void_p] * 3
         lib.pbrt_bvh_traverse.restype = ctypes.c_int
+        lib.pbrt_bvh_traverse_stepper.argtypes = single + [ctypes.c_void_p] * 2
+        lib.pbrt_bvh_traverse_stepper.restype = ctypes.c_int
         lib.pbrt_bvh_traverse_inst.argtypes = (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
             + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -713,9 +846,11 @@ def _kernel_lib():
     return lib
 
 
-def _check_launch(rows, n_int, leaf0, o, d, t_max, stats, n_stats, depth):
+def _check_launch(rows, n_int, leaf0, o, d, t_max, stats, n_stats, depth, wide=False):
     """Validate a traversal launch's arguments (leaf0: the first leaf row)
-    -> (the library, stack size)."""
+    -> (the library, stack entries a thread). The stepper loop (K1i, the
+    yardstick) needs depth + 2 entries; the wide kernel (K1) one per pending
+    child, pbrt_bvh_wide_stack(depth), and a 16-byte aligned table."""
     R = o.shape[0]
     dev = o.device
     for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,)),
@@ -733,36 +868,64 @@ def _check_launch(rows, n_int, leaf0, o, d, t_max, stats, n_stats, depth):
         raise ValueError(f"bvh traversal: stats must be an int64 ({n_stats},) tensor on the "
                          "device")
     lib = _kernel_lib()
-    stack = depth + 2
-    if stack > lib.pbrt_bvh_max_stack():
+    if wide:
+        if rows.data_ptr() % 16:
+            raise ValueError("bvh traversal: rows must start on a 16-byte boundary")
+        stack, cap = lib.pbrt_bvh_wide_stack(depth), lib.pbrt_bvh_wide_max_stack()
+    else:
+        stack, cap = depth + 2, lib.pbrt_bvh_max_stack()
+    if stack > cap:
         raise ValueError(f"BVH depth {depth} needs a stack of {stack} entries; the "
-                         f"kernel is compiled for {lib.pbrt_bvh_max_stack()}")
+                         f"kernel is compiled for {cap}")
     return lib, stack
 
 
-def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
-    """Launch csrc/bvh_traverse.cu on the current stream and count the
-    launch. Same contract as traverse_plain; prim is -1 on a miss. `stats`,
-    an optional int64 (4,) device tensor, accumulates the internal rows
-    visited, the leaf triangles tested, and of those the ones past the
-    watertight test's edge-sign and t-range exits (csrc/watertight.cuh)."""
+def _traverse_single(rows, n_int, depth, o, d, t_max, any_hit, stats, stepper):
+    """Launch K1 (stepper=False) or the yardstick on the current stream and
+    count the launch under its name."""
     from pbrt_tpu_torch import kernels
 
-    lib, stack = _check_launch(rows, n_int, n_int, o, d, t_max, stats, 4, depth)
+    lib, stack = _check_launch(rows, n_int, n_int, o, d, t_max, stats, 4, depth,
+                               wide=not stepper)
     R, dev = o.shape[0], o.device
     t = torch.empty(R, dtype=torch.float32, device=dev)
     prim = torch.empty(R, dtype=torch.int32, device=dev)
     if R == 0:
         return t, prim.long()
-    err = lib.pbrt_bvh_traverse(
-        rows.data_ptr(), rows.shape[0], n_int, o.data_ptr(), d.data_ptr(),
-        t_max.data_ptr(), R, t.data_ptr(), prim.data_ptr(),
-        overflow_counter(dev).data_ptr(), int(any_hit), stack,
-        None if stats is None else stats.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(err, "bvh_traverse")
-    launches["bvh_any_hit" if any_hit else "bvh_closest_hit"] += 1
+    args = [rows.data_ptr(), rows.shape[0], n_int, o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), R, t.data_ptr(), prim.data_ptr(),
+            overflow_counter(dev).data_ptr(), int(any_hit), stack,
+            None if stats is None else stats.data_ptr()]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if stepper:
+        err = lib.pbrt_bvh_traverse_stepper(*args, stream)
+    else:
+        # the launch's own ray ticket, zeroed on the stream (a memset node
+        # under graph capture, so every replay starts at ray 0)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = lib.pbrt_bvh_traverse(*args, ticket.data_ptr(), stream)
+    kernels.check(err, "bvh_traverse_stepper" if stepper else "bvh_traverse")
+    name = "bvh_any_hit" if any_hit else "bvh_closest_hit"
+    launches[name + "_stepper" if stepper else name] += 1
     return t, prim.long()
+
+
+def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
+    """Launch K1 (csrc/bvh_traverse.cu `pbrt_bvh_traverse`, the kernel of
+    csrc/bvh_wide.cuh) on the current stream and count the launch. Same
+    contract as traverse_plain; prim is -1 on a miss. `stats`, an optional
+    int64 (4,) device tensor, accumulates the internal rows read, the leaf
+    triangles tested, and of those the ones past the watertight test's
+    edge-sign and t-range exits (csrc/watertight.cuh)."""
+    return _traverse_single(rows, n_int, depth, o, d, t_max, any_hit, stats, stepper=False)
+
+
+def traverse_stepper_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
+    """The yardstick: K1 as it ran before its redesign, the stepper loop of
+    csrc/bvh_stepper.cuh one thread per ray (`pbrt_bvh_traverse_stepper`).
+    traverse_cuda's contract and stats; counted under its own launch names.
+    No render path calls it; chip_smoke.py times K1 against it."""
+    return _traverse_single(rows, n_int, depth, o, d, t_max, any_hit, stats, stepper=True)
 
 
 def traverse_inst_cuda(rows, n_int, n_inst, depth, iter_bound, o, d, t_max, any_hit=False,

@@ -4,7 +4,7 @@
         [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass
                  |caustic-glass-mlt|cornell-mesh-mltpath|cornell-instanced
                  |cornell-instanced-flat]
-        [--shard-scene N] [--out build/pbrt_tpu_torch/profile_render.json]
+        [--shard-scene N] [--traversal] [--out build/pbrt_tpu_torch/profile_render.json]
 
 Renders the scene through the normal `render()` entry: cornell-mesh levels
 5, the plain cornell box and terrain (130,050 triangles) at 256^2, 16 spp,
@@ -43,6 +43,17 @@ annotations span the whole step on the device timeline and are left out)
 over PROFILED_PASSES times the median wall time of the unprofiled passes
 is the busy share.
 
+With --traversal (a single-level BVH scene) the profiled render is
+replaced: one more frame is rendered with the arguments of every K1 and
+K1a launch (bvh.traverse_cuda) kept, and each launch is then replayed in
+turns with the yardstick, K1's loop before its redesign
+(bvh.traverse_stepper_cuda): yardstick, K1, K1, yardstick, each timed as
+graph_ms times (TURN_CALLS calls in a CUDA graph, so the host's launch time
+is left out). Prints, per kind, the launches, their summed device time
+under each kernel and the speed-up, and the launches whose hit masks
+differ between the two (0 expected); the frame's whole K1 and K1a device
+time, where a profiled staircase frame does not finish in minutes.
+
 With --shard-scene N (path family) the scene's triangles are split into N
 morton parts once (render.shard_scene, its host seconds printed), all on
 this card, and every frame is the scene-sharded render of the batched loop
@@ -63,8 +74,9 @@ SCENE_FILES = {"staircase": "staircase.pbrt", "testball": "material-testball.pbr
                "caustic-glass": "caustic-glass.pbrt"}
 POOLS = (1 << 17, 1 << 18, 1 << 19)
 PROFILED_PASSES = 8
+TURN_CALLS = 4
 # hand-written kernels by a substring of their device symbol
-KERNELS = {"bvh": "traverse_kernel", "bvh_inst": "traverse_inst_kernel", "dense": "dense_",
+KERNELS = {"bvh": "wide_kernel", "bvh_inst": "traverse_inst_kernel", "dense": "dense_",
            "recycle": "recycle_", "film": "film_add_tiled_kernel",
            "film_scatter": "film_add_scatter_kernel", "layered": "layered_", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
@@ -172,6 +184,79 @@ def _profile_mlt(scene, meta, label, card, out_path):
     return 0
 
 
+def _graph_ms(fn, calls=TURN_CALLS):
+    """Device ms of one fn() call: `calls` calls captured in one CUDA graph,
+    replayed twice between CUDA events (the second timed)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def _traversal_turns(render, card, label, out_path):
+    """Every K1/K1a launch of one frame replayed in turns with the
+    yardstick (see the module docstring)."""
+    from pbrt_tpu_torch.accel import bvh
+
+    kept, orig = [], bvh.traverse_cuda
+
+    def keep(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
+        kept.append((rows, n_int, depth, o.clone(), d.clone(), t_max.clone(), any_hit))
+        return orig(rows, n_int, depth, o, d, t_max, any_hit, stats)
+
+    bvh.traverse_cuda = keep
+    try:
+        render()
+    finally:
+        bvh.traverse_cuda = orig
+    torch.cuda.synchronize()
+    if not kept:
+        raise SystemExit("--traversal: the frame launched no K1 or K1a (a single-level BVH "
+                         "scene is needed)")
+    sums = {kind: dict(launches=0, k1_ms=0.0, yardstick_ms=0.0, masks_differ=0)
+            for kind in ("bvh_closest_hit", "bvh_any_hit")}
+    per_launch = []
+    for rows, n_int, depth, o, d, t_max, any_hit in kept:
+        args = (rows, n_int, depth, o, d, t_max, any_hit)
+        turns = [_graph_ms(lambda f=f: f(*args))
+                 for f in (bvh.traverse_stepper_cuda, bvh.traverse_cuda, bvh.traverse_cuda,
+                           bvh.traverse_stepper_cuda)]
+        p_k, p_y = bvh.traverse_cuda(*args)[1], bvh.traverse_stepper_cuda(*args)[1]
+        kind = "bvh_any_hit" if any_hit else "bvh_closest_hit"
+        s = sums[kind]
+        s["launches"] += 1
+        s["k1_ms"] += (turns[1] + turns[2]) / 2
+        s["yardstick_ms"] += (turns[0] + turns[3]) / 2
+        s["masks_differ"] += int(not torch.equal(p_k >= 0, p_y >= 0))
+        per_launch.append(dict(kind=kind, lanes=o.shape[0], live=int((t_max > 0).sum()),
+                               turns_ms=turns))
+    kept.clear()
+    for kind, s in sums.items():
+        if not s["launches"]:
+            continue
+        s["speed_up"] = s["yardstick_ms"] / s["k1_ms"]
+        print(f"{kind}: {s['launches']} launches of the frame, K1 {s['k1_ms']:.3f} ms, "
+              f"yardstick {s['yardstick_ms']:.3f} ms in turns (device, graph replays), "
+              f"speed-up {s['speed_up']:.3f}x; hit masks differ on {s['masks_differ']}",
+              flush=True)
+    out = dict(card=card, scene=label, traversal=sums, launches=per_launch)
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(out, indent=1))
+    return 0
+
+
 def _scene(name):
     from pbrt_tpu_torch.scene import testscenes as ts
 
@@ -214,6 +299,9 @@ def main(argv=None):
                     default="cornell-mesh")
     ap.add_argument("--shard-scene", type=int, default=0, metavar="N",
                     help="split the triangles into N parts (path family)")
+    ap.add_argument("--traversal", action="store_true",
+                    help="time every K1/K1a launch of a frame against the yardstick "
+                         "instead of the profiled render")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 
@@ -291,6 +379,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"peak device memory of one {default} frame: {peak_gib:.2f} GiB", flush=True)
+    if args.traversal:
+        return _traversal_turns(lambda: render(default), card, label, args.out)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

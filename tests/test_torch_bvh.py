@@ -167,3 +167,151 @@ def test_watertight_lanes_match_jax():
     assert 0 < h.sum() < n
     np.testing.assert_allclose(tt.numpy()[h], np.asarray(tj)[h], rtol=1e-6)
     np.testing.assert_allclose(bt.numpy()[h], np.asarray(bj)[h], rtol=1e-5, atol=1e-6)
+
+
+def _walk_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1)):
+    """A brute-force per-ray walk for traversal_work, in numpy float32 scalar
+    arithmetic: from the root, every internal row whose box the segment
+    [0, t_lim] meets (the kernels' slab test), and the watertight exit stage
+    of each triangle of each leaf reached, at the float after t_lim (any
+    hit, `occluded` given: at t_lim). An occluded ray instead takes, of the
+    leaves reached that hold a hit within t_lim, the one whose root path and
+    slots up to its first hit weigh least by `cost` (ties to the lower
+    row)."""
+    f32 = np.float32
+    widen = f32(1.0 + 2.0 * ((3 * 2.0 ** -24) / (1 - 3 * 2.0 ** -24)))
+    counts = [0, 0, 0, 0]
+    any_hit = occluded is not None
+    occluded = np.zeros(len(o), bool) if occluded is None else occluded
+    for oi, di, tl, blocked in zip(o, d, t_lim, occluded):
+        if not tl > 0:
+            continue
+        inv = [f32(-1.0 if x < 0 else 1.0) / f32(max(abs(x), f32(1e-30))) for x in di]
+        kz = int(np.argmax(np.abs(di)))
+        perm = [(kz + 1) % 3, (kz + 2) % 3, kz]
+        dz = di[perm[2]]
+        dz = f32(-max(abs(dz), f32(1e-12)) if dz < 0 else max(abs(dz), f32(1e-12)))
+        sx, sy, sz = -di[perm[0]] / dz, -di[perm[1]] / dz, f32(1.0) / dz
+        t_hi = tl if any_hit else np.nextafter(tl, f32(np.inf))
+
+        def stages(r):
+            """[(past the edge-sign test, past the range test)] of the 8 slots"""
+            out = []
+            for k in range(8):
+                v = [[rows[r, 9 * k + 3 * j + i] - oi[i] for i in range(3)] for j in range(3)]
+                a, b, c = ([p[perm[0]], p[perm[1]], p[perm[2]]] for p in v)
+                ax, ay = a[0] + sx * a[2], a[1] + sy * a[2]
+                bx, by = b[0] + sx * b[2], b[1] + sy * b[2]
+                cx, cy = c[0] + sx * c[2], c[1] + sy * c[2]
+                e = (cx * by - cy * bx, ax * cy - ay * cx, bx * ay - by * ax)
+                if min(e) < 0 and max(e) > 0:
+                    out.append((False, False))
+                    continue
+                det = e[0] + e[1] + e[2]
+                ts = e[0] * (sz * a[2]) + e[1] * (sz * b[2]) + e[2] * (sz * c[2])
+                tm = t_hi * det
+                out.append((True, bool(det != 0 and ((ts < 0 and ts > tm) if det < 0
+                                                      else (ts > 0 and ts < tm)))))
+            return out
+
+        reached = []                # (leaf row, internal rows on its root path)
+        n_read = [0]
+
+        def visit(r, path):
+            if r >= n_int:
+                return reached.append((r, path))
+            n_read[0] += 1
+            path += 1
+            for s in range(8):
+                child = int(rows[r, 48 + s])
+                b = rows[r, 6 * s: 6 * s + 6]
+                t0 = [(b[i] - oi[i]) * inv[i] for i in range(3)]
+                t1 = [(b[3 + i] - oi[i]) * inv[i] for i in range(3)]
+                tn = max(max(min(t0[i], t1[i]) for i in range(3)), f32(0.0))
+                tf = min(max(t0[i], t1[i]) for i in range(3)) * widen
+                if child >= 0 and b[0] <= b[3] and tn <= tf and tf > 0 and tn <= tl:
+                    visit(child, path)
+        visit(0, 0)
+        if not blocked:
+            counts[0] += n_read[0]
+            for r, _ in reached:
+                st = stages(r)
+                counts[1] += 8
+                counts[2] += sum(e for e, _ in st)
+                counts[3] += sum(g for _, g in st)
+            continue
+        best = None
+        for r, path in reached:
+            st = stages(r)
+            if not any(g for _, g in st):
+                continue
+            k = [g for _, g in st].index(True)
+            work = (path, k + 1, sum(e for e, _ in st[: k + 1]), 1)
+            key = (sum(c * x for c, x in zip(cost, work)), r)
+            if best is None or key < best[0]:
+                best = (key, work)
+        assert best is not None
+        counts = [c + x for c, x in zip(counts, best[1])]
+    return tuple(counts)
+
+
+def _soup68():
+    g = np.random.default_rng(68)
+    base = g.uniform(-10, 10, (68, 3)).astype(np.float32)
+    p = (base, base + g.normal(0, 0.7, (68, 3)).astype(np.float32),
+         base + g.normal(0, 0.7, (68, 3)).astype(np.float32))
+    b = tbvh.build_bvh(*p)
+    return b.rows, b.n_int, (p[0] + p[1] + p[2]) / 3
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("scene", ["cornell-mesh-2", "cornell-mesh-3", "soup68"])
+def test_traversal_work_matches_walk(scene, any_hit):
+    """traversal_work (the oracle count behind chip_smoke.py's K1 and K1a
+    bounds) against a brute-force per-ray walk, with masked lanes and rays
+    along an axis. Closest hit: limits from traverse_plain, some cut
+    shorter. Any hit: t_max infinite or cut short, the rays traverse_plain
+    finds blocked taking their cheapest hitting leaf under chip_smoke.py's
+    op weights, which is less work than reading every row to t_max. The
+    four sums equal."""
+    g = np.random.default_rng(11)
+    if scene == "soup68":
+        rows, n_int, cent = _soup68()
+        o = g.uniform(-15, 15, (96, 3)).astype(np.float32)
+        d = cent[g.integers(0, 68, 96)] + g.normal(0, 0.05, (96, 3)).astype(np.float32) - o
+    else:
+        sc, mt = scene_from_arrays(*compile_arrays(
+            tts.cornell_mesh_builder(levels=int(scene[-1]), res=16), 1), "cpu")
+        rows, n_int = sc.bvh_rows.numpy(), mt.bvh_nint
+        pts = np.concatenate([sc.tri_p0.numpy(), sc.tri_p1.numpy()])
+        lo, hi = pts.min(0), pts.max(0)
+        o = (lo + (hi - lo) * (0.05 + 0.9 * g.random((96, 3)))).astype(np.float32)
+        d = g.normal(size=(96, 3)).astype(np.float32)
+    d[:8, 1:] = 0.0
+    d[8:16, :2] = 0.0
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    t_max = np.full(96, INFINITY, np.float32)
+    t_max[::9] = 0.0
+    rt, ot, dt = (torch.from_numpy(x) for x in (rows, o, d))
+    t_cl, prim = tbvh.traverse_plain(rt, n_int, ot, dt, torch.from_numpy(t_max))
+    assert (prim.numpy() >= 0).sum() > 20
+    t_lim = t_cl.numpy().copy()
+    cut = g.random(t_lim[1::3].shape[0]).astype(np.float32)
+    occluded, cost = None, (1, 1, 1, 1)
+    if any_hit:     # t_max: infinite, or cut short of (or past) the closest hit
+        t_lim, hit = t_max.copy(), np.flatnonzero(t_cl.numpy() < INFINITY)
+        t_lim[hit[1::3]] = t_cl.numpy()[hit[1::3]] * 2 * cut[: hit[1::3].shape[0]]
+        occluded = (tbvh.traverse_plain(rt, n_int, ot, dt, torch.from_numpy(t_lim),
+                                        any_hit=True)[1] >= 0).numpy()
+        assert 20 < occluded.sum() < (t_lim > 0).sum()
+        cost = (176, 30, 11, 33)     # chip_smoke.py: SLAB_VISIT_OPS, TRI_*_OPS
+    else:           # shorter limits, as another ray's answer
+        t_lim[1::3] *= cut
+    got = tbvh.traversal_work(rt, n_int, ot, dt, torch.from_numpy(t_lim),
+                              None if occluded is None else torch.from_numpy(occluded), cost,
+                              chunk=40)
+    want = _walk_work(rows, n_int, o, d, t_lim, occluded, cost)
+    assert got == want and got[0] >= (t_lim > 0).sum() and got[3] > 0
+    if any_hit:
+        full = tbvh.traversal_work(rt, n_int, ot, dt, torch.from_numpy(t_lim), chunk=40)
+        assert got[0] < full[0] and got[1] < full[1]

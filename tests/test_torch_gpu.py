@@ -40,28 +40,142 @@ def _rays(scene, n, seed):
     return o, d, t_max
 
 
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_bvh_kernel_matches_plain(cuda, any_hit):
-    scene, meta = ts.cornell_mesh(res=32, spp=1, levels=4, device=cuda)
-    o, d, t_max = (x.to(cuda) for x in _rays(scene, 8192, 5))
-    if any_hit:
-        t_max = torch.where(t_max > 0, torch.rand(8192, device=cuda) * 400.0, 0.0)
-    ov0 = int(bvh.overflow_counter(cuda).item())
-    tk, pk = bvh.traverse_cuda(scene.bvh_rows, meta.bvh_nint, meta.bvh_depth, o, d, t_max,
-                               any_hit)
-    tp, pp = bvh.traverse_plain(scene.bvh_rows, meta.bvh_nint, o, d, t_max, any_hit)
+def _check_k1(rows, n_int, depth, o, d, t_max, any_hit):
+    """K1 (csrc/bvh_wide.cuh) against its plain version: hit masks equal,
+    a differing closest-hit winner a verified tie (both triangles hit at t
+    within 1e-6), t equal on the same winner; the overflow counter
+    unchanged. -> (K1's t, prim)."""
+    ov0 = int(bvh.overflow_counter(o.device).item())
+    tk, pk = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit)
+    tp, pp = bvh.traverse_plain(rows, n_int, o, d, t_max, any_hit)
     assert torch.equal(pk >= 0, pp >= 0)
-    assert int(bvh.overflow_counter(cuda).item()) == ov0
+    assert torch.equal(tk[pp < 0], t_max[pp < 0])
+    assert int(bvh.overflow_counter(o.device).item()) == ov0
     if not any_hit:
+        soup = rows[n_int:, : bvh.LEAF_K * 9].reshape(-1, 9)
         differ = (pk != pp) & (pp >= 0)
+        ts = []
         for p in (pk, pp):          # differing winners must be verified ties
-            pc = p[differ]
-            t, _, h = ix.intersect_tri_lanes(o[differ], d[differ], t_max[differ],
-                                             scene.tri_p0[pc], scene.tri_p1[pc],
-                                             scene.tri_p2[pc])
+            pc = soup[p[differ]]
+            t, _, h = ix.intersect_tri_lanes(o[differ], d[differ], t_max[differ], pc[:, :3],
+                                             pc[:, 3:6], pc[:, 6:])
             assert bool(h.all())
+            ts.append(t)
+        assert torch.allclose(ts[0], ts[1], rtol=1e-6, atol=0.0)
         same = (pk == pp) & (pp >= 0)
-        assert torch.allclose(tk[same], tp[same], rtol=1e-6)
+        assert torch.equal(tk[same], tp[same])
+    return tk, pk
+
+
+def _k1_case(case, cuda):
+    """(rows, n_int, depth, o, d, t_max) of a K1 test case on the card."""
+    if case == "deep":
+        # 20,000 coincident triangles: no centroid extent, so median splits
+        # all the way down (wide depth 10), and every ray that hits one hits
+        # all of them at one t
+        T = 20000
+        p0 = np.zeros((T, 3), np.float32)
+        p1 = np.tile(np.float32([1, 0, 0]), (T, 1))
+        p2 = np.tile(np.float32([0, 1, 0]), (T, 1))
+        b = bvh.build_bvh(p0, p1, p2)
+        assert b.max_depth >= 10
+        g = np.random.default_rng(4)
+        o = np.concatenate([g.uniform(0, 0.5, (4096, 2)), g.uniform(0.5, 2, (4096, 1))], 1)
+        d = g.normal(0, 0.2, (4096, 3)) - np.float32([0, 0, 1])
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        rows, n_int, depth = torch.from_numpy(b.rows).to(cuda), b.n_int, b.max_depth
+        o, d = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (o, d))
+        return rows, n_int, depth, o, d, torch.full((4096,), INFINITY, device=cuda)
+    scene, meta = ts.cornell_mesh(res=32, spp=1, levels=4, device=cuda)
+    rows, n_int, depth = scene.bvh_rows, meta.bvh_nint, meta.bvh_depth
+    n = {"R1": 1, "R33": 33, "R1000": 1000, "large": (1 << 20) + 17}.get(case, 8192)
+    if case == "legacy":            # the draw the test made before its cases
+        o, d, t_max = (x.to(cuda) for x in _rays(scene, n, 5))
+    else:                           # lane 0 (masked by _rays) dropped: R = 1 is live
+        o, d, t_max = (x[1:].to(cuda) for x in _rays(scene, n + 1, 5))
+    if case == "mixed":             # t_max = 0 on a third of the lanes of every warp
+        t_max[::3] = 0.0
+    elif case == "axis":            # a zero direction component (safe_inv's 1e30)
+        d[: n // 3, 1:] = 0.0
+        d[n // 3: 2 * n // 3, :2] = 0.0
+        d[2 * n // 3:, ::2] = 0.0
+        d = d / d.norm(dim=-1, keepdim=True)
+    elif case == "box-face":        # origins on faces of the root's child boxes
+        box = rows[0, : 6 * bvh.WIDTH].reshape(bvh.WIDTH, 6)
+        box = box[rows[0, 6 * bvh.WIDTH: 7 * bvh.WIDTH] >= 0]
+        g = torch.Generator().manual_seed(6)
+        k = torch.randint(0, box.shape[0], (n,), generator=g).to(cuda)
+        lo, hi = box[k, :3], box[k, 3:]
+        o = lo + (hi - lo) * torch.rand((n, 3), generator=g).to(cuda)
+        axis = torch.randint(0, 3, (n,), generator=g).to(cuda)
+        face = torch.where(torch.rand((n, 1), generator=g).to(cuda) < 0.5, lo, hi)
+        o = torch.where(torch.arange(3, device=cuda)[None] == axis[:, None], face, o)
+    return rows, n_int, depth, o.contiguous(), d.contiguous(), t_max.contiguous()
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["legacy", "random", "mixed", "axis", "box-face", "R1", "R33",
+                                  "R1000", "large", "deep"])
+def test_bvh_kernel_matches_plain(cuda, case, any_hit):
+    """K1/K1a against the plain sweep: random interior rays of cornell-mesh
+    levels 4 with every 11th lane masked (legacy: the 8192 rays the test
+    drew before it had cases; random: a draw of 8193 less its first lane);
+    t_max = 0 on every third lane; rays along axes; origins on box faces; 1,
+    33 and 1000 rays; 2^20 + 17 rays, more than the persistent grid holds at
+    once; a tree of depth 10 over coincident triangles."""
+    rows, n_int, depth, o, d, t_max = _k1_case(case, cuda)
+    if any_hit:
+        t_max = torch.where(t_max > 0, torch.rand(o.shape[0], device=cuda) * 400.0, 0.0)
+    n0 = bvh.launches["bvh_any_hit" if any_hit else "bvh_closest_hit"]
+    _, pk = _check_k1(rows, n_int, depth, o, d, t_max, any_hit)
+    assert bvh.launches["bvh_any_hit" if any_hit else "bvh_closest_hit"] == n0 + 1
+    assert int((pk >= 0).sum()) >= o.shape[0] // 20
+
+
+def test_bvh_kernel_graph_replays(cuda):
+    """K1 captured in a CUDA graph and replayed three times: the results
+    equal the eager launch's every time (each launch zeroes a ray ticket of
+    its own, in the graph too); then a replay on one stream beside an eager
+    launch on another, both equal to it."""
+    rows, n_int, depth, o, d, t_max = _k1_case("mixed", cuda)
+    t_e, p_e = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        t_g, p_g = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
+    for _ in range(3):
+        t_g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(t_g, t_e) and torch.equal(p_g, p_e)
+    t_g.zero_()
+    side.wait_stream(torch.cuda.current_stream())
+    graph.replay()
+    with torch.cuda.stream(side):
+        t_s, p_s = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(t_g, t_e) and torch.equal(p_g, p_e)
+    assert torch.equal(t_s, t_e) and torch.equal(p_s, p_e)
+
+
+def test_bvh_kernel_small_stack_counts_overflow(cuda):
+    """A stack too small for the tree: the coincident-triangle tree of depth
+    10 traversed with the stack of a depth of 1 (7 entries; every child box
+    of every row meets a ray that hits, so a second row's visit already
+    overflows it): the lanes that run out are counted in the overflow
+    counter and the launch does not fault."""
+    rows, n_int, depth, o, d, t_max = _k1_case("deep", cuda)
+    assert depth >= 10
+    ov0 = int(bvh.overflow_counter(o.device).item())
+    tk, pk = bvh.traverse_cuda(rows, n_int, 1, o, d, t_max)
+    torch.cuda.synchronize()
+    n_ov = int(bvh.overflow_counter(o.device).item()) - ov0
+    assert 0 < n_ov < o.shape[0]
+    assert bool(torch.isfinite(tk).all()) and bool((pk >= -1).all())
 
 
 def _instanced_cornell(levels, res, spp, device, mode="bvh"):

@@ -10,6 +10,10 @@ result line:
      the SASS (cuobjdump -sass) and ptxas report of K1's kernel
      (csrc/bvh_wide.cuh `wide_kernel`): 16-byte global loads required, and
      no local loads or stores, stack frame or spills; K5's and K8's SASS;
+     K12's (csrc/bdpt.cu): the tiled `connect_weight_tile_kernel` must load
+     from shared memory where it stages (up to 35 vertex slots) and not
+     where it reads in place, with no local loads or stores, stack frame or
+     spills in either; every K12 kernel's registers printed;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -69,8 +73,10 @@ result line:
      counts set to 0 just before it and read just after; every kernel of its
      path must have launched (a BDPT frame: exactly K12's two entry points,
      one K5, one K5s and one occluded dispatch a wave, and 2 max_depth + 1
-     closest-hit dispatches). The batched and BDPT frames launch K5's tiled
-     entry, the wavefront frame its scatter entry and K8;
+     closest-hit dispatches; neither K12's yardstick entries nor the packed
+     copy they read, bdpt.pack_vertices / pack_endpoints). The batched and
+     BDPT frames launch K5's tiled entry, the wavefront frame its scatter
+     entry and K8;
   9. K1 and K1a on five launches each (the first of cornell-mesh, terrain
      and staircase, the third of cornell-mesh and staircase): against the
      plain version with phase 3's criteria, the operation bound from
@@ -92,12 +98,18 @@ result line:
      main path gives it; K7's
      three entry points on their first launches in the staircase and
      testball frames, against the plain version on the coated lanes, timed
-     on staircase's; K12 on the first waves of the two BDPT frames and on a
+     on staircase's; K12 on the first waves of the two BDPT frames, on a
      24^2 x 2 wave of tests/bdpt_cases.py's four-light scene (distant, spot,
-     uniform infinite and three kinds of area light) against its plain
+     uniform infinite and three kinds of area light) and on 24^2 x 2 cornell
+     waves at max depth 8 (one staged buffer) and 17 (vertices read in
+     place) against its plain
      version (bdpt_cases: every strategy within rtol 1e-4, atol 1e-6 on >=
-     99.99 % of its live lanes, equal ray counts), both entry points timed
-     on caustic-glass's; K5s on caustic-glass's first launch; K8 on
+     99.99 % of its live lanes, equal ray counts) and both entry points
+     against their yardsticks, K12 as first written (one thread per lane
+     over the packed copy: bdpt_cases.compare_yardstick, the same bits), both
+     timed on caustic-glass's in turns with the yardsticks (yardstick, K12,
+     K12, yardstick), and the caustic-glass frame's peak device memory; K5s
+     on caustic-glass's first launch; K8 on
      terrain's first launch with and without the rank, and under
      torch.profiler one device kernel a call;
  10. MLT: cornell 24^2 with mltpath and mltbdpt (1024 chains, 18 passes)
@@ -112,7 +124,10 @@ result line:
      kernels against their plain versions on those frames' first passes
      (draws and chain state bit-exact, splat sums within 1e-5) and timed on
      caustic-glass's beside their byte bounds, plain versions and (K12m-b)
-     index_add_;
+     index_add_; K12 on the caustic-glass-mlt frame's first 8192-lane
+     evaluation as on phase 9's waves (plain, yardstick bits, both entry
+     points timed in turns with the yardsticks), and no yardstick or packed
+     copy in either MLT frame;
  11. scene sharding (K11a `bvh_closest_hit_parts`, K11b `bvh_any_hit_parts`,
      `shard_select`, csrc/scene_shard.cu): (a) cornell-mesh levels 5 split
      into 8 morton parts (per-part tables under a quarter of the unsharded
@@ -180,6 +195,7 @@ result line:
  13. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -295,8 +311,9 @@ def kernel_ms(fn, reps=50):
 
 
 def sass_memory_ops(sass):
-    """{kernel symbol: {opcode: count}} of the memory (global, local and
-    shared), atomic and shuffle instructions in `cuobjdump -sass` output."""
+    """{kernel symbol: {opcode: count}} of the memory (global, local,
+    shared and generic), atomic and shuffle instructions in `cuobjdump
+    -sass` output."""
     import collections
     import re
 
@@ -307,9 +324,9 @@ def sass_memory_ops(sass):
             func = m.group(1)
             out[func] = collections.Counter()
             continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
         if m and func and m.group(1).startswith(("LDG", "STG", "LDL", "STL", "ATOM", "RED",
-                                                  "LDS", "STS", "SHFL")):
+                                                  "LDS", "STS", "SHFL", "LD.", "ST.")):
             out[func][m.group(1)] += 1
     return out
 
@@ -448,6 +465,38 @@ def main():
                                                             "stores, 0 bytes spill loads"),
                     "K1's kernel: no 16-byte loads, or a local stack or spills", short, dict(c),
                     frame)
+    # K12's kernels as compiled (csrc/bdpt.cu): the tiled bdpt_connect_weight
+    # reads its vertices from shared memory (LDS, staged by LDGSTS) up to 35
+    # vertex slots, in place past them; neither instantiation has a
+    # local-memory stack or spills. The yardsticks (csrc/bdpt_lane.cu, K12 as
+    # first written) are read and printed beside them.
+    k12_names = ("connect_weight_tile_kernel", "connect_weight_lane_kernel",
+                 "connect_rays_lane_kernel", "connect_rays_kernel")
+    for lib_name in ("bdpt", "bdpt_lane"):
+        report = built[lib_name][1].splitlines()
+        for fn, c in sass_memory_ops(subprocess.run(
+                [str(cuobjdump), "-sass", str(kernels.library_path(lib_name))],
+                capture_output=True, text=True, timeout=120).stdout).items():
+            short = next((k for k in k12_names if k in fn), None)
+            if short is None:
+                continue
+            tiled = short == "connect_weight_tile_kernel"
+            if tiled:
+                short += "<staged>" if "ILb1E" in fn else "<in place>"
+            at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                      and fn in line)
+            frame = report[at + 1].strip()
+            regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                        if "registers" in line)
+            log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
+            if tiled:
+                local = [k for k in c if k.startswith(("LDL", "STL"))]
+                staged = "ILb1E" in fn
+                require(any(k.startswith("LDS") for k in c) == staged and not local
+                        and frame.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                                             "spill loads"),
+                        "K12's tiled kernel: shared-memory loads not as staged, or a local stack "
+                        "or spills", short, dict(c), frame)
     probe = filmlib.new_film((4, 4), dev)
     film_kernel.add_splats_triton(
         probe.splat, torch.zeros(1, dtype=torch.int64, device=dev), torch.ones((1, 4), device=dev),
@@ -932,7 +981,7 @@ def main():
                 setattr(mod, name, orig)
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    main_counts, main_counts_frame, frame_means, frame_imgs = {}, {}, {}, {}
+    main_counts, main_counts_frame, frame_means, frame_imgs, frame_peaks = {}, {}, {}, {}, {}
 
     def full_render(tag, sc, mt, must, **kw):
         """The measured render of a full-width frame, its kernels'
@@ -959,6 +1008,7 @@ def main():
         png.write_png(str(out_png), filmlib.to_srgb8(img))
         frame_means[tag] = float(img.mean())
         frame_imgs[tag] = img
+        frame_peaks[tag] = torch.cuda.max_memory_allocated() / 2**30
         per = (f"{mt.mutations_per_pixel} mutations/pixel" if mt.integrator in bd.MLT_INTEGRATORS
                else f"{mt.spp} spp {mt.filter_kind}")
         log(f"full render {tag} {mt.integrator} {mt.resolution[0]}^2 x {per} depth "
@@ -1046,7 +1096,27 @@ def main():
                                          "film_add_samples") + k7)
 
     # BDPT at the bench's settings: every kernel of a wave launched exactly
-    # as often as the estimator needs
+    # as often as the estimator needs; K12 reads the walks' tensors in place,
+    # so neither its yardsticks nor the packed copy they read may appear
+    k12_yard = ("bdpt_connect_rays_lane", "bdpt_connect_weight_lane")
+
+    @contextlib.contextmanager
+    def packing_counted():
+        """Count the calls of bdpt.pack_vertices and pack_endpoints within."""
+        packed, origs = {"calls": 0}, (bdpt.pack_vertices, bdpt.pack_endpoints)
+
+        def counted(fn):
+            def call(*a, **k):
+                packed["calls"] += 1
+                return fn(*a, **k)
+            return call
+
+        bdpt.pack_vertices, bdpt.pack_endpoints = map(counted, origs)
+        try:
+            yield packed
+        finally:
+            bdpt.pack_vertices, bdpt.pack_endpoints = origs
+
     def bdpt_launches(mt):
         """{kernel: launches} of a BDPT frame: per wave K12's two entry
         points, one K5, one K5s, one occluded dispatch for every strategy's
@@ -1071,12 +1141,16 @@ def main():
     bdpt_got = {}
     for tag, sc, mt in (("cornell_bdpt", s_cb, m_cb), ("caustic_bdpt", s_cgf, m_cgf)):
         want, waves = bdpt_launches(mt)
-        full_render(tag, sc, mt, tuple(want))
+        with packing_counted() as packed:
+            full_render(tag, sc, mt, tuple(want))
         got = {k: main_counts_frame[k] for k in want}
         require(got == want, tag, "launches", got, "expected", want)
+        require(not packed["calls"] and not any(main_counts_frame.get(k) for k in k12_yard), tag,
+                "K12's yardsticks or their packing on the main path", packed, main_counts_frame)
         bdpt_got[tag] = got
         log(f"{tag}: {waves} wave(s) of {captured[tag]['bdpt_wave'][0][4].shape[0]} lanes, "
-            f"launches as expected {want}")
+            f"launches as expected {want}; K12 read the walks' own tensors (no packed copy "
+            f"made, its yardsticks not launched)")
     # the kernels line reports BDPT's kernels as caustic-glass's frame counted them
     for k in ("bdpt_connect_rays", "bdpt_connect_weight", "film_add_splats"):
         main_counts[k] = bdpt_got["caustic_bdpt"][k]
@@ -1345,56 +1419,125 @@ def main():
             f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms), plain "
             f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]})")
 
-    # K12 on the first waves of the BDPT frames against its plain version;
-    # both entry points timed on caustic-glass's (graph replays of 5 calls:
-    # each call allocates its outputs, ~1 GB of shadow rays at 2^20 lanes)
-    # and on a 24^2 x 2 wave of the four-light scene (lens; distant, spot and
-    # uniform infinite lights, escaped camera rays, the delta-light rule)
+    # K12 on the first waves of the BDPT frames, on a 24^2 x 2 wave of the
+    # four-light scene (lens; distant, spot and uniform infinite lights,
+    # escaped camera rays, the delta-light rule) and on cornell waves at max
+    # depth 8 (19 vertex slots: bdpt_connect_weight stages one buffer) and 17
+    # (37 slots: it reads them in place): against its plain version,
+    # and both entry points against their yardsticks' bits (the
+    # one-thread-per-lane kernels over the packed copy, as first written);
+    # then timed on caustic-glass's in turns with the yardsticks (graph
+    # replays of 5 calls: each call allocates its outputs, ~1 GB of shadow
+    # rays and 0.7 GB of per-strategy L at 2^20 lanes). Phase 10 does the
+    # same at the MLT frame's 8192 lanes.
     s_fl, m_fl = compile_scene(bdpt_cases.four_lights_builder(24), 2, device=dev,
                                integrator_override="bdpt")
     pix_fl = torch.arange(24 * 24, device=dev).repeat(2)
     smp_fl = torch.arange(2, device=dev).repeat_interleave(24 * 24)
     waves_b = {"four_lights": (s_fl, m_fl) + bdpt_cases.wave_inputs(s_fl, m_fl, pix_fl, smp_fl)}
+    for depth in (8, 17):
+        b_d = ts.cornell_builder(24, "box")
+        b_d.integrator["maxdepth"] = depth
+        s_d, m_d = compile_scene(b_d, 2, device=dev, integrator_override="bdpt")
+        waves_b[f"cornell_depth{depth}"] = (s_d, m_d) + bdpt_cases.wave_inputs(
+            s_d, m_d, pix_fl, smp_fl)
     for tag in ("cornell_bdpt", "caustic_bdpt"):
         waves_b[tag] = first(tag, "bdpt_wave")[0]
     k12_err = 0.0
-    for tag, wave in waves_b.items():
+
+    def k12_check(tag, wave):
+        """K12 on one wave against its plain version and its yardsticks."""
         res = bdpt_cases.compare(*wave)
         bdpt_cases.require_agreement(res)
-        k12_err = max(k12_err, res["max_abs_err"])
-        log(f"K12 vs plain on {tag}'s {'first ' * (tag != 'four_lights')}wave ({res['lanes']} "
-            f"lanes x {res['strategies']} strategies, {res['strategies_live']} live on some "
-            f"lane, {res['live']} live contributions): worst strategy {res['worst']} agrees on "
-            f"{res['frac']:.6%} of its live lanes within rtol {bdpt_cases.RTOL:g}, atol "
-            f"{bdpt_cases.ATOL:g} (>= {bdpt_cases.CLOSE_FRAC:.2%} required of every strategy), "
-            f"L {res['L_frac']:.6%}; rays {res['rays_kernel']} = plain {res['rays_plain']}; "
-            f"splat pixels differing {res['splat_pix_differ']}; max abs err over all "
-            f"contributions {res['max_abs_err']:.3e}")
-    scene_b, meta_b, light_vs, cam_vs, lam_b, table_b, samples_b = waves_b["caustic_bdpt"]
-    a_rays = first("caustic_bdpt", "bdpt_connect_rays")[0]
-    a_wt = first("caustic_bdpt", "bdpt_connect_weight")[0]
-    verts, ends, st_b = a_rays[1], a_rays[2], a_rays[3]
-    R_, n_slots = verts.shape[2], verts.shape[0]
-    in_b = verts.numel() * 4 + ends.numel() * 4 + st_b.tab.numel() * 4
-    plain_rays = lambda: bdpt.connect_rays_plain(scene_b, light_vs, cam_vs, table_b, samples_b)
-    conns_b = plain_rays()[0]
-    plain_wt = lambda: bdpt.connect_weight_plain(scene_b, meta_b, light_vs, cam_vs, lam_b,
-                                                 table_b, samples_b, conns_b, a_wt[7])
-    n_con = st_b.n_ray
-    for name, fn, plain, out_b, extra_in, n_s in (
-            ("bdpt_connect_rays", lambda: bdpt.connect_rays_cuda(*a_rays), plain_rays,
-             n_con * R_ * 28 + 8, 0, n_con),
-            ("bdpt_connect_weight", lambda: bdpt.connect_weight_cuda(*a_wt), plain_wt,
-             R_ * 16 + st_b.n_t1 * R_ * 24, R_ * 16 + n_con * R_ + 471 * 4 * (
-                 1 + s_cgf.lt_type.shape[0]), len(table_b))):
-        ms = graph_ms(fn, calls=5)
-        ms_plain = events_ms(plain, 1)
-        b = bound(in_b + extra_in + out_b, R_ * n_s * K12_OPS[name])
-        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                            library_ms=None, max_abs_err=k12_err)
-        log(f"{name} at caustic-glass's first wave ({R_} lanes, {n_slots} vertex slots, "
-            f"{n_s} strategies): kernel {ms:.3f} ms, plain {ms_plain:.1f} ms, bound "
-            f"{b[0]:.4f} ms ({b[1]}; {(in_b + extra_in + out_b) / 1e9:.3f} GB)")
+        same = bdpt_cases.compare_yardstick(*wave)
+        require(all(same.values()), tag, "K12 against its yardsticks' bits", same)
+        log(f"K12 on {tag}'s wave ({res['lanes']} lanes x {res['strategies']} strategies, "
+            f"{res['strategies_live']} live on some lane, {res['live']} live contributions): "
+            f"the same bits as its yardsticks {same}; against plain, worst strategy "
+            f"{res['worst']} agrees on {res['frac']:.6%} of its live lanes within rtol "
+            f"{bdpt_cases.RTOL:g}, atol {bdpt_cases.ATOL:g} (>= {bdpt_cases.CLOSE_FRAC:.2%} "
+            f"required of every strategy), L {res['L_frac']:.6%}; rays {res['rays_kernel']} = "
+            f"plain {res['rays_plain']}; splat pixels differing {res['splat_pix_differ']}; max "
+            f"abs err over all contributions {res['max_abs_err']:.3e}")
+        return res["max_abs_err"]
+
+    def k12_times(label, wave, a_rays, a_wt, calls):
+        """Both K12 entries at one main-path launch, timed in turns with
+        their yardsticks (yardstick, kernel, kernel, yardstick), beside the
+        plain version and the bound (each 4-byte vertex field and endpoint
+        field read once, as the packed copy holds them, whatever layout the
+        kernel reads); then the yardsticks' packing time and one wave's
+        peak memory either way, logged -> {name: timing}."""
+        scene_, meta_, light_vs, cam_vs, lam_, table_, samples_ = wave
+        _, ft, st = a_rays
+        R_, n_slots, n_cam_ = ft.R, len(ft.vertex), ft.n_cam
+        occ = a_wt[4]
+        verts = bdpt.pack_vertices(cam_vs, light_vs)
+        ends = bdpt.pack_endpoints(table_, samples_, R_, dev)
+        in_b = (n_slots * bdpt.NF + len(ft.ends) * bdpt.NSF) * R_ * 4 + len(st.rows) * 5 * 4
+        plain_rays = lambda: bdpt.connect_rays_plain(scene_, light_vs, cam_vs, table_, samples_)
+        conns = plain_rays()[0]
+        plain_wt = lambda: bdpt.connect_weight_plain(scene_, meta_, light_vs, cam_vs, lam_,
+                                                     table_, samples_, conns, occ)
+        n_con, out = st.n_ray, {}
+        for name, fn, yard, plain, out_b, extra_in, n_s in (
+                ("bdpt_connect_rays", lambda: bdpt.connect_rays_cuda(*a_rays),
+                 lambda: bdpt.connect_rays_lane_cuda(scene_, verts, ends, st, n_cam_,
+                                                     n_slots - n_cam_),
+                 plain_rays, n_con * R_ * 28 + 8, 0, n_con),
+                ("bdpt_connect_weight", lambda: bdpt.connect_weight_cuda(*a_wt),
+                 lambda: bdpt.connect_weight_lane_cuda(scene_, verts, ends, st, n_cam_,
+                                                       n_slots - n_cam_, *a_wt[3:]),
+                 plain_wt, R_ * 16 + st.n_t1 * R_ * 24, R_ * 16 + n_con * R_ + 471 * 4 * (
+                     1 + scene_.lt_type.shape[0]), len(table_))):
+            turns = [graph_ms(f, calls=calls) for f in (yard, fn, fn, yard)]
+            ms, ms_y = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            ms_plain = events_ms(plain, 1)
+            b = bound(in_b + extra_in + out_b, R_ * n_s * K12_OPS[name])
+            out[name] = dict(ms=ms, yardstick_ms=ms_y, plain_ms=ms_plain, bound_ms=b[0],
+                             bound_by=b[1], lanes=R_)
+            log(f"{name} at {label} ({R_} lanes, {n_slots} vertex slots, {n_s} strategies): "
+                f"kernel {turns[1]:.4f} / {turns[2]:.4f} ms, yardstick {turns[0]:.4f} / "
+                f"{turns[3]:.4f} ms in turns, speed-up {ms_y / ms:.3f}x; plain "
+                f"{ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+                f"{(in_b + extra_in + out_b) / 1e9:.3f} GB), kernel {ms / b[0]:.2f}x it")
+        # what the yardsticks' packed copy costs, and one wave's connections'
+        # peak memory either way (over what is held before them)
+        ms_pack = graph_ms(lambda: (bdpt.pack_vertices(cam_vs, light_vs),
+                                    bdpt.pack_endpoints(table_, samples_, R_, dev)), calls=calls)
+        del verts, ends
+        peaks = {}
+        for way in ("kernel", "yardstick"):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if way == "kernel":
+                bdpt.connect_all_cuda(scene_, meta_, light_vs, cam_vs, lam_, table_, samples_)
+            else:
+                v_ = bdpt.pack_vertices(cam_vs, light_vs)
+                e_ = bdpt.pack_endpoints(table_, samples_, R_, dev)
+                o_ = bdpt.connect_rays_lane_cuda(scene_, v_, e_, st, n_cam_, n_slots - n_cam_)
+                c_ = dispatch.occluded(scene_, meta_, *o_[:3]).contiguous()
+                bdpt.connect_weight_lane_cuda(scene_, v_, e_, st, n_cam_, n_slots - n_cam_, lam_,
+                                              c_, meta_.resolution)
+                del v_, e_, o_, c_
+            torch.cuda.synchronize()
+            peaks[way] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        log(f"K12 at {label}: the yardsticks' packing {ms_pack:.4f} ms a wave; one wave's "
+            f"connections peak at {peaks['kernel']:.3f} GiB (the yardsticks with their "
+            f"packing: {peaks['yardstick']:.3f} GiB)")
+        return out
+
+    for tag, wave in waves_b.items():
+        k12_err = max(k12_err, k12_check(tag, wave))
+    k12_main = k12_times("caustic-glass's first wave", waves_b["caustic_bdpt"],
+                         first("caustic_bdpt", "bdpt_connect_rays")[0],
+                         first("caustic_bdpt", "bdpt_connect_weight")[0], 5)
+    for name, t in k12_main.items():
+        timing[name] = dict(t, library_ms=None, max_abs_err=k12_err)
+    log(f"caustic-glass BDPT frame (phase 8): peak device memory "
+        f"{frame_peaks['caustic_bdpt']:.2f} GiB; bdpt_connect_weight: {bdpt.CONNECT_WARPS} warps "
+        f"a 32-lane tile")
 
     # K5s on caustic-glass's first launch
     sp_args = first("caustic_bdpt", "film_add_splats")[0][1:]
@@ -1458,7 +1601,10 @@ def main():
         "(cornell-mesh mltpath: 64 passes) so that this phase fits the script's time; "
         "python -m pbrt_tpu_torch.profile_render runs them uncut")
     for tag, sc, mt, ref, must in mlt_frames:
-        full_render(tag, sc, mt, must + ("mlt_mutate", "mlt_accept_splat"))
+        with packing_counted() as packed:
+            full_render(tag, sc, mt, must + ("mlt_mutate", "mlt_accept_splat"))
+        require(not packed["calls"] and not any(main_counts_frame.get(k) for k in k12_yard), tag,
+                "K12's yardsticks or their packing on the main path", packed, main_counts_frame)
         n_passes = max(1, mt.mutations_per_pixel * mt.resolution[0] * mt.resolution[1]
                        // mlt.N_CHAINS)
         got = {k: main_counts_frame[k] for k in mlt.launches}
@@ -1469,6 +1615,17 @@ def main():
         log(f"{tag}: K12m-a and K12m-b launched once a pass ({n_passes}); image mean "
             f"{frame_means[tag]:.5f} vs the {ref} frame's {frame_means[ref]:.5f}: {rel:.3%} "
             f"apart (<= {mlt_cases.FRAME_MEAN_RTOL[tag]:.0%})")
+
+    # K12 at the MLT shape: the cut caustic-glass-mlt frame's first 8192-lane
+    # evaluation (a bootstrap batch), against its plain version and its
+    # yardsticks' bits, and timed in turns with them
+    wave_m = first("caustic_mlt", "bdpt_wave")[0]
+    k12_err = max(k12_err, k12_check("caustic_mlt", wave_m))
+    for name, t in k12_times("the caustic-glass-mlt frame's first 8192-lane evaluation", wave_m,
+                             first("caustic_mlt", "bdpt_connect_rays")[0],
+                             first("caustic_mlt", "bdpt_connect_weight")[0], 20).items():
+        timing[name]["mlt_8192"] = t
+        timing[name]["max_abs_err"] = k12_err
 
     mlt_err = {}
     for tag in ("caustic_mlt", "cornell_mesh_mlt"):

@@ -7,12 +7,13 @@ vertices kept as SoA records, one `V` per slot. The (s, t) strategies then
 connect them. On CPU tensors each strategy runs in plain torch: `connect`
 and `_mis_weight`, which recompute the four junction pdf_revs per strategy
 as the JAX package does. On CUDA tensors the whole strategy table of a wave
-runs in the hand-written kernel csrc/bdpt.cu (K12): one entry point forms
-every strategy's shadow ray, one `dispatch.occluded` call traces them all,
-and a second entry point forms L and the MIS weights. The sampler draws of
-the s = 1 (light pick, sample_li) and t = 1 (lens sample) strategies come
-first, in plain torch, in the loop order of JAX's `li_bdpt`, so the streams
-stay bit-exact with the JAX package's.
+runs in the hand-written kernel csrc/bdpt.cu (K12), which reads the walks'
+own tensors through a table of their addresses (FieldTable): one entry
+point forms every strategy's shadow ray, one `dispatch.occluded` call
+traces them all, and a second entry point forms L and the MIS weights. The
+sampler draws of the s = 1 (light pick, sample_li) and t = 1 (lens sample)
+strategies come first, in plain torch, in the loop order of JAX's
+`li_bdpt`, so the streams stay bit-exact with the JAX package's.
 
 Strategies (connect_bdpt, bdpt.cu:612-721): s = 0 the camera path hits an
 emitter or escapes (escaped rays become VT_LIGHT_INF vertices at 4 scene
@@ -44,8 +45,10 @@ VT_LIGHT = 2
 VT_SURFACE = 3
 VT_LIGHT_INF = 4   # escaped camera ray captured as an infinite-light vertex
 
-# launches of the two K12 entry points (plain ints, added to where they launch)
-launches = {"bdpt_connect_rays": 0, "bdpt_connect_weight": 0}
+# launches of the two K12 entry points and of their yardsticks, which only
+# chip_smoke.py reaches (plain ints, added to where they launch)
+launches = {"bdpt_connect_rays": 0, "bdpt_connect_weight": 0, "bdpt_connect_rays_lane": 0,
+            "bdpt_connect_weight_lane": 0}
 
 
 class V(NamedTuple):
@@ -613,14 +616,42 @@ def connect_all_plain(scene, meta, light_vs, cam_vs, lam, table, samples, per_st
 
 
 # ----------------------------------------------------------- K12 (CUDA)
-# Layouts shared with csrc/bdpt.cu: a vertex is NF floats (ints as floats),
-# stored (slot, field, lane) with the camera slots first; a sampled endpoint
-# is NSF floats, stored (strategy, field, lane); the strategy table is
+# What csrc/bdpt.cu reads. Its kernels read the walks' own tensors through a
+# per-wave table of pointers in device memory (FieldTable): per vertex slot
+# (camera slots first) the VERTEX_GROUPS of its V, then per endpoint row (the
+# table's t = 1 and s = 1 strategies, in table order) the CAMERA_SAMPLE_GROUPS
+# or LIGHT_SAMPLE_GROUPS of its sample; each field (R,) or (R, width),
+# contiguous, 16-byte aligned and of the group's dtype. The strategy table is
 # n_strat rows of [s, t, endpoint row, ray row, splat row] (-1 where none).
-NF = 50
-NSF = 17
+# The yardstick entries read a packed float32 copy instead (pack_vertices,
+# pack_endpoints): a vertex NF floats, (slot, field, lane); an endpoint NSF.
+F32 = torch.float32
+VERTEX_GROUPS = (
+    ("vtype", torch.int32, 1), ("p", F32, 3), ("ng", F32, 3), ("ns", F32, 3), ("beta", F32, 4),
+    ("pdf_fwd", F32, 1), ("pdf_rev", F32, 1), ("delta", torch.bool, 1),
+    ("light", torch.int64, 1), ("wo", F32, 3), ("kind", torch.int64, 1), ("refl", F32, 4),
+    ("trans", F32, 4), ("eta_re", F32, 4), ("eta_im", F32, 4), ("eta", F32, 1),
+    ("ax", F32, 1), ("ay", F32, 1), ("fx", F32, 3), ("fy", F32, 3), ("fz", F32, 3))
+CAMERA_SAMPLE_GROUPS = (("wi", F32, 3), ("we", F32, 1), ("pdf", F32, 1), ("raster", F32, 2),
+                        ("p_lens", F32, 3), ("valid", torch.bool, 1))
+LIGHT_SAMPLE_GROUPS = (("light", torch.int64, 1), ("pmf", F32, 1), ("p_light", F32, 3),
+                       ("n_light", F32, 3), ("wi", F32, 3), ("L", F32, 4), ("pdf", F32, 1),
+                       ("valid", torch.bool, 1))
+NF = sum(w for _, _, w in VERTEX_GROUPS)            # 50
+NSF = sum(w for _, _, w in LIGHT_SAMPLE_GROUPS)     # 17
+# csrc/bdpt.cu's sizes: the pointers of an endpoint row; a tile's lanes and
+# its bytes a vertex slot; the most slots bdpt_connect_weight stages in
+# shared memory (a 32-lane tile of 35 slots fills a block's 227 KB; max depth
+# 16); past them it reads the vertices in place
+NEG = 8
+TILE = 32
+SLOT_BYTES = TILE * sum(w * torch.tensor([], dtype=dt).element_size()
+                        for _, dt, w in VERTEX_GROUPS)   # 6560
+STAGED_SLOTS = 35
 N_SCENE_F = 45
 LT_F = 10
+# warps of a bdpt_connect_weight block (csrc/bdpt.cu WARPS)
+CONNECT_WARPS = 16
 
 
 def _vertex_fields(v: V):
@@ -629,9 +660,19 @@ def _vertex_fields(v: V):
             b.kind, b.refl, b.trans, b.eta_re, b.eta_im, b.eta, b.ax, b.ay, v.fx, v.fy, v.fz)
 
 
+def _sample_fields(x):
+    """The fields of a sampled endpoint in CAMERA_SAMPLE_GROUPS or
+    LIGHT_SAMPLE_GROUPS order -> (groups, fields)."""
+    if isinstance(x, CameraSample):
+        return CAMERA_SAMPLE_GROUPS, (x.wi, x.we, x.pdf, x.raster, x.p_lens, x.valid)
+    ls = x.ls
+    return LIGHT_SAMPLE_GROUPS, (x.light, x.pmf, ls.p_light, ls.n_light, ls.wi, ls.L, ls.pdf,
+                                 ls.valid)
+
+
 def pack_vertices(cam_vs, light_vs):
     """(n_cam + n_light, NF, R) float32 vertex records, written field by
-    field into one buffer."""
+    field into one buffer (the yardstick entries' layout)."""
     vs = cam_vs + light_vs
     R = vs[0].p.shape[0]
     out = torch.empty((len(vs), NF, R), device=vs[0].p.device)
@@ -647,36 +688,119 @@ def pack_vertices(cam_vs, light_vs):
 def pack_endpoints(table, samples, R, dev):
     """(n_endpoints, NSF, R) float32, in table order: per t = 1 strategy
     [wi, we, pdf, raster, p_lens, valid], per s = 1 strategy [light, pmf,
-    p_light, n_light, wi, L, pdf, valid]."""
+    p_light, n_light, wi, L, pdf, valid] (the yardstick entries' layout)."""
     rows = [samples[st] for st in table if st in samples]
     out = torch.zeros((len(rows), NSF, R), device=dev)
     for i, x in enumerate(rows):
-        if isinstance(x, CameraSample):
-            cols = (x.wi, x.we, x.pdf, x.raster, x.p_lens, x.valid)
-        else:
-            ls = x.ls
-            cols = (x.light, x.pmf, ls.p_light, ls.n_light, ls.wi, ls.L, ls.pdf, ls.valid)
         f = 0
-        for y in cols:
+        for y in _sample_fields(x)[1]:
             y = y.reshape(R, -1)
             out[i, f:f + y.shape[1]] = y.T
             f += y.shape[1]
     return out
 
 
+class FieldTable(NamedTuple):
+    """The walks' tensors of one wave as K12 reads them: `ptrs`, an int64
+    tensor on the wave's device of n_slots x NG vertex field pointers then
+    n_end x NEG endpoint field pointers (0 where a row has fewer groups); the
+    fields themselves, kept alive with it, per slot (VERTEX_GROUPS order)
+    and per endpoint row (with their groups)."""
+
+    ptrs: torch.Tensor
+    vertex: tuple
+    ends: tuple        # ((groups, fields), ...)
+    n_cam: int
+    R: int
+    device: torch.device
+
+
+def _check_field(what, x, dtype, width, R, dev):
+    shape = (R,) if width == 1 else (R, width)
+    if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev \
+            or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"bdpt kernel: {what} must be a contiguous, 16-byte aligned {dtype} "
+                         f"{shape} tensor on {dev}, got {x.dtype} {tuple(x.shape)} with strides "
+                         f"{x.stride()} at {x.data_ptr() % 16} past 16 bytes on {x.device}")
+
+
+def field_table(cam_vs, light_vs, table, samples):
+    """FieldTable of a wave: its camera and light vertices and the sampled
+    endpoints of the (s, t) list `table`, any number of each. Raises
+    ValueError on a field the kernels cannot read in place (another dtype,
+    shape or device, a strided view, an address off 16 bytes)."""
+    R, dev = cam_vs[0].p.shape[0], cam_vs[0].p.device
+    vs = cam_vs + light_vs
+    rows = [samples[st] for st in table if st in samples]
+    ptrs = [0] * (len(vs) * len(VERTEX_GROUPS) + len(rows) * NEG)
+    vertex, ends = [], []
+    for i, v in enumerate(vs):
+        fields = _vertex_fields(v)
+        for j, (x, (name, dtype, w)) in enumerate(zip(fields, VERTEX_GROUPS)):
+            _check_field(f"vertex slot {i} {name}", x, dtype, w, R, dev)
+            ptrs[i * len(VERTEX_GROUPS) + j] = x.data_ptr()
+        vertex.append(fields)
+    base = len(vs) * len(VERTEX_GROUPS)
+    for i, x in enumerate(rows):
+        groups, fields = _sample_fields(x)
+        for j, (y, (name, dtype, w)) in enumerate(zip(fields, groups)):
+            _check_field(f"endpoint row {i} {name}", y, dtype, w, R, dev)
+            ptrs[base + i * NEG + j] = y.data_ptr()
+        ends.append((groups, fields))
+    ptrs = torch.tensor(ptrs, dtype=torch.int64)
+    if dev.type == "cuda":
+        # one small copy on the stream, from pinned memory so that the host
+        # does not wait for the device
+        ptrs = ptrs.pin_memory().to(dev, non_blocking=True)
+    return FieldTable(ptrs, tuple(vertex), tuple(ends), len(cam_vs), R, dev)
+
+
+def strategy_cost(s, t):
+    """Relative cost of strategy (s, t) in bdpt_connect_weight: 10 a BSDF
+    evaluation (vertex_f and the junction pdfs at surface vertices: none
+    for s = 0, three for t = 1 or s = 1, six otherwise), 2 a step of its
+    ratio walks (s + t), 10 for the rest."""
+    n_bsdf = 0 if s == 0 else (3 if s == 1 or t == 1 else 6)
+    return 10 * n_bsdf + 2 * (s + t) + 10
+
+
+def warp_assignment(rows, n_warps):
+    """The strategies of table rows [s, t, ...] shared out over n_warps
+    warps -> [[table row, ...] per warp]: the costliest first, each onto the
+    least loaded warp (ties: the lower warp); each warp's list in table
+    order. Every row is in exactly one list."""
+    load, out = [0] * n_warps, [[] for _ in range(n_warps)]
+    for k in sorted(range(len(rows)), key=lambda k: (-strategy_cost(*rows[k][:2]), k)):
+        w = min(range(n_warps), key=lambda w: (load[w], w))
+        out[w].append(k)
+        load[w] += strategy_cost(*rows[k][:2])
+    return [sorted(x) for x in out]
+
+
 class StrategyTable(NamedTuple):
     """The strategy table of a wave as K12 reads it: host rows [s, t,
     endpoint row, ray row, splat row] (-1 where none), their int32 copy on
-    the device, and the counts of shadow rays and splats per lane."""
+    the device, the counts of shadow rays and splats per lane, and the
+    warps' strategy lists of bdpt_connect_weight: `warps` on the host,
+    `order` on the device (n_warps + 1 offsets, then the lists' rows)."""
 
     rows: list
     tab: torch.Tensor   # (n_strat, 5) int32
     n_ray: int
     n_t1: int
+    warps: list
+    order: torch.Tensor
+
+
+_TABLES = {}
 
 
 def strategy_table(table, dev):
-    """StrategyTable of the (s, t) list `table` on device dev."""
+    """StrategyTable of the (s, t) list `table` on device dev (built once
+    per table and device)."""
+    key = (tuple(table), str(dev))
+    if key in _TABLES:
+        return _TABLES[key]
     rows, n_end, n_ray, n_splat = [], 0, 0, 0
     for s, t in table:
         end = ray = splat = -1
@@ -688,7 +812,13 @@ def strategy_table(table, dev):
             splat, n_splat = n_splat, n_splat + 1
         rows.append([s, t, end, ray, splat])
     tab = torch.tensor(rows, dtype=torch.int32, device=dev).reshape(-1, 5)
-    return StrategyTable(rows, tab, n_ray, n_splat)
+    warps = warp_assignment(rows, CONNECT_WARPS)
+    off = [0]
+    for x in warps:
+        off.append(off[-1] + len(x))
+    order = torch.tensor(off + [k for x in warps for k in x], dtype=torch.int32, device=dev)
+    _TABLES[key] = StrategyTable(rows, tab, n_ray, n_splat, warps, order)
+    return _TABLES[key]
 
 
 def kernel_tables(scene):
@@ -736,11 +866,33 @@ def _lib():
     lib = kernels.load("bdpt")
     if not hasattr(lib, "declared"):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.pbrt_bdpt_connect_rays.argtypes = [P] * 5 + [I] * 4 + [P] * 4 + [P]
+        lib.pbrt_bdpt_layout.argtypes = [I]
+        lib.pbrt_bdpt_layout.restype = I
+        want = (len(VERTEX_GROUPS), NEG, SLOT_BYTES, CONNECT_WARPS, STAGED_SLOTS)
+        got = tuple(lib.pbrt_bdpt_layout(i) for i in range(len(want)))
+        if got != want:
+            raise RuntimeError(f"csrc/bdpt.cu's layout {got} is not integrators/bdpt.py's {want}")
+        lib.pbrt_bdpt_connect_rays.argtypes = [P, I] + [P] * 3 + [I] * 3 + [P] * 4 + [P]
         lib.pbrt_bdpt_connect_rays.restype = I
-        lib.pbrt_bdpt_connect_weight.argtypes = ([P] * 5 + [I] * 4 + [P] * 4 + [I] * 2
-                                                 + [P] * 4 + [P])
+        lib.pbrt_bdpt_connect_weight.argtypes = ([P, I, I] + [P] * 4 + [I] * 3 + [P] * 4
+                                                 + [I] * 2 + [P] * 4 + [P])
         lib.pbrt_bdpt_connect_weight.restype = I
+        lib.declared = True
+    return lib
+
+
+def _lane_lib():
+    """The yardsticks' library (csrc/bdpt_lane.cu)."""
+    from pbrt_tpu_torch import kernels
+
+    lib = kernels.load("bdpt_lane")
+    if not hasattr(lib, "declared"):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.pbrt_bdpt_connect_rays_lane.argtypes = [P] * 5 + [I] * 4 + [P] * 4 + [P]
+        lib.pbrt_bdpt_connect_rays_lane.restype = I
+        lib.pbrt_bdpt_connect_weight_lane.argtypes = ([P] * 5 + [I] * 4 + [P] * 4 + [I] * 2
+                                                      + [P] * 4 + [P])
+        lib.pbrt_bdpt_connect_weight_lane.restype = I
         lib.declared = True
     return lib
 
@@ -752,52 +904,126 @@ def _check(what, x, dtype, shape, dev):
                          f"tensor on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _check_wave(scene, verts, ends, st, n_cam, n_light):
-    """Checks shared by K12's two entry points -> (device, lanes, scene tables)."""
-    dev, R = verts.device, verts.shape[-1]
-    if not verts.is_cuda or not 0 < R < 1 << 30:
+def _check_wave(scene, dev, R, st, n_end):
+    """Checks shared by K12's entry points -> scene tables."""
+    if dev.type != "cuda" or not 0 < R < 1 << 30:
         raise ValueError(f"bdpt kernel: needs 0 < R < 2^30 lanes on a CUDA device, got {R} "
                          f"on {dev}")
     tables = kernel_tables(scene)
     if tables[1].shape[0] == 0:
         raise ValueError("bdpt kernel: the scene has no light")
-    _check("verts", verts, torch.float32, (n_cam + n_light, NF, R), dev)
-    n_end = sum(1 for r in st.rows if r[2] >= 0)
-    _check("endpoints", ends, torch.float32, (n_end, NSF, R), dev)
+    if n_end != sum(1 for r in st.rows if r[2] >= 0):
+        raise ValueError(f"bdpt kernel: {n_end} endpoint rows for the strategy table's "
+                         f"{sum(1 for r in st.rows if r[2] >= 0)}")
     _check("strategy table", st.tab, torch.int32, (len(st.rows), 5), dev)
-    return dev, R, tables
+    return tables
 
 
-def connect_rays_cuda(scene, verts, ends, st, n_cam, n_light):
-    """K12's first entry point: the shadow rays of every s >= 1 strategy of
-    StrategyTable st -> (o (n_ray R, 3), d (n_ray R, 3), t_max (n_ray R,),
-    attempts (1,) int64)."""
+def _check_fields(scene, ft, st):
+    """_check_wave for the entries over FieldTable ft, whose pointer table
+    must be on the wave's device -> scene tables."""
+    tables = _check_wave(scene, ft.device, ft.R, st, len(ft.ends))
+    _check("field table", ft.ptrs, torch.int64,
+           (len(ft.vertex) * len(VERTEX_GROUPS) + len(ft.ends) * NEG,), ft.device)
+    return tables
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def connect_rays_cuda(scene, ft, st):
+    """K12's first entry point, over the walks' tensors of FieldTable ft:
+    the shadow rays of every s >= 1 strategy of StrategyTable st -> (o
+    (n_ray R, 3), d (n_ray R, 3), t_max (n_ray R,), attempts (1,) int64)."""
     from pbrt_tpu_torch import kernels
 
-    dev, R, (scene_f, lt, _, _) = _check_wave(scene, verts, ends, st, n_cam, n_light)
+    dev, R = ft.device, ft.R
+    scene_f, lt, _, _ = _check_fields(scene, ft, st)
     o = torch.empty((st.n_ray * R, 3), device=dev)
     d = torch.empty((st.n_ray * R, 3), device=dev)
     t_max = torch.empty((st.n_ray * R,), device=dev)
     count = torch.zeros((1,), dtype=torch.int64, device=dev)
     err = _lib().pbrt_bdpt_connect_rays(
-        verts.data_ptr(), ends.data_ptr(), scene_f.data_ptr(), lt.data_ptr(),
-        st.tab.data_ptr(), len(st.rows), n_cam, n_light, R, o.data_ptr(), d.data_ptr(),
-        t_max.data_ptr(), count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        ft.ptrs.data_ptr(), len(ft.vertex), scene_f.data_ptr(), lt.data_ptr(), st.tab.data_ptr(),
+        len(st.rows), ft.n_cam, R, o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+        count.data_ptr(), _stream(dev))
     kernels.check(err, "bdpt_connect_rays")
     launches["bdpt_connect_rays"] += 1
     return o, d, t_max, count
 
 
-def connect_weight_cuda(scene, verts, ends, st, n_cam, n_light, lam, occluded, res,
-                        per_strategy=None):
-    """K12's second entry point: L and MIS weight of every strategy, given
-    the occluded bits of connect_rays_cuda's rays -> (L (R,4) summed over
-    t > 1 in table order, splat L (n_t1 R, 4), splat pixel ids (n_t1 R,)
-    int64). per_strategy, an (n_strat, R, 4) float32 tensor, receives each
-    strategy's L."""
+def connect_weight_cuda(scene, ft, st, lam, occluded, res, per_strategy=None):
+    """K12's second entry point, over the walks' tensors of FieldTable ft
+    (staged a 32-lane tile at a time in shared memory, the next tile while
+    this one is computed, up to STAGED_SLOTS vertex slots, read in place
+    past them; st's warp lists share out the strategies): L and
+    MIS weight of every strategy, given the occluded bits of
+    connect_rays_cuda's rays -> (L (R,4) summed over t > 1 in table order,
+    splat L (n_t1 R, 4), splat pixel ids (n_t1 R,) int64). Every strategy's
+    L goes to per_strategy, an (n_strat, R, 4) float32 tensor (allocated
+    here when not given), which the t > 1 sum reads."""
     from pbrt_tpu_torch import kernels
 
-    dev, R, (scene_f, lt, emission, uinf) = _check_wave(scene, verts, ends, st, n_cam, n_light)
+    dev, R = ft.device, ft.R
+    scene_f, lt, emission, uinf = _check_fields(scene, ft, st)
+    _check("lam", lam, torch.float32, (R, 4), dev)
+    _check("occluded", occluded, torch.bool, (st.n_ray * R,), dev)
+    _check("warp lists", st.order, torch.int32, (CONNECT_WARPS + 1 + len(st.rows),), dev)
+    if per_strategy is None:
+        per_strategy = torch.empty((len(st.rows), R, 4), device=dev)
+    _check("per_strategy", per_strategy, torch.float32, (len(st.rows), R, 4), dev)
+    L = torch.empty((R, 4), device=dev)
+    splat_L = torch.empty((st.n_t1 * R, 4), device=dev)
+    splat_pix = torch.empty((st.n_t1 * R,), dtype=torch.int64, device=dev)
+    err = _lib().pbrt_bdpt_connect_weight(
+        ft.ptrs.data_ptr(), len(ft.vertex), len(ft.ends), scene_f.data_ptr(), lt.data_ptr(),
+        st.tab.data_ptr(), st.order.data_ptr(), len(st.rows), ft.n_cam, R,
+        lam.data_ptr(), emission.data_ptr(), uinf.data_ptr(), occluded.data_ptr(),
+        int(res[0]), int(res[1]), L.data_ptr(), splat_L.data_ptr(), splat_pix.data_ptr(),
+        per_strategy.data_ptr(), _stream(dev))
+    kernels.check(err, "bdpt_connect_weight")
+    launches["bdpt_connect_weight"] += 1
+    return L, splat_L, splat_pix
+
+
+def _check_packed(verts, ends, n_cam, n_light):
+    dev, R = verts.device, verts.shape[-1]
+    _check("verts", verts, torch.float32, (n_cam + n_light, NF, R), dev)
+    _check("endpoints", ends, torch.float32, (ends.shape[0], NSF, R), dev)
+    return dev, R
+
+
+def connect_rays_lane_cuda(scene, verts, ends, st, n_cam, n_light):
+    """The yardstick of connect_rays_cuda, K12's first entry point as first
+    written (csrc/bdpt_lane.cu), over the packed copy (pack_vertices,
+    pack_endpoints); for chip_smoke.py only."""
+    from pbrt_tpu_torch import kernels
+
+    dev, R = _check_packed(verts, ends, n_cam, n_light)
+    scene_f, lt, _, _ = _check_wave(scene, dev, R, st, ends.shape[0])
+    o = torch.empty((st.n_ray * R, 3), device=dev)
+    d = torch.empty((st.n_ray * R, 3), device=dev)
+    t_max = torch.empty((st.n_ray * R,), device=dev)
+    count = torch.zeros((1,), dtype=torch.int64, device=dev)
+    err = _lane_lib().pbrt_bdpt_connect_rays_lane(
+        verts.data_ptr(), ends.data_ptr(), scene_f.data_ptr(), lt.data_ptr(),
+        st.tab.data_ptr(), len(st.rows), n_cam, n_light, R, o.data_ptr(), d.data_ptr(),
+        t_max.data_ptr(), count.data_ptr(), _stream(dev))
+    kernels.check(err, "bdpt_connect_rays_lane")
+    launches["bdpt_connect_rays_lane"] += 1
+    return o, d, t_max, count
+
+
+def connect_weight_lane_cuda(scene, verts, ends, st, n_cam, n_light, lam, occluded, res,
+                             per_strategy=None):
+    """The yardstick of connect_weight_cuda, K12's second entry point as
+    first written (csrc/bdpt_lane.cu): one thread per lane over the packed
+    copy, every strategy in table order; for chip_smoke.py only."""
+    from pbrt_tpu_torch import kernels
+
+    dev, R = _check_packed(verts, ends, n_cam, n_light)
+    scene_f, lt, emission, uinf = _check_wave(scene, dev, R, st, ends.shape[0])
     _check("lam", lam, torch.float32, (R, 4), dev)
     _check("occluded", occluded, torch.bool, (st.n_ray * R,), dev)
     if per_strategy is not None:
@@ -805,29 +1031,34 @@ def connect_weight_cuda(scene, verts, ends, st, n_cam, n_light, lam, occluded, r
     L = torch.empty((R, 4), device=dev)
     splat_L = torch.empty((st.n_t1 * R, 4), device=dev)
     splat_pix = torch.empty((st.n_t1 * R,), dtype=torch.int64, device=dev)
-    err = _lib().pbrt_bdpt_connect_weight(
+    err = _lane_lib().pbrt_bdpt_connect_weight_lane(
         verts.data_ptr(), ends.data_ptr(), scene_f.data_ptr(), lt.data_ptr(),
-        st.tab.data_ptr(), len(st.rows), n_cam, n_light, R, lam.data_ptr(),
-        emission.data_ptr(), uinf.data_ptr(), occluded.data_ptr(), int(res[0]), int(res[1]),
-        L.data_ptr(), splat_L.data_ptr(), splat_pix.data_ptr(),
-        0 if per_strategy is None else per_strategy.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(err, "bdpt_connect_weight")
-    launches["bdpt_connect_weight"] += 1
+        st.tab.data_ptr(), len(st.rows), n_cam, n_light, R, lam.data_ptr(), emission.data_ptr(),
+        uinf.data_ptr(), occluded.data_ptr(), int(res[0]), int(res[1]), L.data_ptr(),
+        splat_L.data_ptr(), splat_pix.data_ptr(),
+        0 if per_strategy is None else per_strategy.data_ptr(), _stream(dev))
+    kernels.check(err, "bdpt_connect_weight_lane")
+    launches["bdpt_connect_weight_lane"] += 1
     return L, splat_L, splat_pix
+
+
+def contiguous_samples(samples):
+    """The sampled endpoints with every field in place for the kernels:
+    sample_wi's raster is a column slice of its (R, 3) raster point, the one
+    strided field of a wave, and is made contiguous here."""
+    return {st: x._replace(raster=x.raster.contiguous()) if isinstance(x, CameraSample) else x
+            for st, x in samples.items()}
 
 
 def connect_all_cuda(scene, meta, light_vs, cam_vs, lam, table, samples, per_strategy=None):
     """K12: connect_all_plain's contract on the card. Two kernel launches
-    and one occluded dispatch for all strategies' shadow rays."""
-    R, dev = lam.shape[0], lam.device
-    st = strategy_table(table, dev)
-    verts = pack_vertices(cam_vs, light_vs)
-    ends = pack_endpoints(table, samples, R, dev)
-    o, d, t_max, count = connect_rays_cuda(scene, verts, ends, st, len(cam_vs), len(light_vs))
+    over the walks' own tensors and one occluded dispatch for all
+    strategies' shadow rays."""
+    st = strategy_table(table, lam.device)
+    ft = field_table(cam_vs, light_vs, table, contiguous_samples(samples))
+    o, d, t_max, count = connect_rays_cuda(scene, ft, st)
     occ = dispatch.occluded(scene, meta, o, d, t_max).contiguous()
-    L, splat_L, splat_pix = connect_weight_cuda(scene, verts, ends, st, len(cam_vs),
-                                                len(light_vs), lam.contiguous(), occ,
+    L, splat_L, splat_pix = connect_weight_cuda(scene, ft, st, lam.contiguous(), occ,
                                                 meta.resolution, per_strategy)
     return L, splat_L, splat_pix, count[0]
 

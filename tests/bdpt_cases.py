@@ -1,4 +1,5 @@
-"""K12 (csrc/bdpt.cu) against its plain version, shared by
+"""K12 (csrc/bdpt.cu) against its plain version and against its
+yardsticks (compare_yardstick: the same bits), shared by
 tests/test_torch_gpu.py and chip_smoke.py, and a scene with every light
 type the builder emits (FOUR_LIGHTS_PBRT, also read by
 tests/test_torch_bdpt.py). Imports neither jax nor pbrt_tpu.
@@ -193,6 +194,38 @@ def compare(scene, meta, light_vs, cam_vs, lam, table, samples):
                 rays_plain=int(n_p),
                 splat_pix_differ=int((pix_k[live_splat] != pix_p[live_splat]).sum()),
                 max_abs_err=float((per_k - per_p).abs().max()))
+
+
+def compare_yardstick(scene, meta, light_vs, cam_vs, lam, table, samples):
+    """K12's two entry points (over the walks' own tensors) against their
+    yardsticks (csrc/bdpt.cu's one-thread-per-lane kernels over the packed
+    copy) on the same inputs and the same occluded bits -> {"rays": o, d,
+    t_max and the attempt count the same bits, "weight": L, splat L, splat
+    pixel ids and every strategy's L the same bits}."""
+    from pbrt_tpu_torch.accel import dispatch
+    from pbrt_tpu_torch.integrators import bdpt
+
+    R, dev = lam.shape[0], lam.device
+    lam = lam.contiguous()
+    st = bdpt.strategy_table(table, dev)
+    ft = bdpt.field_table(cam_vs, light_vs, table, bdpt.contiguous_samples(samples))
+    verts = bdpt.pack_vertices(cam_vs, light_vs)
+    ends = bdpt.pack_endpoints(table, samples, R, dev)
+    n_cam, n_light = len(cam_vs), len(light_vs)
+    rays = bdpt.connect_rays_cuda(scene, ft, st)
+    rays_y = bdpt.connect_rays_lane_cuda(scene, verts, ends, st, n_cam, n_light)
+    occ = dispatch.occluded(scene, meta, *rays[:3]).contiguous()
+    per, per_y = (torch.empty((len(table), R, 4), device=dev) for _ in range(2))
+    out = bdpt.connect_weight_cuda(scene, ft, st, lam, occ, meta.resolution, per)
+    out_y = bdpt.connect_weight_lane_cuda(scene, verts, ends, st, n_cam, n_light, lam, occ,
+                                          meta.resolution, per_y)
+
+    def same(xs, ys):
+        return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y)
+                   for x, y in zip(xs, ys))
+
+    return {"rays": same(rays, rays_y), "weight": same(out + (per,), out_y + (per_y,))}
 
 
 def require_agreement(res):

@@ -397,3 +397,186 @@ def test_connect_all_plain_matches_strategies(name):
         assert torch.equal(splat_pix[k * R:(k + 1) * R],
                            tbdpt.splat_pixels(p["t_conn"][st][1], tm.resolution))
     assert int(n) == sum(int(p["t_conn"][st][2]) for st in p["table"])
+
+
+# ------------------------------------------- K12's layout and warp lists
+# What csrc/bdpt.cu reads is checked here without a card: the warps'
+# strategy lists of bdpt_connect_weight, and the FieldTable of pointers into
+# the walks' own tensors, read back byte by byte the way the kernel reads it.
+
+TABLES = {"cornell": STRATEGIES, "four lights": STRATEGIES,
+          "depth 7": tbdpt.strategies(7 + 2, 7 + 1, 7)}
+
+
+@pytest.mark.parametrize("n_warps", [4, 8, 16])
+@pytest.mark.parametrize("name", list(TABLES))
+def test_warp_lists_cover_every_strategy_once(name, n_warps):
+    """Every strategy in exactly one warp's list (`warp_assignment` at 4, 8
+    and 16 warps), each list in table order, the device `order` table the
+    kernel's lists' offsets then rows; the table's rows
+    (endpoint, ray and splat rows) are those of the (s, t) list; and the
+    kernel's schedule (each warp writes its strategies' L, then the t > 1
+    rows are summed in table order) rebuilds connect_all_plain's sum, splats
+    and pixel ids bit for bit (cornell, four lights: their waves' own L; the
+    43-strategy depth-7 table: numpy-seeded values)."""
+    table = TABLES[name]
+    assert len(table) == (43 if name == "depth 7" else 26)
+    st = tbdpt.strategy_table(table, torch.device("cpu"))
+    warps = tbdpt.warp_assignment(st.rows, n_warps)
+    assert len(warps) == n_warps
+    assert sorted(k for w in warps for k in w) == list(range(len(table)))
+    assert all(w == sorted(w) for w in warps)
+    load = [sum(tbdpt.strategy_cost(*st.rows[k][:2]) for k in w) for w in warps]
+    assert max(load) - min(load) <= max(tbdpt.strategy_cost(*r[:2]) for r in st.rows)
+    W = tbdpt.CONNECT_WARPS        # the kernel's lists, on the device
+    off = st.order[:W + 1].tolist()
+    assert st.warps == tbdpt.warp_assignment(st.rows, W)
+    assert off == [sum(len(w) for w in st.warps[:i]) for i in range(W + 1)]
+    assert st.order[W + 1:].tolist() == [k for w in st.warps for k in w]
+    assert [tuple(r[:2]) for r in st.rows] == list(table) and st.tab.tolist() == st.rows
+    ends, rays, splats = ([r[i] for r in st.rows if r[i] >= 0] for i in (2, 3, 4))
+    assert ends == list(range(len(ends))) and rays == list(range(st.n_ray))
+    assert splats == list(range(st.n_t1))
+    if name == "depth 7":
+        R = 64
+        vals = torch.as_tensor(np.random.default_rng(7).normal(size=(len(table), R, 4))
+                               .astype(np.float32))
+        want_L, want_splat = torch.zeros((R, 4)), [vals[k] for k, (s, t) in enumerate(table)
+                                                   if t == 1]
+        for k, (s, t) in enumerate(table):
+            if t > 1:
+                want_L = want_L + vals[k]
+        want_splat = torch.cat(want_splat)
+    else:
+        p = _paths(name)
+        per = []
+        want_L, want_splat, want_pix, _ = tbdpt.connect_all_plain(
+            *p["scenes"], p["t_light"], p["t_cam"], p["lam"], table, p["samples"], per)
+        vals, R = torch.stack(per), want_L.shape[0]
+    written = torch.full((len(table), R, 4), float("nan"))
+    splat_L = torch.full((st.n_t1 * R, 4), float("nan"))
+    for w in warps:                         # the warps' writes, in any order
+        for k in reversed(w):
+            written[k] = vals[k]
+            if st.rows[k][4] >= 0:
+                splat_L[st.rows[k][4] * R:(st.rows[k][4] + 1) * R] = vals[k]
+    L = torch.zeros((R, 4))
+    for k in range(len(table)):             # then the sum, in table order
+        if st.rows[k][1] > 1:
+            L = L + written[k]
+    assert torch.equal(L.view(torch.int32), want_L.view(torch.int32))
+    assert torch.equal(splat_L.view(torch.int32), want_splat.view(torch.int32))
+    if name != "depth 7":
+        t1 = [st.rows[k] for k in range(len(table)) if st.rows[k][1] == 1]
+        pix = torch.cat([tbdpt.splat_pixels(p["samples"][tuple(r[:2])].raster,
+                                            p["scenes"][1].resolution) for r in t1])
+        assert torch.equal(pix, want_pix)
+
+
+def _read_like_kernel(ft):
+    """The FieldTable ft read as csrc/bdpt.cu reads it, from the addresses in
+    ft.ptrs: vertex slot i, group j at ptrs[i NG + j], staged 32 lanes at a
+    time (zeros past lane R - 1); endpoint row i, group j at ptrs[n_slots
+    NG + i NEG + j]; per lane the float32 components, the int32 vtype, the
+    low word of an int64 id, a bool's byte -> ((n_slots, NF, R), (n_end,
+    NSF, R)) float32."""
+    import ctypes
+
+    R, n_tiles, ng = ft.R, -(-ft.R // tbdpt.TILE), len(tbdpt.VERTEX_GROUPS)
+
+    def lanes(ptr, dtype, width, tiled):
+        gb = width * torch.tensor([], dtype=dtype).element_size()
+        n = R * gb
+        raw = torch.frombuffer(bytearray((ctypes.c_uint8 * n).from_address(ptr)),
+                               dtype=torch.uint8)
+        if tiled:                            # the staged tile, zero past R
+            raw = torch.cat([raw, torch.zeros(n_tiles * tbdpt.TILE * gb - n, dtype=torch.uint8)])
+        rows = raw.reshape(-1, gb)
+        if dtype == torch.float32:
+            v = rows.view(torch.float32)
+        elif dtype == torch.int32:
+            v = rows.view(torch.int32).float()
+        elif dtype == torch.int64:
+            v = rows.view(torch.int32)[:, :1].float()
+        else:
+            v = (rows[:, :1] != 0).float()
+        return v[:R].T
+
+    ptrs = ft.ptrs.tolist()
+    verts = torch.stack([torch.cat([lanes(ptrs[i * ng + j], dt, w, True)
+                                    for j, (_, dt, w) in enumerate(tbdpt.VERTEX_GROUPS)])
+                         for i in range(len(ft.vertex))])
+    base = len(ft.vertex) * ng
+    ends = [torch.cat([lanes(ptrs[base + i * tbdpt.NEG + j], dt, w, False)
+                       for j, (_, dt, w) in enumerate(groups)]) for i, (groups, _) in
+            enumerate(ft.ends)]
+    ends = [torch.cat([e, torch.zeros((tbdpt.NSF - e.shape[0], R))]) for e in ends]
+    assert len(ptrs) == base + len(ft.ends) * tbdpt.NEG
+    return verts, torch.stack(ends)
+
+
+def _cut(p, R):
+    """The wave of _paths' record cut to its first R lanes (contiguous
+    slices: each field's own storage, from its start)."""
+    def cut(x):
+        if torch.is_tensor(x):
+            return x[:R]
+        return type(x)(*map(cut, x))
+
+    return ([cut(v) for v in p["t_cam"]], [cut(v) for v in p["t_light"]],
+            {st: cut(x) for st, x in p["samples"].items()})
+
+
+@pytest.mark.parametrize("R", [RES * RES, 200])
+@pytest.mark.parametrize("name", ["cornell", "four lights"])
+def test_field_table_reads_back_the_packed_records(name, R):
+    """K12's FieldTable of a wave (the walks' own tensors, no copy but the
+    endpoints' strided raster), read from its pointers the way the kernel
+    reads it, equals the yardsticks' packed copy (pack_vertices,
+    pack_endpoints) bit for bit; at RES^2 lanes and at 200, which is no
+    multiple of the 32-lane tile."""
+    p = _paths(name)
+    cam, light, samples = _cut(p, R)
+    samples = tbdpt.contiguous_samples(samples)
+    ft = tbdpt.field_table(cam, light, p["table"], samples)
+    assert (ft.R, ft.n_cam, len(ft.vertex)) == (R, len(cam), len(cam) + len(light))
+    assert len(ft.ends) == sum(1 for st in p["table"] if st in samples)
+    for v, fields in zip(cam + light, ft.vertex):   # in place: the walks' own storage
+        assert fields[1].data_ptr() == v.p.data_ptr() and fields[11] is v.bx.refl
+    verts, ends = _read_like_kernel(ft)
+    want_v = tbdpt.pack_vertices(cam, light)
+    want_e = tbdpt.pack_endpoints(p["table"], samples, R, "cpu")
+    assert torch.equal(verts.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(ends.view(torch.int32), want_e.view(torch.int32))
+
+
+def test_connect_kernel_wrappers_raise():
+    """K12's wrappers refuse what the kernels cannot read in place: a strided
+    field, a field of another dtype, and CPU tensors (on the card they
+    launch or raise; the CPU runs the plain version in li_bdpt). A wave of
+    any depth is taken: one past the staged slots (STAGED_SLOTS) builds its
+    table too."""
+    p = _paths("cornell")
+    cam, light, samples = p["t_cam"], p["t_light"], tbdpt.contiguous_samples(p["samples"])
+    table = p["table"]
+    ft = tbdpt.field_table(cam, light, table, samples)
+    strided = cam[:1] + [cam[1]._replace(p=cam[1].p.T.contiguous().T)] + cam[2:]
+    with pytest.raises(ValueError, match="slot 1 p"):
+        tbdpt.field_table(strided, light, table, samples)
+    wrong = cam[:2] + [cam[2]._replace(vtype=cam[2].vtype.long())] + cam[3:]
+    with pytest.raises(ValueError, match="slot 2 vtype"):
+        tbdpt.field_table(wrong, light, table, samples)
+    with pytest.raises(ValueError, match="raster"):
+        tbdpt.field_table(cam, light, table, p["samples"])
+    deep = tbdpt.field_table(cam * 6, light, table, samples)
+    assert len(deep.vertex) == 6 * len(cam) + len(light) > tbdpt.STAGED_SLOTS
+    assert deep.ptrs.shape == ((len(deep.vertex) * len(tbdpt.VERTEX_GROUPS)
+                                + len(deep.ends) * tbdpt.NEG),)
+    st = tbdpt.strategy_table(table, torch.device("cpu"))
+    ts, tm = p["scenes"]
+    R = ft.R
+    with pytest.raises(ValueError, match="CUDA"):
+        tbdpt.connect_rays_cuda(ts, ft, st)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbdpt.connect_weight_cuda(ts, ft, st, p["lam"], torch.zeros(st.n_ray * R, dtype=bool),
+                                  tm.resolution)

@@ -561,12 +561,15 @@ def test_bdpt_kernel_matches_plain(cuda, name):
     """K12 (both entry points around one occluded dispatch) against its
     plain version on a wave of 24^2 x 2 lanes (tests/bdpt_cases.py: for
     every strategy, its live lanes within rtol 1e-4, atol 1e-6; equal ray
-    counts and splat pixels); one launch of each entry point counted. The
+    counts and splat pixels); one launch of each entry point counted, none
+    of the yardsticks; then both entry points the same bits as their
+    yardsticks (the one-thread-per-lane kernels over the packed copy). The
     four-light scene holds the distant, spot and uniform infinite lights,
     escaped camera rays and the delta-light rule."""
     from pathlib import Path
 
-    from bdpt_cases import compare, four_lights_builder, require_agreement, wave_inputs
+    from bdpt_cases import (compare, compare_yardstick, four_lights_builder,
+                            require_agreement, wave_inputs)
     from pbrt_tpu_torch.integrators import bdpt
     from pbrt_tpu_torch.scene import builder as bd
     from pbrt_tpu_torch.scene.compile import compile_scene
@@ -583,17 +586,53 @@ def test_bdpt_kernel_matches_plain(cuda, name):
     pix = torch.arange(24 * 24, device=cuda).repeat(2)
     sample = torch.arange(2, device=cuda).repeat_interleave(24 * 24)
     n0 = dict(bdpt.launches)
-    res = compare(scene, meta, *wave_inputs(scene, meta, pix, sample))
-    assert all(bdpt.launches[k] == n0[k] + 1 for k in n0)
+    wave = wave_inputs(scene, meta, pix, sample)
+    res = compare(scene, meta, *wave)
+    assert {k: bdpt.launches[k] - n0[k] for k in n0} == {
+        "bdpt_connect_rays": 1, "bdpt_connect_weight": 1, "bdpt_connect_rays_lane": 0,
+        "bdpt_connect_weight_lane": 0}
     require_agreement(res)
     assert res["rays_kernel"] > 0 and res["strategies_live"] > res["strategies"] // 2
+    assert compare_yardstick(scene, meta, *wave) == {"rays": True, "weight": True}
+
+
+@pytest.mark.parametrize("name, res, spp, lanes, depth", [
+    ("four lights", 64, 2, 8192, None), ("cornell", 24, 2, 1000, None),
+    ("four lights", 24, 2, 1000, 8), ("cornell", 24, 2, 1152, 16),
+    ("cornell", 16, 2, 500, 17), ("cornell", 16, 1, 256, 24)],
+    ids=["four lights-8192", "cornell-1000", "four lights-1000-depth 8",
+         "cornell-1152-depth 16", "cornell-500-depth 17", "cornell-256-depth 24"])
+def test_bdpt_kernel_bits_at_tile_edges(cuda, name, res, spp, lanes, depth):
+    """K12 at the MLT shape (8192 lanes: 256 tiles of 32), at lane counts
+    that are no multiple of the tile (the last tile's lanes past R stage
+    zeros, or read lane R - 1, and write nothing), and at each of
+    bdpt_connect_weight's routes by max depth: two staged buffers up to
+    depth 7 (17 vertex slots), one from depth 8 (19 slots) to 16 (35), the
+    vertices read in place from depth 17 (37 slots) on. The same bits as
+    its yardsticks, and within tests/bdpt_cases.py's criterion of the plain
+    version."""
+    from bdpt_cases import compare, compare_yardstick, four_lights_builder, require_agreement, \
+        wave_inputs
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    b = four_lights_builder(res) if name == "four lights" else ts.cornell_builder(res, "box")
+    if depth is not None:
+        b.integrator["maxdepth"] = depth
+    scene, meta = compile_scene(b, spp, device=cuda, integrator_override="bdpt")
+    pix = torch.arange(res * res, device=cuda).repeat(spp)[:lanes]
+    sample = torch.arange(spp, device=cuda).repeat_interleave(res * res)[:lanes]
+    wave = wave_inputs(scene, meta, pix, sample)
+    assert wave[2].shape[0] == lanes
+    assert len(wave[0]) + len(wave[1]) == 2 * meta.max_depth + 3
+    assert compare_yardstick(scene, meta, *wave) == {"rays": True, "weight": True}
+    require_agreement(compare(scene, meta, *wave))
 
 
 def test_bdpt_render_on_card_matches_cpu(cuda):
-    """cornell 16^2 x 4 with BDPT: K12 and K5s launched, the image within
-    tests/test_parity.py's criterion of the CPU render, ray counts within
-    0.1 % (an eager op may round apart between card and CPU and turn a
-    walk)."""
+    """cornell 16^2 x 4 with BDPT: K12 and K5s launched (K12's yardsticks
+    not), the image within tests/test_parity.py's criterion of the CPU
+    render, ray counts within 0.1 % (an eager op may round apart between
+    card and CPU and turn a walk)."""
     from pbrt_tpu_torch.integrators import bdpt
     from pbrt_tpu_torch.scene.compile import compile_scene
 
@@ -602,7 +641,9 @@ def test_bdpt_render_on_card_matches_cpu(cuda):
     n0 = dict(bdpt.launches)
     s0 = film_kernel.launches["film_add_splats"]
     img_gpu, st_gpu = render(scene, meta, return_stats=True)
-    assert all(bdpt.launches[k] > n0[k] for k in n0)
+    assert all(bdpt.launches[k] > n0[k] for k in ("bdpt_connect_rays", "bdpt_connect_weight"))
+    assert all(bdpt.launches[k] == n0[k] for k in ("bdpt_connect_rays_lane",
+                                                    "bdpt_connect_weight_lane"))
     assert film_kernel.launches["film_add_splats"] > s0
     img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
     img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()

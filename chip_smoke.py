@@ -13,7 +13,12 @@ result line:
      K12's (csrc/bdpt.cu): the tiled `connect_weight_tile_kernel` must load
      from shared memory where it stages (up to 35 vertex slots) and not
      where it reads in place, with no local loads or stores, stack frame or
-     spills in either; every K12 kernel's registers printed;
+     spills in either; every K12 kernel's registers printed; K7's
+     (csrc/layered.cu): the redesigned layered_f and layered_pdf kernels with
+     no local loads or stores, stack frame or spills, printed beside
+     layered_sample's and the yardsticks' (csrc/layered_lane.cu), and the
+     samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle) the
+     bits of the library's sinf and cosf on every float below 105615;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -39,7 +44,12 @@ result line:
      torch's, and the walk compares its draws with them), so it is held
      statistically: valid and flags equal on >= 99.9 % of lanes; f, wi and
      pdf within rtol 1e-4, atol 1e-6 on >= 99.5 %; lane means of f, pdf and
-     f |cos| / pdf within 1e-3 relative; the fractions are printed;
+     f |cos| / pdf within 1e-3 relative; the fractions are printed; then
+     layered_f and layered_pdf against their yardsticks, the kernels as
+     first written (csrc/layered_lane.cu): the same bits and step counts
+     on those lanes and on as many lanes of a deep medium
+     (layered_cases.deep_medium_lanes), all coated, and timed in turns with
+     them (yardstick, kernel, kernel, yardstick);
   7. small renders on the card against tests/goldens.npz and against the
      same render on the CPU: cornell-mesh levels 3 at 48^2 x 4 spp, the plain
      cornell box at 64^2 x 8 spp (box filter), caustic-glass with the path
@@ -47,7 +57,9 @@ result line:
      disk kernel), and material-testball at 32^2 x 4 spp (box filter, card
      against CPU; the walk seeds on float bits, which differ between the two
      by an ulp, so the renders are independent estimates and are compared on
-     16x16-pixel block means and the image mean); then BDPT: cornell 24^2 x
+     16x16-pixel block means and the image mean), rendered again on the card
+     with layered_f and layered_pdf pointed at their yardsticks: the same
+     image bits and ray counts; then BDPT: cornell 24^2 x
      8 (box filter) against tests/goldens.npz's cornell_bdpt_24_spp8 and
      the CPU render, caustic-glass (its file's BDPT, max depth 7) at 32^2 x
      4 and cornell-mesh levels 3 at 48^2 x 4 (the BVH route) against the CPU
@@ -67,7 +79,9 @@ result line:
      coateddiffuse; 256^2 x 256 spp stratified, max depth 8; its compile
      seconds, rays/s and peak memory) and material-testball
      (coatedconductor, partial-sphere pedestal; 256^2 x 64 spp, max depth
-     6); then BDPT at the bench's settings: cornell-bdpt (128^2 x 8, max
+     6), K7's launches exactly max_depth a wave (layered_pdf twice that)
+     and its yardsticks' none; then BDPT at the bench's settings:
+     cornell-bdpt (128^2 x 8, max
      depth 5, one wave) and caustic-glass at its file's (256^2 x 64, max
      depth 7, four waves of 2^20 lanes). Each is driven with the launch
      counts set to 0 just before it and read just after; every kernel of its
@@ -97,8 +111,10 @@ result line:
      launch in the full-width render of its path: the shapes and data the
      main path gives it; K7's
      three entry points on their first launches in the staircase and
-     testball frames, against the plain version on the coated lanes, timed
-     on staircase's; K12 on the first waves of the two BDPT frames, on a
+     testball frames, against the plain version on the coated lanes,
+     layered_f and layered_pdf also against their yardsticks' bits and
+     timed in turns with them on both, all timed on staircase's, each
+     bound from the bytes its lanes' BxDF kinds need; K12 on the first waves of the two BDPT frames, on a
      24^2 x 2 wave of tests/bdpt_cases.py's four-light scene (distant, spot,
      uniform infinite and three kinds of area light) and on 24^2 x 2 cornell
      waves at max depth 8 (one staged buffer) and 17 (vertices read in
@@ -331,6 +347,63 @@ def sass_memory_ops(sass):
     return out
 
 
+def interface_bytes(kind):
+    """(R,) bytes of an interface that its kind needs: kind, ax and ay
+    (12), and a dielectric's eta (4), a conductor's complex IOR (32), a
+    diffuse reflector's reflectance (16), a diffuse transmitter's
+    reflectance and transmittance (32) (csrc/layered.cu load_needed)."""
+    extra = torch.tensor([16, 32, 4, 32], dtype=torch.int64, device=kind.device)
+    return 12 + extra[kind.long().clamp(0, 3)]
+
+
+def reached(name, p, args, mask):
+    """The lanes of `mask` that read past the coat, counted by the
+    entry's step counter at max_depth 1: layered_f's walks that start,
+    layered_sample's that enter the layer, layered_pdf's estimates that
+    reach the base."""
+    from pbrt_tpu_torch.materials import layered
+
+    st = torch.zeros(1, dtype=torch.int64, device=mask.device)
+    getattr(layered, f"{name}_cuda")(p._replace(max_depth=1), *args, mask, st)
+    return int(st.item())
+
+
+def k7_bytes(name, p, args, mask):
+    """(bytes, note): what K7's entry must move on these lanes: each
+    input read once, by the lanes that need it, each output written once,
+    every lane, and every lane reads the mask. A coated lane reads its
+    directions (wo, wi or wo, uc, u2: 24) and the coat's fields by kind
+    (layered_pdf: only with wo and wi on one side; on the others its pdf
+    is a constant). The base is read by kind where it is needed:
+    layered_f on the lanes whose exit is the base (wo and wi on opposite
+    sides) and on those whose walk starts, layered_sample on those that
+    enter the layer, layered_pdf where its estimate reaches the base;
+    thickness, g and albedo (24) by layered_f's and layered_sample's
+    walking lanes."""
+    R_ = mask.shape[0]
+    out_b = {"layered_f": 16, "layered_sample": 41, "layered_pdf": 4}[name]
+    top_b, bot_b = interface_bytes(p.top.kind), interface_bytes(p.bottom.kind)
+    same = (args[0][:, 2] * args[1][:, 2] > 0) if name != "layered_sample" else None
+    coat_lanes = mask & same if name == "layered_pdf" else mask
+    n_bytes = R_ * (1 + out_b) + int(mask.sum()) * 24 + int(top_b[coat_lanes].sum())
+    base_fixed = (mask & ~same) if name == "layered_f" else torch.zeros_like(mask)
+    n_bytes += int(bot_b[base_fixed].sum())
+    # the rest of the base reads, by base kind: the lanes past the coat
+    # among those not counted yet
+    rest = mask & ~base_fixed
+    if name == "layered_pdf":
+        rest = rest & same
+    for k in torch.unique(p.bottom.kind[rest]).tolist():
+        sel = rest & (p.bottom.kind == k)
+        n_bytes += reached(name, p, args, sel) * int(interface_bytes(
+            torch.tensor([k], device=mask.device)))
+    n_walk = reached(name, p, args, mask) if name != "layered_pdf" else 0
+    n_bytes += n_walk * 24
+    return n_bytes, (f"{int(base_fixed.sum())} exit through the base, {n_walk} walk"
+                     if name != "layered_pdf" else
+                     f"{int(coat_lanes.sum())} with wo, wi on one side")
+
+
 def require(ok, *what):
     """A phase check: raise (and so exit non-zero) when it does not hold."""
     if not ok:
@@ -380,8 +453,8 @@ def main():
     sys.path.insert(0, str(ROOT / "tests"))
     from quadric_edges import clip_edge_distance
     from layered_cases import (ATOL, BXDF_FIELDS, CASES as LAYERED_CASES, CLOSE_FRAC,
-                               EQUAL_FRAC, MEAN_RTOL, RTOL, blocks, frac_close,
-                               lanes as layered_lanes)
+                               EQUAL_FRAC, MEAN_RTOL, RTOL, blocks, deep_medium_lanes,
+                               frac_close, lanes as layered_lanes)
     import bdpt_cases
     import mlt_cases
     from pbrt_tpu_torch import kernels
@@ -497,6 +570,36 @@ def main():
                                              "spill loads"),
                         "K12's tiled kernel: shared-memory loads not as staged, or a local stack "
                         "or spills", short, dict(c), frame)
+    # K7's layered_f and layered_pdf as redesigned (csrc/layered.cu): neither a
+    # local-memory stack nor spills; layered_sample (one thread per lane, as
+    # first written) and the yardsticks (csrc/layered_lane.cu) printed beside
+    k7_kernels = ("f_enter_kernel", "f_walk_kernel", "layered_pdf_kernel",
+                  "layered_sample_kernel", "layered_f_lane_kernel", "layered_pdf_lane_kernel")
+    for lib_name in ("layered", "layered_lane"):
+        report = built[lib_name][1].splitlines()
+        for fn, c in sass_memory_ops(subprocess.run(
+                [str(cuobjdump), "-sass", str(kernels.library_path(lib_name))],
+                capture_output=True, text=True, timeout=120).stdout).items():
+            short = next((k for k in k7_kernels if k in fn), None)
+            if short is None:
+                continue
+            at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                      and fn in line)
+            frame = report[at + 1].strip()
+            regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                        if "registers" in line)
+            log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
+            if short in k7_kernels[:3]:
+                local = [k for k in c if k.startswith(("LDL", "STL"))]
+                require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
+                                                       "stores, 0 bytes spill loads"),
+                        "K7's redesigned kernels: a local stack or spills", short, dict(c), frame)
+    # the samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle)
+    # against the library's sinf and cosf on every float below 105615
+    mism = layered.trig_mismatches(dev)
+    require(mism == 0, "sin_angle / cos_angle differ from sinf / cosf", mism)
+    log(f"bxdf sin_angle and cos_angle against sinf and cosf on every float of magnitude <= "
+        f"{layered.TRIG_LIMIT}: {mism} mismatches")
     probe = filmlib.new_film((4, 4), dev)
     film_kernel.add_splats_triton(
         probe.splat, torch.zeros(1, dtype=torch.int64, device=dev), torch.ones((1, 4), device=dev),
@@ -848,6 +951,52 @@ def main():
         log(f"{name} vs plain on {n7} synthetic lanes ({len(LAYERED_CASES)} cases: "
             f"{'; '.join(LAYERED_CASES)}): {agreement(res)}")
 
+    def k7_yardstick(name, p, args, mask, label):
+        """layered_f or layered_pdf against its yardstick (the kernel as
+        first written, csrc/layered_lane.cu): every output bit and the step
+        counts equal. -> the steps counted."""
+        st_k, st_y = (torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2))
+        out_k = getattr(layered, f"{name}_cuda")(p, *args, mask, st_k)
+        out_y = getattr(layered, f"{name}_lane_cuda")(p, *args, mask, st_y)
+        same = torch.equal(out_k.view(torch.int32), out_y.view(torch.int32))
+        require(same and int(st_k) == int(st_y), name, label,
+                "differs from its yardstick's bits or steps", int(st_k), int(st_y))
+        return int(st_k)
+
+    def k7_turns(name, p, args, mask):
+        """layered_f or layered_pdf timed in turns with its yardstick
+        (yardstick, kernel, kernel, yardstick; graph replays) -> (kernel ms,
+        yardstick ms, the four turns)."""
+        new_fn = getattr(layered, f"{name}_cuda")
+        yard_fn = getattr(layered, f"{name}_lane_cuda")
+        turns = [graph_ms(f) for f in (lambda: yard_fn(p, *args, mask),
+                                       lambda: new_fn(p, *args, mask),
+                                       lambda: new_fn(p, *args, mask),
+                                       lambda: yard_fn(p, *args, mask))]
+        return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
+
+    # the yardsticks' bits and timing in turns on all-coated lanes (no mask:
+    # only the refill, the loads and the layout can win), the synthetic ones
+    # and a deep medium, whose walks run to max_depth
+    lanes_deep = {k: torch.as_tensor(v, device=dev)
+                  for k, v in deep_medium_lanes(n7, 11).items()}
+    p_deep = layered.LayeredParams(
+        *(bxdfs.BxdfParams(*(lanes_deep[f"{tag}_{f}"] for f in BXDF_FIELDS))
+          for tag in ("top", "bottom")), lanes_deep["thickness"], lanes_deep["g"],
+        lanes_deep["albedo"], 10, 1)
+    k7_synthetic = {}
+    for label, p_, l_ in (("synthetic", p7, lanes7), ("deep medium", p_deep, lanes_deep)):
+        for name in ("layered_f", "layered_pdf"):
+            args = (l_["wo"], l_["wi"])
+            n_steps = k7_yardstick(name, p_, args, None, label)
+            ms_k, ms_y, turns = k7_turns(name, p_, args, None)
+            k7_synthetic[f"{name} {label}"] = dict(ms=ms_k, yardstick_ms=ms_y, turns=turns)
+            log(f"{name} on {n7} all-coated {label} lanes: the yardstick's bits and step counts "
+                f"({n_steps} "
+                f"{'steps' if name == 'layered_f' else 'reached the base'}); kernel "
+                f"{turns[1]:.4f} / {turns[2]:.4f} ms, yardstick {turns[0]:.4f} / {turns[3]:.4f} "
+                f"ms in turns, speed-up {ms_y / ms_k:.3f}x")
+
     # ---- 7. small renders vs golden and vs CPU
     goldens = np.load(ROOT / "tests" / "goldens.npz")
     for label, (sc, mt), key in (
@@ -869,10 +1018,33 @@ def main():
     b_tb.film["xresolution"] = b_tb.film["yresolution"] = 32
     b_tb.filter = {"type": "box"}
     s_tb32, m_tb32 = compile_scene(b_tb, 4, device=dev)
+    k7 = ("layered_f", "layered_sample", "layered_pdf")
+    k7_yard = ("layered_f_lane", "layered_pdf_lane")
     reset_counts()
-    img_gpu = rd.render(s_tb32, m_tb32).cpu().numpy()
+    img_t, st_t = rd.render(s_tb32, m_tb32, return_stats=True)
     counts = {k: v for k, v in read_counts().items() if v}
-    require(all(counts.get(k, 0) > 0 for k in layered.launches), "K7 not launched", counts)
+    require(all(counts.get(k, 0) > 0 for k in k7) and not any(counts.get(k) for k in k7_yard),
+            "K7 not launched, or its yardsticks launched", counts)
+    # the same frame with layered_f and layered_pdf pointed at their
+    # yardsticks (the kernels as first written): the same film bits and rays
+    swapped = {k: getattr(layered, f"{k}_cuda") for k in ("layered_f", "layered_pdf")}
+    for k in swapped:
+        setattr(layered, f"{k}_cuda", getattr(layered, f"{k}_lane_cuda"))
+    try:
+        reset_counts()
+        img_y, st_y = rd.render(s_tb32, m_tb32, return_stats=True)
+        counts_y = {k: v for k, v in read_counts().items() if v}
+    finally:
+        for k, fn in swapped.items():
+            setattr(layered, f"{k}_cuda", fn)
+    require(torch.equal(img_t, img_y) and st_t == st_y and all(counts_y.get(k) for k in k7_yard)
+            and not any(counts_y.get(k) for k in ("layered_f", "layered_pdf")),
+            "material-testball 32^2 x 4: the redesigned K7 and its yardsticks render apart",
+            st_t, st_y, counts_y)
+    log(f"material-testball 32^2 x 4 spp box rendered again with layered_f and layered_pdf "
+        f"pointed at their yardsticks (launches {counts_y}): the same image bits and rays "
+        f"{ {k: int(v) for k, v in st_t.items()} }")
+    img_gpu = img_t.cpu().numpy()
     img_cpu = rd.render(s_tb32, m_tb32, device="cpu").numpy()
     px_bad = float((np.abs(img_gpu - img_cpu) > 5e-3 + 0.05 * np.abs(img_cpu)).mean())
     fb_c = check_image(blocks(img_gpu, 16), blocks(img_cpu, 16),
@@ -1082,7 +1254,20 @@ def main():
         f"means {img_gpu.mean():.5f} / {img_cpu.mean():.5f}")
 
     # the coated scenes at their files' settings, each rendered once
-    k7 = tuple(layered.launches)
+    def k7_frame_counts(tag, mt):
+        """K7's launches in the frame just rendered: max_depth a wave each of
+        layered_f and layered_sample, twice that of layered_pdf (NEE and the
+        MIS pdf), and no yardstick."""
+        waves = sum(1 for _ in rd.wave_lanes(mt.resolution[0] * mt.resolution[1], mt.spp,
+                                             "cpu"))
+        want = {"layered_f": waves * mt.max_depth, "layered_sample": waves * mt.max_depth,
+                "layered_pdf": 2 * waves * mt.max_depth}
+        got = {k: main_counts_frame.get(k, 0) for k in k7 + k7_yard}
+        require(got == dict(want, layered_f_lane=0, layered_pdf_lane=0), tag, "K7 launches",
+                got, "expected", want)
+        log(f"{tag}: K7 launches as expected {want} ({waves} waves x max depth "
+            f"{mt.max_depth}), its yardsticks none")
+
     t0 = time.time()
     s_st, m_st = load_scene(str(ROOT / "scenes" / "staircase.pbrt"), device=dev)
     log(f"staircase compile: {time.time() - t0:.2f} s ({m_st.n_tris} tris, PLY read, SAH BVH "
@@ -1090,10 +1275,12 @@ def main():
     require(not m_st.open_scene and m_st.layered, "staircase: closed coated scene")
     full_render("staircase", s_st, m_st, ("bvh_closest_hit", "bvh_any_hit",
                                           "film_add_samples") + k7)
+    k7_frame_counts("staircase", m_st)
     s_tb, m_tb = load_scene(str(ROOT / "scenes" / "material-testball.pbrt"), device=dev)
     require(m_tb.sph_partial and m_tb.layered, "testball: partial sphere, coated")
     full_render("testball", s_tb, m_tb, ("bvh_closest_hit", "bvh_any_hit", "dense_spheres",
                                          "film_add_samples") + k7)
+    k7_frame_counts("testball", m_tb)
 
     # BDPT at the bench's settings: every kernel of a wave launched exactly
     # as often as the estimator needs; K12 reads the walks' tensors in place,
@@ -1379,45 +1566,65 @@ def main():
         f"bound {b[0]:.5f} ms ({b[1]}; with the rank {b_rank[0]:.5f} ms)")
 
     # K7 on its first launches in the coated frames: against the plain
-    # version on the coated lanes of both, timed on staircase's (2^20 lanes)
-    for name, out_b in (("layered_f", 16), ("layered_sample", 41), ("layered_pdf", 4)):
+    # version on the coated lanes of both; layered_f and layered_pdf also
+    # against their yardsticks' bits and step counts, and timed in turns
+    # with the yardstick on both launches; the kernels line takes
+    # staircase's (2^20 lanes)
+    for name in ("layered_f", "layered_sample", "layered_pdf"):
+        cuda_fn = getattr(layered, f"{name}_cuda")
+        plain_fn = getattr(layered, f"{name}_plain")
+        launches_k7 = {}
         for tag in ("testball", "staircase"):
             (p_, *args_, mask_), _, _ = first(tag, name)
             res = compare_layered(name, p_, args_, mask_)
             log(f"{name} vs plain on {tag}'s first launch ({args_[0].shape[0]} lanes, the "
                 f"coated ones compared): {agreement(res)}")
-        cuda_fn = getattr(layered, f"{name}_cuda")
-        plain_fn = getattr(layered, f"{name}_plain")
+            if name == "layered_sample":
+                continue
+            n_steps = k7_yardstick(name, p_, args_, mask_, tag)
+            ms_k, ms_y, turns = k7_turns(name, p_, args_, mask_)
+            launches_k7[tag] = dict(ms=ms_k, yardstick_ms=ms_y, turns=turns, lanes=mask_.numel(),
+                                    coated=int(mask_.sum()), steps=n_steps)
+            log(f"{name} on {tag}'s first launch: the yardstick's bits and step counts "
+                f"({n_steps}); kernel {turns[1]:.4f} / {turns[2]:.4f} ms, yardstick "
+                f"{turns[0]:.4f} / {turns[3]:.4f} ms in turns, speed-up {ms_y / ms_k:.3f}x")
         R_, n_live = args_[0].shape[0], int(mask_.sum())
         steps = torch.zeros(1, dtype=torch.int64, device=dev)
         cuda_fn(p_, *args_, mask_, steps)
         n_steps = int(steps.item())
-        ms, call = kernel_ms(lambda: cuda_fn(p_, *args_, mask_))
+        if name == "layered_sample":
+            ms, call = kernel_ms(lambda: cuda_fn(p_, *args_, mask_))
+            ms_y = None
+        else:
+            ms, ms_y = launches_k7["staircase"]["ms"], launches_k7["staircase"]["yardstick_ms"]
+            call = events_ms(lambda: cuda_fn(p_, *args_, mask_), 50)
         ms_plain = events_ms(lambda: plain_fn(p_, *args_), 1)
-        # each input read once, by the lanes that need it, and each output
-        # written once, every lane; every lane reads the mask. A coated lane
-        # of layered_f or layered_sample reads both interfaces (2 x 80
-        # bytes), thickness, g and albedo (24) and wo, wi (or wo, uc, u2:
-        # 24). One of layered_pdf reads wo, wi (24); with both on one side,
-        # the coat (80) too; and, where its estimate reaches the base (the
-        # step counter), the base (80)
+        n_bytes, read = k7_bytes(name, p_, args_, mask_)
         lane_ops, step_ops = LAYERED_OPS[name]
         if name == "layered_pdf":
             n_same = int((mask_ & (args_[0][:, 2] * args_[1][:, 2] > 0)).sum())
-            n_bytes = n_live * 24 + n_same * 80 + n_steps * 80
             n_ops = n_same * lane_ops + n_steps * step_ops
-            work = f"{n_same} with wo, wi on one side, {n_steps} reached the base"
+            work = f"{read}, {n_steps} reached the base"
         else:
-            n_bytes = n_live * 208
             n_ops = n_live * lane_ops + n_steps * step_ops
-            work = f"{n_steps} walk steps"
-        b = bound(R_ + n_bytes + R_ * out_b, n_ops)
+            work = f"{read}, {n_steps} walk steps"
+        b = bound(n_bytes, n_ops)
         timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
                             library_ms=None, max_abs_err=max(res["max_abs_err"],
                                                              layered_err[name]))
+        if ms_y is not None:
+            timing[name].update(yardstick_ms=ms_y, host_paced_ms=call,
+                                launches_timed=launches_k7,
+                                synthetic={k: v for k, v in k7_synthetic.items()
+                                           if k.startswith(name + " ")})
         log(f"{name} at the main path's launch (staircase, {R_} lanes, {n_live} coated, "
-            f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms), plain "
-            f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]})")
+            f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms)"
+            + (f", yardstick {ms_y:.4f} ms in turns" if ms_y is not None else "")
+            + f", plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}: {n_bytes} bytes)")
+    slower = [(n_, t_) for n_ in ("layered_f", "layered_pdf")
+              for t_, v in list(timing[n_]["launches_timed"].items())
+              + list(timing[n_]["synthetic"].items()) if v["ms"] > v["yardstick_ms"]]
+    log(f"K7 launches slower than the yardstick: {slower or 'none'}")
 
     # K12 on the first waves of the BDPT frames, on a 24^2 x 2 wave of the
     # four-light scene (lens; distant, spot and uniform infinite lights,

@@ -10,16 +10,15 @@
 // MurmurHash64A of the float bits of wo and wi (or of uc and u2). Plain
 // version: pbrt_tpu_torch/materials/layered.py `layered_*_plain`.
 //
-// Design: one thread per lane, and the walk is a real loop. The JAX package
-// runs every lane through all max_depth steps and masks the dead ones; here
-// a lane `break`s when its walk dies. That is exact for n_samples = 1 (the
-// wrapper refuses other values): a dead lane of layered_f adds nothing more
-// to f, and a lane of layered_sample that stopped walking is never at a
-// boundary again, so the draws it skips change no output. Each step draws
-// the same numbers in the same order as the plain version and evaluates only
-// the branch its lane takes (scatter or boundary, exit or non-exit
-// interface, and in csrc/bxdf.cuh only the lane's own BxDF kind). An
-// optional mask skips lanes whose material is not coated; their outputs are
+// The walk. The JAX package runs every lane through all max_depth steps and
+// masks the dead ones; here a walk ends when it dies. That is exact for
+// n_samples = 1 (the wrapper refuses other values): a dead lane of layered_f
+// adds nothing more to f, and a lane of layered_sample that stopped walking
+// is never at a boundary again, so the draws it skips change no output. Each
+// step draws the same numbers in the same order as the plain version and
+// evaluates only the branch its lane takes (scatter or boundary, exit or
+// non-exit interface, and in csrc/bxdf.cuh only the lane's own BxDF kind).
+// An optional mask names the lanes whose material is coated; the others get
 // zeros (pdf 0, valid false, eta 1). Built with --fmad=false and IEEE sqrt
 // and division; only the transcendental functions and the complex square
 // root may round differently from torch's, so a comparison in the walk can
@@ -27,20 +26,46 @@
 // lane on almost every lane, not on all.
 //
 // What bounds it on the H100: operations, when the walks are long. A lane
-// of layered_f or layered_sample reads its two interfaces (2 x 80 bytes),
-// thickness, g, albedo and its directions (or uc and u2) and writes 16 to
-// 41 bytes, ~0.25 KB; a lane of layered_pdf reads the coat and its
-// directions, and the base only where its estimate reaches it. A walk step
-// costs a few hundred float operations (two to four BxDF evaluations and
-// samples, each with Trowbridge-Reitz terms and Fresnel), and a lane takes a
-// few steps. Divergence between lanes that die at different steps, and
-// register pressure from the walk's state (two BxDFs, beta, f, the RNG) are
-// what keep it from either bound; -Xptxas -v reports registers and spills.
+// of layered_f or layered_sample reads its two interfaces (up to 2 x 80
+// bytes), thickness, g, albedo and its directions (or uc and u2) and writes
+// 16 to 41 bytes; a lane of layered_pdf reads the coat and its directions,
+// and the base only where its estimate reaches it. A walk step costs a few
+// hundred float operations (two to four BxDF evaluations and samples, each
+// with Trowbridge-Reitz terms and Fresnel), and a lane takes a few steps.
+//
+// layered_sample: one thread per lane over all n lanes, the walk a real loop
+// (as first written). layered_f and layered_pdf, redesigned for Hopper.
+// Read on the kernels as first written (PERF.md §6): (1) on a
+// render's wave the coated lanes are a third of all and cluster, so half
+// the warps carry none and the others ~24 of 32; (2) half of layered_f's
+// coated lanes never start a walk (wo and wi on opposite sides of a
+// reflecting base), yet a warp lasted as long as its longest walk; (3) the
+// walk's two BxDFs, picked by reference, and the library's sinf/cosf kept
+// a local-memory stack frame; (4) every interface field was read, whatever
+// the kind. Here:
+//  - layered_f in two passes: every coated walk set up, one thread per lane
+//    (f_enter_kernel), the walks that start listed; then only those, 32 a
+//    warp, set up again and stepped together to the end (f_walk_kernel):
+//    no warp carries a lane that does not walk, and the 32 walks of a warp
+//    take the same branch step by step.
+//  - Each slot's two interfaces staged in shared memory (a 21-word stride:
+//    a warp's slots hit 32 banks), picked as exit or non-exit interface by
+//    address; the samplers' sines and cosines without the library's
+//    reduction for huge angles (csrc/bxdf.cuh sin_angle, cos_angle). No
+//    stack frame, no spills, no local loads or stores (chip_smoke.py checks
+//    the ptxas report and the SASS).
+//  - An interface reads only the fields its kind needs (load_needed).
+//  - layered_pdf one thread per lane, as first written but for the last two
+//    points: compacting its coated lanes was measured slower (see below).
+// A lane runs the same operations in the same order whatever warp and slot
+// it runs in, so the outputs and the steps counted are the bits of the
+// kernels as first written, kept as the yardstick csrc/layered_lane.cu.
 // An optional device counter accumulates the steps taken (layered_pdf: the
 // lanes whose estimate reached the base), for the bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "bxdf.cuh"
 
@@ -108,124 +133,6 @@ __device__ __forceinline__ float tr(float dz, V3 w) {
 
 __device__ __forceinline__ bool ok(const BSample& s) {
   return s.valid && any_pos(s.f) && s.pdf > 0.f && s.wi.z != 0.f;
-}
-
-// pdf of leaving through the exit interface (`exit_pdf_trans`): the bottom
-// with both lobes, the top with transmission only
-__device__ __forceinline__ float exit_pdf(const Bxdf& top, const Bxdf& bot, bool exit_bottom,
-                                          V3 w_neg, V3 wi) {
-  return exit_bottom ? bxdf_pdf(bot, w_neg, wi, true, true)
-                     : bxdf_pdf(top, w_neg, wi, false, true);
-}
-
-// one lane of layered_f (layered_bxdf.h:53-245); -> walk steps taken
-__device__ int layered_f_lane(const LayeredArgs& a, int i, V3 wo, V3 wi, S4& f_acc) {
-  const Bxdf top = load_bxdf(a.top, i), bot = load_bxdf(a.bottom, i);
-  const float thick = a.thickness[i], g = a.g[i];
-  const S4 albedo = load4(a.albedo, i);
-  // twoSided: flip both into the upper hemisphere
-  if (wo.z < 0.f) {
-    wo = neg(wo);
-    wi = neg(wi);
-  }
-  const bool same = wo.z * wi.z > 0.f;
-  const bool exit_bottom = !same;
-  const float exit_z = exit_bottom ? 0.f : thick;
-  const bool top_spec = effectively_smooth(top.ax, top.ay);
-  const bool bot_spec = bot.kind == K_CONDUCTOR && effectively_smooth(bot.ax, bot.ay);
-  const bool exit_spec = exit_bottom ? bot_spec : top_spec;
-  const bool nonexit_spec = exit_bottom ? top_spec : bot_spec;
-  const Bxdf& exit_b = exit_bottom ? bot : top;
-  const Bxdf& nonexit_b = exit_bottom ? top : bot;
-
-  f_acc = same ? bxdf_f(top, wo, wi) : s4(0.f);
-  Pcg32 r = pcg32_set_sequence(hash_v3(wo), hash_v3(wi));
-  // entrance transmission sample, then the virtual light sample from wi
-  // through the exit interface (importance transport: no 1/eta^2)
-  float uc = r1(r), u0 = r1(r), u1 = r1(r);
-  const BSample wos = bxdf_sample(top, wo, uc, u0, u1, false, true, true);
-  uc = r1(r);
-  u0 = r1(r);
-  u1 = r1(r);
-  const BSample wis = bxdf_sample(exit_b, wi, uc, u0, u1, false, true, false);
-  if (!(ok(wos) && ok(wis))) return 0;
-  S4 beta = (wos.f * fabsf(wos.wi.z)) / fmaxf(wos.pdf, 1e-12f);
-  float z = thick;
-  V3 w = wos.wi;
-  const bool has_albedo = any_pos(albedo);
-  const float inv_wis = fmaxf(wis.pdf, 1e-12f);
-
-  int steps = 0;
-  for (int depth = 0; depth < a.max_depth; ++depth) {
-    ++steps;
-    const float bmax = max4(beta);
-    const float u_rr = r1(r);
-    if (depth > 3 && bmax < 0.25f) {
-      const float q = fmaxf(0.f, 1.f - bmax);
-      if (u_rr < q) break;
-      beta = beta / fmaxf(1.f - q, 1e-9f);
-    }
-    // medium segment
-    const float u_d = r1(r);
-    const float dz = -log1pf(-u_d) * fabsf(w.z);
-    const float zp = w.z > 0.f ? z + dz : z - dz;
-    const bool scatter = has_albedo && zp > 0.f && zp < thick;
-    if (!has_albedo) beta = beta * tr(thick, w);
-    const float z_b = has_albedo ? clampf(zp, 0.f, thick) : (z == thick ? 0.f : thick);
-    const float uph0 = r1(r), uph1 = r1(r);
-    const float uce = r1(r), ue0 = r1(r), ue1 = r1(r);
-    const float ucn = r1(r), un0 = r1(r), un1 = r1(r);
-
-    if (scatter) {
-      // NEE through the exit interface along wis, then a phase resample
-      const float ph_exit = henyey_greenstein(dot(neg(w), neg(wis.wi)), g);
-      const float wt = exit_spec ? 1.f : power_heuristic(wis.pdf, ph_exit);
-      f_acc = f_acc + (((((beta * albedo) * ph_exit) * wt) * tr(zp - exit_z, wis.wi)) *
-                       wis.f) / inv_wis;
-      V3 wi_ph;
-      const float pdf_ph = sample_henyey_greenstein(neg(w), g, uph0, uph1, wi_ph);
-      if (!(pdf_ph > 0.f && wi_ph.z != 0.f)) break;
-      const S4 beta_sc = beta * albedo;
-      if ((zp < exit_z && wi_ph.z > 0.f) || (zp > exit_z && wi_ph.z < 0.f)) {
-        const V3 mw = neg(wi_ph);
-        const float wt2 = power_heuristic(pdf_ph, exit_pdf(top, bot, exit_bottom, mw, wi));
-        f_acc = f_acc + ((beta_sc * tr(zp - exit_z, wi_ph)) * bxdf_f(exit_b, mw, wi)) * wt2;
-      }
-      beta = beta_sc;
-      w = wi_ph;
-      z = zp;
-      continue;
-    }
-    if (z_b == exit_z) {
-      // exit interface: reflection resample, the walk goes on
-      const BSample bs = bxdf_sample(exit_b, neg(w), uce, ue0, ue1, true, false, true);
-      if (!ok(bs)) break;
-      beta = ((beta * bs.f) * fabsf(bs.wi.z)) / fmaxf(bs.pdf, 1e-12f);
-      w = bs.wi;
-      z = z_b;
-      continue;
-    }
-    // non-exit interface: NEE along wis, then a reflection resample and
-    // NEE through the exit interface along it
-    const V3 mw = neg(w), mwis = neg(wis.wi);
-    const float wt_ne = exit_spec ? 1.f
-                                  : power_heuristic(wis.pdf,
-                                                    bxdf_pdf(nonexit_b, mw, mwis, true, true));
-    f_acc = f_acc + (((((beta * bxdf_f(nonexit_b, mw, mwis)) * fabsf(wis.wi.z)) * wt_ne) *
-                      tr(thick, wis.wi)) * wis.f) / inv_wis;
-    const BSample bs = bxdf_sample(nonexit_b, mw, ucn, un0, un1, true, false, true);
-    if (!ok(bs)) break;
-    const S4 beta_ne = ((beta * bs.f) * fabsf(bs.wi.z)) / fmaxf(bs.pdf, 1e-12f);
-    const V3 mb = neg(bs.wi);
-    const float wt3 = nonexit_spec ? 1.f
-                                   : power_heuristic(bs.pdf,
-                                                     exit_pdf(top, bot, exit_bottom, mb, wi));
-    f_acc = f_acc + ((beta_ne * tr(thick, bs.wi)) * bxdf_f(exit_b, mb, wi)) * wt3;
-    beta = beta_ne;
-    w = bs.wi;
-    z = z_b;
-  }
-  return steps;
 }
 
 // one lane of layered_sample (layered_bxdf.h:247-372); -> walk steps taken
@@ -327,38 +234,6 @@ __device__ int layered_sample_lane(const LayeredArgs& a, int i, V3 wo, float uc,
   return steps;
 }
 
-// one lane of layered_pdf (layered.py:475-508): the entrance reflection pdf
-// plus one transmission-reflection-transmission estimate, blended with the
-// uniform sphere pdf; -> 1 when the estimate reached the base (read its
-// parameters and evaluated its pdf), else 0
-__device__ int layered_pdf_lane(const LayeredArgs& a, int i, V3 wo, V3 wi, float& pdf) {
-  const Bxdf top = load_bxdf(a.top, i);
-  if (wo.z < 0.f) {
-    wo = neg(wo);
-    wi = neg(wi);
-  }
-  float s = 0.f;
-  int base = 0;
-  if (wo.z * wi.z > 0.f) {
-    s = bxdf_pdf(top, wo, wi, true, false);
-    Pcg32 r = pcg32_set_sequence(hash_v3(wi), hash_v3(wo));
-    float uc = r1(r), u0 = r1(r), u1 = r1(r);
-    const BSample wos = bxdf_sample(top, wo, uc, u0, u1, false, true, true);
-    uc = r1(r);
-    u0 = r1(r);
-    u1 = r1(r);
-    const BSample wis = bxdf_sample(top, wi, uc, u0, u1, false, true, true);
-    if (wos.valid && wos.pdf > 0.f && any_pos(wos.f) && wis.valid && wis.pdf > 0.f &&
-        any_pos(wis.f)) {
-      const Bxdf bot = load_bxdf(a.bottom, i);
-      s = s + bxdf_pdf(bot, neg(wos.wi), neg(wis.wi), true, true);
-      base = 1;
-    }
-  }
-  pdf = (0.9f * s) / 1.f + (float)(0.1 / (4.0 * 3.141592653589793));
-  return base;
-}
-
 __device__ __forceinline__ bool lane_live(const LayeredArgs& a, int i) {
   return i < a.n && (a.mask == nullptr || a.mask[i]);
 }
@@ -372,21 +247,6 @@ __device__ __forceinline__ void count_steps(const LayeredArgs& a, int steps) {
   if (steps) atomicAdd(&block_steps, (unsigned long long)steps);
   __syncthreads();
   if (threadIdx.x == 0 && block_steps) atomicAdd(a.steps, block_steps);
-}
-
-__global__ void __launch_bounds__(THREADS)
-layered_f_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restrict__ wi,
-                 float* __restrict__ f) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  int steps = 0;
-  if (lane_live(a, i)) {
-    S4 out;
-    steps = layered_f_lane(a, i, load3(wo, i), load3(wi, i), out);
-    reinterpret_cast<float4*>(f)[i] = make_float4(out.v[0], out.v[1], out.v[2], out.v[3]);
-  } else if (i < a.n) {
-    reinterpret_cast<float4*>(f)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  count_steps(a, steps);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -413,37 +273,407 @@ layered_sample_kernel(LayeredArgs a, const float* __restrict__ wo, const float* 
   count_steps(a, steps);
 }
 
+int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+
+// ------------------------------------------- layered_f and layered_pdf
+//
+// layered_f runs in two passes. The first (f_enter_kernel, one thread per
+// lane) sets up every coated lane's walk: a lane whose walk does not start
+// (about half of the coated lanes on a render's wave: wo and wi on opposite
+// sides of a reflecting base) writes its f at once, the others are listed
+// (list_lane: one atomic a block). The second (f_walk_kernel) takes the
+// listed lanes 32 at a time (over_listed: persistent warps, a ticket of the
+// launch's own), sets each up again (the same operations: the same bits)
+// and steps its 32 walks together until the last one ends. So a warp of the
+// walk pass carries only lanes that walk, their walks start together and,
+// on the coated scenes' interfaces, take the same branch at each step (the
+// exit and the non-exit interface in turn). list_lane and over_listed are
+// the fetch layered_sample can adopt (its lanes that reflect at once need
+// no walk either).
+//
+// Measured against this (PERF.md §6; tools/k7_designs.cu keeps the ticket
+// designs and tools/k7_designs.py times them), on the H100: compacting the
+// coated lanes into full warps for the set-up pass or for layered_pdf, by a
+// ticket (its ~n / 32 atomics on one word queue up in the L2) or by warps
+// that each own a run of lanes (a warp's runs end in a partial batch, and
+// its long serial chain of loads is not hidden), ran slower than one thread
+// per lane over all lanes, whose idle lanes cost little; refilling the
+// slots of ended walks with new lanes ran slower than stepping a warp's 32
+// walks to the end: walks at different steps take different branches.
+
+constexpr int F_BLOCKS = 4;      // f_walk_kernel blocks an SM (at most 128 registers)
+constexpr unsigned FULL = 0xffffffffu;
+
+// Append lane i to list[] where `listed`, in any order, with one atomic on
+// *count a block. Every thread of the block calls it.
+__device__ __forceinline__ void list_lane(bool listed, int i, int* count, int* list) {
+  __shared__ int warp_n[THREADS / 32];
+  __shared__ int block_at;
+  const unsigned lane = threadIdx.x & 31, below = (1u << lane) - 1;
+  const unsigned w = __ballot_sync(FULL, listed);
+  if (lane == 0) warp_n[threadIdx.x >> 5] = __popc(w);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int k = 0; k < THREADS / 32; ++k) t += warp_n[k];
+    block_at = t ? atomicAdd(count, t) : 0;
+  }
+  __syncthreads();
+  int at = block_at;
+  for (int k = 0; k < (int)(threadIdx.x >> 5); ++k) at += warp_n[k];
+  if (listed) list[at + __popc(w & below)] = i;
+}
+
+// The listed lanes, list[0 .. work[0]), taken 32 at a time from the ticket
+// work[1]: body(i) for each, called by the whole warp with i = -1 on the
+// slots past the list's end.
+template <class Body>
+__device__ __forceinline__ void over_listed(int* work, const int* list, Body body) {
+  const unsigned lane = threadIdx.x & 31;
+  const int n = __ldcg(work);
+  for (;;) {
+    int at = 0;
+    if (lane == 0) at = atomicAdd(work + 1, 32);
+    at = __shfl_sync(FULL, at, 0);
+    if (at >= n) break;
+    const int k = at + (int)lane;
+    body(k < n ? __ldcg(list + k) : -1);
+  }
+}
+
+__device__ __forceinline__ S4 ldg4(const float* p, int i) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+  return {{v.x, v.y, v.z, v.w}};
+}
+
+// The fields of interface i that its kind reads, into b (csrc/bxdf.cuh: a
+// dielectric its eta, a conductor its complex IOR, a diffuse reflector its
+// reflectance, a diffuse transmitter also its transmittance; every kind its
+// roughness, which the walk's specular tests read). The other fields of b
+// are left as they are: nothing reads them.
+__device__ __forceinline__ void load_needed(const BxdfPtrs& p, int i, Bxdf& b) {
+  const int kind = __ldg(p.kind + i);
+  b.kind = kind;
+  b.ax = __ldg(p.ax + i);
+  b.ay = __ldg(p.ay + i);
+  if (kind == K_DIELECTRIC) {
+    b.eta = __ldg(p.eta + i);
+  } else if (kind == K_CONDUCTOR) {
+    b.eta_re = ldg4(p.eta_re, i);
+    b.eta_im = ldg4(p.eta_im, i);
+  } else {
+    b.refl = ldg4(p.refl, i);
+    if (kind != K_DIFFUSE) b.trans = ldg4(p.trans, i);
+  }
+}
+
+// add each thread's count to the device counter, a warp at a time
+__device__ __forceinline__ void add_steps(unsigned long long* counter, unsigned long long n) {
+  if (counter == nullptr) return;
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_down_sync(FULL, n, o);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(counter, n);
+}
+
+// A slot's interface in shared memory, padded to 21 words so that the 32
+// slots of a warp read a field from 32 banks.
+struct StagedBxdf {
+  Bxdf b;
+  float pad;
+};
+
+// A slot's walk of layered_f between two steps (in registers; its
+// interfaces are staged in shared memory).
+struct FWalk {
+  S4 f, beta;         // the estimate so far; the path throughput
+  V3 w, wi;           // the walk's direction; the lane's wi, flipped with wo
+  float z;            // the walk's height in the layer
+  int steps;          // steps taken
+  Pcg32 r;
+  S4 albedo, wis_f;   // the medium's albedo; the virtual light sample's f, wi, pdf
+  V3 wis_wi;
+  float wis_pdf, inv_wis, thick, g, exit_z;
+  bool exit_bottom, exit_spec, nonexit_spec, has_albedo;
+};
+
+// Lane i's walk set up in a slot: its interfaces staged into top and bot
+// (the slot's, in shared memory), then layered_f's code before its loop as
+// first written (layered_bxdf.h:53-245) -> whether the walk starts.
+__device__ __forceinline__ bool f_enter(const LayeredArgs& a, int i, const float* wo_p,
+                                        const float* wi_p, Bxdf& top, Bxdf& bot, FWalk& s) {
+  load_needed(a.top, i, top);
+  load_needed(a.bottom, i, bot);
+  s.thick = __ldg(a.thickness + i);
+  s.g = __ldg(a.g + i);
+  s.albedo = ldg4(a.albedo, i);
+  V3 wo = load3(wo_p, i), wi = load3(wi_p, i);
+  // twoSided: flip both into the upper hemisphere
+  if (wo.z < 0.f) {
+    wo = neg(wo);
+    wi = neg(wi);
+  }
+  const bool same = wo.z * wi.z > 0.f;
+  s.exit_bottom = !same;
+  s.exit_z = s.exit_bottom ? 0.f : s.thick;
+  const bool top_spec = effectively_smooth(top.ax, top.ay);
+  const bool bot_spec = bot.kind == K_CONDUCTOR && effectively_smooth(bot.ax, bot.ay);
+  s.exit_spec = s.exit_bottom ? bot_spec : top_spec;
+  s.nonexit_spec = s.exit_bottom ? top_spec : bot_spec;
+  s.f = same ? bxdf_f(top, wo, wi) : s4(0.f);
+  s.wi = wi;
+  s.steps = 0;
+  Pcg32 r = pcg32_set_sequence(hash_v3(wo), hash_v3(wi));
+  // entrance transmission sample, then the virtual light sample from wi
+  // through the exit interface (importance transport: no 1/eta^2)
+  float uc = r1(r), u0 = r1(r), u1 = r1(r);
+  const BSample wos = bxdf_sample(top, wo, uc, u0, u1, false, true, true);
+  uc = r1(r);
+  u0 = r1(r);
+  u1 = r1(r);
+  const BSample wis = bxdf_sample(s.exit_bottom ? bot : top, wi, uc, u0, u1, false, true, false);
+  s.r = r;
+  if (!(ok(wos) && ok(wis))) return false;
+  s.beta = (wos.f * fabsf(wos.wi.z)) / fmaxf(wos.pdf, 1e-12f);
+  s.z = s.thick;
+  s.w = wos.wi;
+  s.has_albedo = any_pos(s.albedo);
+  s.inv_wis = fmaxf(wis.pdf, 1e-12f);
+  s.wis_f = wis.f;
+  s.wis_wi = wis.wi;
+  s.wis_pdf = wis.pdf;
+  return true;
+}
+
+// One step of the walk: the body of layered_f's loop as first written, its
+// `break` a return of false -> whether the walk goes on. The pdf of leaving
+// through the exit interface (`exit_pdf_trans`) takes both lobes at the
+// bottom and transmission only at the top: allow_refl = exit_bottom.
+__device__ __forceinline__ bool f_step(const LayeredArgs& a, const Bxdf& exit_b,
+                                       const Bxdf& nonexit_b, FWalk& s) {
+  const int depth = s.steps++;
+  const float thick = s.thick;
+  const float bmax = max4(s.beta);
+  const float u_rr = r1(s.r);
+  if (depth > 3 && bmax < 0.25f) {
+    const float q = fmaxf(0.f, 1.f - bmax);
+    if (u_rr < q) return false;
+    s.beta = s.beta / fmaxf(1.f - q, 1e-9f);
+  }
+  // medium segment
+  const float u_d = r1(s.r);
+  const float dz = -log1pf(-u_d) * fabsf(s.w.z);
+  const float zp = s.w.z > 0.f ? s.z + dz : s.z - dz;
+  const bool scatter = s.has_albedo && zp > 0.f && zp < thick;
+  if (!s.has_albedo) s.beta = s.beta * tr(thick, s.w);
+  const float z_b = s.has_albedo ? clampf(zp, 0.f, thick) : (s.z == thick ? 0.f : thick);
+  const float uph0 = r1(s.r), uph1 = r1(s.r);
+  const float uce = r1(s.r), ue0 = r1(s.r), ue1 = r1(s.r);
+  const float ucn = r1(s.r), un0 = r1(s.r), un1 = r1(s.r);
+
+  if (scatter) {
+    // NEE through the exit interface along wis, then a phase resample
+    const float ph_exit = henyey_greenstein(dot(neg(s.w), neg(s.wis_wi)), s.g);
+    const float wt = s.exit_spec ? 1.f : power_heuristic(s.wis_pdf, ph_exit);
+    s.f = s.f + (((((s.beta * s.albedo) * ph_exit) * wt) * tr(zp - s.exit_z, s.wis_wi)) *
+                 s.wis_f) / s.inv_wis;
+    V3 wi_ph;
+    const float pdf_ph = sample_henyey_greenstein(neg(s.w), s.g, uph0, uph1, wi_ph);
+    if (!(pdf_ph > 0.f && wi_ph.z != 0.f)) return false;
+    const S4 beta_sc = s.beta * s.albedo;
+    if ((zp < s.exit_z && wi_ph.z > 0.f) || (zp > s.exit_z && wi_ph.z < 0.f)) {
+      const V3 mw = neg(wi_ph);
+      const float wt2 = power_heuristic(pdf_ph, bxdf_pdf(exit_b, mw, s.wi, s.exit_bottom, true));
+      s.f = s.f + ((beta_sc * tr(zp - s.exit_z, wi_ph)) * bxdf_f(exit_b, mw, s.wi)) * wt2;
+    }
+    s.beta = beta_sc;
+    s.w = wi_ph;
+    s.z = zp;
+    return s.steps < a.max_depth;
+  }
+  if (z_b == s.exit_z) {
+    // exit interface: reflection resample, the walk goes on
+    const BSample bs = bxdf_sample(exit_b, neg(s.w), uce, ue0, ue1, true, false, true);
+    if (!ok(bs)) return false;
+    s.beta = ((s.beta * bs.f) * fabsf(bs.wi.z)) / fmaxf(bs.pdf, 1e-12f);
+    s.w = bs.wi;
+    s.z = z_b;
+    return s.steps < a.max_depth;
+  }
+  // non-exit interface: NEE along wis, then a reflection resample and NEE
+  // through the exit interface along it
+  const V3 mw = neg(s.w), mwis = neg(s.wis_wi);
+  const float wt_ne = s.exit_spec ? 1.f
+                                  : power_heuristic(s.wis_pdf,
+                                                    bxdf_pdf(nonexit_b, mw, mwis, true, true));
+  s.f = s.f + (((((s.beta * bxdf_f(nonexit_b, mw, mwis)) * fabsf(s.wis_wi.z)) * wt_ne) *
+                tr(thick, s.wis_wi)) * s.wis_f) / s.inv_wis;
+  const BSample bs = bxdf_sample(nonexit_b, mw, ucn, un0, un1, true, false, true);
+  if (!ok(bs)) return false;
+  const S4 beta_ne = ((s.beta * bs.f) * fabsf(bs.wi.z)) / fmaxf(bs.pdf, 1e-12f);
+  const V3 mb = neg(bs.wi);
+  const float wt3 = s.nonexit_spec ? 1.f
+                                   : power_heuristic(bs.pdf, bxdf_pdf(exit_b, mb, s.wi,
+                                                                      s.exit_bottom, true));
+  s.f = s.f + ((beta_ne * tr(thick, bs.wi)) * bxdf_f(exit_b, mb, s.wi)) * wt3;
+  s.beta = beta_ne;
+  s.w = bs.wi;
+  s.z = z_b;
+  return s.steps < a.max_depth;
+}
+
+__device__ __forceinline__ void store_f(float* f, int i, const S4& v) {
+  reinterpret_cast<float4*>(f)[i] = make_float4(v.v[0], v.v[1], v.v[2], v.v[3]);
+}
+
+// layered_f, pass 1: every coated lane's walk set up; a lane whose walk
+// does not start writes its f (and 0 steps), the others are listed in
+// walkers[] (work[0] counts them).
+__global__ void __launch_bounds__(THREADS)
+f_enter_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restrict__ wi,
+               float* __restrict__ f, int* __restrict__ work, int* __restrict__ walkers) {
+  __shared__ StagedBxdf staged[2][THREADS];
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  bool starts = false;
+  if (i < a.n) {
+    if (a.mask == nullptr || a.mask[i]) {
+      FWalk s;
+      starts = f_enter(a, i, wo, wi, staged[0][threadIdx.x].b, staged[1][threadIdx.x].b, s);
+      if (!starts) store_f(f, i, s.f);
+    } else {
+      store_f(f, i, s4(0.f));
+    }
+  }
+  list_lane(starts, i, work, walkers);
+}
+
+// layered_f, pass 2: the listed lanes, 32 a warp: each set up again, then
+// stepped together until the last walk has ended; each writes its f.
+__global__ void __launch_bounds__(THREADS, F_BLOCKS)
+f_walk_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restrict__ wi,
+              float* __restrict__ f, int* __restrict__ work, const int* __restrict__ walkers) {
+  __shared__ StagedBxdf staged[2][THREADS];
+  Bxdf& top = staged[0][threadIdx.x].b;
+  Bxdf& bot = staged[1][threadIdx.x].b;
+  unsigned long long steps = 0;
+  over_listed(work, walkers, [&](int i) {
+    FWalk s;
+    bool walking = i >= 0 && f_enter(a, i, wo, wi, top, bot, s);
+    while (__any_sync(FULL, walking)) {
+      if (walking) walking = f_step(a, s.exit_bottom ? bot : top, s.exit_bottom ? top : bot, s);
+    }
+    if (i >= 0) {
+      store_f(f, i, s.f);
+      steps += s.steps;
+    }
+  });
+  add_steps(a.steps, steps);
+}
+
+// one lane of layered_pdf (layered.py:475-508), as first written but for
+// reading only the fields each interface's kind needs: the entrance
+// reflection pdf plus one transmission-reflection-transmission estimate,
+// blended with the uniform sphere pdf; -> 1 when the estimate reached the
+// base (read its parameters and evaluated its pdf), else 0
+__device__ __forceinline__ int pdf_lane(const LayeredArgs& a, int i, V3 wo, V3 wi, float& pdf) {
+  Bxdf top{};
+  load_needed(a.top, i, top);
+  if (wo.z < 0.f) {
+    wo = neg(wo);
+    wi = neg(wi);
+  }
+  float s = 0.f;
+  int base = 0;
+  if (wo.z * wi.z > 0.f) {
+    s = bxdf_pdf(top, wo, wi, true, false);
+    Pcg32 r = pcg32_set_sequence(hash_v3(wi), hash_v3(wo));
+    float uc = r1(r), u0 = r1(r), u1 = r1(r);
+    const BSample wos = bxdf_sample(top, wo, uc, u0, u1, false, true, true);
+    uc = r1(r);
+    u0 = r1(r);
+    u1 = r1(r);
+    const BSample wis = bxdf_sample(top, wi, uc, u0, u1, false, true, true);
+    if (wos.valid && wos.pdf > 0.f && any_pos(wos.f) && wis.valid && wis.pdf > 0.f &&
+        any_pos(wis.f)) {
+      Bxdf bot{};
+      load_needed(a.bottom, i, bot);
+      s = s + bxdf_pdf(bot, neg(wos.wi), neg(wis.wi), true, true);
+      base = 1;
+    }
+  }
+  pdf = (0.9f * s) / 1.f + (float)(0.1 / (4.0 * 3.141592653589793));
+  return base;
+}
+
+// layered_pdf, one thread per lane
 __global__ void __launch_bounds__(THREADS)
 layered_pdf_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restrict__ wi,
                    float* __restrict__ pdf) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  int steps = 0;
-  if (lane_live(a, i)) {
-    float p;
-    steps = layered_pdf_lane(a, i, load3(wo, i), load3(wi, i), p);
-    pdf[i] = p;
-  } else if (i < a.n) {
-    pdf[i] = 0.f;
+  int base = 0;
+  if (i < a.n) {
+    if (a.mask == nullptr || a.mask[i]) {
+      float p;
+      base = pdf_lane(a, i, load3(wo, i), load3(wi, i), p);
+      pdf[i] = p;
+    } else {
+      pdf[i] = 0.f;
+    }
   }
-  count_steps(a, steps);
+  add_steps(a.steps, base);
 }
 
-int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+// mismatches of sin_angle and cos_angle (csrc/bxdf.cuh) against the
+// library's sinf and cosf over every float of magnitude at or below the one
+// with bits `top` (results equal bit for bit, or both NaN), for the tests
+__global__ void trig_check_kernel(unsigned top, unsigned long long* __restrict__ count) {
+  unsigned long long bad = 0;
+  const unsigned long long end = 2ull * top + 2;
+  for (unsigned long long k = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x; k < end;
+       k += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned bits = k <= top ? (unsigned)k : 0x80000000u | (unsigned)(k - top - 1);
+    const float x = __uint_as_float(bits);
+    const float s0 = sin_angle(x), s1 = sinf(x), c0 = cos_angle(x), c1 = cosf(x);
+    bad += !(__float_as_uint(s0) == __float_as_uint(s1) || (s0 != s0 && s1 != s1));
+    bad += !(__float_as_uint(c0) == __float_as_uint(c1) || (c0 != c0 && c1 != c1));
+  }
+  for (int o = 16; o > 0; o >>= 1) bad += __shfl_down_sync(FULL, bad, o);
+  if ((threadIdx.x & 31) == 0 && bad) atomicAdd(count, bad);
+}
+
+// blocks of a persistent grid: as many as fit on the card at once (read
+// once into *resident), and no more than n lanes fill
+template <class Kernel>
+int persistent_blocks(Kernel kernel, int* resident, int n) {
+  if (*resident == 0) {
+    int b = 0, dev = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, THREADS, 0);
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    *resident = (b > 0 ? b : 1) * (sms > 0 ? sms : 1);
+  }
+  return *resident < blocks(n) ? *resident : blocks(n);
+}
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns the cudaError_t of the
 // launch (0 on success). `a` (host memory) holds the device pointers of the
 // lanes' layer: top and bottom BxDF parameters (kind (n,) int32; refl,
-// trans, eta_re, eta_im (n,4) float32; eta, ax, ay (n,) float32), thickness
-// and g (n,), albedo (n,4), an optional mask (n,) bool and an optional
-// uint64 step counter. Directions are (n,3) float32, uc (n,), u2 (n,2).
+// trans, eta_re, eta_im (n,4) float32, 16-byte aligned; eta, ax, ay (n,)
+// float32), thickness and g (n,), albedo (n,4), an optional mask (n,) bool
+// and an optional uint64 step counter. Directions are (n,3) float32, uc
+// (n,), u2 (n,2).
 
-// f (n,4)
+// f (n,4). `work`: two int32 words of this launch's own, zero (enqueue their
+// memset on `stream` before the launch; two launches in flight must not
+// share them); `walkers`: (n,) int32 scratch.
 extern "C" int pbrt_layered_f(const LayeredArgs* a, const float* wo, const float* wi, float* f,
-                              void* stream) {
+                              int* work, int* walkers, void* stream) {
   if (a->n <= 0) return 0;
-  layered_f_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a, wo, wi, f);
+  const cudaStream_t s = (cudaStream_t)stream;
+  static int walk_resident = 0;
+  f_enter_kernel<<<blocks(a->n), THREADS, 0, s>>>(*a, wo, wi, f, work, walkers);
+  f_walk_kernel<<<persistent_blocks(f_walk_kernel, &walk_resident, a->n), THREADS, 0, s>>>(
+      *a, wo, wi, f, work, walkers);
   return (int)cudaGetLastError();
 }
 
@@ -452,6 +682,15 @@ extern "C" int pbrt_layered_pdf(const LayeredArgs* a, const float* wo, const flo
                                 float* pdf, void* stream) {
   if (a->n <= 0) return 0;
   layered_pdf_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a, wo, wi, pdf);
+  return (int)cudaGetLastError();
+}
+
+// The number of floats x with |x| at most the float `limit` at which
+// sin_angle or cos_angle differ from sinf or cosf, added to *count (uint64).
+extern "C" int pbrt_bxdf_trig_mismatches(float limit, unsigned long long* count, void* stream) {
+  unsigned top;
+  memcpy(&top, &limit, 4);
+  trig_check_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(top, count);
   return (int)cudaGetLastError();
 }
 

@@ -8,11 +8,15 @@ CoatedConductorBxDF = Layered<DielectricBxDF, ConductorBxDF>
 
 Each entry point (`layered_f`, `layered_sample`, `layered_pdf`) launches the
 hand-written kernel K7 (csrc/layered.cu) on CUDA tensors and runs its plain
-version here only on CPU tensors. The plain versions are the JAX package's
-masked-lane walks: every lane runs all max_depth steps and `where` keeps the
-live ones. The walk's random numbers come from PCG32 seeded by MurmurHash64A
-of the float bits of wo and wi (or uc, u2), so the walk draws no sampler
-dimensions. Semantics kept from the JAX package on purpose: the `_r1`
+version here only on CPU tensors. `layered_f` and `layered_pdf` launch the
+kernels redesigned for Hopper (`layered_f` in two passes, the walks that
+start stepped 32 a warp); the kernels as first written stay as their
+yardstick (csrc/layered_lane.cu, `layered_f_lane_cuda`,
+`layered_pdf_lane_cuda`), which no render reaches. The plain versions are
+the JAX package's masked-lane walks: every lane runs all max_depth steps and
+`where` keeps the live ones. The walk's random numbers come from PCG32
+seeded by MurmurHash64A of the float bits of wo and wi (or uc, u2), so the
+walk draws no sampler dimensions. Semantics kept from the JAX package on purpose: the `_r1`
 clamp to 1 - 1e-7, `_tr`'s clamps, RR past depth 3, `exit_pdf_trans`
 taking the top's pdf with allow_refl=False, and `layered_pdf`'s simplified
 TRT estimate blended with 0.1 of the uniform sphere pdf.
@@ -39,8 +43,10 @@ class LayeredParams(NamedTuple):
     n_samples: int
 
 
-# launches of the K7 kernels (plain ints, added to where they launch)
-launches = {"layered_f": 0, "layered_sample": 0, "layered_pdf": 0}
+# launches of the K7 kernels and of the yardstick (plain ints, added to where
+# they launch)
+launches = {"layered_f": 0, "layered_sample": 0, "layered_pdf": 0, "layered_f_lane": 0,
+            "layered_pdf_lane": 0}
 
 
 def _u32_bits(x):
@@ -395,10 +401,25 @@ def _kernel_lib():
     lib = kernels.load("layered")
     if not hasattr(lib, "declared"):
         args = ctypes.POINTER(_LayeredArgs)
-        lib.pbrt_layered_f.argtypes = [args] + [ctypes.c_void_p] * 4
+        lib.pbrt_layered_f.argtypes = [args] + [ctypes.c_void_p] * 6
         lib.pbrt_layered_pdf.argtypes = [args] + [ctypes.c_void_p] * 4
+        lib.pbrt_bxdf_trig_mismatches.argtypes = [ctypes.c_float] + [ctypes.c_void_p] * 2
         lib.pbrt_layered_sample.argtypes = [args] + [ctypes.c_void_p] * 10
-        for fn in (lib.pbrt_layered_f, lib.pbrt_layered_pdf, lib.pbrt_layered_sample):
+        for fn in (lib.pbrt_layered_f, lib.pbrt_layered_pdf, lib.pbrt_layered_sample,
+                   lib.pbrt_bxdf_trig_mismatches):
+            fn.restype = ctypes.c_int
+        lib.declared = True
+    return lib
+
+
+def _lane_lib():
+    """The yardstick's library (csrc/layered_lane.cu), declared once."""
+    from pbrt_tpu_torch import kernels
+
+    lib = kernels.load("layered_lane")
+    if not hasattr(lib, "declared"):
+        for fn in (lib.pbrt_layered_f_lane, lib.pbrt_layered_pdf_lane):
+            fn.argtypes = [ctypes.POINTER(_LayeredArgs)] + [ctypes.c_void_p] * 4
             fn.restype = ctypes.c_int
         lib.declared = True
     return lib
@@ -466,28 +487,77 @@ def _launch(fn, name, p, lead, mask, steps, outs):
         launches[name] += 1
 
 
+def _directions(wo, wi):
+    R, dev = wo.shape[0], wo.device
+    return (_checked("wo", wo, (R, 3), torch.float32, dev),
+            _checked("wi", wi, (R, 3), torch.float32, dev))
+
+
 def layered_f_cuda(p: LayeredParams, wo, wi, mask=None, steps=None):
-    """K7 `layered_f` on the current stream. Same contract as the plain
+    """K7 `layered_f` on the current stream: the coated lanes' walks set up,
+    then the walks that start stepped 32 a warp. Same contract as the plain
     version on the lanes of `mask` (optional (R,) bool); the others get 0.
     `steps`, an optional int64 (1,) device tensor, accumulates the walk
     steps the lanes took."""
+    wo, wi = _directions(wo, wi)
     R, dev = wo.shape[0], wo.device
-    wo = _checked("wo", wo, (R, 3), torch.float32, dev)
-    wi = _checked("wi", wi, (R, 3), torch.float32, dev)
     f = torch.empty((R, 4), dtype=torch.float32, device=dev)
+    # the count of listed walks and the walk pass's ticket, of the launch's
+    # own, zeroed on the stream (a memset node under graph capture, so every
+    # replay starts from 0), and the list of the lanes whose walk starts
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    walkers = torch.empty(R, dtype=torch.int32, device=dev)
     _launch(_kernel_lib().pbrt_layered_f, "layered_f", p, wo, mask, steps,
-            (wo.data_ptr(), wi.data_ptr(), f.data_ptr()))
+            (wo.data_ptr(), wi.data_ptr(), f.data_ptr(), work.data_ptr(), walkers.data_ptr()))
     return f
 
 
 def layered_pdf_cuda(p: LayeredParams, wo, wi, mask=None, steps=None):
-    """K7 `layered_pdf`; masked-out lanes get 0. `steps` counts the lanes
-    whose estimate reached the base (the only lanes that read it)."""
-    R, dev = wo.shape[0], wo.device
-    wo = _checked("wo", wo, (R, 3), torch.float32, dev)
-    wi = _checked("wi", wi, (R, 3), torch.float32, dev)
-    pdf = torch.empty((R,), dtype=torch.float32, device=dev)
+    """K7 `layered_pdf` on the current stream; masked-out lanes get 0.
+    `steps` counts the lanes whose estimate reached the base (the only lanes
+    that read it)."""
+    wo, wi = _directions(wo, wi)
+    pdf = torch.empty((wo.shape[0],), dtype=torch.float32, device=wo.device)
     _launch(_kernel_lib().pbrt_layered_pdf, "layered_pdf", p, wo, mask, steps,
+            (wo.data_ptr(), wi.data_ptr(), pdf.data_ptr()))
+    return pdf
+
+
+# the largest float32 below 105615: csrc/bxdf.cuh's sin_angle and cos_angle
+# follow the library's sinf and cosf operation for operation below it
+TRIG_LIMIT = 105614.9921875
+
+
+def trig_mismatches(device, limit=TRIG_LIMIT):
+    """How many floats x with |x| <= limit give csrc/bxdf.cuh's sin_angle or
+    cos_angle other bits than the library's sinf or cosf, on the card (both
+    NaN counts as equal). 0 expected: the walks' sines and cosines are the
+    library's."""
+    from pbrt_tpu_torch import kernels
+
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    err = _kernel_lib().pbrt_bxdf_trig_mismatches(
+        limit, count.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    kernels.check(err, "bxdf_trig_mismatches")
+    return int(count.item())
+
+
+def layered_f_lane_cuda(p: LayeredParams, wo, wi, mask=None, steps=None):
+    """The yardstick of `layered_f_cuda`: K7 as first written, one thread per
+    lane over all R lanes (csrc/layered_lane.cu); the same contract and bits.
+    No render path calls it."""
+    wo, wi = _directions(wo, wi)
+    f = torch.empty((wo.shape[0], 4), dtype=torch.float32, device=wo.device)
+    _launch(_lane_lib().pbrt_layered_f_lane, "layered_f_lane", p, wo, mask, steps,
+            (wo.data_ptr(), wi.data_ptr(), f.data_ptr()))
+    return f
+
+
+def layered_pdf_lane_cuda(p: LayeredParams, wo, wi, mask=None, steps=None):
+    """The yardstick of `layered_pdf_cuda` (csrc/layered_lane.cu)."""
+    wo, wi = _directions(wo, wi)
+    pdf = torch.empty((wo.shape[0],), dtype=torch.float32, device=wo.device)
+    _launch(_lane_lib().pbrt_layered_pdf_lane, "layered_pdf_lane", p, wo, mask, steps,
             (wo.data_ptr(), wi.data_ptr(), pdf.data_ptr()))
     return pdf
 

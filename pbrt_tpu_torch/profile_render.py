@@ -4,7 +4,8 @@
         [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass
                  |caustic-glass-mlt|cornell-mesh-mltpath|cornell-instanced
                  |cornell-instanced-flat]
-        [--shard-scene N] [--traversal] [--out build/pbrt_tpu_torch/profile_render.json]
+        [--shard-scene N] [--traversal | --layered]
+        [--out build/pbrt_tpu_torch/profile_render.json]
 
 Renders the scene through the normal `render()` entry: cornell-mesh levels
 5, the plain cornell box and terrain (130,050 triangles) at 256^2, 16 spp,
@@ -54,6 +55,16 @@ under each kernel and the speed-up, and the launches whose hit masks
 differ between the two (0 expected); the frame's whole K1 and K1a device
 time, where a profiled staircase frame does not finish in minutes.
 
+With --layered (a coated scene: staircase, testball) the profiled render
+is replaced too: one more frame is rendered until its first wave has made
+its K7 launches (max_depth each of layered_f and layered_sample, twice that
+of layered_pdf; their arguments kept), and each launch is replayed:
+layered_f and layered_pdf in turns with their yardsticks, the kernels as
+first written (layered_f_lane_cuda, layered_pdf_lane_cuda): yardstick,
+kernel, kernel, yardstick, their bits compared; layered_sample alone. Prints
+each entry's summed device time over the wave and that sum times the
+frame's waves, where a profiled staircase frame does not finish in minutes.
+
 With --shard-scene N (path family) the scene's triangles are split into N
 morton parts once (render.shard_scene, its host seconds printed), all on
 this card, and every frame is the scene-sharded render of the batched loop
@@ -78,7 +89,7 @@ TURN_CALLS = 4
 # hand-written kernels by a substring of their device symbol
 KERNELS = {"bvh": "wide_kernel", "bvh_inst": "traverse_inst_kernel", "dense": "dense_",
            "recycle": "recycle_", "film": "film_add_tiled_kernel",
-           "film_scatter": "film_add_scatter_kernel", "layered": "layered_", "bdpt": "connect_",
+           "film_scatter": "film_add_scatter_kernel", "layered": "LayeredArgs", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
            "shard": "parts_kernel|select_kernel"}
 
@@ -257,6 +268,85 @@ def _traversal_turns(render, card, label, out_path):
     return 0
 
 
+def _clone(x):
+    """A copy of x's tensors, in tuples and named tuples as x holds them."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_clone(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _layered_turns(render, max_depth, waves, card, label, out_path):
+    """K7's launches of one wave replayed, layered_f and layered_pdf in turns
+    with their yardsticks (see the module docstring)."""
+    from pbrt_tpu_torch.materials import layered
+
+    names = ("layered_f", "layered_sample", "layered_pdf")
+    origs = {n: getattr(layered, f"{n}_cuda") for n in names}
+    kept = []
+
+    class _WaveDone(Exception):
+        pass
+
+    def keeper(name):
+        def call(p, *args):
+            if len(kept) == 4 * max_depth:     # the second wave's first K7 launch
+                raise _WaveDone
+            kept.append((name, _clone(p), _clone(args)))
+            return origs[name](p, *args)
+        return call
+
+    for n in names:
+        setattr(layered, f"{n}_cuda", keeper(n))
+    try:
+        render()
+    except _WaveDone:
+        pass
+    finally:
+        for n, fn in origs.items():
+            setattr(layered, f"{n}_cuda", fn)
+    torch.cuda.synchronize()
+    if not kept:
+        raise SystemExit("--layered: the frame launched no K7 (a coated scene is needed)")
+    sums = {n: dict(launches=0, kernel_ms=0.0, yardstick_ms=0.0, bits_differ=0) for n in names}
+    per_launch = []
+    for name, p, args in kept:
+        new_fn = origs[name]
+        yard = getattr(layered, f"{name}_lane_cuda", None)
+        if yard is None:
+            turns = [_graph_ms(lambda: new_fn(p, *args)) for _ in range(2)]
+            k_ms, y_ms = sum(turns) / 2, 0.0
+        else:
+            turns = [_graph_ms(lambda f=f: f(p, *args)) for f in (yard, new_fn, new_fn, yard)]
+            k_ms, y_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            sums[name]["bits_differ"] += int(not torch.equal(
+                new_fn(p, *args).view(torch.int32), yard(p, *args).view(torch.int32)))
+        s = sums[name]
+        s["launches"] += 1
+        s["kernel_ms"] += k_ms
+        s["yardstick_ms"] += y_ms
+        per_launch.append(dict(name=name, lanes=args[0].shape[0],
+                               coated=int(args[-1].sum()) if torch.is_tensor(args[-1]) else None,
+                               turns_ms=turns))
+    kept.clear()
+    for name, s in sums.items():
+        s["kernel_ms_frame"] = s["kernel_ms"] * waves
+        s["yardstick_ms_frame"] = s["yardstick_ms"] * waves
+        yard = (f", yardstick {s['yardstick_ms']:.3f} ms in turns (x{waves} waves "
+                f"{s['yardstick_ms_frame']:.3f} ms), speed-up "
+                f"{s['yardstick_ms'] / s['kernel_ms']:.3f}x; bits differ on "
+                f"{s['bits_differ']} launches" if s["yardstick_ms"] else "")
+        print(f"{name}: {s['launches']} launches of the first wave, kernel {s['kernel_ms']:.3f} "
+              f"ms (x{waves} waves {s['kernel_ms_frame']:.3f} ms; device, graph replays){yard}",
+              flush=True)
+    out = dict(card=card, scene=label, waves=waves, layered=sums, launches=per_launch)
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(out, indent=1))
+    return 0
+
+
 def _scene(name):
     from pbrt_tpu_torch.scene import testscenes as ts
 
@@ -302,6 +392,9 @@ def main(argv=None):
     ap.add_argument("--traversal", action="store_true",
                     help="time every K1/K1a launch of a frame against the yardstick "
                          "instead of the profiled render")
+    ap.add_argument("--layered", action="store_true",
+                    help="time the K7 launches of a coated frame's first wave against the "
+                         "yardsticks instead of the profiled render")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 
@@ -381,6 +474,11 @@ def main(argv=None):
     print(f"peak device memory of one {default} frame: {peak_gib:.2f} GiB", flush=True)
     if args.traversal:
         return _traversal_turns(lambda: render(default), card, label, args.out)
+    if args.layered:
+        waves = sum(1 for _ in rd.wave_lanes(meta.resolution[0] * meta.resolution[1], meta.spp,
+                                             "cpu"))
+        return _layered_turns(lambda: render(default), meta.max_depth, waves, card, label,
+                              args.out)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -71,6 +71,19 @@ def lanes(n, seed):
     return {k: (v if v.dtype == np.int32 else v.astype(np.float32)) for k, v in out.items()}
 
 
+def deep_medium_lanes(n, seed):
+    """lanes(n, seed) with a thick, nearly white medium between the
+    interfaces: 1 to 4 mean free paths, albedo 0.93 to 0.97, g from -0.3 to
+    0.6. Russian roulette spares such walks, so many run to max_depth: the
+    lanes that keep a slot of the card's layered_f longest."""
+    out = lanes(n, seed)
+    g = np.random.default_rng(seed + 1)
+    out["thickness"] = g.uniform(1.0, 4.0, n).astype(np.float32)
+    out["albedo"] = g.uniform(0.93, 0.97, (n, 4)).astype(np.float32)
+    out["g"] = g.uniform(-0.3, 0.6, n).astype(np.float32)
+    return out
+
+
 BXDF_FIELDS = ("kind", "refl", "trans", "eta_re", "eta_im", "eta", "ax", "ay")
 
 # The walk's agreement criteria, against JAX on the CPU and against the plain

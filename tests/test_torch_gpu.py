@@ -509,10 +509,102 @@ def test_layered_kernel_matches_plain(cuda, name):
     assert abs(float(k_mean - p_mean)) <= MEAN_RTOL * abs(float(p_mean))
 
 
+LAYERED_MASKS = {
+    "none": lambda n, g: None,
+    "every 5th out": lambda n, g: np.arange(n) % 5 != 0,
+    "random 32 %": lambda n, g: g.random(n) < 0.32,
+    "all out": lambda n, g: np.zeros(n, bool),
+    "all in": lambda n, g: np.ones(n, bool),
+}
+
+
+def _layered_params(arrays, depth, device):
+    from layered_cases import BXDF_FIELDS
+    from pbrt_tpu_torch.materials import bxdfs, layered
+
+    a = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+    def bx(tag):
+        return bxdfs.BxdfParams(*(a[f"{tag}_{f}"] for f in BXDF_FIELDS))
+    return layered.LayeredParams(bx("top"), bx("bottom"), a["thickness"], a["g"], a["albedo"],
+                                 depth, 1), a
+
+
+@pytest.mark.parametrize("depth", [1, 10, 64])
+@pytest.mark.parametrize("n", [1, 31, 33, 4097, 1 << 15])
+@pytest.mark.parametrize("mask_kind", list(LAYERED_MASKS))
+def test_layered_kernels_match_yardstick_bits(cuda, mask_kind, n, depth):
+    """layered_f and layered_pdf as redesigned (layered_f: the walks that
+    start listed, then stepped 32 a warp) against their yardsticks, the
+    kernels as first written (csrc/layered_lane.cu): every output bit equal on
+    every lane, inside and outside the mask (0 outside it), and equal step
+    counts, on tests/layered_cases.py's lanes and on its deep medium, whose walks run
+    to max_depth."""
+    from layered_cases import deep_medium_lanes, lanes
+    from pbrt_tpu_torch.materials import layered
+
+    g = np.random.default_rng(n * 131 + depth)
+    m = LAYERED_MASKS[mask_kind](n, g)
+    mask = None if m is None else torch.as_tensor(m, device=cuda)
+    for make in (lanes, deep_medium_lanes):
+        p, a = _layered_params(make(n, 7), depth, cuda)
+        for name in ("layered_f", "layered_pdf"):
+            st_k, st_y = (torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2))
+            out_k = getattr(layered, f"{name}_cuda")(p, a["wo"], a["wi"], mask, st_k)
+            out_y = getattr(layered, f"{name}_lane_cuda")(p, a["wo"], a["wi"], mask, st_y)
+            torch.cuda.synchronize()
+            assert torch.equal(out_k.view(torch.int32), out_y.view(torch.int32)), \
+                (make.__name__, name)
+            assert int(st_k) == int(st_y), (make.__name__, name)
+            if mask is not None:
+                assert bool((out_k[~mask] == 0).all())
+
+
+def test_bxdf_trig_matches_library(cuda):
+    """csrc/bxdf.cuh's sin_angle and cos_angle, the samplers' sines and
+    cosines without the library's reduction for huge arguments, give the bits
+    of CUDA's sinf and cosf on every float of magnitude below 105615."""
+    from pbrt_tpu_torch.materials import layered
+
+    assert layered.trig_mismatches(cuda) == 0
+
+
+def test_layered_kernel_graph_replays(cuda):
+    """layered_f and layered_pdf captured in one CUDA graph and replayed
+    twice: each layered_f launch zeroes its walk count and ticket (a memset
+    node), so both replays give the eager launches' bits."""
+    from layered_cases import deep_medium_lanes
+    from pbrt_tpu_torch.materials import layered
+
+    n = 20000
+    p, a = _layered_params(deep_medium_lanes(n, 9), 10, cuda)
+    mask = torch.as_tensor(np.random.default_rng(4).random(n) < 0.32, device=cuda)
+    f_e = layered.layered_f_cuda(p, a["wo"], a["wi"], mask)
+    pdf_e = layered.layered_pdf_cuda(p, a["wo"], a["wi"], mask)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        layered.layered_f_cuda(p, a["wo"], a["wi"], mask)
+        layered.layered_pdf_cuda(p, a["wo"], a["wi"], mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        f_g = layered.layered_f_cuda(p, a["wo"], a["wi"], mask)
+        pdf_g = layered.layered_pdf_cuda(p, a["wo"], a["wi"], mask)
+    for _ in range(2):
+        f_g.fill_(7.0)
+        pdf_g.fill_(7.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(f_g.view(torch.int32), f_e.view(torch.int32))
+        assert torch.equal(pdf_g.view(torch.int32), pdf_e.view(torch.int32))
+
+
 def test_layered_kernel_in_coated_render(cuda):
     """material-testball at 16^2 x 4 on the card launches K7's three entry
-    points; the walks seed on float bits, which differ between card and CPU
-    by an ulp, so the image is held to the CPU render's mean (1 %)."""
+    points, and not the yardstick of layered_f and layered_pdf; the walks
+    seed on float bits, which differ between card and CPU by an ulp, so the
+    image is held to the CPU render's mean (1 %)."""
     from pathlib import Path
 
     from pbrt_tpu_torch.materials import layered
@@ -526,7 +618,9 @@ def test_layered_kernel_in_coated_render(cuda):
     scene, meta = compile_scene(b, 4, device=cuda)
     n0 = dict(layered.launches)
     img_gpu = render(scene, meta).cpu().numpy()
-    assert all(layered.launches[k] > n0[k] for k in n0)
+    assert all(layered.launches[k] > n0[k] for k in ("layered_f", "layered_sample",
+                                                     "layered_pdf"))
+    assert all(layered.launches[k] == n0[k] for k in ("layered_f_lane", "layered_pdf_lane"))
     img_cpu = render(scene, meta, device="cpu").numpy()
     assert np.isfinite(img_gpu).all()
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()

@@ -2,7 +2,8 @@
 pbrt_tpu.materials.layered on the same numpy lanes: the synthetic cases of
 tests/layered_cases.py (smooth and rough coats, a scattering medium with
 g in {-0.5, 0, 0.7}, smooth and rough conductor bases, wo below the horizon
-and grazing) and the coats of tests/test_layered.py's `_params`; beside
+and grazing), the coats of tests/test_layered.py's `_params` and a deep
+medium (layered_cases.deep_medium_lanes: walks that run to max_depth); beside
 them bxdfs.sample/pdf with allow_refl/allow_trans/mode_radiance and the
 Henyey-Greenstein warps.
 
@@ -23,7 +24,7 @@ import jax.numpy as jnp
 import torch
 
 from layered_cases import (BXDF_FIELDS, CASES, CLOSE_FRAC, EQUAL_FRAC, MEAN_RTOL,
-                           frac_close, lanes)
+                           deep_medium_lanes, frac_close, lanes)
 from test_layered import _params
 from pbrt_tpu.materials import bxdfs as jb, layered as jl
 from pbrt_tpu.sampling import warps as jw
@@ -77,13 +78,13 @@ def _from_jax_params(pj):
     return out
 
 
-SETS = ["synthetic", "_params diffuse", "_params conductor", "_params medium"]
+SETS = ["synthetic", "_params diffuse", "_params conductor", "_params medium", "deep medium"]
 
 
 @pytest.fixture(scope="module", params=SETS)
 def case(request):
-    arrays = lanes(N, 5)
-    if request.param != "synthetic":
+    arrays = deep_medium_lanes(N, 5) if request.param == "deep medium" else lanes(N, 5)
+    if request.param not in ("synthetic", "deep medium"):
         kw = {"_params diffuse": dict(coat_rough=0.2, refl=0.6),
               "_params conductor": dict(bottom_kind=jb.K_CONDUCTOR),
               "_params medium": dict(albedo=0.7, g=0.3, thickness=0.05)}[request.param]

@@ -18,7 +18,9 @@ result line:
      no local loads or stores, stack frame or spills, printed beside
      layered_sample's and the yardsticks' (csrc/layered_lane.cu), and the
      samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle) the
-     bits of the library's sinf and cosf on every float below 105615;
+     bits of the library's sinf and cosf on every float below 105615; K6's
+     three kernels (csrc/path_step.cu) with their registers, stack frame,
+     spills and local loads and stores printed;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -90,7 +92,11 @@ result line:
      closest-hit dispatches; neither K12's yardstick entries nor the packed
      copy they read, bdpt.pack_vertices / pack_endpoints). The batched and
      BDPT frames launch K5's tiled entry, the wavefront frame its scatter
-     entry and K8;
+     entry and K8; every frame of the path family on the "cuda" route
+     (path.step_route) launches each of K6's three kernels max_depth times
+     a wave on the batched loop (cornell-mesh, cornell, the scene-sharded
+     and instanced frames) and once an iteration on the wavefront loop
+     (terrain), and the others (staircase, testball, BDPT, MLT) none;
   9. K1 and K1a on five launches each (the first of cornell-mesh, terrain
      and staircase, the third of cornell-mesh and staircase): against the
      plain version with phase 3's criteria, the operation bound from
@@ -127,7 +133,26 @@ result line:
      K12, yardstick), and the caustic-glass frame's peak device memory; K5s
      on caustic-glass's first launch; K8 on
      terrain's first launch with and without the rank, and under
-     torch.profiler one device kernel a call;
+     torch.profiler one device kernel a call; the refit of K1's winners
+     (bvh_refit, csrc/bvh_traverse.cu: the hit record's glue in one
+     launch) bit-exact with its plain version on cornell-mesh's first
+     closest-hit launch and timed; K6 (path_rr, path_shade,
+     path_resolve) against its plain parts with tests/path_cases.py's
+     criteria (draws and masks bit-exact on >= 99.9 % of lanes; float
+     fields within rtol 1e-4, atol 1e-6 on >= 99.5 %; lane means within
+     1e-3; the fractions printed) on path_cases' synthetic lanes of the
+     four-light scene (both samplers, 2^18 and 1,000 lanes) and on the first
+     and third bounces of the cornell-mesh, cornell and terrain frames, each
+     kernel timed on cornell-mesh's first bounce beside its bound and its
+     plain part, the device kernels of that bounce on either route under
+     torch.profiler (the CUDA step's at most a twentieth of the plain
+     step's), and the frames of cornell-mesh, cornell and terrain (both
+     loops) with the step pointed at its plain version by this script, in
+     turns plain, cuda, cuda, plain: ray counts within 0.1 %, images within
+     check_image, walls, rays/s, busy share (a profiled frame's device time
+     over the median wall) and device kernels a frame of either route, and
+     the terrain loops' ratio (the K8 condition) (chiprun_out/
+     k6_frames.json);
  10. MLT: cornell 24^2 with mltpath and mltbdpt (1024 chains, 18 passes)
      on the card and on the CPU with one seed (tests/mlt_cases.py: >= 99 %
      of the (chain, pass) accept decisions equal, 8x8 block means within
@@ -268,6 +293,15 @@ LAYERED_OPS = {"layered_f": (400, 250), "layered_sample": (150, 100),
 # and two fused multiply-adds, 5 ops; the origin adds its translation: 18 +
 # 15), the shear (10) and 1/d (12)
 INST_ENTRY_OPS = 55
+# float ops of K6, counted from csrc/path_step.cu and csrc/bxdf.cuh and
+# rounded: path_rr per lane due for RR (the uniform, the max, four
+# divisions); path_shade per shading lane (the material's spectra and frame
+# ~80, the light pick and sample ~60, a triangle's spherical sample ~250,
+# the BSDF's f and pdf and its sample from ~100 (diffuse) to ~800 (a rough
+# conductor's complex Fresnel terms), the MIS weight and the new ray): ~600,
+# per emitter hit its MIS pdf (a triangle's inverted spherical sample) ~300,
+# per escaped lane ~15; path_resolve per NEE lane 8
+K6_OPS = {"rr": 12, "shade": 600, "emit": 300, "escape": 15, "resolve": 8}
 # float ops of K12m-a per chain and dimension, counted from csrc/mlt.cu:
 # two uniforms (a multiply and a min each), erfinv (~15 with its log and
 # two square roots), the perturbation, the wrap and the clip (~8)
@@ -318,6 +352,37 @@ def graph_ms(fn, calls=20, reps=5):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / (reps * calls)
+
+
+def profile_windows(windows):
+    """Run each (name, fn) of `windows` in one torch.profiler session, each
+    between synchronizations and 50 ms after the last, and sort the device
+    events by the window they ran in (the session's timeline is the host's
+    clock). -> {name: (device kernels, other device events (memsets and
+    copies), their device milliseconds, the kernels' names)}. This process
+    may profile only once: a second session, after CUDA graph replays,
+    recorded no device kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for name, fn in windows:
+            time.sleep(0.05)
+            with torch.profiler.record_function(f"window {name}"):
+                fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = {e.name[len("window "):]: (e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("window ") and e.device_type != cuda}
+    device = [e for e in events if e.device_type == cuda and not e.name.startswith("window ")]
+    out = {}
+    for name, (a, b) in spans.items():
+        inside = [e for e in device if a <= e.time_range.start <= b + 1000]
+        kern = [e for e in inside if not e.name.startswith(("Memset", "Memcpy"))]
+        out[name] = (len(kern), len(inside) - len(kern),
+                     sum(e.time_range.end - e.time_range.start for e in inside) / 1e3,
+                     [e.name for e in kern])
+    return out
 
 
 def kernel_ms(fn, reps=50):
@@ -457,11 +522,12 @@ def main():
                                frac_close, lanes as layered_lanes)
     import bdpt_cases
     import mlt_cases
+    import path_cases
     from pbrt_tpu_torch import kernels
     from pbrt_tpu_torch.accel import bvh, dispatch
     from pbrt_tpu_torch.film import film as filmlib, film_kernel, png
     from pbrt_tpu_torch.geometry import intersect as ix
-    from pbrt_tpu_torch.integrators import bdpt, mlt, render as rd
+    from pbrt_tpu_torch.integrators import bdpt, mlt, path as pth, render as rd
     from pbrt_tpu_torch.materials import bxdfs, layered
     from pbrt_tpu_torch.parallel import scene_shard as ss
     from pbrt_tpu_torch.sampling import samplers
@@ -473,7 +539,7 @@ def main():
     dev = torch.device("cuda")
     t_start = time.time()
     counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches,
-                bdpt.launches, mlt.launches, ss.launches)
+                bdpt.launches, mlt.launches, ss.launches, pth.launches)
 
     def reset_counts():
         for c in counters:
@@ -594,6 +660,24 @@ def main():
                 require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
                                                        "stores, 0 bytes spill loads"),
                         "K7's redesigned kernels: a local stack or spills", short, dict(c), frame)
+    # K6's kernels as compiled (csrc/path_step.cu): registers, stack frame,
+    # spills and local loads and stores of each, printed
+    report = built["path_step"][1].splitlines()
+    for fn, c in sass_memory_ops(subprocess.run(
+            [str(cuobjdump), "-sass", str(kernels.library_path("path_step"))],
+            capture_output=True, text=True, timeout=120).stdout).items():
+        short = next((k for k in ("path_rr_kernel", "path_shade_kernel", "path_resolve_kernel")
+                      if k in fn), None)
+        if short is None:
+            continue
+        at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                  and fn in line)
+        frame = report[at + 1].strip()
+        regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                    if "registers" in line)
+        local = {k: v for k, v in c.items() if k.startswith(("LDL", "STL"))}
+        log(f"  sass {short}: {dict(sorted(c.items()))}; local loads and stores {local or 0}; "
+            f"ptxas: {frame}; {regs}")
     # the samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle)
     # against the library's sinf and cosf on every float below 105615
     mism = layered.trig_mismatches(dev)
@@ -1114,17 +1198,24 @@ def main():
         (bvh, "traverse_inst_cuda",
          lambda a, k: "bvh_any_hit_inst" if (a[8] if len(a) > 8 else k.get("any_hit"))
          else "bvh_closest_hit_inst"),
+        (bvh, "refit_cuda", lambda a, k: "bvh_refit"),
+        (pth, "rr_cuda", lambda a, k: "path_rr"),
+        (pth, "shade_cuda", lambda a, k: "path_shade"),
+        (pth, "resolve_cuda", lambda a, k: "path_resolve"),
     ]
     captured = {}
-    # the K1 launches whose third call is kept too: the bounce rays
+    # the K1 launches whose third call is kept too: the bounce rays; and
+    # K6's third bounce (terrain: the wavefront loop's third iteration)
+    K6 = ("path_rr", "path_shade", "path_resolve")
     third = {("cornell_mesh", "bvh_closest_hit"), ("cornell_mesh", "bvh_any_hit"),
-             ("staircase", "bvh_closest_hit"), ("staircase", "bvh_any_hit")}
+             ("staircase", "bvh_closest_hit"), ("staircase", "bvh_any_hit")} | {
+        (tag, k) for tag in ("cornell_mesh", "cornell", "terrain") for k in K6}
     n_calls = {}
 
     def clone(x):
         if torch.is_tensor(x):
             return x.clone()
-        if isinstance(x, tuple) and hasattr(x, "_fields"):  # LayeredParams, mlt.Chains
+        if isinstance(x, tuple) and hasattr(x, "_fields"):  # LayeredParams, PathState, ...
             return type(x)(*map(clone, x))
         return x
 
@@ -1155,9 +1246,22 @@ def main():
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     main_counts, main_counts_frame, frame_means, frame_imgs, frame_peaks = {}, {}, {}, {}, {}
 
+    def k6_launches(sc, mt, counts, kw):
+        """K6's launches, each of its three kernels, that a frame must
+        show: on the "cuda" route (path.step_route) max_depth a wave on the
+        batched loop (closed and scene-sharded frames), one an iteration on
+        the wavefront loop (as many as K8's); else none (coated scenes, BDPT
+        and MLT)."""
+        if mt.integrator not in bd.PATH_INTEGRATORS or pth.step_route(dev, mt) != "cuda":
+            return 0
+        if mt.open_scene and sc.shard is None and not kw.get("shard_parts"):
+            return counts.get("wavefront_recycle", 0)
+        return mt.max_depth * sum(1 for _ in rd.wave_lanes(
+            mt.resolution[0] * mt.resolution[1], mt.spp, "cpu"))
+
     def full_render(tag, sc, mt, must, **kw):
         """The measured render of a full-width frame, its kernels'
-        first-launch arguments kept."""
+        first-launch arguments kept; K6's launches as k6_launches says."""
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         reset_counts()
@@ -1174,6 +1278,10 @@ def main():
         require(img.shape == (mt.resolution[1], mt.resolution[0], 3) and np.isfinite(img).all(),
                 tag, "non-finite pixels")
         require(all(counts.get(k, 0) > 0 for k in must), tag, "kernel not launched", counts)
+        want_k6 = k6_launches(sc, mt, counts, kw)
+        got_k6 = {k: counts.get(k, 0) for k in K6}
+        require(got_k6 == dict.fromkeys(K6, want_k6), tag, "K6 launches", got_k6, "expected",
+                want_k6)
         for k in must:  # a kernel on several paths: counted on its first
             main_counts.setdefault(k, counts[k])
         out_png = kernels.BUILD_DIR / f"{tag}.png"
@@ -1186,14 +1294,44 @@ def main():
         log(f"full render {tag} {mt.integrator} {mt.resolution[0]}^2 x {per} depth "
             f"{mt.max_depth}: {wall:.3f} s wall (first-launch copies included), "
             f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
-            f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts}; mean {img.mean():.5f}; "
+            f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts} (K6 {want_k6} each, as "
+            f"required); mean {img.mean():.5f}; "
             f"all finite; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} over the "
             f"{held / 2**30:.2f} held before it) -> {out_png.relative_to(ROOT)}")
         return stats
 
+    def on_route(route, fn):
+        """fn() with the path step on `route`: "plain" points it at its plain
+        version (path.step_route patched by this script, not a knob of the
+        package), "cuda" leaves the route the package chooses."""
+        orig = pth.step_route
+        if route == "plain":
+            pth.step_route = lambda device, meta_, skind=None: "plain"
+        try:
+            return fn()
+        finally:
+            pth.step_route = orig
+
+    def loop_frame(sc, mt, loop):
+        """One frame through the batched or the wavefront loop, its launch
+        counts set to 0 before it -> (image (H, W, 3) numpy, ray counts,
+        wall seconds, the launch counts)."""
+        film = filmlib.new_film(mt.resolution, dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st = (rd.render_batched(sc, mt, film) if loop == "batched"
+              else rd.render_wavefront(sc, mt, film)[0])
+        img = filmlib.develop(film, mt.resolution, out_matrix=mt.film_out_matrix,
+                              imaging_ratio=mt.film_imaging_ratio)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        return (img.cpu().numpy(), {k: int(v) for k, v in st.items()}, wall,
+                {k: v for k, v in read_counts().items() if v})
+
     st_cm = full_render("cornell_mesh", scene, meta, ("bvh_closest_hit", "bvh_any_hit",
-                                                      "film_add_samples"))
+                                                      "bvh_refit", "film_add_samples") + K6)
     # the tiled film add has no atomics: the same frame's film twice, the
     # same bits
     films = [filmlib.new_film(meta.resolution, dev) for _ in range(2)]
@@ -1206,14 +1344,14 @@ def main():
         "weight_sum bit-identical")
     del films
     full_render("cornell", s_corn, m_corn, ("dense_tri_closest", "dense_tri_any",
-                                            "dense_spheres", "film_add_samples"))
+                                            "dense_spheres", "film_add_samples") + K6)
     t0 = time.time()
     s_terr, m_terr = ts.terrain(res=256, spp=16, device=dev)
     log(f"terrain compile: {time.time() - t0:.2f} s ({m_terr.n_tris} tris, PLY written and "
         f"read, SAH BVH of {s_terr.bvh_rows.shape[0]} rows, depth {m_terr.bvh_depth})")
     require(m_terr.open_scene, "terrain must take the wavefront loop")
-    st_w = full_render("terrain", s_terr, m_terr, ("bvh_closest_hit", "bvh_any_hit",
-                                                   "wavefront_recycle", "film_add_scatter"))
+    st_w = full_render("terrain", s_terr, m_terr, ("bvh_closest_hit", "bvh_any_hit", "bvh_refit",
+                                                   "wavefront_recycle", "film_add_scatter") + K6)
     require("film_add_samples" not in main_counts_frame, "terrain's wavefront frame took the "
             "tiled film add", main_counts_frame)
     t0 = time.time()
@@ -1532,15 +1670,27 @@ def main():
         require(all(a is b is None or torch.equal(a, b) for a, b in zip(out_k, out_p))
                 and torch.equal(ck, cp), "recycle differs from cumsum on the main path's launch")
     # the device kernels of one call, from the script's only torch.profiler
-    # session (a second session in this process, after the CUDA graph
-    # replays above, recorded no device kernel)
+    # session (profile_windows), which also holds K6's: one bounce of
+    # cornell-mesh's first wave on either route, and the frames of K6's
+    # comparison, once on either route (their device time, for the busy
+    # share)
     cp = cnt.clone()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        rd.recycle_cuda(fin, inf_, cp, total, False)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(len(names) == 1 and "recycle_kernel" in names[0], "K8 is not one launch", names)
+    k6_state = first("cornell_mesh", "path_rr")[0][1]
+    k6_frames = (("cornell_mesh", scene, meta, "batched"), ("cornell", s_corn, m_corn, "batched"),
+                 ("terrain_wavefront", s_terr, m_terr, "wavefront"),
+                 ("terrain_batched", s_terr, m_terr, "batched"))
+    windows = [("k8", lambda: rd.recycle_cuda(fin, inf_, cp, total, False))]
+    for route in ("plain", "cuda"):
+        windows.append((f"bounce {route}", lambda route=route: on_route(
+            route, lambda: pth.bounce_step(scene, meta, k6_state, meta.sampler, meta.spp))))
+    for tag, sc_, mt_, loop in k6_frames:
+        for route in ("plain", "cuda"):
+            windows.append((f"{tag} {route}", lambda sc_=sc_, mt_=mt_, loop=loop, route=route:
+                            on_route(route, lambda: loop_frame(sc_, mt_, loop))))
+    k6_prof = profile_windows(windows)
+    names = k6_prof["k8"][3]
+    require(k6_prof["k8"][:2] == (1, 0) and "recycle_kernel" in names[0], "K8 is not one launch",
+            k6_prof["k8"])
     # timed on one counters tensor, which the calls advance in place (the
     # kernel's work does not depend on it); with_clone_ms adds a clone of the
     # counters a call (a 16-byte device copy), as this script timed the
@@ -1564,6 +1714,162 @@ def main():
         f"kernel; kernel {ms:.4f} ms without the rank (host-paced {call:.4f} ms), "
         f"{ms_rank:.4f} ms with it, {ms_clone:.4f} ms with a clone of the counters a call, plain {ms_plain:.3f} ms, torch.cumsum {ms_lib:.4f} ms, "
         f"bound {b[0]:.5f} ms ({b[1]}; with the rank {b_rank[0]:.5f} ms)")
+
+    # ---- K6: the path step's three kernels (csrc/path_step.cu) against
+    # their plain parts, each on the plain chain's inputs (tests/
+    # path_cases.py's criteria): on path_cases' synthetic lanes of the
+    # four-light scene (both samplers, 2^18 lanes and 1,000) and on the first
+    # and third bounces of the cornell-mesh, cornell and terrain frames; each
+    # timed on cornell-mesh's first bounce beside its bound and its plain
+    # part; the device kernels of one bounce on either route (the profiled
+    # windows above); then the frames of cornell-mesh, cornell and terrain
+    # (both loops) with the step pointed at its plain version by this
+    # script, in turns plain, cuda, cuda, plain
+    k6_parts = {"path_rr": (pth.rr_cuda, pth.rr_plain, path_cases.compare_rr),
+                "path_shade": (pth.shade_cuda, pth.shade_plain, path_cases.compare_shade),
+                "path_resolve": (pth.resolve_cuda, pth.resolve_plain,
+                                 path_cases.compare_resolve)}
+    k6_err = dict.fromkeys(K6, 0.0)
+
+    def k6_check(label, reps):
+        for name, rep_ in reps.items():
+            require(rep_.ok(), "K6", name, label, str(rep_))
+            k6_err[name] = max(k6_err[name], rep_.max_abs.get("L", 0.0))
+        log(f"K6 against its plain parts on {label}: "
+            + "; ".join(f"{n} {r}" for n, r in reps.items()))
+
+    kernel_parts = tuple(v[0] for v in k6_parts.values())
+    plain_parts = tuple(v[1] for v in k6_parts.values())
+    for skind in ("independent", "stratified"):
+        s_pc, m_pc = compile_scene(path_cases.builder(24, skind, 4), device=dev)
+        for n_l in (1 << 18, 1000):
+            reps, seen = path_cases.compare_parts(
+                s_pc, m_pc, path_cases.synthetic_state(s_pc, m_pc, n_l, 5), skind, 4,
+                kernel_parts, plain_parts)
+            k6_check(f"path_cases' synthetic lanes ({skind}, {seen})",
+                     {f"path_{k}": v for k, v in reps.items()})
+    for tag in ("cornell_mesh", "cornell", "terrain"):
+        for nth, which in (("", "first"), ("#3", "third")):
+            k6_check(f"{tag}'s {which} bounce ({first(tag, 'path_rr' + nth)[0][1].o.shape[0]} "
+                     f"lanes)", {name: cmp(first(tag, name + nth)[0], kern, plain)
+                                 for name, (kern, plain, cmp) in k6_parts.items()})
+
+    def k6_work(name, args_):
+        """(bytes, float ops, what was counted) of one K6 launch: each input
+        read once by the lanes that read it, each output written once."""
+        if name == "path_rr":
+            meta_, st, skind_, _ = args_
+            R = st.o.shape[0]
+            due = st.active & (st.depth < meta_.max_depth) & (st.depth >= st.rr_next)
+            n_due = int(due.sum())
+            smp_b = 24 + (16 if skind_ == "stratified" else 0)
+            return (R * (25 + 41) + n_due * smp_b + 16, n_due * K6_OPS["rr"],
+                    f"{n_due} due for RR")
+        if name == "path_shade":
+            sc_, meta_, st, hit, skind_, _ = args_
+            R = st.o.shape[0]
+            hits = st.active & hit.valid
+            shade = hits & (hit.mat >= 0)
+            emit = hits & (hit.light >= 0)
+            esc = (st.active & ~hit.valid) if meta_.open_scene else torch.zeros_like(hits)
+            tab = pth.step_tables(sc_)
+            n_h, n_s, n_e, n_x = (int(x.sum()) for x in (hits, shade, emit, esc))
+            rows = sum(tab[k].numel() * 4 for k in ("mat", "lt", "spec", "emission", "uinf",
+                                                     "scal"))
+            rows += 36 * int((sc_.lt_tri >= 0).sum()) + 16 * int((sc_.lt_sph >= 0).sum()) \
+                + 32 * int((sc_.lt_dsk >= 0).sum())
+            smp_b = 8 + (16 if skind_ == "stratified" else 0)
+            return (R * (139 + 167) + n_h * 52 + n_s * smp_b + rows,
+                    n_s * K6_OPS["shade"] + n_e * K6_OPS["emit"] + n_x * K6_OPS["escape"],
+                    f"{n_s} shading, {n_e} emitter hits, {n_x} escaped")
+        st, pending, occ = args_
+        R, n_nee = st.L.shape[0], int(pending.mask.sum())
+        return (R * 33 + n_nee * 33 + 16, n_nee * K6_OPS["resolve"], f"{n_nee} with NEE")
+
+    # the refit of K1's winners (the hit record's glue, one kernel) on
+    # cornell-mesh's first closest-hit launch: bit-exact with its plain
+    # version, timed beside its bound
+    args_ = first("cornell_mesh", "bvh_refit")[0]
+    out_k, out_p = bvh.refit_cuda(*args_), bvh.refit_plain(*args_)
+    require(all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                            b.view(torch.int32) if b.dtype == torch.float32 else b)
+                for a, b in zip(out_k, out_p)), "bvh_refit differs from its plain version")
+    ms, call = kernel_ms(lambda: bvh.refit_cuda(*args_))
+    ms_plain = events_ms(lambda: bvh.refit_plain(*args_), 3)
+    # a lane's ray, t_max and winner in, its t, winner and barycentrics out;
+    # the triangle table read once
+    R_, n_won = args_[3].shape[0], int((args_[6] >= 0).sum())
+    b = bound(R_ * (28 + 8 + 24) + args_[0].shape[0] * 36,
+              n_won * (TRI_FULL_OPS + TRI_BARY_OPS))
+    timing["bvh_refit"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                               library_ms=None, max_abs_err=0.0, host_paced_ms=call)
+    log(f"bvh_refit at cornell-mesh's first closest-hit launch ({R_} lanes, {n_won} winners, "
+        f"{int((out_k[1] >= 0).sum())} refit hits): bit-exact with its plain version; kernel "
+        f"{ms:.4f} ms (host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms "
+        f"({b[1]})")
+    for name, (kern, plain, _) in k6_parts.items():
+        args_ = first("cornell_mesh", name)[0]
+        ms, call = kernel_ms(lambda: kern(*args_))
+        ms_plain = events_ms(lambda: plain(*args_), 3)
+        n_bytes, n_ops, work = k6_work(name, args_)
+        b = bound(n_bytes, n_ops)
+        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None, max_abs_err=k6_err[name], host_paced_ms=call)
+        n_lanes = first("cornell_mesh", "path_rr")[0][1].L.shape[0]
+        log(f"{name} at cornell-mesh's first bounce ({n_lanes} lanes, {work}): kernel "
+            f"{ms:.4f} ms (host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound "
+            f"{b[0]:.5f} ms ({b[1]}: {n_bytes} bytes, {n_ops} ops), {ms / b[0]:.1f}x it; max abs "
+            f"err of L over the comparisons {k6_err[name]:.3e}")
+    kb = {r: k6_prof[f"bounce {r}"] for r in ("plain", "cuda")}
+    require(20 * (kb["cuda"][0] + kb["cuda"][1]) <= kb["plain"][0] + kb["plain"][1],
+            "K6: device kernels a bounce not 20x fewer than the plain step's", kb["plain"][:3],
+            kb["cuda"][:3], kb["cuda"][3])
+    log(f"device kernels of one bounce of cornell-mesh's first wave (torch.profiler): plain step "
+        f"{kb['plain'][0]} kernels + {kb['plain'][1]} memsets/copies ({kb['plain'][2]:.3f} ms "
+        f"device), CUDA step {kb['cuda'][0]} + {kb['cuda'][1]} ({kb['cuda'][2]:.3f} ms), "
+        f"{(kb['plain'][0] + kb['plain'][1]) / max(kb['cuda'][0] + kb['cuda'][1], 1):.1f}x fewer; "
+        f"the CUDA step's hand-written kernels: "
+        f"{sorted({n for n in kb['cuda'][3] if 'at::native' not in n})}, and "
+        f"{sum('at::native' in n for n in kb['cuda'][3])} launches of PyTorch's kernels (the "
+        f"dispatches' glue)")
+    k6_frames_out = {}
+    for tag, sc_, mt_, loop in k6_frames:
+        runs = {"plain": [], "cuda": []}
+        for route in ("plain", "cuda", "cuda", "plain"):
+            runs[route].append(on_route(route, lambda: loop_frame(sc_, mt_, loop)))
+        (img_p, st_p, _, c_p), (img_c, st_c, _, c_c) = runs["plain"][0], runs["cuda"][0]
+        n_p, n_c = sum(st_p.values()), sum(st_c.values())
+        require(abs(n_c - n_p) <= 1e-3 * n_p, tag, "ray counts by route", st_p, st_c)
+        require(not any(c_p.get(k) for k in K6) and all(c_c.get(k) for k in K6), tag,
+                "K6 launches by route", c_p, c_c)
+        fb = check_image(img_c, img_p, f"{tag}: the CUDA step's frame against the plain step's")
+        walls = {r: [x[2] for x in v] for r, v in runs.items()}
+        med = {r: float(np.median(w)) for r, w in walls.items()}
+        prof_ = {r: k6_prof[f"{tag} {r}"] for r in runs}
+        k6_frames_out[tag] = dict(
+            walls=walls, median=med, rays={"plain": n_p, "cuda": n_c},
+            rays_per_s={r: (n_p if r == "plain" else n_c) / med[r] for r in runs},
+            busy={r: prof_[r][2] / 1e3 / med[r] for r in runs},
+            device_kernels={r: prof_[r][0] + prof_[r][1] for r in runs},
+            device_ms={r: prof_[r][2] for r in runs}, launches_k6=c_c, bad_px=fb)
+        o_ = k6_frames_out[tag]
+        log(f"{tag} frame ({loop} loop), in turns plain, cuda, cuda, plain: walls {walls} s, "
+            f"medians plain {med['plain']:.4f} / cuda {med['cuda']:.4f} s "
+            f"({med['plain'] / med['cuda']:.2f}x); rays {n_p} / {n_c} "
+            f"({n_c / n_p - 1:+.4%}), {o_['rays_per_s']['plain'] / 1e6:.3f} / "
+            f"{o_['rays_per_s']['cuda'] / 1e6:.3f} M rays/s; busy {o_['busy']['plain']:.1%} / "
+            f"{o_['busy']['cuda']:.1%} (device time of a profiled frame, {prof_['plain'][2]:.1f} / "
+            f"{prof_['cuda'][2]:.1f} ms, over the median wall); device kernels a frame "
+            f"{o_['device_kernels']['plain']} / {o_['device_kernels']['cuda']}; the CUDA frame's "
+            f"launches {c_c}; image against the plain frame's {fb:.4%} bad px, means "
+            f"{img_p.mean():.5f} / {img_c.mean():.5f}")
+    tw = k6_frames_out["terrain_wavefront"]["median"]
+    tb = k6_frames_out["terrain_batched"]["median"]
+    log(f"K8 condition on terrain: wavefront / batched frame {tw['cuda'] / tb['cuda']:.3f} with "
+        f"the CUDA step ({tw['cuda']:.4f} / {tb['cuda']:.4f} s), {tw['plain'] / tb['plain']:.3f} "
+        f"with the plain one ({tw['plain']:.4f} / {tb['plain']:.4f} s)")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "k6_frames.json").write_text(json.dumps(k6_frames_out, indent=1))
 
     # K7 on its first launches in the coated frames: against the plain
     # version on the coated lanes of both; layered_f and layered_pdf also
@@ -2571,6 +2877,14 @@ def main():
                                  "pbrt_tpu/accel/bvh.py:794"),
         "bvh_any_hit_inst": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                              "pbrt_tpu/accel/bvh.py:794"),
+        "bvh_refit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
+                      "pbrt_tpu/accel/bvh.py:1193"),
+        "path_rr": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                    "pbrt_tpu/integrators/path.py:193"),
+        "path_shade": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                       "pbrt_tpu/integrators/path.py:193"),
+        "path_resolve": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                         "pbrt_tpu/integrators/path.py:193"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

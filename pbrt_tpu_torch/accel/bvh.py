@@ -558,7 +558,8 @@ def reorder_pad(build: BvhBuild, a, fill):
 # launch); the *_stepper names count the yardstick entry, which no render
 # path calls
 launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0, "bvh_closest_hit_inst": 0,
-            "bvh_any_hit_inst": 0, "bvh_closest_hit_stepper": 0, "bvh_any_hit_stepper": 0}
+            "bvh_any_hit_inst": 0, "bvh_closest_hit_stepper": 0, "bvh_any_hit_stepper": 0,
+            "bvh_refit": 0}
 _OVERFLOW = {}
 
 
@@ -842,6 +843,9 @@ def _kernel_lib():
             + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         lib.pbrt_bvh_traverse_inst.restype = ctypes.c_int
+        lib.pbrt_bvh_refit.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [
+            ctypes.c_void_p] * 4
+        lib.pbrt_bvh_refit.restype = ctypes.c_int
         lib.declared = True
     return lib
 
@@ -972,15 +976,59 @@ def _traverse(scene, meta, o, d, t_max, any_hit):
     return t, prim, None
 
 
-def closest_hit_tris(scene, meta, o, d, t_max):
-    """BVH closest hit -> TriHit. t and the barycentrics are recomputed
-    against the winning triangle (the refit of bvh.py:1193-1215), for an
-    instanced winner in its instance's object space (`_refit_ray`
-    bvh.py:1170); prim indexes the leaf-ordered triangle columns, inst the
-    instance (None on a single-level table)."""
-    _, prim, hin = _traverse(scene, meta, o, d, t_max, any_hit=False)
+def refit_plain(tri_p0, tri_p1, tri_p2, o, d, t_max, prim):
+    """The refit of closest hits (JAX bvh.py:1193-1215): the winner's t and
+    barycentrics recomputed by the watertight test against triangle `prim`
+    (R,) int64 of the (T, 3) vertex columns, -1 for none -> (t (R,), prim
+    (R,), barycentrics (R, 3)); a lane without a winner, or whose winner the
+    test misses, gets INFINITY, -1 and zeros."""
     found = prim >= 0
     pc = torch.clamp(prim, min=0)
+    t_ref, bary, hit_ref = ix.intersect_tri_lanes(o, d, t_max, tri_p0[pc], tri_p1[pc], tri_p2[pc])
+    ok = found & hit_ref
+    return (torch.where(ok, t_ref, INFINITY), torch.where(ok, prim, -1),
+            torch.where(ok[:, None], bary, 0.0))
+
+
+def refit_cuda(tri_p0, tri_p1, tri_p2, o, d, t_max, prim):
+    """refit_plain's contract in one launch of csrc/bvh_traverse.cu
+    `pbrt_bvh_refit` on the current stream, the same bits."""
+    from pbrt_tpu_torch import kernels
+
+    R, dev = o.shape[0], o.device
+    T = tri_p0.shape[0]
+    for name, x, shape, dtype in (("o", o, (R, 3), torch.float32), ("d", d, (R, 3), torch.float32),
+                                  ("t_max", t_max, (R,), torch.float32),
+                                  ("prim", prim, (R,), torch.int64),
+                                  ("tri_p0", tri_p0, (T, 3), torch.float32),
+                                  ("tri_p1", tri_p1, (T, 3), torch.float32),
+                                  ("tri_p2", tri_p2, (T, 3), torch.float32)):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"bvh refit: {name} must be a contiguous {dtype} {shape} tensor "
+                             f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not o.is_cuda:
+        raise ValueError(f"bvh refit: needs CUDA tensors, got them on {dev}")
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    prim_out = torch.empty(R, dtype=torch.int64, device=dev)
+    b = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    err = _kernel_lib().pbrt_bvh_refit(
+        tri_p0.data_ptr(), tri_p1.data_ptr(), tri_p2.data_ptr(), o.data_ptr(), d.data_ptr(),
+        t_max.data_ptr(), prim.data_ptr(), R, t.data_ptr(), prim_out.data_ptr(), b.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "bvh_refit")
+    launches["bvh_refit"] += 1
+    return t, prim_out, b
+
+
+def closest_hit_tris(scene, meta, o, d, t_max):
+    """BVH closest hit -> TriHit. t and the barycentrics are recomputed
+    against the winning triangle (the refit of bvh.py:1193-1215: refit_cuda
+    on CUDA tensors, refit_plain on CPU ones), for an instanced winner in
+    its instance's object space (`_refit_ray` bvh.py:1170); prim indexes the
+    leaf-ordered triangle columns, inst the instance (None on a
+    single-level table)."""
+    _, prim, hin = _traverse(scene, meta, o, d, t_max, any_hit=False)
     o_r, d_r = o, d
     if hin is not None:
         # the traversal's object ray, bit for bit, so the refit meets the
@@ -989,15 +1037,10 @@ def closest_hit_tris(scene, meta, o, d, t_max):
         lanes = (hin >= 0).nonzero()[:, 0]
         o_r, d_r = o.clone(), d.clone()
         o_r[lanes], d_r[lanes] = object_rays(scene.inst_w2o[hin[lanes]], o[lanes], d[lanes])
-    t_ref, bary, hit_ref = ix.intersect_tri_lanes(
-        o_r, d_r, t_max, scene.tri_p0[pc], scene.tri_p1[pc], scene.tri_p2[pc])
-    ok = found & hit_ref
-    return ix.TriHit(
-        t=torch.where(ok, t_ref, INFINITY),
-        prim=torch.where(ok, prim, -1),
-        b=torch.where(ok[:, None], bary, 0.0),
-        inst=None if hin is None else torch.where(ok, hin, -1),
-    )
+    refit = refit_cuda if o.is_cuda else refit_plain
+    t, prim, b = refit(scene.tri_p0, scene.tri_p1, scene.tri_p2, o_r, d_r, t_max, prim)
+    return ix.TriHit(t=t, prim=prim, b=b, inst=None if hin is None else torch.where(prim >= 0,
+                                                                                     hin, -1))
 
 
 def any_hit_tris(scene, meta, o, d, t_max):

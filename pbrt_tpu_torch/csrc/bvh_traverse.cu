@@ -9,7 +9,7 @@
 // tables, `make_stepper_inst` :794 (with `_StI` :654 and `_traverse`
 // :940-952, :1131-1158), which also returns the instance of each hit.
 //
-// Three entry points:
+// Four entry points:
 //  - `pbrt_bvh_traverse` (K1, K1a): the kernel of bvh_wide.cuh, designed for
 //    the H100 (whole-row 16-byte loads, one stack entry per pending child in
 //    shared memory, persistent warps fed from a ticket, the while-while
@@ -20,6 +20,13 @@
 //    table, one thread per ray, as K1 ran before the redesign. It is a
 //    yardstick for the new kernel, never on the render path; it goes when
 //    K1i and K11 leave the stepper.
+//  - `pbrt_bvh_refit`: the refit of a closest hit (pbrt_tpu/accel/
+//    bvh.py:1193-1215): the winner's t and barycentrics recomputed by the
+//    watertight test against its triangle, one thread per ray, so the hit
+//    record's glue is one launch on the card instead of the plain
+//    version's ~130 eager ones (accel/bvh.py `refit_plain`, bit for bit).
+//    Bytes bound it: a ray's o, d, t_max and winner in, its t, winner and
+//    barycentrics out, and its triangle's 36 bytes.
 // A leaf triangle replaces the best hit only when strictly nearer, so the
 // winner is the first nearest triangle met: prim = chunk * 8 + k in leaf
 // order, the contract of the dense sweep of accel/bvh.py.
@@ -109,7 +116,52 @@ traverse_inst_kernel(const float* __restrict__ rows, int n_rows, int n_int, int 
   inst_out[r] = in.hin;
 }
 
+// the refit: prim -1, or a triangle the test misses, gives a miss (t
+// INFINITY, prim -1, barycentrics 0)
+__global__ void __launch_bounds__(128)
+refit_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
+             const float* __restrict__ p2, const float* __restrict__ o,
+             const float* __restrict__ d, const float* __restrict__ t_max,
+             const long long* __restrict__ prim, int n_rays, float* __restrict__ t_out,
+             long long* __restrict__ prim_out, float* __restrict__ b_out) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const long long p = prim[r];
+  float t = pbrt_wt::INF_T, b[3] = {0.f, 0.f, 0.f};
+  bool ok = false;
+  if (p >= 0) {
+    const float v[9] = {p0[3 * p], p0[3 * p + 1], p0[3 * p + 2], p1[3 * p], p1[3 * p + 1],
+                        p1[3 * p + 2], p2[3 * p], p2[3 * p + 1], p2[3 * p + 2]};
+    const pbrt_wt::Shear sh = pbrt_wt::ray_shear(d[3 * r], d[3 * r + 1], d[3 * r + 2]);
+    float t_hit, b_hit[3];
+    ok = pbrt_wt::watertight(v, o[3 * r], o[3 * r + 1], o[3 * r + 2], sh, t_max[r], t_hit,
+                             b_hit);
+    if (ok) {
+      t = t_hit;
+      b[0] = b_hit[0];
+      b[1] = b_hit[1];
+      b[2] = b_hit[2];
+    }
+  }
+  t_out[r] = t;
+  prim_out[r] = ok ? p : -1;
+  b_out[3 * r] = b[0];
+  b_out[3 * r + 1] = b[1];
+  b_out[3 * r + 2] = b[2];
+}
+
 }  // namespace
+
+// the refit of n_rays closest hits on the current stream (accel/bvh.py refit_cuda)
+extern "C" int pbrt_bvh_refit(const float* p0, const float* p1, const float* p2, const float* o,
+                              const float* d, const float* t_max, const long long* prim,
+                              int n_rays, float* t_out, long long* prim_out, float* b_out,
+                              void* stream) {
+  if (n_rays <= 0) return 0;
+  refit_kernel<<<(n_rays + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      p0, p1, p2, o, d, t_max, prim, n_rays, t_out, prim_out, b_out);
+  return (int)cudaGetLastError();
+}
 
 // the stepper's stack bound (K1i and the yardstick: depth + 2 entries)
 extern "C" int pbrt_bvh_max_stack() { return MAX_STACK; }

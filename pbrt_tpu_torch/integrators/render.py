@@ -371,7 +371,10 @@ def render(scene, meta, device=None, return_stats=False, heatmap_path=None, shar
     frame, as in the JAX package. BDPT and MLT frames are not split: each
     rank renders them whole. With return_stats, also returns {"closest": n,
     "shadow": n} counts of the rays actually traced (BDPT: subpath segments
-    and attempted connections; MLT: of every evaluation, and "mutations")."""
+    and attempted connections; MLT: of every evaluation, and "mutations"),
+    and a path-family render prints its bounce step's route
+    (path.step_route: "cuda", the kernels of csrc/path_step.cu, or
+    "plain")."""
     device = resolve_device(device)
     check_integrator(meta.integrator)
     if scene.device != device:
@@ -400,6 +403,9 @@ def render(scene, meta, device=None, return_stats=False, heatmap_path=None, shar
     img = filmlib.develop(film, meta.resolution, out_matrix=meta.film_out_matrix,
                           imaging_ratio=meta.film_imaging_ratio, splat_scale=splat_scale)
     if return_stats:
+        if meta.integrator in PATH_INTEGRATORS:
+            print(f"render: path step route {path_integrator.step_route(device, meta)}",
+                  flush=True)
         return img, {k: int(v) for k, v in stats.items()}
     return img
 

@@ -222,13 +222,17 @@ def infinite_light_density(scene, w_toward):
     return torch.zeros(w_toward.shape[:-1], device=w_toward.device) + pmf * uniform_infinite_pdf_li()
 
 
+def uniform_infinite_emission(scene):
+    """The summed dense emission (471,) of the uniform infinite lights."""
+    is_uinf = scene.lt_type == bd.LIGHT_UNIFORM_INFINITE
+    em_all = scene.lt_emission * scene.lt_scale[:, None]
+    return torch.where(is_uinf[:, None], em_all, 0.0).sum(dim=0)
+
+
 def infinite_le(scene, d, lam):
     """Radiance of all uniform infinite lights along escaped directions d
     (reference Vertex::Le infinite branch, bdpt.cu:192-203). -> (R,4)"""
-    is_uinf = scene.lt_type == bd.LIGHT_UNIFORM_INFINITE
-    em_all = scene.lt_emission * scene.lt_scale[:, None]
-    dense = torch.where(is_uinf[:, None], em_all, 0.0).sum(dim=0)
-    return spectra.sample_dense(dense, lam)
+    return spectra.sample_dense(uniform_infinite_emission(scene), lam)
 
 
 # ------------------------------------------------- sphere / disk emitters

@@ -31,7 +31,11 @@ kernels in the profiled render over the median wall time of the unprofiled
 renders of the default schedule: the profiler slows the host, not the
 kernels), the peak device memory of one frame, the device time of the
 hand-written kernels and of the eager PyTorch ops around them, and the top
-kernels by device time; writes the same as JSON to --out.
+kernels by device time; for the path family also the bounce step's route
+(path.step_route: "cuda", the three kernels of csrc/path_step.cu, or
+"plain") and the device kernels a bounce (all of the profiled frame's over
+its bounces: max_depth a wave on the batched loop, one an iteration on the
+wavefront loop); writes the same as JSON to --out.
 
 The MLT frames, caustic-glass with "mlt" (MLT over BDPT, max depth 7) and
 cornell-mesh levels 5 with "mltpath" (max depth 5), both at 256^2 with
@@ -87,11 +91,13 @@ POOLS = (1 << 17, 1 << 18, 1 << 19)
 PROFILED_PASSES = 8
 TURN_CALLS = 4
 # hand-written kernels by a substring of their device symbol
-KERNELS = {"bvh": "wide_kernel", "bvh_inst": "traverse_inst_kernel", "dense": "dense_",
+KERNELS = {"bvh": "wide_kernel", "bvh_inst": "traverse_inst_kernel", "bvh_refit": "refit_kernel",
+           "dense": "dense_",
            "recycle": "recycle_", "film": "film_add_tiled_kernel",
            "film_scatter": "film_add_scatter_kernel", "layered": "LayeredArgs", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
-           "shard": "parts_kernel|select_kernel"}
+           "shard": "parts_kernel|select_kernel",
+           "path_step": "path_rr_kernel|path_shade_kernel|path_resolve_kernel"}
 
 
 def _device_us(e):
@@ -399,7 +405,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from pbrt_tpu_torch.film import film as filmlib
-    from pbrt_tpu_torch.integrators import render as rd
+    from pbrt_tpu_torch.integrators import path as pth, render as rd
     from pbrt_tpu_torch.scene.builder import MLT_INTEGRATORS, PATH_INTEGRATORS
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -411,6 +417,9 @@ def main(argv=None):
         ap.error(f"--shard-scene takes a path-family scene, not {args.scene}")
     if meta.integrator in MLT_INTEGRATORS:
         return _profile_mlt(scene, meta, label, card, args.out)
+    route = pth.step_route("cuda", meta) if meta.integrator in PATH_INTEGRATORS else None
+    if route:
+        print(f"path step route: {route}", flush=True)
     default = f"wavefront {rd.POOL_LANES}" if meta.open_scene else "batched"
     schedules = {"batched": None}                          # name -> wavefront pool
     if meta.open_scene:
@@ -492,6 +501,10 @@ def main(argv=None):
     total_us = sum(r[1] for r in rows)
     kern_us, kern_n = _kernel_sums(rows)
     other_us = total_us - sum(kern_us.values())
+    bounces = None
+    if route:
+        bounces = kern_n["recycle"] if default.startswith("wavefront") else meta.max_depth * sum(
+            1 for _ in rd.wave_lanes(meta.resolution[0] * meta.resolution[1], meta.spp, "cpu"))
     out = dict(
         card=card, scene=label, res=meta.resolution[0], spp=meta.spp,
         max_depth=meta.max_depth, default_schedule=default,
@@ -502,12 +515,17 @@ def main(argv=None):
         kernels_s={k: v / 1e6 for k, v in kern_us.items()}, kernel_launches=kern_n,
         other_kernels_s=other_us / 1e6, kernel_launches_total=sum(r[2] for r in rows),
         top=[dict(name=k[:120], device_s=us / 1e6, count=c) for k, us, c in rows[:25]],
+        path_step_route=route, bounces=bounces,
+        kernel_launches_per_bounce=(sum(r[2] for r in rows) / bounces) if bounces else None,
     )
     print(f"profiled render ({default}) {prof_wall:.4f} s wall; device busy "
           f"{total_us / 1e6:.4f} s, {out['device_busy_share']:.1%} of the median frame; "
           + ", ".join(f"{k} kernels {v / 1e6:.5f} s x{kern_n[k]}" for k, v in kern_us.items())
           + f", other kernels {other_us / 1e6:.4f} s; {out['kernel_launches_total']} kernel "
           f"launches in all", flush=True)
+    if bounces:
+        print(f"path step route {route}: {bounces} bounces, "
+              f"{out['kernel_launches_per_bounce']:.1f} device kernels a bounce", flush=True)
     for r in out["top"][:15]:
         print(f"  {r['device_s'] * 1e3:9.3f} ms  x{r['count']:<6d} {r['name']}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

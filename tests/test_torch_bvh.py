@@ -92,6 +92,23 @@ def test_closest_hit_matches_jax(scenes, rays):
                                atol=1e-5)
 
 
+def test_refit_plain_is_the_closest_hit_refit(scenes, rays):
+    """refit_plain on the traversal's winners gives closest_hit_tris'
+    record bit for bit (the glue its kernel, refit_cuda, replaces on the
+    card), misses and masked lanes included; refit_cuda refuses CPU
+    tensors."""
+    _, ts, tm = scenes
+    o, d, t_max = (torch.from_numpy(x) for x in rays)
+    ht = tbvh.closest_hit_tris(ts, tm, o, d, t_max)
+    _, prim = tbvh.traverse_plain(ts.bvh_rows, tm.bvh_nint, o, d, t_max, False)
+    t, p, b = tbvh.refit_plain(ts.tri_p0, ts.tri_p1, ts.tri_p2, o, d, t_max, prim)
+    assert torch.equal(p, ht.prim) and torch.equal(t.view(torch.int32), ht.t.view(torch.int32))
+    assert torch.equal(b.view(torch.int32), ht.b.view(torch.int32))
+    assert bool((p >= 0).any()) and bool((p < 0).any())
+    with pytest.raises(ValueError):
+        tbvh.refit_cuda(ts.tri_p0, ts.tri_p1, ts.tri_p2, o, d, t_max, prim)
+
+
 def test_any_hit_matches_jax(scenes, rays):
     js, ts, tm = scenes
     o, d, t_max = rays

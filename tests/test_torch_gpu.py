@@ -4,6 +4,8 @@ pbrt_tpu, so they run where only PyTorch is installed:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -214,14 +216,15 @@ def test_bvh_inst_kernel_matches_plain(cuda, any_hit):
 
 
 def test_instanced_render_on_card_matches_cpu(cuda):
-    """The instanced cornell box at levels (2, 1), 24^2 x 2: K1i launched
-    and K1 not; the card's image against the CPU's."""
+    """The instanced cornell box at levels (2, 1), 24^2 x 2: K1i (and the
+    refit of its winners) launched and K1 not; the card's image against the
+    CPU's."""
     scene, meta = _instanced_cornell((2, 1), 24, 2, cuda)
     counts0 = dict(bvh.launches)
     img_gpu, st_gpu = render(scene, meta, return_stats=True)
     img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
     grew = {k for k in counts0 if bvh.launches[k] > counts0[k]}
-    assert grew == {"bvh_closest_hit_inst", "bvh_any_hit_inst"}
+    assert grew == {"bvh_closest_hit_inst", "bvh_any_hit_inst", "bvh_refit"}
     assert st_gpu == st_cpu
     img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
     err = np.abs(img_gpu - img_cpu)
@@ -859,3 +862,103 @@ def test_sharded_render_on_card_matches_cpu(cuda):
     err = np.abs(img_gpu - img_cpu)
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
+@pytest.mark.parametrize("skind", ["independent", "stratified"])
+@pytest.mark.parametrize("lanes", [1000, 1 << 16])
+def test_path_step_kernels_match_plain(cuda, skind, lanes):
+    """K6 (csrc/path_step.cu: path_rr, path_shade, path_resolve) against
+    rr_plain, shade_plain and resolve_plain on tests/path_cases.py's
+    synthetic lanes of the four-light scene (dead lanes, RR due and not due,
+    every material kind and light type, shadow rays of t_max 0), each part
+    on the plain chain's inputs: path_cases' criteria (draws and masks
+    bit-exact, float fields close, lane means); one launch each."""
+    import path_cases as pc
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    scene, meta = compile_scene(pc.builder(24, skind, 4), device=cuda)
+    state = pc.synthetic_state(scene, meta, lanes, 5)
+    n0 = dict(path.launches)
+    reps, seen = pc.compare_parts(scene, meta, state, skind, 4,
+                                  (path.rr_cuda, path.shade_cuda, path.resolve_cuda),
+                                  (path.rr_plain, path.shade_plain, path.resolve_plain))
+    assert {k: path.launches[k] - n0[k] for k in n0} == {k: 1 for k in n0}
+    for name, rep in reps.items():
+        assert rep.ok(), (name, str(rep))
+    assert seen["traced"] < lanes and seen["nee"] > 0
+    hit = pc.chain(scene, meta, state, skind, 4, (path.rr_plain, path.shade_plain,
+                                                  path.resolve_plain))["hit"]
+    kinds = scene.mat_type[hit.mat[hit.valid]].unique().tolist()
+    assert {0, 1, 2, 3} <= set(kinds) and bool((hit.light >= 0).any())
+
+
+def test_path_step_kernel_wrappers_refuse(cuda):
+    """The wrappers raise on CPU tensors and on scenes the kernels do not
+    cover (coated materials; the MLT sampler kind); step_route sends those
+    to the plain step."""
+    import path_cases as pc
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    scene, meta = compile_scene(pc.builder(8), device=cuda)
+    state = pc.camera_state(scene, meta)
+    assert path.step_route(cuda, meta) == "cuda"
+    with pytest.raises(ValueError):
+        path.rr_cuda(meta, state, "mlt", 0)
+    with pytest.raises(ValueError):
+        path.rr_cuda(dataclasses.replace(meta, layered=True), state)
+    with pytest.raises(ValueError):
+        path.rr_cuda(meta, pc.to_device(state, "cpu"))
+
+
+@pytest.mark.parametrize("skind", ["independent", "stratified"])
+def test_path_step_render_on_card_matches_cpu(cuda, skind):
+    """The four-light scene (open: the wavefront loop) at 24^2 x 4 through
+    render() on the card (the "cuda" route: path_rr, path_shade and
+    path_resolve once an iteration, as often as K8) against the CPU's plain
+    step: ray counts within 0.1 %, the image within tests/test_parity.py's
+    criterion; through the batched loop (max_depth launches of each a
+    wave), the card's film the same bits over two renders."""
+    import path_cases as pc
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    scene, meta = compile_scene(pc.builder(24, skind, 4), device=cuda)
+    n0, k0 = dict(path.launches), rd.launches["wavefront_recycle"]
+    img_gpu, st_gpu = render(scene, meta, return_stats=True)
+    its = rd.launches["wavefront_recycle"] - k0
+    assert its > 0 and {k: path.launches[k] - n0[k] for k in n0} == {k: its for k in n0}
+    films = [filmlib.new_film(meta.resolution, cuda) for _ in range(2)]
+    n0 = dict(path.launches)
+    for f in films:
+        rd.render_batched(scene, meta, f)
+    assert {k: path.launches[k] - n0[k] for k in n0} == {k: 2 * meta.max_depth for k in n0}
+    assert torch.equal(films[0].rgb_sum, films[1].rgb_sum)
+    img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
+    img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
+    n_gpu, n_cpu = sum(st_gpu.values()), sum(st_cpu.values())
+    assert abs(n_gpu - n_cpu) <= 1e-3 * n_cpu
+    err = np.abs(img_gpu - img_cpu)
+    assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
+    assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
+def test_bvh_refit_kernel_matches_plain(cuda):
+    """The refit kernel (csrc/bvh_traverse.cu `pbrt_bvh_refit`) against
+    refit_plain on cornell-mesh's traversal winners (random interior rays,
+    every 11th masked): t, prim and barycentrics bit for bit, one launch;
+    closest_hit_tris on the card takes it."""
+    scene, meta = ts.cornell_mesh(levels=3, res=32, spp=1, device=cuda)
+    o, d, t_max = (x.to(cuda) for x in _rays(scene, 50000, 13))
+    _, prim = bvh.traverse_cuda(scene.bvh_rows, meta.bvh_nint, meta.bvh_depth, o, d, t_max)
+    n0 = bvh.launches["bvh_refit"]
+    got = bvh.refit_cuda(scene.tri_p0, scene.tri_p1, scene.tri_p2, o, d, t_max, prim)
+    want = bvh.refit_plain(scene.tri_p0, scene.tri_p1, scene.tri_p2, o, d, t_max, prim)
+    assert bvh.launches["bvh_refit"] == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+    assert int((got[1] >= 0).sum()) > 1000
+    bvh.closest_hit_tris(scene, meta, o, d, t_max)
+    assert bvh.launches["bvh_refit"] == n0 + 2

@@ -1,7 +1,7 @@
 """The port stands alone: no file of pbrt_tpu_torch/, not chip_smoke.py and
 not the test helpers it imports (tests/quadric_edges.py,
 tests/layered_cases.py, tests/bdpt_cases.py, tests/mlt_cases.py,
-tests/instancing_cases.py) and not
+tests/instancing_cases.py, tests/path_cases.py) and not
 tests/parallel_cases.py, whose spawned ranks must not load JAX, imports jax
 or anything of the JAX package pbrt_tpu (AST scan), and the port ships its
 own copies of the data tables."""
@@ -17,6 +17,7 @@ FILES = sorted((ROOT / "pbrt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py
                                                           ROOT / "tests" / "bdpt_cases.py",
                                                           ROOT / "tests" / "mlt_cases.py",
                                                           ROOT / "tests" / "instancing_cases.py",
+                                                          ROOT / "tests" / "path_cases.py",
                                                           ROOT / "tests" / "parallel_cases.py"]
 
 
@@ -46,7 +47,8 @@ def test_scan_sees_the_whole_port():
                  "pbrt_tpu_torch/integrators/mlt.py",
                  "pbrt_tpu_torch/distribution/distributions.py",
                  "pbrt_tpu_torch/parallel/scene_shard.py", "pbrt_tpu_torch/parallel/dist.py",
-                 "tests/parallel_cases.py", "tests/instancing_cases.py", "chip_smoke.py"):
+                 "tests/parallel_cases.py", "tests/instancing_cases.py", "tests/path_cases.py",
+                 "chip_smoke.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("pbrt_tpu.scene")
     assert not _forbidden("pbrt_tpu_torch.scene")

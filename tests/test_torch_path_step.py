@@ -1,0 +1,197 @@
+"""The path step K6 on the CPU. Its plain parts (pbrt_tpu_torch/integrators/
+path.py `rr_plain`, `shade_plain`, `resolve_plain`, around
+dispatch.intersect and dispatch.occluded) against the JAX package's
+`bounce_step`, one bounce at a time for three bounces: each bounce starts
+both from the port's state, carried across bit for bit, on
+tests/path_cases.py's scene (every light type and shape; diffuse, rough and
+smooth conductors, a reflectance-mode conductor, smooth, rough and
+dispersive dielectrics, diffuse transmission) compiled by the JAX package
+and carried across with scene_from_arrays, for both sampler kinds. Sampler
+state and dimension bit-exact on every lane; active, specular and depth
+equal on path_cases.EQUAL_FRAC of the lanes; every float field within
+JAX_RTOL, JAX_ATOL on path_cases.CLOSE_FRAC of the lanes and its lane mean
+within MEAN_RTOL; the ray counts equal. The tolerance is ten times the
+kernels' (path_cases.RTOL, ATOL): the two hit records differ, XLA
+contracting multiply-adds in the quadric and triangle tests, so a sphere's
+normal seen from the camera lens differs by up to ~1e-4 relative on a
+percent of the first bounce's lanes, and the directions sampled about it
+with it; its transcendentals round apart from torch's, and the
+spherical-triangle warps are ill-conditioned in float32. Then the route
+function (step_route) and the CUDA wrappers refusing CPU tensors, which
+need no card."""
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from pbrt_tpu.integrators import path as jpath
+from pbrt_tpu.sampling import rng as jrng, samplers as jsamplers
+from pbrt_tpu.scene import builder as jbd, lexer as jlx
+from pbrt_tpu.scene.compile import compile_scene as j_compile
+from pbrt_tpu_torch.integrators import path as tpath
+from pbrt_tpu_torch.scene.compile import scene_from_arrays
+import bdpt_cases
+import path_cases as pc
+
+torch.set_num_threads(2)
+PLAIN = (tpath.rr_plain, tpath.shade_plain, tpath.resolve_plain)
+# (sampler kind, resolution, spp): 2048 and 1024 lanes
+KINDS = {"independent": (32, 2), "stratified": (16, 4)}
+JAX_RTOL, JAX_ATOL = 1e-3, 1e-5
+
+
+@pytest.fixture(scope="module", params=list(KINDS))
+def case(request):
+    """(JAX scene, port scene and meta, sampler kind, spp, JAX's bounce
+    step jitted once)."""
+    skind = request.param
+    res, spp = KINDS[skind]
+    text = pc.PATH_PBRT.replace('Sampler "independent"',
+                                f'Sampler "{skind}" "integer pixelsamples" [{spp}]')
+    b = jbd.SceneBuilder()
+    b.parse_tokens(jlx.tokenize(text))
+    b.film["xresolution"] = b.film["yresolution"] = res
+    js, jm = j_compile(b)
+    arrays = {k: (np.asarray(v) if k != "filt" else v) for k, v in js._asdict().items()
+              if v is not None and k != "tex"}
+    ts, tm = scene_from_arrays(arrays, jm, "cpu")
+    step = jax.jit(lambda s: jpath.bounce_step(js, s, False, skind, spp, (), False,
+                                               jm.max_depth, False))
+    return ts, tm, skind, spp, step
+
+
+def _u64(x):
+    v = x.numpy().view(np.uint64)
+    return jrng.U64(hi=jnp.asarray((v >> np.uint64(32)).astype(np.uint32)),
+                    lo=jnp.asarray((v & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+
+
+def to_jax(st):
+    """The port's PathState as the JAX package's, bit for bit (no medium)."""
+    R = st.o.shape[0]
+
+    def f(x):
+        return jnp.asarray(x.numpy())
+
+    smp = jsamplers.Sampler(state=_u64(st.smp.state), inc=_u64(st.smp.inc),
+                            pixel=jnp.asarray(st.smp.pixel.numpy().astype(np.uint32)),
+                            sample=jnp.asarray(st.smp.sample.numpy().astype(np.uint32)),
+                            dim=jnp.asarray(st.smp.dim.numpy().astype(np.uint32)))
+    return jpath.PathState(
+        o=f(st.o), d=f(st.d), L=f(st.L), beta=f(st.beta), lam=f(st.lam), lam_pdf=f(st.lam_pdf),
+        smp=smp, active=f(st.active), specular=f(st.specular), depth=f(st.depth),
+        rr_next=f(st.rr_next), prev_pdf=f(st.prev_pdf), prev_p=f(st.prev_p),
+        prev_ns=f(st.prev_ns), medium=jnp.full((R,), -1, jnp.int32), trans_pdf=jnp.ones((R, 4)),
+        n_closest=jnp.float32(int(st.n_closest)), n_shadow=jnp.float32(int(st.n_shadow)))
+
+
+def from_jax(js):
+    """The JAX package's PathState as the port's CPU one."""
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    return tpath.PathState(
+        o=t(js.o), d=t(js.d), L=t(js.L), beta=t(js.beta), lam=t(js.lam), lam_pdf=t(js.lam_pdf),
+        smp=bdpt_cases.sampler_from_arrays(js.smp), active=t(js.active),
+        specular=t(js.specular), depth=t(js.depth), rr_next=t(js.rr_next),
+        prev_pdf=t(js.prev_pdf), prev_p=t(js.prev_p), prev_ns=t(js.prev_ns),
+        n_closest=torch.tensor(int(js.n_closest)), n_shadow=torch.tensor(int(js.n_shadow)))
+
+
+def test_plain_parts_match_jax_bounce_step(case):
+    scene, meta, skind, spp, step = case
+    state = pc.camera_state(scene, meta)
+    for bounce in range(3):
+        got = pc.chain(scene, meta, state, skind, spp, PLAIN)["out"]
+        want = from_jax(step(to_jax(state)))
+        rep = pc.Report(JAX_RTOL, JAX_ATOL)
+        pc.compare_state(rep, got, want)
+        assert rep.ok(), (bounce, str(rep))
+        # the draws bit for bit on every lane
+        assert torch.equal(got.smp.state, want.smp.state), bounce
+        assert torch.equal(got.smp.dim, want.smp.dim), bounce
+        assert int(got.n_closest) == int(want.n_closest) > 0, bounce
+        assert int(got.n_shadow) == int(want.n_shadow) > int(state.n_shadow), bounce
+        state = got
+    assert int(state.active.sum()) > 0
+
+
+def _bits(st):
+    """Every tensor of a PathState, floats as their bits."""
+    for x in st:
+        if isinstance(x, tuple):
+            yield from _bits(x)
+        elif x is not None:
+            yield x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def test_bounce_step_is_the_plain_chain(case):
+    """On CPU tensors bounce_step takes the plain route: the chain of its
+    parts, bit for bit."""
+    scene, meta, skind, spp, _ = case
+    state = pc.camera_state(scene, meta, n_pix=256)
+    a = tpath.bounce_step(scene, meta, state, skind, spp)
+    b = pc.chain(scene, meta, state, skind, spp, PLAIN)["out"]
+    assert all(torch.equal(x, y) for x, y in zip(_bits(a), _bits(b)))
+
+
+def test_step_route():
+    meta = SimpleNamespace(layered=False, sampler="independent")
+    assert tpath.step_route("cpu", meta) == "plain"
+    assert tpath.step_route(torch.device("cpu"), meta) == "plain"
+    assert tpath.step_route("cuda", meta) == "cuda"
+    assert tpath.step_route("cuda:0", meta) == "cuda"
+    assert tpath.step_route("cuda", meta, "stratified") == "cuda"
+    assert tpath.step_route("cuda", meta, "mlt") == "plain"
+    assert tpath.step_route("cuda", SimpleNamespace(layered=False, sampler="mlt")) == "plain"
+    assert tpath.step_route("cuda", SimpleNamespace(layered=True,
+                                                    sampler="independent")) == "plain"
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    from pbrt_tpu_torch.accel import dispatch
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    scene, meta = compile_scene(pc.builder(8), device="cpu")
+    state = pc.camera_state(scene, meta)
+    st1, t_max = tpath.rr_plain(meta, state)
+    hit = dispatch.intersect(scene, meta, st1.o, st1.d, t_max)
+    st2, shadow, pending = tpath.shade_plain(scene, meta, st1, hit)
+    n0 = dict(tpath.launches)
+    with pytest.raises(ValueError):
+        tpath.rr_cuda(meta, state)
+    with pytest.raises(ValueError):
+        tpath.shade_cuda(scene, meta, st1, hit)
+    with pytest.raises(ValueError):
+        tpath.resolve_cuda(st2, pending, torch.zeros_like(pending.mask))
+    with pytest.raises(ValueError):
+        tpath.rr_cuda(dataclasses.replace(meta, layered=True), state)
+    assert tpath.launches == n0
+
+
+def test_step_tables_hold_the_scene_rows():
+    """The kernels' per-scene rows (path.step_tables) against the scene's
+    own fields, and the argument record's layout (every field 8 bytes, as
+    csrc/path_step.cu's StepArgs, which the library checks at load)."""
+    from pbrt_tpu_torch.lights import lights
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    scene, meta = compile_scene(pc.builder(8), device="cpu")
+    tab = tpath.step_tables(scene)
+    assert tab is tpath.step_tables(scene)
+    M, L = scene.mat_type.shape[0], scene.lt_type.shape[0]
+    assert tab["mat"].shape == (M, tpath.MAT_F) and tab["lt"].shape == (L, tpath.LT_F)
+    assert torch.equal(tab["mat"][:, 0], scene.mat_type.float())
+    assert torch.equal(tab["mat"][:, 8:11], scene.mat_refl_c)
+    assert torch.equal(tab["lt"][:, 1], scene.lt_pmf)
+    assert torch.equal(tab["lt"][:, 15:18], scene.lt_alias_rows)
+    assert torch.equal(tab["uinf"], lights.uniform_infinite_emission(scene))
+    dens = lights.infinite_light_density(scene, torch.zeros((1, 3)))[0]
+    assert float(tab["scal"][2]) == float(dens) > 0
+    import ctypes
+    assert ctypes.sizeof(tpath._StepArgs) == 8 * (len(tpath._ARG_FIELDS)
+                                                   + len(tpath._INT_FIELDS))

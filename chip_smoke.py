@@ -19,8 +19,9 @@ result line:
      layered_sample's and the yardsticks' (csrc/layered_lane.cu), and the
      samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle) the
      bits of the library's sinf and cosf on every float below 105615; K6's
-     three kernels (csrc/path_step.cu) with their registers, stack frame,
-     spills and local loads and stores printed;
+     four kernels (csrc/path_step.cu: path_rr, path_shade, path_coat,
+     path_resolve) with their registers, stack frame, spills and local
+     loads and stores printed;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -92,11 +93,15 @@ result line:
      closest-hit dispatches; neither K12's yardstick entries nor the packed
      copy they read, bdpt.pack_vertices / pack_endpoints). The batched and
      BDPT frames launch K5's tiled entry, the wavefront frame its scatter
-     entry and K8; every frame of the path family on the "cuda" route
-     (path.step_route) launches each of K6's three kernels max_depth times
-     a wave on the batched loop (cornell-mesh, cornell, the scene-sharded
-     and instanced frames) and once an iteration on the wavefront loop
-     (terrain), and the others (staircase, testball, BDPT, MLT) none;
+     entry and K8; every frame of the path family on the card (the "cuda"
+     route of path.step_route: every path-integrator render) launches
+     path_rr, path_shade and path_resolve max_depth times a wave on the
+     batched loop (cornell-mesh, cornell, staircase, testball, the
+     scene-sharded and instanced frames), once an iteration on the
+     wavefront loop (terrain) and max_depth times an evaluation of an
+     mltpath frame (its bootstrap's, its initial states' and its passes'),
+     path_coat as often in the frames with coated materials (staircase,
+     testball) and in no other, and BDPT and MLT over BDPT none of K6;
   9. K1 and K1a on five launches each (the first of cornell-mesh, terrain
      and staircase, the third of cornell-mesh and staircase): against the
      plain version with phase 3's criteria, the operation bound from
@@ -151,8 +156,22 @@ result line:
      turns plain, cuda, cuda, plain: ray counts within 0.1 %, images within
      check_image, walls, rays/s, busy share (a profiled frame's device time
      over the median wall) and device kernels a frame of either route, and
-     the terrain loops' ratio (the K8 condition) (chiprun_out/
-     k6_frames.json);
+     the terrain loops' ratio (the K8 condition); the coated lanes and the
+     MLT kind: the four kernels (path_coat around K7's launches from the
+     step) against the plain parts on path_cases' coated scene and with the
+     MLT kind over vectors of 6 and 30 dimensions (2^18 and 1,000 lanes) and
+     on the first and third bounces of the staircase and testball frames,
+     path_coat against coat_plain on identical inputs (floats within rtol
+     1e-4, atol 1e-6 on >= 99.5 % of lanes), the whole coated bounce (draws
+     bit-exact, the coated lanes' L, beta and prev_pdf on their lane means,
+     path_cases.Report.coat_mean, the share of lanes bit-exact printed),
+     the four kernels timed on staircase's first bounce beside their bounds
+     and plain parts, the device kernels of a staircase bounce on either
+     route, and the testball (plain, cuda, cuda, plain) and staircase
+     (plain, cuda, cuda) frames: ray counts within 1 %, 8x8 block means
+     within check_image (R7), walls, rays/s, busy share and device kernels
+     a frame (the CUDA frames) and each frame's peak memory over what was
+     held before it (chiprun_out/k6_frames.json);
  10. MLT: cornell 24^2 with mltpath and mltbdpt (1024 chains, 18 passes)
      on the card and on the CPU with one seed (tests/mlt_cases.py: >= 99 %
      of the (chain, pass) accept decisions equal, 8x8 block means within
@@ -161,7 +180,10 @@ result line:
      chains through render(), cut from 100 to 4 and 8 mutations per pixel
      (32 and 64 passes) so that the phase fits this script's time, each
      with K12m-a and K12m-b launched exactly once a pass and its image mean
-     within mlt_cases.FRAME_MEAN_RTOL of phase 8's BDPT or path frame; both
+     within mlt_cases.FRAME_MEAN_RTOL of phase 8's BDPT or path frame (the
+     mltpath renders' evaluations on the CUDA path step with the MLT kind,
+     K6 max_depth times an evaluation; the cornell-mesh frame's median pass
+     time at 8 passes beside the plain step's, in turns); both
      kernels against their plain versions on those frames' first passes
      (draws and chain state bit-exact, splat sums within 1e-5) and timed on
      caustic-glass's beside their byte bounds, plain versions and (K12m-b)
@@ -300,8 +322,12 @@ INST_ENTRY_OPS = 55
 # the BSDF's f and pdf and its sample from ~100 (diffuse) to ~800 (a rough
 # conductor's complex Fresnel terms), the MIS weight and the new ray): ~600,
 # per emitter hit its MIS pdf (a triangle's inverted spherical sample) ~300,
-# per escaped lane ~15; path_resolve per NEE lane 8
-K6_OPS = {"rr": 12, "shade": 600, "emit": 300, "escape": 15, "resolve": 8}
+# per escaped lane ~15, per coated lane its layer instead of the BSDF (three
+# sigmoid spectra and the conductor's k, ~150); path_coat per coated lane
+# (the frame ~25, the world direction and back ~30, the new beta and origin
+# ~30, the NEE term and its weight ~35) ~120; path_resolve per NEE lane 8
+K6_OPS = {"rr": 12, "shade": 600, "emit": 300, "escape": 15, "layer": 150, "coat": 120,
+          "resolve": 8}
 # float ops of K12m-a per chain and dimension, counted from csrc/mlt.cu:
 # two uniforms (a multiply and a min each), erfinv (~15 with its log and
 # two square roots), the perturbation, the wrap and the clip (~8)
@@ -666,8 +692,8 @@ def main():
     for fn, c in sass_memory_ops(subprocess.run(
             [str(cuobjdump), "-sass", str(kernels.library_path("path_step"))],
             capture_output=True, text=True, timeout=120).stdout).items():
-        short = next((k for k in ("path_rr_kernel", "path_shade_kernel", "path_resolve_kernel")
-                      if k in fn), None)
+        short = next((k for k in ("path_rr_kernel", "path_shade_kernel", "path_coat_kernel",
+                                  "path_resolve_kernel") if k in fn), None)
         if short is None:
             continue
         at = next(i for i, line in enumerate(report) if "Function properties for" in line
@@ -731,6 +757,7 @@ def main():
         t[::89] = 0.0
         return t.contiguous()
 
+    log(f"[phase 3 starts at {time.time() - t_start:.1f} s]")
     # ---- 3. BVH traversal vs plain on camera + interior rays, cornell-mesh l5
     scene, meta = compile_scene(ts.cornell_mesh_builder(levels=5, res=256), 16, device=dev)
     rows, n_int, depth = scene.bvh_rows, meta.bvh_nint, meta.bvh_depth
@@ -798,6 +825,7 @@ def main():
         f"(verified), max rel err t {t_err:.2e} b {b_err:.2e}; any hit {n_occ} occluded, "
         f"0 disagree")
 
+    log(f"[phase 4 starts at {time.time() - t_start:.1f} s]")
     # ---- 4. film kernels vs plain with NaN lanes, zero pdfs and zero
     # weights, 256^2 film
     n_lanes, n_px = 131072, 256 * 256
@@ -859,6 +887,7 @@ def main():
     log(f"film_add_splats vs plain on {3 * n_lam} splats over {n_lam} lanes' wavelengths with "
         f"NaN/zero-pdf lanes: max abs err {splat_err:.2e} (rtol 1e-5: atomic order)")
 
+    log(f"[phase 5 starts at {time.time() - t_start:.1f} s]")
     # ---- 5. dense kernels (K3, K4) vs plain
     def compare_dense_tris(o, d, t_max, tris, any_hit=False):
         """K3 vs plain: prim ids, t and barycentrics bit for bit; any hit
@@ -942,6 +971,7 @@ def main():
         log(f"partial {kind} ({nq}) vs plain on 131072 rays: {n_h} hits, {n_edge} "
             f"disagreements, all within 1e-5 of a clip edge; max abs err t {err:.2e}")
 
+    log(f"[phase 6 starts at {time.time() - t_start:.1f} s]")
     # ---- 6. K8 vs torch.cumsum's plain version at the pool size and at a
     # size that is not a multiple of its tile, with and without the rank,
     # back to back on the kernel's scratch
@@ -968,6 +998,7 @@ def main():
         f"(next_work up to 3 past the end, rank on every other call): rank, work, recycle, "
         f"in_flight and counters bit-exact")
 
+    log(f"[phase 6b starts at {time.time() - t_start:.1f} s]")
     # ---- 6b. K7 vs plain on synthetic lanes
     def sub_params(p, idx):
         def bx(b):
@@ -1081,6 +1112,7 @@ def main():
                 f"{turns[1]:.4f} / {turns[2]:.4f} ms, yardstick {turns[0]:.4f} / {turns[3]:.4f} "
                 f"ms in turns, speed-up {ms_y / ms_k:.3f}x")
 
+    log(f"[phase 7 starts at {time.time() - t_start:.1f} s]")
     # ---- 7. small renders vs golden and vs CPU
     goldens = np.load(ROOT / "tests" / "goldens.npz")
     for label, (sc, mt), key in (
@@ -1167,6 +1199,7 @@ def main():
         log(f"{msg}; rays card {n_g} cpu {n_c}; means {img_gpu.mean():.5f} / "
             f"{img_cpu.mean():.5f}; launches {counts}")
 
+    log(f"[phase 8 starts at {time.time() - t_start:.1f} s]")
     # ---- 8. full-width renders through the normal entry point, each once,
     # with the launch counts set to 0 just before it and read just after. The
     # render keeps a copy of the arguments of each kernel's first launch (the
@@ -1201,23 +1234,21 @@ def main():
         (bvh, "refit_cuda", lambda a, k: "bvh_refit"),
         (pth, "rr_cuda", lambda a, k: "path_rr"),
         (pth, "shade_cuda", lambda a, k: "path_shade"),
+        (pth, "coat_cuda", lambda a, k: "path_coat"),
         (pth, "resolve_cuda", lambda a, k: "path_resolve"),
     ]
     captured = {}
     # the K1 launches whose third call is kept too: the bounce rays; and
     # K6's third bounce (terrain: the wavefront loop's third iteration)
     K6 = ("path_rr", "path_shade", "path_resolve")
+    K6C = K6 + ("path_coat",)
     third = {("cornell_mesh", "bvh_closest_hit"), ("cornell_mesh", "bvh_any_hit"),
              ("staircase", "bvh_closest_hit"), ("staircase", "bvh_any_hit")} | {
-        (tag, k) for tag in ("cornell_mesh", "cornell", "terrain") for k in K6}
+        (tag, k) for tag in ("cornell_mesh", "cornell", "terrain") for k in K6} | {
+        (tag, k) for tag in ("staircase", "testball") for k in K6C}
     n_calls = {}
 
-    def clone(x):
-        if torch.is_tensor(x):
-            return x.clone()
-        if isinstance(x, tuple) and hasattr(x, "_fields"):  # LayeredParams, PathState, ...
-            return type(x)(*map(clone, x))
-        return x
+    clone = path_cases.clone
 
     def render_captured(tag, sc, mt, **kw):
         """One render with each kernel's first-launch arguments kept."""
@@ -1246,18 +1277,35 @@ def main():
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     main_counts, main_counts_frame, frame_means, frame_imgs, frame_peaks = {}, {}, {}, {}, {}
 
+    # the path integrator's evaluations of an MLT frame (mlt.eval_x), counted
+    # by this script's wrapper: K6 launches max_depth times one
+    mlt_evals = {"n": 0}
+    eval_x = mlt.eval_x
+
+    def counted_eval_x(*a, **k):
+        mlt_evals["n"] += 1
+        return eval_x(*a, **k)
+
+    mlt.eval_x = counted_eval_x
+
     def k6_launches(sc, mt, counts, kw):
-        """K6's launches, each of its three kernels, that a frame must
-        show: on the "cuda" route (path.step_route) max_depth a wave on the
-        batched loop (closed and scene-sharded frames), one an iteration on
-        the wavefront loop (as many as K8's); else none (coated scenes, BDPT
-        and MLT)."""
-        if mt.integrator not in bd.PATH_INTEGRATORS or pth.step_route(dev, mt) != "cuda":
-            return 0
-        if mt.open_scene and sc.shard is None and not kw.get("shard_parts"):
-            return counts.get("wavefront_recycle", 0)
-        return mt.max_depth * sum(1 for _ in rd.wave_lanes(
-            mt.resolution[0] * mt.resolution[1], mt.spp, "cpu"))
+        """{K6 kernel: launches} that a frame must show. On the "cuda" route
+        (path.step_route: every render of the path family on the card)
+        path_rr, path_shade and path_resolve max_depth a wave on the batched
+        loop (closed, scene-sharded, coated frames), one an iteration on the
+        wavefront loop (as many as K8's), max_depth an evaluation of an
+        mltpath frame; path_coat as often where the scene has coated
+        materials, else none; BDPT and MLT over BDPT none of them."""
+        if mt.integrator == "mltpath":
+            n = mt.max_depth * mlt_evals["n"]
+        elif mt.integrator not in bd.PATH_INTEGRATORS or pth.step_route(dev, mt) != "cuda":
+            n = 0
+        elif mt.open_scene and sc.shard is None and not kw.get("shard_parts"):
+            n = counts.get("wavefront_recycle", 0)
+        else:
+            n = mt.max_depth * sum(1 for _ in rd.wave_lanes(
+                mt.resolution[0] * mt.resolution[1], mt.spp, "cpu"))
+        return dict(dict.fromkeys(K6, n), path_coat=n if mt.layered else 0)
 
     def full_render(tag, sc, mt, must, **kw):
         """The measured render of a full-width frame, its kernels'
@@ -1265,6 +1313,7 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         reset_counts()
+        mlt_evals["n"] = 0
         torch.cuda.synchronize()
         t0 = time.time()
         img, stats = render_captured(tag, sc, mt, return_stats=True, **kw)
@@ -1279,9 +1328,8 @@ def main():
                 tag, "non-finite pixels")
         require(all(counts.get(k, 0) > 0 for k in must), tag, "kernel not launched", counts)
         want_k6 = k6_launches(sc, mt, counts, kw)
-        got_k6 = {k: counts.get(k, 0) for k in K6}
-        require(got_k6 == dict.fromkeys(K6, want_k6), tag, "K6 launches", got_k6, "expected",
-                want_k6)
+        got_k6 = {k: counts.get(k, 0) for k in K6C}
+        require(got_k6 == want_k6, tag, "K6 launches", got_k6, "expected", want_k6)
         for k in must:  # a kernel on several paths: counted on its first
             main_counts.setdefault(k, counts[k])
         out_png = kernels.BUILD_DIR / f"{tag}.png"
@@ -1291,11 +1339,13 @@ def main():
         frame_peaks[tag] = torch.cuda.max_memory_allocated() / 2**30
         per = (f"{mt.mutations_per_pixel} mutations/pixel" if mt.integrator in bd.MLT_INTEGRATORS
                else f"{mt.spp} spp {mt.filter_kind}")
+        evals = f"; {mlt_evals['n']} path evaluations" if mlt_evals["n"] else ""
         log(f"full render {tag} {mt.integrator} {mt.resolution[0]}^2 x {per} depth "
             f"{mt.max_depth}: {wall:.3f} s wall (first-launch copies included), "
             f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
-            f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts} (K6 {want_k6} each, as "
-            f"required); mean {img.mean():.5f}; "
+            f"{n_rays / wall / 1e6:.3f} M rays/s; launches {counts} (K6 {want_k6}, as "
+            f"required{evals}); "
+            f"mean {img.mean():.5f}; "
             f"all finite; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} over the "
             f"{held / 2**30:.2f} held before it) -> {out_png.relative_to(ROOT)}")
@@ -1316,10 +1366,13 @@ def main():
     def loop_frame(sc, mt, loop):
         """One frame through the batched or the wavefront loop, its launch
         counts set to 0 before it -> (image (H, W, 3) numpy, ray counts,
-        wall seconds, the launch counts)."""
+        wall seconds, the launch counts, the frame's peak device GiB over
+        what was allocated before it)."""
         film = filmlib.new_film(mt.resolution, dev)
         reset_counts()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.time()
         st = (rd.render_batched(sc, mt, film) if loop == "batched"
               else rd.render_wavefront(sc, mt, film)[0])
@@ -1328,7 +1381,8 @@ def main():
         torch.cuda.synchronize()
         wall = time.time() - t0
         return (img.cpu().numpy(), {k: int(v) for k, v in st.items()}, wall,
-                {k: v for k, v in read_counts().items() if v})
+                {k: v for k, v in read_counts().items() if v},
+                (torch.cuda.max_memory_allocated() - held) / 2**30)
 
     st_cm = full_render("cornell_mesh", scene, meta, ("bvh_closest_hit", "bvh_any_hit",
                                                       "bvh_refit", "film_add_samples") + K6)
@@ -1412,12 +1466,12 @@ def main():
         f"of {s_st.bvh_rows.shape[0]} rows, depth {m_st.bvh_depth})")
     require(not m_st.open_scene and m_st.layered, "staircase: closed coated scene")
     full_render("staircase", s_st, m_st, ("bvh_closest_hit", "bvh_any_hit",
-                                          "film_add_samples") + k7)
+                                          "film_add_samples") + k7 + K6C)
     k7_frame_counts("staircase", m_st)
     s_tb, m_tb = load_scene(str(ROOT / "scenes" / "material-testball.pbrt"), device=dev)
     require(m_tb.sph_partial and m_tb.layered, "testball: partial sphere, coated")
     full_render("testball", s_tb, m_tb, ("bvh_closest_hit", "bvh_any_hit", "dense_spheres",
-                                         "film_add_samples") + k7)
+                                         "film_add_samples") + k7 + K6C)
     k7_frame_counts("testball", m_tb)
 
     # BDPT at the bench's settings: every kernel of a wave launched exactly
@@ -1480,6 +1534,7 @@ def main():
     for k in ("bdpt_connect_rays", "bdpt_connect_weight", "film_add_splats"):
         main_counts[k] = bdpt_got["caustic_bdpt"][k]
 
+    log(f"[phase 9 starts at {time.time() - t_start:.1f} s]")
     # ---- 9. each kernel against its plain version and timed, on the
     # arguments of its first main-path launch
     timing = {}
@@ -1679,14 +1734,28 @@ def main():
     k6_frames = (("cornell_mesh", scene, meta, "batched"), ("cornell", s_corn, m_corn, "batched"),
                  ("terrain_wavefront", s_terr, m_terr, "wavefront"),
                  ("terrain_batched", s_terr, m_terr, "batched"))
+    # the coated frames: testball in turns plain, cuda, cuda, plain;
+    # staircase plain, cuda, cuda; their CUDA frames profiled (a profiled
+    # plain coated frame, ~6.8k eager kernels a bounce, costs the profiler
+    # minutes of this script's time)
+    k6_coated_frames = (("testball", s_tb, m_tb, ("plain", "cuda", "cuda", "plain"),
+                         ("cuda",)),
+                        ("staircase", s_st, m_st, ("plain", "cuda", "cuda"), ("cuda",)))
+    k6_state_st = first("staircase", "path_rr")[0][1]
     windows = [("k8", lambda: rd.recycle_cuda(fin, inf_, cp, total, False))]
     for route in ("plain", "cuda"):
         windows.append((f"bounce {route}", lambda route=route: on_route(
             route, lambda: pth.bounce_step(scene, meta, k6_state, meta.sampler, meta.spp))))
+        windows.append((f"staircase bounce {route}", lambda route=route: on_route(
+            route, lambda: pth.bounce_step(s_st, m_st, k6_state_st, m_st.sampler, m_st.spp))))
     for tag, sc_, mt_, loop in k6_frames:
         for route in ("plain", "cuda"):
             windows.append((f"{tag} {route}", lambda sc_=sc_, mt_=mt_, loop=loop, route=route:
                             on_route(route, lambda: loop_frame(sc_, mt_, loop))))
+    for tag, sc_, mt_, _, profiled in k6_coated_frames:
+        for route in profiled:
+            windows.append((f"{tag} {route}", lambda sc_=sc_, mt_=mt_, route=route:
+                            on_route(route, lambda: loop_frame(sc_, mt_, "batched"))))
     k6_prof = profile_windows(windows)
     names = k6_prof["k8"][3]
     require(k6_prof["k8"][:2] == (1, 0) and "recycle_kernel" in names[0], "K8 is not one launch",
@@ -1715,44 +1784,73 @@ def main():
         f"{ms_rank:.4f} ms with it, {ms_clone:.4f} ms with a clone of the counters a call, plain {ms_plain:.3f} ms, torch.cumsum {ms_lib:.4f} ms, "
         f"bound {b[0]:.5f} ms ({b[1]}; with the rank {b_rank[0]:.5f} ms)")
 
-    # ---- K6: the path step's three kernels (csrc/path_step.cu) against
+    log(f"[K6 checks start at {time.time() - t_start:.1f} s]")
+    # ---- K6: the path step's four kernels (csrc/path_step.cu) against
     # their plain parts, each on the plain chain's inputs (tests/
     # path_cases.py's criteria): on path_cases' synthetic lanes of the
-    # four-light scene (both samplers, 2^18 lanes and 1,000) and on the first
-    # and third bounces of the cornell-mesh, cornell and terrain frames; each
-    # timed on cornell-mesh's first bounce beside its bound and its plain
-    # part; the device kernels of one bounce on either route (the profiled
-    # windows above); then the frames of cornell-mesh, cornell and terrain
-    # (both loops) with the step pointed at its plain version by this
-    # script, in turns plain, cuda, cuda, plain
+    # four-light scene (both samplers, 2^18 lanes and 1,000), of its coated
+    # variant and with the MLT kind, and on the first and third bounces of
+    # the cornell-mesh, cornell, terrain, staircase and testball frames
+    # (path_coat on identical inputs; the whole coated bounce on the lane
+    # means of its coated lanes); each timed on cornell-mesh's first bounce
+    # (path_coat on staircase's) beside its bound and its plain part, and on
+    # staircase's; the device kernels of one bounce on either route (the
+    # profiled windows above); then the frames of cornell-mesh, cornell,
+    # terrain (both loops), testball and staircase with the step pointed at
+    # its plain version by this script, in turns
     k6_parts = {"path_rr": (pth.rr_cuda, pth.rr_plain, path_cases.compare_rr),
                 "path_shade": (pth.shade_cuda, pth.shade_plain, path_cases.compare_shade),
+                "path_coat": (pth.coat_cuda, pth.coat_plain, path_cases.compare_coat),
                 "path_resolve": (pth.resolve_cuda, pth.resolve_plain,
                                  path_cases.compare_resolve)}
-    k6_err = dict.fromkeys(K6, 0.0)
+    k6_err = dict.fromkeys(K6C, 0.0)
 
     def k6_check(label, reps):
         for name, rep_ in reps.items():
             require(rep_.ok(), "K6", name, label, str(rep_))
-            k6_err[name] = max(k6_err[name], rep_.max_abs.get("L", 0.0))
+            if name in k6_err:
+                k6_err[name] = max(k6_err[name], *(rep_.max_abs.get(f, 0.0) for f in (
+                    ("beta", "ld") if name == "path_coat" else ("L",))))
         log(f"K6 against its plain parts on {label}: "
             + "; ".join(f"{n} {r}" for n, r in reps.items()))
 
     kernel_parts = tuple(v[0] for v in k6_parts.values())
     plain_parts = tuple(v[1] for v in k6_parts.values())
-    for skind in ("independent", "stratified"):
-        s_pc, m_pc = compile_scene(path_cases.builder(24, skind, 4), device=dev)
+    for skind, coated, mlt_d in (("independent", False, None), ("stratified", False, None),
+                                 ("independent", True, None), ("mlt", False, 6),
+                                 ("mlt", True, 30)):
+        spp_pc = 0 if skind == "mlt" else 4
+        s_pc, m_pc = compile_scene(path_cases.builder(
+            24, "stratified" if skind == "stratified" else "independent", 4, coated=coated),
+            device=dev)
         for n_l in (1 << 18, 1000):
-            reps, seen = path_cases.compare_parts(
-                s_pc, m_pc, path_cases.synthetic_state(s_pc, m_pc, n_l, 5), skind, 4,
-                kernel_parts, plain_parts)
-            k6_check(f"path_cases' synthetic lanes ({skind}, {seen})",
-                     {f"path_{k}": v for k, v in reps.items()})
-    for tag in ("cornell_mesh", "cornell", "terrain"):
+            st_pc = path_cases.synthetic_state(s_pc, m_pc, n_l, 5, mlt_d=mlt_d)
+            reps, seen = path_cases.compare_parts(s_pc, m_pc, st_pc, skind, spp_pc,
+                                                  kernel_parts, plain_parts)
+            label = (f"path_cases' synthetic lanes ({skind}{f' D {mlt_d}' if mlt_d else ''}"
+                     f"{', coated scene' if coated else ''}, {seen})")
+            if coated or mlt_d:
+                rep_b, _ = path_cases.compare_bounce(s_pc, m_pc, st_pc, skind, spp_pc,
+                                                     kernel_parts, plain_parts)
+                reps = {f"path_{k}": v for k, v in reps.items()} | {"whole bounce": rep_b}
+            else:
+                reps = {f"path_{k}": v for k, v in reps.items()}
+            k6_check(label, reps)
+    k6_scenes = {"staircase": (s_st, m_st), "testball": (s_tb, m_tb)}
+    for tag in ("cornell_mesh", "cornell", "terrain", "staircase", "testball"):
         for nth, which in (("", "first"), ("#3", "third")):
+            reps = {name: cmp(first(tag, name + nth)[0], kern, plain)
+                    for name, (kern, plain, cmp) in k6_parts.items()
+                    if name + nth in captured[tag]}
+            if tag in k6_scenes:
+                # the whole coated bounce from the captured input state
+                sc_, mt_ = k6_scenes[tag]
+                rep_b, n_coat = path_cases.compare_bounce(
+                    sc_, mt_, first(tag, "path_rr" + nth)[0][1], mt_.sampler, mt_.spp,
+                    kernel_parts, plain_parts)
+                reps["whole bounce"] = rep_b
             k6_check(f"{tag}'s {which} bounce ({first(tag, 'path_rr' + nth)[0][1].o.shape[0]} "
-                     f"lanes)", {name: cmp(first(tag, name + nth)[0], kern, plain)
-                                 for name, (kern, plain, cmp) in k6_parts.items()})
+                     f"lanes{f', {n_coat} coated' if tag in k6_scenes else ''})", reps)
 
     def k6_work(name, args_):
         """(bytes, float ops, what was counted) of one K6 launch: each input
@@ -1772,19 +1870,40 @@ def main():
             shade = hits & (hit.mat >= 0)
             emit = hits & (hit.light >= 0)
             esc = (st.active & ~hit.valid) if meta_.open_scene else torch.zeros_like(hits)
+            coat = shade & (sc_.mat_type[hit.mat.clamp(min=0)] >= bd.MAT_COATED_DIFFUSE) & (
+                sc_.mat_type[hit.mat.clamp(min=0)] <= bd.MAT_COATED_CONDUCTOR)
             tab = pth.step_tables(sc_)
-            n_h, n_s, n_e, n_x = (int(x.sum()) for x in (hits, shade, emit, esc))
+            n_h, n_s, n_e, n_x, n_c = (int(x.sum()) for x in (hits, shade, emit, esc, coat))
             rows = sum(tab[k].numel() * 4 for k in ("mat", "lt", "spec", "emission", "uinf",
                                                      "scal"))
             rows += 36 * int((sc_.lt_tri >= 0).sum()) + 16 * int((sc_.lt_sph >= 0).sum()) \
                 + 32 * int((sc_.lt_dsk >= 0).sum())
             smp_b = 8 + (16 if skind_ == "stratified" else 0)
-            return (R * (139 + 167) + n_h * 52 + n_s * smp_b + rows,
-                    n_s * K6_OPS["shade"] + n_e * K6_OPS["emit"] + n_x * K6_OPS["escape"],
-                    f"{n_s} shading, {n_e} emitter hits, {n_x} escaped")
-        st, pending, occ = args_
+            # a coated lane writes its layer (two interfaces of 80 bytes,
+            # thickness, g, albedo: 184), wo, the light's wi, uc, u2 and the
+            # light sample (58); every lane of a coated scene its two masks
+            coat_b = (n_c * (184 + 58) + 2 * R) if meta_.layered else 0
+            return (R * (139 + 167) + n_h * 52 + n_s * smp_b + rows + coat_b,
+                    n_s * K6_OPS["shade"] + n_e * K6_OPS["emit"] + n_x * K6_OPS["escape"]
+                    + n_c * K6_OPS["layer"],
+                    f"{n_s} shading, {n_e} emitter hits, {n_x} escaped, {n_c} coated")
+        if name == "path_coat":
+            sc_, st, pend, lanes_, f_, pdf_, smp_ = args_
+            R = st.o.shape[0]
+            n_c, n_n = int(lanes_.mask.sum()), int(lanes_.nee.sum())
+            n_go = int((lanes_.mask & smp_.valid & (smp_.f > 0).any(-1)).sum())
+            # every lane: its two masks in, its MIS mask out; a coated lane
+            # its hit (36), beta (16) and the layered sample (41) in; an NEE
+            # lane the light's direction, radiance, pdf and flags (34) and
+            # K7's f and pdf (20) in, its term (16) out; a lane that goes on
+            # its ray, beta, flags and MIS direction (54) out
+            return (R * 3 + n_c * (36 + 16 + 41) + n_n * (34 + 20 + 16) + n_go * 54,
+                    n_c * K6_OPS["coat"], f"{n_c} coated, {n_n} with NEE, ~{n_go} go on")
+        st, pending, occ, mis = args_
         R, n_nee = st.L.shape[0], int(pending.mask.sum())
-        return (R * 33 + n_nee * 33 + 16, n_nee * K6_OPS["resolve"], f"{n_nee} with NEE")
+        mis_b = 0 if mis is None else R * 9 + int(mis[0].sum()) * 4
+        return (R * 33 + n_nee * 33 + 16 + mis_b, n_nee * K6_OPS["resolve"],
+                f"{n_nee} with NEE" + ("" if mis is None else f", {int(mis[0].sum())} MIS pdfs"))
 
     # the refit of K1's winners (the hit record's glue, one kernel) on
     # cornell-mesh's first closest-hit launch: bit-exact with its plain
@@ -1807,62 +1926,103 @@ def main():
         f"{int((out_k[1] >= 0).sum())} refit hits): bit-exact with its plain version; kernel "
         f"{ms:.4f} ms (host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms "
         f"({b[1]})")
-    for name, (kern, plain, _) in k6_parts.items():
-        args_ = first("cornell_mesh", name)[0]
+
+    def k6_timed(tag, name, kern, plain):
+        """K6 kernel `name` at the frame's first bounce: graph-timed, its
+        plain part with CUDA events, its bound -> the timing record. coat's
+        arguments are copied once: its in-place update is the same on every
+        call."""
+        args_ = first(tag, name)[0]
+        if name == "path_coat":
+            args_ = (args_[0], path_cases.clone(args_[1]), path_cases.clone(args_[2])) + args_[3:]
         ms, call = kernel_ms(lambda: kern(*args_))
         ms_plain = events_ms(lambda: plain(*args_), 3)
         n_bytes, n_ops, work = k6_work(name, args_)
         b = bound(n_bytes, n_ops)
-        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                            library_ms=None, max_abs_err=k6_err[name], host_paced_ms=call)
-        n_lanes = first("cornell_mesh", "path_rr")[0][1].L.shape[0]
-        log(f"{name} at cornell-mesh's first bounce ({n_lanes} lanes, {work}): kernel "
+        n_lanes = first(tag, "path_rr")[0][1].L.shape[0]
+        log(f"{name} at {tag}'s first bounce ({n_lanes} lanes, {work}): kernel "
             f"{ms:.4f} ms (host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound "
             f"{b[0]:.5f} ms ({b[1]}: {n_bytes} bytes, {n_ops} ops), {ms / b[0]:.1f}x it; max abs "
-            f"err of L over the comparisons {k6_err[name]:.3e}")
-    kb = {r: k6_prof[f"bounce {r}"] for r in ("plain", "cuda")}
-    require(20 * (kb["cuda"][0] + kb["cuda"][1]) <= kb["plain"][0] + kb["plain"][1],
-            "K6: device kernels a bounce not 20x fewer than the plain step's", kb["plain"][:3],
-            kb["cuda"][:3], kb["cuda"][3])
-    log(f"device kernels of one bounce of cornell-mesh's first wave (torch.profiler): plain step "
-        f"{kb['plain'][0]} kernels + {kb['plain'][1]} memsets/copies ({kb['plain'][2]:.3f} ms "
-        f"device), CUDA step {kb['cuda'][0]} + {kb['cuda'][1]} ({kb['cuda'][2]:.3f} ms), "
-        f"{(kb['plain'][0] + kb['plain'][1]) / max(kb['cuda'][0] + kb['cuda'][1], 1):.1f}x fewer; "
-        f"the CUDA step's hand-written kernels: "
-        f"{sorted({n for n in kb['cuda'][3] if 'at::native' not in n})}, and "
-        f"{sum('at::native' in n for n in kb['cuda'][3])} launches of PyTorch's kernels (the "
-        f"dispatches' glue)")
+            f"err of {'beta and ld' if name == 'path_coat' else 'L'} over the comparisons "
+            f"{k6_err[name]:.3e}")
+        return dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], library_ms=None,
+                    max_abs_err=k6_err[name], host_paced_ms=call, bytes=n_bytes, ops=n_ops)
+
+    for name, (kern, plain, _) in k6_parts.items():
+        if name == "path_coat":
+            timing[name] = k6_timed("staircase", name, kern, plain)
+        else:
+            timing[name] = k6_timed("cornell_mesh", name, kern, plain)
+            timing[name]["staircase"] = k6_timed("staircase", name, kern, plain)
+    for tag, label in (("bounce", "cornell-mesh's first wave"),
+                       ("staircase bounce", "staircase's first wave")):
+        kb = {r: k6_prof[f"{tag} {r}"] for r in ("plain", "cuda")}
+        require(20 * (kb["cuda"][0] + kb["cuda"][1]) <= kb["plain"][0] + kb["plain"][1],
+                "K6: device kernels a bounce not 20x fewer than the plain step's", label,
+                kb["plain"][:3], kb["cuda"][:3], kb["cuda"][3])
+        timing["path_shade"][f"{tag} kernels"] = {r: kb[r][0] + kb[r][1] for r in kb}
+        log(f"device kernels of one bounce of {label} (torch.profiler): plain step "
+            f"{kb['plain'][0]} kernels + {kb['plain'][1]} memsets/copies ({kb['plain'][2]:.3f} "
+            f"ms device), CUDA step {kb['cuda'][0]} + {kb['cuda'][1]} ({kb['cuda'][2]:.3f} ms), "
+            f"{(kb['plain'][0] + kb['plain'][1]) / max(kb['cuda'][0] + kb['cuda'][1], 1):.1f}x "
+            f"fewer; the CUDA step's hand-written kernels: "
+            f"{sorted({n for n in kb['cuda'][3] if 'at::native' not in n})}, and "
+            f"{sum('at::native' in n for n in kb['cuda'][3])} launches of PyTorch's kernels (the "
+            f"dispatches' glue)")
     k6_frames_out = {}
-    for tag, sc_, mt_, loop in k6_frames:
+    frame_runs = [(tag, sc_, mt_, loop, ("plain", "cuda", "cuda", "plain"), ("plain", "cuda"))
+                  for tag, sc_, mt_, loop in k6_frames]
+    frame_runs += [(tag, sc_, mt_, "batched", turns, prof)
+                   for tag, sc_, mt_, turns, prof in k6_coated_frames]
+    for tag, sc_, mt_, loop, turns, profiled in frame_runs:
         runs = {"plain": [], "cuda": []}
-        for route in ("plain", "cuda", "cuda", "plain"):
+        for route in turns:
             runs[route].append(on_route(route, lambda: loop_frame(sc_, mt_, loop)))
-        (img_p, st_p, _, c_p), (img_c, st_c, _, c_c) = runs["plain"][0], runs["cuda"][0]
+        (img_p, st_p, _, c_p, _), (img_c, st_c, _, c_c, _) = runs["plain"][0], runs["cuda"][0]
         n_p, n_c = sum(st_p.values()), sum(st_c.values())
-        require(abs(n_c - n_p) <= 1e-3 * n_p, tag, "ray counts by route", st_p, st_c)
-        require(not any(c_p.get(k) for k in K6) and all(c_c.get(k) for k in K6), tag,
+        want_c = dict(dict.fromkeys(K6, 1), path_coat=int(mt_.layered))
+        require(not any(c_p.get(k) for k in K6C)
+                and all(bool(c_c.get(k)) == bool(v) for k, v in want_c.items()), tag,
                 "K6 launches by route", c_p, c_c)
-        fb = check_image(img_c, img_p, f"{tag}: the CUDA step's frame against the plain step's")
+        if mt_.layered:
+            # R7: the coated walks are independent estimates where the local
+            # directions' bits differ: ray counts within 1 %, 8x8 block means
+            require(abs(n_c - n_p) <= 1e-2 * n_p, tag, "ray counts by route", st_p, st_c)
+            fb = check_image(blocks(img_c, 8), blocks(img_p, 8),
+                             f"{tag}: the CUDA step's frame against the plain step's (8x8 "
+                             f"block means)")
+        else:
+            require(abs(n_c - n_p) <= 1e-3 * n_p, tag, "ray counts by route", st_p, st_c)
+            fb = check_image(img_c, img_p, f"{tag}: the CUDA step's frame against the plain "
+                             f"step's")
         walls = {r: [x[2] for x in v] for r, v in runs.items()}
+        peaks = {r: max(x[4] for x in v) for r, v in runs.items()}
         med = {r: float(np.median(w)) for r, w in walls.items()}
-        prof_ = {r: k6_prof[f"{tag} {r}"] for r in runs}
+        prof_ = {r: k6_prof[f"{tag} {r}"] for r in profiled}
         k6_frames_out[tag] = dict(
             walls=walls, median=med, rays={"plain": n_p, "cuda": n_c},
             rays_per_s={r: (n_p if r == "plain" else n_c) / med[r] for r in runs},
-            busy={r: prof_[r][2] / 1e3 / med[r] for r in runs},
-            device_kernels={r: prof_[r][0] + prof_[r][1] for r in runs},
-            device_ms={r: prof_[r][2] for r in runs}, launches_k6=c_c, bad_px=fb)
+            busy={r: prof_[r][2] / 1e3 / med[r] for r in prof_},
+            device_kernels={r: prof_[r][0] + prof_[r][1] for r in prof_},
+            device_ms={r: prof_[r][2] for r in prof_}, launches_k6=c_c, bad=fb,
+            peak_gib=peaks)
         o_ = k6_frames_out[tag]
-        log(f"{tag} frame ({loop} loop), in turns plain, cuda, cuda, plain: walls {walls} s, "
+
+        def by_route(d, fmt):
+            return " / ".join(fmt(d[r]) if r in d else "not profiled" for r in ("plain", "cuda"))
+        log(f"{tag} frame ({loop} loop), in turns {', '.join(turns)}: walls {walls} s, "
             f"medians plain {med['plain']:.4f} / cuda {med['cuda']:.4f} s "
             f"({med['plain'] / med['cuda']:.2f}x); rays {n_p} / {n_c} "
             f"({n_c / n_p - 1:+.4%}), {o_['rays_per_s']['plain'] / 1e6:.3f} / "
-            f"{o_['rays_per_s']['cuda'] / 1e6:.3f} M rays/s; busy {o_['busy']['plain']:.1%} / "
-            f"{o_['busy']['cuda']:.1%} (device time of a profiled frame, {prof_['plain'][2]:.1f} / "
-            f"{prof_['cuda'][2]:.1f} ms, over the median wall); device kernels a frame "
-            f"{o_['device_kernels']['plain']} / {o_['device_kernels']['cuda']}; the CUDA frame's "
-            f"launches {c_c}; image against the plain frame's {fb:.4%} bad px, means "
-            f"{img_p.mean():.5f} / {img_c.mean():.5f}")
+            f"{o_['rays_per_s']['cuda'] / 1e6:.3f} M rays/s; busy "
+            f"{by_route(o_['busy'], lambda v: f'{v:.1%}')} (device time of a profiled frame, "
+            f"{by_route(o_['device_ms'], lambda v: f'{v:.1f}')} ms, over the median wall); "
+            f"device kernels a frame {by_route(o_['device_kernels'], str)}; peak memory "
+            f"{peaks['plain']:.3f} / {peaks['cuda']:.3f} GiB over what was held; the CUDA "
+            f"frame's launches {c_c}; "
+            f"image against the plain frame's {fb:.4%} bad "
+            f"{'8x8 blocks' if mt_.layered else 'px'}, means {img_p.mean():.5f} / "
+            f"{img_c.mean():.5f}")
     tw = k6_frames_out["terrain_wavefront"]["median"]
     tb = k6_frames_out["terrain_batched"]["median"]
     log(f"K8 condition on terrain: wavefront / batched frame {tw['cuda'] / tb['cuda']:.3f} with "
@@ -2068,6 +2228,7 @@ def main():
         f"kernel {ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms, bound "
         f"{b[0]:.4f} ms ({b[1]}); max abs err {err:.2e}")
 
+    log(f"[phase 10 starts at {time.time() - t_start:.1f} s]")
     # ---- 10. MLT (K12m): cornell 24^2 on the card and the CPU with one
     # seed; the two full-width frames, cut in mutations per pixel; both
     # kernels against their plain versions at the frames' first passes, and
@@ -2089,6 +2250,10 @@ def main():
         n_passes = acc_g.shape[0]
         require(counts.get("mlt_mutate") == n_passes == counts.get("mlt_accept_splat"), integ,
                 counts)
+        # mltpath's evaluations take the CUDA path step (the MLT kind), mltbdpt's none of K6
+        k6_n = {k: counts.get(k, 0) for k in K6C}
+        require(all(k6_n[k] > 0 for k in K6) and k6_n["path_coat"] == 0 if integ == "mltpath"
+                else not any(k6_n.values()), integ, "K6 launches", k6_n)
         res = mlt_cases.compare_renders(img_g, img_c, acc_g, acc_c)
         log(f"small MLT render cornell {integ} 24^2, {mlt_cases.SMALL_CHAINS} chains x "
             f"{n_passes} passes, card vs cpu with one seed: accept decisions equal on "
@@ -2128,6 +2293,33 @@ def main():
         log(f"{tag}: K12m-a and K12m-b launched once a pass ({n_passes}); image mean "
             f"{frame_means[tag]:.5f} vs the {ref} frame's {frame_means[ref]:.5f}: {rel:.3%} "
             f"apart (<= {mlt_cases.FRAME_MEAN_RTOL[tag]:.0%})")
+
+    # the cut cornell-mesh mltpath frame's passes on either route of the path
+    # step (the plain one chosen by this script): 1 mutation per pixel (8
+    # passes), the CUDA step first, the median of the 7 pass-to-pass times
+    m_cmm8 = dataclasses.replace(m_cmm, mutations_per_pixel=1)
+    mlt_turns = {}
+    for route in ("cuda", "plain"):
+        stamps = []
+
+        def on_pass(i, a, stamps=stamps):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        t0 = time.perf_counter()
+        on_route(route, lambda: mlt.render_mlt(s_cmm, m_cmm8, on_pass=on_pass))
+        mlt_turns[route] = dict(median_pass_s=float(np.median(np.diff(stamps))),
+                                passes=len(stamps), frame_s=time.perf_counter() - t0,
+                                bootstrap_and_first_pass_s=stamps[0] - t0)
+    timing["path_shade"]["cornell_mesh_mltpath_pass_s"] = {
+        r: v["median_pass_s"] for r, v in mlt_turns.items()}
+    log(f"cornell-mesh mltpath frame cut to {mlt_turns['cuda']['passes']} passes of "
+        f"{mlt.N_CHAINS} chains, by route of the path step: median pass "
+        f"{mlt_turns['cuda']['median_pass_s']:.4f} s on the CUDA step, "
+        f"{mlt_turns['plain']['median_pass_s']:.4f} s on the plain step "
+        f"({mlt_turns['plain']['median_pass_s'] / mlt_turns['cuda']['median_pass_s']:.2f}x); "
+        f"frames {mlt_turns['cuda']['frame_s']:.3f} / {mlt_turns['plain']['frame_s']:.3f} s "
+        f"(bootstrap and first pass {mlt_turns['cuda']['bootstrap_and_first_pass_s']:.3f} / "
+        f"{mlt_turns['plain']['bootstrap_and_first_pass_s']:.3f} s)")
 
     # K12 at the MLT shape: the cut caustic-glass-mlt frame's first 8192-lane
     # evaluation (a bootstrap batch), against its plain version and its
@@ -2208,6 +2400,7 @@ def main():
         f"{ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ of its {idx_all.shape[0]} splats "
         f"{ms_lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}; {nbytes / 1e6:.2f} MB)")
 
+    log(f"[phase 11 starts at {time.time() - t_start:.1f} s]")
     # ---- 11. scene sharding: K11a, K11b and the select kernel
     # (a) against their plain versions, the unfused yardstick and K1 on
     # phase 3's rays over cornell-mesh levels 5 in 8 parts
@@ -2465,6 +2658,7 @@ def main():
         f"(host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}); "
         f"bit-exact")
 
+    log(f"[phase 12 starts at {time.time() - t_start:.1f} s]")
     # ---- 12. instancing (K1i) on the instanced cornell box
     def inst_scene(levels, mode, res=256, spp=16, filt=None, integrator=None):
         """(builder, scene, meta) of the instanced cornell box under
@@ -2832,6 +3026,7 @@ def main():
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
 
+    log(f"[phase 13 starts at {time.time() - t_start:.1f} s]")
     # ---- 13. kernels line and result
     meta_k = {
         "bvh_closest_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
@@ -2883,6 +3078,8 @@ def main():
                     "pbrt_tpu/integrators/path.py:193"),
         "path_shade": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
                        "pbrt_tpu/integrators/path.py:193"),
+        "path_coat": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                      "pbrt_tpu/integrators/path.py:193"),
         "path_resolve": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
                          "pbrt_tpu/integrators/path.py:193"),
     }

@@ -1,12 +1,13 @@
-// K6: the path integrator's bounce step for Hopper (sm_90a), three kernels
-// around the two visibility dispatches of a bounce.
+// K6: the path integrator's bounce step for Hopper (sm_90a), four kernels
+// around the two visibility dispatches of a bounce and, on a scene with
+// coated materials, around K7's launches.
 //
 // Replaces the TPU hot path pbrt_tpu/integrators/path.py:193 `bounce_step`
 // (the per-bounce body of :470 `li`), with K9 (sampling/rng.py PCG32 and
-// MurmurHash64A, samplers.py get_1d / get_2d and the stratified
-// permutation) and K10 (spectral/spectra.py table lookups and the sigmoid
+// MurmurHash64A, samplers.py get_1d / get_2d: the independent, stratified
+// and MLT kinds) and K10 (spectral/spectra.py table lookups and the sigmoid
 // polynomial) inside it. Plain version: pbrt_tpu_torch/integrators/path.py
-// `rr_plain`, `shade_plain`, `resolve_plain`, which the chain
+// `rr_plain`, `shade_plain`, `coat_plain`, `resolve_plain`, which the chain
 //   path_rr      the loop head: the lanes that trace (depth < max depth),
 //                the russian-roulette draw where due, the kill, the scaled
 //                beta, the next RR depth, each lane's t_max, and the count
@@ -22,13 +23,25 @@
 //                pdf there and the power-heuristic weight, written as the
 //                shadow ray (t_max 0 without NEE) and the pending term; the
 //                BSDF draws and sample, the new beta, the offset origin and
-//                the rest of the next state;
-//   (dispatch.occluded)
+//                the rest of the next state. A coated lane (coateddiffuse,
+//                coatedconductor) gets everything of this that does not
+//                depend on its layered walk, and its walk's inputs: the
+//                layer (make_bsdf's coated branch, K7's LayeredArgs), the
+//                local wo and light direction, the BSDF draws, the light
+//                sample; its ray, throughput and pending term stay;
+//   (K7 on the coated lanes: layered_f and layered_pdf at the light's
+//    direction, layered_sample; csrc/layered.cu, unchanged)
+//   path_coat    the coated lanes finished from K7's answers: the NEE term
+//                with its MIS weight, the new beta, ray and flags, and the
+//                direction of the MIS pdf (updating path_shade's outputs in
+//                place);
+//   (K7 layered_pdf at that direction; dispatch.occluded)
 //   path_resolve L += beta * ld on the NEE lanes whose shadow ray is
-//                unblocked, and the count of NEE lanes added to n_shadow
-// follows on the card. Coated materials (K7's walk) and the MLT sampler
-// kind are not covered: path.step_route sends those scenes to the plain
-// step, and the Python wrappers refuse them.
+//                unblocked, the count of NEE lanes added to n_shadow, and
+//                on the coated lanes that go on, the MIS pdf
+// follows on the card for every render of the path integrator (and MLT's
+// path evaluations); path.step_route sends only CPU tensors to the plain
+// step.
 //
 // One thread a lane. A lane evaluates only the branches it takes (its
 // material's kind, its light's type and shape, the sampling branch of a
@@ -36,20 +49,26 @@
 // order (3-term dot products as (x + y) + z; the file is built with
 // --fmad=false). The draws are the plain version's bits: PCG32 state and
 // dimension as u64 in the int64 tensors, masked lanes not advancing, the
-// stratified kind's stratum hash. The float results agree with the plain
+// stratified kind's stratum hash, the MLT kind's primary-sample vector
+// while the dimension is below its length (the stream advancing on every
+// draw). The float results agree with the plain
 // version lane by lane on almost every lane, not on all: asinf, atan2f,
 // sinf, cosf and the complex square root round apart from torch's on some
 // inputs, and the spherical-triangle sample and its inverse are
-// ill-conditioned in float32, so a branch can flip on a rare lane.
+// ill-conditioned in float32, so a branch can flip on a rare lane. A coated
+// lane's walk seeds on the bits of its local directions, which torch sums
+// in another order, so coated lanes agree with the plain step in
+// distribution, not lane by lane.
 // The two ray counts are exact int64 sums: a warp ballot, one shared add a
 // warp, one global add a block into a scratch word, and the last block to
 // finish adds the sum to the incoming count and zeroes the scratch. L has
 // no atomics, so a frame's film is the same bits on every run.
 //
 // What bounds it on the H100: bytes, a few hundred a lane (the path state
-// in and out, the hit record, the shadow ray and the pending term); the
-// operations are a few thousand a lane where it shades, fewer than a
-// microsecond's worth at the card's rate.
+// in and out, the hit record, the shadow ray and the pending term; on a
+// coated lane its layer, ~184, and the walk's inputs); the operations are a
+// few thousand a lane where it shades, fewer than a microsecond's worth at
+// the card's rate.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,18 +81,19 @@ struct StepArgs {
   // the path state in
   const float *o, *d, *L, *beta, *lam, *lam_pdf;
   const long long *smp_state, *smp_inc, *smp_pixel, *smp_sample, *smp_dim;
+  const float* mlt_x;  // the MLT kind's primary-sample vectors (R, mlt_d), else null
   const uint8_t *active, *specular;
   const float *depth, *rr_next, *prev_pdf, *prev_p, *prev_ns;
   const long long* count_in;  // n_closest (path_rr) or n_shadow (path_resolve)
-  // closest hits (path_shade); the pending term and the shadow answers
-  // (path_resolve)
+  // closest hits (path_shade, path_coat); the pending term and the shadow
+  // answers (path_resolve)
   const uint8_t* hit_valid;
   const float *hit_p, *hit_ng, *hit_ns;
   const long long *hit_mat, *hit_light;
   const uint8_t* nee;
   const float* ld;
   const uint8_t* occluded;
-  // outputs
+  // outputs (path_coat updates those of path_shade in place)
   float *o_out, *d_out, *L_out, *beta_out, *lam_pdf_out;
   long long *smp_state_out, *smp_dim_out;
   uint8_t *active_out, *specular_out;
@@ -83,10 +103,31 @@ struct StepArgs {
   uint8_t* nee_out;
   float* ld_out;
   unsigned long long* scratch;  // [sum, ticket], zero between launches
+  // the coated lanes (path_shade writes them, K7 and path_coat read them):
+  // the coated shading lanes and those with NEE (every lane); on coated
+  // lanes the layer as K7's LayeredArgs (csrc/layered.cu), the local wo,
+  // the local light direction, the BSDF draws, the light sample
+  uint8_t *coat, *coat_nee;
+  int* top_kind;
+  float *top_refl, *top_trans, *top_eta_re, *top_eta_im, *top_eta, *top_ax, *top_ay;
+  int* bot_kind;
+  float *bot_refl, *bot_trans, *bot_eta_re, *bot_eta_im, *bot_eta, *bot_ax, *bot_ay;
+  float *thickness, *g, *albedo, *wo_l, *wi_l, *uc, *u2, *light_L, *light_pdf;
+  uint8_t *light_ok, *light_delta;
+  // K7's answers (path_coat): layered_f and layered_pdf at the light's
+  // direction, layered_sample; the direction of the MIS pdf (path_coat
+  // writes it on the lanes of mis_mask, every lane) and that pdf
+  // (path_resolve)
+  const float *lay_f, *lay_pdf, *s_f, *s_wi, *s_pdf;
+  const int* s_flags;
+  const uint8_t* s_valid;
+  float* mis_wi;
+  uint8_t* mis_mask;
+  const float* mis_pdf;
   // scene rows (integrators/path.py step_tables)
   const float *mat, *spec, *lt, *emission, *uinf, *scal, *tri_p0, *tri_p1, *tri_p2, *sph_center,
       *sph_radius, *dsk_center, *dsk_normal, *dsk_radius, *dsk_inner;
-  long long n, n_lights, n_tris, max_depth, stratified, spp, sqrt_spp, open_scene;
+  long long n, n_lights, n_tris, max_depth, stratified, spp, sqrt_spp, open_scene, mlt_d;
 };
 
 namespace {
@@ -96,10 +137,14 @@ using namespace pbrt_bxdf;
 constexpr int THREADS = 128;
 constexpr int LAMBDA_MIN = 360, LAMBDA_RANGE = 471;
 // material rows (path.MAT_F columns)
-constexpr int MAT_F = 14;
+constexpr int MAT_F = 22;
 constexpr int M_TYPE = 0, M_REMAP = 1, M_UROUGH = 2, M_VROUGH = 3, M_ETA = 4, M_ETA_SPEC = 5,
-              M_K_SPEC = 6, M_REFL_MODE = 7, M_REFL_C = 8, M_TRANS_C = 11;
-constexpr int MAT_DIFFUSE = 0, MAT_CONDUCTOR = 1, MAT_DIELECTRIC = 2;
+              M_K_SPEC = 6, M_REFL_MODE = 7, M_REFL_C = 8, M_TRANS_C = 11, M_IETA = 14,
+              M_CROUGH_U = 15, M_CROUGH_V = 16, M_THICKNESS = 17, M_LAY_G = 18, M_ALBEDO_C = 19;
+constexpr int MAT_DIFFUSE = 0, MAT_CONDUCTOR = 1, MAT_DIELECTRIC = 2, MAT_COATED_DIFFUSE = 4,
+              MAT_COATED_CONDUCTOR = 5;
+// the coated kinds (materials/bxdfs.py), whose lanes run K7's walk
+constexpr int K_COATED_DIFFUSE = 4, K_COATED_CONDUCTOR = 5;
 // light rows (path.LT_F columns) and scalars (path.SCAL_F)
 constexpr int LT_F = 18;
 constexpr int L_TYPE = 0, L_PMF = 1, L_TWO = 2, L_SCALE = 3, L_TRI = 4, L_SPH = 5, L_DSK = 6,
@@ -160,10 +205,12 @@ struct Smp {
   Pcg32 r;
   uint32_t pixel, sample;
   long long dim;
+  int lane;
 };
 
 __device__ __forceinline__ Smp load_smp(const StepArgs& a, int i) {
   Smp s;
+  s.lane = i;
   s.r = {(uint64_t)a.smp_state[i], (uint64_t)a.smp_inc[i]};
   s.pixel = (uint32_t)a.smp_pixel[i];
   s.sample = (uint32_t)a.smp_sample[i];
@@ -233,11 +280,17 @@ __device__ __forceinline__ uint32_t stratum(const StepArgs& a, const Smp& s) {
   return permutation_element(s.sample, (uint32_t)a.spp, h);
 }
 
-// samplers.get_1d: the lane advances only where `mask`
+// samplers.get_1d: the lane advances only where `mask`. The MLT kind
+// serves dimension dim of the lane's primary-sample vector while dim < D;
+// its stream advances on every draw all the same.
 __device__ __forceinline__ float get_1d(const StepArgs& a, Smp& s, bool mask) {
   Pcg32 r = s.r;
   float u = pcg32_uniform(r);
-  if (a.stratified) u = ((float)stratum(a, s) + u) / (float)a.spp;
+  if (a.stratified) {
+    u = ((float)stratum(a, s) + u) / (float)a.spp;
+  } else if (a.mlt_x != nullptr && s.dim < a.mlt_d) {
+    u = a.mlt_x[(long long)s.lane * a.mlt_d + s.dim];
+  }
   if (mask) {
     s.r = r;
     s.dim += 1;
@@ -245,9 +298,15 @@ __device__ __forceinline__ float get_1d(const StepArgs& a, Smp& s, bool mask) {
   return u;
 }
 
-// samplers.get_2d (the stratified kind: one stratum for both axes)
+// samplers.get_2d (the stratified kind: one stratum for both axes; the
+// MLT kind: two get_1d, so a masked lane draws the same number twice)
 __device__ __forceinline__ void get_2d(const StepArgs& a, Smp& s, bool mask, float& u0,
                                        float& u1) {
+  if (a.mlt_x != nullptr) {
+    u0 = get_1d(a, s, mask);
+    u1 = get_1d(a, s, mask);
+    return;
+  }
   Pcg32 r = s.r;
   u0 = pcg32_uniform(r);
   u1 = pcg32_uniform(r);
@@ -299,21 +358,35 @@ __device__ __forceinline__ S4 sigmoid4(const float* c, const S4& lam) {
 
 // ---------------------------------------------- materials (materials.py)
 
-// make_bsdf for the uncoated kinds: the lane's BxDF parameters (the fields
-// its kind reads); `dispersive`: a dielectric with a spectral eta
+// a roughness as the BxDF's alpha: remapped (roughness_to_alpha) or not,
+// at least 1e-4
+__device__ __forceinline__ float alpha_of(bool remap, float r) {
+  return fmaxf(remap ? sqrtf(fmaxf(r, 1e-8f)) : r, 1e-4f);
+}
+
+// a conductor's k in reflectance mode: 2 sqrt(r) / sqrt(1 - r), r clamped
+__device__ __forceinline__ float k_from_reflectance(float refl) {
+  const float r = clampf(refl, 0.f, 0.9999f);
+  return (2.f * sqrtf(fmaxf(r, 1e-12f))) / sqrtf(clampf(1.f - r, 1e-7f, 1.f));
+}
+
+// make_bsdf: the lane's BxDF parameters (the fields its kind reads; a coated
+// kind only its kind and the coat's roughness, its layer is store_layer's);
+// `dispersive`: a dielectric with a spectral eta
 __device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, long long mat, const S4& lam,
                                           bool& dispersive) {
   const float* row = a.mat + MAT_F * (mat < 0 ? 0 : mat);
   const int mtype = (int)row[M_TYPE];
   Bxdf b;
-  b.kind = mtype == MAT_DIFFUSE      ? K_DIFFUSE
-           : mtype == MAT_CONDUCTOR  ? K_CONDUCTOR
-           : mtype == MAT_DIELECTRIC ? K_DIELECTRIC
-                                     : K_DIFF_TRANS;
+  b.kind = mtype == MAT_DIFFUSE            ? K_DIFFUSE
+           : mtype == MAT_CONDUCTOR        ? K_CONDUCTOR
+           : mtype == MAT_DIELECTRIC       ? K_DIELECTRIC
+           : mtype == MAT_COATED_DIFFUSE   ? K_COATED_DIFFUSE
+           : mtype == MAT_COATED_CONDUCTOR ? K_COATED_CONDUCTOR
+                                           : K_DIFF_TRANS;
   const bool remap = row[M_REMAP] != 0.f;
-  const float ur = row[M_UROUGH], vr = row[M_VROUGH];
-  b.ax = fmaxf(remap ? sqrtf(fmaxf(ur, 1e-8f)) : ur, 1e-4f);
-  b.ay = fmaxf(remap ? sqrtf(fmaxf(vr, 1e-8f)) : vr, 1e-4f);
+  b.ax = alpha_of(remap, row[M_UROUGH]);
+  b.ay = alpha_of(remap, row[M_VROUGH]);
   const long long eta_spec = (long long)row[M_ETA_SPEC];
   b.refl = s4(0.f);
   b.trans = s4(0.f);
@@ -329,16 +402,13 @@ __device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, long long mat, cons
       // reflectance mode: eta = 1, k = 2 sqrt(r) / sqrt(1 - r)
       const S4 refl = sigmoid4(row + M_REFL_C, lam);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float r = clampf(refl.v[k], 0.f, 0.9999f);
-        b.eta_im.v[k] = (2.f * sqrtf(fmaxf(r, 1e-12f))) / sqrtf(clampf(1.f - r, 1e-7f, 1.f));
-      }
+      for (int k = 0; k < 4; ++k) b.eta_im.v[k] = k_from_reflectance(refl.v[k]);
     } else {
       const long long k_spec = (long long)row[M_K_SPEC];
       b.eta_re = table4(a.spec, eta_spec < 0 ? 0 : eta_spec, lam);
       b.eta_im = table4(a.spec, k_spec < 0 ? 0 : k_spec, lam);
     }
-  } else {
+  } else if (b.kind == K_DIELECTRIC) {
     // dielectric eta: float, or the hero wavelength's spectral value
     float eta = eta_spec >= 0 ? a.spec[eta_spec * LAMBDA_RANGE + lam_bin(lam.v[0])]
                               : row[M_ETA];
@@ -346,6 +416,53 @@ __device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, long long mat, cons
     dispersive = eta_spec >= 0;
   }
   return b;
+}
+
+// make_bsdf's coated branch (materials.make_bsdf with layered_scene): the
+// layer of coated lane i, written as K7's LayeredArgs arrays. The top is a
+// dielectric with the coat's eta and the material's roughness (ax, ay), the
+// bottom diffuse (coateddiffuse) or a conductor of the spectrum rows eta
+// and k and the conductor roughness (coatedconductor); both carry the
+// reflectance, transmittance and complex IOR make_bsdf gives every lane,
+// and the base the dielectric eta, as the plain version does. Each field is
+// stored as soon as it is formed.
+__device__ __forceinline__ void store_layer(const StepArgs& a, int i, long long mat, int kind,
+                                            const S4& lam, float ax, float ay) {
+  const float* row = a.mat + MAT_F * mat;
+  const S4 refl = sigmoid4(row + M_REFL_C, lam);
+  st4(a.top_refl, i, refl);
+  st4(a.bot_refl, i, refl);
+  const S4 trans = sigmoid4(row + M_TRANS_C, lam);
+  st4(a.top_trans, i, trans);
+  st4(a.bot_trans, i, trans);
+  const long long eta_spec = (long long)row[M_ETA_SPEC], k_spec = (long long)row[M_K_SPEC];
+  const S4 eta_rows = table4(a.spec, eta_spec < 0 ? 0 : eta_spec, lam);
+  st4(a.bot_eta_re, i, eta_rows);
+  const S4 k_rows = table4(a.spec, k_spec < 0 ? 0 : k_spec, lam);
+  st4(a.bot_eta_im, i, k_rows);
+  if (row[M_REFL_MODE] != 0.f) {
+    S4 k;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) k.v[j] = k_from_reflectance(refl.v[j]);
+    st4(a.top_eta_re, i, s4(1.f));
+    st4(a.top_eta_im, i, k);
+  } else {
+    st4(a.top_eta_re, i, eta_rows);
+    st4(a.top_eta_im, i, k_rows);
+  }
+  const float eta_d = eta_spec >= 0 ? eta_rows.v[0] : row[M_ETA];
+  const bool remap = row[M_REMAP] != 0.f;
+  a.top_kind[i] = K_DIELECTRIC;
+  a.top_eta[i] = row[M_IETA];
+  a.top_ax[i] = ax;
+  a.top_ay[i] = ay;
+  a.bot_kind[i] = kind == K_COATED_CONDUCTOR ? K_CONDUCTOR : K_DIFFUSE;
+  a.bot_eta[i] = eta_d == 0.f ? 1.f : eta_d;
+  a.bot_ax[i] = alpha_of(remap, row[M_CROUGH_U]);
+  a.bot_ay[i] = alpha_of(remap, row[M_CROUGH_V]);
+  a.thickness[i] = row[M_THICKNESS];
+  a.g[i] = row[M_LAY_G];
+  st4(a.albedo, i, sigmoid4(row + M_ALBEDO_C, lam));
 }
 
 __device__ __forceinline__ V3 to_local(V3 fx, V3 fy, V3 fz, V3 v) {
@@ -808,15 +925,18 @@ __device__ __forceinline__ bool rr_lane(const StepArgs& a, int i) {
   return active;
 }
 
-// path_shade's lane: shade_plain
+// path_shade's lane: shade_plain (a coated lane up to K7's inputs). Each
+// output is stored as soon as it is final (L, prev_p, prev_ns and depth
+// after the emission, the wavelengths' pdf after make_bsdf), so that fewer
+// values stay live through the light and BSDF samples.
 __device__ __forceinline__ void shade_lane(const StepArgs& a, int i) {
   V3 o = ld3(a.o, i), d = ld3(a.d, i);
-  S4 L = ld4(a.L, i), beta = ld4(a.beta, i), pdf_lam = ld4(a.lam_pdf, i);
+  S4 L = ld4(a.L, i), beta = ld4(a.beta, i);
   const S4 lam = ld4(a.lam, i);
   Smp s = load_smp(a, i);
   bool active = a.active[i] != 0, specular = a.specular[i] != 0;
-  float depth = a.depth[i], prev_pdf = a.prev_pdf[i];
-  V3 prev_p = ld3(a.prev_p, i), prev_ns = ld3(a.prev_ns, i);
+  const float depth = a.depth[i];
+  float prev_pdf = a.prev_pdf[i];
   const bool first_or_spec = depth == 0.f || specular;
   const bool hit = a.hit_valid[i] != 0;
 
@@ -827,68 +947,105 @@ __device__ __forceinline__ void shade_lane(const StepArgs& a, int i) {
   }
   active = active && hit;
 
-  bool nee = false, cont = false;
+  V3 hp = {0.f, 0.f, 0.f}, hng = hp, hns = hp;
+  long long mat = -1;
+  {
+    V3 prev_p = ld3(a.prev_p, i), prev_ns = ld3(a.prev_ns, i);
+    if (active) {
+      hp = ld3(a.hit_p, i);
+      hng = ld3(a.hit_ng, i);
+      hns = ld3(a.hit_ns, i);
+      // emissive surface hit (MIS)
+      const long long light = a.hit_light[i];
+      if (light >= 0) {
+        const float* row = light_row(a, light);
+        if (dot(hng, neg(d)) > 0.f || row[L_TWO] != 0.f) {
+          const float pdf_li = area_light_pdf_li(a, light, prev_p, prev_ns, d, hp, hng);
+          const float w =
+              first_or_spec ? 1.f : power_heuristic(prev_pdf, row[L_PMF] * pdf_li);
+          L = L + (beta * w) * emission(a, light, lam);
+        }
+      }
+      mat = a.hit_mat[i];
+      if (mat >= 0) {
+        prev_p = hp;
+        prev_ns = hns;
+      }
+    }
+    st3(a.prev_p_out, i, prev_p);
+    st3(a.prev_ns_out, i, prev_ns);
+  }
+  st4(a.L_out, i, L);
+  a.depth_out[i] = mat >= 0 ? depth + 1.f : depth;
+
+  bool nee = false, cont = false, coated = false;
   V3 sh_o = o, sh_d = {0.f, 0.f, 1.f};
   float sh_t = 0.f;
   S4 ld = s4(0.f);
-  if (active) {
-    const V3 hp = ld3(a.hit_p, i), hng = ld3(a.hit_ng, i), hns = ld3(a.hit_ns, i);
-    const V3 wo = neg(d);
-    // emissive surface hit (MIS)
-    const long long light = a.hit_light[i];
-    if (light >= 0) {
-      const float* row = light_row(a, light);
-      if (dot(hng, wo) > 0.f || row[L_TWO] != 0.f) {
-        const float pdf_li = area_light_pdf_li(a, light, prev_p, prev_ns, d, hp, hng);
-        const float w =
-            first_or_spec ? 1.f : power_heuristic(prev_pdf, row[L_PMF] * pdf_li);
-        L = L + (beta * w) * emission(a, light, lam);
-      }
+  if (mat >= 0) {
+    // the BSDF around the shading normal
+    bool dispersive;
+    const Bxdf b = make_bsdf(a, mat, lam, dispersive);
+    coated = b.kind == K_COATED_DIFFUSE || b.kind == K_COATED_CONDUCTOR;
+    S4 pdf_lam = ld4(a.lam_pdf, i);
+    if (dispersive) {
+      // terminate the secondary wavelengths (sampled.terminate_secondary)
+      const bool already = pdf_lam.v[1] == 0.f && pdf_lam.v[2] == 0.f && pdf_lam.v[3] == 0.f;
+      pdf_lam = {{already ? pdf_lam.v[0] : pdf_lam.v[0] / 4.f, 0.f, 0.f, 0.f}};
     }
-    const long long mat = a.hit_mat[i];
-    if (mat >= 0) {
-      // the BSDF around the shading normal
-      bool dispersive;
-      const Bxdf b = make_bsdf(a, mat, lam, dispersive);
-      if (dispersive) {
-        // terminate the secondary wavelengths (sampled.terminate_secondary)
-        const bool already =
-            pdf_lam.v[1] == 0.f && pdf_lam.v[2] == 0.f && pdf_lam.v[3] == 0.f;
-        pdf_lam = {{already ? pdf_lam.v[0] : pdf_lam.v[0] / 4.f, 0.f, 0.f, 0.f}};
-      }
-      V3 fx, fy, fz;
-      frame_from_z(hns, fx, fy, fz);
-      const V3 wo_l = to_local(fx, fy, fz, wo);
+    st4(a.lam_pdf_out, i, pdf_lam);
+    V3 fx, fy, fz;
+    frame_from_z(hns, fx, fy, fz);
+    const V3 wo_l = to_local(fx, fy, fz, neg(d));
+    if (coated) {
+      store_layer(a, i, mat, b.kind, lam, b.ax, b.ay);
+      st3(a.wo_l, i, wo_l);
+    }
 
-      // NEE, skipped for specular-only lobes
-      const bool spec_only =
-          (b.kind == K_CONDUCTOR || b.kind == K_DIELECTRIC) && effectively_smooth(b.ax, b.ay);
-      nee = !spec_only && a.n_lights > 0;
-      if (nee) {
-        const float u_l = get_1d(a, s, true);
-        float u0, u1;
-        get_2d(a, s, true, u0, u1);
-        float pmf;
-        const long long li = pick_light(a, u_l, pmf);
-        const LiSample ls = sample_li(a, li, hp, hns, u0, u1, lam);
-        const V3 wi_l = to_local(fx, fy, fz, ls.wi);
+    // NEE, skipped for specular-only lobes (coated kinds always run it)
+    const bool spec_only =
+        (b.kind == K_CONDUCTOR || b.kind == K_DIELECTRIC) && effectively_smooth(b.ax, b.ay);
+    nee = !spec_only && a.n_lights > 0;
+    if (nee) {
+      const float u_l = get_1d(a, s, true);
+      float u0, u1;
+      get_2d(a, s, true, u0, u1);
+      float pmf;
+      const long long li = pick_light(a, u_l, pmf);
+      const LiSample ls = sample_li(a, li, hp, hns, u0, u1, lam);
+      const V3 wi_l = to_local(fx, fy, fz, ls.wi);
+      const float pdf_light = pmf * ls.pdf;
+      sh_o = offset_ray_origin(hp, hng, ls.wi, a.scal[S_OFFSET]);
+      sh_d = ls.wi;
+      sh_t = len(sub(sh_o, ls.p)) * SHADOW_SHORTEN;
+      if (coated) {
+        // the light sample, for K7's f and pdf and path_coat
+        st3(a.wi_l, i, wi_l);
+        st4(a.light_L, i, ls.L);
+        a.light_pdf[i] = pdf_light;
+        a.light_ok[i] = ls.valid && pdf_light > 0.f;
+        a.light_delta[i] = ls.delta;
+      } else {
         const S4 f = bxdf_f(b, wo_l, wi_l) * fabsf(dot(ls.wi, hns));
-        const float pdf_bsdf = bxdf_pdf(b, wo_l, wi_l, true, true);
-        const float pdf_light = pmf * ls.pdf;
-        sh_o = offset_ray_origin(hp, hng, ls.wi, a.scal[S_OFFSET]);
-        sh_d = ls.wi;
-        sh_t = len(sub(sh_o, ls.p)) * SHADOW_SHORTEN;
         if (ls.valid && any_pos(f) && pdf_light > 0.f) {
+          const float pdf_bsdf = bxdf_pdf(b, wo_l, wi_l, true, true);
           const S4 contrib = (f * ls.L) / fmaxf(pdf_light, 1e-20f);
           const float w = ls.delta ? 1.f : power_heuristic(pdf_light, pdf_bsdf);
           ld = contrib * w;
         }
       }
+    }
 
-      // BSDF sampling and the new ray
-      const float uc = get_1d(a, s, true);
-      float u0, u1;
-      get_2d(a, s, true, u0, u1);
+    // BSDF sampling and the new ray (a coated lane's: path_coat, from
+    // layered_sample at these draws)
+    const float uc = get_1d(a, s, true);
+    float u0, u1;
+    get_2d(a, s, true, u0, u1);
+    if (coated) {
+      a.uc[i] = uc;
+      a.u2[2 * i] = u0;
+      a.u2[2 * i + 1] = u1;
+    } else {
       const BSample bs = bxdf_sample(b, wo_l, uc, u0, u1, true, true, true);
       const V3 wi = comb3(bs.wi.x, fx, bs.wi.y, fy, bs.wi.z, fz);
       const float cos_term = fabsf(dot(wi, hns));
@@ -901,36 +1058,77 @@ __device__ __forceinline__ void shade_lane(const StepArgs& a, int i) {
         specular = (bs.flags & F_SPECULAR) != 0;
         prev_pdf = bs.pdf;
       }
-      depth = depth + 1.f;
-      prev_p = hp;
-      prev_ns = hns;
     }
+  } else {
+    st4(a.lam_pdf_out, i, ld4(a.lam_pdf, i));
   }
   st3(a.o_out, i, o);
   st3(a.d_out, i, d);
-  st4(a.L_out, i, L);
   st4(a.beta_out, i, beta);
-  st4(a.lam_pdf_out, i, pdf_lam);
   store_smp(a, i, s);
   a.active_out[i] = cont;
   a.specular_out[i] = specular;
-  a.depth_out[i] = depth;
   a.prev_pdf_out[i] = prev_pdf;
-  st3(a.prev_p_out, i, prev_p);
-  st3(a.prev_ns_out, i, prev_ns);
   st3(a.sh_o, i, sh_o);
   st3(a.sh_d, i, sh_d);
   a.sh_t[i] = nee ? sh_t : 0.f;
   a.nee_out[i] = nee;
   st4(a.ld_out, i, ld);
+  if (a.coat != nullptr) {
+    a.coat[i] = coated;
+    a.coat_nee[i] = coated && nee;
+  }
 }
 
-// path_resolve's lane: resolve_plain -> whether the lane traced a shadow ray
+// path_coat's lane: coat_plain. A coated lane finished from K7's answers,
+// path_shade's outputs updated in place: the NEE term (f |cos| from
+// layered_f, the power heuristic against layered_pdf), and where the
+// layered sample goes on, the new beta, ray, flags and the local direction
+// at which the MIS pdf is evaluated (the world direction taken back to the
+// frame, as the plain version does). Every lane writes its mis_mask.
+__device__ __forceinline__ void coat_lane(const StepArgs& a, int i) {
+  bool mis = false;
+  if (a.coat[i] != 0) {
+    const V3 hns = ld3(a.hit_ns, i);
+    V3 fx, fy, fz;
+    frame_from_z(hns, fx, fy, fz);
+    const S4 beta = ld4(a.beta, i);
+    if (a.coat_nee[i] != 0) {
+      const S4 f = ld4(a.lay_f, i) * fabsf(dot(ld3(a.sh_d, i), hns));
+      const float pdf_light = a.light_pdf[i];
+      S4 ld = s4(0.f);
+      if (a.light_ok[i] != 0 && any_pos(f)) {
+        const S4 contrib = (f * ld4(a.light_L, i)) / fmaxf(pdf_light, 1e-20f);
+        const float w = a.light_delta[i] != 0 ? 1.f : power_heuristic(pdf_light, a.lay_pdf[i]);
+        ld = contrib * w;
+      }
+      st4(a.ld_out, i, ld);
+    }
+    const V3 wl = ld3(a.s_wi, i);
+    const V3 wi = comb3(wl.x, fx, wl.y, fy, wl.z, fz);
+    const float cos_term = fabsf(dot(wi, hns));
+    const S4 beta_new = (beta * ld4(a.s_f, i)) * (cos_term / fmaxf(a.s_pdf[i], 1e-20f));
+    if (a.s_valid[i] != 0 && any_pos(beta_new)) {
+      st3(a.o_out, i, offset_ray_origin(ld3(a.hit_p, i), ld3(a.hit_ng, i), wi, a.scal[S_OFFSET]));
+      st3(a.d_out, i, wi);
+      st4(a.beta_out, i, beta_new);
+      a.active_out[i] = 1;
+      a.specular_out[i] = (a.s_flags[i] & F_SPECULAR) != 0;
+      st3(a.mis_wi, i, to_local(fx, fy, fz, wi));
+      mis = true;
+    }
+  }
+  a.mis_mask[i] = mis;
+}
+
+// path_resolve's lane: resolve_plain -> whether the lane traced a shadow
+// ray (no pending term: none; no coated lanes: prev_pdf not written)
 __device__ __forceinline__ bool resolve_lane(const StepArgs& a, int i) {
   S4 L = ld4(a.L, i);
-  const bool nee = a.nee[i] != 0;
+  const bool nee = a.nee != nullptr && a.nee[i] != 0;
   if (nee) L = L + ld4(a.beta, i) * (a.occluded[i] != 0 ? s4(0.f) : ld4(a.ld, i));
   st4(a.L_out, i, L);
+  if (a.mis_mask != nullptr) a.prev_pdf_out[i] = a.mis_mask[i] != 0 ? a.mis_pdf[i] : a.prev_pdf[i];
   return nee;
 }
 
@@ -968,6 +1166,11 @@ __global__ void __launch_bounds__(THREADS) path_shade_kernel(const StepArgs a) {
   if (i < a.n) shade_lane(a, i);
 }
 
+__global__ void __launch_bounds__(THREADS) path_coat_kernel(const StepArgs a) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < a.n) coat_lane(a, i);
+}
+
 __global__ void __launch_bounds__(THREADS) path_resolve_kernel(const StepArgs a) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   const bool shadow = i < a.n && resolve_lane(a, i);
@@ -989,6 +1192,12 @@ extern "C" int pbrt_path_rr(const StepArgs* a, void* stream) {
 extern "C" int pbrt_path_shade(const StepArgs* a, void* stream) {
   if (a->n <= 0) return 0;
   path_shade_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pbrt_path_coat(const StepArgs* a, void* stream) {
+  if (a->n <= 0) return 0;
+  path_coat_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

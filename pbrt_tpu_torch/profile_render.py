@@ -32,10 +32,11 @@ renders of the default schedule: the profiler slows the host, not the
 kernels), the peak device memory of one frame, the device time of the
 hand-written kernels and of the eager PyTorch ops around them, and the top
 kernels by device time; for the path family also the bounce step's route
-(path.step_route: "cuda", the three kernels of csrc/path_step.cu, or
-"plain") and the device kernels a bounce (all of the profiled frame's over
-its bounces: max_depth a wave on the batched loop, one an iteration on the
-wavefront loop); writes the same as JSON to --out.
+(path.step_route: "cuda", the kernels of csrc/path_step.cu, which every
+path-integrator frame on the card takes, coated scenes and MLT's path
+evaluations too) and the device kernels a bounce (all of the profiled
+frame's over its bounces: max_depth a wave on the batched loop, one an
+iteration on the wavefront loop); writes the same as JSON to --out.
 
 The MLT frames, caustic-glass with "mlt" (MLT over BDPT, max depth 7) and
 cornell-mesh levels 5 with "mltpath" (max depth 5), both at 256^2 with
@@ -46,7 +47,7 @@ with torch.profiler recording only PROFILED_PASSES passes from the middle
 of the frame: their device time (kernels only: the profiler's step
 annotations span the whole step on the device timeline and are left out)
 over PROFILED_PASSES times the median wall time of the unprofiled passes
-is the busy share.
+is the busy share. mltpath's evaluations take the path step's route (printed).
 
 With --traversal (a single-level BVH scene) the profiled render is
 replaced: one more frame is rendered with the arguments of every K1 and
@@ -62,7 +63,8 @@ time, where a profiled staircase frame does not finish in minutes.
 With --layered (a coated scene: staircase, testball) the profiled render
 is replaced too: one more frame is rendered until its first wave has made
 its K7 launches (max_depth each of layered_f and layered_sample, twice that
-of layered_pdf; their arguments kept), and each launch is replayed:
+of layered_pdf, issued from the path step; their arguments kept), and each
+launch is replayed:
 layered_f and layered_pdf in turns with their yardsticks, the kernels as
 first written (layered_f_lane_cuda, layered_pdf_lane_cuda): yardstick,
 kernel, kernel, yardstick, their bits compared; layered_sample alone. Prints
@@ -97,7 +99,7 @@ KERNELS = {"bvh": "wide_kernel", "bvh_inst": "traverse_inst_kernel", "bvh_refit"
            "film_scatter": "film_add_scatter_kernel", "layered": "LayeredArgs", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
            "shard": "parts_kernel|select_kernel",
-           "path_step": "path_rr_kernel|path_shade_kernel|path_resolve_kernel"}
+           "path_step": "path_rr_kernel|path_shade_kernel|path_coat_kernel|path_resolve_kernel"}
 
 
 def _device_us(e):
@@ -126,8 +128,11 @@ def _profile_mlt(scene, meta, label, card, out_path):
     under torch.profiler (see the module docstring)."""
     import dataclasses
 
-    from pbrt_tpu_torch.integrators import mlt
+    from pbrt_tpu_torch.integrators import mlt, path as pth
 
+    if meta.integrator == "mltpath":
+        print(f"path step route of the evaluations: {pth.step_route('cuda', meta, 'mlt')}",
+              flush=True)
     res_x, res_y = meta.resolution
     n_passes = max(1, meta.mutations_per_pixel * res_x * res_y // mlt.N_CHAINS)
     t0 = time.perf_counter()

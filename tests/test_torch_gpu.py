@@ -864,6 +864,13 @@ def test_sharded_render_on_card_matches_cpu(cuda):
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
 
 
+def _path_parts():
+    from pbrt_tpu_torch.integrators import path
+
+    return ((path.rr_cuda, path.shade_cuda, path.coat_cuda, path.resolve_cuda),
+            (path.rr_plain, path.shade_plain, path.coat_plain, path.resolve_plain))
+
+
 @pytest.mark.parametrize("skind", ["independent", "stratified"])
 @pytest.mark.parametrize("lanes", [1000, 1 << 16])
 def test_path_step_kernels_match_plain(cuda, skind, lanes):
@@ -872,7 +879,8 @@ def test_path_step_kernels_match_plain(cuda, skind, lanes):
     synthetic lanes of the four-light scene (dead lanes, RR due and not due,
     every material kind and light type, shadow rays of t_max 0), each part
     on the plain chain's inputs: path_cases' criteria (draws and masks
-    bit-exact, float fields close, lane means); one launch each."""
+    bit-exact, float fields close, lane means); one launch each, and no
+    path_coat on a scene without coated materials."""
     import path_cases as pc
     from pbrt_tpu_torch.integrators import path
     from pbrt_tpu_torch.scene.compile import compile_scene
@@ -880,36 +888,100 @@ def test_path_step_kernels_match_plain(cuda, skind, lanes):
     scene, meta = compile_scene(pc.builder(24, skind, 4), device=cuda)
     state = pc.synthetic_state(scene, meta, lanes, 5)
     n0 = dict(path.launches)
-    reps, seen = pc.compare_parts(scene, meta, state, skind, 4,
-                                  (path.rr_cuda, path.shade_cuda, path.resolve_cuda),
-                                  (path.rr_plain, path.shade_plain, path.resolve_plain))
-    assert {k: path.launches[k] - n0[k] for k in n0} == {k: 1 for k in n0}
+    kern, plain = _path_parts()
+    reps, seen = pc.compare_parts(scene, meta, state, skind, 4, kern, plain)
+    assert {k: path.launches[k] - n0[k] for k in n0} == dict(
+        path_rr=1, path_shade=1, path_coat=0, path_resolve=1)
     for name, rep in reps.items():
         assert rep.ok(), (name, str(rep))
     assert seen["traced"] < lanes and seen["nee"] > 0
-    hit = pc.chain(scene, meta, state, skind, 4, (path.rr_plain, path.shade_plain,
-                                                  path.resolve_plain))["hit"]
+    hit = pc.chain(scene, meta, state, skind, 4, plain)["hit"]
     kinds = scene.mat_type[hit.mat[hit.valid]].unique().tolist()
     assert {0, 1, 2, 3} <= set(kinds) and bool((hit.light >= 0).any())
 
 
-def test_path_step_kernel_wrappers_refuse(cuda):
-    """The wrappers raise on CPU tensors and on scenes the kernels do not
-    cover (coated materials; the MLT sampler kind); step_route sends those
-    to the plain step."""
+@pytest.mark.parametrize("case", ["coated", "mlt6", "mlt30", "coated_mlt30"])
+@pytest.mark.parametrize("lanes", [1000, 1 << 18])
+def test_path_step_kernels_match_plain_coated_and_mlt(cuda, case, lanes):
+    """The chain with path_coat and K7 (csrc/layered.cu, launched from the
+    step) against the plain parts on path_cases' synthetic lanes of the
+    coated scene (COATED_PBRT) and with the MLT kind (vectors of 6 and 30
+    dimensions, lanes at dimensions 0 .. D + 8): each part on the plain
+    chain's inputs to path_cases' criteria (path_coat on identical inputs,
+    lane by lane), and the whole bounce (draws bit-exact, the coated lanes'
+    L, beta and prev_pdf on their lane means); K7's launches those of the
+    plain step (layered_f, layered_sample once, layered_pdf twice)."""
+    import path_cases as pc
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.materials import layered
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    coated = case.startswith("coated")
+    skind, spp = ("mlt", 0) if "mlt" in case else ("independent", 4)
+    mlt_d = int(case.rsplit("mlt", 1)[1]) if "mlt" in case else None
+    scene, meta = compile_scene(pc.builder(24, "independent", 4, coated=coated), device=cuda)
+    state = pc.synthetic_state(scene, meta, lanes, 7, mlt_d=mlt_d)
+    kern, plain = _path_parts()
+    reps, seen = pc.compare_parts(scene, meta, state, skind, spp, kern, plain)
+    for name, rep in reps.items():
+        assert rep.ok(), (name, str(rep))
+    assert ("coat" in reps) == coated and (seen["coated"] > 0) == coated
+    n0, k0 = dict(path.launches), dict(layered.launches)
+    rep, n_coated = pc.compare_bounce(scene, meta, state, skind, spp, kern, plain)
+    assert rep.ok(), str(rep)
+    k7 = {k: layered.launches[k] - k0[k] for k in ("layered_f", "layered_sample", "layered_pdf")}
+    assert k7 == ({"layered_f": 2, "layered_sample": 2, "layered_pdf": 4} if coated
+                  else dict.fromkeys(k7, 0))
+    assert {k: path.launches[k] - n0[k] for k in n0} == dict(
+        path_rr=1, path_shade=1, path_coat=int(coated), path_resolve=1)
+
+
+def test_path_coat_matches_coat_plain_lane_by_lane(cuda):
+    """path_coat against coat_plain on identical inputs (the plain chain's
+    state, pending term, coated lanes and K7's answers on the card) at the
+    coated scene's camera lanes and their second bounce: floats within
+    rtol 1e-4, atol 1e-6 on >= 99.5 % of lanes, masks equal."""
     import path_cases as pc
     from pbrt_tpu_torch.integrators import path
     from pbrt_tpu_torch.scene.compile import compile_scene
 
-    scene, meta = compile_scene(pc.builder(8), device=cuda)
+    scene, meta = compile_scene(pc.builder(64, "independent", 4, coated=True), device=cuda)
     state = pc.camera_state(scene, meta)
-    assert path.step_route(cuda, meta) == "cuda"
+    _, plain = _path_parts()
+    for _ in range(2):
+        c = pc.chain(scene, meta, state, "independent", 4, plain)
+        st2, _, pending, lanes = c["shade"]
+        assert int(lanes.mask.sum()) > 100
+        rep = pc.compare_coat((scene, st2, pending, lanes) + c["k7"], path.coat_cuda,
+                              path.coat_plain)
+        assert rep.ok(), str(rep)
+        state = c["out"]
+
+
+def test_path_step_kernel_wrappers_refuse(cuda):
+    """The wrappers raise on CPU tensors, and the MLT kind without the
+    sampler's primary-sample vectors; step_route is "cuda" for every scene
+    and sampler kind on the card."""
+    import path_cases as pc
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    scene, meta = compile_scene(pc.builder(8, coated=True), device=cuda)
+    state = pc.camera_state(scene, meta)
+    for skind in path.STEP_SAMPLERS:
+        assert path.step_route(cuda, meta, skind) == "cuda"
     with pytest.raises(ValueError):
         path.rr_cuda(meta, state, "mlt", 0)
     with pytest.raises(ValueError):
-        path.rr_cuda(dataclasses.replace(meta, layered=True), state)
-    with pytest.raises(ValueError):
         path.rr_cuda(meta, pc.to_device(state, "cpu"))
+    scene_c, meta_c = compile_scene(pc.builder(8, coated=True), device="cpu")
+    c = pc.chain(scene_c, meta_c, pc.camera_state(scene_c, meta_c), "independent", 4,
+                 _path_parts()[1])
+    st2, _, pending, lanes = c["shade"]
+    n0 = dict(path.launches)
+    with pytest.raises(ValueError):
+        path.coat_cuda(scene_c, st2, pending, lanes, *c["k7"])
+    assert path.launches == n0
 
 
 @pytest.mark.parametrize("skind", ["independent", "stratified"])
@@ -925,15 +997,17 @@ def test_path_step_render_on_card_matches_cpu(cuda, skind):
     from pbrt_tpu_torch.scene.compile import compile_scene
 
     scene, meta = compile_scene(pc.builder(24, skind, 4), device=cuda)
+    k6 = ("path_rr", "path_shade", "path_resolve")
     n0, k0 = dict(path.launches), rd.launches["wavefront_recycle"]
     img_gpu, st_gpu = render(scene, meta, return_stats=True)
     its = rd.launches["wavefront_recycle"] - k0
-    assert its > 0 and {k: path.launches[k] - n0[k] for k in n0} == {k: its for k in n0}
+    assert its > 0 and {k: path.launches[k] - n0[k] for k in n0} == dict(
+        dict.fromkeys(k6, its), path_coat=0)
     films = [filmlib.new_film(meta.resolution, cuda) for _ in range(2)]
     n0 = dict(path.launches)
     for f in films:
         rd.render_batched(scene, meta, f)
-    assert {k: path.launches[k] - n0[k] for k in n0} == {k: 2 * meta.max_depth for k in n0}
+    assert {k: path.launches[k] - n0[k] for k in k6} == dict.fromkeys(k6, 2 * meta.max_depth)
     assert torch.equal(films[0].rgb_sum, films[1].rgb_sum)
     img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
     img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
@@ -942,6 +1016,63 @@ def test_path_step_render_on_card_matches_cpu(cuda, skind):
     err = np.abs(img_gpu - img_cpu)
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
+def test_path_step_coated_render_on_card_matches_cpu(cuda):
+    """The coated four-light scene (COATED_PBRT) at 32^2 x 8 through render()
+    on the card (path_coat and K7 from the step, max_depth a wave) against
+    the CPU's plain step: ray counts within 1 %, 8x8 block means within
+    tests/test_parity.py's criterion and the image means within 1 % (the
+    coated walks are independent estimates where the local directions'
+    bits differ)."""
+    import path_cases as pc
+    from layered_cases import blocks
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    b = pc.builder(32, "independent", 8, coated=True)
+    b.filter = {"type": "box"}
+    scene, meta = compile_scene(b, device=cuda)
+    n0 = dict(path.launches)
+    img_gpu, st_gpu = render(scene, meta, return_stats=True)
+    got = {k: path.launches[k] - n0[k] for k in n0}
+    assert got["path_coat"] == got["path_rr"] == got["path_shade"] > 0, got
+    img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
+    img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
+    n_gpu, n_cpu = sum(st_gpu.values()), sum(st_cpu.values())
+    assert abs(n_gpu - n_cpu) <= 1e-2 * n_cpu
+    bg, bc = blocks(img_gpu, 8), blocks(img_cpu, 8)
+    assert float((np.abs(bg - bc) > 5e-3 + 0.05 * np.abs(bc)).mean()) < 0.005
+    assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
+
+
+def test_path_step_mltpath_render_on_card_matches_cpu(cuda):
+    """cornell 16^2 with mltpath (1024 chains), its path evaluations on the
+    card's CUDA step with the MLT kind (path_rr, path_shade, path_resolve
+    max_depth times an evaluation), against the CPU with one seed:
+    tests/mlt_cases.py's criteria (accept decisions, 8x8 block means,
+    image mean)."""
+    import mlt_cases
+    from pbrt_tpu_torch.integrators import mlt, path
+
+    sc, mt = ts.cornell(res=16, spp=1, device=cuda, filter_kind="box", integrator="mltpath")
+    mt = dataclasses.replace(mt, mutations_per_pixel=mlt_cases.SMALL_MUTATIONS)
+    runs = {}
+    for d in (cuda, torch.device("cpu")):
+        acc = []
+        n0, m0 = dict(path.launches), dict(mlt.launches)
+        img, _ = mlt.render_mlt(
+            sc, mt, n_chains=mlt_cases.SMALL_CHAINS, n_bootstrap=mlt_cases.SMALL_BOOTSTRAP,
+            device=d, on_pass=lambda i, a, acc=acc, d=d: acc.append(
+                mlt.accept_uniforms(0, i, mlt_cases.SMALL_CHAINS, d) < a))
+        runs[d.type] = (img.cpu().numpy(), torch.stack(acc).cpu(),
+                        {k: path.launches[k] - n0[k] for k in n0},
+                        mlt.launches["mlt_mutate"] - m0["mlt_mutate"])
+    (img_g, acc_g, k6, passes), (img_c, acc_c, k6_cpu, _) = runs["cuda"], runs["cpu"]
+    assert passes == acc_g.shape[0] > 0 and not any(k6_cpu.values())
+    assert k6["path_rr"] == k6["path_shade"] == k6["path_resolve"] > passes * mt.max_depth
+    assert k6["path_rr"] % mt.max_depth == 0 and k6["path_coat"] == 0
+    mlt_cases.compare_renders(img_g, img_c, acc_g, acc_c)
 
 
 def test_bvh_refit_kernel_matches_plain(cuda):

@@ -14,14 +14,16 @@ result line:
      from shared memory where it stages (up to 35 vertex slots) and not
      where it reads in place, with no local loads or stores, stack frame or
      spills in either; every K12 kernel's registers printed; K7's
-     (csrc/layered.cu): the redesigned layered_f and layered_pdf kernels with
-     no local loads or stores, stack frame or spills, printed beside
-     layered_sample's and the yardsticks' (csrc/layered_lane.cu), and the
+     (csrc/layered.cu): the redesigned layered_f, layered_pdf and
+     layered_sample kernels with no local loads or stores, stack frame or
+     spills, printed beside the yardsticks' (csrc/layered_lane.cu), and the
      samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle) the
      bits of the library's sinf and cosf on every float below 105615; K6's
-     four kernels (csrc/path_step.cu: path_rr, path_shade, path_coat,
-     path_resolve) with their registers, stack frame, spills and local
-     loads and stores printed;
+     five kernels (csrc/path_step.cu: path_rr, path_shade, path_bsdf,
+     path_coat, path_resolve) and the shading yardstick path_shade_lane with
+     their registers, stack frame, spills and local loads and stores
+     printed, path_shade and path_bsdf required to have no stack frame and
+     no spills;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -48,7 +50,7 @@ result line:
      statistically: valid and flags equal on >= 99.9 % of lanes; f, wi and
      pdf within rtol 1e-4, atol 1e-6 on >= 99.5 %; lane means of f, pdf and
      f |cos| / pdf within 1e-3 relative; the fractions are printed; then
-     layered_f and layered_pdf against their yardsticks, the kernels as
+     the three entries against their yardsticks, the kernels as
      first written (csrc/layered_lane.cu): the same bits and step counts
      on those lanes and on as many lanes of a deep medium
      (layered_cases.deep_medium_lanes), all coated, and timed in turns with
@@ -61,7 +63,7 @@ result line:
      against CPU; the walk seeds on float bits, which differ between the two
      by an ulp, so the renders are independent estimates and are compared on
      16x16-pixel block means and the image mean), rendered again on the card
-     with layered_f and layered_pdf pointed at their yardsticks: the same
+     with K7's three entries pointed at their yardsticks: the same
      image bits and ray counts; then BDPT: cornell 24^2 x
      8 (box filter) against tests/goldens.npz's cornell_bdpt_24_spp8 and
      the CPU render, caustic-glass (its file's BDPT, max depth 7) at 32^2 x
@@ -95,13 +97,15 @@ result line:
      BDPT frames launch K5's tiled entry, the wavefront frame its scatter
      entry and K8; every frame of the path family on the card (the "cuda"
      route of path.step_route: every path-integrator render) launches
-     path_rr, path_shade and path_resolve max_depth times a wave on the
+     path_rr, path_shade, path_bsdf and path_resolve max_depth times a wave
+     on the
      batched loop (cornell-mesh, cornell, staircase, testball, the
      scene-sharded and instanced frames), once an iteration on the
      wavefront loop (terrain) and max_depth times an evaluation of an
      mltpath frame (its bootstrap's, its initial states' and its passes'),
      path_coat as often in the frames with coated materials (staircase,
-     testball) and in no other, and BDPT and MLT over BDPT none of K6;
+     testball) and in no other, and BDPT and MLT over BDPT none of K6; no
+     render launches a yardstick (path_shade_lane, layered_*_lane);
   9. K1 and K1a on five launches each (the first of cornell-mesh, terrain
      and staircase, the third of cornell-mesh and staircase): against the
      plain version with phase 3's criteria, the operation bound from
@@ -122,10 +126,12 @@ result line:
      launch in the full-width render of its path: the shapes and data the
      main path gives it; K7's
      three entry points on their first launches in the staircase and
-     testball frames, against the plain version on the coated lanes,
-     layered_f and layered_pdf also against their yardsticks' bits and
-     timed in turns with them on both, all timed on staircase's, each
-     bound from the bytes its lanes' BxDF kinds need; K12 on the first waves of the two BDPT frames, on a
+     testball frames, against the plain version on the coated lanes and
+     against their yardsticks' bits, timed in turns with them on both (the
+     share of coated lanes whose sample reflects at the coat printed), the
+     kernels line taking staircase's, each bound from the bytes its lanes'
+     BxDF kinds need, then layered_sample over staircase's first wave in
+     turns with its yardstick, times the frame's waves; K12 on the first waves of the two BDPT frames, on a
      24^2 x 2 wave of tests/bdpt_cases.py's four-light scene (distant, spot,
      uniform infinite and three kinds of area light) and on 24^2 x 2 cornell
      waves at max depth 8 (one staged buffer) and 17 (vertices read in
@@ -141,15 +147,22 @@ result line:
      torch.profiler one device kernel a call; the refit of K1's winners
      (bvh_refit, csrc/bvh_traverse.cu: the hit record's glue in one
      launch) bit-exact with its plain version on cornell-mesh's first
-     closest-hit launch and timed; K6 (path_rr, path_shade,
-     path_resolve) against its plain parts with tests/path_cases.py's
+     closest-hit launch and timed; K6 (path_rr, path_shade and path_bsdf
+     together and each alone, path_resolve) against its plain parts with
+     tests/path_cases.py's
      criteria (draws and masks bit-exact on >= 99.9 % of lanes; float
      fields within rtol 1e-4, atol 1e-6 on >= 99.5 %; lane means within
      1e-3; the fractions printed) on path_cases' synthetic lanes of the
      four-light scene (both samplers, 2^18 and 1,000 lanes) and on the first
-     and third bounces of the cornell-mesh, cornell and terrain frames, each
-     kernel timed on cornell-mesh's first bounce beside its bound and its
-     plain part, the device kernels of that bounce on either route under
+     and third bounces of the cornell-mesh, cornell and terrain frames,
+     path_shade and path_bsdf against their yardstick path_shade_lane's bits
+     on every lane of each of those bounces (and of staircase's and
+     testball's), each kernel timed on cornell-mesh's first bounce beside
+     its bound and its plain part, path_shade and path_bsdf together in
+     turns with the yardstick at cornell-mesh's and staircase's first
+     bounces beside the function's bound and over staircase's first wave
+     (every bounce) times its waves, the device kernels of that bounce on
+     either route under
      torch.profiler (the CUDA step's at most a twentieth of the plain
      step's), and the frames of cornell-mesh, cornell and terrain (both
      loops) with the step pointed at its plain version by this script, in
@@ -157,7 +170,7 @@ result line:
      check_image, walls, rays/s, busy share (a profiled frame's device time
      over the median wall) and device kernels a frame of either route, and
      the terrain loops' ratio (the K8 condition); the coated lanes and the
-     MLT kind: the four kernels (path_coat around K7's launches from the
+     MLT kind: the five kernels (path_coat around K7's launches from the
      step) against the plain parts on path_cases' coated scene and with the
      MLT kind over vectors of 6 and 30 dimensions (2^18 and 1,000 lanes) and
      on the first and third bounces of the staircase and testball frames,
@@ -165,7 +178,7 @@ result line:
      1e-4, atol 1e-6 on >= 99.5 % of lanes), the whole coated bounce (draws
      bit-exact, the coated lanes' L, beta and prev_pdf on their lane means,
      path_cases.Report.coat_mean, the share of lanes bit-exact printed),
-     the four kernels timed on staircase's first bounce beside their bounds
+     the five kernels timed on staircase's first bounce beside their bounds
      and plain parts, the device kernels of a staircase bounce on either
      route, and the testball (plain, cuda, cuda, plain) and staircase
      (plain, cuda, cuda) frames: ray counts within 1 %, 8x8 block means
@@ -325,9 +338,11 @@ INST_ENTRY_OPS = 55
 # per escaped lane ~15, per coated lane its layer instead of the BSDF (three
 # sigmoid spectra and the conductor's k, ~150); path_coat per coated lane
 # (the frame ~25, the world direction and back ~30, the new beta and origin
-# ~30, the NEE term and its weight ~35) ~120; path_resolve per NEE lane 8
+# ~30, the NEE term and its weight ~35) ~120; path_resolve per NEE lane 8.
+# Of a shading lane's ~600, path_bsdf's (the BSDF sample, the new beta and
+# ray, the draws past NEE's) ~200, path_shade's the rest
 K6_OPS = {"rr": 12, "shade": 600, "emit": 300, "escape": 15, "layer": 150, "coat": 120,
-          "resolve": 8}
+          "resolve": 8, "shade_bsdf": 200}
 # float ops of K12m-a per chain and dimension, counted from csrc/mlt.cu:
 # two uniforms (a multiply and a min each), erfinv (~15 with its log and
 # two square roots), the perturbation, the wrap and the clip (~8)
@@ -662,11 +677,12 @@ def main():
                                              "spill loads"),
                         "K12's tiled kernel: shared-memory loads not as staged, or a local stack "
                         "or spills", short, dict(c), frame)
-    # K7's layered_f and layered_pdf as redesigned (csrc/layered.cu): neither a
-    # local-memory stack nor spills; layered_sample (one thread per lane, as
-    # first written) and the yardsticks (csrc/layered_lane.cu) printed beside
+    # K7's layered_f, layered_pdf and layered_sample as redesigned
+    # (csrc/layered.cu): neither a local-memory stack nor spills; the
+    # yardsticks (csrc/layered_lane.cu) printed beside
     k7_kernels = ("f_enter_kernel", "f_walk_kernel", "layered_pdf_kernel",
-                  "layered_sample_kernel", "layered_f_lane_kernel", "layered_pdf_lane_kernel")
+                  "sample_enter_kernel", "sample_walk_kernel", "layered_f_lane_kernel",
+                  "layered_pdf_lane_kernel", "layered_sample_lane_kernel")
     for lib_name in ("layered", "layered_lane"):
         report = built[lib_name][1].splitlines()
         for fn, c in sass_memory_ops(subprocess.run(
@@ -681,18 +697,21 @@ def main():
             regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
                         if "registers" in line)
             log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
-            if short in k7_kernels[:3]:
+            if short in k7_kernels[:5]:
                 local = [k for k in c if k.startswith(("LDL", "STL"))]
                 require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
                                                        "stores, 0 bytes spill loads"),
                         "K7's redesigned kernels: a local stack or spills", short, dict(c), frame)
     # K6's kernels as compiled (csrc/path_step.cu): registers, stack frame,
-    # spills and local loads and stores of each, printed
+    # spills and local loads and stores of each, printed; path_shade and
+    # path_bsdf (the shading kernels as redesigned) with neither a stack
+    # frame nor spills, the yardstick path_shade_lane beside them
     report = built["path_step"][1].splitlines()
     for fn, c in sass_memory_ops(subprocess.run(
             [str(cuobjdump), "-sass", str(kernels.library_path("path_step"))],
             capture_output=True, text=True, timeout=120).stdout).items():
-        short = next((k for k in ("path_rr_kernel", "path_shade_kernel", "path_coat_kernel",
+        short = next((k for k in ("path_rr_kernel", "path_shade_kernel", "path_bsdf_kernel",
+                                  "path_shade_lane_kernel", "path_coat_kernel",
                                   "path_resolve_kernel") if k in fn), None)
         if short is None:
             continue
@@ -704,6 +723,10 @@ def main():
         local = {k: v for k, v in c.items() if k.startswith(("LDL", "STL"))}
         log(f"  sass {short}: {dict(sorted(c.items()))}; local loads and stores {local or 0}; "
             f"ptxas: {frame}; {regs}")
+        if short in ("path_shade_kernel", "path_bsdf_kernel"):
+            require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                   "0 bytes spill loads"),
+                    "K6's shading kernels: a local stack or spills", short, dict(c), frame)
     # the samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle)
     # against the library's sinf and cosf on every float below 105615
     mism = layered.trig_mismatches(dev)
@@ -1066,20 +1089,28 @@ def main():
         log(f"{name} vs plain on {n7} synthetic lanes ({len(LAYERED_CASES)} cases: "
             f"{'; '.join(LAYERED_CASES)}): {agreement(res)}")
 
+    def same_bits(a, b):
+        """a tensor, or a tuple of them, the same bits as b"""
+        if isinstance(a, tuple):
+            return all(same_bits(x, y) for x, y in zip(a, b))
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return torch.equal(a, b)
+
     def k7_yardstick(name, p, args, mask, label):
-        """layered_f or layered_pdf against its yardstick (the kernel as
-        first written, csrc/layered_lane.cu): every output bit and the step
-        counts equal. -> the steps counted."""
+        """layered_f, layered_sample or layered_pdf against its yardstick
+        (the kernel as first written, csrc/layered_lane.cu): every output bit
+        and the step counts equal. -> the steps counted."""
         st_k, st_y = (torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2))
         out_k = getattr(layered, f"{name}_cuda")(p, *args, mask, st_k)
         out_y = getattr(layered, f"{name}_lane_cuda")(p, *args, mask, st_y)
-        same = torch.equal(out_k.view(torch.int32), out_y.view(torch.int32))
+        same = same_bits(out_k, out_y)
         require(same and int(st_k) == int(st_y), name, label,
                 "differs from its yardstick's bits or steps", int(st_k), int(st_y))
         return int(st_k)
 
     def k7_turns(name, p, args, mask):
-        """layered_f or layered_pdf timed in turns with its yardstick
+        """A K7 entry timed in turns with its yardstick
         (yardstick, kernel, kernel, yardstick; graph replays) -> (kernel ms,
         yardstick ms, the four turns)."""
         new_fn = getattr(layered, f"{name}_cuda")
@@ -1101,14 +1132,15 @@ def main():
         lanes_deep["albedo"], 10, 1)
     k7_synthetic = {}
     for label, p_, l_ in (("synthetic", p7, lanes7), ("deep medium", p_deep, lanes_deep)):
-        for name in ("layered_f", "layered_pdf"):
-            args = (l_["wo"], l_["wi"])
+        for name in ("layered_f", "layered_sample", "layered_pdf"):
+            args = ((l_["wo"], l_["uc"], l_["u2"]) if name == "layered_sample"
+                    else (l_["wo"], l_["wi"]))
             n_steps = k7_yardstick(name, p_, args, None, label)
             ms_k, ms_y, turns = k7_turns(name, p_, args, None)
             k7_synthetic[f"{name} {label}"] = dict(ms=ms_k, yardstick_ms=ms_y, turns=turns)
             log(f"{name} on {n7} all-coated {label} lanes: the yardstick's bits and step counts "
                 f"({n_steps} "
-                f"{'steps' if name == 'layered_f' else 'reached the base'}); kernel "
+                f"{'reached the base' if name == 'layered_pdf' else 'steps'}); kernel "
                 f"{turns[1]:.4f} / {turns[2]:.4f} ms, yardstick {turns[0]:.4f} / {turns[3]:.4f} "
                 f"ms in turns, speed-up {ms_y / ms_k:.3f}x")
 
@@ -1135,15 +1167,15 @@ def main():
     b_tb.filter = {"type": "box"}
     s_tb32, m_tb32 = compile_scene(b_tb, 4, device=dev)
     k7 = ("layered_f", "layered_sample", "layered_pdf")
-    k7_yard = ("layered_f_lane", "layered_pdf_lane")
+    k7_yard = ("layered_f_lane", "layered_pdf_lane", "layered_sample_lane")
     reset_counts()
     img_t, st_t = rd.render(s_tb32, m_tb32, return_stats=True)
     counts = {k: v for k, v in read_counts().items() if v}
     require(all(counts.get(k, 0) > 0 for k in k7) and not any(counts.get(k) for k in k7_yard),
             "K7 not launched, or its yardsticks launched", counts)
-    # the same frame with layered_f and layered_pdf pointed at their
-    # yardsticks (the kernels as first written): the same film bits and rays
-    swapped = {k: getattr(layered, f"{k}_cuda") for k in ("layered_f", "layered_pdf")}
+    # the same frame with K7's entries pointed at their yardsticks (the
+    # kernels as first written): the same film bits and rays
+    swapped = {k: getattr(layered, f"{k}_cuda") for k in k7}
     for k in swapped:
         setattr(layered, f"{k}_cuda", getattr(layered, f"{k}_lane_cuda"))
     try:
@@ -1154,11 +1186,11 @@ def main():
         for k, fn in swapped.items():
             setattr(layered, f"{k}_cuda", fn)
     require(torch.equal(img_t, img_y) and st_t == st_y and all(counts_y.get(k) for k in k7_yard)
-            and not any(counts_y.get(k) for k in ("layered_f", "layered_pdf")),
+            and not any(counts_y.get(k) for k in k7),
             "material-testball 32^2 x 4: the redesigned K7 and its yardsticks render apart",
             st_t, st_y, counts_y)
-    log(f"material-testball 32^2 x 4 spp box rendered again with layered_f and layered_pdf "
-        f"pointed at their yardsticks (launches {counts_y}): the same image bits and rays "
+    log(f"material-testball 32^2 x 4 spp box rendered again with layered_f, layered_sample "
+        f"and layered_pdf pointed at their yardsticks (launches {counts_y}): the same image bits and rays "
         f"{ {k: int(v) for k, v in st_t.items()} }")
     img_gpu = img_t.cpu().numpy()
     img_cpu = rd.render(s_tb32, m_tb32, device="cpu").numpy()
@@ -1239,13 +1271,16 @@ def main():
     ]
     captured = {}
     # the K1 launches whose third call is kept too: the bounce rays; and
-    # K6's third bounce (terrain: the wavefront loop's third iteration)
-    K6 = ("path_rr", "path_shade", "path_resolve")
+    # K6's third bounce (terrain: the wavefront loop's third iteration);
+    # every shading and layered_sample launch of staircase's first wave
+    # (its bounces, replayed in phase 9 for a frame's totals)
+    K6 = ("path_rr", "path_shade", "path_bsdf", "path_resolve")
     K6C = K6 + ("path_coat",)
     third = {("cornell_mesh", "bvh_closest_hit"), ("cornell_mesh", "bvh_any_hit"),
              ("staircase", "bvh_closest_hit"), ("staircase", "bvh_any_hit")} | {
         (tag, k) for tag in ("cornell_mesh", "cornell", "terrain") for k in K6} | {
         (tag, k) for tag in ("staircase", "testball") for k in K6C}
+    wave_kept = {("staircase", "path_shade"), ("staircase", "layered_sample")}
     n_calls = {}
 
     clone = path_cases.clone
@@ -1262,8 +1297,9 @@ def main():
                 first_args = captured.setdefault(tag, {})
                 key = _key(a, k)
                 n = n_calls[tag, key] = n_calls.get((tag, key), 0) + 1
-                if n == 1 or (n == 3 and (tag, key) in third):
-                    first_args[key if n == 1 else f"{key}#3"] = (
+                if n == 1 or (n == 3 and (tag, key) in third) or (
+                        (tag, key) in wave_kept and n <= mt.max_depth):
+                    first_args[key if n == 1 else f"{key}#{n}"] = (
                         tuple(clone(x) for x in a), {m: clone(v) for m, v in k.items()}, _orig)
                 return _orig(*a, **k)
 
@@ -1294,8 +1330,9 @@ def main():
         path_rr, path_shade and path_resolve max_depth a wave on the batched
         loop (closed, scene-sharded, coated frames), one an iteration on the
         wavefront loop (as many as K8's), max_depth an evaluation of an
-        mltpath frame; path_coat as often where the scene has coated
-        materials, else none; BDPT and MLT over BDPT none of them."""
+        mltpath frame (path_shade and path_bsdf each); path_coat as often
+        where the scene has coated materials, else none; BDPT and MLT over
+        BDPT none of them; the shading yardstick path_shade_lane never."""
         if mt.integrator == "mltpath":
             n = mt.max_depth * mlt_evals["n"]
         elif mt.integrator not in bd.PATH_INTEGRATORS or pth.step_route(dev, mt) != "cuda":
@@ -1305,7 +1342,7 @@ def main():
         else:
             n = mt.max_depth * sum(1 for _ in rd.wave_lanes(
                 mt.resolution[0] * mt.resolution[1], mt.spp, "cpu"))
-        return dict(dict.fromkeys(K6, n), path_coat=n if mt.layered else 0)
+        return dict(dict.fromkeys(K6, n), path_coat=n if mt.layered else 0, path_shade_lane=0)
 
     def full_render(tag, sc, mt, must, **kw):
         """The measured render of a full-width frame, its kernels'
@@ -1328,7 +1365,7 @@ def main():
                 tag, "non-finite pixels")
         require(all(counts.get(k, 0) > 0 for k in must), tag, "kernel not launched", counts)
         want_k6 = k6_launches(sc, mt, counts, kw)
-        got_k6 = {k: counts.get(k, 0) for k in K6C}
+        got_k6 = {k: counts.get(k, 0) for k in K6C + ("path_shade_lane",)}
         require(got_k6 == want_k6, tag, "K6 launches", got_k6, "expected", want_k6)
         for k in must:  # a kernel on several paths: counted on its first
             main_counts.setdefault(k, counts[k])
@@ -1455,7 +1492,7 @@ def main():
         want = {"layered_f": waves * mt.max_depth, "layered_sample": waves * mt.max_depth,
                 "layered_pdf": 2 * waves * mt.max_depth}
         got = {k: main_counts_frame.get(k, 0) for k in k7 + k7_yard}
-        require(got == dict(want, layered_f_lane=0, layered_pdf_lane=0), tag, "K7 launches",
+        require(got == dict(want, **dict.fromkeys(k7_yard, 0)), tag, "K7 launches",
                 got, "expected", want)
         log(f"{tag}: K7 launches as expected {want} ({waves} waves x max depth "
             f"{mt.max_depth}), its yardsticks none")
@@ -1804,18 +1841,24 @@ def main():
                 "path_resolve": (pth.resolve_cuda, pth.resolve_plain,
                                  path_cases.compare_resolve)}
     k6_err = dict.fromkeys(K6C, 0.0)
+    # the fields whose largest error each kernel's line reports (else L)
+    K6_ERR_FIELDS = {"path_coat": ("beta", "ld"), "path_bsdf": ("beta",)}
 
     def k6_check(label, reps):
         for name, rep_ in reps.items():
             require(rep_.ok(), "K6", name, label, str(rep_))
+            name = {"path_shade.light": "path_shade", "path_shade.bsdf": "path_bsdf",
+                    "path_shade": None}.get(name, name)
             if name in k6_err:
-                k6_err[name] = max(k6_err[name], *(rep_.max_abs.get(f, 0.0) for f in (
-                    ("beta", "ld") if name == "path_coat" else ("L",))))
+                k6_err[name] = max(k6_err[name], *(rep_.max_abs.get(f, 0.0) for f in
+                                                   K6_ERR_FIELDS.get(name, ("L",))))
         log(f"K6 against its plain parts on {label}: "
             + "; ".join(f"{n} {r}" for n, r in reps.items()))
 
     kernel_parts = tuple(v[0] for v in k6_parts.values())
     plain_parts = tuple(v[1] for v in k6_parts.values())
+    # path_shade and path_bsdf, each alone against its part of shade_plain
+    shade_split = path_cases.shade_parts()
     for skind, coated, mlt_d in (("independent", False, None), ("stratified", False, None),
                                  ("independent", True, None), ("mlt", False, 6),
                                  ("mlt", True, 30)):
@@ -1826,7 +1869,7 @@ def main():
         for n_l in (1 << 18, 1000):
             st_pc = path_cases.synthetic_state(s_pc, m_pc, n_l, 5, mlt_d=mlt_d)
             reps, seen = path_cases.compare_parts(s_pc, m_pc, st_pc, skind, spp_pc,
-                                                  kernel_parts, plain_parts)
+                                                  kernel_parts, plain_parts, shade_split)
             label = (f"path_cases' synthetic lanes ({skind}{f' D {mlt_d}' if mlt_d else ''}"
                      f"{', coated scene' if coated else ''}, {seen})")
             if coated or mlt_d:
@@ -1837,11 +1880,21 @@ def main():
                 reps = {f"path_{k}": v for k, v in reps.items()}
             k6_check(label, reps)
     k6_scenes = {"staircase": (s_st, m_st), "testball": (s_tb, m_tb)}
+    shade_yard = {}
     for tag in ("cornell_mesh", "cornell", "terrain", "staircase", "testball"):
         for nth, which in (("", "first"), ("#3", "third")):
             reps = {name: cmp(first(tag, name + nth)[0], kern, plain)
                     for name, (kern, plain, cmp) in k6_parts.items()
                     if name + nth in captured[tag]}
+            args_ = first(tag, "path_shade" + nth)[0]
+            for part, (kern, plain) in zip(("light", "bsdf"), shade_split):
+                reps[f"path_shade.{part}"] = path_cases.compare_shade(args_, kern, plain, part)
+            # path_shade and path_bsdf against their yardstick's bits
+            bits = path_cases.shade_bits(pth.shade_cuda(*args_), pth.shade_lane_cuda(*args_))
+            require(all(v == 1.0 for v in bits.values()), tag, which, "path_shade and path_bsdf "
+                    "differ from the yardstick path_shade_lane",
+                    {k: v for k, v in bits.items() if v != 1.0})
+            shade_yard[f"{tag} {which}"] = len(bits)
             if tag in k6_scenes:
                 # the whole coated bounce from the captured input state
                 sc_, mt_ = k6_scenes[tag]
@@ -1851,6 +1904,10 @@ def main():
                 reps["whole bounce"] = rep_b
             k6_check(f"{tag}'s {which} bounce ({first(tag, 'path_rr' + nth)[0][1].o.shape[0]} "
                      f"lanes{f', {n_coat} coated' if tag in k6_scenes else ''})", reps)
+
+    log(f"path_shade and path_bsdf against their yardstick path_shade_lane (shading as first "
+        f"written) on the first and third bounces of {sorted(shade_yard)}: every output of "
+        f"every lane the same bits ({max(shade_yard.values())} fields)")
 
     def k6_work(name, args_):
         """(bytes, float ops, what was counted) of one K6 launch: each input
@@ -1863,8 +1920,14 @@ def main():
             smp_b = 24 + (16 if skind_ == "stratified" else 0)
             return (R * (25 + 41) + n_due * smp_b + 16, n_due * K6_OPS["rr"],
                     f"{n_due} due for RR")
-        if name == "path_shade":
-            sc_, meta_, st, hit, skind_, _ = args_
+        if name.startswith("path_shade") or name == "path_bsdf":
+            # the function (path_shade and path_bsdf together; "path_shade"
+            # and "path_bsdf" alone: the inputs only path_bsdf reads (the
+            # sampler's state and dimension on every lane, its stream on the
+            # shading lanes) and the outputs it writes (BSDF_FIELDS, the
+            # coated lanes' uc and u2) are its share, the rest path_shade's:
+            # the two shares sum to the function's)
+            sc_, meta_, st, hit, skind_, _ = args_[:6]
             R = st.o.shape[0]
             hits = st.active & hit.valid
             shade = hits & (hit.mat >= 0)
@@ -1883,10 +1946,21 @@ def main():
             # thickness, g, albedo: 184), wo, the light's wi, uc, u2 and the
             # light sample (58); every lane of a coated scene its two masks
             coat_b = (n_c * (184 + 58) + 2 * R) if meta_.layered else 0
-            return (R * (139 + 167) + n_h * 52 + n_s * smp_b + rows + coat_b,
-                    n_s * K6_OPS["shade"] + n_e * K6_OPS["emit"] + n_x * K6_OPS["escape"]
-                    + n_c * K6_OPS["layer"],
-                    f"{n_s} shading, {n_e} emitter hits, {n_x} escaped, {n_c} coated")
+            work = f"{n_s} shading, {n_e} emitter hits, {n_x} escaped, {n_c} coated"
+            ops_b = n_s * K6_OPS["shade_bsdf"]
+            ops = (n_s * K6_OPS["shade"] + n_e * K6_OPS["emit"] + n_x * K6_OPS["escape"]
+                   + n_c * K6_OPS["layer"])
+            # path_bsdf: the sampler state and dimension in (16) and the
+            # next state's o, d, beta, sampler state and dimension, flags
+            # and pdf out (62) on every lane, the stream on shading lanes, a
+            # coated lane's uc and u2 (12)
+            bsdf_b = R * (16 + 62) + n_s * smp_b + (n_c * 12 if meta_.layered else 0)
+            whole = R * (139 + 167) + n_h * 52 + n_s * smp_b + rows + coat_b
+            if name == "path_shade_pair":
+                return whole, ops, work
+            if name == "path_bsdf":
+                return bsdf_b, ops_b, work
+            return whole - bsdf_b, ops - ops_b, work
         if name == "path_coat":
             sc_, st, pend, lanes_, f_, pdf_, smp_ = args_
             R = st.o.shape[0]
@@ -1931,8 +2005,8 @@ def main():
         """K6 kernel `name` at the frame's first bounce: graph-timed, its
         plain part with CUDA events, its bound -> the timing record. coat's
         arguments are copied once: its in-place update is the same on every
-        call."""
-        args_ = first(tag, name)[0]
+        call; path_bsdf's are path_shade's."""
+        args_ = first(tag, "path_shade" if name == "path_bsdf" else name)[0]
         if name == "path_coat":
             args_ = (args_[0], path_cases.clone(args_[1]), path_cases.clone(args_[2])) + args_[3:]
         ms, call = kernel_ms(lambda: kern(*args_))
@@ -1943,17 +2017,59 @@ def main():
         log(f"{name} at {tag}'s first bounce ({n_lanes} lanes, {work}): kernel "
             f"{ms:.4f} ms (host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound "
             f"{b[0]:.5f} ms ({b[1]}: {n_bytes} bytes, {n_ops} ops), {ms / b[0]:.1f}x it; max abs "
-            f"err of {'beta and ld' if name == 'path_coat' else 'L'} over the comparisons "
+            f"err of {K6_ERR_FIELDS.get(name, ('L',))} over the comparisons "
             f"{k6_err[name]:.3e}")
         return dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], library_ms=None,
                     max_abs_err=k6_err[name], host_paced_ms=call, bytes=n_bytes, ops=n_ops)
 
-    for name, (kern, plain, _) in k6_parts.items():
+    def shade_turns(key, tag):
+        """path_shade and path_bsdf (shade_cuda) timed in turns with their
+        yardstick path_shade_lane (yardstick, kernels, kernels, yardstick;
+        graph replays) on the shading launch `key` of frame `tag` ->
+        (kernels ms, yardstick ms, the four turns)."""
+        args_ = first(tag, key)[0]
+        turns = [graph_ms(lambda f=f: f(*args_)) for f in (
+            pth.shade_lane_cuda, pth.shade_cuda, pth.shade_cuda, pth.shade_lane_cuda)]
+        return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
+
+    timed_parts = dict(k6_parts, path_shade=(shade_split[0][0], shade_split[0][1], None),
+                       path_bsdf=(shade_split[1][0], shade_split[1][1], None))
+    for name, (kern, plain, _) in timed_parts.items():
         if name == "path_coat":
             timing[name] = k6_timed("staircase", name, kern, plain)
         else:
             timing[name] = k6_timed("cornell_mesh", name, kern, plain)
             timing[name]["staircase"] = k6_timed("staircase", name, kern, plain)
+    # the two shading kernels together against their yardstick, beside the
+    # function's bound, at the first bounces of cornell-mesh and staircase
+    # (targets: <= 0.21 and <= 0.28 ms), then over staircase's first wave
+    # (every bounce), times its waves: the replayed frame's total
+    for tag, target in (("cornell_mesh", 0.21), ("staircase", 0.28)):
+        ms_k, ms_y, turns = shade_turns("path_shade", tag)
+        n_bytes, n_ops, work = k6_work("path_shade_pair", first(tag, "path_shade")[0])
+        b = bound(n_bytes, n_ops)
+        timing["path_shade"][f"{tag} pair"] = dict(
+            ms=ms_k, yardstick_ms=ms_y, turns=turns, bound_ms=b[0], bound_by=b[1],
+            bytes=n_bytes, ops=n_ops, share_of_bound=b[0] / ms_k, target_ms=target)
+        log(f"path_shade + path_bsdf at {tag}'s first bounce ({work}): {turns[1]:.4f} / "
+            f"{turns[2]:.4f} ms, yardstick path_shade_lane {turns[0]:.4f} / {turns[3]:.4f} ms in "
+            f"turns, speed-up {ms_y / ms_k:.3f}x; the function's bound {b[0]:.5f} ms ({b[1]}: "
+            f"{n_bytes} bytes), {b[0] / ms_k:.1%} of it reached (yardstick {b[0] / ms_y:.1%}); "
+            f"target <= {target} ms: {'met' if ms_k <= target else 'missed'}")
+    waves_st = sum(1 for _ in rd.wave_lanes(m_st.resolution[0] * m_st.resolution[1], m_st.spp,
+                                            "cpu"))
+    replay = {"kernels": 0.0, "yardstick": 0.0}
+    for n in range(1, m_st.max_depth + 1):
+        ms_k, ms_y, _ = shade_turns("path_shade" if n == 1 else f"path_shade#{n}", "staircase")
+        replay["kernels"] += ms_k
+        replay["yardstick"] += ms_y
+    timing["path_shade"]["staircase_frame_replayed"] = {
+        k: v * waves_st for k, v in replay.items()}
+    log(f"path_shade + path_bsdf over staircase's first wave ({m_st.max_depth} bounces, in turns "
+        f"with the yardstick a bounce): {replay['kernels']:.3f} ms, yardstick "
+        f"{replay['yardstick']:.3f} ms; x{waves_st} waves: a frame's "
+        f"{waves_st * m_st.max_depth} launches of each {replay['kernels'] * waves_st:.2f} ms, "
+        f"yardstick {replay['yardstick'] * waves_st:.2f} ms")
     for tag, label in (("bounce", "cornell-mesh's first wave"),
                        ("staircase bounce", "staircase's first wave")):
         kb = {r: k6_prof[f"{tag} {r}"] for r in ("plain", "cuda")}
@@ -2032,10 +2148,12 @@ def main():
     (ROOT / "chiprun_out" / "k6_frames.json").write_text(json.dumps(k6_frames_out, indent=1))
 
     # K7 on its first launches in the coated frames: against the plain
-    # version on the coated lanes of both; layered_f and layered_pdf also
-    # against their yardsticks' bits and step counts, and timed in turns
-    # with the yardstick on both launches; the kernels line takes
-    # staircase's (2^20 lanes)
+    # version on the coated lanes of both, against their yardsticks' bits
+    # and step counts, and timed in turns with the yardstick on both
+    # launches (layered_sample: the share of coated lanes whose sample
+    # reflects at the coat, which its set-up pass writes at once); the
+    # kernels line takes staircase's (2^20 lanes); then layered_sample over
+    # staircase's first wave, times its waves
     for name in ("layered_f", "layered_sample", "layered_pdf"):
         cuda_fn = getattr(layered, f"{name}_cuda")
         plain_fn = getattr(layered, f"{name}_plain")
@@ -2045,25 +2163,26 @@ def main():
             res = compare_layered(name, p_, args_, mask_)
             log(f"{name} vs plain on {tag}'s first launch ({args_[0].shape[0]} lanes, the "
                 f"coated ones compared): {agreement(res)}")
-            if name == "layered_sample":
-                continue
             n_steps = k7_yardstick(name, p_, args_, mask_, tag)
             ms_k, ms_y, turns = k7_turns(name, p_, args_, mask_)
             launches_k7[tag] = dict(ms=ms_k, yardstick_ms=ms_y, turns=turns, lanes=mask_.numel(),
                                     coated=int(mask_.sum()), steps=n_steps)
+            at_once = ""
+            if name == "layered_sample":
+                walks = layered.layered_sample_setup_plain(p_, *args_)[0][mask_]
+                launches_k7[tag]["reflect_at_once"] = share = 1 - float(walks.double().mean())
+                at_once = (f"; {share:.2%} of the coated lanes' samples reflect at the coat (the "
+                           f"set-up pass writes them), {int(walks.sum())} walk")
             log(f"{name} on {tag}'s first launch: the yardstick's bits and step counts "
                 f"({n_steps}); kernel {turns[1]:.4f} / {turns[2]:.4f} ms, yardstick "
-                f"{turns[0]:.4f} / {turns[3]:.4f} ms in turns, speed-up {ms_y / ms_k:.3f}x")
+                f"{turns[0]:.4f} / {turns[3]:.4f} ms in turns, speed-up {ms_y / ms_k:.3f}x"
+                f"{at_once}")
         R_, n_live = args_[0].shape[0], int(mask_.sum())
         steps = torch.zeros(1, dtype=torch.int64, device=dev)
         cuda_fn(p_, *args_, mask_, steps)
         n_steps = int(steps.item())
-        if name == "layered_sample":
-            ms, call = kernel_ms(lambda: cuda_fn(p_, *args_, mask_))
-            ms_y = None
-        else:
-            ms, ms_y = launches_k7["staircase"]["ms"], launches_k7["staircase"]["yardstick_ms"]
-            call = events_ms(lambda: cuda_fn(p_, *args_, mask_), 50)
+        ms, ms_y = launches_k7["staircase"]["ms"], launches_k7["staircase"]["yardstick_ms"]
+        call = events_ms(lambda: cuda_fn(p_, *args_, mask_), 50)
         ms_plain = events_ms(lambda: plain_fn(p_, *args_), 1)
         n_bytes, read = k7_bytes(name, p_, args_, mask_)
         lane_ops, step_ops = LAYERED_OPS[name]
@@ -2078,16 +2197,32 @@ def main():
         timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
                             library_ms=None, max_abs_err=max(res["max_abs_err"],
                                                              layered_err[name]))
-        if ms_y is not None:
-            timing[name].update(yardstick_ms=ms_y, host_paced_ms=call,
-                                launches_timed=launches_k7,
-                                synthetic={k: v for k, v in k7_synthetic.items()
-                                           if k.startswith(name + " ")})
+        timing[name].update(yardstick_ms=ms_y, host_paced_ms=call, launches_timed=launches_k7,
+                            synthetic={k: v for k, v in k7_synthetic.items()
+                                       if k.startswith(name + " ")})
         log(f"{name} at the main path's launch (staircase, {R_} lanes, {n_live} coated, "
-            f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms)"
-            + (f", yardstick {ms_y:.4f} ms in turns" if ms_y is not None else "")
-            + f", plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}: {n_bytes} bytes)")
-    slower = [(n_, t_) for n_ in ("layered_f", "layered_pdf")
+            f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms), yardstick {ms_y:.4f} ms "
+            f"in turns, plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}: {n_bytes} bytes), "
+            f"{b[0] / ms:.1%} of it reached"
+            + (" (target <= 0.065 ms: " + ("met)" if ms <= 0.065 else "missed)")
+               if name == "layered_sample" else ""))
+    replay = {"kernel": 0.0, "yardstick": 0.0}
+    for n in range(1, m_st.max_depth + 1):
+        (p_, *args_, mask_), _, _ = first("staircase", "layered_sample" if n == 1
+                                          else f"layered_sample#{n}")
+        k7_yardstick("layered_sample", p_, args_, mask_, f"staircase's bounce {n}")
+        ms_k, ms_y, _ = k7_turns("layered_sample", p_, args_, mask_)
+        replay["kernel"] += ms_k
+        replay["yardstick"] += ms_y
+    timing["layered_sample"]["staircase_frame_replayed"] = {
+        k: v * waves_st for k, v in replay.items()}
+    log(f"layered_sample over staircase's first wave ({m_st.max_depth} launches, each the "
+        f"yardstick's bits, in turns with it): {replay['kernel']:.3f} ms, yardstick "
+        f"{replay['yardstick']:.3f} ms; x{waves_st} waves: a frame's "
+        f"{waves_st * m_st.max_depth} launches {replay['kernel'] * waves_st:.2f} ms (target <= "
+        f"13 ms: {'met' if replay['kernel'] * waves_st <= 13 else 'missed'}), yardstick "
+        f"{replay['yardstick'] * waves_st:.2f} ms")
+    slower = [(n_, t_) for n_ in k7
               for t_, v in list(timing[n_]["launches_timed"].items())
               + list(timing[n_]["synthetic"].items()) if v["ms"] > v["yardstick_ms"]]
     log(f"K7 launches slower than the yardstick: {slower or 'none'}")
@@ -3078,6 +3213,8 @@ def main():
                     "pbrt_tpu/integrators/path.py:193"),
         "path_shade": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
                        "pbrt_tpu/integrators/path.py:193"),
+        "path_bsdf": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                      "pbrt_tpu/integrators/path.py:193"),
         "path_coat": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
                       "pbrt_tpu/integrators/path.py:193"),
         "path_resolve": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",

@@ -33,21 +33,27 @@
 // hundred float operations (two to four BxDF evaluations and samples, each
 // with Trowbridge-Reitz terms and Fresnel), and a lane takes a few steps.
 //
-// layered_sample: one thread per lane over all n lanes, the walk a real loop
-// (as first written). layered_f and layered_pdf, redesigned for Hopper.
-// Read on the kernels as first written (PERF.md §6): (1) on a
+// All three redesigned for Hopper. Read on the kernels as first written
+// (PERF.md §6): (1) on a
 // render's wave the coated lanes are a third of all and cluster, so half
 // the warps carry none and the others ~24 of 32; (2) half of layered_f's
 // coated lanes never start a walk (wo and wi on opposite sides of a
 // reflecting base), yet a warp lasted as long as its longest walk; (3) the
-// walk's two BxDFs, picked by reference, and the library's sinf/cosf kept
-// a local-memory stack frame; (4) every interface field was read, whatever
-// the kind. Here:
+// walk's two BxDFs, picked by reference (layered_sample's by value), and
+// the library's sinf/cosf kept a local-memory stack frame; (4) every
+// interface field was read, whatever the kind. Here:
 //  - layered_f in two passes: every coated walk set up, one thread per lane
 //    (f_enter_kernel), the walks that start listed; then only those, 32 a
 //    warp, set up again and stepped together to the end (f_walk_kernel):
 //    no warp carries a lane that does not walk, and the 32 walks of a warp
 //    take the same branch step by step.
+//  - layered_sample in two passes too: every coated lane's top interface
+//    sampled, one thread per lane (sample_enter_kernel), a lane whose
+//    sample reflects there (or fails) written at once, the others listed
+//    with their walk's start (a 64-byte hand-off at their place in the
+//    list); then only those, 32 a warp, stepped together to the end
+//    (sample_walk_kernel), which neither samples the top again nor reads
+//    wo, uc and u2.
 //  - Each slot's two interfaces staged in shared memory (a 21-word stride:
 //    a warp's slots hit 32 banks), picked as exit or non-exit interface by
 //    address; the samplers' sines and cosines without the library's
@@ -98,26 +104,8 @@ using namespace pbrt_bxdf;
 
 constexpr int THREADS = 128;
 
-__device__ __forceinline__ S4 load4(const float* p, int i) {
-  const float4 v = reinterpret_cast<const float4*>(p)[i];
-  return {{v.x, v.y, v.z, v.w}};
-}
-
 __device__ __forceinline__ V3 load3(const float* p, int i) {
   return {p[3 * i], p[3 * i + 1], p[3 * i + 2]};
-}
-
-__device__ __forceinline__ Bxdf load_bxdf(const BxdfPtrs& p, int i) {
-  Bxdf b;
-  b.kind = p.kind[i];
-  b.refl = load4(p.refl, i);
-  b.trans = load4(p.trans, i);
-  b.eta_re = load4(p.eta_re, i);
-  b.eta_im = load4(p.eta_im, i);
-  b.eta = p.eta[i];
-  b.ax = p.ax[i];
-  b.ay = p.ay[i];
-  return b;
 }
 
 // the walk's uniform draw: the stream's float clamped to 1 - 1e-7 (`_r1`)
@@ -135,142 +123,8 @@ __device__ __forceinline__ bool ok(const BSample& s) {
   return s.valid && any_pos(s.f) && s.pdf > 0.f && s.wi.z != 0.f;
 }
 
-// one lane of layered_sample (layered_bxdf.h:247-372); -> walk steps taken
-__device__ int layered_sample_lane(const LayeredArgs& a, int i, V3 wo, float uc, float u0,
-                                   float u1, BSample& out) {
-  const Bxdf top = load_bxdf(a.top, i), bot = load_bxdf(a.bottom, i);
-  const float thick = a.thickness[i], g = a.g[i];
-  const S4 albedo = load4(a.albedo, i);
-  const bool flip = wo.z < 0.f;
-  const V3 wof = flip ? neg(wo) : wo;
-
-  const BSample bs0 = bxdf_sample(top, wof, uc, u0, u1, true, true, true);
-  const bool ok0 = ok(bs0);
-  const bool refl0 = (bs0.flags & F_TRANSMISSION) == 0;
-  out.eta = 1.f;
-  if (ok0 && refl0) {  // immediate reflection exits at once
-    out.f = bs0.f;
-    out.wi = flip ? neg(bs0.wi) : bs0.wi;
-    out.pdf = bs0.pdf;
-    out.flags = bs0.flags;
-    out.valid = true;
-    return 0;
-  }
-  // transmitted into the layer: random walk
-  S4 f_cur = bs0.f * fabsf(bs0.wi.z);
-  float pdf_cur = bs0.pdf;
-  bool spec_path = (bs0.flags & F_SPECULAR) != 0;
-  V3 w = bs0.wi;
-  float z = thick;
-  const bool has_albedo = any_pos(albedo);
-  bool done = false;
-  S4 exit_f = s4(0.f);
-  V3 exit_wi = w;
-  float exit_pdf = 1.f;
-  bool exit_spec = spec_path;
-
-  int steps = 0;
-  if (ok0) {
-    Pcg32 r = pcg32_set_sequence(
-        hash_v3(wof), murmur64a_3(__float_as_uint(uc), __float_as_uint(u0), __float_as_uint(u1)));
-    for (int depth = 0; depth < a.max_depth; ++depth) {
-      ++steps;
-      const float rr_beta = max4(f_cur) / fmaxf(pdf_cur, 1e-12f);
-      const float u_rr = r1(r);
-      if (depth > 3 && rr_beta < 0.25f) {
-        const float q = fmaxf(0.f, 1.f - rr_beta);
-        if (u_rr < q) break;
-        pdf_cur = pdf_cur * (1.f - q);
-      }
-      if (w.z == 0.f) break;
-      // medium
-      const float u_d = r1(r);
-      const float dz = -log1pf(-u_d) * fabsf(w.z);
-      const float zp = w.z > 0.f ? z + dz : z - dz;
-      const bool scatter = has_albedo && zp > 0.f && zp < thick;
-      const float uph0 = r1(r), uph1 = r1(r);
-      const float uci = r1(r), ui0 = r1(r), ui1 = r1(r);
-      if (scatter) {
-        V3 wi_ph;
-        const float pdf_ph = sample_henyey_greenstein(neg(w), g, uph0, uph1, wi_ph);
-        if (!(pdf_ph > 0.f && wi_ph.z != 0.f)) break;
-        f_cur = (f_cur * albedo) * pdf_ph;
-        pdf_cur = pdf_cur * pdf_ph;
-        spec_path = false;
-        w = wi_ph;
-        z = zp;
-        continue;
-      }
-      // boundary advance and the interface sample there
-      const S4 f_bnd = has_albedo ? f_cur : f_cur * tr(thick, w);
-      const float z_bnd = has_albedo ? clampf(zp, 0.f, thick) : (z == thick ? 0.f : thick);
-      const BSample bs = bxdf_sample(z_bnd == 0.f ? bot : top, neg(w), uci, ui0, ui1, true,
-                                     true, true);
-      if (!ok(bs)) break;
-      const S4 f_if = f_bnd * bs.f;
-      const float pdf_if = pdf_cur * bs.pdf;
-      const bool spec_if = spec_path && (bs.flags & F_SPECULAR) != 0;
-      if (bs.flags & F_TRANSMISSION) {  // leaves the layer: the sample
-        done = true;
-        exit_f = f_if;
-        exit_wi = bs.wi;
-        exit_pdf = pdf_if;
-        exit_spec = spec_if;
-        break;
-      }
-      f_cur = f_if * fabsf(bs.wi.z);
-      pdf_cur = pdf_if;
-      spec_path = spec_if;
-      w = bs.wi;
-      z = z_bnd;
-    }
-  }
-  out.f = exit_f;
-  out.wi = flip ? neg(exit_wi) : exit_wi;
-  out.pdf = exit_pdf;
-  out.flags = (wof.z * exit_wi.z > 0.f ? F_REFLECTION : F_TRANSMISSION) |
-              (exit_spec ? F_SPECULAR : F_GLOSSY);
-  out.valid = done;
-  return steps;
-}
-
 __device__ __forceinline__ bool lane_live(const LayeredArgs& a, int i) {
   return i < a.n && (a.mask == nullptr || a.mask[i]);
-}
-
-// add the block's steps to the device counter
-__device__ __forceinline__ void count_steps(const LayeredArgs& a, int steps) {
-  if (a.steps == nullptr) return;
-  __shared__ unsigned long long block_steps;
-  if (threadIdx.x == 0) block_steps = 0;
-  __syncthreads();
-  if (steps) atomicAdd(&block_steps, (unsigned long long)steps);
-  __syncthreads();
-  if (threadIdx.x == 0 && block_steps) atomicAdd(a.steps, block_steps);
-}
-
-__global__ void __launch_bounds__(THREADS)
-layered_sample_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restrict__ uc,
-                      const float* __restrict__ u2, float* __restrict__ f,
-                      float* __restrict__ wi, float* __restrict__ pdf,
-                      float* __restrict__ eta, int* __restrict__ flags,
-                      uint8_t* __restrict__ valid) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  int steps = 0;
-  if (i < a.n) {
-    BSample s = {s4(0.f), {0.f, 0.f, 0.f}, 0.f, 1.f, 0, false};
-    if (lane_live(a, i))
-      steps = layered_sample_lane(a, i, load3(wo, i), uc[i], u2[2 * i], u2[2 * i + 1], s);
-    reinterpret_cast<float4*>(f)[i] = make_float4(s.f.v[0], s.f.v[1], s.f.v[2], s.f.v[3]);
-    wi[3 * i] = s.wi.x;
-    wi[3 * i + 1] = s.wi.y;
-    wi[3 * i + 2] = s.wi.z;
-    pdf[i] = s.pdf;
-    eta[i] = s.eta;
-    flags[i] = s.flags;
-    valid[i] = s.valid;
-  }
-  count_steps(a, steps);
 }
 
 int blocks(int n) { return (n + THREADS - 1) / THREADS; }
@@ -287,9 +141,8 @@ int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 // and steps its 32 walks together until the last one ends. So a warp of the
 // walk pass carries only lanes that walk, their walks start together and,
 // on the coated scenes' interfaces, take the same branch at each step (the
-// exit and the non-exit interface in turn). list_lane and over_listed are
-// the fetch layered_sample can adopt (its lanes that reflect at once need
-// no walk either).
+// exit and the non-exit interface in turn). layered_sample's passes use the
+// same fetch (below).
 //
 // Measured against this (PERF.md §6; tools/k7_designs.cu keeps the ticket
 // designs and tools/k7_designs.py times them), on the H100: compacting the
@@ -305,8 +158,9 @@ constexpr int F_BLOCKS = 4;      // f_walk_kernel blocks an SM (at most 128 regi
 constexpr unsigned FULL = 0xffffffffu;
 
 // Append lane i to list[] where `listed`, in any order, with one atomic on
-// *count a block. Every thread of the block calls it.
-__device__ __forceinline__ void list_lane(bool listed, int i, int* count, int* list) {
+// *count a block -> its place in the list (-1 where not listed). Every
+// thread of the block calls it.
+__device__ __forceinline__ int list_lane(bool listed, int i, int* count, int* list) {
   __shared__ int warp_n[THREADS / 32];
   __shared__ int block_at;
   const unsigned lane = threadIdx.x & 31, below = (1u << lane) - 1;
@@ -321,12 +175,14 @@ __device__ __forceinline__ void list_lane(bool listed, int i, int* count, int* l
   __syncthreads();
   int at = block_at;
   for (int k = 0; k < (int)(threadIdx.x >> 5); ++k) at += warp_n[k];
-  if (listed) list[at + __popc(w & below)] = i;
+  at += __popc(w & below);
+  if (listed) list[at] = i;
+  return listed ? at : -1;
 }
 
 // The listed lanes, list[0 .. work[0]), taken 32 at a time from the ticket
-// work[1]: body(i) for each, called by the whole warp with i = -1 on the
-// slots past the list's end.
+// work[1]: body(i, k) for each, lane i at place k of the list, called by
+// the whole warp with i = -1 on the slots past the list's end.
 template <class Body>
 __device__ __forceinline__ void over_listed(int* work, const int* list, Body body) {
   const unsigned lane = threadIdx.x & 31;
@@ -337,7 +193,7 @@ __device__ __forceinline__ void over_listed(int* work, const int* list, Body bod
     at = __shfl_sync(FULL, at, 0);
     if (at >= n) break;
     const int k = at + (int)lane;
-    body(k < n ? __ldcg(list + k) : -1);
+    body(k < n ? __ldcg(list + k) : -1, k);
   }
 }
 
@@ -554,7 +410,7 @@ f_walk_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restri
   Bxdf& top = staged[0][threadIdx.x].b;
   Bxdf& bot = staged[1][threadIdx.x].b;
   unsigned long long steps = 0;
-  over_listed(work, walkers, [&](int i) {
+  over_listed(work, walkers, [&](int i, int) {
     FWalk s;
     bool walking = i >= 0 && f_enter(a, i, wo, wi, top, bot, s);
     while (__any_sync(FULL, walking)) {
@@ -562,6 +418,254 @@ f_walk_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restri
     }
     if (i >= 0) {
       store_f(f, i, s.f);
+      steps += s.steps;
+    }
+  });
+  add_steps(a.steps, steps);
+}
+
+// ------------------------------------------------------- layered_sample
+//
+// layered_sample in two passes, as layered_f. The first (sample_enter_kernel,
+// one thread per lane) samples every coated lane's top interface at its
+// draws: a lane whose sample reflects there (or fails) writes its output at
+// once, the others, whose sample enters the layer, are listed, each with
+// its walk's start (Handoff) at its place in the list. The second
+// (sample_walk_kernel) takes the listed lanes 32 a warp, loads each walk's
+// start and stages both interfaces in shared memory, and steps the 32 walks
+// together until the last one ends, each step's interface picked by
+// address (the first-written kernel picked a whole Bxdf by value: a stack
+// frame). A lane's walk, its draws and its steps are those of the kernel as
+// first written (csrc/layered_lane.cu layered_sample_lane, the yardstick),
+// so its outputs are the same bits. On a render's wave ~92 % of the coated
+// lanes' samples enter the layer (the smooth-ish coat transmits most), so
+// the list saves few walks: the gain is the warps of the walk pass, which
+// carry only walking lanes (PERF.md §6).
+
+// A listed lane's walk between two steps (its interfaces staged in shared
+// memory): the throughput and pdf so far, the direction, height and step
+// count, the stream, the medium, the path's specular flag; where the walk
+// leaves the layer (done), f and pdf hold the sample's and exit_wi,
+// exit_spec its direction and flag.
+struct SWalk {
+  S4 f, albedo;
+  V3 w, exit_wi;
+  float pdf, z, thick, g, wo_z;
+  int steps;
+  Pcg32 r;
+  bool spec, exit_spec, done, has_albedo, flip;
+};
+
+// What the set-up pass hands a walk over (at the lane's place in the list,
+// 64 bytes): f, then w and pdf, then the stream, then wo.z and the flags
+// (specular, flipped), so that the walk pass neither samples the top again
+// nor reads wo, uc and u2
+struct Handoff {
+  float4 f, w_pdf;
+  ulonglong2 r;
+  float4 z_flags;
+};
+
+// Lane i's top sample (layered_bxdf.h:247-262) -> whether it enters the
+// layer (the walk starts: s set up but for the layer's thickness, g and
+// albedo); else its output in out
+__device__ __forceinline__ bool sample_enter(const LayeredArgs& a, int i, const float* wo_p,
+                                             const float* uc_p, const float* u2_p, Bxdf& top,
+                                             SWalk& s, BSample& out) {
+  load_needed(a.top, i, top);
+  const V3 wo = load3(wo_p, i);
+  const float uc = __ldg(uc_p + i), u0 = __ldg(u2_p + 2 * i), u1 = __ldg(u2_p + 2 * i + 1);
+  s.flip = wo.z < 0.f;
+  const V3 wof = s.flip ? neg(wo) : wo;
+  const BSample bs0 = bxdf_sample(top, wof, uc, u0, u1, true, true, true);
+  const bool ok0 = ok(bs0);
+  out.eta = 1.f;
+  if (ok0 && (bs0.flags & F_TRANSMISSION) == 0) {  // immediate reflection exits at once
+    out.f = bs0.f;
+    out.wi = s.flip ? neg(bs0.wi) : bs0.wi;
+    out.pdf = bs0.pdf;
+    out.flags = bs0.flags;
+    out.valid = true;
+    return false;
+  }
+  s.spec = (bs0.flags & F_SPECULAR) != 0;
+  if (!ok0) {  // no sample: no walk
+    out.f = s4(0.f);
+    out.wi = s.flip ? neg(bs0.wi) : bs0.wi;
+    out.pdf = 1.f;
+    out.flags = (wof.z * bs0.wi.z > 0.f ? F_REFLECTION : F_TRANSMISSION) |
+                (s.spec ? F_SPECULAR : F_GLOSSY);
+    out.valid = false;
+    return false;
+  }
+  // transmitted into the layer: the random walk
+  s.f = bs0.f * fabsf(bs0.wi.z);
+  s.pdf = bs0.pdf;
+  s.w = bs0.wi;
+  s.wo_z = wof.z;
+  s.r = pcg32_set_sequence(hash_v3(wof), murmur64a_3(__float_as_uint(uc), __float_as_uint(u0),
+                                                     __float_as_uint(u1)));
+  return true;
+}
+
+__device__ __forceinline__ void store_handoff(Handoff* h, int k, const SWalk& s) {
+  Handoff v;
+  v.f = make_float4(s.f.v[0], s.f.v[1], s.f.v[2], s.f.v[3]);
+  v.w_pdf = make_float4(s.w.x, s.w.y, s.w.z, s.pdf);
+  v.r = make_ulonglong2(s.r.state, s.r.inc);
+  v.z_flags = make_float4(s.wo_z, __int_as_float((s.spec ? 1 : 0) | (s.flip ? 2 : 0)), 0.f, 0.f);
+  h[k] = v;
+}
+
+// The walk of lane i from its hand-off at place k: its layer loaded, the
+// walk's start as the set-up pass left it
+__device__ __forceinline__ void load_walk(const LayeredArgs& a, int i, const Handoff* h, int k,
+                                          Bxdf& top, Bxdf& bot, SWalk& s) {
+  const float4 f = __ldcg(&h[k].f), w_pdf = __ldcg(&h[k].w_pdf), zf = __ldcg(&h[k].z_flags);
+  const ulonglong2 r = __ldcg(&h[k].r);
+  load_needed(a.top, i, top);
+  load_needed(a.bottom, i, bot);
+  s.f = {{f.x, f.y, f.z, f.w}};
+  s.w = {w_pdf.x, w_pdf.y, w_pdf.z};
+  s.pdf = w_pdf.w;
+  s.r = {r.x, r.y};
+  s.wo_z = zf.x;
+  const int flags = __float_as_int(zf.y);
+  s.spec = (flags & 1) != 0;
+  s.flip = (flags & 2) != 0;
+  s.exit_wi = s.w;
+  s.exit_spec = s.spec;
+  s.steps = 0;
+  s.done = false;
+  s.thick = __ldg(a.thickness + i);
+  s.g = __ldg(a.g + i);
+  s.albedo = ldg4(a.albedo, i);
+  s.has_albedo = any_pos(s.albedo);
+  s.z = s.thick;
+}
+
+// One step of the walk: the body of layered_sample_lane's loop, its
+// `break` a return of false -> whether the walk goes on
+__device__ __forceinline__ bool sample_step(const LayeredArgs& a, const Bxdf& top,
+                                            const Bxdf& bot, SWalk& s) {
+  const int depth = s.steps++;
+  const float rr_beta = max4(s.f) / fmaxf(s.pdf, 1e-12f);
+  const float u_rr = r1(s.r);
+  if (depth > 3 && rr_beta < 0.25f) {
+    const float q = fmaxf(0.f, 1.f - rr_beta);
+    if (u_rr < q) return false;
+    s.pdf = s.pdf * (1.f - q);
+  }
+  if (s.w.z == 0.f) return false;
+  // medium
+  const float u_d = r1(s.r);
+  const float dz = -log1pf(-u_d) * fabsf(s.w.z);
+  const float zp = s.w.z > 0.f ? s.z + dz : s.z - dz;
+  const bool scatter = s.has_albedo && zp > 0.f && zp < s.thick;
+  const float uph0 = r1(s.r), uph1 = r1(s.r);
+  const float uci = r1(s.r), ui0 = r1(s.r), ui1 = r1(s.r);
+  if (scatter) {
+    V3 wi_ph;
+    const float pdf_ph = sample_henyey_greenstein(neg(s.w), s.g, uph0, uph1, wi_ph);
+    if (!(pdf_ph > 0.f && wi_ph.z != 0.f)) return false;
+    s.f = (s.f * s.albedo) * pdf_ph;
+    s.pdf = s.pdf * pdf_ph;
+    s.spec = false;
+    s.w = wi_ph;
+    s.z = zp;
+    return s.steps < a.max_depth;
+  }
+  // boundary advance and the interface sample there
+  const S4 f_bnd = s.has_albedo ? s.f : s.f * tr(s.thick, s.w);
+  const float z_bnd =
+      s.has_albedo ? clampf(zp, 0.f, s.thick) : (s.z == s.thick ? 0.f : s.thick);
+  const BSample bs =
+      bxdf_sample(z_bnd == 0.f ? bot : top, neg(s.w), uci, ui0, ui1, true, true, true);
+  if (!ok(bs)) return false;
+  const S4 f_if = f_bnd * bs.f;
+  const float pdf_if = s.pdf * bs.pdf;
+  const bool spec_if = s.spec && (bs.flags & F_SPECULAR) != 0;
+  if (bs.flags & F_TRANSMISSION) {  // leaves the layer: the sample
+    s.done = true;
+    s.f = f_if;
+    s.pdf = pdf_if;
+    s.exit_wi = bs.wi;
+    s.exit_spec = spec_if;
+    return false;
+  }
+  s.f = f_if * fabsf(bs.wi.z);
+  s.pdf = pdf_if;
+  s.spec = spec_if;
+  s.w = bs.wi;
+  s.z = z_bnd;
+  return s.steps < a.max_depth;
+}
+
+__device__ __forceinline__ void store_sample(int i, const BSample& s, float* f, float* wi,
+                                             float* pdf, float* eta, int* flags,
+                                             uint8_t* valid) {
+  store_f(f, i, s.f);
+  wi[3 * i] = s.wi.x;
+  wi[3 * i + 1] = s.wi.y;
+  wi[3 * i + 2] = s.wi.z;
+  pdf[i] = s.pdf;
+  eta[i] = s.eta;
+  flags[i] = s.flags;
+  valid[i] = s.valid;
+}
+
+// the outputs of layered_sample (f, wi, pdf, eta, flags, valid)
+struct SampleOut {
+  float *f, *wi, *pdf, *eta;
+  int* flags;
+  uint8_t* valid;
+};
+
+// layered_sample, pass 1: every coated lane's top sampled; a lane whose
+// sample does not enter the layer writes its output (the others outside the
+// mask zeros), the others are listed in walkers[] (work[0] counts them) and
+// hand their walk's start over at their place in the list.
+__global__ void __launch_bounds__(THREADS)
+sample_enter_kernel(LayeredArgs a, const float* __restrict__ wo, const float* __restrict__ uc,
+                    const float* __restrict__ u2, SampleOut o, int* __restrict__ work,
+                    int* __restrict__ walkers, Handoff* __restrict__ handoff) {
+  __shared__ StagedBxdf staged[THREADS];
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  bool walks = false;
+  SWalk s;
+  if (i < a.n) {
+    BSample out = {s4(0.f), {0.f, 0.f, 0.f}, 0.f, 1.f, 0, false};
+    if (lane_live(a, i)) walks = sample_enter(a, i, wo, uc, u2, staged[threadIdx.x].b, s, out);
+    if (!walks) store_sample(i, out, o.f, o.wi, o.pdf, o.eta, o.flags, o.valid);
+  }
+  const int k = list_lane(walks, i, work, walkers);
+  if (walks) store_handoff(handoff, k, s);
+}
+
+// layered_sample, pass 2: the listed lanes, 32 a warp: each walk's start
+// and layer loaded (the layer staged), the walks stepped together until the
+// last has ended; each writes its output.
+__global__ void __launch_bounds__(THREADS, F_BLOCKS)
+sample_walk_kernel(LayeredArgs a, SampleOut o, int* __restrict__ work,
+                   const int* __restrict__ walkers, const Handoff* __restrict__ handoff) {
+  __shared__ StagedBxdf staged[2][THREADS];
+  Bxdf& top = staged[0][threadIdx.x].b;
+  Bxdf& bot = staged[1][threadIdx.x].b;
+  unsigned long long steps = 0;
+  over_listed(work, walkers, [&](int i, int k) {
+    SWalk s;
+    bool walking = i >= 0;
+    if (walking) load_walk(a, i, handoff, k, top, bot, s);
+    while (__any_sync(FULL, walking)) {
+      if (walking) walking = sample_step(a, top, bot, s);
+    }
+    if (i >= 0) {
+      const BSample out = {s.done ? s.f : s4(0.f), s.flip ? neg(s.exit_wi) : s.exit_wi,
+                           s.done ? s.pdf : 1.f, 1.f,
+                           (s.wo_z * s.exit_wi.z > 0.f ? F_REFLECTION : F_TRANSMISSION) |
+                               (s.exit_spec ? F_SPECULAR : F_GLOSSY),
+                           s.done};
+      store_sample(i, out, o.f, o.wi, o.pdf, o.eta, o.flags, o.valid);
       steps += s.steps;
     }
   });
@@ -694,12 +798,20 @@ extern "C" int pbrt_bxdf_trig_mismatches(float limit, unsigned long long* count,
   return (int)cudaGetLastError();
 }
 
-// f (n,4), wi (n,3), pdf (n,), eta (n,), flags (n,) int32, valid (n,) bool
+// f (n,4), wi (n,3), pdf (n,), eta (n,), flags (n,) int32, valid (n,) bool;
+// `work` and `walkers` as layered_f's; `handoff`: n x 64 bytes of scratch,
+// 16-byte aligned
 extern "C" int pbrt_layered_sample(const LayeredArgs* a, const float* wo, const float* uc,
                                    const float* u2, float* f, float* wi, float* pdf, float* eta,
-                                   int* flags, uint8_t* valid, void* stream) {
+                                   int* flags, uint8_t* valid, int* work, int* walkers,
+                                   void* handoff, void* stream) {
   if (a->n <= 0) return 0;
-  layered_sample_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(
-      *a, wo, uc, u2, f, wi, pdf, eta, flags, valid);
+  const cudaStream_t s = (cudaStream_t)stream;
+  static int walk_resident = 0;
+  const SampleOut o = {f, wi, pdf, eta, flags, valid};
+  Handoff* h = (Handoff*)handoff;
+  sample_enter_kernel<<<blocks(a->n), THREADS, 0, s>>>(*a, wo, uc, u2, o, work, walkers, h);
+  sample_walk_kernel<<<persistent_blocks(sample_walk_kernel, &walk_resident, a->n), THREADS, 0,
+                       s>>>(*a, o, work, walkers, h);
   return (int)cudaGetLastError();
 }

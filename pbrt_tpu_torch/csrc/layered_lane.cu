@@ -1,13 +1,15 @@
-// The yardstick of K7 `layered_f` and K7p `layered_pdf` (csrc/layered.cu):
-// the two entry points as first written, one thread per lane over
-// all n lanes, the lanes outside the mask writing zeros, and each walk a real
-// loop that keeps its warp until its last lane breaks out. Kept unchanged but
-// for its names (without layered_sample, which csrc/layered.cu keeps as it
-// was, and with the library's sinf and cosf, which csrc/bxdf.cuh no longer
-// calls by default) so that chip_smoke.py can hold the redesigned kernels to
-// its bits and time them in turns with it; no render path reaches it.
-//   pbrt_layered_f_lane    (materials/layered.py layered_f_lane_cuda)
-//   pbrt_layered_pdf_lane  (materials/layered.py layered_pdf_lane_cuda)
+// The yardstick of K7 `layered_f`, K7p `layered_pdf` and K7s
+// `layered_sample` (csrc/layered.cu): the three entry points as first
+// written, one thread per lane over all n lanes, the lanes outside the mask
+// writing zeros, and each walk a real loop that keeps its warp until its
+// last lane breaks out. Kept unchanged but for their names (and with the
+// library's sinf and cosf, which csrc/bxdf.cuh no longer calls by default:
+// the same bits below 105615, see sin_angle) so that chip_smoke.py can hold
+// the redesigned kernels to their bits and time them in turns with them; no
+// render path reaches them.
+//   pbrt_layered_f_lane       (materials/layered.py layered_f_lane_cuda)
+//   pbrt_layered_pdf_lane     (materials/layered.py layered_pdf_lane_cuda)
+//   pbrt_layered_sample_lane  (materials/layered.py layered_sample_lane_cuda)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -231,6 +233,105 @@ __device__ int layered_pdf_lane(const LayeredArgs& a, int i, V3 wo, V3 wi, float
   return base;
 }
 
+// one lane of layered_sample (layered_bxdf.h:247-372); -> walk steps taken
+__device__ int layered_sample_lane(const LayeredArgs& a, int i, V3 wo, float uc, float u0,
+                                   float u1, BSample& out) {
+  const Bxdf top = load_bxdf(a.top, i), bot = load_bxdf(a.bottom, i);
+  const float thick = a.thickness[i], g = a.g[i];
+  const S4 albedo = load4(a.albedo, i);
+  const bool flip = wo.z < 0.f;
+  const V3 wof = flip ? neg(wo) : wo;
+
+  const BSample bs0 = bxdf_sample(top, wof, uc, u0, u1, true, true, true);
+  const bool ok0 = ok(bs0);
+  const bool refl0 = (bs0.flags & F_TRANSMISSION) == 0;
+  out.eta = 1.f;
+  if (ok0 && refl0) {  // immediate reflection exits at once
+    out.f = bs0.f;
+    out.wi = flip ? neg(bs0.wi) : bs0.wi;
+    out.pdf = bs0.pdf;
+    out.flags = bs0.flags;
+    out.valid = true;
+    return 0;
+  }
+  // transmitted into the layer: random walk
+  S4 f_cur = bs0.f * fabsf(bs0.wi.z);
+  float pdf_cur = bs0.pdf;
+  bool spec_path = (bs0.flags & F_SPECULAR) != 0;
+  V3 w = bs0.wi;
+  float z = thick;
+  const bool has_albedo = any_pos(albedo);
+  bool done = false;
+  S4 exit_f = s4(0.f);
+  V3 exit_wi = w;
+  float exit_pdf = 1.f;
+  bool exit_spec = spec_path;
+
+  int steps = 0;
+  if (ok0) {
+    Pcg32 r = pcg32_set_sequence(
+        hash_v3(wof), murmur64a_3(__float_as_uint(uc), __float_as_uint(u0), __float_as_uint(u1)));
+    for (int depth = 0; depth < a.max_depth; ++depth) {
+      ++steps;
+      const float rr_beta = max4(f_cur) / fmaxf(pdf_cur, 1e-12f);
+      const float u_rr = r1(r);
+      if (depth > 3 && rr_beta < 0.25f) {
+        const float q = fmaxf(0.f, 1.f - rr_beta);
+        if (u_rr < q) break;
+        pdf_cur = pdf_cur * (1.f - q);
+      }
+      if (w.z == 0.f) break;
+      // medium
+      const float u_d = r1(r);
+      const float dz = -log1pf(-u_d) * fabsf(w.z);
+      const float zp = w.z > 0.f ? z + dz : z - dz;
+      const bool scatter = has_albedo && zp > 0.f && zp < thick;
+      const float uph0 = r1(r), uph1 = r1(r);
+      const float uci = r1(r), ui0 = r1(r), ui1 = r1(r);
+      if (scatter) {
+        V3 wi_ph;
+        const float pdf_ph = sample_henyey_greenstein(neg(w), g, uph0, uph1, wi_ph);
+        if (!(pdf_ph > 0.f && wi_ph.z != 0.f)) break;
+        f_cur = (f_cur * albedo) * pdf_ph;
+        pdf_cur = pdf_cur * pdf_ph;
+        spec_path = false;
+        w = wi_ph;
+        z = zp;
+        continue;
+      }
+      // boundary advance and the interface sample there
+      const S4 f_bnd = has_albedo ? f_cur : f_cur * tr(thick, w);
+      const float z_bnd = has_albedo ? clampf(zp, 0.f, thick) : (z == thick ? 0.f : thick);
+      const BSample bs = bxdf_sample(z_bnd == 0.f ? bot : top, neg(w), uci, ui0, ui1, true,
+                                     true, true);
+      if (!ok(bs)) break;
+      const S4 f_if = f_bnd * bs.f;
+      const float pdf_if = pdf_cur * bs.pdf;
+      const bool spec_if = spec_path && (bs.flags & F_SPECULAR) != 0;
+      if (bs.flags & F_TRANSMISSION) {  // leaves the layer: the sample
+        done = true;
+        exit_f = f_if;
+        exit_wi = bs.wi;
+        exit_pdf = pdf_if;
+        exit_spec = spec_if;
+        break;
+      }
+      f_cur = f_if * fabsf(bs.wi.z);
+      pdf_cur = pdf_if;
+      spec_path = spec_if;
+      w = bs.wi;
+      z = z_bnd;
+    }
+  }
+  out.f = exit_f;
+  out.wi = flip ? neg(exit_wi) : exit_wi;
+  out.pdf = exit_pdf;
+  out.flags = (wof.z * exit_wi.z > 0.f ? F_REFLECTION : F_TRANSMISSION) |
+              (exit_spec ? F_SPECULAR : F_GLOSSY);
+  out.valid = done;
+  return steps;
+}
+
 __device__ __forceinline__ bool lane_live(const LayeredArgs& a, int i) {
   return i < a.n && (a.mask == nullptr || a.mask[i]);
 }
@@ -276,6 +377,30 @@ layered_pdf_lane_kernel(LayeredArgs a, const float* __restrict__ wo,
   count_steps(a, steps);
 }
 
+__global__ void __launch_bounds__(THREADS)
+layered_sample_lane_kernel(LayeredArgs a, const float* __restrict__ wo,
+                           const float* __restrict__ uc, const float* __restrict__ u2,
+                           float* __restrict__ f, float* __restrict__ wi,
+                           float* __restrict__ pdf, float* __restrict__ eta,
+                           int* __restrict__ flags, uint8_t* __restrict__ valid) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  int steps = 0;
+  if (i < a.n) {
+    BSample s = {s4(0.f), {0.f, 0.f, 0.f}, 0.f, 1.f, 0, false};
+    if (lane_live(a, i))
+      steps = layered_sample_lane(a, i, load3(wo, i), uc[i], u2[2 * i], u2[2 * i + 1], s);
+    reinterpret_cast<float4*>(f)[i] = make_float4(s.f.v[0], s.f.v[1], s.f.v[2], s.f.v[3]);
+    wi[3 * i] = s.wi.x;
+    wi[3 * i + 1] = s.wi.y;
+    wi[3 * i + 2] = s.wi.z;
+    pdf[i] = s.pdf;
+    eta[i] = s.eta;
+    flags[i] = s.flags;
+    valid[i] = s.valid;
+  }
+  count_steps(a, steps);
+}
+
 int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -300,5 +425,15 @@ extern "C" int pbrt_layered_pdf_lane(const LayeredArgs* a, const float* wo, cons
                                      float* pdf, void* stream) {
   if (a->n <= 0) return 0;
   layered_pdf_lane_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a, wo, wi, pdf);
+  return (int)cudaGetLastError();
+}
+
+// f (n,4), wi (n,3), pdf (n,), eta (n,), flags (n,) int32, valid (n,) bool
+extern "C" int pbrt_layered_sample_lane(const LayeredArgs* a, const float* wo, const float* uc,
+                                        const float* u2, float* f, float* wi, float* pdf,
+                                        float* eta, int* flags, uint8_t* valid, void* stream) {
+  if (a->n <= 0) return 0;
+  layered_sample_lane_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(
+      *a, wo, uc, u2, f, wi, pdf, eta, flags, valid);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// K6: the path integrator's bounce step for Hopper (sm_90a), four kernels
+// K6: the path integrator's bounce step for Hopper (sm_90a), five kernels
 // around the two visibility dispatches of a bounce and, on a scene with
 // coated materials, around K7's launches.
 //
@@ -7,7 +7,8 @@
 // MurmurHash64A, samplers.py get_1d / get_2d: the independent, stratified
 // and MLT kinds) and K10 (spectral/spectra.py table lookups and the sigmoid
 // polynomial) inside it. Plain version: pbrt_tpu_torch/integrators/path.py
-// `rr_plain`, `shade_plain`, `coat_plain`, `resolve_plain`, which the chain
+// `rr_plain`, `shade_plain` (`shade_light_plain`, `shade_bsdf_plain`),
+// `coat_plain`, `resolve_plain`, which the chain
 //   path_rr      the loop head: the lanes that trace (depth < max depth),
 //                the russian-roulette draw where due, the kill, the scaled
 //                beta, the next RR depth, each lane's t_max, and the count
@@ -21,20 +22,21 @@
 //                spherical-triangle and bilinear warps or by area, sphere,
 //                disk, spot, distant, uniform infinite), the BSDF's f and
 //                pdf there and the power-heuristic weight, written as the
-//                shadow ray (t_max 0 without NEE) and the pending term; the
-//                BSDF draws and sample, the new beta, the offset origin and
-//                the rest of the next state. A coated lane (coateddiffuse,
-//                coatedconductor) gets everything of this that does not
-//                depend on its layered walk, and its walk's inputs: the
-//                layer (make_bsdf's coated branch, K7's LayeredArgs), the
-//                local wo and light direction, the BSDF draws, the light
-//                sample; its ray, throughput and pending term stay;
+//                shadow ray (t_max 0 without NEE) and the pending term;
+//   path_bsdf    the BSDF draws (past the NEE draws) and sample, the new
+//                beta, the offset origin and the rest of the next state.
+//                A coated lane (coateddiffuse, coatedconductor) gets
+//                everything of the two that does not depend on its layered
+//                walk, and its walk's inputs: the layer (make_bsdf's coated
+//                branch, K7's LayeredArgs), the local wo and light
+//                direction, the light sample (path_shade), the BSDF draws
+//                (path_bsdf); its ray, throughput and pending term stay;
 //   (K7 on the coated lanes: layered_f and layered_pdf at the light's
-//    direction, layered_sample; csrc/layered.cu, unchanged)
+//    direction, layered_sample; csrc/layered.cu)
 //   path_coat    the coated lanes finished from K7's answers: the NEE term
 //                with its MIS weight, the new beta, ray and flags, and the
-//                direction of the MIS pdf (updating path_shade's outputs in
-//                place);
+//                direction of the MIS pdf (updating path_shade's and
+//                path_bsdf's outputs in place);
 //   (K7 layered_pdf at that direction; dispatch.occluded)
 //   path_resolve L += beta * ld on the NEE lanes whose shadow ray is
 //                unblocked, the count of NEE lanes added to n_shadow, and
@@ -66,9 +68,14 @@
 //
 // What bounds it on the H100: bytes, a few hundred a lane (the path state
 // in and out, the hit record, the shadow ray and the pending term; on a
-// coated lane its layer, ~184, and the walk's inputs); the operations are a
-// few thousand a lane where it shades, fewer than a microsecond's worth at
-// the card's rate.
+// coated lane its layer, ~184, and the walk's inputs), by the count of
+// chip_smoke.py; the operations are a few thousand a lane where it shades.
+// Shading, the bulk of the step, was measured against variants that hold
+// more warps on an SM (tools/k6_designs.py, see light_lane below): at a
+// frame's first bounce they run as fast as one kernel of 127 registers,
+// not faster, so what holds it there is its instructions (the light
+// sample's IEEE divisions, square roots and inverse trigonometry, with no
+// contraction into fused multiply-adds), not the latency of its loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,6 +142,8 @@ namespace {
 using namespace pbrt_bxdf;
 
 constexpr int THREADS = 128;
+// path_shade's and path_bsdf's blocks an SM: at most 80 registers a thread
+constexpr int SHADE_BLOCKS = 6;
 constexpr int LAMBDA_MIN = 360, LAMBDA_RANGE = 471;
 // material rows (path.MAT_F columns)
 constexpr int MAT_F = 22;
@@ -1080,6 +1089,220 @@ __device__ __forceinline__ void shade_lane(const StepArgs& a, int i) {
   }
 }
 
+// The redesign of path_shade for the H100. shade_lane above runs one
+// thread a lane at 127 registers (4 blocks of 128 an SM, a quarter of its
+// warps), every branch its warp's lanes take in one body. It is split at
+// the NEE / BSDF-sample boundary into two kernels (SHADE_BLOCKS blocks an
+// SM: path_shade 80 registers, path_bsdf 66, neither a stack frame nor
+// spills):
+//   light_lane (path_shade): the emission, the BSDF's wavelength
+//     termination, the NEE draws, the light pick and sample, f, pdf and the
+//     MIS weight, the shadow ray and the pending term; on a coated lane its
+//     layer, wo and light sample. The BSDF's spectra and the frame are
+//     formed after the light sample, and the hit's geometric normal and the
+//     ray direction read again there, so that fewer values stay live
+//     through it;
+//   bsdf_lane (path_bsdf): the BSDF draws, past the NEE draws, and sample,
+//     the new beta, ray, flags and MIS pdf, the sampler state; on a coated
+//     lane its BSDF draws.
+// Each rebuilds what it needs from the lane's input state and hit record
+// (the BSDF, the frame) with shade_lane's arithmetic, so the two give
+// shade_lane's bits; neither reads an output of the other or of itself, so
+// they run in either order, and each again on the same inputs (graph
+// replays). bsdf_lane steps its stream past the NEE draws as get_1d and
+// get_2d do (their values unused). shade_lane stays as their yardstick
+// (pbrt_path_shade_lane), which no render launches. Measured on the H100
+// (PERF.md §6; tools/k6_designs.py): the split gains where a warp's
+// lanes take different branches (2x on cornell-mesh's third bounce) and
+// little on a frame's first bounce; one kernel capped at 96 or 80
+// registers spills and runs slower, and lanes listed by material kind
+// (a warp of one kind) run slower still.
+
+// path_shade's lane: shade_plain's light part (path.shade_light_plain)
+__device__ __forceinline__ void light_lane(const StepArgs& a, int i) {
+  const V3 d = ld3(a.d, i);
+  S4 L = ld4(a.L, i);
+  const S4 lam = ld4(a.lam, i);
+  const bool hit = a.hit_valid[i] != 0;
+  bool active = a.active[i] != 0;
+  const float depth = a.depth[i];
+
+  // escaped rays collect the uniform infinite lights (MIS)
+  if (a.open_scene && active && !hit) {
+    const bool first_or_spec = depth == 0.f || a.specular[i] != 0;
+    const float w =
+        first_or_spec ? 1.f : power_heuristic(a.prev_pdf[i], a.scal[S_INF_DENSITY]);
+    L = L + (ld4(a.beta, i) * w) * table4(a.uinf, 0, lam);
+  }
+  active = active && hit;
+
+  V3 hp = {0.f, 0.f, 0.f}, hng = hp, hns = hp;
+  long long mat = -1;
+  {
+    V3 prev_p = ld3(a.prev_p, i), prev_ns = ld3(a.prev_ns, i);
+    if (active) {
+      hp = ld3(a.hit_p, i);
+      hng = ld3(a.hit_ng, i);
+      hns = ld3(a.hit_ns, i);
+      // emissive surface hit (MIS)
+      const long long light = a.hit_light[i];
+      if (light >= 0) {
+        const float* row = light_row(a, light);
+        if (dot(hng, neg(d)) > 0.f || row[L_TWO] != 0.f) {
+          const bool first_or_spec = depth == 0.f || a.specular[i] != 0;
+          const float pdf_li = area_light_pdf_li(a, light, prev_p, prev_ns, d, hp, hng);
+          const float w =
+              first_or_spec ? 1.f : power_heuristic(a.prev_pdf[i], row[L_PMF] * pdf_li);
+          L = L + (ld4(a.beta, i) * w) * emission(a, light, lam);
+        }
+      }
+      mat = a.hit_mat[i];
+      if (mat >= 0) {
+        prev_p = hp;
+        prev_ns = hns;
+      }
+    }
+    st3(a.prev_p_out, i, prev_p);
+    st3(a.prev_ns_out, i, prev_ns);
+  }
+  st4(a.L_out, i, L);
+  a.depth_out[i] = mat >= 0 ? depth + 1.f : depth;
+
+  bool nee = false, coated = false;
+  V3 sh_d = {0.f, 0.f, 1.f};
+  float sh_t = 0.f;
+  S4 ld = s4(0.f);
+  if (mat >= 0) {
+    // the BSDF's kind and roughness: its spectra are formed again where f
+    // and pdf read them, after the light sample, and the frame too, so
+    // that fewer values stay live through the sample
+    bool dispersive;
+    const Bxdf bk = make_bsdf(a, mat, lam, dispersive);
+    coated = bk.kind == K_COATED_DIFFUSE || bk.kind == K_COATED_CONDUCTOR;
+    S4 pdf_lam = ld4(a.lam_pdf, i);
+    if (dispersive) {
+      // terminate the secondary wavelengths (sampled.terminate_secondary)
+      const bool already = pdf_lam.v[1] == 0.f && pdf_lam.v[2] == 0.f && pdf_lam.v[3] == 0.f;
+      pdf_lam = {{already ? pdf_lam.v[0] : pdf_lam.v[0] / 4.f, 0.f, 0.f, 0.f}};
+    }
+    st4(a.lam_pdf_out, i, pdf_lam);
+    // NEE, skipped for specular-only lobes (coated kinds always run it)
+    const bool spec_only =
+        (bk.kind == K_CONDUCTOR || bk.kind == K_DIELECTRIC) && effectively_smooth(bk.ax, bk.ay);
+    nee = !spec_only && a.n_lights > 0;
+    if (nee) {
+      Smp s = load_smp(a, i);
+      const float u_l = get_1d(a, s, true);
+      float u0, u1;
+      get_2d(a, s, true, u0, u1);
+      float pmf;
+      const long long li = pick_light(a, u_l, pmf);
+      const LiSample ls = sample_li(a, li, hp, hns, u0, u1, lam);
+      const float pdf_light = pmf * ls.pdf;
+      // the geometric normal and the ray direction read again here, not
+      // held through the sample
+      const V3 sh_o = offset_ray_origin(hp, ld3(a.hit_ng, i), ls.wi, a.scal[S_OFFSET]);
+      st3(a.sh_o, i, sh_o);
+      sh_d = ls.wi;
+      sh_t = len(sub(sh_o, ls.p)) * SHADOW_SHORTEN;
+      V3 fx, fy, fz;
+      frame_from_z(hns, fx, fy, fz);
+      const V3 wi_l = to_local(fx, fy, fz, ls.wi);
+      if (coated) {
+        // the light sample, for K7's f and pdf and path_coat
+        st3(a.wi_l, i, wi_l);
+        st4(a.light_L, i, ls.L);
+        a.light_pdf[i] = pdf_light;
+        a.light_ok[i] = ls.valid && pdf_light > 0.f;
+        a.light_delta[i] = ls.delta;
+      } else {
+        const Bxdf b = make_bsdf(a, mat, lam, dispersive);
+        const V3 wo_l = to_local(fx, fy, fz, neg(ld3(a.d, i)));
+        const S4 f = bxdf_f(b, wo_l, wi_l) * fabsf(dot(ls.wi, hns));
+        if (ls.valid && any_pos(f) && pdf_light > 0.f) {
+          const float pdf_bsdf = bxdf_pdf(b, wo_l, wi_l, true, true);
+          const S4 contrib = (f * ls.L) / fmaxf(pdf_light, 1e-20f);
+          const float w = ls.delta ? 1.f : power_heuristic(pdf_light, pdf_bsdf);
+          ld = contrib * w;
+        }
+      }
+    }
+    if (coated) {
+      V3 fx, fy, fz;
+      frame_from_z(hns, fx, fy, fz);
+      store_layer(a, i, mat, bk.kind, lam, bk.ax, bk.ay);
+      st3(a.wo_l, i, to_local(fx, fy, fz, neg(ld3(a.d, i))));
+    }
+  } else {
+    st4(a.lam_pdf_out, i, ld4(a.lam_pdf, i));
+  }
+  if (!nee) st3(a.sh_o, i, ld3(a.o, i));
+  st3(a.sh_d, i, sh_d);
+  a.sh_t[i] = sh_t;
+  a.nee_out[i] = nee;
+  st4(a.ld_out, i, ld);
+  if (a.coat != nullptr) {
+    a.coat[i] = coated;
+    a.coat_nee[i] = coated && nee;
+  }
+}
+
+// path_bsdf's lane: shade_plain's BSDF-sample part (path.shade_bsdf_plain)
+__device__ __forceinline__ void bsdf_lane(const StepArgs& a, int i) {
+  V3 o = ld3(a.o, i), d = ld3(a.d, i);
+  S4 beta = ld4(a.beta, i);
+  Smp s = load_smp(a, i);
+  bool specular = a.specular[i] != 0, cont = false;
+  float prev_pdf = a.prev_pdf[i];
+  const long long mat = a.active[i] != 0 && a.hit_valid[i] != 0 ? a.hit_mat[i] : -1;
+  if (mat >= 0) {
+    bool dispersive;
+    const Bxdf b = make_bsdf(a, mat, ld4(a.lam, i), dispersive);
+    const bool coated = b.kind == K_COATED_DIFFUSE || b.kind == K_COATED_CONDUCTOR;
+    const bool spec_only =
+        (b.kind == K_CONDUCTOR || b.kind == K_DIELECTRIC) && effectively_smooth(b.ax, b.ay);
+    if (!spec_only && a.n_lights > 0) {
+      // the NEE draws (path_shade's): the stream stepped past them
+      float u0, u1;
+      get_1d(a, s, true);
+      get_2d(a, s, true, u0, u1);
+    }
+    // BSDF sampling and the new ray (a coated lane's: path_coat, from
+    // layered_sample at these draws)
+    const float uc = get_1d(a, s, true);
+    float u0, u1;
+    get_2d(a, s, true, u0, u1);
+    if (coated) {
+      a.uc[i] = uc;
+      a.u2[2 * i] = u0;
+      a.u2[2 * i + 1] = u1;
+    } else {
+      const V3 hns = ld3(a.hit_ns, i);
+      V3 fx, fy, fz;
+      frame_from_z(hns, fx, fy, fz);
+      const BSample bs = bxdf_sample(b, to_local(fx, fy, fz, neg(d)), uc, u0, u1, true, true, true);
+      const V3 wi = comb3(bs.wi.x, fx, bs.wi.y, fy, bs.wi.z, fz);
+      const float cos_term = fabsf(dot(wi, hns));
+      const S4 beta_new = (beta * bs.f) * (cos_term / fmaxf(bs.pdf, 1e-20f));
+      cont = bs.valid && any_pos(beta_new);
+      if (cont) {
+        o = offset_ray_origin(ld3(a.hit_p, i), ld3(a.hit_ng, i), wi, a.scal[S_OFFSET]);
+        d = wi;
+        beta = beta_new;
+        specular = (bs.flags & F_SPECULAR) != 0;
+        prev_pdf = bs.pdf;
+      }
+    }
+  }
+  st3(a.o_out, i, o);
+  st3(a.d_out, i, d);
+  st4(a.beta_out, i, beta);
+  store_smp(a, i, s);
+  a.active_out[i] = cont;
+  a.specular_out[i] = specular;
+  a.prev_pdf_out[i] = prev_pdf;
+}
+
 // path_coat's lane: coat_plain. A coated lane finished from K7's answers,
 // path_shade's outputs updated in place: the NEE term (f |cos| from
 // layered_f, the power heuristic against layered_pdf), and where the
@@ -1161,7 +1384,18 @@ __global__ void __launch_bounds__(THREADS) path_rr_kernel(const StepArgs a) {
   count_lanes(a, traced);
 }
 
-__global__ void __launch_bounds__(THREADS) path_shade_kernel(const StepArgs a) {
+__global__ void __launch_bounds__(THREADS, SHADE_BLOCKS) path_shade_kernel(const StepArgs a) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < a.n) light_lane(a, i);
+}
+
+__global__ void __launch_bounds__(THREADS, SHADE_BLOCKS) path_bsdf_kernel(const StepArgs a) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < a.n) bsdf_lane(a, i);
+}
+
+// the yardstick: path_shade as first written, one kernel
+__global__ void __launch_bounds__(THREADS) path_shade_lane_kernel(const StepArgs a) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i < a.n) shade_lane(a, i);
 }
@@ -1192,6 +1426,18 @@ extern "C" int pbrt_path_rr(const StepArgs* a, void* stream) {
 extern "C" int pbrt_path_shade(const StepArgs* a, void* stream) {
   if (a->n <= 0) return 0;
   path_shade_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pbrt_path_bsdf(const StepArgs* a, void* stream) {
+  if (a->n <= 0) return 0;
+  path_bsdf_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pbrt_path_shade_lane(const StepArgs* a, void* stream) {
+  if (a->n <= 0) return 0;
+  path_shade_lane_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

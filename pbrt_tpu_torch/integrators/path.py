@@ -28,11 +28,12 @@ the NEE light sample and the BSDF sample (shade), on a scene with coated
 materials K7's walks on the coated lanes and their finish (coat, then K7's
 layered_pdf for their MIS pdf), dispatch.occluded on the shadow rays, and
 the direct light they let through (resolve). On the card the parts are the
-four kernels of csrc/path_step.cu (K6, `rr_cuda`, `shade_cuda`,
-`coat_cuda`, `resolve_cuda`) for every scene and sampler kind (independent,
-stratified, MLT); on CPU tensors their plain versions `rr_plain`,
-`shade_plain`, `coat_plain`, `resolve_plain`. `step_route` decides from the
-device.
+kernels of csrc/path_step.cu (K6, `rr_cuda`, `shade_cuda` (two kernels,
+`path_shade` and `path_bsdf`), `coat_cuda`, `resolve_cuda`) for every scene
+and sampler kind (independent, stratified, MLT); on CPU tensors their plain
+versions `rr_plain`, `shade_plain` (`shade_light_plain` and
+`shade_bsdf_plain`), `coat_plain`, `resolve_plain`. `step_route` decides
+from the device.
 """
 import ctypes
 from typing import NamedTuple
@@ -146,26 +147,51 @@ class CoatLanes(NamedTuple):
     light_delta: object      # (R,) bool: a delta light
 
 
-def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="independent",
-                spp=0):
-    """Everything of a bounce from the escaped-ray branch to the new ray,
-    on the state rr_plain returned and its closest hits: escaped rays
-    collect the uniform infinite lights and area-light hits their emission
-    (MIS-weighted), the BSDF, the NEE draws and light sample with its MIS
-    weight (reference sample_Ld, megakernel_path.cu:186-264), the BSDF
-    sample and the new ray. -> (the next state, its L without this bounce's
-    direct light; the shadow rays; the pending direct-light term; the
-    coated lanes, or None in a scene without coated materials). Coated
-    lanes get all of this that does not depend on their layered walk; their
-    ray, throughput, specular flag and MIS pdf stay as they came, they are
-    not active, and their pending term is 0, until K7 and `coat` finish
-    them (bounce_step)."""
+class _Surface(NamedTuple):
+    """What both parts of shading form first from the lanes' input state
+    and hit record: the lanes that shade, their BSDF (make_bsdf) and
+    wavelengths, wo in the shading frame, the lanes that run NEE, and the
+    coated lanes (None in a scene without coated materials)."""
+    shade: torch.Tensor
+    bsdf: object
+    wl: sampled.Wavelengths
+    wo: torch.Tensor
+    nee: torch.Tensor
+    coat: object
+
+
+def _surface(scene, meta, state: PathState, hit: dispatch.SceneHit):
+    shade = state.active & hit.valid & (hit.mat >= 0)
+    wl = sampled.Wavelengths(lam=state.lam, pdf=state.lam_pdf)
+    bsdf, wl2 = materials.make_bsdf(scene, hit.mat, hit.ns, wl, meta.layered)
+    kind = bsdf.params.kind
+    # NEE is skipped for specular-only lobes (coated kinds always run it)
+    spec_only = (((kind == bxdfs.K_CONDUCTOR) | (kind == bxdfs.K_DIELECTRIC))
+                 & sc.effectively_smooth(bsdf.params.ax, bsdf.params.ay))
+    return _Surface(shade=shade, bsdf=bsdf, wl=wl2,
+                    wo=vm.to_local(bsdf.fx, bsdf.fy, bsdf.fz, hit.wo),
+                    nee=shade & ~spec_only & (scene.lt_pmf.shape[0] > 0),
+                    coat=shade & materials.is_coated(kind) if meta.layered else None)
+
+
+def shade_light_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
+                      skind="independent", spp=0, surf=None):
+    """shade_plain's first part, the plain version of csrc/path_step.cu
+    `path_shade`: escaped rays collect the uniform infinite lights and
+    area-light hits their emission (MIS-weighted), the BSDF's wavelengths,
+    the NEE draws and light sample with its MIS weight (reference sample_Ld,
+    megakernel_path.cu:186-264). -> (the state with L, lam_pdf, depth,
+    prev_p and prev_ns of the next state, its other fields as they came; the
+    shadow rays; the pending direct-light term; the coated lanes without
+    their BSDF draws (uc, u2 None), or None in a scene without coated
+    materials). `surf`: _surface's answer, where the caller has it."""
+    surf = _surface(scene, meta, state, hit) if surf is None else surf
     r = state.smp
     active = state.active
     beta = state.beta
-    wl = sampled.Wavelengths(lam=state.lam, pdf=state.lam_pdf)
     L = state.L
     first_or_spec = (state.depth == 0.0) | state.specular
+    lam = state.lam
 
     # --- escaped rays collect the uniform infinite lights (MIS)
     if meta.open_scene:
@@ -174,13 +200,13 @@ def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="in
         w_inf = torch.where(first_or_spec, 1.0,
                             power_heuristic(1.0, state.prev_pdf, 1.0, pdf_inf))
         L = torch.where(escaped[..., None],
-                        L + beta * w_inf[..., None] * lights.infinite_le(scene, state.d, wl.lam),
+                        L + beta * w_inf[..., None] * lights.infinite_le(scene, state.d, lam),
                         L)
     active = active & hit.valid
 
     # --- emissive surface hit (MIS)
     hit_light = active & (hit.light >= 0)
-    Le = lights.area_light_le(scene, hit.light, hit.ng, hit.wo, wl.lam)
+    Le = lights.area_light_le(scene, hit.light, hit.ng, hit.wo, lam)
     pdf_li = lights.area_light_pdf_li(
         scene, hit.light, state.prev_p, state.prev_ns, state.d, hit.p, hit.ng)
     pmf_l = scene.lt_pmf[torch.clamp(hit.light, min=0)]
@@ -188,20 +214,13 @@ def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="in
                          power_heuristic(1.0, state.prev_pdf, 1.0, pmf_l * pdf_li))
     L = torch.where(hit_light[..., None], L + beta * w_area[..., None] * Le, L)
 
-    shade = active & (hit.mat >= 0)
-    bsdf, wl2 = materials.make_bsdf(scene, hit.mat, hit.ns, wl, meta.layered)
-    wl = sampled.Wavelengths(lam=wl.lam, pdf=torch.where(shade[..., None], wl2.pdf, wl.pdf))
-    kind = bsdf.params.kind
-    coat = shade & materials.is_coated(kind) if meta.layered else None
-    wo = vm.to_local(bsdf.fx, bsdf.fy, bsdf.fz, hit.wo)
+    shade, bsdf, wo, nee, coat = surf.shade, surf.bsdf, surf.wo, surf.nee, surf.coat
+    wl = sampled.Wavelengths(lam=lam, pdf=torch.where(shade[..., None], surf.wl.pdf,
+                                                      state.lam_pdf))
 
-    # --- NEE (skipped for specular-only lobes; coated kinds always run it);
-    # its draws are masked like the reference's, which consumes them only
-    # when sample_Ld runs. Lanes without NEE trace their shadow ray with
-    # t_max = 0, which the traversal answers at once.
-    spec_only = (((kind == bxdfs.K_CONDUCTOR) | (kind == bxdfs.K_DIELECTRIC))
-                 & sc.effectively_smooth(bsdf.params.ax, bsdf.params.ay))
-    nee = shade & ~spec_only & (scene.lt_pmf.shape[0] > 0)
+    # --- NEE; its draws are masked like the reference's, which consumes
+    # them only when sample_Ld runs. Lanes without NEE trace their shadow
+    # ray with t_max = 0, which the traversal answers at once.
     r, u_l = samplers.get_1d(r, nee, skind, spp)
     r, u_l2 = samplers.get_2d(r, nee, skind, spp)
     shadow = pending = ls = wi = pdf_light = light_ok = None
@@ -222,13 +241,47 @@ def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="in
         ok = light_ok & f_pos if coat is None else light_ok & f_pos & ~coat
         pending = NeePending(nee, beta, torch.where(ok[..., None], w[..., None] * contrib, 0.0))
 
-    # --- BSDF sampling
+    out = state._replace(
+        L=L,
+        lam_pdf=wl.pdf,
+        depth=state.depth + torch.where(shade, 1.0, 0.0),
+        prev_p=torch.where(shade[..., None], hit.p, state.prev_p),
+        prev_ns=torch.where(shade[..., None], hit.ns, state.prev_ns),
+    )
+    lanes = None
+    if coat is not None:
+        lanes = CoatLanes(
+            mask=coat, nee=coat & nee, lay=bsdf.lay, wo=wo, wi=wi, uc=None, u2=None, p=hit.p,
+            ng=hit.ng, ns=hit.ns, beta=beta, light_wi=None if ls is None else ls.wi,
+            light_L=None if ls is None else ls.L, light_pdf=pdf_light, light_ok=light_ok,
+            light_delta=None if ls is None else ls.is_delta)
+    return out, shadow, pending, lanes
+
+
+# the fields of the next state that shade_bsdf_plain (path_bsdf) forms
+BSDF_FIELDS = ("o", "d", "beta", "smp", "active", "specular", "prev_pdf")
+
+
+def shade_bsdf_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
+                     skind="independent", spp=0, surf=None):
+    """shade_plain's second part, the plain version of csrc/path_step.cu
+    `path_bsdf`: the BSDF draws, after the NEE draws (drawn and left
+    unused: shade_light_plain takes them), the BSDF sample and the new
+    ray. -> (the state with BSDF_FIELDS of the next state, its other fields
+    as they came; the coated lanes (R,) bool and their draws uc (R,), u2
+    (R, 2), or None in a scene without coated materials). Coated lanes keep their ray,
+    throughput, specular flag and MIS pdf and are not active until K7 and
+    `coat` finish them."""
+    surf = _surface(scene, meta, state, hit) if surf is None else surf
+    shade, bsdf, coat = surf.shade, surf.bsdf, surf.coat
+    r, _ = samplers.get_1d(state.smp, surf.nee, skind, spp)
+    r, _ = samplers.get_2d(r, surf.nee, skind, spp)
     r, uc = samplers.get_1d(r, shade, skind, spp)
     r, u2 = samplers.get_2d(r, shade, skind, spp)
-    bs = bxdfs.sample(bsdf.params, wo, uc, u2)
+    bs = bxdfs.sample(bsdf.params, surf.wo, uc, u2)
     bs = bs._replace(wi=vm.from_local(bsdf.fx, bsdf.fy, bsdf.fz, bs.wi))
     cos_term = vm.absdot(bs.wi, hit.ns)
-    beta_new = beta * bs.f * (cos_term / torch.clamp(bs.pdf, min=1e-20))[..., None]
+    beta_new = state.beta * bs.f * (cos_term / torch.clamp(bs.pdf, min=1e-20))[..., None]
 
     cont = shade & bs.valid & torch.any(beta_new > 0.0, dim=-1)
     if coat is not None:
@@ -238,25 +291,39 @@ def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="in
     out = state._replace(
         o=torch.where(c3, new_o, state.o),
         d=torch.where(c3, bs.wi, state.d),
-        L=L,
-        beta=torch.where(c3, beta_new, beta),
-        lam=wl.lam,
-        lam_pdf=wl.pdf,
+        beta=torch.where(c3, beta_new, state.beta),
         smp=r,
         active=cont,
         specular=torch.where(cont, bxdfs.is_specular(bs.flags), state.specular),
-        depth=state.depth + torch.where(shade, 1.0, 0.0),
         prev_pdf=torch.where(cont, bs.pdf, state.prev_pdf),
-        prev_p=torch.where(shade[..., None], hit.p, state.prev_p),
-        prev_ns=torch.where(shade[..., None], hit.ns, state.prev_ns),
     )
-    lanes = None
-    if coat is not None:
-        lanes = CoatLanes(
-            mask=coat, nee=coat & nee, lay=bsdf.lay, wo=wo, wi=wi, uc=uc, u2=u2, p=hit.p,
-            ng=hit.ng, ns=hit.ns, beta=beta, light_wi=None if ls is None else ls.wi,
-            light_L=None if ls is None else ls.L, light_pdf=pdf_light, light_ok=light_ok,
-            light_delta=None if ls is None else ls.is_delta)
+    return out, None if coat is None else (coat, uc, u2)
+
+
+def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="independent",
+                spp=0):
+    """Everything of a bounce from the escaped-ray branch to the new ray,
+    on the state rr_plain returned and its closest hits: shade_light_plain
+    (emission, NEE) and shade_bsdf_plain (the BSDF sample, the new ray) on
+    one make_bsdf. -> (the next state, its L without this bounce's direct
+    light; the shadow rays; the pending direct-light term; the coated
+    lanes, or None in a scene without coated materials). Coated lanes get
+    all of this that does not depend on their layered walk; their ray,
+    throughput, specular flag and MIS pdf stay as they came, they are not
+    active, and their pending term is 0, until K7 and `coat` finish them
+    (bounce_step)."""
+    surf = _surface(scene, meta, state, hit)
+    return merge_shade(shade_light_plain(scene, meta, state, hit, skind, spp, surf),
+                       shade_bsdf_plain(scene, meta, state, hit, skind, spp, surf))
+
+
+def merge_shade(light, bsdf):
+    """shade's answer from its two parts' (shade_light_plain's, and
+    shade_bsdf_plain's BSDF_FIELDS and coated lanes' draws)."""
+    (out, shadow, pending, lanes), (nxt, draws) = light, bsdf
+    out = out._replace(**{k: getattr(nxt, k) for k in BSDF_FIELDS})
+    if lanes is not None:
+        lanes = lanes._replace(uc=draws[1], u2=draws[2])
     return out, shadow, pending, lanes
 
 
@@ -354,12 +421,18 @@ def li(scene, meta, rays, wl: sampled.Wavelengths, r, skind="independent", spp=0
 # ------------------------------------------------------ K6 on the card
 #
 # csrc/path_step.cu: the parts of a bounce around the two dispatches and,
-# on coated lanes, around K7's launches, one kernel each, one thread a lane.
+# on coated lanes, around K7's launches, one kernel each (shading two), one
+# thread a lane.
 # Every path-integrator render on the card takes them: uncoated and coated
 # scenes, the independent, stratified and MLT sampler kinds.
 
 # launches of the path-step kernels (plain ints, added to where each launches)
-launches = {"path_rr": 0, "path_shade": 0, "path_coat": 0, "path_resolve": 0}
+launches = {"path_rr": 0, "path_shade": 0, "path_bsdf": 0, "path_coat": 0, "path_resolve": 0,
+            "path_shade_lane": 0}
+# shade_cuda's kernels: shade_plain's two parts (the step's), or the
+# yardstick, shading as first written in one kernel
+SHADE_KERNELS = ("path_shade", "path_bsdf")
+SHADE_YARDSTICK = ("path_shade_lane",)
 STEP_SAMPLERS = ("independent", "stratified", "mlt")
 MAT_F, LT_F, SCAL_F = 22, 18, 3
 
@@ -464,8 +537,8 @@ def _lib():
         lib.pbrt_path_args_bytes.restype = ctypes.c_int
         if lib.pbrt_path_args_bytes() != ctypes.sizeof(_StepArgs):
             raise RuntimeError("csrc/path_step.cu's StepArgs is not integrators/path.py's")
-        for fn in (lib.pbrt_path_rr, lib.pbrt_path_shade, lib.pbrt_path_coat,
-                   lib.pbrt_path_resolve):
+        for fn in (lib.pbrt_path_rr, lib.pbrt_path_shade, lib.pbrt_path_bsdf,
+                   lib.pbrt_path_shade_lane, lib.pbrt_path_coat, lib.pbrt_path_resolve):
             fn.argtypes = [ctypes.POINTER(_StepArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.declared = True
@@ -613,10 +686,14 @@ def _coat_outputs(a: _Args, beta, hit, light_wi):
 
 
 def shade_cuda(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="independent",
-               spp=0):
-    """shade_plain's contract in one launch of csrc/path_step.cu
-    `path_shade`; a scene without lights gives (state, None, None, lanes) as
-    the plain version does."""
+               spp=0, kernels=SHADE_KERNELS):
+    """shade_plain's contract in launches of csrc/path_step.cu `path_shade`
+    and `path_bsdf` (its two parts, shade_light_plain and shade_bsdf_plain;
+    either alone writes only its part's outputs) or, with kernels=
+    SHADE_YARDSTICK, of their yardstick `path_shade_lane`; a scene without
+    lights gives (state, None, None, lanes) as the plain version does."""
+    if not set(kernels) <= set(SHADE_KERNELS + SHADE_YARDSTICK):
+        raise ValueError(f"path step kernel: {kernels} are not shading kernels")
     a = _Args(state.o.shape[0], state.o.device, meta, skind, spp)
     a.state(state, ("o", "d", "L", "beta", "lam", "lam_pdf", "smp_state", "smp_inc",
                     "smp_pixel", "smp_sample", "smp_dim", "active", "specular", "depth",
@@ -650,11 +727,20 @@ def shade_cuda(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="ind
     nee, ld = a.out("nee_out", dtype=torch.bool), a.out("ld_out", 4)
     lanes = (_coat_outputs(a, state.beta, hit, shadow.d if n_l else None) if meta.layered
              else None)
-    a.launch("path_shade")
+    for name in kernels:
+        a.launch(name)
     out = state._replace(smp=state.smp._replace(state=st, dim=dim), **out)
     if n_l == 0:
         return out, None, None, lanes
     return out, shadow, NeePending(nee, state.beta, ld), lanes
+
+
+def shade_lane_cuda(scene, meta, state: PathState, hit: dispatch.SceneHit,
+                    skind="independent", spp=0):
+    """The yardstick of shade_cuda: shading as first written, one kernel a
+    lane (`path_shade_lane`); the same contract and bits. No render path
+    calls it."""
+    return shade_cuda(scene, meta, state, hit, skind, spp, SHADE_YARDSTICK)
 
 
 def coat_cuda(scene, state: PathState, pending, c: CoatLanes, f, pdf, s):

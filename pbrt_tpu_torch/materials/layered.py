@@ -10,9 +10,11 @@ Each entry point (`layered_f`, `layered_sample`, `layered_pdf`) launches the
 hand-written kernel K7 (csrc/layered.cu) on CUDA tensors and runs its plain
 version here only on CPU tensors. `layered_f` and `layered_pdf` launch the
 kernels redesigned for Hopper (`layered_f` in two passes, the walks that
-start stepped 32 a warp); the kernels as first written stay as their
-yardstick (csrc/layered_lane.cu, `layered_f_lane_cuda`,
-`layered_pdf_lane_cuda`), which no render reaches. The plain versions are
+start stepped 32 a warp; `layered_sample` in two passes, the walks of
+the lanes whose sample enters the layer stepped 32 a warp); the kernels as
+first written stay as their yardstick (csrc/layered_lane.cu,
+`layered_f_lane_cuda`, `layered_pdf_lane_cuda`, `layered_sample_lane_cuda`),
+which no render reaches. The plain versions are
 the JAX package's masked-lane walks: every lane runs all max_depth steps and
 `where` keeps the live ones. The walk's random numbers come from PCG32
 seeded by MurmurHash64A of the float bits of wo and wi (or uc, u2), so the
@@ -46,7 +48,7 @@ class LayeredParams(NamedTuple):
 # launches of the K7 kernels and of the yardstick (plain ints, added to where
 # they launch)
 launches = {"layered_f": 0, "layered_sample": 0, "layered_pdf": 0, "layered_f_lane": 0,
-            "layered_pdf_lane": 0}
+            "layered_pdf_lane": 0, "layered_sample_lane": 0}
 
 
 def _u32_bits(x):
@@ -404,7 +406,7 @@ def _kernel_lib():
         lib.pbrt_layered_f.argtypes = [args] + [ctypes.c_void_p] * 6
         lib.pbrt_layered_pdf.argtypes = [args] + [ctypes.c_void_p] * 4
         lib.pbrt_bxdf_trig_mismatches.argtypes = [ctypes.c_float] + [ctypes.c_void_p] * 2
-        lib.pbrt_layered_sample.argtypes = [args] + [ctypes.c_void_p] * 10
+        lib.pbrt_layered_sample.argtypes = [args] + [ctypes.c_void_p] * 13
         for fn in (lib.pbrt_layered_f, lib.pbrt_layered_pdf, lib.pbrt_layered_sample,
                    lib.pbrt_bxdf_trig_mismatches):
             fn.restype = ctypes.c_int
@@ -421,6 +423,9 @@ def _lane_lib():
         for fn in (lib.pbrt_layered_f_lane, lib.pbrt_layered_pdf_lane):
             fn.argtypes = [ctypes.POINTER(_LayeredArgs)] + [ctypes.c_void_p] * 4
             fn.restype = ctypes.c_int
+        lib.pbrt_layered_sample_lane.argtypes = [ctypes.POINTER(_LayeredArgs)] + [
+            ctypes.c_void_p] * 10
+        lib.pbrt_layered_sample_lane.restype = ctypes.c_int
         lib.declared = True
     return lib
 
@@ -562,23 +567,77 @@ def layered_pdf_lane_cuda(p: LayeredParams, wo, wi, mask=None, steps=None):
     return pdf
 
 
-def layered_sample_cuda(p: LayeredParams, wo, uc, u2, mask=None, steps=None):
-    """K7 `layered_sample`; masked-out lanes get f = wi = 0, pdf = 0, eta = 1,
-    flags 0 and valid False."""
+def _sample_outputs(p, wo, uc, u2):
+    """layered_sample's outputs, allocated -> (BSDFSample, the pointers of
+    the inputs (contiguous) and outputs in the entry points' order, the
+    inputs as passed, kept alive by the caller through the launch)."""
     R, dev = wo.shape[0], wo.device
-    wo = _checked("wo", wo, (R, 3), torch.float32, dev)
-    uc = _checked("uc", uc, (R,), torch.float32, dev)
-    u2 = _checked("u2", u2, (R, 2), torch.float32, dev)
-    f = torch.empty((R, 4), dtype=torch.float32, device=dev)
-    wi = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    pdf = torch.empty((R,), dtype=torch.float32, device=dev)
-    eta = torch.empty((R,), dtype=torch.float32, device=dev)
-    flags = torch.empty((R,), dtype=torch.int32, device=dev)
-    valid = torch.empty((R,), dtype=torch.bool, device=dev)
+    ins = (_checked("wo", wo, (R, 3), torch.float32, dev),
+           _checked("uc", uc, (R,), torch.float32, dev),
+           _checked("u2", u2, (R, 2), torch.float32, dev))
+    out = bxdfs.BSDFSample(
+        f=torch.empty((R, 4), dtype=torch.float32, device=dev),
+        wi=torch.empty((R, 3), dtype=torch.float32, device=dev),
+        pdf=torch.empty((R,), dtype=torch.float32, device=dev),
+        flags=torch.empty((R,), dtype=torch.int32, device=dev),
+        eta=torch.empty((R,), dtype=torch.float32, device=dev),
+        valid=torch.empty((R,), dtype=torch.bool, device=dev))
+    ptrs = tuple(x.data_ptr() for x in ins + (out.f, out.wi, out.pdf, out.eta, out.flags,
+                                            out.valid))
+    return out, ptrs, ins
+
+
+def layered_sample_cuda(p: LayeredParams, wo, uc, u2, mask=None, steps=None):
+    """K7 `layered_sample` on the current stream: every coated lane's top
+    interface sampled, the lanes whose sample enters the layer listed with
+    their walk's start, then their walks stepped 32 a warp. Masked-out lanes get f = wi = 0, pdf = 0,
+    eta = 1, flags 0 and valid False. `steps` (optional int64 (1,) device
+    tensor) accumulates the walk steps."""
+    out, ptrs, _ins = _sample_outputs(p, wo, uc, u2)
+    R, dev = wo.shape[0], wo.device
+    # the count of listed walks and the walk pass's ticket (zeroed on the
+    # stream, as layered_f's), the list of the lanes that walk, and each
+    # walk's start as the set-up pass hands it over (64 bytes a place)
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    walkers = torch.empty(R, dtype=torch.int32, device=dev)
+    handoff = torch.empty((R, 16), dtype=torch.float32, device=dev)
     _launch(_kernel_lib().pbrt_layered_sample, "layered_sample", p, wo, mask, steps,
-            (wo.data_ptr(), uc.data_ptr(), u2.data_ptr(), f.data_ptr(), wi.data_ptr(),
-             pdf.data_ptr(), eta.data_ptr(), flags.data_ptr(), valid.data_ptr()))
-    return bxdfs.BSDFSample(f=f, wi=wi, pdf=pdf, flags=flags, eta=eta, valid=valid)
+            ptrs + (work.data_ptr(), walkers.data_ptr(), handoff.data_ptr()))
+    return out
+
+
+def layered_sample_lane_cuda(p: LayeredParams, wo, uc, u2, mask=None, steps=None):
+    """The yardstick of `layered_sample_cuda`: K7s as first written, one
+    thread per lane over all R lanes (csrc/layered_lane.cu); the same
+    contract and bits. No render path calls it."""
+    out, ptrs, _ins = _sample_outputs(p, wo, uc, u2)
+    _launch(_lane_lib().pbrt_layered_sample_lane, "layered_sample_lane", p, wo, mask, steps,
+            ptrs)
+    return out
+
+
+def layered_sample_setup_plain(p: LayeredParams, wo, uc, u2):
+    """K7s's set-up pass (csrc/layered.cu sample_enter_kernel) as a plain
+    version: the top interface's sample at each lane's draws -> (walks (R,)
+    bool: the lanes whose sample enters the layer, which the pass lists for
+    the walk; the BSDFSample layered_sample gives the others: the top's
+    sample, its wi flipped back with wo, where it reflects, else an invalid
+    sample of f 0 and pdf 1)."""
+    flip = wo[..., 2] < 0.0
+    wo_f = torch.where(flip[..., None], -wo, wo)
+    bs0 = bxdfs.sample(p.top, wo_f, uc, u2)
+    ok0 = _ok(bs0)
+    refl = ok0 & ~bxdfs.is_transmission(bs0.flags)
+    failed = (torch.where(wo_f[..., 2] * bs0.wi[..., 2] > 0, bxdfs.F_REFLECTION,
+                          bxdfs.F_TRANSMISSION)
+              | torch.where(bxdfs.is_specular(bs0.flags), bxdfs.F_SPECULAR, bxdfs.F_GLOSSY))
+    return ok0 & bxdfs.is_transmission(bs0.flags), bxdfs.BSDFSample(
+        f=torch.where(refl[..., None], bs0.f, 0.0),
+        wi=torch.where(flip[..., None], -bs0.wi, bs0.wi),
+        pdf=torch.where(refl, bs0.pdf, 1.0),
+        flags=torch.where(refl, bs0.flags, failed).to(torch.int32),
+        eta=torch.ones_like(bs0.pdf),
+        valid=refl)
 
 
 def layered_f(p: LayeredParams, wo, wi, mask=None):

@@ -63,13 +63,14 @@ time, where a profiled staircase frame does not finish in minutes.
 With --layered (a coated scene: staircase, testball) the profiled render
 is replaced too: one more frame is rendered until its first wave has made
 its K7 launches (max_depth each of layered_f and layered_sample, twice that
-of layered_pdf, issued from the path step; their arguments kept), and each
-launch is replayed:
-layered_f and layered_pdf in turns with their yardsticks, the kernels as
-first written (layered_f_lane_cuda, layered_pdf_lane_cuda): yardstick,
-kernel, kernel, yardstick, their bits compared; layered_sample alone. Prints
-each entry's summed device time over the wave and that sum times the
-frame's waves, where a profiled staircase frame does not finish in minutes.
+of layered_pdf, issued from the path step) and its shading launches
+(shade_cuda: path_shade and path_bsdf, max_depth), their arguments kept,
+and each launch is replayed in turns with its yardstick, the kernels as
+first written (layered_f_lane_cuda, layered_sample_lane_cuda,
+layered_pdf_lane_cuda, path.shade_lane_cuda): yardstick, kernel, kernel,
+yardstick, their bits compared. Prints each entry's summed device time over
+the wave and that sum times the frame's waves, where a profiled staircase
+frame does not finish in minutes.
 
 With --shard-scene N (path family) the scene's triangles are split into N
 morton parts once (render.shard_scene, its host seconds printed), all on
@@ -289,28 +290,65 @@ def _clone(x):
     return x
 
 
+def _same_bits(a, b):
+    """a and b (tensors, or tuples of them) hold the same bits."""
+    if isinstance(a, tuple):
+        return all(_same_bits(x, y) for x, y in zip(a, b) if x is not None)
+    if not torch.is_tensor(a):
+        return a == b
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _same_shading(a, b):
+    """Two shade_cuda answers the same bits: the next state, the shadow
+    rays and the pending term on every lane, the coated lanes' layer,
+    directions and draws on the coated lanes, their light sample on those
+    with NEE (the kernels write nothing else there)."""
+    (st_a, sh_a, pd_a, c_a), (st_b, sh_b, pd_b, c_b) = a, b
+    if not _same_bits((st_a, sh_a, pd_a), (st_b, sh_b, pd_b)):
+        return False
+    if c_b is None:
+        return True
+    m, nee = c_b.mask, c_b.nee
+    lay = lambda c: (c.lay.top, c.lay.bottom, c.lay.thickness, c.lay.g, c.lay.albedo, c.wo,
+                     c.uc, c.u2)
+    light = lambda c: (c.wi, c.light_L, c.light_pdf, c.light_ok, c.light_delta)
+
+    def on(x, mask):
+        return tuple(on(v, mask) for v in x) if isinstance(x, tuple) else (
+            x[mask] if torch.is_tensor(x) else x)
+    return (_same_bits((c_a.mask, c_a.nee), (m, nee))
+            and _same_bits(on(lay(c_a), m), on(lay(c_b), m))
+            and (c_b.wi is None or _same_bits(on(light(c_a), nee), on(light(c_b), nee))))
+
+
 def _layered_turns(render, max_depth, waves, card, label, out_path):
-    """K7's launches of one wave replayed, layered_f and layered_pdf in turns
-    with their yardsticks (see the module docstring)."""
+    """K7's and the shading kernels' launches of one wave replayed, each in
+    turns with its yardstick (see the module docstring)."""
+    from pbrt_tpu_torch.integrators import path as pth
     from pbrt_tpu_torch.materials import layered
 
     names = ("layered_f", "layered_sample", "layered_pdf")
     origs = {n: getattr(layered, f"{n}_cuda") for n in names}
+    orig_shade = pth.shade_cuda
     kept = []
 
     class _WaveDone(Exception):
         pass
 
     def keeper(name):
-        def call(p, *args):
-            if len(kept) == 4 * max_depth:     # the second wave's first K7 launch
+        def call(*args, **kw):
+            if len(kept) == 5 * max_depth:     # the second wave's first launch
                 raise _WaveDone
-            kept.append((name, _clone(p), _clone(args)))
-            return origs[name](p, *args)
+            kept.append((name, _clone(args)))
+            return (orig_shade if name == "path_shade" else origs[name])(*args, **kw)
         return call
 
     for n in names:
         setattr(layered, f"{n}_cuda", keeper(n))
+    pth.shade_cuda = keeper("path_shade")
     try:
         render()
     except _WaveDone:
@@ -318,40 +356,36 @@ def _layered_turns(render, max_depth, waves, card, label, out_path):
     finally:
         for n, fn in origs.items():
             setattr(layered, f"{n}_cuda", fn)
+        pth.shade_cuda = orig_shade
     torch.cuda.synchronize()
-    if not kept:
+    if not any(name != "path_shade" for name, _ in kept):
         raise SystemExit("--layered: the frame launched no K7 (a coated scene is needed)")
-    sums = {n: dict(launches=0, kernel_ms=0.0, yardstick_ms=0.0, bits_differ=0) for n in names}
+    fns = {n: (origs[n], getattr(layered, f"{n}_lane_cuda")) for n in names}
+    fns["path_shade"] = (orig_shade, pth.shade_lane_cuda)
+    sums = {n: dict(launches=0, kernel_ms=0.0, yardstick_ms=0.0, bits_differ=0) for n in fns}
     per_launch = []
-    for name, p, args in kept:
-        new_fn = origs[name]
-        yard = getattr(layered, f"{name}_lane_cuda", None)
-        if yard is None:
-            turns = [_graph_ms(lambda: new_fn(p, *args)) for _ in range(2)]
-            k_ms, y_ms = sum(turns) / 2, 0.0
-        else:
-            turns = [_graph_ms(lambda f=f: f(p, *args)) for f in (yard, new_fn, new_fn, yard)]
-            k_ms, y_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-            sums[name]["bits_differ"] += int(not torch.equal(
-                new_fn(p, *args).view(torch.int32), yard(p, *args).view(torch.int32)))
+    for name, args in kept:
+        new_fn, yard = fns[name]
+        turns = [_graph_ms(lambda f=f: f(*args)) for f in (yard, new_fn, new_fn, yard)]
+        k_ms, y_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         s = sums[name]
+        same = _same_shading if name == "path_shade" else _same_bits
+        s["bits_differ"] += int(not same(new_fn(*args), yard(*args)))
         s["launches"] += 1
         s["kernel_ms"] += k_ms
         s["yardstick_ms"] += y_ms
-        per_launch.append(dict(name=name, lanes=args[0].shape[0],
-                               coated=int(args[-1].sum()) if torch.is_tensor(args[-1]) else None,
-                               turns_ms=turns))
+        lanes = args[2].o.shape[0] if name == "path_shade" else args[1].shape[0]
+        per_launch.append(dict(name=name, lanes=lanes, turns_ms=turns))
     kept.clear()
     for name, s in sums.items():
         s["kernel_ms_frame"] = s["kernel_ms"] * waves
         s["yardstick_ms_frame"] = s["yardstick_ms"] * waves
-        yard = (f", yardstick {s['yardstick_ms']:.3f} ms in turns (x{waves} waves "
-                f"{s['yardstick_ms_frame']:.3f} ms), speed-up "
-                f"{s['yardstick_ms'] / s['kernel_ms']:.3f}x; bits differ on "
-                f"{s['bits_differ']} launches" if s["yardstick_ms"] else "")
         print(f"{name}: {s['launches']} launches of the first wave, kernel {s['kernel_ms']:.3f} "
-              f"ms (x{waves} waves {s['kernel_ms_frame']:.3f} ms; device, graph replays){yard}",
-              flush=True)
+              f"ms (x{waves} waves {s['kernel_ms_frame']:.3f} ms; device, graph replays), "
+              f"yardstick {s['yardstick_ms']:.3f} ms in turns (x{waves} waves "
+              f"{s['yardstick_ms_frame']:.3f} ms), speed-up "
+              f"{s['yardstick_ms'] / s['kernel_ms']:.3f}x; bits differ on {s['bits_differ']} "
+              f"launches", flush=True)
     out = dict(card=card, scene=label, waves=waves, layered=sums, launches=per_launch)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     Path(out_path).write_text(json.dumps(out, indent=1))
@@ -404,8 +438,8 @@ def main(argv=None):
                     help="time every K1/K1a launch of a frame against the yardstick "
                          "instead of the profiled render")
     ap.add_argument("--layered", action="store_true",
-                    help="time the K7 launches of a coated frame's first wave against the "
-                         "yardsticks instead of the profiled render")
+                    help="time the K7 and shading launches of a coated frame's first wave "
+                         "against their yardsticks instead of the profiled render")
     ap.add_argument("--out", default="build/pbrt_tpu_torch/profile_render.json")
     args = ap.parse_args(argv)
 

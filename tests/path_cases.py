@@ -368,15 +368,16 @@ def compare_rr(args, kernel, plain):
 LAYER_FIELDS = ("refl", "trans", "eta_re", "eta_im", "eta", "ax", "ay")
 
 
-def compare_lanes(rep, c_k, c_p):
-    """Two runs' CoatLanes into rep: the masks and the draws exact, the
-    layers' kinds exact and fields close, the local directions close; the
-    light sample (on the lanes with NEE) as shade's."""
+def compare_lanes(rep, c_k, c_p, draws=True):
+    """Two runs' CoatLanes into rep: the masks and the draws (unless not
+    `draws`) exact, the layers' kinds exact and fields close, the local
+    directions close; the light sample (on the lanes with NEE) as shade's."""
     rep.exact("coat", c_k.mask, c_p.mask)
     rep.exact("coat_nee", c_k.nee, c_p.nee)
     m, nee = c_k.mask & c_p.mask, c_k.nee & c_p.nee
-    rep.exact("uc", c_k.uc, c_p.uc, m)
-    rep.exact("u2", c_k.u2, c_p.u2, m)
+    if draws:
+        rep.exact("uc", c_k.uc, c_p.uc, m)
+        rep.exact("u2", c_k.u2, c_p.u2, m)
     for tag in ("top", "bottom"):
         ik, ip = getattr(c_k.lay, tag), getattr(c_p.lay, tag)
         rep.exact(f"{tag}.kind", ik.kind, ip.kind, m)
@@ -393,23 +394,223 @@ def compare_lanes(rep, c_k, c_p):
         rep.exact("light_delta", c_k.light_delta, c_p.light_delta, nee)
 
 
-def compare_shade(args, kernel, plain):
+def compare_shade(args, kernel, plain, part="both"):
     """shade's kernel and plain version on the same arguments (scene, meta,
     state, hit, skind, spp) -> Report: the next state, the NEE mask, and on
     the lanes both take NEE on, the shadow rays and the pending term; the
-    coated lanes' CoatLanes."""
-    (st_k, sh_k, pend_k, c_k), (st_p, sh_p, pend_p, c_p) = kernel(*args), plain(*args)
+    coated lanes' CoatLanes. part "light" (path_shade against
+    shade_light_plain) or "bsdf" (path_bsdf against shade_bsdf_plain): the
+    fields that part forms (path.BSDF_FIELDS and the coated lanes' draws
+    the BSDF part's, the rest the light part's)."""
+    from pbrt_tpu_torch.integrators.path import BSDF_FIELDS
+
+    (st_k, sh_k, pend_k, c_k), p_out = kernel(*args), plain(*args)
     rep = Report()
-    compare_state(rep, st_k, st_p)
-    rep.exact("nee", pend_k.mask, pend_p.mask)
-    rep.exact("shadow t_max = 0", sh_k.t_max == 0, sh_p.t_max == 0)
-    both = pend_k.mask & pend_p.mask
-    for k in ("o", "d", "t_max"):
-        rep.near(f"shadow.{k}", getattr(sh_k, k), getattr(sh_p, k), both, LIGHT_FRAC)
-    rep.near("ld", pend_k.ld, pend_p.ld, both, LIGHT_FRAC)
+    if part == "bsdf":
+        st_p, draws = p_out
+        rep.exact("smp.state", st_k.smp.state, st_p.smp.state)
+        rep.exact("smp.dim", st_k.smp.dim, st_p.smp.dim)
+        for k in ("active", "specular"):
+            rep.exact(k, getattr(st_k, k), getattr(st_p, k))
+        for k in STATE_FLOATS:
+            if k in BSDF_FIELDS:
+                rep.near(k, getattr(st_k, k), getattr(st_p, k))
+        if draws is not None:
+            coat, uc, u2 = draws
+            rep.exact("uc", c_k.uc, uc, coat)
+            rep.exact("u2", c_k.u2, u2, coat)
+        return rep
+    st_p, sh_p, pend_p, c_p = p_out
+    if part == "light":
+        rep.exact("depth", st_k.depth, st_p.depth)
+        for k in STATE_FLOATS:
+            if k not in BSDF_FIELDS:
+                rep.near(k, getattr(st_k, k), getattr(st_p, k))
+    else:
+        compare_state(rep, st_k, st_p)
+    if pend_p is not None:
+        rep.exact("nee", pend_k.mask, pend_p.mask)
+        rep.exact("shadow t_max = 0", sh_k.t_max == 0, sh_p.t_max == 0)
+        both = pend_k.mask & pend_p.mask
+        for k in ("o", "d", "t_max"):
+            rep.near(f"shadow.{k}", getattr(sh_k, k), getattr(sh_p, k), both, LIGHT_FRAC)
+        rep.near("ld", pend_k.ld, pend_p.ld, both, LIGHT_FRAC)
     if c_p is not None:
-        compare_lanes(rep, c_k, c_p)
+        compare_lanes(rep, c_k, c_p, draws=part == "both")
     return rep
+
+
+def shade_bits(a, b):
+    """Two runs of shade on the same arguments, (state, shadow, pending,
+    lanes) each -> {field: share of the lanes where a's bits are b's}:
+    every lane of the state, the shadow rays and the pending term; the
+    coated lanes' layer, directions and draws on the coated lanes, their
+    light sample on those with NEE (the kernels write nothing elsewhere)."""
+    def share(x, y, m=None):
+        e = _equal(x, y)
+        if m is not None:
+            e = e[m]
+        return int(e.sum()) / e.numel() if e.numel() else 1.0
+
+    (st_a, sh_a, pd_a, c_a), (st_b, sh_b, pd_b, c_b) = a, b
+    out = {k: share(getattr(st_a, k), getattr(st_b, k))
+           for k in ("o", "d", "L", "beta", "lam", "lam_pdf", "active", "specular", "depth",
+                     "rr_next", "prev_pdf", "prev_p", "prev_ns")}
+    out |= {f"smp.{k}": share(getattr(st_a.smp, k), getattr(st_b.smp, k))
+            for k in ("state", "dim")}
+    if pd_b is not None:
+        out |= {f"shadow.{k}": share(getattr(sh_a, k), getattr(sh_b, k))
+                for k in ("o", "d", "t_max")}
+        out |= {"nee": share(pd_a.mask, pd_b.mask), "ld": share(pd_a.ld, pd_b.ld)}
+    if c_b is not None:
+        m, nee = c_b.mask, c_b.nee
+        out |= {"coat": share(c_a.mask, m), "coat_nee": share(c_a.nee, nee)}
+        for tag in ("top", "bottom"):
+            for k in ("kind",) + LAYER_FIELDS:
+                out[f"{tag}.{k}"] = share(getattr(getattr(c_a.lay, tag), k),
+                                          getattr(getattr(c_b.lay, tag), k), m)
+        for k in ("thickness", "g", "albedo", "wo", "uc", "u2"):
+            x, y = ((getattr(c.lay, k) if k in ("thickness", "g", "albedo") else getattr(c, k))
+                    for c in (c_a, c_b))
+            out[k] = share(x, y, m)
+        if c_b.wi is not None:
+            for k in ("wi", "light_L", "light_pdf", "light_ok", "light_delta"):
+                out[k] = share(getattr(c_a, k), getattr(c_b, k), nee)
+    return out
+
+
+def shade_parts():
+    """((path_shade's wrapper, its plain part), (path_bsdf's, its plain
+    part)): each kernel of shade_cuda alone against its part of
+    shade_plain (compare_shade's part "light" and "bsdf")."""
+    from functools import partial
+
+    from pbrt_tpu_torch.integrators import path
+    return ((partial(path.shade_cuda, kernels=("path_shade",)), path.shade_light_plain),
+            (partial(path.shade_cuda, kernels=("path_bsdf",)), path.shade_bsdf_plain))
+
+
+def composed_shade(light, bsdf):
+    """shade(scene, meta, state, hit, skind, spp) from its two parts, each
+    called alone on the same arguments (path.merge_shade)."""
+    from pbrt_tpu_torch.integrators.path import merge_shade
+
+    return lambda *args: merge_shade(light(*args), bsdf(*args))
+
+
+def parent_shade_plain(scene, meta, state, hit, skind="independent", spp=0):
+    """integrators/path.py's shade_plain as it was before its two parts
+    (shade_light_plain, shade_bsdf_plain: the plain versions of the kernels
+    path_shade and path_bsdf) were factored out of it, kept as the reference
+    the parts are held to bit for bit."""
+    from pbrt_tpu_torch.geometry import vecmath as vm
+    from pbrt_tpu_torch.geometry.ray import offset_ray_origin
+    from pbrt_tpu_torch.integrators.path import (CoatLanes, NeePending, ShadowRays,
+                                                 _pick_light)
+    from pbrt_tpu_torch.lights import lights
+    from pbrt_tpu_torch.materials import bxdfs, materials, scattering as sc
+    from pbrt_tpu_torch.sampling import samplers
+    from pbrt_tpu_torch.spectral import sampled
+    from pbrt_tpu_torch.utils.math import power_heuristic
+
+    r = state.smp
+    active = state.active
+    beta = state.beta
+    wl = sampled.Wavelengths(lam=state.lam, pdf=state.lam_pdf)
+    L = state.L
+    first_or_spec = (state.depth == 0.0) | state.specular
+
+    # --- escaped rays collect the uniform infinite lights (MIS)
+    if meta.open_scene:
+        escaped = active & ~hit.valid
+        pdf_inf = lights.infinite_light_density(scene, state.d)
+        w_inf = torch.where(first_or_spec, 1.0,
+                            power_heuristic(1.0, state.prev_pdf, 1.0, pdf_inf))
+        L = torch.where(escaped[..., None],
+                        L + beta * w_inf[..., None] * lights.infinite_le(scene, state.d, wl.lam),
+                        L)
+    active = active & hit.valid
+
+    # --- emissive surface hit (MIS)
+    hit_light = active & (hit.light >= 0)
+    Le = lights.area_light_le(scene, hit.light, hit.ng, hit.wo, wl.lam)
+    pdf_li = lights.area_light_pdf_li(
+        scene, hit.light, state.prev_p, state.prev_ns, state.d, hit.p, hit.ng)
+    pmf_l = scene.lt_pmf[torch.clamp(hit.light, min=0)]
+    w_area = torch.where(first_or_spec, 1.0,
+                         power_heuristic(1.0, state.prev_pdf, 1.0, pmf_l * pdf_li))
+    L = torch.where(hit_light[..., None], L + beta * w_area[..., None] * Le, L)
+
+    shade = active & (hit.mat >= 0)
+    bsdf, wl2 = materials.make_bsdf(scene, hit.mat, hit.ns, wl, meta.layered)
+    wl = sampled.Wavelengths(lam=wl.lam, pdf=torch.where(shade[..., None], wl2.pdf, wl.pdf))
+    kind = bsdf.params.kind
+    coat = shade & materials.is_coated(kind) if meta.layered else None
+    wo = vm.to_local(bsdf.fx, bsdf.fy, bsdf.fz, hit.wo)
+
+    # --- NEE (skipped for specular-only lobes; coated kinds always run it);
+    # its draws are masked like the reference's, which consumes them only
+    # when sample_Ld runs. Lanes without NEE trace their shadow ray with
+    # t_max = 0, which the traversal answers at once.
+    spec_only = (((kind == bxdfs.K_CONDUCTOR) | (kind == bxdfs.K_DIELECTRIC))
+                 & sc.effectively_smooth(bsdf.params.ax, bsdf.params.ay))
+    nee = shade & ~spec_only & (scene.lt_pmf.shape[0] > 0)
+    r, u_l = samplers.get_1d(r, nee, skind, spp)
+    r, u_l2 = samplers.get_2d(r, nee, skind, spp)
+    shadow = pending = ls = wi = pdf_light = light_ok = None
+    if scene.lt_pmf.shape[0] > 0:
+        light_idx, pmf = _pick_light(scene, u_l)
+        ls = lights.sample_li(scene, light_idx, hit.p, hit.ns, u_l2, wl.lam)
+        wi = vm.to_local(bsdf.fx, bsdf.fy, bsdf.fz, ls.wi)
+        f = bxdfs.f(bsdf.params, wo, wi) * vm.absdot(ls.wi, hit.ns)[..., None]
+        pdf_bsdf = bxdfs.pdf(bsdf.params, wo, wi)
+        f_pos = torch.any(f > 0.0, dim=-1)
+        pdf_light = pmf * ls.pdf
+        o_sh = offset_ray_origin(hit.p, hit.ng, ls.wi, scene.ray_offset_scale)
+        t_sh = vm.distance(o_sh, ls.p_light) * (1.0 - 1e-3)
+        shadow = ShadowRays(o_sh, ls.wi, torch.where(nee, t_sh, 0.0))
+        contrib = f * ls.L / torch.clamp(pdf_light, min=1e-20)[..., None]
+        w = torch.where(ls.is_delta, 1.0, power_heuristic(1.0, pdf_light, 1.0, pdf_bsdf))
+        light_ok = ls.valid & (pdf_light > 0.0)
+        ok = light_ok & f_pos if coat is None else light_ok & f_pos & ~coat
+        pending = NeePending(nee, beta, torch.where(ok[..., None], w[..., None] * contrib, 0.0))
+
+    # --- BSDF sampling
+    r, uc = samplers.get_1d(r, shade, skind, spp)
+    r, u2 = samplers.get_2d(r, shade, skind, spp)
+    bs = bxdfs.sample(bsdf.params, wo, uc, u2)
+    bs = bs._replace(wi=vm.from_local(bsdf.fx, bsdf.fy, bsdf.fz, bs.wi))
+    cos_term = vm.absdot(bs.wi, hit.ns)
+    beta_new = beta * bs.f * (cos_term / torch.clamp(bs.pdf, min=1e-20))[..., None]
+
+    cont = shade & bs.valid & torch.any(beta_new > 0.0, dim=-1)
+    if coat is not None:
+        cont = cont & ~coat
+    new_o = offset_ray_origin(hit.p, hit.ng, bs.wi, scene.ray_offset_scale)
+    c3 = cont[..., None]
+    out = state._replace(
+        o=torch.where(c3, new_o, state.o),
+        d=torch.where(c3, bs.wi, state.d),
+        L=L,
+        beta=torch.where(c3, beta_new, beta),
+        lam=wl.lam,
+        lam_pdf=wl.pdf,
+        smp=r,
+        active=cont,
+        specular=torch.where(cont, bxdfs.is_specular(bs.flags), state.specular),
+        depth=state.depth + torch.where(shade, 1.0, 0.0),
+        prev_pdf=torch.where(cont, bs.pdf, state.prev_pdf),
+        prev_p=torch.where(shade[..., None], hit.p, state.prev_p),
+        prev_ns=torch.where(shade[..., None], hit.ns, state.prev_ns),
+    )
+    lanes = None
+    if coat is not None:
+        lanes = CoatLanes(
+            mask=coat, nee=coat & nee, lay=bsdf.lay, wo=wo, wi=wi, uc=uc, u2=u2, p=hit.p,
+            ng=hit.ng, ns=hit.ns, beta=beta, light_wi=None if ls is None else ls.wi,
+            light_L=None if ls is None else ls.L, light_pdf=pdf_light, light_ok=light_ok,
+            light_delta=None if ls is None else ls.is_delta)
+    return out, shadow, pending, lanes
 
 
 def compare_coat(args, kernel, plain):
@@ -437,17 +638,21 @@ def compare_resolve(args, kernel, plain):
     return rep
 
 
-def compare_parts(scene, meta, state, skind, spp, kernel, plain):
+def compare_parts(scene, meta, state, skind, spp, kernel, plain, shade_split=None):
     """Each of the kernel parts (rr, shade, coat, resolve) against the plain
     part on the same inputs (the plain chain's) -> ({"rr", "shade",
     ["coat",] "resolve": Report}, the plain chain's lane counts {"lanes",
-    "traced", "hits", "nee", "coated"})."""
+    "traced", "hits", "nee", "coated"}). With shade_split (shade_parts()),
+    also shade's two kernels each against its plain part ("shade.light",
+    "shade.bsdf")."""
     p = chain(scene, meta, state, skind, spp, plain)
     st1 = p["rr"][0]
     st2, _, pending, lanes = p["shade"]
+    shade_args = (scene, meta, st1, p["hit"], skind, spp)
     out = {"rr": compare_rr((meta, state, skind, spp), kernel[0], plain[0]),
-           "shade": compare_shade((scene, meta, st1, p["hit"], skind, spp), kernel[1],
-                                  plain[1])}
+           "shade": compare_shade(shade_args, kernel[1], plain[1])}
+    for part, (k, pl) in zip(("light", "bsdf"), shade_split or ()):
+        out[f"shade.{part}"] = compare_shade(shade_args, k, pl, part)
     st3, pend3 = st2, pending
     if lanes is not None:
         out["coat"] = compare_coat((scene, st2, pending, lanes) + p["k7"], kernel[2], plain[2])

@@ -537,12 +537,13 @@ def _layered_params(arrays, depth, device):
 @pytest.mark.parametrize("n", [1, 31, 33, 4097, 1 << 15])
 @pytest.mark.parametrize("mask_kind", list(LAYERED_MASKS))
 def test_layered_kernels_match_yardstick_bits(cuda, mask_kind, n, depth):
-    """layered_f and layered_pdf as redesigned (layered_f: the walks that
-    start listed, then stepped 32 a warp) against their yardsticks, the
-    kernels as first written (csrc/layered_lane.cu): every output bit equal on
-    every lane, inside and outside the mask (0 outside it), and equal step
-    counts, on tests/layered_cases.py's lanes and on its deep medium, whose walks run
-    to max_depth."""
+    """layered_f, layered_sample and layered_pdf as redesigned (layered_f and
+    layered_sample: the walks that start listed, then stepped 32 a warp)
+    against their yardsticks, the kernels as first written
+    (csrc/layered_lane.cu): every output bit equal on every lane, inside and
+    outside the mask (0 outside it; layered_sample's empty sample), and equal
+    step counts, on tests/layered_cases.py's lanes and on its deep medium,
+    whose walks run to max_depth."""
     from layered_cases import deep_medium_lanes, lanes
     from pbrt_tpu_torch.materials import layered
 
@@ -551,16 +552,21 @@ def test_layered_kernels_match_yardstick_bits(cuda, mask_kind, n, depth):
     mask = None if m is None else torch.as_tensor(m, device=cuda)
     for make in (lanes, deep_medium_lanes):
         p, a = _layered_params(make(n, 7), depth, cuda)
-        for name in ("layered_f", "layered_pdf"):
+        for name in ("layered_f", "layered_sample", "layered_pdf"):
+            args = ((a["wo"], a["uc"], a["u2"]) if name == "layered_sample"
+                    else (a["wo"], a["wi"]))
             st_k, st_y = (torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2))
-            out_k = getattr(layered, f"{name}_cuda")(p, a["wo"], a["wi"], mask, st_k)
-            out_y = getattr(layered, f"{name}_lane_cuda")(p, a["wo"], a["wi"], mask, st_y)
+            out_k = getattr(layered, f"{name}_cuda")(p, *args, mask, st_k)
+            out_y = getattr(layered, f"{name}_lane_cuda")(p, *args, mask, st_y)
             torch.cuda.synchronize()
-            assert torch.equal(out_k.view(torch.int32), out_y.view(torch.int32)), \
-                (make.__name__, name)
+            for k, y in zip(out_k if name == "layered_sample" else (out_k,),
+                            out_y if name == "layered_sample" else (out_y,)):
+                assert torch.equal(*((x.view(torch.int32) if x.dtype == torch.float32 else x)
+                                     for x in (k, y))), (make.__name__, name)
             assert int(st_k) == int(st_y), (make.__name__, name)
             if mask is not None:
-                assert bool((out_k[~mask] == 0).all())
+                f = out_k.f if name == "layered_sample" else out_k
+                assert bool((f[~mask] == 0).all())
 
 
 def test_bxdf_trig_matches_library(cuda):
@@ -605,7 +611,7 @@ def test_layered_kernel_graph_replays(cuda):
 
 def test_layered_kernel_in_coated_render(cuda):
     """material-testball at 16^2 x 4 on the card launches K7's three entry
-    points, and not the yardstick of layered_f and layered_pdf; the walks
+    points, and not their yardsticks; the walks
     seed on float bits, which differ between card and CPU by an ulp, so the
     image is held to the CPU render's mean (1 %)."""
     from pathlib import Path
@@ -623,7 +629,8 @@ def test_layered_kernel_in_coated_render(cuda):
     img_gpu = render(scene, meta).cpu().numpy()
     assert all(layered.launches[k] > n0[k] for k in ("layered_f", "layered_sample",
                                                      "layered_pdf"))
-    assert all(layered.launches[k] == n0[k] for k in ("layered_f_lane", "layered_pdf_lane"))
+    assert all(layered.launches[k] == n0[k] for k in ("layered_f_lane", "layered_pdf_lane",
+                                                      "layered_sample_lane"))
     img_cpu = render(scene, meta, device="cpu").numpy()
     assert np.isfinite(img_gpu).all()
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
@@ -874,13 +881,16 @@ def _path_parts():
 @pytest.mark.parametrize("skind", ["independent", "stratified"])
 @pytest.mark.parametrize("lanes", [1000, 1 << 16])
 def test_path_step_kernels_match_plain(cuda, skind, lanes):
-    """K6 (csrc/path_step.cu: path_rr, path_shade, path_resolve) against
-    rr_plain, shade_plain and resolve_plain on tests/path_cases.py's
+    """K6 (csrc/path_step.cu: path_rr, path_shade and path_bsdf, path_resolve)
+    against rr_plain, shade_plain and resolve_plain on tests/path_cases.py's
     synthetic lanes of the four-light scene (dead lanes, RR due and not due,
     every material kind and light type, shadow rays of t_max 0), each part
     on the plain chain's inputs: path_cases' criteria (draws and masks
-    bit-exact, float fields close, lane means); one launch each, and no
-    path_coat on a scene without coated materials."""
+    bit-exact, float fields close, lane means); path_shade and path_bsdf also
+    each alone against its part of shade_plain (shade_light_plain,
+    shade_bsdf_plain); one launch each for the chain, one more of each
+    shading kernel for the parts alone, no path_coat on a scene without
+    coated materials and no yardstick."""
     import path_cases as pc
     from pbrt_tpu_torch.integrators import path
     from pbrt_tpu_torch.scene.compile import compile_scene
@@ -889,9 +899,10 @@ def test_path_step_kernels_match_plain(cuda, skind, lanes):
     state = pc.synthetic_state(scene, meta, lanes, 5)
     n0 = dict(path.launches)
     kern, plain = _path_parts()
-    reps, seen = pc.compare_parts(scene, meta, state, skind, 4, kern, plain)
+    reps, seen = pc.compare_parts(scene, meta, state, skind, 4, kern, plain, pc.shade_parts())
     assert {k: path.launches[k] - n0[k] for k in n0} == dict(
-        path_rr=1, path_shade=1, path_coat=0, path_resolve=1)
+        path_rr=1, path_shade=2, path_bsdf=2, path_coat=0, path_resolve=1, path_shade_lane=0)
+    assert {"shade.light", "shade.bsdf"} <= set(reps)
     for name, rep in reps.items():
         assert rep.ok(), (name, str(rep))
     assert seen["traced"] < lanes and seen["nee"] > 0
@@ -922,7 +933,7 @@ def test_path_step_kernels_match_plain_coated_and_mlt(cuda, case, lanes):
     scene, meta = compile_scene(pc.builder(24, "independent", 4, coated=coated), device=cuda)
     state = pc.synthetic_state(scene, meta, lanes, 7, mlt_d=mlt_d)
     kern, plain = _path_parts()
-    reps, seen = pc.compare_parts(scene, meta, state, skind, spp, kern, plain)
+    reps, seen = pc.compare_parts(scene, meta, state, skind, spp, kern, plain, pc.shade_parts())
     for name, rep in reps.items():
         assert rep.ok(), (name, str(rep))
     assert ("coat" in reps) == coated and (seen["coated"] > 0) == coated
@@ -933,7 +944,52 @@ def test_path_step_kernels_match_plain_coated_and_mlt(cuda, case, lanes):
     assert k7 == ({"layered_f": 2, "layered_sample": 2, "layered_pdf": 4} if coated
                   else dict.fromkeys(k7, 0))
     assert {k: path.launches[k] - n0[k] for k in n0} == dict(
-        path_rr=1, path_shade=1, path_coat=int(coated), path_resolve=1)
+        path_rr=1, path_shade=1, path_bsdf=1, path_coat=int(coated), path_resolve=1,
+        path_shade_lane=0)
+
+
+@pytest.mark.parametrize("case", ["independent", "stratified", "coated", "mlt6"])
+@pytest.mark.parametrize("lanes", [1000, 1 << 16])
+def test_path_shade_kernels_match_yardstick_bits(cuda, case, lanes):
+    """path_shade and path_bsdf (shading split at the NEE / BSDF-sample
+    boundary) against their yardstick path_shade_lane (shading as first
+    written, one kernel) on path_cases' synthetic lanes and their second
+    bounce: every output of every lane the same bits (path_cases.shade_bits:
+    the next state, the sampler state, the shadow rays and pending term, the
+    coated lanes' layer, draws and light sample); both kernels graph-replayed
+    twice on the same inputs give those bits again (neither reads what it
+    writes)."""
+    import path_cases as pc
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    skind, spp = {"stratified": ("stratified", 4), "mlt6": ("mlt", 0)}.get(
+        case, ("independent", 4))
+    scene, meta = compile_scene(pc.builder(24, "stratified" if case == "stratified"
+                                           else "independent", 4, coated=case == "coated"),
+                                device=cuda)
+    state = pc.synthetic_state(scene, meta, lanes, 11, mlt_d=6 if case == "mlt6" else None)
+    _, plain = _path_parts()
+    for _ in range(2):
+        c = pc.chain(scene, meta, state, skind, spp, plain)
+        args = (scene, meta, c["rr"][0], c["hit"], skind, spp)
+        want = path.shade_lane_cuda(*args)
+        bits = pc.shade_bits(path.shade_cuda(*args), want)
+        assert all(v == 1.0 for v in bits.values()), {k: v for k, v in bits.items() if v != 1.0}
+        state = c["out"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        path.shade_cuda(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = path.shade_cuda(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        bits = pc.shade_bits(got, want)
+        assert all(v == 1.0 for v in bits.values()), {k: v for k, v in bits.items() if v != 1.0}
 
 
 def test_path_coat_matches_coat_plain_lane_by_lane(cuda):
@@ -987,8 +1043,8 @@ def test_path_step_kernel_wrappers_refuse(cuda):
 @pytest.mark.parametrize("skind", ["independent", "stratified"])
 def test_path_step_render_on_card_matches_cpu(cuda, skind):
     """The four-light scene (open: the wavefront loop) at 24^2 x 4 through
-    render() on the card (the "cuda" route: path_rr, path_shade and
-    path_resolve once an iteration, as often as K8) against the CPU's plain
+    render() on the card (the "cuda" route: path_rr, path_shade, path_bsdf
+    and path_resolve once an iteration, as often as K8) against the CPU's plain
     step: ray counts within 0.1 %, the image within tests/test_parity.py's
     criterion; through the batched loop (max_depth launches of each a
     wave), the card's film the same bits over two renders."""
@@ -997,12 +1053,12 @@ def test_path_step_render_on_card_matches_cpu(cuda, skind):
     from pbrt_tpu_torch.scene.compile import compile_scene
 
     scene, meta = compile_scene(pc.builder(24, skind, 4), device=cuda)
-    k6 = ("path_rr", "path_shade", "path_resolve")
+    k6 = ("path_rr", "path_shade", "path_bsdf", "path_resolve")
     n0, k0 = dict(path.launches), rd.launches["wavefront_recycle"]
     img_gpu, st_gpu = render(scene, meta, return_stats=True)
     its = rd.launches["wavefront_recycle"] - k0
     assert its > 0 and {k: path.launches[k] - n0[k] for k in n0} == dict(
-        dict.fromkeys(k6, its), path_coat=0)
+        dict.fromkeys(k6, its), path_coat=0, path_shade_lane=0)
     films = [filmlib.new_film(meta.resolution, cuda) for _ in range(2)]
     n0 = dict(path.launches)
     for f in films:
@@ -1036,7 +1092,8 @@ def test_path_step_coated_render_on_card_matches_cpu(cuda):
     n0 = dict(path.launches)
     img_gpu, st_gpu = render(scene, meta, return_stats=True)
     got = {k: path.launches[k] - n0[k] for k in n0}
-    assert got["path_coat"] == got["path_rr"] == got["path_shade"] > 0, got
+    assert got["path_coat"] == got["path_rr"] == got["path_shade"] == got["path_bsdf"] > 0, got
+    assert got["path_shade_lane"] == 0, got
     img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
     img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
     n_gpu, n_cpu = sum(st_gpu.values()), sum(st_cpu.values())
@@ -1048,8 +1105,8 @@ def test_path_step_coated_render_on_card_matches_cpu(cuda):
 
 def test_path_step_mltpath_render_on_card_matches_cpu(cuda):
     """cornell 16^2 with mltpath (1024 chains), its path evaluations on the
-    card's CUDA step with the MLT kind (path_rr, path_shade, path_resolve
-    max_depth times an evaluation), against the CPU with one seed:
+    card's CUDA step with the MLT kind (path_rr, path_shade, path_bsdf,
+    path_resolve max_depth times an evaluation), against the CPU with one seed:
     tests/mlt_cases.py's criteria (accept decisions, 8x8 block means,
     image mean)."""
     import mlt_cases
@@ -1070,7 +1127,8 @@ def test_path_step_mltpath_render_on_card_matches_cpu(cuda):
                         mlt.launches["mlt_mutate"] - m0["mlt_mutate"])
     (img_g, acc_g, k6, passes), (img_c, acc_c, k6_cpu, _) = runs["cuda"], runs["cpu"]
     assert passes == acc_g.shape[0] > 0 and not any(k6_cpu.values())
-    assert k6["path_rr"] == k6["path_shade"] == k6["path_resolve"] > passes * mt.max_depth
+    assert (k6["path_rr"] == k6["path_shade"] == k6["path_bsdf"] == k6["path_resolve"]
+            > passes * mt.max_depth)
     assert k6["path_rr"] % mt.max_depth == 0 and k6["path_coat"] == 0
     mlt_cases.compare_renders(img_g, img_c, acc_g, acc_c)
 

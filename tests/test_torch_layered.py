@@ -134,6 +134,37 @@ def test_layered_sample_matches_jax(case):
     assert abs(m_t - m_j) <= MEAN_RTOL * abs(m_j), (name, m_t, m_j)
 
 
+def test_layered_sample_setup_lanes_match_jax(case):
+    """The lanes that K7s's set-up pass writes at once and does not list for
+    the walk (layered_sample_setup_plain: the top interface's sample does
+    not enter the layer): there the plain layered_sample's outputs are the
+    set-up pass's, bit for bit (the top's sample where it reflects, its wi
+    flipped back with wo), and JAX's layered_sample gives them to the walk's
+    criteria; both kinds of lane occur."""
+    name, a, pj, pt = case
+    args = [torch.from_numpy(a[k]) for k in ("wo", "uc", "u2")]
+    walks, setup = tl.layered_sample_setup_plain(pt, *args)
+    st = tl.layered_sample(pt, *args)
+    at_once = ~walks
+    assert 0 < int(at_once.sum()) < N
+    for f in ("f", "wi", "pdf", "eta", "flags", "valid"):
+        got, want = getattr(st, f)[at_once], getattr(setup, f)[at_once]
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want), (name, f)
+    refl = at_once & setup.valid
+    top = tb.sample(pt.top, torch.where(args[0][:, 2:3] < 0, -args[0], args[0]), *args[1:])
+    assert torch.equal(setup.f[refl], top.f[refl]) and torch.equal(setup.pdf[refl],
+                                                                   top.pdf[refl])
+    sj = _jax("layered_sample", pj, a["wo"], a["uc"], a["u2"])
+    m = at_once.numpy()
+    for f in ("valid", "flags"):
+        eq = float((getattr(st, f).numpy()[m] == np.asarray(getattr(sj, f))[m]).mean())
+        assert eq >= EQUAL_FRAC, (name, f, eq)
+    for f in ("f", "wi", "pdf"):
+        assert_walk_close(getattr(st, f).numpy()[m], np.asarray(getattr(sj, f))[m], (name, f))
+
+
 def _rel_close(got, want, rtol=1e-5):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     if want.size == 0:

@@ -40,6 +40,7 @@ from pbrt_tpu.integrators import path as jpath
 from pbrt_tpu.sampling import rng as jrng, samplers as jsamplers
 from pbrt_tpu.scene import builder as jbd, lexer as jlx
 from pbrt_tpu.scene.compile import compile_scene as j_compile
+from pbrt_tpu_torch.accel import dispatch
 from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.scene.compile import scene_from_arrays
 import bdpt_cases
@@ -255,6 +256,82 @@ def test_bounce_step_is_the_factored_plain_chain(coated_case, mlt_case, which):
         assert all(torch.equal(x, y) for x, y in zip(_bits(a), _bits(b)))
         state = a
     assert int(state.active.sum()) > 0
+
+
+def _same(a, b):
+    """a and b hold the same tensors bit for bit (floats as their bits), in
+    the same (named) tuples, and equal other values."""
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(*((x.view(torch.int32) if x.dtype == torch.float32 else x)
+                                  for x in (a, b))))
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _shade_parts_checks(scene, meta, skind, spp, states, step=None, mlt_x=None):
+    """On each input state: the plain parts path_shade and path_bsdf stand
+    for (shade_light_plain, shade_bsdf_plain), each called alone, composed,
+    and shade_plain (the two on one make_bsdf), against shading as it was
+    before it was factored (path_cases.parent_shade_plain): every output
+    bit for bit. With `step` (JAX's bounce_step), the bounce through the
+    composed parts against JAX's from the first state, as
+    test_plain_parts_match_jax_bounce_step holds it."""
+    composed = pc.composed_shade(tpath.shade_light_plain, tpath.shade_bsdf_plain)
+    for state in states:
+        st1, t_max = tpath.rr_plain(meta, state, skind, spp)
+        hit = dispatch.intersect(scene, meta, st1.o, st1.d, t_max)
+        args = (scene, meta, st1, hit, skind, spp)
+        want = pc.parent_shade_plain(*args)
+        assert int(want[0].depth.sum()) > int(st1.depth.sum())
+        assert _same(composed(*args), want)
+        assert _same(tpath.shade_plain(*args), want)
+    if step is None:
+        return
+    parts = (tpath.rr_plain, composed, tpath.coat_plain, tpath.resolve_plain)
+    c = pc.chain(scene, meta, states[0], skind, spp, parts)
+    got, lanes = c["out"], c["shade"][3]
+    want = from_jax(step(to_jax(states[0])), mlt_x)
+    rep = pc.Report(JAX_RTOL, JAX_ATOL)
+    pc.compare_state(rep, got, want, walk=None if lanes is None else lanes.mask)
+    assert rep.ok(), str(rep)
+    assert torch.equal(got.smp.state, want.smp.state)
+    assert torch.equal(got.smp.dim, want.smp.dim)
+    assert int(got.n_shadow) == int(want.n_shadow) > 0
+
+
+def test_shade_parts_compose_to_the_parent_shade_plain(case):
+    """shade_plain's two parts (the plain versions of path_shade and
+    path_bsdf) on the four-light scene under both sampler kinds, at the
+    camera lanes and at path_cases' synthetic lanes (every material kind
+    and light type, dead lanes, RR due): composed, the parent's
+    shade_plain bit for bit; the bounce through them against JAX's
+    bounce_step."""
+    scene, meta, skind, spp, step = case
+    states = [pc.camera_state(scene, meta), pc.synthetic_state(scene, meta, 2000, 5)]
+    _shade_parts_checks(scene, meta, skind, spp, states, step)
+
+
+@pytest.mark.parametrize("which", ["coated", "mlt6"])
+def test_shade_parts_compose_to_the_parent_shade_plain_coated_and_mlt(coated_case, mlt_case,
+                                                                      which):
+    """As test_shade_parts_compose_to_the_parent_shade_plain on the coated
+    scene (the coated lanes' layers, light samples and BSDF draws) and with
+    the MLT kind at D = 6 (the NEE draws and the BSDF draws across the
+    vector's end)."""
+    if which == "coated":
+        scene, meta, step = coated_case
+        skind, spp, mlt_d = "independent", 2, None
+        states = [pc.camera_state(scene, meta), pc.synthetic_state(scene, meta, 2000, 7)]
+    else:
+        scene, meta, step = mlt_case
+        skind, spp, mlt_d = "mlt", 0, 6
+        states = [pc.mlt_camera_state(scene, meta, mlt_d, 3),
+                  pc.synthetic_state(scene, meta, 2000, 7, mlt_d=mlt_d)]
+    _shade_parts_checks(scene, meta, skind, spp, states, step,
+                        states[0].smp.mlt_x if mlt_d else None)
 
 
 def test_step_route():

@@ -23,7 +23,10 @@ result line:
      path_coat, path_resolve) and the shading yardstick path_shade_lane with
      their registers, stack frame, spills and local loads and stores
      printed, path_shade and path_bsdf required to have no stack frame and
-     no spills;
+     no spills; K11's (csrc/scene_shard.cu): the redesigned
+     parts_wide_kernel with 16-byte loads and no local loads or stores,
+     stack frame or spills, its registers printed beside the yardstick's
+     (parts_kernel);
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -208,30 +211,39 @@ result line:
      `shard_select`, csrc/scene_shard.cu): (a) cornell-mesh levels 5 split
      into 8 morton parts (per-part tables under a quarter of the unsharded
      ones); on phase 3's 131,072 camera and interior rays K11a's candidate
-     packs and K11b's bits bit-exact with their plain versions and with the
-     unfused yardstick (K1 over each part, then an argmin); against the
-     unsharded K1 equal hit sets, t within rtol 1e-5, the same triangle on
-     >= 99 % of hits and equal t on the rest; the select kernel bit-exact
-     with its plain version on 4 stacked packs with planted ties; (b) the
-     scene-sharded frames through render() of the scene split by
-     render.shard_scene (its host build timed alone): cornell-mesh (8 parts)
-     and terrain (4 parts, the batched loop) at phase 8's settings, K11a and
-     K11b launched and K1 not, the ray counts equal to phase 8's frames
-     (terrain: the batched loop's), the images within check_image of them;
-     (c) NCCL at world size 1 (a file store): the pixel-parallel cornell-mesh
-     frame (its film all-reduced) and the scene-sharded one through
-     render(shard_parts=8), as the CLI's --shard-scene calls it (every
-     closest hit through an all_gather and the select kernel, every shadow
-     batch through an all_reduce), each with phase 8's ray count and image;
-     (d) K11a and K11b at their first
-     launches in (b)'s cornell-mesh frame (2^20 lanes) and the select
-     kernel at its first in (c): held against their plain versions again
-     (K11a bit-exact but for verified ties, K1's criterion of phases 3 and
-     9: a winner that differs must hit at a t within 1e-6 relative of the
-     other's; over 2^20 lanes a tie decided by the traversal order or by
-     the bound carried across parts occurs), and timed beside them, their
-     operation or byte bounds and the unfused yardstick. Scaling across cards is not measurable on
-     one card;
+     packs and K11b's bits bit-exact with their plain versions, with their
+     yardsticks (the kernels as they ran before their redesign, the stepper
+     loop one thread per ray: ss.closest_parts_stepper_cuda,
+     any_parts_stepper_cuda) and with the unfused yardstick (K1 over each
+     part, then an argmin); against the unsharded K1 equal hit sets, t
+     within rtol 1e-5, the same triangle on >= 99 % of hits and equal t on
+     the rest; the select kernel bit-exact with its plain version on 4
+     stacked packs with planted ties; (b) the scene-sharded frames through
+     render() of the scene split by render.shard_scene (its host build timed
+     alone): cornell-mesh (8 parts) and terrain (4 parts, the batched loop)
+     at phase 8's settings, K11a and K11b launched and neither K1 nor the
+     yardsticks, the ray counts equal to phase 8's frames (terrain: the
+     batched loop's), the images within check_image of them; then the walls
+     in turns of cornell-mesh and its 8 parts, terrain's batched loop and its
+     4 parts; (c) NCCL at world size 1 (a file store): the pixel-parallel
+     cornell-mesh frame (its film all-reduced) and the scene-sharded one
+     through render(shard_parts=8), as the CLI's --shard-scene calls it
+     (every closest hit through an all_gather and the select kernel, every
+     shadow batch through an all_reduce), each with phase 8's ray count and
+     image; (d) K11a and K11b at their first launches in (b)'s cornell-mesh
+     and terrain frames (2^20 lanes): held against their plain versions and
+     yardsticks again (K11a bit-exact but for verified ties, K1's criterion
+     of phases 3 and 9: a winner that differs must hit at a t within 1e-6
+     relative of the other's; over 2^20 lanes a tie decided by the traversal
+     order or a box's entry distance occurs), timed in turns with the
+     yardstick, the unfused yardstick and K1/K1a over the unsharded table on
+     the same rays, beside the bound from the oracle count of
+     ss.parts_work (the same work whatever traverses) and the kernels' own
+     work sums, the targets (K11a <= 0.90 ms, K11b <= 1.10 ms, K11a's rows
+     <= 1.5x K1's, the sharded cornell-mesh wall <= 1.3x) printed met or
+     missed; and the select kernel at its first launch in (c), timed beside
+     its plain version and byte bound. Scaling across cards is not
+     measurable on one card;
  12. instancing (K1i `bvh_closest_hit_inst`, `bvh_any_hit_inst`, the
      two-level variant of csrc/bvh_traverse.cu over csrc/bvh_stepper.cuh),
      on the instanced cornell box of testscenes.instanced_cornell_pbrt (36
@@ -274,6 +286,7 @@ Without a card, or outside a checkout of the repository, it fails.
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -644,6 +657,34 @@ def main():
             require(wide and not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
                                                             "stores, 0 bytes spill loads"),
                     "K1's kernel: no 16-byte loads, or a local stack or spills", short, dict(c),
+                    frame)
+    # K11's kernels as compiled (csrc/scene_shard.cu): the redesigned
+    # parts_wide_kernel (K1's loop over the parts under their top level)
+    # with 16-byte global loads and neither a local-memory stack nor spills,
+    # its registers printed beside the yardstick's (parts_kernel, the
+    # stepper loop)
+    report = built["scene_shard"][1].splitlines()
+    for fn, c in sass_memory_ops(subprocess.run(
+            [str(cuobjdump), "-sass", str(kernels.library_path("scene_shard"))],
+            capture_output=True, text=True, timeout=120).stdout).items():
+        short = next((k for k in ("parts_wide_kernel", "parts_kernel") if k in fn), None)
+        if short is None:
+            continue
+        flags = re.search(short + r"ILb([01])E(?:Lb([01])E)?", fn)
+        short += ("<any hit" if flags.group(1) == "1" else "<closest hit") + (
+            ", stats>" if flags.group(2) == "1" else ">")
+        at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                  and fn in line)
+        frame = report[at + 1].strip()
+        regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                    if "registers" in line)
+        log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
+        if short.startswith("parts_wide_kernel"):
+            wide = [k for k in c if k.startswith("LDG") and ".128" in k]
+            local = [k for k in c if k.startswith(("LDL", "STL"))]
+            require(wide and not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
+                                                            "stores, 0 bytes spill loads"),
+                    "K11's kernel: no 16-byte loads, or a local stack or spills", short, dict(c),
                     frame)
     # K12's kernels as compiled (csrc/bdpt.cu): the tiled bdpt_connect_weight
     # reads its vertices from shared memory (LDS, staged by LDGSTS) up to 35
@@ -2592,24 +2633,33 @@ def main():
             require(rel <= 1e-6, what, "a differing winner is not a tie", rel)
         return n
 
-    def compare_parts(sh, o, d, t_max, ties_ok=False):
-        """K11a against its plain version and the yardstick (bit for bit; with
-        ties_ok, but for verified ties) and the unsharded K1 -> (hits, lanes
-        whose winner differs from K1's, max rel err of t against K1, tie
-        lanes against plain and yardstick, plain ms)."""
-        pk = ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, o, d, t_max)
-        pp, ms_p = timed(lambda: ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d,
-                                                        t_max))
-        n_tp = pack_ties(pk, pp, o, d, t_max, "K11a against its plain version", ties_ok)
+    def compare_parts(sh, o, d, t_max, full, ties_ok=False, plain=True):
+        """K11a against its plain version (plain False: not run, the
+        yardstick's pack returned for it), its yardstick (the stepper loop)
+        and the unfused K1-per-part yardstick (bit for bit; with ties_ok,
+        but for verified ties), and the unsharded K1 over full = (rows,
+        n_int, depth, scene) -> (hits, lanes whose winner differs from K1's,
+        max rel err of t against K1, (tie lanes against plain, yardstick and
+        unfused, max abs err of t against plain), plain ms, the plain
+        pack; without plain: None, None, the yardstick's err and pack)."""
+        rows_f, nint_f, depth_f, sc_f = full
+        pk = ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, sh.top, o, d, t_max)
+        py = ss.closest_parts_stepper_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, o, d, t_max)
+        pp, ms_p, n_tp = py, None, None
+        if plain:
+            pp, ms_p = timed(lambda: ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d,
+                                                            t_max))
+            n_tp = pack_ties(pk, pp, o, d, t_max, "K11a against its plain version", ties_ok)
+        n_ts = pack_ties(pk, py, o, d, t_max, "K11a against its yardstick", ties_ok)
         n_ty = pack_ties(pk, unfused_pack(sh, o, d, t_max), o, d, t_max,
                          "K11a against the unfused K1-per-part yardstick", ties_ok)
-        t1, p1 = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
+        t1, p1 = bvh.traverse_cuda(rows_f, nint_f, depth_f, o, d, t_max)
         hit = p1 >= 0
         require(torch.equal(hit, torch.isfinite(pk[:, 0])), "K11a: hit set differs from K1's")
         rel = ((pk[hit, 0] - t1[hit]).abs() / t1[hit].abs()).max() if bool(hit.any()) else 0.0
         require(float(rel) <= 1e-5, "K11a: t differs from K1's", float(rel))
         pc = p1.clamp(min=0)
-        same = (pk[:, 28:] == torch.cat([scene.tri_p0[pc], scene.tri_p1[pc], scene.tri_p2[pc]],
+        same = (pk[:, 28:] == torch.cat([sc_f.tri_p0[pc], sc_f.tri_p1[pc], sc_f.tri_p2[pc]],
                                         dim=1)).all(1) & hit
         n_hit, n_same = int(hit.sum()), int(same.sum())
         require(n_same >= 0.99 * n_hit, "K11a: winners differ from K1's", n_same, n_hit)
@@ -2622,30 +2672,39 @@ def main():
             require(torch.equal(pk[other, 0], t1[other]), "K11a: a different winner at another t")
         both = torch.isfinite(pk[:, 0]) & torch.isfinite(pp[:, 0])
         err_t = float((pk[both, 0] - pp[both, 0]).abs().max()) if bool(both.any()) else 0.0
-        return n_hit, n_hit - n_same, float(rel), (n_tp, n_ty, err_t), ms_p
+        return n_hit, n_hit - n_same, float(rel), (n_tp, n_ts, n_ty, err_t), ms_p, pp
 
-    def compare_any_parts(sh, o, d, t_max):
-        """K11b against its plain version, the yardstick and K1a -> (occluded,
-        plain ms)."""
-        ok = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, o, d, t_max)
-        op, ms_p = timed(lambda: ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_max))
-        require(torch.equal(ok, op), "K11b differs from its plain version",
-                int((ok != op).sum()))
-        require(torch.equal(ok, unfused_any(sh, o, d, t_max)), "K11b differs from the yardstick")
-        require(torch.equal(ok, bvh.traverse_cuda(rows, n_int, depth, o, d, t_max,
+    def compare_any_parts(sh, o, d, t_max, full, plain=True):
+        """K11b against its plain version (unless plain is False), its
+        yardstick, the unfused K1a-per-part yardstick and the unsharded K1a
+        -> (the occluded mask, plain ms or None)."""
+        rows_f, nint_f, depth_f, _ = full
+        ok = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, sh.top, o, d, t_max)
+        ms_p = None
+        if plain:
+            op, ms_p = timed(lambda: ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_max))
+            require(torch.equal(ok, op), "K11b differs from its plain version",
+                    int((ok != op).sum()))
+        require(torch.equal(ok, ss.any_parts_stepper_cuda(sh.rows, sh.n_int, sh.depth, o, d,
+                                                          t_max)),
+                "K11b differs from its yardstick")
+        require(torch.equal(ok, unfused_any(sh, o, d, t_max)), "K11b differs from the unfused "
+                "yardstick")
+        require(torch.equal(ok, bvh.traverse_cuda(rows_f, nint_f, depth_f, o, d, t_max,
                                                   any_hit=True)[1] >= 0),
                 "K11b differs from the unsharded K1a")
-        return int(ok.sum()), ms_p
+        return ok, ms_p
 
+    full_cm = (rows, n_int, depth, scene)
     o, d, t_max = camera_and_interior_rays(scene, meta)
-    n_hit, n_tie, rel, _, _ = compare_parts(sh8, o, d, t_max)
+    n_hit, n_tie, rel, _, _, _ = compare_parts(sh8, o, d, t_max, full_cm)
     t_cl, _ = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
-    n_occ, _ = compare_any_parts(sh8, o, d, shadow_t(t_cl))
+    occ_a, _ = compare_any_parts(sh8, o, d, shadow_t(t_cl), full_cm)
     log(f"bvh_closest_hit_parts vs plain on {o.shape[0]} camera+interior rays over 8 parts: "
-        f"packs bit-exact (and with the unfused K1-per-part yardstick); against the unsharded "
-        f"K1 {n_hit} hits, the same triangle on all but {n_tie} (equal t), max rel err t "
-        f"{rel:.2e}; bvh_any_hit_parts {n_occ} occluded, bit-exact with plain, yardstick and "
-        f"K1a")
+        f"packs bit-exact (and with its yardstick, the stepper loop, and the unfused "
+        f"K1-per-part yardstick); against the unsharded K1 {n_hit} hits, the same triangle on "
+        f"all but {n_tie} (equal t), max rel err t {rel:.2e}; bvh_any_hit_parts "
+        f"{int(occ_a.sum())} occluded, bit-exact with plain, both yardsticks and K1a")
 
     def planted_packs(pack, W=4):
         """W packs from one: rank w's rows rolled by 17 w, and on every third
@@ -2654,7 +2713,8 @@ def main():
         packs[1:3, ::3, 0] = packs[0, ::3, 0]
         return packs
 
-    pk8 = ss.closest_parts_cuda(sh8.rows, sh8.recv, sh8.n_int, sh8.depth, o, d, t_max)
+    pk8 = ss.closest_parts_cuda(sh8.rows, sh8.recv, sh8.n_int, sh8.depth, sh8.top, o, d,
+                                t_max)
     packs4 = planted_packs(pk8)
     require(torch.equal(ss.select_cuda(packs4), ss.select_plain(packs4)),
             "shard_select differs from its plain version")
@@ -2677,18 +2737,46 @@ def main():
             log(f"{tag}: shard_scene ({n_parts} parts of rows {tuple(sc.shard.rows.shape)}, "
                 f"host build and upload) {time.time() - t0:.2f} s")
             kw = {}
-        st = full_render(tag, sc, mt, must, **kw)
-        k1 = {k: main_counts_frame.get(k, 0) for k in bvh.launches}
+        st = full_render(tag, sc, mt, must + ("bvh_refit",), **kw)
+        k1 = {k: main_counts_frame.get(k, 0) for k in bvh.launches if k != "bvh_refit"}
         require(not any(k1.values()), tag, "K1 launched on a sharded frame", k1)
+        yard = {k: main_counts_frame.get(k, 0) for k in ss.launches if k.endswith("_stepper")}
+        require(not any(yard.values()), tag, "a K11 yardstick launched", yard)
         require(st == ref_stats, tag, "ray counts differ from the unsharded frame", st,
                 ref_stats)
         fb = check_image(frame_imgs[tag], frame_imgs[ref_tag], f"{tag} vs {ref_tag}")
         log(f"{tag}: {n_parts} parts, ray counts equal to the {ref_tag} frame's {ref_stats}, "
-            f"K1 not launched; vs that frame {fb:.4%} bad px, means {frame_means[tag]:.5f} / "
-            f"{frame_means[ref_tag]:.5f}")
+            f"K1 and the K11 yardsticks not launched (the refit of K11a's winners, "
+            f"bvh_refit, launched); vs that frame {fb:.4%} bad px, means "
+            f"{frame_means[tag]:.5f} / {frame_means[ref_tag]:.5f}")
+        return sc
 
-    sharded_frame("cornell_mesh_sharded", scene, meta, 8, "cornell_mesh", st_cm)
-    sharded_frame("terrain_sharded", s_terr, m_terr, 4, "terrain", st_terr_b)
+    sc_cm8 = sharded_frame("cornell_mesh_sharded", scene, meta, 8, "cornell_mesh", st_cm)
+    sc_terr4 = sharded_frame("terrain_sharded", s_terr, m_terr, 4, "terrain", st_terr_b)
+
+    # the frames' walls in turns: cornell-mesh unsharded and in 8 parts
+    # (K11a/K11b for K1/K1a), and terrain in 4 parts beside its batched loop
+    walls = {k: [] for k in ("cornell_mesh", "cornell_mesh_sharded", "terrain_batched",
+                             "terrain_sharded")}
+    for tag in ("cornell_mesh", "cornell_mesh_sharded", "cornell_mesh_sharded", "cornell_mesh",
+                "terrain_batched", "terrain_sharded", "terrain_sharded", "terrain_batched"):
+        sc_w, mt_w = {"cornell_mesh": (scene, meta), "cornell_mesh_sharded": (sc_cm8, meta),
+                      "terrain_sharded": (sc_terr4, m_terr)}.get(tag, (s_terr, m_terr))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if tag == "terrain_batched":
+            rd.render_batched(sc_w, mt_w, filmlib.new_film(mt_w.resolution, dev))
+        else:
+            rd.render(sc_w, mt_w)
+        torch.cuda.synchronize()
+        walls[tag].append(time.time() - t0)
+    w_med = {k: float(np.median(v)) for k, v in walls.items()}
+    ratio_cm = w_med["cornell_mesh_sharded"] / w_med["cornell_mesh"]
+    log(f"frame walls in turns (unsharded, sharded, sharded, unsharded): cornell-mesh "
+        f"{walls['cornell_mesh']} s against 8 parts {walls['cornell_mesh_sharded']} s "
+        f"({ratio_cm:.3f}x; target <= 1.3x {'met' if ratio_cm <= 1.3 else 'missed'}); terrain "
+        f"batched {walls['terrain_batched']} s against 4 parts {walls['terrain_sharded']} s "
+        f"({w_med['terrain_sharded'] / w_med['terrain_batched']:.3f}x)")
 
     # (c) NCCL at world size 1: the collectives are issued (and counted)
     import torch.distributed as tdist
@@ -2737,48 +2825,111 @@ def main():
     log("scaling across cards: not measurable on one card (one H100 in this machine; NCCL ran "
         "at world size 1)")
 
-    # (d) timed at their first launches in (b)'s cornell-mesh frame and, the
-    # select kernel, in (c)'s
-    (rows_s, recv_s, nint_s, depth_s, o_, d_, t_), _, _ = first("cornell_mesh_sharded",
-                                                                "bvh_closest_hit_parts")
-    sh_f = sh8._replace(rows=rows_s, recv=recv_s)
-    R_ = o_.shape[0]
-    n_h, n_tie, rel, (n_tp, n_ty, err_t), ms_plain = compare_parts(sh_f, o_, d_, t_,
-                                                                   ties_ok=True)
-    work = torch.zeros(4, dtype=torch.int64, device=dev)
-    ss.closest_parts_cuda(rows_s, recv_s, nint_s, depth_s, o_, d_, t_, stats=work)
-    n_nodes, n_tris, n_edge, n_range = (int(x) for x in work.cpu())
-    ms, call = kernel_ms(lambda: ss.closest_parts_cuda(rows_s, recv_s, nint_s, depth_s, o_, d_,
-                                                       t_), 20)
-    ms_y = graph_ms(lambda: unfused_pack(sh_f, o_, d_, t_))
-    b = bound(rows_s.numel() * 4 + n_h * ss.REC_W * 4 + R_ * 28 + R_ * ss.PACK_W * 4,
-              n_nodes * SLAB_VISIT_OPS + tri_test_ops(n_tris, n_edge, n_range))
-    timing["bvh_closest_hit_parts"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0],
-                                           bound_by=b[1], library_ms=None, max_abs_err=err_t,
-                                           yardstick_ms=ms_y)
-    log(f"bvh_closest_hit_parts at the main path's launch ({R_} lanes x 8 parts, {n_h} hits, "
-        f"{n_nodes} node visits, {n_tris} tri tests, {n_edge} past the edge test, {n_range} "
-        f"past t range): kernel {ms:.3f} ms (host-paced {call:.3f} ms), unfused K1-per-part "
-        f"yardstick {ms_y:.3f} ms, plain {ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]}); "
-        f"packs bit-exact with plain but on {n_tp} and with the yardstick but on {n_ty} "
-        f"verified tie lanes; against the unsharded K1 the same triangle on all but {n_tie} "
-        f"hits, max rel err t {rel:.2e}; max abs err of t against plain {err_t:.2e}")
-    (rows_s, nint_s, depth_s, o_, d_, t_), _, _ = first("cornell_mesh_sharded",
-                                                        "bvh_any_hit_parts")
-    n_o, ms_plain = compare_any_parts(sh_f, o_, d_, t_)
-    work.zero_()
-    ss.any_parts_cuda(rows_s, nint_s, depth_s, o_, d_, t_, stats=work)
-    n_nodes, n_tris, n_edge, n_range = (int(x) for x in work.cpu())
-    ms, call = kernel_ms(lambda: ss.any_parts_cuda(rows_s, nint_s, depth_s, o_, d_, t_), 20)
-    ms_y = graph_ms(lambda: unfused_any(sh_f, o_, d_, t_))
-    b = bound(rows_s.numel() * 4 + o_.shape[0] * 29,
-              n_nodes * SLAB_VISIT_OPS + tri_test_ops(n_tris, n_edge, n_range))
-    timing["bvh_any_hit_parts"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                                       library_ms=None, max_abs_err=0.0, yardstick_ms=ms_y)
-    log(f"bvh_any_hit_parts at the main path's launch ({o_.shape[0]} lanes x 8 parts, {n_o} "
-        f"occluded, {n_nodes} node visits, {n_tris} tri tests): kernel {ms:.3f} ms "
-        f"(host-paced {call:.3f} ms), unfused K1a-per-part yardstick {ms_y:.3f} ms, plain "
-        f"{ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]}); bit-exact")
+    # (d) K11a and K11b at their first launches in (b)'s frames, held again
+    # (terrain's 2^20 lanes against the yardsticks and K1 only: its plain
+    # versions take ~33 s on the H100) and timed in turns (yardstick, K11, unfused, K1,
+    # K1, unfused, K11, yardstick) with their yardsticks (the stepper loop;
+    # K1 over each part) and K1/K1a over the unsharded table on the same
+    # rays, beside the bound from ss.parts_work's oracle count (the answers:
+    # the plain version's, on terrain the yardstick's, its bits) and the
+    # kernels' own work sums; the select kernel at its first launch in (c)
+    work_w = (SLAB_VISIT_OPS, TRI_EDGE_OPS, TRI_RANGE_OPS, TRI_BOUND_OPS)
+    full_terr = (s_terr.bvh_rows, m_terr.bvh_nint, m_terr.bvh_depth, s_terr)
+    k11_timed = {"bvh_closest_hit_parts": {}, "bvh_any_hit_parts": {}}
+    targets = {"bvh_closest_hit_parts": 0.90, "bvh_any_hit_parts": 1.10}
+    for tag, full in (("cornell_mesh_sharded", full_cm), ("terrain_sharded", full_terr)):
+        rows_f, nint_f, depth_f, _ = full
+        for name in ("bvh_closest_hit_parts", "bvh_any_hit_parts"):
+            any_hit = name == "bvh_any_hit_parts"
+            a_ = first(tag, name)[0]
+            if any_hit:
+                rows_s, nint_s, depth_s, top_s, o_, d_, t_ = a_
+                recv_s = None
+            else:
+                rows_s, recv_s, nint_s, depth_s, top_s, o_, d_, t_ = a_
+            sh_f = ss.SceneShard(rows=rows_s, recv=recv_s, n_int=nint_s, depth=depth_s,
+                                 leaf_k=bvh.LEAF_K, boxes=ss.part_boxes(rows_s), top=top_s)
+            n_p, R_ = rows_s.shape[0], o_.shape[0]
+            plain = tag == "cornell_mesh_sharded"
+            if any_hit:
+                occ_p, ms_plain = compare_any_parts(sh_f, o_, d_, t_, full, plain)
+                t_lim, n_h, err_t = t_, int(occ_p.sum()), 0.0
+                ties = "bit-exact with " + ("plain, " if plain else "") + "both yardsticks"
+                fns = {"k11": lambda st=None: ss.any_parts_cuda(
+                           rows_s, nint_s, depth_s, top_s, o_, d_, t_, stats=st),
+                       "yardstick": lambda st=None: ss.any_parts_stepper_cuda(
+                           rows_s, nint_s, depth_s, o_, d_, t_, stats=st),
+                       "unfused": lambda st=None: unfused_any(sh_f, o_, d_, t_),
+                       "k1": lambda st=None: bvh.traverse_cuda(rows_f, nint_f, depth_f, o_, d_,
+                                                               t_, True, stats=st)}
+                nbytes = rows_s.numel() * 4 + top_s.numel() * 4 + R_ * 29
+            else:
+                n_h, n_tie, rel, (n_tp, n_ts, n_ty, err_t), ms_plain, pp = compare_parts(
+                    sh_f, o_, d_, t_, full, ties_ok=True, plain=plain)
+                occ_p = None
+                t_lim = torch.where(torch.isfinite(pp[:, 0]), pp[:, 0], t_)
+                ties = (f"bit-exact but {n_tp} verified tie lanes against plain, " if plain
+                        else "bit-exact but ") + (
+                        f"{n_ts} against the yardstick, {n_ty} against the unfused yardstick; "
+                        f"the same triangle as the unsharded K1 on all but {n_tie} hits, max rel "
+                        f"err t {rel:.2e}")
+                fns = {"k11": lambda st=None: ss.closest_parts_cuda(
+                           rows_s, recv_s, nint_s, depth_s, top_s, o_, d_, t_, stats=st),
+                       "yardstick": lambda st=None: ss.closest_parts_stepper_cuda(
+                           rows_s, recv_s, nint_s, depth_s, o_, d_, t_, stats=st),
+                       "unfused": lambda st=None: unfused_pack(sh_f, o_, d_, t_),
+                       "k1": lambda st=None: bvh.traverse_cuda(rows_f, nint_f, depth_f, o_, d_,
+                                                               t_, stats=st)}
+                nbytes = (rows_s.numel() * 4 + top_s.numel() * 4 + n_h * ss.REC_W * 4 + R_ * 28
+                          + R_ * ss.PACK_W * 4)
+            oracle = ss.parts_work(rows_s, nint_s, sh_f.boxes, o_, d_, t_lim, occ_p, work_w)
+            own = {}
+            for key in ("k11", "yardstick", "k1"):
+                work = torch.zeros(4, dtype=torch.int64, device=dev)
+                fns[key](work)
+                own[key] = tuple(int(x) for x in work.cpu())
+            turns = {k: [] for k in fns}
+            for key in ("yardstick", "k11", "unfused", "k1", "k1", "unfused", "k11",
+                        "yardstick"):
+                turns[key].append(graph_ms(fns[key]))
+            ms_ = {k: sum(v) / len(v) for k, v in turns.items()}
+            b = bound(nbytes, oracle[0] * SLAB_VISIT_OPS + tri_test_ops(*oracle[1:]))
+            b_y = bound(nbytes, own["yardstick"][0] * SLAB_VISIT_OPS
+                        + tri_test_ops(*own["yardstick"][1:]))
+            rows_x = own["k11"][0] / own["k1"][0]
+            k11_timed[name][tag] = dict(
+                ms=ms_["k11"], yardstick_ms=ms_["yardstick"], unfused_ms=ms_["unfused"],
+                k1_same_rays_ms=ms_["k1"], turns=turns, plain_ms=ms_plain, bound_ms=b[0],
+                bound_by=b[1], yardstick_stats_bound_ms=b_y[0], lanes=R_, parts=n_p,
+                live=int((t_ > 0).sum()), found=n_h, oracle_work=oracle, kernel_stats=own["k11"],
+                yardstick_stats=own["yardstick"], k1_stats=own["k1"], max_abs_err=err_t)
+            tgt = ""
+            if tag == "cornell_mesh_sharded":
+                tgt = (f"; target <= {targets[name]} ms "
+                       f"{'met' if ms_['k11'] <= targets[name] else 'missed'}")
+                if not any_hit:
+                    tgt += (f", rows read {rows_x:.2f}x K1's (target <= 1.5x "
+                            f"{'met' if rows_x <= 1.5 else 'missed'})")
+            log(f"{name} at {tag}'s first launch ({R_} lanes x {n_p} parts, "
+                f"{int((t_ <= 0).sum())} masked, {n_h} {'occluded' if any_hit else 'hits'}; "
+                f"{ties}): kernel {turns['k11']} ms, yardstick (stepper) {turns['yardstick']} "
+                f"ms, unfused per part {turns['unfused']} ms, {'K1a' if any_hit else 'K1'} over "
+                f"the unsharded table on the same rays {turns['k1']} ms (in turns; "
+                f"{ms_['yardstick'] / ms_['k11']:.3f}x the yardstick, "
+                f"{ms_['k11'] / ms_['k1']:.3f}x K1); plain "
+                f"{'not run' if ms_plain is None else f'{ms_plain:.1f} ms'}; oracle work (rows, "
+                f"tri tests, past edge, past range) {oracle}, bound {b[0]:.4f} ms ({b[1]}), "
+                f"kernel {ms_['k11'] / b[0]:.1f}x it, yardstick {ms_['yardstick'] / b[0]:.1f}x "
+                f"(the yardstick's own-stats bound of before: {b_y[0]:.4f} ms); the kernels' own "
+                f"sums: K11 {own['k11']}, yardstick {own['yardstick']}, K1 {own['k1']} "
+                f"(rows read {rows_x:.2f}x K1's){tgt}")
+    for name, per in k11_timed.items():
+        cm = per["cornell_mesh_sharded"]
+        timing[name] = dict(ms=cm["ms"], plain_ms=cm["plain_ms"], bound_ms=cm["bound_ms"],
+                            bound_by=cm["bound_by"], library_ms=None,
+                            max_abs_err=max(x["max_abs_err"] for x in per.values()),
+                            yardstick_ms=cm["yardstick_ms"], unfused_ms=cm["unfused_ms"],
+                            k1_same_rays_ms=cm["k1_same_rays_ms"], launches_timed=per)
     (packs_s,), _, _ = first("cornell_mesh_sharded_nccl", "shard_select")
     W_, R_ = packs_s.shape[0], packs_s.shape[1]
     out_p, _ = timed(lambda: ss.select_plain(packs_s))

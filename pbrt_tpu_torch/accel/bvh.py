@@ -669,7 +669,7 @@ def watertight_stages(o, d, t_max, p0, p1, p2):
 
 
 def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
-                   chunk=1 << 15):
+                   chunk=1 << 15, per_ray=False):
     """The work of an oracle traversal of the table (rows, n_int) that knows
     each ray's answer. Closest hit (occluded None): t_lim (R,) is the
     nearest hit's t (traverse_plain's t, which is t_max on a miss); from the
@@ -688,8 +688,10 @@ def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
     with that t_lim reads. Rays with t_lim <= 0 do nothing. -> (internal
     rows read, triangles tested, of those past the edge-sign test, past the
     t-range test), the sums the kernels' `stats` report, for the same work
-    whatever implements it. Measurement code (chip_smoke.py's bound of K1
-    and K1a): rays `chunk` at a time, breadth first."""
+    whatever implements it; per_ray: those four counts of each ray, an (R,
+    4) int64 tensor. Measurement code (chip_smoke.py's bound of K1 and K1a;
+    parallel/scene_shard.py `parts_work`): rays `chunk` at a time, breadth
+    first."""
     inv = safe_inv(d)
     if occluded is None:
         blocked = torch.zeros_like(t_lim, dtype=torch.bool)
@@ -698,7 +700,7 @@ def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
         blocked, t_hi = occluded, t_lim
     live = (t_lim > 0).nonzero()[:, 0]
     w = torch.tensor(cost, dtype=torch.int64, device=o.device)
-    sums = torch.zeros(4, dtype=torch.int64, device=o.device)
+    per = torch.zeros((o.shape[0], 4), dtype=torch.int64, device=o.device)
     for s in range(0, live.numel(), chunk):
         lane = live[s: s + chunk]
         node = torch.zeros_like(lane)
@@ -711,7 +713,7 @@ def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
         level = 0
         while lane.numel():
             level += 1
-            sums[0] += (~blocked[lane]).sum()
+            per[:, 0].index_add_(0, lane, (~blocked[lane]).long())
             row = rows[node]
             box = row[:, : 6 * WIDTH].reshape(-1, WIDTH, 6)
             child = row[:, 6 * WIDTH: 7 * WIDTH].long()
@@ -733,7 +735,8 @@ def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
         edge, rng = watertight_stages(o[lane][:, None], d[lane][:, None], t_hi[lane][:, None],
                                       tri[:, :, 0], tri[:, :, 1], tri[:, :, 2])
         free = ~blocked[lane]
-        sums[1:] += torch.stack([free.sum() * LEAF_K, edge[free].sum(), rng[free].sum()])
+        per[:, 1:].index_add_(0, lane[free], torch.stack(
+            [torch.full_like(lane[free], LEAF_K), edge[free].sum(1), rng[free].sum(1)], dim=1))
         # a blocked ray's leaves that hold a hit: the slots up to the first
         hold = ~free & rng.any(dim=1)
         first = rng[hold].int().argmax(dim=1)
@@ -744,13 +747,14 @@ def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
         lane_h, none = lane[hold], torch.iinfo(torch.int64).max
         least = torch.full((o.shape[0],), none, dtype=torch.int64,
                            device=o.device).scatter_reduce(0, lane_h, key, "amin")
-        sums += work[key == least[lane_h]].sum(0)
+        cheapest = key == least[lane_h]
+        per.index_add_(0, lane_h[cheapest], work[cheapest])
         ray = live[s: s + chunk]
         short = blocked[ray] & (least[ray] == none)
         if bool(short.any()):
             raise ValueError(f"traversal_work: {int(short.sum())} occluded rays reach no leaf "
                              "that holds a hit within t_max")
-    return tuple(int(x) for x in sums)
+    return per if per_ray else tuple(int(x) for x in per.sum(0))
 
 
 def object_rays(w2o, o, d):

@@ -123,14 +123,17 @@ def _closest_triangles(scene, meta, o, d, t_max):
     INFINITY on a miss, (p, ng, ns, uv, mat, light)).
       - scene-sharded (scene.shard set; JAX dispatch.py:80-93, 122-145): the
         parts' traversal (K11a) delivers the winner's record row and
-        vertices, and the hit is refit against them;
+        vertices, and the hit is refit against them (the BVH route's refit,
+        lane i's triangle the pack's row i);
       - BVH (K1, K1i on an instanced scene): one wide tri_rec row gather for
         the whole record;
       - dense (K3): the per-column tables."""
     if scene.shard is not None:
         _, rec, p0, p1, p2, valid = scene_shard.closest_hit_parts(scene.shard, o, d, t_max)
-        t_ref, b, hit_ref = ix.intersect_tri_lanes(o, d, t_max, p0, p1, p2)
-        t = torch.where(valid & hit_ref, t_ref, INFINITY)
+        p0, p1, p2 = (x.contiguous() for x in (p0, p1, p2))
+        lane = torch.where(valid, torch.arange(o.shape[0], device=o.device), -1)
+        refit = bvh.refit_cuda if o.is_cuda else bvh.refit_plain
+        t, _, b = refit(p0, p1, p2, o, d, t_max, lane)
         return t, _triangle_record(p0, p1, p2, b, _record_fields(rec))
     inst = None
     if scene.bvh_rows.shape[0] > 0:

@@ -172,25 +172,13 @@ extern "C" int pbrt_bvh_wide_max_stack() { return pbrt_wide::MAX_STACK; }
 
 namespace {
 
-// blocks of the persistent grid: as many as fit on the card at once with
-// this stack (cached per kernel and stack size; the card's SM count read
-// each launch)
+// blocks of the persistent grid (bvh_wide.cuh resident_blocks), the
+// occupancy cached per kernel and stack size
 template <bool ANY_HIT, bool STATS>
-int wide_blocks(int stack_depth, size_t smem) {
+int wide_blocks(int stack_depth) {
   static int per_sm[pbrt_wide::MAX_STACK + 1] = {0};
-  if (per_sm[stack_depth] == 0) {
-    cudaFuncSetAttribute(pbrt_wide::wide_kernel<ANY_HIT, STATS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         pbrt_wide::MAX_STACK * pbrt_wide::BLOCK * 6);
-    int n = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pbrt_wide::wide_kernel<ANY_HIT, STATS>,
-                                                  pbrt_wide::BLOCK, smem);
-    per_sm[stack_depth] = n > 0 ? n : 1;
-  }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return per_sm[stack_depth] * sms;
+  return pbrt_wide::resident_blocks((const void*)pbrt_wide::wide_kernel<ANY_HIT, STATS>,
+                                    per_sm, stack_depth);
 }
 
 template <bool ANY_HIT, bool STATS>
@@ -199,7 +187,7 @@ void launch_wide(const float* rows, int n_rows, int n_int, const float* o, const
                  int stack_depth, unsigned long long* stats, unsigned* ticket,
                  cudaStream_t s) {
   const size_t smem = (size_t)pbrt_wide::BLOCK * stack_depth * 6;
-  const int blocks = std::min(wide_blocks<ANY_HIT, STATS>(stack_depth, smem),
+  const int blocks = std::min(wide_blocks<ANY_HIT, STATS>(stack_depth),
                               (n_rays + pbrt_wide::BLOCK - 1) / pbrt_wide::BLOCK);
   pbrt_wide::wide_kernel<ANY_HIT, STATS><<<blocks, pbrt_wide::BLOCK, smem, s>>>(
       rows, n_rows, n_int, o, d, t_max, n_rays, t_out, prim_out, overflow, stack_depth, stats,

@@ -133,13 +133,22 @@ __device__ __forceinline__ int pop(Stack& st, float t_best) {
   return DONE;
 }
 
+// The global id of a child: a table's own rows are addressed by the ids its
+// rows hold (K1); other tables map them (K11's parts and top level,
+// scene_shard.cu).
+struct SameTable {
+  __device__ __forceinline__ int operator()(int child) const { return child; }
+};
+
 // Visit internal row `row`: slab-test its 8 child boxes against [0, t_best)
 // and return the row to go to next (the nearest surviving child, else the
 // next pending one), the other survivors pushed; OVERFLOWED when they do
-// not fit on the stack.
-template <bool ANY_HIT>
+// not fit on the stack. SORT (closest hit): descend into the nearest and
+// push the others farthest first; else in slot order. `map` turns the ids
+// the row holds into the ids pushed and returned.
+template <bool ANY_HIT, bool SORT = !ANY_HIT, class Map = SameTable>
 __device__ __forceinline__ int visit_internal(const float4* __restrict__ row, const Ray& r,
-                                              float t_best, Stack& st) {
+                                              float t_best, Stack& st, Map map = Map()) {
   float4 q[14];
 #pragma unroll
   for (int i = 0; i < 14; ++i) q[i] = __ldg(row + i);
@@ -161,13 +170,13 @@ __device__ __forceinline__ int visit_internal(const float4* __restrict__ row, co
     // an empty slot has id -1 and an inverted box
     const bool hit = child >= 0 && bs[0] <= bs[3] && tn <= tf && tf > 0.f && tn < t_best;
     key[s] = hit ? tn : MISS;
-    id[s] = child;
+    id[s] = map(child);
     h += hit;
   }
   if (h == 0) return pop<ANY_HIT>(st, t_best);
   if (st.sp + h - 1 > st.cap) return OVERFLOWED;
   int next = DONE;
-  if (ANY_HIT || h == 1) {
+  if (!SORT || h == 1) {
 #pragma unroll
     for (int s = 0; s < WIDTH; ++s) {
       if (key[s] != MISS) {
@@ -186,9 +195,12 @@ __device__ __forceinline__ int visit_internal(const float4* __restrict__ row, co
 }
 
 // Test the 8 triangles of leaf row `row` (chunk `chunk`) against [0, t_best);
-// a strictly nearer hit replaces (t_best, prim). Returns whether one did.
-// STATS: count the tests by exit stage into c.
-template <bool ANY_HIT, bool STATS>
+// a strictly nearer hit replaces (t_best, prim), prim = chunk * 8 + k.
+// Returns whether one did. LEX: a hit at t_best also replaces a best hit of
+// a higher prim, so the least (t, prim) wins whatever the order of the
+// tests (K11a's rule across parts). STATS: count the tests by exit stage
+// into c.
+template <bool ANY_HIT, bool STATS, bool LEX = false>
 __device__ __forceinline__ bool test_leaf(const float4* __restrict__ row, int chunk,
                                           const Ray& r, float& t_best, int& prim, Counts& c) {
   bool found = false;
@@ -209,9 +221,10 @@ __device__ __forceinline__ bool test_leaf(const float4* __restrict__ row, int ch
         c.edge += stage >= 1;
         c.range += stage >= 2;
       }
-      if (hit && t < t_best) {
+      const int cand = chunk * LEAF_K + half * (LEAF_K / 2) + k;
+      if (hit && (t < t_best || (LEX && t == t_best && cand < prim))) {
         t_best = t;
-        prim = chunk * LEAF_K + half * (LEAF_K / 2) + k;
+        prim = cand;
         found = true;
         if (ANY_HIT) break;
       }
@@ -328,6 +341,25 @@ wide_kernel(const float* __restrict__ rows, int n_rows, int n_int,
     }
   }
   if (STATS) pbrt_bvh::add_counts(stats, c);
+}
+
+// Blocks of a persistent grid of `kernel` (BLOCK threads, a stack of
+// stack_depth entries a thread): as many as fit on the card at once. The
+// occupancy is read once per stack size into the caller's per_sm[MAX_STACK
+// + 1] (one array per kernel), the SM count each launch.
+inline int resident_blocks(const void* kernel, int* per_sm, int stack_depth) {
+  if (per_sm[stack_depth] == 0) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         MAX_STACK * BLOCK * 6);
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, BLOCK,
+                                                  (size_t)BLOCK * stack_depth * 6);
+    per_sm[stack_depth] = n > 0 ? n : 1;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return per_sm[stack_depth] * sms;
 }
 
 }  // namespace pbrt_wide

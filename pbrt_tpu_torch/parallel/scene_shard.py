@@ -9,15 +9,20 @@ scene_shard.py).
     layout: internal rows in [0, B), leaf rows in [B, B + max_leaves).
     Padding rows hold inverted boxes or all-zero triangles that are never
     visited or hit.
-  * A closest-hit query traverses every part a rank holds and keeps the
-    nearest hit (K11a, csrc/scene_shard.cu, `closest_hit_parts`); under a
-    process group one all_gather of the (R, 37) candidate pack [t, record
-    row, p0 p1 p2] and the select kernel resolve the winner across ranks.
-    Shadow rays OR over the parts (K11b, `any_hit_parts`), then an
-    all_reduce(MAX) over ranks. Rays never migrate and geometry never moves.
-  * Compute rises (every ray walks every part's tree): the memory/compute
-    trade of object-partitioned ray tracing, for scenes whose geometry does
-    not fit one card.
+  * Each part's box (`part_boxes`: the union of its root row's child
+    boxes) and a top level over them (`top_rows`: rows of the same layout,
+    a tree of groups of 8 past 8 parts), so the kernels reach a part only
+    through its box.
+  * A closest-hit query traverses the parts a rank holds, nearest first,
+    and keeps the nearest hit (K11a, csrc/scene_shard.cu,
+    `closest_hit_parts`); under a process group one all_gather of the (R,
+    37) candidate pack [t, record row, p0 p1 p2] and the select kernel
+    resolve the winner across ranks. Shadow rays OR over the parts (K11b,
+    `any_hit_parts`), then an all_reduce(MAX) over ranks. Rays never migrate
+    and geometry never moves.
+  * Compute rises (a ray walks each part whose box it meets): the
+    memory/compute trade of object-partitioned ray tracing, for scenes whose
+    geometry does not fit one card.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain version
 on CPU tensors. Spheres and disks stay replicated, as in the JAX package:
@@ -36,8 +41,17 @@ from pbrt_tpu_torch.utils.math import encode_morton3
 REC_W = 27 + 9      # recv row: the 27-float tri_rec row, then p0, p1, p2
 PACK_W = 1 + REC_W  # candidate pack row: t, then the recv row
 
-# launches of the kernels (plain ints, added to where each launches)
-launches = {"bvh_closest_hit_parts": 0, "bvh_any_hit_parts": 0, "shard_select": 0}
+# launches of the kernels (plain ints, added to where each launches); the
+# *_stepper entries are the yardsticks, which no render calls
+launches = {"bvh_closest_hit_parts": 0, "bvh_any_hit_parts": 0, "shard_select": 0,
+            "bvh_closest_hit_parts_stepper": 0, "bvh_any_hit_parts_stepper": 0}
+
+# the wide kernel's stack (csrc/bvh_wide.cuh): WIDTH - 1 entries a level of
+# internal rows, at most the shared memory of a block (232,448 bytes) over
+# 128 threads of 6-byte entries
+WIDE_MAX_STACK = 232448 // (128 * 6)
+STEPPER_MAX_STACK = 64    # the yardstick's (csrc/bvh_stepper.cuh MAX_STACK)
+BIG = 3e38          # an empty slot's inverted box (build_sharded's padding)
 
 
 class ShardedGeometry(NamedTuple):
@@ -128,11 +142,14 @@ class SceneShard(NamedTuple):
     n_int: int
     depth: int
     leaf_k: int
+    boxes: torch.Tensor = None   # (n_parts, 6) f32: part_boxes(rows)
+    top: torch.Tensor = None     # (n_top, ROW_W) f32: top_rows(boxes)
 
     def to(self, device):
         """A copy of the shard on `device`."""
-        return self._replace(rows=self.rows.to(device).contiguous(),
-                             recv=self.recv.to(device).contiguous())
+        return self._replace(**{k: getattr(self, k).to(device).contiguous()
+                                for k in ("rows", "recv", "boxes", "top")
+                                if getattr(self, k) is not None})
 
     def part_range(self, rank, world):
         """Parts [rank * P / world, (rank + 1) * P / world) of rank `rank`."""
@@ -145,7 +162,10 @@ class SceneShard(NamedTuple):
     def local(self, rank, world):
         """The parts of `part_range(rank, world)` as a shard of their own."""
         lo, hi = self.part_range(rank, world)
-        return self._replace(rows=self.rows[lo:hi], recv=self.recv[lo:hi])
+        out = self._replace(rows=self.rows[lo:hi], recv=self.recv[lo:hi])
+        if self.boxes is None:
+            return out
+        return out._replace(boxes=self.boxes[lo:hi], top=top_rows(self.boxes[lo:hi]))
 
 
 def build_scene_shard(scene, n_parts, leaf_k=None):
@@ -174,8 +194,68 @@ def build_scene_shard(scene, n_parts, leaf_k=None):
     safe = np.clip(orig, 0, rec.shape[0] - 1)
     recv = np.where(okm, np.concatenate([rec[safe], p0[safe], p1[safe], p2[safe]], axis=-1),
                     0.0)
+    boxes = part_boxes(g.rows)
     return SceneShard(rows=g.rows, recv=torch.from_numpy(recv.astype(np.float32)),
-                      n_int=g.n_int, depth=g.depth, leaf_k=g.leaf_k)
+                      n_int=g.n_int, depth=g.depth, leaf_k=g.leaf_k, boxes=boxes,
+                      top=top_rows(boxes))
+
+
+def part_boxes(rows):
+    """Each part's box, the union of its root row's non-empty child boxes
+    (rows (P, N, ROW_W); a synthesized one-child root's single slot, a
+    padding slot's inverted box left out), from the same floats, so it
+    bounds the part's tree exactly -> (P, 6) [lo, hi]."""
+    W = bvhlib.WIDTH
+    box = rows[:, 0, : 6 * W].reshape(-1, W, 6)
+    ok = ((rows[:, 0, 6 * W: 7 * W] >= 0) & (box[..., 0] <= box[..., 3]))[..., None]
+    return torch.cat([torch.where(ok, box[..., :3], torch.inf).amin(1),
+                      torch.where(ok, box[..., 3:], -torch.inf).amax(1)], dim=1)
+
+
+def _top_sizes(n_parts):
+    """Rows of each level of the top level over n_parts parts, from the
+    rows over the parts up to the root: one row of 8 slots up to 8 parts,
+    groups of 8 past them."""
+    sizes = [-(-n_parts // bvhlib.WIDTH)]
+    while sizes[-1] > 1:
+        sizes.append(-(-sizes[-1] // bvhlib.WIDTH))
+    return sizes
+
+
+def top_levels(n_parts):
+    """Levels of the top level over n_parts parts."""
+    return len(_top_sizes(n_parts))
+
+
+def _top_tree(boxes):
+    """[(the boxes of a level's rows (G, 6), its rows (G, ROW_W))] from the
+    rows over the parts up to the root (G = 1)."""
+    W, P, dev = bvhlib.WIDTH, boxes.shape[0], boxes.device
+    pad = torch.tensor([BIG] * 3 + [-BIG] * 3, dtype=torch.float32, device=dev)
+    ids = torch.arange(P, dtype=torch.float32, device=dev)
+    cur, made, out = boxes.float(), 0, []
+    while True:
+        G = -(-cur.shape[0] // W)
+        n_pad = G * W - cur.shape[0]
+        bx = torch.cat([cur, pad.expand(n_pad, 6)]).reshape(G, W, 6)
+        row = torch.zeros((G, bvhlib.ROW_W), dtype=torch.float32, device=dev)
+        row[:, : 6 * W] = bx.reshape(G, 6 * W)
+        row[:, 6 * W: 7 * W] = torch.cat([ids, ids.new_full((n_pad,), -1.0)]).reshape(G, W)
+        cur = torch.cat([bx[..., :3].amin(1), bx[..., 3:].amax(1)], dim=1)
+        out.append((cur, row))
+        if G == 1:
+            return out
+        ids = P + made + torch.arange(G, dtype=torch.float32, device=dev)
+        made += G
+
+
+def top_rows(boxes):
+    """The top level over the part boxes (P, 6), in the row layout of the
+    parts' internal rows (8 boxes, then 8 child ids as floats): slot k of a
+    row holds part k's box (k < P) or the box of top row k - P, the union of
+    its slots; one row up to 8 parts, groups of 8 in morton order past them,
+    the root last. -> (n_top, ROW_W) float32 on the boxes' device."""
+    return torch.cat([row for _, row in _top_tree(boxes)])
 
 
 def shard_bytes(sh: SceneShard):
@@ -218,6 +298,71 @@ def select_plain(packs):
     return packs[best, torch.arange(packs.shape[1], device=packs.device)]
 
 
+def _boxes_meet(boxes, o, d, t_lim):
+    """(R, n) bool: the segment [0, t_lim] of each ray meets each box (n, 6)
+    by the kernels' slab test (bvh.traversal_work's, tn <= t_lim)."""
+    inv = bvhlib.safe_inv(d)[:, None]
+    oo = o[:, None]
+    t0, t1 = (boxes[None, :, :3] - oo) * inv, (boxes[None, :, 3:] - oo) * inv
+    tn = torch.fmin(t0, t1).amax(dim=-1).clamp(min=0.0)
+    tf = torch.fmax(t0, t1).amin(dim=-1) * bvhlib._SLAB_WIDEN
+    return ((boxes[:, 0] <= boxes[:, 3])[None] & (tn <= tf) & (tf > 0)
+            & (tn <= t_lim[:, None]))
+
+
+def parts_work(rows, n_int, boxes, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1)):
+    """The work of an oracle traversal of the parts (rows (P, N, ROW_W),
+    part_boxes `boxes`) under their top level that knows each ray's answer:
+    bvh.traversal_work's four sums (internal rows read, triangles tested,
+    past the edge-sign test, past the t-range test), the top level's rows
+    counted as internal rows. Closest hit (occluded None): t_lim (R,) is the
+    global answer's t (t_max on a miss); a ray reads the top root, each other
+    top row whose box the segment [0, t_lim] meets, and in each part whose
+    box it meets what traversal_work of that part reads with that t_lim.
+    Any hit: t_lim is t_max and occluded (R,) the plain version's answer; a
+    blocked ray pays only the top level's root path and, in the part where
+    it weighs least by `cost` (the first part on ties), traversal_work's
+    blocked-ray work; any other ray pays as a closest-hit ray with t_lim =
+    t_max. Rays with t_lim <= 0 do nothing. -> the four sums; measurement
+    code (chip_smoke.py's bounds of K11a and K11b)."""
+    R, dev = o.shape[0], o.device
+    live = t_lim > 0
+    meets = _boxes_meet(boxes, o, d, t_lim) & live[:, None]
+    tree = _top_tree(boxes)
+    sums = torch.zeros(4, dtype=torch.int64, device=dev)
+    blocked = torch.zeros_like(live) if occluded is None else occluded & live
+    free = live & ~blocked
+    # the top level: the root, then each row below it whose box is met
+    sums[0] += free.sum() + blocked.sum() * len(tree)
+    for gbox, _ in tree[:-1]:
+        sums[0] += (_boxes_meet(gbox, o, d, t_lim) & free[:, None]).sum()
+    w = torch.tensor(cost, dtype=torch.int64, device=dev)
+    none = torch.iinfo(torch.int64).max
+    best = torch.full((R,), none, dtype=torch.int64, device=dev)
+    best_work = torch.zeros((R, 4), dtype=torch.int64, device=dev)
+    for p in range(rows.shape[0]):
+        m = meets[:, p].nonzero()[:, 0]
+        if m.numel() == 0:
+            continue
+        occ_p = None
+        if occluded is not None:
+            occ_p = bvhlib.traverse_plain(rows[p], n_int, o[m], d[m], t_lim[m],
+                                          any_hit=True)[1] >= 0
+        work = bvhlib.traversal_work(rows[p], n_int, o[m], d[m], t_lim[m], occ_p, cost,
+                                     per_ray=True)
+        sums += work[free[m]].sum(0)
+        if occ_p is not None:
+            lane, wk = m[occ_p], work[occ_p]
+            c = (wk * w).sum(1)
+            better = c < best[lane]
+            best[lane[better]] = c[better]
+            best_work[lane[better]] = wk[better]
+    if bool((best[blocked] == none).any()):
+        raise ValueError("parts_work: an occluded ray reaches no part that holds a hit "
+                         "within t_max")
+    return tuple(int(x) for x in sums + best_work[blocked].sum(0))
+
+
 # ------------------------------------------------------------------ kernels
 
 def _lib():
@@ -227,12 +372,16 @@ def _lib():
     lib = kernels.load("scene_shard")
     if not hasattr(lib, "declared"):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.pbrt_bvh_closest_parts.argtypes = [P, I, I, I, P, I, P, P, P, I, P, P, I, P, P]
-        lib.pbrt_bvh_any_parts.argtypes = [P, I, I, I, P, P, P, I, P, P, I, P, P]
+        lib.pbrt_bvh_closest_parts.argtypes = [P, I, I, I, P, I, P, I, P, P, P, I, P, P, I, P,
+                                               P, P]
+        lib.pbrt_bvh_any_parts.argtypes = [P, I, I, I, P, I, P, P, P, I, P, P, I, P, P, P]
+        lib.pbrt_bvh_closest_parts_stepper.argtypes = [P, I, I, I, P, I, P, P, P, I, P, P, I,
+                                                       P, P]
+        lib.pbrt_bvh_any_parts_stepper.argtypes = [P, I, I, I, P, P, P, I, P, P, I, P, P]
         lib.pbrt_shard_select.argtypes = [P, I, I, P, P]
-        lib.pbrt_parts_max_stack.argtypes = []
-        lib.pbrt_parts_max_stack.restype = I
-        for fn in (lib.pbrt_bvh_closest_parts, lib.pbrt_bvh_any_parts, lib.pbrt_shard_select):
+        for fn in (lib.pbrt_bvh_closest_parts, lib.pbrt_bvh_any_parts,
+                   lib.pbrt_bvh_closest_parts_stepper, lib.pbrt_bvh_any_parts_stepper,
+                   lib.pbrt_shard_select):
             fn.restype = I
         lib.declared = True
     return lib
@@ -245,8 +394,11 @@ def _check(what, x, dtype, shape, dev):
                          f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _check_parts(what, rows, recv, n_int, depth, o, d, t_max, stats):
-    """Validate a part traversal's arguments; -> the stack depth."""
+def _check_parts(what, rows, recv, n_int, depth, top, o, d, t_max, stats, wide=True):
+    """Validate a part traversal's arguments -> the stack entries a thread:
+    the wide kernel's for a path through the top level and the deepest
+    part's internal rows; the yardstick's (wide False, the stepper loop,
+    no top level) depth + 2."""
     R, dev = o.shape[0], o.device
     if rows.dim() != 3 or rows.shape[0] < 1:
         raise ValueError(f"{what}: rows must be (parts, rows, {bvhlib.ROW_W}), "
@@ -258,6 +410,11 @@ def _check_parts(what, rows, recv, n_int, depth, o, d, t_max, stats):
         if recv.shape[1] < (N - n_int) * bvhlib.LEAF_K:
             raise ValueError(f"{what}: recv holds {recv.shape[1]} rows a part, fewer than "
                              f"the {(N - n_int) * bvhlib.LEAF_K} leaf triangles")
+    if wide:
+        if top is None:
+            raise ValueError(f"{what}: top must be the top level over the {P} parts "
+                             "(top_rows), got None")
+        _check(f"{what}: top", top, torch.float32, (sum(_top_sizes(P)), bvhlib.ROW_W), dev)
     for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,))):
         _check(f"{what}: {name}", x, torch.float32, shape, dev)
     if not 0 <= n_int < N or N >= 1 << 23 or P * N * bvhlib.ROW_W >= 1 << 31:
@@ -265,53 +422,117 @@ def _check_parts(what, rows, recv, n_int, depth, o, d, t_max, stats):
                          f"rows, 2^31 floats in all)")
     if stats is not None:
         _check(f"{what}: stats", stats, torch.int64, (4,), dev)
+    if wide:
+        stack, most = (bvhlib.WIDTH - 1) * (depth + top_levels(P)), WIDE_MAX_STACK
+    else:
+        stack, most = depth + 2, STEPPER_MAX_STACK
+    if stack > most:
+        raise ValueError(f"{what}: BVH depth {depth} under a top level over {P} parts needs "
+                         f"a stack of {stack} entries; the kernel is compiled for {most}")
     if dev.type != "cuda":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {dev}")
-    stack, most = depth + 2, _lib().pbrt_parts_max_stack()
-    if stack > most:
-        raise ValueError(f"{what}: BVH depth {depth} needs a stack of {stack} entries; the "
-                         f"kernel is compiled for {most}")
+    if any(x.data_ptr() % 16 for x in (rows, recv, top) if x is not None):
+        raise ValueError(f"{what}: rows, recv and top must start on a 16-byte boundary")
     return stack
 
 
-def closest_parts_cuda(rows, recv, n_int, depth, o, d, t_max, stats=None):
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ticket(dev):
+    """The launch's own ray ticket, zeroed on the stream (a memset node under
+    graph capture, so every replay starts at ray 0), as bvh.traverse_cuda's."""
+    return torch.zeros(1, dtype=torch.int32, device=dev).data_ptr()
+
+
+def closest_parts_cuda(rows, recv, n_int, depth, top, o, d, t_max, stats=None):
     """Launch K11a (csrc/scene_shard.cu `pbrt_bvh_closest_parts`) on the
     current stream and count the launch. Same contract as
-    closest_parts_plain; `stats`, an optional int64 (4,) device tensor,
-    accumulates K1's work sums over every part (bvh.traverse_cuda)."""
+    closest_parts_plain; top is top_rows(part_boxes(rows)). `stats`, an
+    optional int64 (4,) device tensor, accumulates K1's work sums over the
+    traversal (bvh.traverse_cuda), the top level's visits counted as
+    internal rows."""
     from pbrt_tpu_torch import kernels
 
-    stack = _check_parts("closest_hit_parts", rows, recv, n_int, depth, o, d, t_max, stats)
+    stack = _check_parts("closest_hit_parts", rows, recv, n_int, depth, top, o, d, t_max,
+                         stats)
     R, dev = o.shape[0], o.device
     pack = torch.empty((R, PACK_W), dtype=torch.float32, device=dev)
     if R == 0:
         return pack
     err = _lib().pbrt_bvh_closest_parts(
-        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, recv.data_ptr(), recv.shape[1],
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, pack.data_ptr(),
-        bvhlib.overflow_counter(dev).data_ptr(), stack,
-        None if stats is None else stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, top.data_ptr(), top.shape[0],
+        recv.data_ptr(), recv.shape[1], o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
+        pack.data_ptr(), bvhlib.overflow_counter(dev).data_ptr(), stack,
+        None if stats is None else stats.data_ptr(), _ticket(dev), _stream(dev))
     kernels.check(err, "bvh_closest_hit_parts")
     launches["bvh_closest_hit_parts"] += 1
     return pack
 
 
-def any_parts_cuda(rows, n_int, depth, o, d, t_max, stats=None):
+def any_parts_cuda(rows, n_int, depth, top, o, d, t_max, stats=None):
     """Launch K11b (`pbrt_bvh_any_parts`) and count the launch -> (R,)
-    bool, the contract of any_parts_plain."""
+    bool, the contract of any_parts_plain; top and stats as
+    closest_parts_cuda's."""
     from pbrt_tpu_torch import kernels
 
-    stack = _check_parts("any_hit_parts", rows, None, n_int, depth, o, d, t_max, stats)
+    stack = _check_parts("any_hit_parts", rows, None, n_int, depth, top, o, d, t_max, stats)
     R, dev = o.shape[0], o.device
     hit = torch.empty(R, dtype=torch.uint8, device=dev)
     if R == 0:
         return hit.bool()
     err = _lib().pbrt_bvh_any_parts(
-        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, o.data_ptr(), d.data_ptr(),
-        t_max.data_ptr(), R, hit.data_ptr(), bvhlib.overflow_counter(dev).data_ptr(), stack,
-        None if stats is None else stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, top.data_ptr(), top.shape[0],
+        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, hit.data_ptr(),
+        bvhlib.overflow_counter(dev).data_ptr(), stack,
+        None if stats is None else stats.data_ptr(), _ticket(dev), _stream(dev))
     kernels.check(err, "bvh_any_hit_parts")
     launches["bvh_any_hit_parts"] += 1
+    return hit.bool()
+
+
+def closest_parts_stepper_cuda(rows, recv, n_int, depth, o, d, t_max, stats=None):
+    """The yardstick: K11a as it ran before its redesign, the stepper loop
+    one thread per ray over the parts in order
+    (`pbrt_bvh_closest_parts_stepper`). closest_parts_cuda's contract and
+    stats without the top level; counted under its own launch name. No
+    render calls it; chip_smoke.py times K11a against it."""
+    from pbrt_tpu_torch import kernels
+
+    stack = _check_parts("closest_hit_parts_stepper", rows, recv, n_int, depth, None, o, d,
+                         t_max, stats, wide=False)
+    R, dev = o.shape[0], o.device
+    pack = torch.empty((R, PACK_W), dtype=torch.float32, device=dev)
+    if R == 0:
+        return pack
+    err = _lib().pbrt_bvh_closest_parts_stepper(
+        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, recv.data_ptr(), recv.shape[1],
+        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, pack.data_ptr(),
+        bvhlib.overflow_counter(dev).data_ptr(), stack,
+        None if stats is None else stats.data_ptr(), _stream(dev))
+    kernels.check(err, "bvh_closest_hit_parts_stepper")
+    launches["bvh_closest_hit_parts_stepper"] += 1
+    return pack
+
+
+def any_parts_stepper_cuda(rows, n_int, depth, o, d, t_max, stats=None):
+    """The yardstick of K11b (`pbrt_bvh_any_parts_stepper`), as
+    closest_parts_stepper_cuda -> (R,) bool."""
+    from pbrt_tpu_torch import kernels
+
+    stack = _check_parts("any_hit_parts_stepper", rows, None, n_int, depth, None, o, d, t_max,
+                         stats, wide=False)
+    R, dev = o.shape[0], o.device
+    hit = torch.empty(R, dtype=torch.uint8, device=dev)
+    if R == 0:
+        return hit.bool()
+    err = _lib().pbrt_bvh_any_parts_stepper(
+        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, o.data_ptr(), d.data_ptr(),
+        t_max.data_ptr(), R, hit.data_ptr(), bvhlib.overflow_counter(dev).data_ptr(), stack,
+        None if stats is None else stats.data_ptr(), _stream(dev))
+    kernels.check(err, "bvh_any_hit_parts_stepper")
+    launches["bvh_any_hit_parts_stepper"] += 1
     return hit.bool()
 
 
@@ -353,7 +574,7 @@ def closest_hit_parts(sh: SceneShard, o, d, t_max):
     hit record row (R, 27), p0, p1, p2 (R, 3) of the winning triangle,
     valid (R,))."""
     if o.is_cuda:
-        pack = closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, o, d, t_max)
+        pack = closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, sh.top, o, d, t_max)
     else:
         pack = closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d, t_max)
     if dist.is_initialized():
@@ -370,7 +591,7 @@ def any_hit_parts(sh: SceneShard, o, d, t_max):
     version on CPU ones), then all_reduce(MAX) over the ranks of a process
     group (JAX scene_shard.py:256 `any_hit_local`) -> (R,) bool."""
     if o.is_cuda:
-        occ = any_parts_cuda(sh.rows, sh.n_int, sh.depth, o, d, t_max)
+        occ = any_parts_cuda(sh.rows, sh.n_int, sh.depth, sh.top, o, d, t_max)
     else:
         occ = any_parts_plain(sh.rows, sh.n_int, o, d, t_max)
     if dist.is_initialized():

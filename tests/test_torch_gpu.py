@@ -827,39 +827,88 @@ def test_mlt_render_on_card_matches_cpu(cuda):
     compare_renders(img_g, img_c, acc_g, acc_c)
 
 
+def _pack_ties(pk, ref, o, d, t_max):
+    """Rows where the candidate pack pk differs from ref must be verified
+    ties: both winners hit (the watertight test on the pack's vertices) at
+    t within 1e-6 relative of each other. -> their count."""
+    differ = (pk != ref).any(1)
+    if bool(differ.any()):
+        ts = []
+        for pack in (pk[differ], ref[differ]):
+            tr, _, ok = ix.intersect_tri_lanes(o[differ], d[differ], t_max[differ],
+                                               pack[:, 28:31], pack[:, 31:34], pack[:, 34:37])
+            assert bool(ok.all()) and bool(torch.isfinite(pack[:, 0]).all())
+            ts += [tr, pack[:, 0]]
+        assert float(((ts[0] - ts[2]).abs() / ts[2].abs()).max()) <= 1e-6
+        assert float(((ts[1] - ts[3]).abs() / ts[3].abs()).max()) <= 1e-6
+    return int(differ.sum())
+
+
 def test_scene_shard_kernels_match_plain(cuda):
-    """K11a's packs, K11b's bits and the select kernel bit-exact with their
-    plain versions: cornell-mesh levels 4 in 4 parts, interior rays with
-    masked lanes, shadow lengths up to the closest hit's twice, 3 stacked
-    packs with planted ties."""
+    """K11a's packs, K11b's bits and the select kernel against their plain
+    versions: cornell-mesh levels 4 in 1, 2, 4, 8 and 16 parts (16: a top
+    level of two levels), interior rays with masked lanes, shadow lengths up
+    to the closest hit's twice, 3 stacked packs with planted ties. K11a
+    bit-exact with its plain version and its yardstick (the stepper loop)
+    but for verified ties, K11b bit-exact with both; each the same bits
+    again from a CUDA graph replayed twice; one launch of each a call on
+    its own launch name, the yardsticks on theirs."""
     from pbrt_tpu_torch.parallel import scene_shard as ss
 
     scene, meta = ts.cornell_mesh(res=32, spp=1, levels=4, device=cuda)
-    sh = ss.build_scene_shard(scene, 4).to(cuda)
     o, d, t_max = (x.to(cuda) for x in _rays(scene, 8192, 9))
-    n0 = dict(ss.launches)
-    pk = ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, o, d, t_max)
-    assert torch.equal(pk, ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d, t_max))
-    assert bool(torch.isfinite(pk[:, 0]).any())
-    t_sh = torch.where(torch.isfinite(pk[:, 0]), pk[:, 0] * 2.0 * torch.rand(8192, device=cuda),
-                       100.0).contiguous()
-    occ = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, o, d, t_sh)
-    assert torch.equal(occ, ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_sh))
+    ov0 = int(bvh.overflow_counter(cuda).item())
+    for n_parts in (1, 2, 4, 8, 16):
+        sh = ss.build_scene_shard(scene, n_parts).to(cuda)
+        args = (sh.rows, sh.recv, sh.n_int, sh.depth)
+        n0 = dict(ss.launches)
+        pk = ss.closest_parts_cuda(*args, sh.top, o, d, t_max)
+        _pack_ties(pk, ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d, t_max), o, d,
+                   t_max)
+        _pack_ties(pk, ss.closest_parts_stepper_cuda(*args, o, d, t_max), o, d, t_max)
+        assert bool(torch.isfinite(pk[:, 0]).any())
+        assert bool(torch.isinf(pk[t_max <= 0, 0]).all()) and not pk[t_max <= 0, 1:].any()
+        t_sh = torch.where(torch.isfinite(pk[:, 0]),
+                           pk[:, 0] * 2.0 * torch.rand(8192, device=cuda), 100.0).contiguous()
+        t_sh[::7] = 0.0
+        occ = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, sh.top, o, d, t_sh)
+        assert torch.equal(occ, ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_sh))
+        assert torch.equal(occ, ss.any_parts_stepper_cuda(sh.rows, sh.n_int, sh.depth, o, d,
+                                                          t_sh))
+        assert 0 < int(occ.sum()) < int((t_sh > 0).sum())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            pk_g = ss.closest_parts_cuda(*args, sh.top, o, d, t_max)
+            occ_g = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, sh.top, o, d, t_sh)
+        for _ in range(2):
+            pk_g.zero_()
+            occ_g.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(pk_g, pk) and torch.equal(occ_g, occ)
+        n1 = {k: n0[k] + (2 if k in ("bvh_closest_hit_parts", "bvh_any_hit_parts") else 1)
+              for k in n0 if k != "shard_select"}
+        assert {k: ss.launches[k] for k in n1} == n1
+    assert int(bvh.overflow_counter(cuda).item()) == ov0
     packs = torch.stack([pk.roll(5 * w, dims=0) for w in range(3)]).contiguous()
     packs[1:, ::4, 0] = packs[0, ::4, 0]
+    n_sel = ss.launches["shard_select"]
     assert torch.equal(ss.select_cuda(packs), ss.select_plain(packs))
-    assert all(ss.launches[k] == n0[k] + 1 for k in n0)
+    assert ss.launches["shard_select"] == n_sel + 1
 
 
 def test_sharded_render_on_card_matches_cpu(cuda):
     """render(shard_parts=4) of cornell-mesh levels 3 at 48^2 x 4 on the card
-    (K11a and K11b, not K1) against the same sharded render on the CPU."""
+    (K11a and K11b, not K1; the refit of K11a's winners) against the same
+    sharded render on the CPU."""
     from pbrt_tpu_torch.parallel import scene_shard as ss
 
     scene, meta = ts.cornell_mesh(res=48, spp=4, levels=3, device=cuda, filter_kind="box")
     n_bvh, n_ss = dict(bvh.launches), dict(ss.launches)
     img_gpu, st_gpu = render(scene, meta, return_stats=True, shard_parts=4)
-    assert bvh.launches == n_bvh
+    assert {k: v for k, v in bvh.launches.items() if k != "bvh_refit"} == {
+        k: v for k, v in n_bvh.items() if k != "bvh_refit"}
+    assert bvh.launches["bvh_refit"] > n_bvh["bvh_refit"]
     assert ss.launches["bvh_closest_hit_parts"] > n_ss["bvh_closest_hit_parts"]
     assert ss.launches["bvh_any_hit_parts"] > n_ss["bvh_any_hit_parts"]
     img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True, shard_parts=4)

@@ -214,6 +214,162 @@ def test_sharded_dispatch_matches_bvh_route():
                        dispatch.occluded(sharded, meta, o, d, t_sh))
 
 
+@pytest.mark.parametrize("n_parts,T", [(2, 3000), (4, 3000), (8, 3000), (16, 3000), (8, 68),
+                                       (16, 68)])
+def test_part_boxes_bound_their_parts(n_parts, T):
+    """Each part's box is the union of its root row's non-empty child boxes
+    (a leaf-only chunk's synthesized one-child root among them: 68
+    triangles over 8 or 16 parts) and bounds every triangle of its part;
+    the top level holds the boxes in its rows' slots, the root last (one
+    row up to 8 parts, a tree of groups of 8 past them)."""
+    p0, p1, p2 = _soup(np.random.default_rng(T + n_parts), T)
+    g = ss.build_sharded(p0, p1, p2, n_parts)
+    sh = ss.build_scene_shard(_soup_scene(p0, p1, p2, 3), n_parts)
+    assert torch.equal(sh.rows, g.rows)
+    rows = g.rows.numpy()
+    boxes = sh.boxes.numpy()
+    assert boxes.shape == (n_parts, 6)
+    if T == 68:     # a synthesized root: one live slot, the part's single leaf row
+        assert any(((r[0, 48:56] >= 0).sum(), r[0, 48]) == (1, g.n_int) for r in rows)
+    tri = np.stack([p0, p1, p2], axis=1)
+    for p in range(n_parts):
+        slots = rows[p, 0, :48].reshape(8, 6)
+        ok = (rows[p, 0, 48:56] >= 0) & (slots[:, 0] <= slots[:, 3])
+        np.testing.assert_array_equal(boxes[p], np.r_[slots[ok, :3].min(0), slots[ok, 3:].max(0)])
+        ids = g.src.numpy()[p]
+        v = tri[ids[ids >= 0]].reshape(-1, 3)
+        assert (v >= boxes[p, :3]).all() and (v <= boxes[p, 3:]).all()
+    top = sh.top.numpy()
+    assert top.shape == (1 if n_parts <= 8 else 1 + -(-n_parts // 8), 72)
+    assert ss.top_levels(n_parts) == (1 if n_parts <= 8 else 2)
+    # every part in exactly one slot of the rows over the parts, its box there
+    child = top[:, 48:56]
+    for p in range(n_parts):
+        (r, k), = np.argwhere(child == p)
+        np.testing.assert_array_equal(top[r, 6 * k: 6 * k + 6], boxes[p])
+    root = top[-1]
+    live = root[48:56] >= 0
+    assert live.sum() == min(n_parts, 8) if n_parts <= 8 else live.sum() == top.shape[0] - 1
+    lo, hi = root[:48].reshape(8, 6)[live, :3].min(0), root[:48].reshape(8, 6)[live, 3:].max(0)
+    np.testing.assert_array_equal(np.r_[lo, hi], np.r_[boxes[:, :3].min(0), boxes[:, 3:].max(0)])
+
+
+def test_local_and_to_carry_the_part_boxes():
+    """A rank's shard holds its own parts' boxes and a top level over them
+    alone; `to` carries both."""
+    sh = ss.build_scene_shard(_soup_scene(*_soup(np.random.default_rng(6), 3000), 2), 16)
+    for rank, world in ((0, 2), (1, 2), (2, 3), (0, 1)):
+        lo, hi = sh.part_range(rank, world)
+        loc = sh.local(rank, world)
+        assert torch.equal(loc.boxes, sh.boxes[lo:hi])
+        assert torch.equal(loc.top, ss.top_rows(sh.boxes[lo:hi]))
+        assert loc.rows.shape[0] == loc.boxes.shape[0] == hi - lo
+    moved = sh.local(1, 2).to("cpu")
+    assert torch.equal(moved.boxes, sh.boxes[8:]) and torch.equal(moved.top, sh.local(1, 2).top)
+    assert moved.boxes.is_contiguous() and moved.top.is_contiguous()
+
+
+def test_wrappers_raise_on_a_stack_that_does_not_fit():
+    """The wide kernels' stack holds 7 entries a level of the top level and
+    the parts' deepest tree (at most 302); the yardstick's depth + 2 (at
+    most 64). Both wrappers raise before a build or launch."""
+    sh, o, d, t_max = _parts_args()
+    fits = ss.WIDE_MAX_STACK // 7 - ss.top_levels(sh.rows.shape[0])
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, fits, sh.top, o, d, t_max)
+    with pytest.raises(ValueError, match="needs a stack of"):
+        ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, fits + 1, sh.top, o, d, t_max)
+    with pytest.raises(ValueError, match="needs a stack of"):
+        ss.any_parts_cuda(sh.rows, sh.n_int, fits + 1, sh.top, o, d, t_max)
+    with pytest.raises(ValueError, match="needs a stack of"):
+        ss.closest_parts_stepper_cuda(sh.rows, sh.recv, sh.n_int, 63, o, d, t_max)
+    with pytest.raises(ValueError, match="needs a stack of"):
+        ss.any_parts_stepper_cuda(sh.rows, sh.n_int, 63, o, d, t_max)
+    with pytest.raises(ValueError, match="top must be"):
+        ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, None, o, d, t_max)
+    with pytest.raises(ValueError, match="top must be"):
+        ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, sh.top[:, :71].contiguous(), o, d,
+                          t_max)
+
+
+def _shifted(rows, n_int, dx):
+    """A copy of one part's table moved by dx along x: its boxes' and
+    triangles' x columns (an inverted slot stays inverted)."""
+    out = rows.clone()
+    for s in range(8):
+        out[:n_int, 6 * s] += dx
+        out[:n_int, 6 * s + 3] += dx
+    for k in range(8):
+        for j in range(3):
+            out[n_int:, 9 * k + 3 * j] += dx
+    return out
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_parts_work_is_traversal_work_of_the_parts_met(any_hit):
+    """The oracle behind K11a's and K11b's bounds: over one part it is
+    bvh.traversal_work of that part's table on the rays whose segment
+    meets its box, plus one top-level row a live ray; a second part that
+    no segment meets (the first moved 100 along x, the rays cut at t 10)
+    adds nothing."""
+    rng = np.random.default_rng(8)
+    p0, p1, p2 = _soup(rng, 400)
+    g = ss.build_sharded(p0, p1, p2, 1)
+    o, d = _rays(rng, 256)
+    aim = (p0 + p1 + p2)[rng.integers(0, 400, 128)] / 3 - o[::2]   # half the rays aimed
+    d[::2] = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    t_max = torch.full((256,), 10.0)
+    t_max[::11] = 0.0
+    rows1 = g.rows
+    rows2 = torch.stack([g.rows[0], _shifted(g.rows[0], g.n_int, 100.0)])
+    boxes1, boxes2 = ss.part_boxes(rows1), ss.part_boxes(rows2)
+    assert float(boxes2[1, 0]) > 90.0
+    occ, cost = None, (1, 1, 1, 1)
+    if any_hit:
+        t_lim = t_max.clone()
+        t_lim[1::3] *= torch.rand(t_lim[1::3].shape[0], generator=torch.Generator().manual_seed(2))
+        occ = ss.any_parts_plain(rows2, g.n_int, o, d, t_lim)
+        assert 10 < int(occ.sum()) < 200
+        cost = (176, 30, 11, 33)
+    else:
+        pk = ss.closest_parts_plain(rows2, torch.zeros((2, rows2.shape[1] * 8, 36)), g.n_int,
+                                    o, d, t_max)
+        t_lim = torch.where(torch.isfinite(pk[:, 0]), pk[:, 0], t_max)
+        assert int(torch.isfinite(pk[:, 0]).sum()) > 10
+    one = ss.parts_work(rows1, g.n_int, boxes1, o, d, t_lim, occ, cost)
+    # a ray whose segment misses the part's box reads the top row alone,
+    # where traversal_work reads the part's root
+    live = t_lim > 0
+    m = (ss._boxes_meet(boxes1, o, d, t_lim)[:, 0] & live).nonzero()[:, 0]
+    assert 20 < m.numel() < int(live.sum())
+    tw = tbvh.traversal_work(rows1[0], g.n_int, o[m], d[m], t_lim[m],
+                             None if occ is None else occ[m], cost)
+    assert one == (tw[0] + int(live.sum()),) + tw[1:]
+    assert tbvh.traversal_work(rows1[0], g.n_int, o, d, t_lim, occ, cost) == (
+        tw[0] + int(live.sum()) - m.numel(),) + tw[1:]
+    assert ss.parts_work(rows2, g.n_int, boxes2, o, d, t_lim, occ, cost) == one
+
+
+def test_traversal_work_per_ray_sums_to_its_totals():
+    """bvh.traversal_work's per-ray counts (parts_work takes the cheapest
+    part of a blocked ray from them) sum to its four totals."""
+    rng = np.random.default_rng(9)
+    p0, p1, p2 = _soup(rng, 600)
+    b = tbvh.build_bvh(p0, p1, p2)
+    rows = torch.from_numpy(b.rows)
+    o, d = (torch.from_numpy(x) for x in _rays(rng, 300))
+    t_lim = torch.rand(300, generator=torch.Generator().manual_seed(1)) * 8
+    t_lim[::7] = 0.0
+    occ = tbvh.traverse_plain(rows, b.n_int, o, d, t_lim, any_hit=True)[1] >= 0
+    for blocked in (None, occ):
+        per = tbvh.traversal_work(rows, b.n_int, o, d, t_lim, blocked, (5, 1, 2, 3), chunk=64,
+                                  per_ray=True)
+        assert per.shape == (300, 4) and not per[t_lim <= 0].any()
+        assert tuple(int(x) for x in per.sum(0)) == tbvh.traversal_work(
+            rows, b.n_int, o, d, t_lim, blocked, (5, 1, 2, 3))
+
+
 def _parts_args():
     sh = ss.build_scene_shard(_soup_scene(*_soup(np.random.default_rng(4), 200), 0), 2)
     o = torch.zeros((16, 3))
@@ -222,33 +378,37 @@ def _parts_args():
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
-    """dtype, shape and device checks of K11a, K11b and the select, all
-    raised before a build: CPU tensors of the right kind raise for their
-    device."""
+    """dtype, shape and device checks of K11a, K11b, their yardsticks and
+    the select, all raised before a build: CPU tensors of the right kind
+    raise for their device."""
     sh, o, d, t_max = _parts_args()
-    rows, recv, n_int, depth = sh.rows, sh.recv, sh.n_int, sh.depth
+    rows, recv, n_int, depth, top = sh.rows, sh.recv, sh.n_int, sh.depth, sh.top
     with pytest.raises(ValueError, match="takes CUDA tensors"):
-        ss.closest_parts_cuda(rows, recv, n_int, depth, o, d, t_max)
+        ss.closest_parts_cuda(rows, recv, n_int, depth, top, o, d, t_max)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
-        ss.any_parts_cuda(rows, n_int, depth, o, d, t_max)
+        ss.any_parts_cuda(rows, n_int, depth, top, o, d, t_max)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        ss.closest_parts_stepper_cuda(rows, recv, n_int, depth, o, d, t_max)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        ss.any_parts_stepper_cuda(rows, n_int, depth, o, d, t_max)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         ss.select_cuda(torch.zeros((2, 16, ss.PACK_W)))
     with pytest.raises(ValueError, match="o must be"):
-        ss.closest_parts_cuda(rows, recv, n_int, depth, o.double(), d, t_max)
+        ss.closest_parts_cuda(rows, recv, n_int, depth, top, o.double(), d, t_max)
     with pytest.raises(ValueError, match="t_max must be"):
-        ss.any_parts_cuda(rows, n_int, depth, o, d, t_max[:8])
+        ss.any_parts_cuda(rows, n_int, depth, top, o, d, t_max[:8])
     with pytest.raises(ValueError, match="rows must be"):
-        ss.closest_parts_cuda(rows[..., :71].contiguous(), recv, n_int, depth, o, d, t_max)
+        ss.closest_parts_cuda(rows[..., :71].contiguous(), recv, n_int, depth, top, o, d, t_max)
     with pytest.raises(ValueError, match="rows must be"):
-        ss.any_parts_cuda(rows[0], n_int, depth, o, d, t_max)
+        ss.any_parts_cuda(rows[0], n_int, depth, top, o, d, t_max)
     with pytest.raises(ValueError, match="recv must be"):
-        ss.closest_parts_cuda(rows, recv[..., :35].contiguous(), n_int, depth, o, d, t_max)
+        ss.closest_parts_cuda(rows, recv[..., :35].contiguous(), n_int, depth, top, o, d, t_max)
     with pytest.raises(ValueError, match="fewer than"):
-        ss.closest_parts_cuda(rows, recv[:, :8].contiguous(), n_int, depth, o, d, t_max)
+        ss.closest_parts_cuda(rows, recv[:, :8].contiguous(), n_int, depth, top, o, d, t_max)
     with pytest.raises(ValueError, match="n_int"):
-        ss.any_parts_cuda(rows, rows.shape[1], depth, o, d, t_max)
+        ss.any_parts_cuda(rows, rows.shape[1], depth, top, o, d, t_max)
     with pytest.raises(ValueError, match="stats must be"):
-        ss.any_parts_cuda(rows, n_int, depth, o, d, t_max, stats=torch.zeros(4))
+        ss.any_parts_cuda(rows, n_int, depth, top, o, d, t_max, stats=torch.zeros(4))
     with pytest.raises(ValueError, match="packs must be"):
         ss.select_cuda(torch.zeros((2, 16, ss.PACK_W - 1)))
     with pytest.raises(ValueError, match="packs must be"):

@@ -7,9 +7,10 @@ result line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the kernels from the sources in this checkout (one nvcc per CUDA
      source, all started together; Triton's JIT for the splat kernel); read
-     the SASS (cuobjdump -sass) and ptxas report of K1's kernel
-     (csrc/bvh_wide.cuh `wide_kernel`): 16-byte global loads required, and
-     no local loads or stores, stack frame or spills; K5's and K8's SASS;
+     the SASS (cuobjdump -sass) and ptxas report of K1's and K1i's kernels
+     (csrc/bvh_wide.cuh `wide_kernel`, `inst_wide_kernel`): 16-byte global
+     loads required, at most 80 registers, and no local loads or stores,
+     stack frame or spills; K5's and K8's SASS;
      K12's (csrc/bdpt.cu): the tiled `connect_weight_tile_kernel` must load
      from shared memory where it stages (up to 35 vertex slots) and not
      where it reads in place, with no local loads or stores, stack frame or
@@ -23,10 +24,9 @@ result line:
      path_coat, path_resolve) and the shading yardstick path_shade_lane with
      their registers, stack frame, spills and local loads and stores
      printed, path_shade and path_bsdf required to have no stack frame and
-     no spills; K11's (csrc/scene_shard.cu): the redesigned
-     parts_wide_kernel with 16-byte loads and no local loads or stores,
-     stack frame or spills, its registers printed beside the yardstick's
-     (parts_kernel);
+     no spills; K11's (csrc/scene_shard.cu): parts_wide_kernel with 16-byte
+     loads and no local loads or stores, stack frame or spills, its
+     registers printed;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -113,11 +113,7 @@ result line:
      and staircase, the third of cornell-mesh and staircase): against the
      plain version with phase 3's criteria, the operation bound from
      bvh.traversal_work's oracle count (the same work whatever traverses),
-     and timed in turns with the yardstick, K1 as it ran before its
-     redesign (bvh.traverse_stepper_cuda, the stepper loop one thread per
-     ray; not a kernel of any render path): yardstick, K1, K1, yardstick,
-     each pair and the speed-up printed, and the launches more than 5 %
-     slower than the yardstick listed; then
+     and graph-timed twice; then
      each other kernel against its plain version again, and timed beside its
      plain version, its bound and (film: index_add_ of the lanes' rgb, and of
      their (w rgb, w) rows, which is K5's whole scatter; the tiled entry
@@ -211,18 +207,14 @@ result line:
      `shard_select`, csrc/scene_shard.cu): (a) cornell-mesh levels 5 split
      into 8 morton parts (per-part tables under a quarter of the unsharded
      ones); on phase 3's 131,072 camera and interior rays K11a's candidate
-     packs and K11b's bits bit-exact with their plain versions, with their
-     yardsticks (the kernels as they ran before their redesign, the stepper
-     loop one thread per ray: ss.closest_parts_stepper_cuda,
-     any_parts_stepper_cuda) and with the unfused yardstick (K1 over each
-     part, then an argmin); against the unsharded K1 equal hit sets, t
+     packs and K11b's bits bit-exact with their plain versions and with the
+     unfused yardstick (K1 over each part, then an argmin); against the unsharded K1 equal hit sets, t
      within rtol 1e-5, the same triangle on >= 99 % of hits and equal t on
      the rest; the select kernel bit-exact with its plain version on 4
      stacked packs with planted ties; (b) the scene-sharded frames through
      render() of the scene split by render.shard_scene (its host build timed
      alone): cornell-mesh (8 parts) and terrain (4 parts, the batched loop)
-     at phase 8's settings, K11a and K11b launched and neither K1 nor the
-     yardsticks, the ray counts equal to phase 8's frames (terrain: the
+     at phase 8's settings, K11a and K11b launched and K1 not, the ray counts equal to phase 8's frames (terrain: the
      batched loop's), the images within check_image of them; then the walls
      in turns of cornell-mesh and its 8 parts, terrain's batched loop and its
      4 parts; (c) NCCL at world size 1 (a file store): the pixel-parallel
@@ -232,11 +224,11 @@ result line:
      shadow batch through an all_reduce), each with phase 8's ray count and
      image; (d) K11a and K11b at their first launches in (b)'s cornell-mesh
      and terrain frames (2^20 lanes): held against their plain versions and
-     yardsticks again (K11a bit-exact but for verified ties, K1's criterion
+     the unfused yardstick again (K11a bit-exact but for verified ties, K1's criterion
      of phases 3 and 9: a winner that differs must hit at a t within 1e-6
      relative of the other's; over 2^20 lanes a tie decided by the traversal
      order or a box's entry distance occurs), timed in turns with the
-     yardstick, the unfused yardstick and K1/K1a over the unsharded table on
+     unfused yardstick and K1/K1a over the unsharded table on
      the same rays, beside the bound from the oracle count of
      ss.parts_work (the same work whatever traverses) and the kernels' own
      work sums, the targets (K11a <= 0.90 ms, K11b <= 1.10 ms, K11a's rows
@@ -244,8 +236,8 @@ result line:
      missed; and the select kernel at its first launch in (c), timed beside
      its plain version and byte bound. Scaling across cards is not
      measurable on one card;
- 12. instancing (K1i `bvh_closest_hit_inst`, `bvh_any_hit_inst`, the
-     two-level variant of csrc/bvh_traverse.cu over csrc/bvh_stepper.cuh),
+ 12. instancing (K1i `bvh_closest_hit_inst`, `bvh_any_hit_inst`: K1's wide
+     loop over a two-level table, csrc/bvh_wide.cuh `inst_wide_kernel`),
      on the instanced cornell box of testscenes.instanced_cornell_pbrt (36
      ball and 16 gem instances): (a) at levels (3, 2), every instance shared, on 131,072
      camera and 131,072 interior rays: closest hit bit-exact with the plain
@@ -265,9 +257,14 @@ result line:
      frame cornell-instanced at levels (6, 5) under instancing "auto"
      (1,310,732 world triangles: 253,964 flattened, 29 + 13 instances of 2
      prototypes of 40,960 triangles) at 256^2 x 16, max depth 5, mitchell,
-     through render(): K1i launched and K1 not, its compile seconds, honest
-     rays/s (median and quartiles over repeated renders), frame seconds,
-     peak memory and table bytes; then the same file flattened (K1), its ray
+     through render(): K1i launched and K1 not, its compile seconds, peak
+     memory and table bytes; then the same file flattened (K1), then the
+     two frames in turns (instanced, twin, twin, instanced, FRAME_ROUNDS
+     times): honest rays/s (median and quartiles), frame seconds (median)
+     and the ratio of each round's two instanced frames to its two twins
+     (median and quartiles; the target <= 1.3x printed met when the upper
+     quartile meets it, missed when the lower one misses it, and else not
+     established); the twin's ray
      count within 1 % and its image against the instanced one: means within
      1 % and check_image's per-pixel tolerance on >= 98 % of pixel values
      (the twins round their geometry apart, and a path that an ulp turns at
@@ -277,9 +274,15 @@ result line:
      balls) is printed with the same numbers; (d) K1i at its first launches
      in (c)'s frame (2^20 lanes): held against its plain version on those
      arguments (closest hit bit-exact but on verified ties, any hit equal),
-     and timed beside its operation bound, the plain version and the
-     flattened frame's K1 on the same rays (a yardstick, not a library
-     call);
+     and graph-timed in turns with the flattened frame's K1 on the same
+     rays (a yardstick, not a library call), beside the bound from
+     bvh.traversal_work's two-level oracle count, the plain version, the
+     rows each kernel reads (their own stats) and the time recorded for the
+     loop K1i ran on before its redesign (K1I_OLD_LOOP_MS), the targets
+     (K1i <= 0.55 ms, K1i-a <= 0.40 ms, each <= 1.3x the twin's) printed
+     met or missed; the refit of the frame's first closest hits (instanced
+     winners' object rays formed in the kernel) bit-exact with its plain
+     version;
  13. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
@@ -336,11 +339,20 @@ K12_OPS = {"bdpt_connect_rays": 100, "bdpt_connect_weight": 400}
 # coat's pdf and two samples, per lane that reaches the base its pdf
 LAYERED_OPS = {"layered_f": (400, 250), "layered_sample": (150, 100),
                "layered_pdf": (400, 10)}
-# float ops of one instance entry of K1i, counted from csrc/bvh_stepper.cuh
-# and csrc/watertight.cuh: two 3x4 transforms (a dot product is a multiply
-# and two fused multiply-adds, 5 ops; the origin adds its translation: 18 +
-# 15), the shear (10) and 1/d (12)
+# float ops of one instance entry of K1i, counted from csrc/bvh_wide.cuh
+# `enter_instance` and csrc/watertight.cuh: two 3x4 transforms (a dot
+# product is a multiply and two fused multiply-adds, 5 ops; the origin adds
+# its translation: 18 + 15), the shear (10) and 1/d (12)
 INST_ENTRY_OPS = 55
+# ms of the loop K1i ran on before its redesign (one thread a ray, a
+# local-memory stack of (row, child-mask) entries that revisit rows), at
+# the first closest-hit and any-hit launches (2^20 lanes) of the
+# cornell-instanced frame, graph-timed in turns with the redesigned kernel
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6); the loop is no
+# longer built
+K1I_OLD_LOOP_MS = {"bvh_closest_hit_inst": 1.0008, "bvh_any_hit_inst": 0.7279}
+# rounds of phase 12's instanced frame and its flattened twin in turns
+FRAME_ROUNDS = 10
 # float ops of K6, counted from csrc/path_step.cu and csrc/bxdf.cuh and
 # rounded: path_rr per lane due for RR (the uniform, the max, four
 # divisions); path_shade per shading lane (the material's spectra and frame
@@ -638,36 +650,45 @@ def main():
                         "the scatter entry's adds are not RED", atomics)
             elif short == "film_add_tiled_kernel":
                 require(not atomics, "the tiled entry holds atomics", atomics)
-    # K1's kernel as compiled (csrc/bvh_wide.cuh): 16-byte global loads of
-    # whole rows, and neither a local-memory stack nor spills
+    # K1's and K1i's kernels as compiled (csrc/bvh_wide.cuh wide_kernel and
+    # inst_wide_kernel, each in its four instantiations): 16-byte global
+    # loads of whole rows, at most 80 registers (6 blocks an SM), and
+    # neither a local-memory stack nor spills
     report = built["bvh_traverse"][1].splitlines()
+    checked = set()
     for fn, c in sass_memory_ops(subprocess.run(
             [str(cuobjdump), "-sass", str(kernels.library_path("bvh_traverse"))],
             capture_output=True, text=True, timeout=120).stdout).items():
-        if "wide_kernel" not in fn and "traverse_kernel" not in fn:
+        flags = re.search(r"(inst_wide_kernel|wide_kernel)ILb([01])ELb([01])E", fn)
+        if flags is None:
             continue
-        short = ("wide_kernel" if "wide_kernel" in fn else "traverse_kernel (yardstick)") + \
-            ("<true>" if "ILb1E" in fn else "<false>")
-        frame = next((report[i + 1].strip() for i, line in enumerate(report[:-1])
-                      if "Function properties for" in line and fn in line), "")
-        log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}")
-        if "wide_kernel" in fn:
-            wide = [k for k in c if k.startswith("LDG") and ".128" in k]
-            local = [k for k in c if k.startswith(("LDL", "STL"))]
-            require(wide and not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
-                                                            "stores, 0 bytes spill loads"),
-                    "K1's kernel: no 16-byte loads, or a local stack or spills", short, dict(c),
-                    frame)
-    # K11's kernels as compiled (csrc/scene_shard.cu): the redesigned
-    # parts_wide_kernel (K1's loop over the parts under their top level)
-    # with 16-byte global loads and neither a local-memory stack nor spills,
-    # its registers printed beside the yardstick's (parts_kernel, the
-    # stepper loop)
+        checked.add(flags.groups())
+        short = f"{flags.group(1)}<{'any hit' if flags.group(2) == '1' else 'closest hit'}" + (
+            ", stats>" if flags.group(3) == "1" else ">")
+        at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                  and fn in line)
+        frame = report[at + 1].strip()
+        regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                    if "registers" in line)
+        n_regs = int(re.search(r"Used (\d+) registers", regs).group(1))
+        log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
+        wide = [k for k in c if k.startswith("LDG") and ".128" in k]
+        local = [k for k in c if k.startswith(("LDL", "STL"))]
+        require(wide and not local and n_regs <= 80 and frame.startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+                "K1's or K1i's kernel: no 16-byte loads, over 80 registers, or a local stack or "
+                "spills", short, dict(c), frame, regs)
+    want = {(k, a, st) for k in ("wide_kernel", "inst_wide_kernel") for a in "01" for st in "01"}
+    require(checked == want, "K1's and K1i's instantiations in the SASS", sorted(checked))
+    # K11's kernels as compiled (csrc/scene_shard.cu): parts_wide_kernel
+    # (K1's loop over the parts under their top level) with 16-byte global
+    # loads and neither a local-memory stack nor spills, its registers
+    # printed
     report = built["scene_shard"][1].splitlines()
     for fn, c in sass_memory_ops(subprocess.run(
             [str(cuobjdump), "-sass", str(kernels.library_path("scene_shard"))],
             capture_output=True, text=True, timeout=120).stdout).items():
-        short = next((k for k in ("parts_wide_kernel", "parts_kernel") if k in fn), None)
+        short = "parts_wide_kernel" if "parts_wide_kernel" in fn else None
         if short is None:
             continue
         flags = re.search(short + r"ILb([01])E(?:Lb([01])E)?", fn)
@@ -679,13 +700,12 @@ def main():
         regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
                     if "registers" in line)
         log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
-        if short.startswith("parts_wide_kernel"):
-            wide = [k for k in c if k.startswith("LDG") and ".128" in k]
-            local = [k for k in c if k.startswith(("LDL", "STL"))]
-            require(wide and not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
-                                                            "stores, 0 bytes spill loads"),
-                    "K11's kernel: no 16-byte loads, or a local stack or spills", short, dict(c),
-                    frame)
+        wide = [k for k in c if k.startswith("LDG") and ".128" in k]
+        local = [k for k in c if k.startswith(("LDL", "STL"))]
+        require(wide and not local and frame.startswith("0 bytes stack frame, 0 bytes spill "
+                                                        "stores, 0 bytes spill loads"),
+                "K11's kernel: no 16-byte loads, or a local stack or spills", short, dict(c),
+                frame)
     # K12's kernels as compiled (csrc/bdpt.cu): the tiled bdpt_connect_weight
     # reads its vertices from shared memory (LDS, staged by LDGSTS) up to 35
     # vertex slots, in place past them; neither instantiation has a
@@ -1628,11 +1648,9 @@ def main():
     # to the plain closest t; any hit: to t_max on the rays the plain
     # version finds unblocked, and on the blocked ones the cheapest root
     # path to a leaf holding a hit, weighed by this file's op counts), timed
-    # in turns with the yardstick, K1 before the redesign (the stepper loop,
-    # one thread per ray): yardstick, K1, K1, yardstick
+    # twice
     k1_scenes = {"cornell_mesh": (scene, meta), "terrain": (s_terr, m_terr),
                  "staircase": (s_st, m_st)}
-    k1_slower = []
     for any_hit in (False, True):
         name = "bvh_any_hit" if any_hit else "bvh_closest_hit"
         launches_k1, err_k1 = {}, 0.0
@@ -1651,45 +1669,30 @@ def main():
             err_k1 = max(err_k1, err)
             oracle = bvh.traversal_work(rows_t, nint_t, o_t, d_t, t_lim, occ, (
                 SLAB_VISIT_OPS, TRI_EDGE_OPS, TRI_RANGE_OPS, TRI_BOUND_OPS))
-            stats_k = {}
-            for key, fn in (("k1", bvh.traverse_cuda), ("yardstick", bvh.traverse_stepper_cuda)):
-                work = torch.zeros(4, dtype=torch.int64, device=dev)
-                fn(rows_t, nint_t, depth_t, o_t, d_t, t_t, any_hit, stats=work)
-                stats_k[key] = tuple(int(x) for x in work.cpu())
-
-            def new_k():
-                bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t, t_t, any_hit)
-
-            def yard():
-                bvh.traverse_stepper_cuda(rows_t, nint_t, depth_t, o_t, d_t, t_t, any_hit)
-            turns = [graph_ms(f) for f in (yard, new_k, new_k, yard)]
-            ms_t, ms_y = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            work = torch.zeros(4, dtype=torch.int64, device=dev)
+            bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t, t_t, any_hit, stats=work)
+            stats_k = tuple(int(x) for x in work.cpu())
+            turns = [graph_ms(lambda: bvh.traverse_cuda(rows_t, nint_t, depth_t, o_t, d_t, t_t,
+                                                        any_hit)) for _ in range(2)]
+            ms_t = (turns[0] + turns[1]) / 2
             b_t = bound(rows_t.numel() * 4 + R_t * 36,
                         oracle[0] * SLAB_VISIT_OPS + tri_test_ops(*oracle[1:]))
             label = f"{tag}{' third' if nth else ' first'}"
-            launches_k1[label] = dict(ms=ms_t, yardstick_ms=ms_y, bound_ms=b_t[0],
-                                      bound_by=b_t[1], plain_ms=ms_plain, lanes=R_t,
-                                      live=int((t_t > 0).sum()), work=oracle,
-                                      kernel_stats=stats_k["k1"],
-                                      yardstick_stats=stats_k["yardstick"])
-            if ms_t > 1.05 * ms_y:
-                k1_slower.append((name, label, ms_t, ms_y))
+            launches_k1[label] = dict(ms=ms_t, bound_ms=b_t[0], bound_by=b_t[1],
+                                      plain_ms=ms_plain, lanes=R_t, live=int((t_t > 0).sum()),
+                                      work=oracle, kernel_stats=stats_k)
             log(f"{name} on {label} launch ({R_t} lanes, {int((t_t <= 0).sum())} with t_max <= 0, "
                 f"{n_live} {'occluded' if any_hit else 'hits'}; against plain: "
                 f"{'equal' if any_hit else f'bit-exact but {n_tie} verified ties'}, plain "
-                f"{ms_plain:.1f} ms): K1 {turns[1]:.4f} / {turns[2]:.4f} ms, yardstick "
-                f"{turns[0]:.4f} / {turns[3]:.4f} ms in turns, speed-up {ms_y / ms_t:.3f}x; "
-                f"oracle work (rows, tri tests, past edge, past range) {oracle}, bound "
-                f"{b_t[0]:.4f} ms ({b_t[1]}), K1 {ms_t / b_t[0]:.1f}x it; the kernels' own stats: "
-                f"K1 {stats_k['k1']}, yardstick {stats_k['yardstick']}")
+                f"{ms_plain:.1f} ms): K1 {turns[0]:.4f} / {turns[1]:.4f} ms; oracle work (rows, "
+                f"tri tests, past edge, past range) {oracle}, bound {b_t[0]:.4f} ms ({b_t[1]}), "
+                f"K1 {ms_t / b_t[0]:.1f}x it; the kernel's own stats {stats_k}")
         cm = launches_k1["cornell_mesh first"]
         o_, d_, t_ = first("cornell_mesh", name)[0][3:6]
         call = events_ms(lambda: bvh.traverse_cuda(rows, n_int, depth, o_, d_, t_, any_hit), 20)
         timing[name] = dict(ms=cm["ms"], plain_ms=cm["plain_ms"], bound_ms=cm["bound_ms"],
                             bound_by=cm["bound_by"], library_ms=None, max_abs_err=err_k1,
-                            yardstick_ms=cm["yardstick_ms"], host_paced_ms=call,
-                            launches_timed=launches_k1)
-    log(f"K1/K1a launches more than 5 % slower than the yardstick: {k1_slower or 'none'}")
+                            host_paced_ms=call, launches_timed=launches_k1)
 
     # K5's tiled entry on cornell-mesh's first launch (k replicates of the
     # pixel grid), its scatter entry on terrain's (the wavefront loop)
@@ -2635,24 +2638,23 @@ def main():
 
     def compare_parts(sh, o, d, t_max, full, ties_ok=False, plain=True):
         """K11a against its plain version (plain False: not run, the
-        yardstick's pack returned for it), its yardstick (the stepper loop)
-        and the unfused K1-per-part yardstick (bit for bit; with ties_ok,
-        but for verified ties), and the unsharded K1 over full = (rows,
-        n_int, depth, scene) -> (hits, lanes whose winner differs from K1's,
-        max rel err of t against K1, (tie lanes against plain, yardstick and
-        unfused, max abs err of t against plain), plain ms, the plain
-        pack; without plain: None, None, the yardstick's err and pack)."""
+        unfused yardstick's pack returned for it) and the unfused
+        K1-per-part yardstick (bit for bit; with ties_ok, but for verified
+        ties), and the unsharded K1 over full = (rows, n_int, depth, scene)
+        -> (hits, lanes whose winner differs from K1's, max rel err of t
+        against K1, (tie lanes against plain and unfused, max abs err of t
+        against plain), plain ms, the plain pack; without plain: None, None,
+        the unfused yardstick's err and pack)."""
         rows_f, nint_f, depth_f, sc_f = full
         pk = ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, sh.top, o, d, t_max)
-        py = ss.closest_parts_stepper_cuda(sh.rows, sh.recv, sh.n_int, sh.depth, o, d, t_max)
-        pp, ms_p, n_tp = py, None, None
+        pu = unfused_pack(sh, o, d, t_max)
+        pp, ms_p, n_tp = pu, None, None
         if plain:
             pp, ms_p = timed(lambda: ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d,
                                                             t_max))
             n_tp = pack_ties(pk, pp, o, d, t_max, "K11a against its plain version", ties_ok)
-        n_ts = pack_ties(pk, py, o, d, t_max, "K11a against its yardstick", ties_ok)
-        n_ty = pack_ties(pk, unfused_pack(sh, o, d, t_max), o, d, t_max,
-                         "K11a against the unfused K1-per-part yardstick", ties_ok)
+        n_ty = pack_ties(pk, pu, o, d, t_max, "K11a against the unfused K1-per-part yardstick",
+                         ties_ok)
         t1, p1 = bvh.traverse_cuda(rows_f, nint_f, depth_f, o, d, t_max)
         hit = p1 >= 0
         require(torch.equal(hit, torch.isfinite(pk[:, 0])), "K11a: hit set differs from K1's")
@@ -2672,12 +2674,12 @@ def main():
             require(torch.equal(pk[other, 0], t1[other]), "K11a: a different winner at another t")
         both = torch.isfinite(pk[:, 0]) & torch.isfinite(pp[:, 0])
         err_t = float((pk[both, 0] - pp[both, 0]).abs().max()) if bool(both.any()) else 0.0
-        return n_hit, n_hit - n_same, float(rel), (n_tp, n_ts, n_ty, err_t), ms_p, pp
+        return n_hit, n_hit - n_same, float(rel), (n_tp, n_ty, err_t), ms_p, pp
 
     def compare_any_parts(sh, o, d, t_max, full, plain=True):
-        """K11b against its plain version (unless plain is False), its
-        yardstick, the unfused K1a-per-part yardstick and the unsharded K1a
-        -> (the occluded mask, plain ms or None)."""
+        """K11b against its plain version (unless plain is False), the
+        unfused K1a-per-part yardstick and the unsharded K1a -> (the
+        occluded mask, plain ms or None)."""
         rows_f, nint_f, depth_f, _ = full
         ok = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, sh.top, o, d, t_max)
         ms_p = None
@@ -2685,9 +2687,6 @@ def main():
             op, ms_p = timed(lambda: ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_max))
             require(torch.equal(ok, op), "K11b differs from its plain version",
                     int((ok != op).sum()))
-        require(torch.equal(ok, ss.any_parts_stepper_cuda(sh.rows, sh.n_int, sh.depth, o, d,
-                                                          t_max)),
-                "K11b differs from its yardstick")
         require(torch.equal(ok, unfused_any(sh, o, d, t_max)), "K11b differs from the unfused "
                 "yardstick")
         require(torch.equal(ok, bvh.traverse_cuda(rows_f, nint_f, depth_f, o, d, t_max,
@@ -2701,10 +2700,10 @@ def main():
     t_cl, _ = bvh.traverse_cuda(rows, n_int, depth, o, d, t_max)
     occ_a, _ = compare_any_parts(sh8, o, d, shadow_t(t_cl), full_cm)
     log(f"bvh_closest_hit_parts vs plain on {o.shape[0]} camera+interior rays over 8 parts: "
-        f"packs bit-exact (and with its yardstick, the stepper loop, and the unfused "
-        f"K1-per-part yardstick); against the unsharded K1 {n_hit} hits, the same triangle on "
-        f"all but {n_tie} (equal t), max rel err t {rel:.2e}; bvh_any_hit_parts "
-        f"{int(occ_a.sum())} occluded, bit-exact with plain, both yardsticks and K1a")
+        f"packs bit-exact (and with the unfused K1-per-part yardstick); against the "
+        f"unsharded K1 {n_hit} hits, the same triangle on all but {n_tie} (equal t), max rel "
+        f"err t {rel:.2e}; bvh_any_hit_parts {int(occ_a.sum())} occluded, bit-exact with "
+        f"plain, the unfused yardstick and K1a")
 
     def planted_packs(pack, W=4):
         """W packs from one: rank w's rows rolled by 17 w, and on every third
@@ -2740,13 +2739,11 @@ def main():
         st = full_render(tag, sc, mt, must + ("bvh_refit",), **kw)
         k1 = {k: main_counts_frame.get(k, 0) for k in bvh.launches if k != "bvh_refit"}
         require(not any(k1.values()), tag, "K1 launched on a sharded frame", k1)
-        yard = {k: main_counts_frame.get(k, 0) for k in ss.launches if k.endswith("_stepper")}
-        require(not any(yard.values()), tag, "a K11 yardstick launched", yard)
         require(st == ref_stats, tag, "ray counts differ from the unsharded frame", st,
                 ref_stats)
         fb = check_image(frame_imgs[tag], frame_imgs[ref_tag], f"{tag} vs {ref_tag}")
         log(f"{tag}: {n_parts} parts, ray counts equal to the {ref_tag} frame's {ref_stats}, "
-            f"K1 and the K11 yardsticks not launched (the refit of K11a's winners, "
+            f"K1 not launched (the refit of K11a's winners, "
             f"bvh_refit, launched); vs that frame {fb:.4%} bad px, means "
             f"{frame_means[tag]:.5f} / {frame_means[ref_tag]:.5f}")
         return sc
@@ -2826,12 +2823,12 @@ def main():
         "at world size 1)")
 
     # (d) K11a and K11b at their first launches in (b)'s frames, held again
-    # (terrain's 2^20 lanes against the yardsticks and K1 only: its plain
-    # versions take ~33 s on the H100) and timed in turns (yardstick, K11, unfused, K1,
-    # K1, unfused, K11, yardstick) with their yardsticks (the stepper loop;
-    # K1 over each part) and K1/K1a over the unsharded table on the same
-    # rays, beside the bound from ss.parts_work's oracle count (the answers:
-    # the plain version's, on terrain the yardstick's, its bits) and the
+    # (terrain's 2^20 lanes against the unfused yardstick and K1 only: its
+    # plain versions take ~33 s on the H100) and timed in turns (K11,
+    # unfused, K1, K1, unfused, K11) with the unfused yardstick (K1 over
+    # each part) and K1/K1a over the unsharded table on the same rays,
+    # beside the bound from ss.parts_work's oracle count (the answers: the
+    # plain version's, on terrain the unfused yardstick's, its bits) and the
     # kernels' own work sums; the select kernel at its first launch in (c)
     work_w = (SLAB_VISIT_OPS, TRI_EDGE_OPS, TRI_RANGE_OPS, TRI_BOUND_OPS)
     full_terr = (s_terr.bvh_rows, m_terr.bvh_nint, m_terr.bvh_depth, s_terr)
@@ -2854,29 +2851,24 @@ def main():
             if any_hit:
                 occ_p, ms_plain = compare_any_parts(sh_f, o_, d_, t_, full, plain)
                 t_lim, n_h, err_t = t_, int(occ_p.sum()), 0.0
-                ties = "bit-exact with " + ("plain, " if plain else "") + "both yardsticks"
+                ties = "bit-exact with " + ("plain and " if plain else "") + "the unfused yardstick"
                 fns = {"k11": lambda st=None: ss.any_parts_cuda(
                            rows_s, nint_s, depth_s, top_s, o_, d_, t_, stats=st),
-                       "yardstick": lambda st=None: ss.any_parts_stepper_cuda(
-                           rows_s, nint_s, depth_s, o_, d_, t_, stats=st),
                        "unfused": lambda st=None: unfused_any(sh_f, o_, d_, t_),
                        "k1": lambda st=None: bvh.traverse_cuda(rows_f, nint_f, depth_f, o_, d_,
                                                                t_, True, stats=st)}
                 nbytes = rows_s.numel() * 4 + top_s.numel() * 4 + R_ * 29
             else:
-                n_h, n_tie, rel, (n_tp, n_ts, n_ty, err_t), ms_plain, pp = compare_parts(
+                n_h, n_tie, rel, (n_tp, n_ty, err_t), ms_plain, pp = compare_parts(
                     sh_f, o_, d_, t_, full, ties_ok=True, plain=plain)
                 occ_p = None
                 t_lim = torch.where(torch.isfinite(pp[:, 0]), pp[:, 0], t_)
                 ties = (f"bit-exact but {n_tp} verified tie lanes against plain, " if plain
                         else "bit-exact but ") + (
-                        f"{n_ts} against the yardstick, {n_ty} against the unfused yardstick; "
-                        f"the same triangle as the unsharded K1 on all but {n_tie} hits, max rel "
-                        f"err t {rel:.2e}")
+                        f"{n_ty} against the unfused yardstick; the same triangle as the "
+                        f"unsharded K1 on all but {n_tie} hits, max rel err t {rel:.2e}")
                 fns = {"k11": lambda st=None: ss.closest_parts_cuda(
                            rows_s, recv_s, nint_s, depth_s, top_s, o_, d_, t_, stats=st),
-                       "yardstick": lambda st=None: ss.closest_parts_stepper_cuda(
-                           rows_s, recv_s, nint_s, depth_s, o_, d_, t_, stats=st),
                        "unfused": lambda st=None: unfused_pack(sh_f, o_, d_, t_),
                        "k1": lambda st=None: bvh.traverse_cuda(rows_f, nint_f, depth_f, o_, d_,
                                                                t_, stats=st)}
@@ -2884,25 +2876,21 @@ def main():
                           + R_ * ss.PACK_W * 4)
             oracle = ss.parts_work(rows_s, nint_s, sh_f.boxes, o_, d_, t_lim, occ_p, work_w)
             own = {}
-            for key in ("k11", "yardstick", "k1"):
+            for key in ("k11", "k1"):
                 work = torch.zeros(4, dtype=torch.int64, device=dev)
                 fns[key](work)
                 own[key] = tuple(int(x) for x in work.cpu())
             turns = {k: [] for k in fns}
-            for key in ("yardstick", "k11", "unfused", "k1", "k1", "unfused", "k11",
-                        "yardstick"):
+            for key in ("k11", "unfused", "k1", "k1", "unfused", "k11"):
                 turns[key].append(graph_ms(fns[key]))
             ms_ = {k: sum(v) / len(v) for k, v in turns.items()}
             b = bound(nbytes, oracle[0] * SLAB_VISIT_OPS + tri_test_ops(*oracle[1:]))
-            b_y = bound(nbytes, own["yardstick"][0] * SLAB_VISIT_OPS
-                        + tri_test_ops(*own["yardstick"][1:]))
             rows_x = own["k11"][0] / own["k1"][0]
             k11_timed[name][tag] = dict(
-                ms=ms_["k11"], yardstick_ms=ms_["yardstick"], unfused_ms=ms_["unfused"],
-                k1_same_rays_ms=ms_["k1"], turns=turns, plain_ms=ms_plain, bound_ms=b[0],
-                bound_by=b[1], yardstick_stats_bound_ms=b_y[0], lanes=R_, parts=n_p,
+                ms=ms_["k11"], unfused_ms=ms_["unfused"], k1_same_rays_ms=ms_["k1"], turns=turns,
+                plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], lanes=R_, parts=n_p,
                 live=int((t_ > 0).sum()), found=n_h, oracle_work=oracle, kernel_stats=own["k11"],
-                yardstick_stats=own["yardstick"], k1_stats=own["k1"], max_abs_err=err_t)
+                k1_stats=own["k1"], max_abs_err=err_t)
             tgt = ""
             if tag == "cornell_mesh_sharded":
                 tgt = (f"; target <= {targets[name]} ms "
@@ -2912,23 +2900,19 @@ def main():
                             f"{'met' if rows_x <= 1.5 else 'missed'})")
             log(f"{name} at {tag}'s first launch ({R_} lanes x {n_p} parts, "
                 f"{int((t_ <= 0).sum())} masked, {n_h} {'occluded' if any_hit else 'hits'}; "
-                f"{ties}): kernel {turns['k11']} ms, yardstick (stepper) {turns['yardstick']} "
-                f"ms, unfused per part {turns['unfused']} ms, {'K1a' if any_hit else 'K1'} over "
-                f"the unsharded table on the same rays {turns['k1']} ms (in turns; "
-                f"{ms_['yardstick'] / ms_['k11']:.3f}x the yardstick, "
-                f"{ms_['k11'] / ms_['k1']:.3f}x K1); plain "
+                f"{ties}): kernel {turns['k11']} ms, unfused per part {turns['unfused']} ms, "
+                f"{'K1a' if any_hit else 'K1'} over the unsharded table on the same rays "
+                f"{turns['k1']} ms (in turns; {ms_['k11'] / ms_['k1']:.3f}x K1); plain "
                 f"{'not run' if ms_plain is None else f'{ms_plain:.1f} ms'}; oracle work (rows, "
                 f"tri tests, past edge, past range) {oracle}, bound {b[0]:.4f} ms ({b[1]}), "
-                f"kernel {ms_['k11'] / b[0]:.1f}x it, yardstick {ms_['yardstick'] / b[0]:.1f}x "
-                f"(the yardstick's own-stats bound of before: {b_y[0]:.4f} ms); the kernels' own "
-                f"sums: K11 {own['k11']}, yardstick {own['yardstick']}, K1 {own['k1']} "
-                f"(rows read {rows_x:.2f}x K1's){tgt}")
+                f"kernel {ms_['k11'] / b[0]:.1f}x it; the kernels' own sums: K11 {own['k11']}, "
+                f"K1 {own['k1']} (rows read {rows_x:.2f}x K1's){tgt}")
     for name, per in k11_timed.items():
         cm = per["cornell_mesh_sharded"]
         timing[name] = dict(ms=cm["ms"], plain_ms=cm["plain_ms"], bound_ms=cm["bound_ms"],
                             bound_by=cm["bound_by"], library_ms=None,
                             max_abs_err=max(x["max_abs_err"] for x in per.values()),
-                            yardstick_ms=cm["yardstick_ms"], unfused_ms=cm["unfused_ms"],
+                            unfused_ms=cm["unfused_ms"],
                             k1_same_rays_ms=cm["k1_same_rays_ms"], launches_timed=per)
     (packs_s,), _, _ = first("cornell_mesh_sharded_nccl", "shard_select")
     W_, R_ = packs_s.shape[0], packs_s.shape[1]
@@ -2994,13 +2978,14 @@ def main():
         return int(hit.sum()), int((ip >= 0).sum()), int(differ.sum()), tp, err, ms_p
 
     def compare_inst_any(args, leaves, o, d, t_max):
-        """K1i any hit vs plain: the bits equal. -> (occluded, plain ms)."""
+        """K1i any hit vs plain: the bits equal. -> (the occluded mask, plain
+        ms)."""
         ak = bvh.traverse_inst_cuda(*args, o, d, t_max, any_hit=True)[1]
         ap, ms_p = timed(lambda: bvh.traverse_inst_plain(args[0], args[1], leaves, o, d,
                                                          t_max, any_hit=True)[1])
         require(torch.equal(ak >= 0, ap >= 0), "K1i any hit disagrees on",
                 int(((ak >= 0) != (ap >= 0)).sum()))
-        return int((ap >= 0).sum()), ms_p
+        return ap >= 0, ms_p
 
     # (a) levels (3, 2), every instance shared, against the plain version and
     # against K1 on the same scene flattened
@@ -3011,7 +2996,8 @@ def main():
     o_a, d_a, t_a = inst_rays(s_ia, m_ia)
     n_h, n_hi, n_tie, t_cl, _, _ = compare_inst(inst_args(s_ia, m_ia), m_ia.bvh_leaves, o_a, d_a,
                                                 t_a)
-    n_o, _ = compare_inst_any(inst_args(s_ia, m_ia), m_ia.bvh_leaves, o_a, d_a, shadow_t(t_cl))
+    occ_a, _ = compare_inst_any(inst_args(s_ia, m_ia), m_ia.bvh_leaves, o_a, d_a, shadow_t(t_cl))
+    n_o = int(occ_a.sum())
     tf_, pf_ = bvh.traverse_cuda(s_fa.bvh_rows, m_fa.bvh_nint, m_fa.bvh_depth, o_a, d_a, t_a)
     ti_, pi_, ii_ = bvh.traverse_inst_cuda(*inst_args(s_ia, m_ia), o_a, d_a, t_a)
     hi_, hf_ = pi_ >= 0, pf_ >= 0
@@ -3020,7 +3006,7 @@ def main():
     # The twins are the same triangles rounded apart (R12): flattening
     # stores each vertex as fl32(o2w p), within 2^-24 of its magnitude; K1i
     # keeps p and moves the ray, o' = fl(W o + w), d' = fl(W d), with W the
-    # float32 w2o, each a chain of three roundings (csrc/bvh_stepper.cuh
+    # float32 w2o, each a chain of three roundings (csrc/bvh_ray.cuh
     # `dot_row`), which render space sees magnified by W's condition number
     # kappa. So the ray meets geometries apart by at most
     # delta = 2^-24 (1 + 4 kappa) (|o| + t) (|o| the origin's largest
@@ -3164,21 +3150,8 @@ def main():
         f"{res['block_rel']:.4%} apart (<= {mlt_cases.BLOCK_RTOL:.0%}), means "
         f"{img_g.mean():.5f} / {img_c.mean():.5f}; launches {counts}")
 
-    # (c) the full-width frame cornell-instanced, then its flattened twin
-    def repeat_frames(sc, mt, n=7):
-        """Honest rays/s and frame seconds of n more renders -> (rays/s
-        median, quartiles, frame seconds median)."""
-        rates, walls = [], []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            _, st = rd.render(sc, mt, return_stats=True)
-            torch.cuda.synchronize()
-            walls.append(time.time() - t0)
-            rates.append((st["closest"] + st["shadow"]) / walls[-1])
-        q1, med, q3 = np.percentile(rates, [25, 50, 75])
-        return med, (q1, q3), float(np.median(walls))
-
+    # (c) the full-width frame cornell-instanced, then its flattened twin,
+    # then both rendered in turns
     def table_bytes(sc):
         return (sc.bvh_rows.numel() + sc.tri_rec.numel()) * 4
 
@@ -3202,14 +3175,37 @@ def main():
         st = full_render(tag, sc, mt, (k1i if mt.bvh_ninst else k1) + ("film_add_samples",))
         require(not any(k in main_counts_frame for k in (k1 if mt.bvh_ninst else k1i)), tag,
                 "launched the other traversal", main_counts_frame)
-        peak = torch.cuda.max_memory_allocated()
-        med, (q1, q3), wall = repeat_frames(sc, mt)
-        inst_frame[tag] = dict(scene=sc, meta=mt, stats=st, rate=med, wall=wall, peak=peak,
-                               bytes=table_bytes(sc), compile=compile_s)
-        log(f"{tag}: honest rays/s median {med / 1e6:.3f} M (quartiles {q1 / 1e6:.3f} .. "
-            f"{q3 / 1e6:.3f}) over 7 renders, frame {wall:.4f} s median, peak mem "
-            f"{peak / 2**30:.2f} GiB, tables {table_bytes(sc) / 2**20:.2f} MiB")
+        inst_frame[tag] = dict(scene=sc, meta=mt, stats=st, walls=[], rates=[],
+                               peak=torch.cuda.max_memory_allocated(), bytes=table_bytes(sc),
+                               compile=compile_s)
+    # the frames in turns (instanced, twin, twin, instanced) FRAME_ROUNDS
+    # times: honest rays/s (median, quartiles) and frame seconds (median) of
+    # each, and each round's ratio
+    for tag in ("cornell_instanced", "cornell_instanced_flat", "cornell_instanced_flat",
+                "cornell_instanced") * FRAME_ROUNDS:
+        x = inst_frame[tag]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, st = rd.render(x["scene"], x["meta"], return_stats=True)
+        torch.cuda.synchronize()
+        x["walls"].append(time.time() - t0)
+        x["rates"].append((st["closest"] + st["shadow"]) / x["walls"][-1])
+    for tag, x in inst_frame.items():
+        q1, x["rate"], q3 = np.percentile(x["rates"], [25, 50, 75])
+        x["wall"] = float(np.median(x["walls"]))
+        log(f"{tag}: honest rays/s median {x['rate'] / 1e6:.3f} M (quartiles {q1 / 1e6:.3f} .. "
+            f"{q3 / 1e6:.3f}) over {len(x['walls'])} renders in turns with the other, frame "
+            f"{x['wall']:.4f} s median (walls {[round(w, 4) for w in x['walls']]}), peak mem "
+            f"{x['peak'] / 2**30:.2f} GiB, tables {x['bytes'] / 2**20:.2f} MiB")
     fi, ff = inst_frame["cornell_instanced"], inst_frame["cornell_instanced_flat"]
+    frame_x = fi["wall"] / ff["wall"]
+    round_x = [(fi["walls"][2 * r] + fi["walls"][2 * r + 1])
+               / (ff["walls"][2 * r] + ff["walls"][2 * r + 1]) for r in range(FRAME_ROUNDS)]
+    rq1, rmed, rq3 = np.percentile(round_x, [25, 50, 75])
+    verdict = "met" if rq3 <= 1.3 else "missed" if rq1 > 1.3 else "not established"
+    log(f"cornell-instanced frame {frame_x:.3f}x its flattened twin's in turns (medians); "
+        f"ratio of each round's frames median {rmed:.3f}x (quartiles {rq1:.3f} .. {rq3:.3f}, "
+        f"rounds {[round(x, 3) for x in round_x]}); target <= 1.3x {verdict}")
     n_i, n_f = (sum(x["stats"].values()) for x in (fi, ff))
     require(abs(n_i - n_f) <= 0.01 * n_f, "instanced vs flattened ray counts", n_i, n_f)
     # the twins are not the same float32 geometry (flattening rounds the
@@ -3269,43 +3265,78 @@ def main():
         f"({ff['bytes'] / fi['bytes']:.2f}x), compile {fi['compile']:.2f} / "
         f"{ff['compile']:.2f} s")
 
-    # (d) K1i at its first launches in the instanced frame: held against
-    # its plain version on those arguments, and timed beside its bound, the
-    # plain version and the flattened frame's K1 on the same rays
+    # (d) K1i at its first launches in the instanced frame (2^20 lanes): held
+    # against its plain version on those arguments, and timed in turns with
+    # the flattened frame's K1 on the same rays (graph replays: K1i, K1, K1,
+    # K1i), beside the bound from bvh.traversal_work's two-level oracle (the
+    # answers the plain version's), the plain version, the rows each reads
+    # (their own stats) and the stepper loop's recorded time at this launch
     leaves_i = fi["meta"].bvh_leaves
+    targets_i = {"bvh_closest_hit_inst": 0.55, "bvh_any_hit_inst": 0.40}
     for any_hit, name in ((False, "bvh_closest_hit_inst"), (True, "bvh_any_hit_inst")):
         (rows_, nint_, ninst_, depth_, iterb_, o_, d_, t_, *_), _, _ = first(
             "cornell_instanced", name)
         args_ = (rows_, nint_, ninst_, depth_, iterb_)
+        flat_ = (s_ff.bvh_rows, m_ff.bvh_nint, m_ff.bvh_depth)
         R_ = o_.shape[0]
         if any_hit:
-            (n_live, ms_plain), n_tie, err = compare_inst_any(args_, leaves_i, o_, d_, t_), 0, 0.0
+            (occ_, ms_plain), n_tie, err = compare_inst_any(args_, leaves_i, o_, d_, t_), 0, 0.0
+            n_live, t_lim = int(occ_.sum()), t_
         else:
-            n_live, _, n_tie, _, err, ms_plain = compare_inst(args_, leaves_i, o_, d_, t_)
+            n_live, _, n_tie, t_lim, err, ms_plain = compare_inst(args_, leaves_i, o_, d_, t_)
+            occ_ = None
         tk, pk, ik = bvh.traverse_inst_cuda(*args_, o_, d_, t_, any_hit)
-        tf_, pf_ = bvh.traverse_cuda(s_ff.bvh_rows, m_ff.bvh_nint, m_ff.bvh_depth, o_, d_, t_,
-                                     any_hit)
+        tf_, pf_ = bvh.traverse_cuda(*flat_, o_, d_, t_, any_hit)
         agree = float(((pk >= 0) == (pf_ >= 0)).float().mean())
         require(agree >= 0.9999, name, "against K1 on the flattened frame", agree)
         work = torch.zeros(5, dtype=torch.int64, device=dev)
         bvh.traverse_inst_cuda(*args_, o_, d_, t_, any_hit, stats=work)
-        n_nodes, n_tris, n_edge, n_range, n_ent = (int(x) for x in work.cpu())
-        ms, call = kernel_ms(lambda: bvh.traverse_inst_cuda(*args_, o_, d_, t_, any_hit), 20)
-        ms_y = graph_ms(lambda: bvh.traverse_cuda(s_ff.bvh_rows, m_ff.bvh_nint, m_ff.bvh_depth,
-                                                  o_, d_, t_, any_hit))
+        work_f = torch.zeros(4, dtype=torch.int64, device=dev)
+        bvh.traverse_cuda(*flat_, o_, d_, t_, any_hit, stats=work_f)
+        own, own_f = tuple(int(x) for x in work.cpu()), tuple(int(x) for x in work_f.cpu())
+        oracle = bvh.traversal_work(rows_, nint_, o_, d_, t_lim, occ_, (
+            SLAB_VISIT_OPS, TRI_EDGE_OPS, TRI_RANGE_OPS, TRI_BOUND_OPS, INST_ENTRY_OPS),
+            n_inst=ninst_)
+        fns = {"k1i": lambda: bvh.traverse_inst_cuda(*args_, o_, d_, t_, any_hit),
+               "k1": lambda: bvh.traverse_cuda(*flat_, o_, d_, t_, any_hit)}
+        turns = {"k1i": [], "k1": []}
+        for key in ("k1i", "k1", "k1", "k1i"):
+            turns[key].append(graph_ms(fns[key]))
+        ms, ms_f = (sum(turns[k]) / 2 for k in ("k1i", "k1"))
+        call = events_ms(fns["k1i"], 20)
         b = bound(rows_.numel() * 4 + R_ * 7 * 4 + R_ * (4 if any_hit else 12),
-                  n_nodes * SLAB_VISIT_OPS + tri_test_ops(n_tris, n_edge, n_range)
-                  + n_ent * INST_ENTRY_OPS)
+                  oracle[0] * SLAB_VISIT_OPS + tri_test_ops(*oracle[1:4])
+                  + oracle[4] * INST_ENTRY_OPS)
+        old = K1I_OLD_LOOP_MS[name]
         timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                            library_ms=None, max_abs_err=err, yardstick_ms=ms_y)
+                            library_ms=None, max_abs_err=err, twin_k1_ms=ms_f, turns=turns,
+                            host_paced_ms=call, oracle_work=oracle, kernel_stats=own,
+                            twin_stats=own_f)
         log(f"{name} at the main path's launch ({R_} lanes, {n_live} "
-            f"{'occluded' if any_hit else 'hits'}, {int((ik >= 0).sum())} in instances, "
-            f"{n_nodes} node visits, {n_ent} instance entries, {n_tris} tri tests, {n_edge} past "
-            f"the edge test, {n_range} past t range): against its plain version on these "
-            f"arguments {'the bits equal' if any_hit else f'bit-exact but on {n_tie} verified ties'}"
-            f", max abs err of t {err:.3e}; kernel {ms:.3f} ms (host-paced {call:.3f} ms), the "
-            f"flattened frame's K1 on the same rays {ms_y:.3f} ms (yardstick; hit masks equal on "
-            f"{agree:.6%}), plain {ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]})")
+            f"{'occluded' if any_hit else 'hits'}, {int((ik >= 0).sum())} in instances): against "
+            f"its plain version on these arguments "
+            f"{'the bits equal' if any_hit else f'bit-exact but on {n_tie} verified ties'}, max "
+            f"abs err of t {err:.3e}; kernel {turns['k1i']} ms (host-paced {call:.4f} ms), the "
+            f"flattened frame's {'K1a' if any_hit else 'K1'} on the same rays {turns['k1']} ms "
+            f"in turns ({ms / ms_f:.3f}x it; hit masks equal on {agree:.6%}); the stepper loop "
+            f"K1i ran on before its redesign, recorded at this launch: {old} ms "
+            f"({old / ms:.2f}x the kernel); plain {ms_plain:.1f} ms; oracle work (rows, tri "
+            f"tests, past edge, past range, instance entries) {oracle}, bound {b[0]:.4f} ms "
+            f"({b[1]}), kernel {ms / b[0]:.1f}x it; own stats {own}, the twin's {own_f} (rows "
+            f"read {own[0] / own_f[0]:.2f}x the twin's); targets <= {targets_i[name]} ms "
+            f"{'met' if ms <= targets_i[name] else 'missed'}, <= 1.3x the twin's "
+            f"{'met' if ms <= 1.3 * ms_f else 'missed'}")
+    # the refit of K1i's winners at the instanced frame's first closest-hit
+    # launch, the object rays of instanced winners formed in the kernel:
+    # bit-exact with its plain version (JAX's _refit_ray, a where)
+    args_r = first("cornell_instanced", "bvh_refit")[0]
+    out_k, out_p = bvh.refit_cuda(*args_r), bvh.refit_plain(*args_r)
+    require(all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                            b.view(torch.int32) if b.dtype == torch.float32 else b)
+                for a, b in zip(out_k, out_p)), "bvh_refit differs from its plain version on "
+            "the instanced frame")
+    log(f"bvh_refit at cornell-instanced's first closest-hit launch ({args_r[3].shape[0]} lanes, "
+        f"{int((args_r[7] >= 0).sum())} instanced winners): bit-exact with its plain version")
     del inst_frame, fi, ff, s_ff, s_fa
 
     ov = int(bvh.overflow_counter(dev).item()) - ov0

@@ -14,11 +14,11 @@ between the internal and the leaf rows, and one shared bottom tree per
 prototype in object space.
 
 Traversal (device): `closest_hit_tris` / `any_hit_tris` launch the CUDA
-kernels of csrc/bvh_traverse.cu on CUDA tensors: K1 (csrc/bvh_wide.cuh:
-persistent warps, whole-row 16-byte loads, one shared-memory stack entry per
-pending child), or K1i on a two-level table (csrc/bvh_stepper.cuh, one
-thread per ray). On CPU tensors they run the kernel's plain version, a
-chunked dense watertight sweep over the padded leaf soup (each chunk against
+kernels of csrc/bvh_traverse.cu on CUDA tensors: K1, or K1i on a two-level
+table, both csrc/bvh_wide.cuh's loop (persistent warps, whole-row 16-byte
+loads, one shared-memory stack entry per pending child; K1i enters an
+instance row in the same loop). On CPU tensors they run the kernel's plain
+version, a chunked dense watertight sweep over the padded leaf soup (each chunk against
 the rays that meet its bounds; per instance over its prototype's rows with
 the rays in its object space), which computes the same (t, prim, inst)
 function. The TPU's compaction
@@ -555,11 +555,13 @@ def reorder_pad(build: BvhBuild, a, fill):
 # --------------------------------------------------------------- traversal
 
 # launches of the CUDA traversal kernels (plain ints, added to where they
-# launch); the *_stepper names count the yardstick entry, which no render
-# path calls
+# launch)
 launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0, "bvh_closest_hit_inst": 0,
-            "bvh_any_hit_inst": 0, "bvh_closest_hit_stepper": 0, "bvh_any_hit_stepper": 0,
-            "bvh_refit": 0}
+            "bvh_any_hit_inst": 0, "bvh_refit": 0}
+# the wide kernels' stack (csrc/bvh_wide.cuh): WIDTH - 1 entries a level of
+# internal rows, at most the shared memory of a block (232,448 bytes) over
+# 128 threads of 6-byte entries
+WIDE_MAX_STACK = 232448 // (128 * 6)
 _OVERFLOW = {}
 
 
@@ -636,14 +638,14 @@ def traverse_plain(rows, n_int, o, d, t_max, any_hit=False):
     return t_best, prim
 
 
-# the slab test's widening of a box's far distance (csrc/bvh_stepper.cuh
+# the slab test's widening of a box's far distance (csrc/bvh_ray.cuh
 # SLAB_WIDEN): 1 + 2 gamma(3), rounded to float32
 _SLAB_WIDEN = float(np.float32(1.0 + 2.0 * gamma(3)))
 
 
 def safe_inv(d):
     """1 / d with |d| clamped to 1e-30, as the traversal kernels form it
-    (csrc/bvh_stepper.cuh `safe_inv`): an axis the ray runs along gives
+    (csrc/bvh_ray.cuh `safe_inv`): an axis the ray runs along gives
     +-1e30, not inf."""
     return torch.where(d < 0, -1.0, 1.0) / d.abs().clamp(min=1e-30)
 
@@ -669,7 +671,7 @@ def watertight_stages(o, d, t_max, p0, p1, p2):
 
 
 def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
-                   chunk=1 << 15, per_ray=False):
+                   chunk=1 << 15, per_ray=False, n_inst=0):
     """The work of an oracle traversal of the table (rows, n_int) that knows
     each ray's answer. Closest hit (occluded None): t_lim (R,) is the
     nearest hit's t (traverse_plain's t, which is t_max on a miss); from the
@@ -684,66 +686,83 @@ def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
     tests that leaf's triangles in slot order up to its first such hit: of
     all those leaves, the one of least work, weighed by `cost` (per internal
     row read, triangle test, test past the edge-sign exit, past the range
-    exit; ties to the lower row). Any other ray reads what a closest-hit ray
-    with that t_lim reads. Rays with t_lim <= 0 do nothing. -> (internal
-    rows read, triangles tested, of those past the edge-sign test, past the
-    t-range test), the sums the kernels' `stats` report, for the same work
-    whatever implements it; per_ray: those four counts of each ray, an (R,
-    4) int64 tensor. Measurement code (chip_smoke.py's bound of K1 and K1a;
-    parallel/scene_shard.py `parts_work`): rays `chunk` at a time, breadth
-    first."""
-    inv = safe_inv(d)
+    exit, and on a two-level table instance entry; ties to the lower row,
+    then the lower instance). Any other ray reads what a closest-hit ray
+    with that t_lim reads. Rays with t_lim <= 0 do nothing.
+    A two-level table (n_inst instance rows after the n_int internal rows,
+    `build_two_level`): an instance row whose box the segment meets is an
+    entry, counted as a fifth sum, and the ray goes on into its prototype's
+    root in the instance's object space (object_rays, the kernels' bits);
+    every row is read, and every leaf tested, in the space of the instance
+    it lies in (a prototype's rows once for each instance entered).
+    -> (internal rows read, triangles tested, of those past the edge-sign
+    test, past the t-range test; and instance entries on a two-level table),
+    the sums the kernels' `stats` report, for the same work whatever
+    implements it; per_ray: those counts of each ray, an (R, 4) or (R, 5)
+    int64 tensor. Measurement code (chip_smoke.py's bounds of K1, K1a, K1i
+    and K1i-a; parallel/scene_shard.py `parts_work`): rays `chunk` at a
+    time, breadth first."""
     if occluded is None:
         blocked = torch.zeros_like(t_lim, dtype=torch.bool)
         t_hi = torch.nextafter(t_lim, torch.full_like(t_lim, float("inf")))
     else:
         blocked, t_hi = occluded, t_lim
+    leaf0 = n_int + n_inst
+    n_sums = 5 if n_inst else 4
     live = (t_lim > 0).nonzero()[:, 0]
-    w = torch.tensor(cost, dtype=torch.int64, device=o.device)
-    per = torch.zeros((o.shape[0], 4), dtype=torch.int64, device=o.device)
+    w = torch.tensor(tuple(cost) + (0,) * (5 - len(cost)), dtype=torch.int64, device=o.device)
+    per = torch.zeros((o.shape[0], 5), dtype=torch.int64, device=o.device)
     for s in range(0, live.numel(), chunk):
+        # the frontier: each element a lane, the row it reads next, the rows
+        # read on its way, its instance (-1: the world) and its ray
         lane = live[s: s + chunk]
-        node = torch.zeros_like(lane)
-        leaf_lane, leaf_row, leaf_path = [], [], []
+        node, path = torch.zeros_like(lane), torch.zeros_like(lane)
+        iid = torch.full_like(lane, -1)
+        oo, dd = o[lane], d[lane]
+        leaves = []
         if n_int == 0:                      # one leaf row, the root
-            leaf_lane.append(lane)
-            leaf_row.append(node)
-            leaf_path.append(torch.zeros_like(lane))
+            leaves.append((lane, node, path, iid, oo, dd))
             lane = lane[:0]
-        level = 0
         while lane.numel():
-            level += 1
             per[:, 0].index_add_(0, lane, (~blocked[lane]).long())
+            path = path + 1
             row = rows[node]
             box = row[:, : 6 * WIDTH].reshape(-1, WIDTH, 6)
             child = row[:, 6 * WIDTH: 7 * WIDTH].long()
-            oo, ii = o[lane][:, None], inv[lane][:, None]
-            t0, t1 = (box[..., :3] - oo) * ii, (box[..., 3:] - oo) * ii
+            t0, t1 = ((box[..., :3] - oo[:, None]) * safe_inv(dd)[:, None],
+                      (box[..., 3:] - oo[:, None]) * safe_inv(dd)[:, None])
             # fmin/fmax skip NaN as the kernels' fminf/fmaxf do
             tn = torch.fmin(t0, t1).amax(dim=-1).clamp(min=0.0)
             tf = torch.fmax(t0, t1).amin(dim=-1) * _SLAB_WIDEN
             meets = ((child >= 0) & (box[..., 0] <= box[..., 3]) & (tn <= tf) & (tf > 0)
                      & (tn <= t_lim[lane][:, None]))
-            lanes = lane[:, None].expand_as(child)
-            inner = meets & (child < n_int)
-            leaf_lane.append(lanes[meets & ~inner])
-            leaf_row.append(child[meets & ~inner])
-            leaf_path.append(torch.full_like(leaf_row[-1], level))
-            lane, node = lanes[inner], child[inner]
-        lane, row, path = torch.cat(leaf_lane), torch.cat(leaf_row), torch.cat(leaf_path)
+            el = meets.nonzero()[:, 0]
+            c = child[meets]
+            nxt = (lane[el], c, path[el], iid[el], oo[el], dd[el])
+            enter = (c >= n_int) & (c < leaf0)
+            if bool(enter.any()):
+                per[:, 4].index_add_(0, nxt[0][enter], (~blocked[nxt[0][enter]]).long())
+                m = rows[c[enter]]
+                o_i, d_i = object_rays(m[:, :12].contiguous(), nxt[4][enter], nxt[5][enter])
+                ent = (nxt[0][enter], m[:, 12].long(), nxt[2][enter], m[:, 13].long(), o_i, d_i)
+                nxt = tuple(torch.cat([x[~enter], y]) for x, y in zip(nxt, ent))
+            is_leaf = nxt[1] >= leaf0
+            leaves.append(tuple(x[is_leaf] for x in nxt))
+            lane, node, path, iid, oo, dd = (x[~is_leaf] for x in nxt)
+        lane, row, path, iid, oo, dd = (torch.cat(x) for x in zip(*leaves))
         tri = rows[row, : LEAF_K * 9].reshape(-1, LEAF_K, 3, 3)
-        edge, rng = watertight_stages(o[lane][:, None], d[lane][:, None], t_hi[lane][:, None],
+        edge, rng = watertight_stages(oo[:, None], dd[:, None], t_hi[lane][:, None],
                                       tri[:, :, 0], tri[:, :, 1], tri[:, :, 2])
         free = ~blocked[lane]
-        per[:, 1:].index_add_(0, lane[free], torch.stack(
+        per[:, 1:4].index_add_(0, lane[free], torch.stack(
             [torch.full_like(lane[free], LEAF_K), edge[free].sum(1), rng[free].sum(1)], dim=1))
         # a blocked ray's leaves that hold a hit: the slots up to the first
         hold = ~free & rng.any(dim=1)
         first = rng[hold].int().argmax(dim=1)
         upto = torch.arange(LEAF_K, device=o.device)[None] <= first[:, None]
         work = torch.stack([path[hold], upto.sum(1), (edge[hold] & upto).sum(1),
-                            (rng[hold] & upto).sum(1)], dim=1)
-        key = (work * w).sum(1) * rows.shape[0] + row[hold]
+                            (rng[hold] & upto).sum(1), (iid[hold] >= 0).long()], dim=1)
+        key = ((work * w).sum(1) * rows.shape[0] + row[hold]) * (n_inst + 1) + iid[hold] + 1
         lane_h, none = lane[hold], torch.iinfo(torch.int64).max
         least = torch.full((o.shape[0],), none, dtype=torch.int64,
                            device=o.device).scatter_reduce(0, lane_h, key, "amin")
@@ -754,13 +773,14 @@ def traversal_work(rows, n_int, o, d, t_lim, occluded=None, cost=(1, 1, 1, 1),
         if bool(short.any()):
             raise ValueError(f"traversal_work: {int(short.sum())} occluded rays reach no leaf "
                              "that holds a hit within t_max")
+    per = per[:, :n_sums]
     return per if per_ray else tuple(int(x) for x in per.sum(0))
 
 
 def object_rays(w2o, o, d):
     """Rays o, d (R, 3) in the object space of the affines w2o ((R, 12) or
     (12,), row-major 3x4): o_obj = M[:, :3] o + M[:, 3], d_obj = M[:, :3] d,
-    with K1i's rounding (csrc/bvh_stepper.cuh `dot_row`): each dot product
+    with K1i's rounding (csrc/bvh_ray.cuh `dot_row`): each dot product
     a chain of fused multiply-adds, as XLA emits JAX's einsum on the CPU,
     then the translation added, so the kernel and this agree bit for bit.
     d_obj stays unnormalised, so a hit's t is the same in both spaces."""
@@ -831,34 +851,33 @@ def _kernel_lib():
 
     lib = kernels.load("bvh_traverse")
     if not hasattr(lib, "declared"):
-        for fn in ("pbrt_bvh_max_stack", "pbrt_bvh_wide_max_stack"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.pbrt_bvh_wide_stack.argtypes = [ctypes.c_int]
-        lib.pbrt_bvh_wide_stack.restype = ctypes.c_int
-        single = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int])
-        lib.pbrt_bvh_traverse.argtypes = single + [ctypes.c_void_p] * 3
-        lib.pbrt_bvh_traverse.restype = ctypes.c_int
-        lib.pbrt_bvh_traverse_stepper.argtypes = single + [ctypes.c_void_p] * 2
-        lib.pbrt_bvh_traverse_stepper.restype = ctypes.c_int
-        lib.pbrt_bvh_traverse_inst.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-        lib.pbrt_bvh_traverse_inst.restype = ctypes.c_int
-        lib.pbrt_bvh_refit.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [
-            ctypes.c_void_p] * 4
-        lib.pbrt_bvh_refit.restype = ctypes.c_int
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.pbrt_bvh_wide_max_stack.argtypes = []
+        lib.pbrt_bvh_wide_max_stack.restype = I
+        lib.pbrt_bvh_wide_stack.argtypes = [I]
+        lib.pbrt_bvh_wide_stack.restype = I
+        lib.pbrt_bvh_traverse.argtypes = [P, I, I, P, P, P, I, P, P, P, I, I, P, P, P]
+        lib.pbrt_bvh_traverse.restype = I
+        lib.pbrt_bvh_traverse_inst.argtypes = [P, I, I, ctypes.c_longlong, P, P, P, I, P, P, P,
+                                               P, I, I, P, ctypes.c_longlong, P, P, P]
+        lib.pbrt_bvh_traverse_inst.restype = I
+        lib.pbrt_bvh_inst_far_ints.argtypes = [I]
+        lib.pbrt_bvh_inst_far_ints.restype = ctypes.c_longlong
+        lib.pbrt_bvh_refit.argtypes = [P] * 9 + [I] + [P] * 4
+        lib.pbrt_bvh_refit.restype = I
+        if (lib.pbrt_bvh_wide_max_stack(), lib.pbrt_bvh_wide_stack(1)) != (WIDE_MAX_STACK,
+                                                                            WIDTH - 1):
+            raise RuntimeError("bvh_traverse: the library's stack sizes are not WIDE_MAX_STACK "
+                               "and WIDTH - 1 entries a level")
         lib.declared = True
     return lib
 
 
-def _check_launch(rows, n_int, leaf0, o, d, t_max, stats, n_stats, depth, wide=False):
+def _check_launch(rows, n_int, leaf0, o, d, t_max, stats, n_stats, depth):
     """Validate a traversal launch's arguments (leaf0: the first leaf row)
-    -> (the library, stack entries a thread). The stepper loop (K1i, the
-    yardstick) needs depth + 2 entries; the wide kernel (K1) one per pending
-    child, pbrt_bvh_wide_stack(depth), and a 16-byte aligned table."""
+    -> (the library, stack entries a thread): WIDTH - 1 a level of the
+    tree's depth, at most WIDE_MAX_STACK (raised before a build), CUDA
+    tensors and a 16-byte aligned table."""
     R = o.shape[0]
     dev = o.device
     for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,)),
@@ -875,47 +894,21 @@ def _check_launch(rows, n_int, leaf0, o, d, t_max, stats, n_stats, depth, wide=F
                               or stats.numel() != n_stats):
         raise ValueError(f"bvh traversal: stats must be an int64 ({n_stats},) tensor on the "
                          "device")
-    lib = _kernel_lib()
-    if wide:
-        if rows.data_ptr() % 16:
-            raise ValueError("bvh traversal: rows must start on a 16-byte boundary")
-        stack, cap = lib.pbrt_bvh_wide_stack(depth), lib.pbrt_bvh_wide_max_stack()
-    else:
-        stack, cap = depth + 2, lib.pbrt_bvh_max_stack()
-    if stack > cap:
+    stack = (WIDTH - 1) * depth
+    if stack > WIDE_MAX_STACK:
         raise ValueError(f"BVH depth {depth} needs a stack of {stack} entries; the "
-                         f"kernel is compiled for {cap}")
-    return lib, stack
+                         f"kernel is compiled for {WIDE_MAX_STACK}")
+    if dev.type != "cuda":
+        raise ValueError(f"bvh traversal: the kernel takes CUDA tensors, got {dev}")
+    if rows.data_ptr() % 16:
+        raise ValueError("bvh traversal: rows must start on a 16-byte boundary")
+    return _kernel_lib(), stack
 
 
-def _traverse_single(rows, n_int, depth, o, d, t_max, any_hit, stats, stepper):
-    """Launch K1 (stepper=False) or the yardstick on the current stream and
-    count the launch under its name."""
-    from pbrt_tpu_torch import kernels
-
-    lib, stack = _check_launch(rows, n_int, n_int, o, d, t_max, stats, 4, depth,
-                               wide=not stepper)
-    R, dev = o.shape[0], o.device
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    prim = torch.empty(R, dtype=torch.int32, device=dev)
-    if R == 0:
-        return t, prim.long()
-    args = [rows.data_ptr(), rows.shape[0], n_int, o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), R, t.data_ptr(), prim.data_ptr(),
-            overflow_counter(dev).data_ptr(), int(any_hit), stack,
-            None if stats is None else stats.data_ptr()]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if stepper:
-        err = lib.pbrt_bvh_traverse_stepper(*args, stream)
-    else:
-        # the launch's own ray ticket, zeroed on the stream (a memset node
-        # under graph capture, so every replay starts at ray 0)
-        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-        err = lib.pbrt_bvh_traverse(*args, ticket.data_ptr(), stream)
-    kernels.check(err, "bvh_traverse_stepper" if stepper else "bvh_traverse")
-    name = "bvh_any_hit" if any_hit else "bvh_closest_hit"
-    launches[name + "_stepper" if stepper else name] += 1
-    return t, prim.long()
+def _ticket(dev):
+    """The launch's own ray ticket, zeroed on the stream (a memset node
+    under graph capture, so every replay starts at ray 0)."""
+    return torch.zeros(1, dtype=torch.int32, device=dev)
 
 
 def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
@@ -925,25 +918,36 @@ def traverse_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
     int64 (4,) device tensor, accumulates the internal rows read, the leaf
     triangles tested, and of those the ones past the watertight test's
     edge-sign and t-range exits (csrc/watertight.cuh)."""
-    return _traverse_single(rows, n_int, depth, o, d, t_max, any_hit, stats, stepper=False)
+    from pbrt_tpu_torch import kernels
 
-
-def traverse_stepper_cuda(rows, n_int, depth, o, d, t_max, any_hit=False, stats=None):
-    """The yardstick: K1 as it ran before its redesign, the stepper loop of
-    csrc/bvh_stepper.cuh one thread per ray (`pbrt_bvh_traverse_stepper`).
-    traverse_cuda's contract and stats; counted under its own launch names.
-    No render path calls it; chip_smoke.py times K1 against it."""
-    return _traverse_single(rows, n_int, depth, o, d, t_max, any_hit, stats, stepper=True)
+    lib, stack = _check_launch(rows, n_int, n_int, o, d, t_max, stats, 4, depth)
+    R, dev = o.shape[0], o.device
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    prim = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return t, prim.long()
+    err = lib.pbrt_bvh_traverse(
+        rows.data_ptr(), rows.shape[0], n_int, o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
+        t.data_ptr(), prim.data_ptr(), overflow_counter(dev).data_ptr(), int(any_hit), stack,
+        None if stats is None else stats.data_ptr(), _ticket(dev).data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "bvh_traverse")
+    launches["bvh_any_hit" if any_hit else "bvh_closest_hit"] += 1
+    return t, prim.long()
 
 
 def traverse_inst_cuda(rows, n_int, n_inst, depth, iter_bound, o, d, t_max, any_hit=False,
                        stats=None):
     """Launch the two-level kernel (K1i, csrc/bvh_traverse.cu
-    `pbrt_bvh_traverse_inst`) on the current stream and count the launch.
-    Same contract as traverse_inst_plain, with prim and inst -1 on a miss;
-    depth and iter_bound are the two-level build's max_depth and iter_bound.
-    `stats`, an optional int64 (5,) device tensor, accumulates traverse_cuda's
-    four sums and the instance rows entered."""
+    `pbrt_bvh_traverse_inst`, csrc/bvh_wide.cuh `inst_wide_kernel`) on the
+    current stream and count the launch. Same contract as
+    traverse_inst_plain, with prim and inst -1 on a miss; depth and
+    iter_bound are the two-level build's max_depth and iter_bound (the
+    stack holds WIDTH - 1 entries a level of depth, a depth whose stack does
+    not fit raises; the entries that do not fit in shared memory lie in a
+    scratch allocated here, of the size pbrt_bvh_inst_far_ints gives).
+    `stats`, an optional int64 (5,) device tensor,
+    accumulates traverse_cuda's four sums and the instance rows entered."""
     from pbrt_tpu_torch import kernels
 
     lib, stack = _check_launch(rows, n_int, n_int + n_inst, o, d, t_max, stats, 5, depth)
@@ -953,11 +957,14 @@ def traverse_inst_cuda(rows, n_int, n_inst, depth, iter_bound, o, d, t_max, any_
     inst = torch.empty(R, dtype=torch.int32, device=dev)
     if R == 0:
         return t, prim.long(), inst.long()
+    far_ints = lib.pbrt_bvh_inst_far_ints(stack)
+    far = torch.empty(far_ints, dtype=torch.int32, device=dev) if far_ints else None
     err = lib.pbrt_bvh_traverse_inst(
-        rows.data_ptr(), rows.shape[0], n_int, n_inst, iter_bound, o.data_ptr(), d.data_ptr(),
+        rows.data_ptr(), n_int, n_inst, iter_bound, o.data_ptr(), d.data_ptr(),
         t_max.data_ptr(), R, t.data_ptr(), prim.data_ptr(), inst.data_ptr(),
         overflow_counter(dev).data_ptr(), int(any_hit), stack,
-        None if stats is None else stats.data_ptr(),
+        None if far is None else far.data_ptr(), far_ints,
+        None if stats is None else stats.data_ptr(), _ticket(dev).data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "bvh_traverse_inst")
     launches["bvh_any_hit_inst" if any_hit else "bvh_closest_hit_inst"] += 1
@@ -980,12 +987,26 @@ def _traverse(scene, meta, o, d, t_max, any_hit):
     return t, prim, None
 
 
-def refit_plain(tri_p0, tri_p1, tri_p2, o, d, t_max, prim):
+def _refit_ray(w2o, o, d, inst):
+    """The rays moved into the object space of each lane's instance inst
+    (R,) of the affines w2o (I, 12), bit for bit as the kernels move them
+    (object_rays), and left as they are where inst < 0: JAX's `_refit_ray`
+    (bvh.py:1170), a `where` over every lane."""
+    o_i, d_i = object_rays(w2o[inst.clamp(min=0)], o, d)
+    use = (inst >= 0)[:, None]
+    return torch.where(use, o_i, o), torch.where(use, d_i, d)
+
+
+def refit_plain(tri_p0, tri_p1, tri_p2, o, d, t_max, prim, inst=None, w2o=None):
     """The refit of closest hits (JAX bvh.py:1193-1215): the winner's t and
     barycentrics recomputed by the watertight test against triangle `prim`
-    (R,) int64 of the (T, 3) vertex columns, -1 for none -> (t (R,), prim
-    (R,), barycentrics (R, 3)); a lane without a winner, or whose winner the
-    test misses, gets INFINITY, -1 and zeros."""
+    (R,) int64 of the (T, 3) vertex columns, -1 for none, with the ray in
+    the object space of the winner's instance inst (R,) int64 (-1: none; a
+    single-level table passes None) under the affines w2o (I, 12) -> (t
+    (R,), prim (R,), barycentrics (R, 3)); a lane without a winner, or whose
+    winner the test misses, gets INFINITY, -1 and zeros."""
+    if inst is not None:
+        o, d = _refit_ray(w2o, o, d, inst)
     found = prim >= 0
     pc = torch.clamp(prim, min=0)
     t_ref, bary, hit_ref = ix.intersect_tri_lanes(o, d, t_max, tri_p0[pc], tri_p1[pc], tri_p2[pc])
@@ -994,19 +1015,23 @@ def refit_plain(tri_p0, tri_p1, tri_p2, o, d, t_max, prim):
             torch.where(ok[:, None], bary, 0.0))
 
 
-def refit_cuda(tri_p0, tri_p1, tri_p2, o, d, t_max, prim):
+def refit_cuda(tri_p0, tri_p1, tri_p2, o, d, t_max, prim, inst=None, w2o=None):
     """refit_plain's contract in one launch of csrc/bvh_traverse.cu
-    `pbrt_bvh_refit` on the current stream, the same bits."""
+    `pbrt_bvh_refit` on the current stream, the same bits; the object rays
+    of instanced winners are formed in the kernel."""
     from pbrt_tpu_torch import kernels
 
     R, dev = o.shape[0], o.device
     T = tri_p0.shape[0]
-    for name, x, shape, dtype in (("o", o, (R, 3), torch.float32), ("d", d, (R, 3), torch.float32),
-                                  ("t_max", t_max, (R,), torch.float32),
-                                  ("prim", prim, (R,), torch.int64),
-                                  ("tri_p0", tri_p0, (T, 3), torch.float32),
-                                  ("tri_p1", tri_p1, (T, 3), torch.float32),
-                                  ("tri_p2", tri_p2, (T, 3), torch.float32)):
+    checks = [("o", o, (R, 3), torch.float32), ("d", d, (R, 3), torch.float32),
+              ("t_max", t_max, (R,), torch.float32), ("prim", prim, (R,), torch.int64),
+              ("tri_p0", tri_p0, (T, 3), torch.float32),
+              ("tri_p1", tri_p1, (T, 3), torch.float32),
+              ("tri_p2", tri_p2, (T, 3), torch.float32)]
+    if inst is not None:
+        checks += [("inst", inst, (R,), torch.int64),
+                   ("w2o", w2o, (w2o.shape[0], 12), torch.float32)]
+    for name, x, shape, dtype in checks:
         if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous():
             raise ValueError(f"bvh refit: {name} must be a contiguous {dtype} {shape} tensor "
@@ -1018,8 +1043,9 @@ def refit_cuda(tri_p0, tri_p1, tri_p2, o, d, t_max, prim):
     b = torch.empty((R, 3), dtype=torch.float32, device=dev)
     err = _kernel_lib().pbrt_bvh_refit(
         tri_p0.data_ptr(), tri_p1.data_ptr(), tri_p2.data_ptr(), o.data_ptr(), d.data_ptr(),
-        t_max.data_ptr(), prim.data_ptr(), R, t.data_ptr(), prim_out.data_ptr(), b.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        t_max.data_ptr(), prim.data_ptr(), None if inst is None else inst.data_ptr(),
+        None if inst is None else w2o.data_ptr(), R, t.data_ptr(), prim_out.data_ptr(),
+        b.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "bvh_refit")
     launches["bvh_refit"] += 1
     return t, prim_out, b
@@ -1029,20 +1055,14 @@ def closest_hit_tris(scene, meta, o, d, t_max):
     """BVH closest hit -> TriHit. t and the barycentrics are recomputed
     against the winning triangle (the refit of bvh.py:1193-1215: refit_cuda
     on CUDA tensors, refit_plain on CPU ones), for an instanced winner in
-    its instance's object space (`_refit_ray` bvh.py:1170); prim indexes the
-    leaf-ordered triangle columns, inst the instance (None on a
-    single-level table)."""
+    its instance's object space (`_refit_ray` bvh.py:1170: the traversal's
+    object ray, bit for bit, so the refit meets the winner the traversal
+    met; no host sync); prim indexes the leaf-ordered triangle columns, inst
+    the instance (None on a single-level table)."""
     _, prim, hin = _traverse(scene, meta, o, d, t_max, any_hit=False)
-    o_r, d_r = o, d
-    if hin is not None:
-        # the traversal's object ray, bit for bit, so the refit meets the
-        # winner the traversal met (a ray rounded otherwise can miss it at
-        # an edge), formed on the instanced lanes only
-        lanes = (hin >= 0).nonzero()[:, 0]
-        o_r, d_r = o.clone(), d.clone()
-        o_r[lanes], d_r[lanes] = object_rays(scene.inst_w2o[hin[lanes]], o[lanes], d[lanes])
     refit = refit_cuda if o.is_cuda else refit_plain
-    t, prim, b = refit(scene.tri_p0, scene.tri_p1, scene.tri_p2, o_r, d_r, t_max, prim)
+    t, prim, b = refit(scene.tri_p0, scene.tri_p1, scene.tri_p2, o, d, t_max, prim, hin,
+                       None if hin is None else scene.inst_w2o)
     return ix.TriHit(t=t, prim=prim, b=b, inst=None if hin is None else torch.where(prim >= 0,
                                                                                      hin, -1))
 

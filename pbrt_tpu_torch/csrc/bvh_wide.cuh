@@ -1,12 +1,15 @@
-// The single-level BVH traversal of K1 (closest hit) and K1a (any hit),
-// designed for Hopper. Counterpart of pbrt_tpu/accel/bvh.py:909 `_traverse`
-// (`make_stepper` :694, `_slab8` :592); it reads the same row table,
+// The BVH traversal of K1 (closest hit) and K1a (any hit), and of their
+// two-level variants K1i and K1i-a, designed for Hopper. Counterpart of
+// pbrt_tpu/accel/bvh.py:909 `_traverse` (its stepper :694, the two-level
+// one :794, `_slab8` :592); it reads the same row table,
 // bvh_rows, byte-identical to JAX's (accel/bvh.py: internal row i < n_int
 // holds 8 child boxes [lo(3) hi(3)] and 8 child ids as floats; leaf row
 // n_int + c holds the 8 triangles [p0 p1 p2] of chunk c). Every row is 288
 // bytes, 18 float4, and 16-byte aligned when the table is.
 //
-// What it does about the costs of the stepper loop (bvh_stepper.cuh):
+// What it does about the costs of the loop it replaced (one thread a ray,
+// a row read a float at a time, a local-memory stack of (node, child-mask)
+// entries that revisit a node for each later sibling):
 //  - Whole-row vector loads. An internal visit issues its 14 16-byte loads
 //    (12 of boxes, 2 of child ids) through the read-only path before the
 //    first slab test; a leaf issues them in two halves of 9, each holding 4
@@ -45,18 +48,19 @@
 //    with speculative traversal: a warp visits internal rows until every
 //    lane has parked a leaf or is done, then its lanes test their leaves
 //    together.
-// Every float op rounds as the stepper's (build with --fmad=false): the slab
-// test is the stepper's, the leaf test is csrc/watertight.cuh. A triangle
-// replaces the best hit only when strictly nearer, so on an exact tie the
-// winner may differ from the stepper's or the plain sweep's.
+// Every float op rounds as the plain version's (build with --fmad=false):
+// the slab test is JAX's `_slab8`, the leaf test is csrc/watertight.cuh. A
+// triangle replaces the best hit only when strictly nearer, so on an exact
+// tie the winner may differ from the plain sweep's.
 //
-// Ray, make_ray, Counts and add_counts are the stepper's (bvh_stepper.cuh),
-// shared with K1i and K11 while those stay on it.
+// The two-level variant (K1i / K1i-a, `inst_wide_kernel` below) runs the
+// same loop over an instanced scene's table. Ray, make_ray, Counts and
+// add_counts are bvh_ray.cuh's, shared with K11 (scene_shard.cu).
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "bvh_stepper.cuh"
+#include "bvh_ray.cuh"
 #include "watertight.cuh"
 
 namespace pbrt_wide {
@@ -118,17 +122,90 @@ struct Stack {
     tns[sp * BLOCK] = (unsigned short)(__float_as_uint(tn) >> 16);
     ++sp;
   }
+  __device__ __forceinline__ int id_at(int k) const { return ids[k * BLOCK]; }
+  __device__ __forceinline__ float key_at(int k) const {
+    return __uint_as_float((unsigned)tns[k * BLOCK] << 16);
+  }
+  __device__ __forceinline__ bool room(int n) const { return sp + n <= cap; }
+  __device__ __forceinline__ bool refill() const { return false; }
+};
+
+// The stack of the two-level kernel: Stack's entries in shared memory, `cap`
+// a thread, over a spill area in device memory, `far_cap` entries a thread
+// (entry j of thread g of the grid at far[j * threads + g]: its row and the
+// key's top 16 bits), which holds the entries below the shared ones. When a
+// visit's pushes do not fit, the lower half of the shared entries moves to
+// the spill area; when a pop finds the shared part empty, the top of the
+// spill area comes back. A two-level table's bound, 7 entries a level of
+// both trees, is several times what a ray uses (on the cornell-instanced
+// frame 105 against at most 23, measured on the H100, PERF.md), and a
+// shared stack sized to the bound left two blocks an SM: the shared part is
+// sized for six, and only a rare deep ray touches the spill area. Its
+// loops are not unrolled: unrolled, the code they add to every visit and
+// pop cost K1i 6 % (the H100, PERF.md).
+struct SplitStack {
+  int* ids;
+  unsigned short* tns;
+  int sp;        // the shared entries
+  int cap;
+  int n_far;     // the entries in the spill area, below them
+  int far_cap;
+  int2* far;
+  __device__ __forceinline__ int2& far_at(int j) const {
+    return far[(long long)j * (gridDim.x * BLOCK) + blockIdx.x * BLOCK + threadIdx.x];
+  }
+  __device__ __forceinline__ void push(int id, float tn) {
+    ids[sp * BLOCK] = id;
+    tns[sp * BLOCK] = (unsigned short)(__float_as_uint(tn) >> 16);
+    ++sp;
+  }
+  __device__ __forceinline__ int id_at(int k) const { return ids[k * BLOCK]; }
+  __device__ __forceinline__ float key_at(int k) const {
+    return __uint_as_float((unsigned)tns[k * BLOCK] << 16);
+  }
+  // room for n more pushes; false when the whole stack cannot take them
+  __device__ __forceinline__ bool room(int n) {
+    if (sp + n <= cap) return true;
+    const int m = min(min(max(cap / 2, sp + n - cap), sp), far_cap - n_far);
+    if (sp - m + n > cap) return false;
+#pragma unroll 1
+    for (int k = 0; k < m; ++k) far_at(n_far + k) = make_int2(ids[k * BLOCK], tns[k * BLOCK]);
+#pragma unroll 1
+    for (int k = m; k < sp; ++k) {
+      ids[(k - m) * BLOCK] = ids[k * BLOCK];
+      tns[(k - m) * BLOCK] = tns[k * BLOCK];
+    }
+    sp -= m;
+    n_far += m;
+    return true;
+  }
+  // the shared part empty: the top of the spill area back into it
+  __device__ __forceinline__ bool refill() {
+    if (n_far == 0) return false;
+    const int m = min(n_far, max(cap / 2, 1));
+#pragma unroll 1
+    for (int k = 0; k < m; ++k) {
+      const int2 e = far_at(n_far - m + k);
+      ids[k * BLOCK] = e.x;
+      tns[k * BLOCK] = (unsigned short)e.y;
+    }
+    n_far -= m;
+    sp = m;
+    return true;
+  }
+  __device__ __forceinline__ int level() const { return sp + n_far; }
+  __device__ __forceinline__ void clear() { sp = n_far = 0; }
 };
 
 // The next pending row, dropping those whose box starts at or beyond t_best
 // (never for any hit: its bound does not shrink before it ends); DONE when
 // none is left.
-template <bool ANY_HIT>
-__device__ __forceinline__ int pop(Stack& st, float t_best) {
-  while (st.sp > 0) {
+template <bool ANY_HIT, class St>
+__device__ __forceinline__ int pop(St& st, float t_best) {
+  while (st.sp > 0 || st.refill()) {
     --st.sp;
-    const int id = st.ids[st.sp * BLOCK];
-    if (ANY_HIT || __uint_as_float((unsigned)st.tns[st.sp * BLOCK] << 16) < t_best) return id;
+    const int id = st.id_at(st.sp);
+    if (ANY_HIT || st.key_at(st.sp) < t_best) return id;
   }
   return DONE;
 }
@@ -146,9 +223,9 @@ struct SameTable {
 // not fit on the stack. SORT (closest hit): descend into the nearest and
 // push the others farthest first; else in slot order. `map` turns the ids
 // the row holds into the ids pushed and returned.
-template <bool ANY_HIT, bool SORT = !ANY_HIT, class Map = SameTable>
+template <bool ANY_HIT, bool SORT = !ANY_HIT, class Map = SameTable, class St = Stack>
 __device__ __forceinline__ int visit_internal(const float4* __restrict__ row, const Ray& r,
-                                              float t_best, Stack& st, Map map = Map()) {
+                                              float t_best, St& st, Map map = Map()) {
   float4 q[14];
 #pragma unroll
   for (int i = 0; i < 14; ++i) q[i] = __ldg(row + i);
@@ -174,7 +251,7 @@ __device__ __forceinline__ int visit_internal(const float4* __restrict__ row, co
     h += hit;
   }
   if (h == 0) return pop<ANY_HIT>(st, t_best);
-  if (st.sp + h - 1 > st.cap) return OVERFLOWED;
+  if (!st.room(h - 1)) return OVERFLOWED;
   int next = DONE;
   if (!SORT || h == 1) {
 #pragma unroll
@@ -200,9 +277,9 @@ __device__ __forceinline__ int visit_internal(const float4* __restrict__ row, co
 // a higher prim, so the least (t, prim) wins whatever the order of the
 // tests (K11a's rule across parts). STATS: count the tests by exit stage
 // into c.
-template <bool ANY_HIT, bool STATS, bool LEX = false>
+template <bool ANY_HIT, bool STATS, bool LEX = false, class C = Counts>
 __device__ __forceinline__ bool test_leaf(const float4* __restrict__ row, int chunk,
-                                          const Ray& r, float& t_best, int& prim, Counts& c) {
+                                          const Ray& r, float& t_best, int& prim, C& c) {
   bool found = false;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -341,6 +418,205 @@ wide_kernel(const float* __restrict__ rows, int n_rows, int n_int,
     }
   }
   if (STATS) pbrt_bvh::add_counts(stats, c);
+}
+
+// Enter the instance of instance row `row` (its w2o affine, row-major 3x4,
+// in floats 0-11, its prototype's root at 12, its id at 13): r becomes the
+// world ray (o, d) in the instance's object space, o' = M o + m and d' =
+// M d (each dot product bvh_ray.cuh `dot_row`, as accel/bvh.py
+// `object_rays` rounds it, so the refit meets the same winner), d' left
+// unnormalised so that t keeps its world meaning; inst becomes its id.
+// Returns the prototype's root row.
+__device__ __forceinline__ int enter_instance(const float4* __restrict__ row,
+                                              const float* __restrict__ o,
+                                              const float* __restrict__ d, Ray& r, int& inst) {
+  float4 q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = __ldg(row + i);
+  const float* m = reinterpret_cast<const float*>(q);
+  const float ox = __ldg(o), oy = __ldg(o + 1), oz = __ldg(o + 2);
+  const float dx = __ldg(d), dy = __ldg(d + 1), dz = __ldg(d + 2);
+  float on[3], dn[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    on[i] = pbrt_bvh::dot_row(m + 4 * i, ox, oy, oz) + m[4 * i + 3];
+    dn[i] = pbrt_bvh::dot_row(m + 4 * i, dx, dy, dz);
+  }
+  r = pbrt_bvh::make_ray(on, dn);
+  inst = (int)m[13];
+  return (int)m[12];
+}
+
+// K1i / K1i-a: wide_kernel's loop over a two-level table (accel/bvh.py
+// `build_two_level`): internal rows [0, n_int) (the top tree's, then each
+// prototype's), instance rows [n_int, n_int + n_inst), then the leaf rows
+// from leaf0 = n_int + n_inst (the top tree's, then each prototype's); leaf
+// row leaf0 + c holds chunk c. inst_out receives the instance of each
+// ray's winner (-1 for a top-level triangle or a miss); `stats` a fifth sum,
+// the instance rows entered (BlockCounts);
+// max_iters is the build's bound (a ray walks a prototype once for each
+// instance it enters). The stack is a SplitStack of stack_depth entries,
+// `near` of them in shared memory (launch with BLOCK * near * 6 bytes of
+// it, and STATS 8 * COUNT_WORDS more before them; near >= WIDTH - 1 when it
+// is less than stack_depth) and the rest
+// in `far`, (stack_depth - near) int2 for each thread of the grid.
+// Otherwise wide_kernel's contract and launch.
+//
+// An instance row is a third kind of row, visited in the internal phase:
+// the lane moves its ray into the instance's object space
+// (`enter_instance`), notes the stack level `base` and goes on at the
+// prototype's root. pbrt forbids nested instances, so the entries below
+// `base` are world rows and those at or above it the prototype's: a pop
+// below `base` brings the world ray back, made again from o and d (no
+// second Ray held in registers). Entry distances keep their meaning across
+// spaces (d' unnormalised), so the stack's keys and pop's drop rule hold
+// as they are. A leaf is tested with the ray of its own space: while a leaf
+// is parked the lane visits internal rows of the same space only, and
+// waits at an instance row or a row of the other space until the parked
+// leaf has been tested; a hit there records the space's instance.
+// The two-level kernel's work counts: the block's sums, 5 64-bit words at
+// the start of its dynamic shared memory, each event an atomic add there,
+// so that counting holds no register (five counts a lane pushed the
+// counting instantiation past 80 registers); added to `stats` at the end.
+extern __shared__ unsigned long long block_counts[];
+constexpr int COUNT_WORDS = 5;
+
+struct BlockCount {
+  int i;
+  __device__ __forceinline__ void operator++() const { atomicAdd(&block_counts[i], 1ull); }
+  __device__ __forceinline__ void operator+=(bool b) const {
+    if (b) atomicAdd(&block_counts[i], 1ull);
+  }
+};
+
+struct BlockCounts {
+  BlockCount nodes{0}, tris{1}, edge{2}, range{3}, inst{4};
+};
+
+template <bool ANY_HIT, bool STATS>
+__global__ void __launch_bounds__(BLOCK, 6)
+inst_wide_kernel(const float* __restrict__ rows, int n_int, int n_inst, int max_iters,
+                 const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ t_max, int n_rays, float* __restrict__ t_out,
+                 int* __restrict__ prim_out, int* __restrict__ inst_out,
+                 int* __restrict__ overflow, int stack_depth, int near, int2* __restrict__ far,
+                 unsigned long long* __restrict__ stats, unsigned* __restrict__ ticket) {
+  extern __shared__ int stack_mem[];
+  int* const stack0 = stack_mem + (STATS ? 2 * COUNT_WORDS : 0);
+  SplitStack st{stack0 + threadIdx.x,
+                reinterpret_cast<unsigned short*>(stack0 + BLOCK * near) + threadIdx.x, 0, near,
+                0, stack_depth - near, far};
+  if (STATS) {
+    if (threadIdx.x < COUNT_WORDS) block_counts[threadIdx.x] = 0;
+    __syncthreads();
+  }
+  const float4* rows4 = reinterpret_cast<const float4*>(rows);
+  const int leaf0 = n_int + n_inst;
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  BlockCounts c;
+  Ray r{};
+  // inst: the instance whose object space r is in (-1: the world); base:
+  // the stack level at its entry; hin: the instance of the best hit
+  int ray = -1, cur = DONE, leaf = -1, prim = -1, hin = -1, inst = -1, base = 0, it = 0;
+  float t_best = 0.f;
+  bool exhausted = false;
+  for (;;) {
+    // ---- a finished lane writes its ray's result; idle lanes draw rays
+    if (ray >= 0 && cur == DONE) {
+      t_out[ray] = t_best;
+      prim_out[ray] = prim;
+      inst_out[ray] = hin;
+      ray = -1;
+    }
+    unsigned idle = __ballot_sync(FULL, ray < 0);
+    while (!exhausted && __popc(idle) >= REFILL) {
+      const unsigned n = __popc(idle);
+      unsigned first = 0;
+      if (lane == 0) first = atomicAdd(ticket, n);
+      first = __shfl_sync(FULL, first, 0);
+      exhausted = first + n >= (unsigned)n_rays;
+      const unsigned i = first + __popc(idle & below);
+      if (ray < 0 && i < (unsigned)n_rays) {
+        const float tm = t_max[i];
+        if (tm > 0.f) {
+          ray = (int)i;
+          r = pbrt_bvh::make_ray(o + 3LL * i, d + 3LL * i);
+          t_best = tm;
+          prim = -1;
+          hin = -1;
+          inst = -1;
+          cur = 0;
+          st.clear();
+          it = 0;
+        } else {        // masked lane: a miss, at once
+          t_out[i] = tm;
+          prim_out[i] = -1;
+          inst_out[i] = -1;
+        }
+      }
+      idle = __ballot_sync(FULL, ray < 0);
+    }
+    if (idle == FULL) break;  // the loop above refills a fully idle warp until the rays run out
+
+    // ---- internal and instance rows, until every lane has parked a leaf or
+    // is done
+    for (;;) {
+      if (ray >= 0 && leaf < 0 && cur >= 0) {
+        if (inst >= 0 && st.level() < base) {   // popped back to a world row
+          if (cur < n_int || cur >= leaf0)   // (an instance row makes its own ray)
+            r = pbrt_bvh::make_ray(o + 3LL * ray, d + 3LL * ray);
+          inst = -1;
+        }
+        if (cur >= leaf0) {                // park the leaf, go on with the next entry
+          leaf = cur;
+          cur = pop<ANY_HIT>(st, t_best);
+        }
+      }
+      // with a leaf parked, only the internal rows of the leaf's space
+      const bool inner = ray >= 0 && cur >= 0 && cur < leaf0 &&
+                         (leaf < 0 || (cur < n_int && (inst < 0 || st.level() >= base)));
+      if (!__any_sync(FULL, inner) || __all_sync(FULL, ray < 0 || leaf >= 0 || cur == DONE))
+        break;
+      if (inner) {
+        int next;
+        if (it++ >= max_iters) {
+          next = OVERFLOWED;
+        } else if (cur >= n_int) {
+          if (STATS) ++c.inst;
+          next = enter_instance(rows4 + (long long)cur * ROW4, o + 3LL * ray, d + 3LL * ray, r,
+                                inst);
+          base = st.level();
+        } else {
+          if (STATS) ++c.nodes;
+          next = visit_internal<ANY_HIT>(rows4 + (long long)cur * ROW4, r, t_best, st);
+        }
+        if (next == OVERFLOWED) {
+          atomicAdd(overflow, 1);
+          cur = DONE;
+          leaf = -1;
+        } else {
+          cur = next;
+        }
+      }
+    }
+    // ---- the parked leaves, all together, each in its own space
+    if (leaf >= 0) {
+      if (it++ >= max_iters) {
+        atomicAdd(overflow, 1);
+        cur = DONE;
+      } else if (test_leaf<ANY_HIT, STATS>(rows4 + (long long)leaf * ROW4, leaf - leaf0, r,
+                                           t_best, prim, c)) {
+        hin = inst;
+        if (ANY_HIT) cur = DONE;
+      }
+      leaf = -1;
+    }
+  }
+  if (STATS) {   // every warp of the block leaves the loop above
+    __syncthreads();
+    if (threadIdx.x < COUNT_WORDS) atomicAdd(stats + threadIdx.x, block_counts[threadIdx.x]);
+  }
 }
 
 // Blocks of a persistent grid of `kernel` (BLOCK threads, a stack of

@@ -34,11 +34,6 @@
 // contiguous part ranges, so that is the global argmin order. One thread per
 // output float: a scan over the short rank axis and a coalesced copy.
 //
-// The old kernel (`parts_kernel`, one thread per ray walking part 0, then
-// part 1, ... on the stepper loop of bvh_stepper.cuh) stays as the
-// yardstick entries `pbrt_bvh_closest_parts_stepper` /
-// `pbrt_bvh_any_parts_stepper`; no render calls them.
-//
 // What bounds it on the H100: as K1, latency and divergence rather than
 // bytes or operations (the parts' trees stay in the 50 MB L2); a pack row is
 // written once. The select kernel moves (W + 1) x 148 bytes a ray and is
@@ -49,7 +44,7 @@
 
 #include <algorithm>
 
-#include "bvh_stepper.cuh"
+#include "bvh_ray.cuh"
 #include "bvh_wide.cuh"
 
 namespace {
@@ -228,57 +223,6 @@ parts_wide_kernel(const float* __restrict__ rows, int n_parts, int n_rows, int n
   if (STATS) pbrt_bvh::add_counts(stats, c);
 }
 
-// The yardstick, K11 before its redesign: one thread per ray loops over the
-// rank's parts; part p's traversal is the stepper of bvh_stepper.cuh over
-// rows[p]. t_best is carried from part to part and a hit is taken only when
-// strictly nearer, so the first part wins an exact tie; the thread then
-// writes its winner's pack row (any hit: stops at the first part that
-// reports a hit and writes one byte).
-template <bool ANY_HIT>
-__global__ void __launch_bounds__(THREADS)
-parts_kernel(const float* __restrict__ rows, int n_parts, int n_rows, int n_int,
-             const float* __restrict__ recv, int n_recv,
-             const float* __restrict__ o, const float* __restrict__ d,
-             const float* __restrict__ t_max, int n_rays,
-             float* __restrict__ pack_out, uint8_t* __restrict__ hit_out,
-             int* __restrict__ overflow, int stack_depth,
-             unsigned long long* __restrict__ stats) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  float t_best = t_max[r];
-  int win_part = -1, win_prim = -1;
-  if (t_best > 0.f) {
-    const pbrt_bvh::Ray ray = pbrt_bvh::make_ray(o + 3 * r, d + 3 * r);
-    pbrt_bvh::Counts c;
-    bool ok = true;
-    for (int p = 0; p < n_parts; ++p) {
-      int prim = -1;
-      ok &= pbrt_bvh::traverse<ANY_HIT>(rows + (long long)p * n_rows * pbrt_bvh::ROW_W,
-                                        n_rows, n_int, ray, stack_depth, t_best, prim, c);
-      if (prim >= 0) {
-        win_part = p;
-        win_prim = prim;
-        if (ANY_HIT) break;
-      }
-    }
-    if (!ok) atomicAdd(overflow, 1);
-    pbrt_bvh::add_counts(stats, c);
-  }
-  if (ANY_HIT) {
-    hit_out[r] = win_part >= 0;
-    return;
-  }
-  float* out = pack_out + (long long)r * PACK_W;
-  if (win_part < 0) {
-    out[0] = __int_as_float(0x7f800000);  // +inf
-    for (int j = 0; j < REC_W; ++j) out[1 + j] = 0.f;
-    return;
-  }
-  const float* src = recv + ((long long)win_part * n_recv + win_prim) * REC_W;
-  out[0] = t_best;
-  for (int j = 0; j < REC_W; ++j) out[1 + j] = src[j];
-}
-
 // One thread per output float: the threads of a ray's row each scan its
 // ranks' t (the same few cache lines) and copy one element, so loads and
 // stores are coalesced.
@@ -373,36 +317,6 @@ extern "C" int pbrt_bvh_any_parts(const float* rows, int n_parts, int n_rows, in
             : launch_parts<true, false>(
                   rows, n_parts, n_rows, n_int, top, n_top, nullptr, 0, o, d, t_max, n_rays,
                   nullptr, hit_out, overflow, stack_depth, st, tk, s);
-}
-
-// The yardstick entries (parts_kernel, the stepper loop one thread per
-// ray): the contracts of the two above without the top level or ticket,
-// with a stack of depth + 2 entries.
-extern "C" int pbrt_bvh_closest_parts_stepper(const float* rows, int n_parts, int n_rows,
-                                              int n_int, const float* recv, int n_recv,
-                                              const float* o, const float* d,
-                                              const float* t_max, int n_rays, float* pack_out,
-                                              int* overflow, int stack_depth, void* stats,
-                                              void* stream) {
-  if (n_rays <= 0) return 0;
-  if (stack_depth > pbrt_bvh::MAX_STACK || stack_depth < 1) return (int)cudaErrorInvalidValue;
-  parts_kernel<false><<<blocks_for(n_rays), THREADS, 0, (cudaStream_t)stream>>>(
-      rows, n_parts, n_rows, n_int, recv, n_recv, o, d, t_max, n_rays, pack_out, nullptr,
-      overflow, stack_depth, (unsigned long long*)stats);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int pbrt_bvh_any_parts_stepper(const float* rows, int n_parts, int n_rows,
-                                          int n_int, const float* o, const float* d,
-                                          const float* t_max, int n_rays, uint8_t* hit_out,
-                                          int* overflow, int stack_depth, void* stats,
-                                          void* stream) {
-  if (n_rays <= 0) return 0;
-  if (stack_depth > pbrt_bvh::MAX_STACK || stack_depth < 1) return (int)cudaErrorInvalidValue;
-  parts_kernel<true><<<blocks_for(n_rays), THREADS, 0, (cudaStream_t)stream>>>(
-      rows, n_parts, n_rows, n_int, nullptr, 0, o, d, t_max, n_rays, nullptr, hit_out,
-      overflow, stack_depth, (unsigned long long*)stats);
-  return (int)cudaGetLastError();
 }
 
 // packs: (n_ranks, n_rays, 37) float32 -> out (n_rays, 37)

@@ -41,16 +41,10 @@ from pbrt_tpu_torch.utils.math import encode_morton3
 REC_W = 27 + 9      # recv row: the 27-float tri_rec row, then p0, p1, p2
 PACK_W = 1 + REC_W  # candidate pack row: t, then the recv row
 
-# launches of the kernels (plain ints, added to where each launches); the
-# *_stepper entries are the yardsticks, which no render calls
-launches = {"bvh_closest_hit_parts": 0, "bvh_any_hit_parts": 0, "shard_select": 0,
-            "bvh_closest_hit_parts_stepper": 0, "bvh_any_hit_parts_stepper": 0}
+# launches of the kernels (plain ints, added to where each launches)
+launches = {"bvh_closest_hit_parts": 0, "bvh_any_hit_parts": 0, "shard_select": 0}
 
-# the wide kernel's stack (csrc/bvh_wide.cuh): WIDTH - 1 entries a level of
-# internal rows, at most the shared memory of a block (232,448 bytes) over
-# 128 threads of 6-byte entries
-WIDE_MAX_STACK = 232448 // (128 * 6)
-STEPPER_MAX_STACK = 64    # the yardstick's (csrc/bvh_stepper.cuh MAX_STACK)
+WIDE_MAX_STACK = bvhlib.WIDE_MAX_STACK   # the wide kernels' stack (accel/bvh.py)
 BIG = 3e38          # an empty slot's inverted box (build_sharded's padding)
 
 
@@ -375,13 +369,8 @@ def _lib():
         lib.pbrt_bvh_closest_parts.argtypes = [P, I, I, I, P, I, P, I, P, P, P, I, P, P, I, P,
                                                P, P]
         lib.pbrt_bvh_any_parts.argtypes = [P, I, I, I, P, I, P, P, P, I, P, P, I, P, P, P]
-        lib.pbrt_bvh_closest_parts_stepper.argtypes = [P, I, I, I, P, I, P, P, P, I, P, P, I,
-                                                       P, P]
-        lib.pbrt_bvh_any_parts_stepper.argtypes = [P, I, I, I, P, P, P, I, P, P, I, P, P]
         lib.pbrt_shard_select.argtypes = [P, I, I, P, P]
-        for fn in (lib.pbrt_bvh_closest_parts, lib.pbrt_bvh_any_parts,
-                   lib.pbrt_bvh_closest_parts_stepper, lib.pbrt_bvh_any_parts_stepper,
-                   lib.pbrt_shard_select):
+        for fn in (lib.pbrt_bvh_closest_parts, lib.pbrt_bvh_any_parts, lib.pbrt_shard_select):
             fn.restype = I
         lib.declared = True
     return lib
@@ -394,11 +383,10 @@ def _check(what, x, dtype, shape, dev):
                          f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _check_parts(what, rows, recv, n_int, depth, top, o, d, t_max, stats, wide=True):
+def _check_parts(what, rows, recv, n_int, depth, top, o, d, t_max, stats):
     """Validate a part traversal's arguments -> the stack entries a thread:
     the wide kernel's for a path through the top level and the deepest
-    part's internal rows; the yardstick's (wide False, the stepper loop,
-    no top level) depth + 2."""
+    part's internal rows."""
     R, dev = o.shape[0], o.device
     if rows.dim() != 3 or rows.shape[0] < 1:
         raise ValueError(f"{what}: rows must be (parts, rows, {bvhlib.ROW_W}), "
@@ -410,11 +398,10 @@ def _check_parts(what, rows, recv, n_int, depth, top, o, d, t_max, stats, wide=T
         if recv.shape[1] < (N - n_int) * bvhlib.LEAF_K:
             raise ValueError(f"{what}: recv holds {recv.shape[1]} rows a part, fewer than "
                              f"the {(N - n_int) * bvhlib.LEAF_K} leaf triangles")
-    if wide:
-        if top is None:
-            raise ValueError(f"{what}: top must be the top level over the {P} parts "
-                             "(top_rows), got None")
-        _check(f"{what}: top", top, torch.float32, (sum(_top_sizes(P)), bvhlib.ROW_W), dev)
+    if top is None:
+        raise ValueError(f"{what}: top must be the top level over the {P} parts "
+                         "(top_rows), got None")
+    _check(f"{what}: top", top, torch.float32, (sum(_top_sizes(P)), bvhlib.ROW_W), dev)
     for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,))):
         _check(f"{what}: {name}", x, torch.float32, shape, dev)
     if not 0 <= n_int < N or N >= 1 << 23 or P * N * bvhlib.ROW_W >= 1 << 31:
@@ -422,13 +409,11 @@ def _check_parts(what, rows, recv, n_int, depth, top, o, d, t_max, stats, wide=T
                          f"rows, 2^31 floats in all)")
     if stats is not None:
         _check(f"{what}: stats", stats, torch.int64, (4,), dev)
-    if wide:
-        stack, most = (bvhlib.WIDTH - 1) * (depth + top_levels(P)), WIDE_MAX_STACK
-    else:
-        stack, most = depth + 2, STEPPER_MAX_STACK
-    if stack > most:
+    stack = (bvhlib.WIDTH - 1) * (depth + top_levels(P))
+    if stack > WIDE_MAX_STACK:
         raise ValueError(f"{what}: BVH depth {depth} under a top level over {P} parts needs "
-                         f"a stack of {stack} entries; the kernel is compiled for {most}")
+                         f"a stack of {stack} entries; the kernel is compiled for "
+                         f"{WIDE_MAX_STACK}")
     if dev.type != "cuda":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {dev}")
     if any(x.data_ptr() % 16 for x in (rows, recv, top) if x is not None):
@@ -489,50 +474,6 @@ def any_parts_cuda(rows, n_int, depth, top, o, d, t_max, stats=None):
         None if stats is None else stats.data_ptr(), _ticket(dev), _stream(dev))
     kernels.check(err, "bvh_any_hit_parts")
     launches["bvh_any_hit_parts"] += 1
-    return hit.bool()
-
-
-def closest_parts_stepper_cuda(rows, recv, n_int, depth, o, d, t_max, stats=None):
-    """The yardstick: K11a as it ran before its redesign, the stepper loop
-    one thread per ray over the parts in order
-    (`pbrt_bvh_closest_parts_stepper`). closest_parts_cuda's contract and
-    stats without the top level; counted under its own launch name. No
-    render calls it; chip_smoke.py times K11a against it."""
-    from pbrt_tpu_torch import kernels
-
-    stack = _check_parts("closest_hit_parts_stepper", rows, recv, n_int, depth, None, o, d,
-                         t_max, stats, wide=False)
-    R, dev = o.shape[0], o.device
-    pack = torch.empty((R, PACK_W), dtype=torch.float32, device=dev)
-    if R == 0:
-        return pack
-    err = _lib().pbrt_bvh_closest_parts_stepper(
-        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, recv.data_ptr(), recv.shape[1],
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, pack.data_ptr(),
-        bvhlib.overflow_counter(dev).data_ptr(), stack,
-        None if stats is None else stats.data_ptr(), _stream(dev))
-    kernels.check(err, "bvh_closest_hit_parts_stepper")
-    launches["bvh_closest_hit_parts_stepper"] += 1
-    return pack
-
-
-def any_parts_stepper_cuda(rows, n_int, depth, o, d, t_max, stats=None):
-    """The yardstick of K11b (`pbrt_bvh_any_parts_stepper`), as
-    closest_parts_stepper_cuda -> (R,) bool."""
-    from pbrt_tpu_torch import kernels
-
-    stack = _check_parts("any_hit_parts_stepper", rows, None, n_int, depth, None, o, d, t_max,
-                         stats, wide=False)
-    R, dev = o.shape[0], o.device
-    hit = torch.empty(R, dtype=torch.uint8, device=dev)
-    if R == 0:
-        return hit.bool()
-    err = _lib().pbrt_bvh_any_parts_stepper(
-        rows.data_ptr(), rows.shape[0], rows.shape[1], n_int, o.data_ptr(), d.data_ptr(),
-        t_max.data_ptr(), R, hit.data_ptr(), bvhlib.overflow_counter(dev).data_ptr(), stack,
-        None if stats is None else stats.data_ptr(), _stream(dev))
-    kernels.check(err, "bvh_any_hit_parts_stepper")
-    launches["bvh_any_hit_parts_stepper"] += 1
     return hit.bool()
 
 

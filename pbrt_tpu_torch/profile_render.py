@@ -51,14 +51,11 @@ is the busy share. mltpath's evaluations take the path step's route (printed).
 
 With --traversal (a single-level BVH scene) the profiled render is
 replaced: one more frame is rendered with the arguments of every K1 and
-K1a launch (bvh.traverse_cuda) kept, and each launch is then replayed in
-turns with the yardstick, K1's loop before its redesign
-(bvh.traverse_stepper_cuda): yardstick, K1, K1, yardstick, each timed as
-graph_ms times (TURN_CALLS calls in a CUDA graph, so the host's launch time
-is left out). Prints, per kind, the launches, their summed device time
-under each kernel and the speed-up, and the launches whose hit masks
-differ between the two (0 expected); the frame's whole K1 and K1a device
-time, where a profiled staircase frame does not finish in minutes.
+K1a launch (bvh.traverse_cuda) kept, and each launch is then replayed
+twice, each timed as graph_ms times (TURN_CALLS calls in a CUDA graph, so
+the host's launch time is left out). Prints, per kind, the launches and
+their summed device time: the frame's whole K1 and K1a device time, where
+a profiled staircase frame does not finish in minutes.
 
 With --layered (a coated scene: staircase, testball) the profiled render
 is replaced too: one more frame is rendered until its first wave has made
@@ -94,12 +91,13 @@ POOLS = (1 << 17, 1 << 18, 1 << 19)
 PROFILED_PASSES = 8
 TURN_CALLS = 4
 # hand-written kernels by a substring of their device symbol
-KERNELS = {"bvh": "wide_kernel", "bvh_inst": "traverse_inst_kernel", "bvh_refit": "refit_kernel",
+KERNELS = {"bvh": "pbrt_wide::wide_kernel", "bvh_inst": "inst_wide_kernel",
+           "bvh_refit": "refit_kernel",
            "dense": "dense_",
            "recycle": "recycle_", "film": "film_add_tiled_kernel",
            "film_scatter": "film_add_scatter_kernel", "layered": "LayeredArgs", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
-           "shard": "parts_kernel|select_kernel",
+           "shard": "parts_wide_kernel|select_kernel",
            "path_step": "path_rr_kernel|path_shade_kernel|path_coat_kernel|path_resolve_kernel"}
 
 
@@ -229,8 +227,8 @@ def _graph_ms(fn, calls=TURN_CALLS):
 
 
 def _traversal_turns(render, card, label, out_path):
-    """Every K1/K1a launch of one frame replayed in turns with the
-    yardstick (see the module docstring)."""
+    """Every K1/K1a launch of one frame replayed twice (see the module
+    docstring)."""
     from pbrt_tpu_torch.accel import bvh
 
     kept, orig = [], bvh.traverse_cuda
@@ -248,32 +246,22 @@ def _traversal_turns(render, card, label, out_path):
     if not kept:
         raise SystemExit("--traversal: the frame launched no K1 or K1a (a single-level BVH "
                          "scene is needed)")
-    sums = {kind: dict(launches=0, k1_ms=0.0, yardstick_ms=0.0, masks_differ=0)
-            for kind in ("bvh_closest_hit", "bvh_any_hit")}
+    sums = {kind: dict(launches=0, k1_ms=0.0) for kind in ("bvh_closest_hit", "bvh_any_hit")}
     per_launch = []
     for rows, n_int, depth, o, d, t_max, any_hit in kept:
         args = (rows, n_int, depth, o, d, t_max, any_hit)
-        turns = [_graph_ms(lambda f=f: f(*args))
-                 for f in (bvh.traverse_stepper_cuda, bvh.traverse_cuda, bvh.traverse_cuda,
-                           bvh.traverse_stepper_cuda)]
-        p_k, p_y = bvh.traverse_cuda(*args)[1], bvh.traverse_stepper_cuda(*args)[1]
+        turns = [_graph_ms(lambda: bvh.traverse_cuda(*args)) for _ in range(2)]
         kind = "bvh_any_hit" if any_hit else "bvh_closest_hit"
         s = sums[kind]
         s["launches"] += 1
-        s["k1_ms"] += (turns[1] + turns[2]) / 2
-        s["yardstick_ms"] += (turns[0] + turns[3]) / 2
-        s["masks_differ"] += int(not torch.equal(p_k >= 0, p_y >= 0))
+        s["k1_ms"] += (turns[0] + turns[1]) / 2
         per_launch.append(dict(kind=kind, lanes=o.shape[0], live=int((t_max > 0).sum()),
                                turns_ms=turns))
     kept.clear()
     for kind, s in sums.items():
-        if not s["launches"]:
-            continue
-        s["speed_up"] = s["yardstick_ms"] / s["k1_ms"]
-        print(f"{kind}: {s['launches']} launches of the frame, K1 {s['k1_ms']:.3f} ms, "
-              f"yardstick {s['yardstick_ms']:.3f} ms in turns (device, graph replays), "
-              f"speed-up {s['speed_up']:.3f}x; hit masks differ on {s['masks_differ']}",
-              flush=True)
+        if s["launches"]:
+            print(f"{kind}: {s['launches']} launches of the frame, K1 {s['k1_ms']:.3f} ms "
+                  f"(device, graph replays)", flush=True)
     out = dict(card=card, scene=label, traversal=sums, launches=per_launch)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     Path(out_path).write_text(json.dumps(out, indent=1))
@@ -435,8 +423,8 @@ def main(argv=None):
     ap.add_argument("--shard-scene", type=int, default=0, metavar="N",
                     help="split the triangles into N parts (path family)")
     ap.add_argument("--traversal", action="store_true",
-                    help="time every K1/K1a launch of a frame against the yardstick "
-                         "instead of the profiled render")
+                    help="time every K1/K1a launch of a frame instead of the profiled "
+                         "render")
     ap.add_argument("--layered", action="store_true",
                     help="time the K7 and shading launches of a coated frame's first wave "
                          "against their yardsticks instead of the profiled render")

@@ -187,32 +187,106 @@ def _instanced_cornell(levels, res, spp, device, mode="bvh"):
                          device=device)
 
 
+def _inst_differ_ok(scene, o, d, t_max, got, want, stopped=0):
+    """K1i's (t, prim, inst) against the plain version's on closest hits: t
+    equal on the same winner, and a differing winner a verified tie (a real
+    hit, both t within 1e-6 of each other); at most `stopped` lanes (those
+    that stopped early on a stack overflow) may instead hold a real hit
+    farther than the plain version's, or none. -> lanes that differ."""
+    (tk, pk, ik), (tp, pp, ip) = got, want
+    same = (pk == pp) & (ik == ip)
+    assert torch.equal(tk[same], tp[same])
+    differ = ~same
+    n = int(differ.sum())
+    if n:
+        hit = differ & (pk >= 0)
+        tr, pr, _ = bvh.refit_plain(scene.tri_p0, scene.tri_p1, scene.tri_p2, o[hit], d[hit],
+                                    t_max[hit], pk[hit], ik[hit], scene.inst_w2o)
+        assert torch.equal(pr, pk[hit]) and torch.equal(tr, tk[hit])
+        assert not bool((hit & (pp < 0)).any())
+        both = hit & (pp >= 0)
+        rel = (tk[both] - tp[both]).abs() / tp[both].abs()
+        off = rel > 1e-6
+        assert not bool((off & (tk[both] < tp[both])).any())
+        assert int(off.sum()) <= stopped and int(((pk < 0) & (pp >= 0)).sum()) <= stopped
+    return n
+
+
+@pytest.mark.parametrize("levels", [(3, 2), (2, 1)])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_bvh_inst_kernel_matches_plain(cuda, any_hit):
-    """K1i on the instanced cornell box at levels (3, 2), every instance
-    shared: prim and inst bit-exact with the plain version but for verified
-    ties (equal t), t bit-exact on the same winner; any hit equal."""
-    scene, meta = _instanced_cornell((3, 2), 16, 1, cuda)
+def test_bvh_inst_kernel_matches_plain(cuda, any_hit, levels):
+    """K1i (csrc/bvh_wide.cuh inst_wide_kernel) on the instanced cornell box
+    at levels (3, 2) and (2, 1), every instance shared: prim and inst
+    bit-exact with the plain version but for verified ties (equal t), t
+    bit-exact on the same winner; any hit equal; the same bits again from a
+    CUDA graph replayed twice (the ray ticket a memset node). With a stack of
+    7 entries (one level) lanes overflow: counted, and never a wrong answer
+    (a closest hit that stopped early is a real hit, no nearer; an any hit
+    never a false one)."""
+    scene, meta = _instanced_cornell(levels, 16, 1, cuda)
     assert meta.bvh_ninst == 52
     o, d, t_max = (x.to(cuda) for x in _rays(scene, 8192, 5))
     if any_hit:
         t_max = torch.where(t_max > 0, torch.rand(8192, device=cuda) * 400.0, 0.0)
     args = (scene.bvh_rows, meta.bvh_nint, meta.bvh_ninst)
+    name = "bvh_any_hit_inst" if any_hit else "bvh_closest_hit_inst"
     ov0 = int(bvh.overflow_counter(cuda).item())
-    n0 = bvh.launches["bvh_any_hit_inst" if any_hit else "bvh_closest_hit_inst"]
-    tk, pk, ik = bvh.traverse_inst_cuda(*args, meta.bvh_depth, meta.bvh_iterb, o, d, t_max,
-                                        any_hit)
-    tp, pp, ip = bvh.traverse_inst_plain(scene.bvh_rows, meta.bvh_nint, meta.bvh_leaves, o, d,
-                                         t_max, any_hit)
-    assert bvh.launches["bvh_any_hit_inst" if any_hit else "bvh_closest_hit_inst"] == n0 + 1
-    assert torch.equal(pk >= 0, pp >= 0) and int((pp >= 0).sum()) > 500
+    n0 = bvh.launches[name]
+    got = bvh.traverse_inst_cuda(*args, meta.bvh_depth, meta.bvh_iterb, o, d, t_max, any_hit)
+    want = bvh.traverse_inst_plain(scene.bvh_rows, meta.bvh_nint, meta.bvh_leaves, o, d,
+                                   t_max, any_hit)
+    assert bvh.launches[name] == n0 + 1
+    assert torch.equal(got[1] >= 0, want[1] >= 0) and int((want[1] >= 0).sum()) > 500
     assert int(bvh.overflow_counter(cuda).item()) == ov0
     if not any_hit:
-        same = (pk == pp) & (ik == ip)
-        assert torch.equal(tk[same], tp[same])
-        # a differing winner must be a tie (K1's criterion)
-        assert torch.allclose(tk[~same], tp[~same], rtol=1e-6, atol=0.0)
-        assert int((ip >= 0).sum()) > 100
+        _inst_differ_ok(scene, o, d, t_max, got, want)
+        assert int((want[2] >= 0).sum()) > 100
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_g = bvh.traverse_inst_cuda(*args, meta.bvh_depth, meta.bvh_iterb, o, d, t_max,
+                                       any_hit)
+    for _ in range(2):
+        for x in got_g:
+            x.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got_g, got))
+    small = bvh.traverse_inst_cuda(*args, 1, meta.bvh_iterb, o, d, t_max, any_hit)
+    stopped = int(bvh.overflow_counter(cuda).item()) - ov0
+    assert stopped > 0
+    if any_hit:
+        assert not bool(((small[1] >= 0) & (want[1] < 0)).any())
+        assert int(((small[1] < 0) & (want[1] >= 0)).sum()) <= stopped
+    else:
+        _inst_differ_ok(scene, o, d, t_max, small, want, stopped)
+    bvh.overflow_counter(cuda).fill_(ov0)
+
+
+def test_instanced_hit_record_makes_no_host_sync(cuda):
+    """closest_hit_tris and any_hit_tris on the instanced cornell box at
+    levels (3, 2) run under torch.cuda.set_sync_debug_mode("error") (the
+    object rays of the refit are formed in the refit kernel, with no
+    .nonzero()), and the record equals the CPU's plain one bit for bit on
+    lanes whose winner agrees."""
+    scene, meta = _instanced_cornell((3, 2), 16, 1, cuda)
+    o, d, t_max = (x.to(cuda) for x in _rays(scene, 8192, 7))
+    bvh.traverse_inst_cuda(scene.bvh_rows, meta.bvh_nint, meta.bvh_ninst, meta.bvh_depth,
+                           meta.bvh_iterb, o, d, t_max)     # the build, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        th = bvh.closest_hit_tris(scene, meta, o, d, t_max)
+        occ = bvh.any_hit_tris(scene, meta, o, d, t_max * 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sc_cpu, mt_cpu = _instanced_cornell((3, 2), 16, 1, "cpu")
+    ref = bvh.closest_hit_tris(sc_cpu, mt_cpu, o.cpu(), d.cpu(), t_max.cpu())
+    same = (th.prim.cpu() == ref.prim) & (th.inst.cpu() == ref.inst)
+    assert int((~same).sum()) <= 2 and int((ref.inst >= 0).sum()) > 100
+    assert torch.equal(th.t.cpu()[same], ref.t[same]) and torch.equal(th.b.cpu()[same],
+                                                                      ref.b[same])
+    occ_ref = bvh.any_hit_tris(sc_cpu, mt_cpu, o.cpu(), d.cpu(), t_max.cpu() * 0.5)
+    assert torch.equal(occ.cpu(), occ_ref)
 
 
 def test_instanced_render_on_card_matches_cpu(cuda):
@@ -849,10 +923,9 @@ def test_scene_shard_kernels_match_plain(cuda):
     versions: cornell-mesh levels 4 in 1, 2, 4, 8 and 16 parts (16: a top
     level of two levels), interior rays with masked lanes, shadow lengths up
     to the closest hit's twice, 3 stacked packs with planted ties. K11a
-    bit-exact with its plain version and its yardstick (the stepper loop)
-    but for verified ties, K11b bit-exact with both; each the same bits
-    again from a CUDA graph replayed twice; one launch of each a call on
-    its own launch name, the yardsticks on theirs."""
+    bit-exact with its plain version but for verified ties, K11b bit-exact
+    with it; each the same bits again from a CUDA graph replayed twice; one
+    launch of each a call on its own launch name."""
     from pbrt_tpu_torch.parallel import scene_shard as ss
 
     scene, meta = ts.cornell_mesh(res=32, spp=1, levels=4, device=cuda)
@@ -865,7 +938,6 @@ def test_scene_shard_kernels_match_plain(cuda):
         pk = ss.closest_parts_cuda(*args, sh.top, o, d, t_max)
         _pack_ties(pk, ss.closest_parts_plain(sh.rows, sh.recv, sh.n_int, o, d, t_max), o, d,
                    t_max)
-        _pack_ties(pk, ss.closest_parts_stepper_cuda(*args, o, d, t_max), o, d, t_max)
         assert bool(torch.isfinite(pk[:, 0]).any())
         assert bool(torch.isinf(pk[t_max <= 0, 0]).all()) and not pk[t_max <= 0, 1:].any()
         t_sh = torch.where(torch.isfinite(pk[:, 0]),
@@ -873,8 +945,6 @@ def test_scene_shard_kernels_match_plain(cuda):
         t_sh[::7] = 0.0
         occ = ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, sh.top, o, d, t_sh)
         assert torch.equal(occ, ss.any_parts_plain(sh.rows, sh.n_int, o, d, t_sh))
-        assert torch.equal(occ, ss.any_parts_stepper_cuda(sh.rows, sh.n_int, sh.depth, o, d,
-                                                          t_sh))
         assert 0 < int(occ.sum()) < int((t_sh > 0).sum())
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):

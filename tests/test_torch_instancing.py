@@ -233,6 +233,51 @@ def test_plain_traversal_matches_jax(name):
     assert np.array_equal(at.numpy() >= 0, aj) and 0 < aj.sum() < hit.sum()
 
 
+def test_closest_hit_record_keeps_its_bits_without_a_host_sync():
+    """closest_hit_tris on the instanced cornell box at levels (3, 2), every
+    instance shared: the record formed with the object rays of every lane
+    under a `where` (JAX's _refit_ray; on the card inside the refit kernel)
+    equals, bit for bit, the record as it was formed before, with the
+    object rays of the instanced lanes only (a .nonzero(), so a host sync
+    on the card): t, prim, barycentrics and instance."""
+    _, tb = _builders(ic.instanced_cornell_pbrt(3, 2, res=16, spp=1), "bvh")
+    ts, tm = compile_scene(tb, device="cpu")
+    o, d, t_max = map(torch.from_numpy, _rays(ts, 4096, 13))
+    th = tbvh.closest_hit_tris(ts, tm, o, d, t_max)
+    _, prim, hin = tbvh._traverse(ts, tm, o, d, t_max, any_hit=False)
+    lanes = (hin >= 0).nonzero()[:, 0]
+    o_r, d_r = o.clone(), d.clone()
+    o_r[lanes], d_r[lanes] = tbvh.object_rays(ts.inst_w2o[hin[lanes]], o[lanes], d[lanes])
+    t, prim, b = tbvh.refit_plain(ts.tri_p0, ts.tri_p1, ts.tri_p2, o_r, d_r, t_max, prim)
+    assert lanes.numel() > 100 and int((prim >= 0).sum()) > 1000
+    for got, want in ((th.t, t), (th.prim, prim), (th.b, b),
+                      (th.inst, torch.where(prim >= 0, hin, -1))):
+        assert torch.equal(got, want)
+
+
+def test_two_level_wrapper_raises_on_a_stack_that_does_not_fit():
+    """K1i's stack holds 7 entries a level of the two-level depth, at most
+    bvh.WIDE_MAX_STACK (302): a deeper table raises before a build or a
+    launch, and one that fits raises for CPU tensors; the refit's wrapper
+    takes instance ids and affines of their own checked shape."""
+    _, tb = _builders(*COMPILED["cornell-bvh"])
+    ts, tm = compile_scene(tb, device="cpu")
+    o, d, t_max = map(torch.from_numpy, _rays(ts, 64, 3))
+    args = (ts.bvh_rows, tm.bvh_nint, tm.bvh_ninst)
+    fits = tbvh.WIDE_MAX_STACK // (tbvh.WIDTH - 1)
+    assert tm.bvh_depth <= fits
+    with pytest.raises(ValueError, match="needs a stack of"):
+        tbvh.traverse_inst_cuda(*args, fits + 1, tm.bvh_iterb, o, d, t_max)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tbvh.traverse_inst_cuda(*args, fits, tm.bvh_iterb, o, d, t_max)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tbvh.traverse_cuda(ts.bvh_rows, tm.bvh_nint, fits, o, d, t_max)
+    prim = torch.zeros(64, dtype=torch.int64)
+    with pytest.raises(ValueError, match="w2o must be"):
+        tbvh.refit_cuda(ts.tri_p0, ts.tri_p1, ts.tri_p2, o, d, t_max, prim, prim,
+                        ts.inst_w2o[:, :9].contiguous())
+
+
 @pytest.mark.parametrize("name", ["MIRROR", "cornell-bvh"])
 def test_intersect_matches_jax(name):
     """dispatch.intersect's record of instanced hits (mapped from object to

@@ -271,8 +271,8 @@ def test_local_and_to_carry_the_part_boxes():
 
 def test_wrappers_raise_on_a_stack_that_does_not_fit():
     """The wide kernels' stack holds 7 entries a level of the top level and
-    the parts' deepest tree (at most 302); the yardstick's depth + 2 (at
-    most 64). Both wrappers raise before a build or launch."""
+    the parts' deepest tree (at most 302). Both wrappers raise before a
+    build or launch."""
     sh, o, d, t_max = _parts_args()
     fits = ss.WIDE_MAX_STACK // 7 - ss.top_levels(sh.rows.shape[0])
     with pytest.raises(ValueError, match="takes CUDA tensors"):
@@ -281,10 +281,6 @@ def test_wrappers_raise_on_a_stack_that_does_not_fit():
         ss.closest_parts_cuda(sh.rows, sh.recv, sh.n_int, fits + 1, sh.top, o, d, t_max)
     with pytest.raises(ValueError, match="needs a stack of"):
         ss.any_parts_cuda(sh.rows, sh.n_int, fits + 1, sh.top, o, d, t_max)
-    with pytest.raises(ValueError, match="needs a stack of"):
-        ss.closest_parts_stepper_cuda(sh.rows, sh.recv, sh.n_int, 63, o, d, t_max)
-    with pytest.raises(ValueError, match="needs a stack of"):
-        ss.any_parts_stepper_cuda(sh.rows, sh.n_int, 63, o, d, t_max)
     with pytest.raises(ValueError, match="top must be"):
         ss.any_parts_cuda(sh.rows, sh.n_int, sh.depth, None, o, d, t_max)
     with pytest.raises(ValueError, match="top must be"):
@@ -378,7 +374,7 @@ def _parts_args():
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
-    """dtype, shape and device checks of K11a, K11b, their yardsticks and
+    """dtype, shape and device checks of K11a, K11b and
     the select, all raised before a build: CPU tensors of the right kind
     raise for their device."""
     sh, o, d, t_max = _parts_args()
@@ -387,10 +383,6 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         ss.closest_parts_cuda(rows, recv, n_int, depth, top, o, d, t_max)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         ss.any_parts_cuda(rows, n_int, depth, top, o, d, t_max)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        ss.closest_parts_stepper_cuda(rows, recv, n_int, depth, o, d, t_max)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        ss.any_parts_stepper_cuda(rows, n_int, depth, o, d, t_max)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         ss.select_cuda(torch.zeros((2, 16, ss.PACK_W)))
     with pytest.raises(ValueError, match="o must be"):

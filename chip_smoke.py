@@ -26,7 +26,9 @@ result line:
      printed, path_shade and path_bsdf required to have no stack frame and
      no spills; K11's (csrc/scene_shard.cu): parts_wide_kernel with 16-byte
      loads and no local loads or stores, stack frame or spills, its
-     registers printed;
+     registers printed; K12m's (csrc/mlt.cu): mutate_kernel and
+     accept_splat_kernel with no local loads or stores, stack frame or
+     spills, the accept kernel's atomics all RED, their registers printed;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -198,8 +200,8 @@ result line:
      time at 8 passes beside the plain step's, in turns); both
      kernels against their plain versions on those frames' first passes
      (draws and chain state bit-exact, splat sums within 1e-5) and timed on
-     caustic-glass's beside their byte bounds, plain versions and (K12m-b)
-     index_add_; K12 on the caustic-glass-mlt frame's first 8192-lane
+     both (caustic-glass: D 160, C 8; cornell-mesh: D 66, C 1) beside their
+     byte bounds, plain versions and (K12m-b) index_add_; K12 on the caustic-glass-mlt frame's first 8192-lane
      evaluation as on phase 9's waves (plain, yardstick bits, both entry
      points timed in turns with the yardsticks), and no yardstick or packed
      copy in either MLT frame;
@@ -788,6 +790,34 @@ def main():
             require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                    "0 bytes spill loads"),
                     "K6's shading kernels: a local stack or spills", short, dict(c), frame)
+    # K12m's kernels as compiled (csrc/mlt.cu, a lane group a chain): neither
+    # a local-memory stack nor spills, the accept kernel's adds RED (no
+    # returned value); their registers printed
+    report = built["mlt"][1].splitlines()
+    checked = set()
+    for fn, c in sass_memory_ops(subprocess.run(
+            [str(cuobjdump), "-sass", str(kernels.library_path("mlt"))],
+            capture_output=True, text=True, timeout=120).stdout).items():
+        short = next((k for k in ("accept_splat_kernel", "mutate_kernel") if k in fn), None)
+        if short is None:
+            continue
+        checked.add(short)
+        at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                  and fn in line)
+        frame = report[at + 1].strip()
+        regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                    if "registers" in line)
+        log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
+        local = [k for k in c if k.startswith(("LDL", "STL"))]
+        atomics = [k for k in c if k.startswith(("ATOM", "RED"))]
+        require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                               "0 bytes spill loads")
+                and (short == "mutate_kernel" or atomics and all(k.startswith("RED")
+                                                                 for k in atomics)),
+                "K12m's kernels: a local stack, spills, or atomics that are not RED", short,
+                dict(c), frame)
+    require(checked == {"mutate_kernel", "accept_splat_kernel"}, "K12m's kernels in the SASS",
+            checked)
     # the samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle)
     # against the library's sinf and cosf on every float below 105615
     mism = layered.trig_mismatches(dev)
@@ -2535,49 +2565,59 @@ def main():
             f"({res_a['accepted']} accepted), splat and heat max abs err "
             f"{res_a['max_abs_err']:.3e} (<= {mlt_cases.SPLAT_RTOL:g} of the largest sum)")
 
-    # timed on caustic-glass's first pass: x (8192, 160); C = 8
-    (x_, seed_, pass_), _, _ = first("caustic_mlt", "mlt_mutate")
-    R_, D_ = x_.shape
-    ms = graph_ms(lambda: mlt.mutate_cuda(x_, seed_, pass_))
-    ms_plain = events_ms(lambda: mlt.mutate_from_uniforms(
-        x_, *mlt.chain_uniforms(seed_, pass_, R_, D_, dev)), 3)
-    b = bound(R_ * D_ * 8, R_ * D_ * MUTATE_OPS)
-    timing["mlt_mutate"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                                library_ms=None, max_abs_err=mlt_err["mlt_mutate"])
-    log(f"mlt_mutate at caustic-glass's first pass ({R_} chains x {D_}): kernel {ms:.4f} ms, "
-        f"plain {ms_plain:.3f} ms (its 1 + 2 D stream draws included), bound {b[0]:.5f} ms "
-        f"({b[1]}; {R_ * D_ * 8 / 1e6:.2f} MB)")
-    (sp_, ht_, cur_, prop_, seed_, pass_), _, _ = first("caustic_mlt", "mlt_accept_splat")
-    C_, n_pix_ = cur_.pix.shape[0], ht_.shape[0]
-    u_acc = mlt.accept_uniforms(seed_, pass_, R_, dev)
-    y_c, y_p = cur_.y, prop_.y
-    a_ = torch.where(y_c > 0, torch.clamp(y_p / torch.clamp(y_c, min=1e-12), max=1.0), 1.0)
-    n_acc = int((u_acc < a_).sum())
-    live = torch.cat([(cur_.rgb.abs().sum(-1) > 0) & (y_c > 0)[None],
-                      (prop_.rgb.abs().sum(-1) > 0) & (y_p > 0)[None]])
-    pix_all = torch.cat([cur_.pix, prop_.pix])
-    n_touched = int(torch.unique(torch.cat([pix_all[live], cur_.pix[0], prop_.pix[0]])).numel())
-    # reads: both states' y, pix and rgb; writes: a; an accepted chain's
-    # proposal row read and its state row written; the touched pixels of
-    # splat and heat read and written
-    nbytes = (R_ * 8 + 2 * C_ * R_ * 16 + R_ * 4 + n_acc * (D_ * 8 + C_ * 16 + 4)
-              + n_touched * 16 * 2)
-    b = bound(nbytes, R_ * 10 + int(live.sum()) * 3)
+    # timed on both frames' first passes: caustic-glass x (8192, 160), C = 8
+    # (the kernels' entries of the kernels line); cornell-mesh x (8192, 66),
+    # C = 1 (under the tag cornell_mesh_mltpath)
     clone_ch = lambda ch: type(ch)(*(t.clone() for t in ch))
-    cur_k, sp_k, ht_k = clone_ch(cur_), sp_.clone(), ht_.clone()
-    ms = graph_ms(lambda: mlt.accept_and_splat_cuda(sp_k, ht_k, cur_k, prop_, seed_, pass_))
-    cur_p, sp_p, ht_p = clone_ch(cur_), sp_.clone(), ht_.clone()
-    ms_plain = events_ms(lambda: mlt.accept_and_splat_from_uniforms(
-        sp_p, ht_p, cur_p, prop_, mlt.accept_uniforms(seed_, pass_, R_, dev)), 3)
-    idx_all = pix_all.reshape(-1).long()
-    rgb_all = torch.rand((idx_all.shape[0], 3), device=dev)
-    ms_lib = graph_ms(lambda: sp_k.index_add_(0, idx_all, rgb_all))
-    timing["mlt_accept_splat"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                                      library_ms=ms_lib, max_abs_err=mlt_err["mlt_accept_splat"])
-    log(f"mlt_accept_splat at caustic-glass's first pass ({R_} chains, C {C_}, {n_acc} "
-        f"accepted, {int(live.sum())} live contributions over {n_touched} pixels): kernel "
-        f"{ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ of its {idx_all.shape[0]} splats "
-        f"{ms_lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}; {nbytes / 1e6:.2f} MB)")
+    for tag in ("caustic_mlt", "cornell_mesh_mlt"):
+        (x_, seed_, pass_), _, _ = first(tag, "mlt_mutate")
+        R_, D_ = x_.shape
+        ms = graph_ms(lambda: mlt.mutate_cuda(x_, seed_, pass_))
+        ms_plain = events_ms(lambda: mlt.mutate_from_uniforms(
+            x_, *mlt.chain_uniforms(seed_, pass_, R_, D_, dev)), 3)
+        b = bound(R_ * D_ * 8, R_ * D_ * MUTATE_OPS)
+        t_m = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], library_ms=None)
+        log(f"mlt_mutate at {tag}'s first pass ({R_} chains x {D_}, {mlt.MUTATE_LANES} lanes a "
+            f"chain): kernel {ms:.5f} ms, plain {ms_plain:.3f} ms (its 1 + 2 D stream draws "
+            f"included), bound {b[0]:.5f} ms ({b[1]}; {R_ * D_ * 8 / 1e6:.2f} MB), "
+            f"{ms / b[0]:.2f}x the bound")
+        (sp_, ht_, cur_, prop_, seed_, pass_), _, _ = first(tag, "mlt_accept_splat")
+        C_ = cur_.pix.shape[0]
+        u_acc = mlt.accept_uniforms(seed_, pass_, R_, dev)
+        y_c, y_p = cur_.y, prop_.y
+        a_ = torch.where(y_c > 0, torch.clamp(y_p / torch.clamp(y_c, min=1e-12), max=1.0), 1.0)
+        n_acc = int((u_acc < a_).sum())
+        live = torch.cat([(cur_.rgb.abs().sum(-1) > 0) & (y_c > 0)[None],
+                          (prop_.rgb.abs().sum(-1) > 0) & (y_p > 0)[None]])
+        pix_all = torch.cat([cur_.pix, prop_.pix])
+        n_touched = int(torch.unique(torch.cat([pix_all[live], cur_.pix[0],
+                                                prop_.pix[0]])).numel())
+        # reads: both states' y, pix and rgb; writes: a; an accepted chain's
+        # proposal row read and its state row written; the touched pixels of
+        # splat and heat read and written
+        nbytes = (R_ * 8 + 2 * C_ * R_ * 16 + R_ * 4 + n_acc * (D_ * 8 + C_ * 16 + 4)
+                  + n_touched * 16 * 2)
+        b = bound(nbytes, R_ * 10 + int(live.sum()) * 3)
+        cur_k, sp_k, ht_k = clone_ch(cur_), sp_.clone(), ht_.clone()
+        ms = graph_ms(lambda: mlt.accept_and_splat_cuda(sp_k, ht_k, cur_k, prop_, seed_, pass_))
+        cur_p, sp_p, ht_p = clone_ch(cur_), sp_.clone(), ht_.clone()
+        ms_plain = events_ms(lambda: mlt.accept_and_splat_from_uniforms(
+            sp_p, ht_p, cur_p, prop_, mlt.accept_uniforms(seed_, pass_, R_, dev)), 3)
+        idx_all = pix_all.reshape(-1).long()
+        rgb_all = torch.rand((idx_all.shape[0], 3), device=dev)
+        ms_lib = graph_ms(lambda: sp_k.index_add_(0, idx_all, rgb_all))
+        t_a = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], library_ms=ms_lib)
+        log(f"mlt_accept_splat at {tag}'s first pass ({R_} chains, C {C_}, {n_acc} accepted, "
+            f"{int(live.sum())} live contributions over {n_touched} pixels, "
+            f"{mlt.ACCEPT_LANES} lanes a chain): kernel {ms:.5f} ms, plain {ms_plain:.3f} ms, "
+            f"index_add_ of its {idx_all.shape[0]} splats {ms_lib:.4f} ms, bound {b[0]:.5f} ms "
+            f"({b[1]}; {nbytes / 1e6:.2f} MB), {ms / b[0]:.2f}x the bound")
+        if tag == "caustic_mlt":
+            timing["mlt_mutate"] = dict(t_m, max_abs_err=mlt_err["mlt_mutate"])
+            timing["mlt_accept_splat"] = dict(t_a, max_abs_err=mlt_err["mlt_accept_splat"])
+        else:
+            timing["mlt_mutate"]["cornell_mesh_mltpath"] = t_m
+            timing["mlt_accept_splat"]["cornell_mesh_mltpath"] = t_a
 
     log(f"[phase 11 starts at {time.time() - t_start:.1f} s]")
     # ---- 11. scene sharding: K11a, K11b and the select kernel

@@ -1,5 +1,5 @@
-// K12m: the Markov-chain steps of Metropolis light transport, one thread a
-// chain.
+// K12m: the Markov-chain steps of Metropolis light transport, a group of
+// lanes a chain.
 //
 // Replaces the two jitted XLA functions of the TPU's MLT hot path:
 //   pbrt_mlt_mutate        pbrt_tpu/integrators/mlt.py:53 `mutate` (K12m-a):
@@ -21,12 +21,23 @@
 // them on the card; on the CPU torch.log may round an ulp apart, which the
 // cancellation in erfinv near 0 amplifies to a few ulps of the result.
 //
-// What bounds it on the H100: bytes. Each chain reads and writes its D
-// floats (mutate) or reads both states and writes the accepted row (accept);
-// ~10-20 MB at 8192 chains and D = 160, a few microseconds at 3.35 TB/s.
-// A thread walks its chain's row, so a warp's loads are strided by D floats
-// and each cache line is reused from L1 over the next iterations; as a first
-// kernel it keeps that simple layout.
+// What bounds it on the H100: bytes (~10 MB a pass at 8192 chains and D =
+// 160, ~3 us at 3.35 TB/s) and, for K12m-a, the issue of each dimension's
+// erfinv (a logf and two IEEE square roots) and u64 stream arithmetic, which
+// takes it to ~2.5x its byte bound (PERF.md). One thread a chain would give
+// 8192 chains 64 blocks of 128 for 132 SMs, a serial walk of 1 + 2 D
+// dependent PCG32 steps, and loads strided by D floats across a warp. So
+// each chain has a group of G lanes, lane l on dimensions l, l + G, ...: the
+// group's loads and stores are consecutive words, and the chains fill the
+// card.
+// Each lane starts on its own point of the chain's stream by a jump ahead
+// (k PCG32 steps from state s are A_k s + inc S_k mod 2^64, with A_k =
+// MULT^k and S_k = sum_{i<k} MULT^i the same for every chain): lane l at
+// draw 1 + 2 l, then 2 G draws on at each step, so the draws keep their bits
+// (integrators/mlt.py `strided_chain_uniforms` spells the same order).
+// Every lane of a group seeds the chain's stream and computes its
+// acceptance itself: a warp issues an instruction once for all its lanes,
+// so the lanes get the same bits for the price of one, with no shuffle.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +53,12 @@ constexpr float ONE_MINUS = 0x1.fffffcp-1f;     // float32(1 - 1e-7)
 constexpr float TWO_OVER_PI_A = 0x1.152af4p+2f;  // float32(2 / (pi * 0.147))
 constexpr float INV_A = 0x1.b35fc8p+2f;         // float32(1 / float32(0.147))
 constexpr uint32_t MUTATE = 3, ACCEPT = 4;       // stream purposes (mlt.py)
+
+// lanes a chain (integrators/mlt.py MUTATE_LANES, ACCEPT_LANES; the fastest
+// over both MLT frames' shapes of those tools/mlt_designs.py times) and
+// threads a block: 8192 chains are 1024 blocks at 32 lanes, 512 at 16
+constexpr int MUTATE_LANES = 32, ACCEPT_LANES = 16;
+constexpr int BLOCK = 256;
 
 // SplitMix64 finalizer (reference rng.h:15-22)
 __device__ __forceinline__ uint64_t mix_bits(uint64_t v) {
@@ -79,6 +96,25 @@ __device__ __forceinline__ Pcg32 chain_stream(uint32_t seed, uint32_t purpose, u
   return pcg32_set_sequence(seq, mix_bits(seq));
 }
 
+// k PCG32 steps as one affine map: state -> a state + inc s (sampling/rng.py
+// `jump`)
+struct Jump {
+  uint64_t a, s;
+};
+
+__host__ __device__ constexpr Jump jump(int k) {
+  Jump j{1ULL, 0ULL};
+  for (int i = 0; i < k; ++i) j = Jump{j.a * PCG32_MULT, j.s * PCG32_MULT + 1ULL};
+  return j;
+}
+
+// lane l's first draw, 1 + 2 l (integrators/mlt.py `lane_jumps`)
+#define MLT_JUMPS4(l) jump(2 * (l) + 1), jump(2 * (l) + 3), jump(2 * (l) + 5), jump(2 * (l) + 7)
+__device__ const Jump LANE_JUMP[32] = {MLT_JUMPS4(0),  MLT_JUMPS4(4),  MLT_JUMPS4(8),
+                                       MLT_JUMPS4(12), MLT_JUMPS4(16), MLT_JUMPS4(20),
+                                       MLT_JUMPS4(24), MLT_JUMPS4(28)};
+#undef MLT_JUMPS4
+
 // Winitzki's erfinv, clipped as in mlt.py `_erfinv`
 __device__ __forceinline__ float erfinv_w(float x) {
   x = fminf(fmaxf(x, -0.99999f), 0.99999f);
@@ -88,27 +124,55 @@ __device__ __forceinline__ float erfinv_w(float x) {
   return sgn * sqrtf(sqrtf(fmaxf(term * term - ln1mx2 * INV_A, 0.f)) - term);
 }
 
-__global__ void mutate_kernel(const float* __restrict__ x, float* __restrict__ out,
-                              float* __restrict__ draws, int R, int D, uint32_t seed,
-                              uint32_t pass) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+// the uniform PCG32 draws from state s
+__device__ __forceinline__ float uniform_at(uint64_t s) {
+  Pcg32 r{s, 0ULL};
+  return pcg32_uniform(r);
+}
+
+template <int G>
+__global__ void __launch_bounds__(BLOCK)
+    mutate_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  float* __restrict__ draws, int R, int D, uint32_t seed, uint32_t pass) {
+  static_assert(G <= 32 && 32 % G == 0, "a chain's lanes lie in one warp");
+  const int c = blockIdx.x * (BLOCK / G) + threadIdx.x / G;
+  const int lane = threadIdx.x % G;
   if (c >= R) return;
-  Pcg32 r = chain_stream(seed, MUTATE, pass, (uint32_t)c);
-  const float u_large = pcg32_uniform(r);
+  const Pcg32 r0 = chain_stream(seed, MUTATE, pass, (uint32_t)c);
+  const float u_large = uniform_at(r0.state);   // draw 0
   const bool large = u_large < P_LARGE;
+  const Jump first = LANE_JUMP[lane];
+  constexpr Jump step = jump(2 * G);
+  const uint64_t step_inc = r0.inc * step.s;
+  uint64_t s = first.a * r0.state + r0.inc * first.s;   // draw 1 + 2 lane
   const size_t row = (size_t)c * D;
   float* dr = draws ? draws + (size_t)c * (1 + 2 * D) : nullptr;
-  if (dr) dr[0] = u_large;
-  for (int d = 0; d < D; ++d) {
-    const float fresh = pcg32_uniform(r);
-    const float u = pcg32_uniform(r);
-    if (dr) {
-      dr[1 + 2 * d] = fresh;
-      dr[2 + 2 * d] = u;
+  if (dr && lane == 0) dr[0] = u_large;
+  // a large step takes the fresh uniforms and reads no x: a loop for each
+  // kind of step, which a chain's lanes share, unrolled twice
+  if (large) {
+#pragma unroll 2
+    for (int d = lane; d < D; d += G) {
+      if (dr) {
+        dr[1 + 2 * d] = uniform_at(s);
+        dr[2 + 2 * d] = uniform_at(s * PCG32_MULT + r0.inc);
+      }
+      out[row + d] = fminf(fmaxf(uniform_at(s), 0.f), ONE_MINUS);
+      s = step.a * s + step_inc;
     }
-    float v = x[row + d] + SIGMA_SQRT2 * erfinv_w(2.f * u - 1.f);
+    return;
+  }
+#pragma unroll 2
+  for (int d = lane; d < D; d += G) {
+    const uint64_t s_u = s * PCG32_MULT + r0.inc;      // draw 2 + 2 d
+    if (dr) {
+      dr[1 + 2 * d] = uniform_at(s);
+      dr[2 + 2 * d] = uniform_at(s_u);
+    }
+    float v = x[row + d] + SIGMA_SQRT2 * erfinv_w(2.f * uniform_at(s_u) - 1.f);
     v = v - floorf(v);
-    out[row + d] = fminf(fmaxf(large ? fresh : v, 0.f), ONE_MINUS);
+    out[row + d] = fminf(fmaxf(v, 0.f), ONE_MINUS);
+    s = step.a * s + step_inc;                          // draw 1 + 2 (d + G)
   }
 }
 
@@ -122,47 +186,90 @@ __device__ __forceinline__ void splat_add(float* splat, int n_pix, int p, const 
   atomicAdd(splat + 3 * (size_t)p + 2, b);
 }
 
-__global__ void accept_splat_kernel(float* __restrict__ splat, float* __restrict__ heat,
-                                    float* __restrict__ x_cur, int* __restrict__ pix_cur,
-                                    float* __restrict__ rgb_cur, float* __restrict__ y_cur,
-                                    const float* __restrict__ x_prop,
-                                    const int* __restrict__ pix_prop,
-                                    const float* __restrict__ rgb_prop,
-                                    const float* __restrict__ y_prop, float* __restrict__ a_out,
-                                    int R, int D, int C, int n_pix, uint32_t seed,
-                                    uint32_t pass) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= R) return;
+// one contribution of both states: pixels and RGB
+struct Terms {
+  int pp, pc;
+  float rp[3], rc[3];
+};
+
+__device__ __forceinline__ Terms load_terms(const int* pix_prop, const int* pix_cur,
+                                            const float* rgb_prop, const float* rgb_cur,
+                                            size_t i) {
+  Terms t;
+  t.pp = pix_prop[i];
+  t.pc = pix_cur[i];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    t.rp[q] = rgb_prop[3 * i + q];
+    t.rc[q] = rgb_cur[3 * i + q];
+  }
+  return t;
+}
+
+// Lane k of a chain's group takes contribution k of both states (k, k + G,
+// ... for C > G): their splats, the heat of contribution 0 on lane 0, and
+// on accept the proposal's pixel and RGB, which it holds, written into the
+// state. The D floats of the row are copied by the group, consecutive lanes
+// on consecutive words. No lane reads what another writes but y_cur, which
+// lane 0 writes after the group's __syncwarp; a lane's first contribution
+// is loaded beside y, before it.
+template <int G>
+__global__ void __launch_bounds__(BLOCK)
+    accept_splat_kernel(float* __restrict__ splat, float* __restrict__ heat,
+                        float* __restrict__ x_cur, int* __restrict__ pix_cur,
+                        float* __restrict__ rgb_cur, float* __restrict__ y_cur,
+                        const float* __restrict__ x_prop, const int* __restrict__ pix_prop,
+                        const float* __restrict__ rgb_prop, const float* __restrict__ y_prop,
+                        float* __restrict__ a_out, int R, int D, int C, int n_pix,
+                        uint32_t seed, uint32_t pass) {
+  static_assert(G <= 32 && 32 % G == 0, "a chain's lanes lie in one warp");
+  const int c = blockIdx.x * (BLOCK / G) + threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  if (c >= R) return;                   // the whole group: its mask below is its own
+  const unsigned group = G == 32 ? 0xffffffffu
+                                 : ((1u << G) - 1u) << ((threadIdx.x % 32) / G * G);
   const float yc = y_cur[c], yp = y_prop[c];
+  Terms t{};
+  if (lane < C) t = load_terms(pix_prop, pix_cur, rgb_prop, rgb_cur, (size_t)lane * R + c);
   const float a = yc > 0.f ? fminf(yp / fmaxf(yc, 1e-12f), 1.f) : 1.f;
   const float w_prop = yp > 0.f ? a / fmaxf(yp, 1e-12f) : 0.f;
   const float w_cur = yc > 0.f ? (1.f - a) / fmaxf(yc, 1e-12f) : 0.f;
-  for (int k = 0; k < C; ++k) {
-    const size_t i = (size_t)k * R + c;
-    splat_add(splat, n_pix, pix_prop[i], rgb_prop + 3 * i, w_prop);
-    splat_add(splat, n_pix, pix_cur[i], rgb_cur + 3 * i, w_cur);
-  }
-  if (yp > 0.f && pix_prop[c] >= 0 && pix_prop[c] < n_pix) atomicAdd(heat + pix_prop[c], a);
-  if (yc > 0.f && pix_cur[c] >= 0 && pix_cur[c] < n_pix) atomicAdd(heat + pix_cur[c], 1.f - a);
-  a_out[c] = a;
   Pcg32 r = chain_stream(seed, ACCEPT, pass, (uint32_t)c);
-  if (!(pcg32_uniform(r) < a)) return;
-  const size_t row = (size_t)c * D;
-  for (int d = 0; d < D; ++d) x_cur[row + d] = x_prop[row + d];
-  for (int k = 0; k < C; ++k) {
+  const bool acc = pcg32_uniform(r) < a;
+  if (lane == 0) a_out[c] = a;
+  __syncwarp(group);                    // every lane has read y_cur[c]
+  for (int k = lane; k < C; k += G) {
     const size_t i = (size_t)k * R + c;
-    pix_cur[i] = pix_prop[i];
+    if (k != lane) t = load_terms(pix_prop, pix_cur, rgb_prop, rgb_cur, i);
+    splat_add(splat, n_pix, t.pp, t.rp, w_prop);
+    splat_add(splat, n_pix, t.pc, t.rc, w_cur);
+    if (k == 0) {
+      if (yp > 0.f && t.pp >= 0 && t.pp < n_pix) atomicAdd(heat + t.pp, a);
+      if (yc > 0.f && t.pc >= 0 && t.pc < n_pix) atomicAdd(heat + t.pc, 1.f - a);
+    }
+    if (acc) {
+      pix_cur[i] = t.pp;
 #pragma unroll
-    for (int q = 0; q < 3; ++q) rgb_cur[3 * i + q] = rgb_prop[3 * i + q];
+      for (int q = 0; q < 3; ++q) rgb_cur[3 * i + q] = t.rp[q];
+    }
   }
-  y_cur[c] = yp;
+  if (!acc) return;
+  const size_t row = (size_t)c * D;
+  for (int d = lane; d < D; d += G) x_cur[row + d] = x_prop[row + d];
+  if (lane == 0) y_cur[c] = yp;
+}
+
+template <int G>
+inline int blocks_for(int R) {
+  return (int)(((long long)R * G + BLOCK - 1) / BLOCK);
 }
 
 }  // namespace
 
 extern "C" int pbrt_mlt_mutate(const float* x, float* out, float* draws, int R, int D,
                                unsigned seed, unsigned pass, cudaStream_t stream) {
-  mutate_kernel<<<(R + 127) / 128, 128, 0, stream>>>(x, out, draws, R, D, seed, pass);
+  constexpr int G = MUTATE_LANES;
+  mutate_kernel<G><<<blocks_for<G>(R), BLOCK, 0, stream>>>(x, out, draws, R, D, seed, pass);
   return (int)cudaGetLastError();
 }
 
@@ -172,9 +279,9 @@ extern "C" int pbrt_mlt_accept_splat(float* splat, float* heat, float* x_cur, in
                                      const float* y_prop, float* a_out, int R, int D, int C,
                                      int n_pix, unsigned seed, unsigned pass,
                                      cudaStream_t stream) {
-  accept_splat_kernel<<<(R + 127) / 128, 128, 0, stream>>>(splat, heat, x_cur, pix_cur,
-                                                           rgb_cur, y_cur, x_prop, pix_prop,
-                                                           rgb_prop, y_prop, a_out, R, D, C,
-                                                           n_pix, seed, pass);
+  constexpr int G = ACCEPT_LANES;
+  accept_splat_kernel<G><<<blocks_for<G>(R), BLOCK, 0, stream>>>(
+      splat, heat, x_cur, pix_cur, rgb_cur, y_cur, x_prop, pix_prop, rgb_prop, y_prop, a_out, R,
+      D, C, n_pix, seed, pass);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,8 @@ from_seed(MurmurHash64A of the four u32 words):
   - purpose PICK, index 0: the one uniform of the chain's alias pick;
   - purpose MUTATE, index = pass: the large-step uniform, then for each
     dimension d in order its fresh uniform and its Gaussian uniform
-    (1 + 2 D draws; `chain_uniforms`);
+    (1 + 2 D draws; `chain_uniforms`); K12m-a's lanes jump ahead to their
+    dimensions' draws (`strided_chain_uniforms`, the same bits);
   - purpose ACCEPT, index = pass: the accept uniform.
 So a render on the card and one on the CPU draw the same numbers; they part
 only where float rounding in the evaluation flips an accept decision.
@@ -113,6 +114,42 @@ def chain_uniforms(seed, pass_idx, R, D, device="cpu"):
     return u[:, 0].contiguous(), u[:, 1::2].contiguous(), u[:, 2::2].contiguous()
 
 
+# lanes a chain of K12m-a and K12m-b (csrc/mlt.cu MUTATE_LANES, ACCEPT_LANES)
+MUTATE_LANES = 32
+ACCEPT_LANES = 16
+
+
+def lane_jumps(G):
+    """K12m-a's jump table for groups of G lanes -> ([(A, S) of 1 + 2 l
+    steps for lane l < G], (A, S) of 2 G steps), Python ints (rng.jump):
+    lane l starts at its chain's draw 1 + 2 l and goes on 2 G draws at a
+    time."""
+    return [prng.jump(1 + 2 * lane) for lane in range(G)], prng.jump(2 * G)
+
+
+def strided_chain_uniforms(seed, pass_idx, R, D, G=MUTATE_LANES, device="cpu"):
+    """chain_uniforms drawn in K12m-a's order: lane l of a chain's group of
+    G jumps to draw 1 + 2 l, takes dimension l's fresh and Gaussian
+    uniforms, jumps 2 G draws on to dimension l + G, and so on -> (u_large
+    (R,), fresh (R, D), u (R, D)), the same bits as chain_uniforms."""
+    state, inc = chain_streams(seed, MUTATE, pass_idx, R, device)
+    _, u_large = prng.uniform_float(state, inc)
+    firsts, (a_step, s_step) = lane_jumps(G)
+    a0, s0 = (torch.tensor([prng.i64(v) for v in col], device=device)
+              for col in zip(*firsts))
+    inc = inc[:, None].expand(R, G)
+    s = a0 * state[:, None] + inc * s0                  # (R, G): draw 1 + 2 l
+    step_inc = inc * prng.i64(s_step)
+    n = -(-D // G)
+    fresh = torch.empty((R, n * G), device=device)
+    u = torch.empty_like(fresh)
+    for j in range(n):                                  # dimensions j G + l
+        after, fresh[:, j * G:(j + 1) * G] = prng.uniform_float(s, inc)
+        _, u[:, j * G:(j + 1) * G] = prng.uniform_float(after, inc)
+        s = s * prng.i64(a_step) + step_inc
+    return u_large, fresh[:, :D].contiguous(), u[:, :D].contiguous()
+
+
 def accept_uniforms(seed, pass_idx, R, device="cpu"):
     """The accept uniforms of K12m-b -> (R,) float32."""
     return stream_uniforms(seed, ACCEPT, pass_idx, R, 1, device)[:, 0]
@@ -165,9 +202,9 @@ def _check(what, x, dtype, shape, dev):
 
 
 def mutate_cuda(x, seed, pass_idx, draws=None):
-    """K12m-a on the card: x (R, D) float32 -> x_prop (R, D). draws, an
-    (R, 1 + 2 D) float32 tensor, receives the chains' uniforms in
-    chain_uniforms's order."""
+    """K12m-a on the card, MUTATE_LANES lanes a chain: x (R, D) float32 ->
+    x_prop (R, D). draws, an (R, 1 + 2 D) float32 tensor, receives the
+    chains' uniforms in chain_uniforms's order."""
     from pbrt_tpu_torch import kernels
 
     R, D = x.shape
@@ -225,8 +262,8 @@ def accept_and_splat_from_uniforms(splat, heat, cur: Chains, prop: Chains, u_acc
 
 
 def accept_and_splat_cuda(splat, heat, cur: Chains, prop: Chains, seed, pass_idx):
-    """K12m-b on the card, one thread a chain; the accept uniform comes from
-    stream (seed, ACCEPT, pass_idx). Same contract as
+    """K12m-b on the card, ACCEPT_LANES lanes a chain; the accept uniform
+    comes from stream (seed, ACCEPT, pass_idx). Same contract as
     accept_and_splat_from_uniforms; splat and heat sums are atomic, so their
     order (not their terms) differs from run to run."""
     from pbrt_tpu_torch import kernels

@@ -103,6 +103,17 @@ def advance(rng: Pcg32, delta):
     return Pcg32(acc_mult * rng.state + acc_plus, rng.inc)
 
 
+def jump(k):
+    """k PCG32 steps as one affine map -> (A_k, S_k), Python ints: from
+    state s the stream reaches A_k s + inc S_k (mod 2^64), A_k = MULT^k and
+    S_k = sum of MULT^i over i < k; the same for every stream (csrc/mlt.cu
+    `jump`)."""
+    a, s = 1, 0
+    for _ in range(k):
+        a, s = (a * PCG32_MULT) & _M64, (s * PCG32_MULT + 1) & _M64
+    return a, s
+
+
 # ------------------------------------------------------------ MurmurHash64A
 
 _MURMUR_M = 0xC6A4A7935BD1E995

@@ -832,12 +832,13 @@ def test_bdpt_render_on_card_matches_cpu(cuda):
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
 
 
-@pytest.mark.parametrize("D", [66, 160])
+@pytest.mark.parametrize("D", [66, 67, 160, 376])
 def test_mlt_mutate_kernel_matches_plain(cuda, D):
-    """K12m-a at 8192 chains and the D of cornell-mesh (mltpath, depth 5)
-    and caustic-glass (mlt, depth 7): its draws and large-step flags
-    bit-exact with chain_uniforms, values within tests/mlt_cases.py's
-    MUTATE_ULPS; one launch counted."""
+    """K12m-a at 8192 chains and the D of cornell-mesh (mltpath, depth 5),
+    caustic-glass (mlt, depth 7) and volumetric MLT (16 + 40 (7 + 2)), and
+    67 (the tails of a lane group: lanes idle on the last step): its draws
+    and large-step flags bit-exact with chain_uniforms, values within
+    tests/mlt_cases.py's MUTATE_ULPS; one launch counted."""
     from mlt_cases import compare_mutate, primary_samples
     from pbrt_tpu_torch.integrators import mlt
 
@@ -850,10 +851,11 @@ def test_mlt_mutate_kernel_matches_plain(cuda, D):
     assert 0 < res["large"] < 8192
 
 
-@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("C", [1, 8, 17])
 def test_mlt_accept_kernel_matches_plain(cuda, C):
-    """K12m-b for one contribution (mltpath) and eight (mlt at depth 7):
-    acceptance and chain state exact, splat and heat within
+    """K12m-b for one contribution (mltpath), eight (mlt at depth 7) and 17
+    (2 C past a warp, more than a lane each): acceptance and chain state
+    exact, splat and heat within
     tests/mlt_cases.py's SPLAT_RTOL of the plain version with the stream's
     accept uniforms; one launch counted."""
     from mlt_cases import accept_inputs, compare_accept

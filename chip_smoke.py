@@ -29,6 +29,9 @@ result line:
      registers printed; K12m's (csrc/mlt.cu): mutate_kernel and
      accept_splat_kernel with no local loads or stores, stack frame or
      spills, the accept kernel's atomics all RED, their registers printed;
+     K3's and K4a's (csrc/dense_intersect.cu): every instantiation of
+     dense_tri_kernel, dense_tri_wide_kernel and dense_disk_kernel with no
+     local loads or stores, stack frame or spills, their registers printed;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -125,7 +128,12 @@ result line:
      which the log prints beside it), the plain version with CUDA events;
      all on the arguments of its first
      launch in the full-width render of its path: the shapes and data the
-     main path gives it; K7's
+     main path gives it; K3 and K3a at cornell's and caustic-glass BDPT's
+     first launches and K4a at caustic-glass's path and BDPT frames' first
+     launches, each timed at the launch shape its wrapper picks, beside an
+     empty launch in a graph, with every other launch shape the wrapper
+     can pick (K3's group size G and mode; K3a's and K4a's mode) bit-equal
+     to the wrapper's; K7's
      three entry points on their first launches in the staircase and
      testball frames, against the plain version on the coated lanes and
      against their yardsticks' bits, timed in turns with them on both (the
@@ -201,7 +209,9 @@ result line:
      kernels against their plain versions on those frames' first passes
      (draws and chain state bit-exact, splat sums within 1e-5) and timed on
      both (caustic-glass: D 160, C 8; cornell-mesh: D 66, C 1) beside their
-     byte bounds, plain versions and (K12m-b) index_add_; K12 on the caustic-glass-mlt frame's first 8192-lane
+     byte bounds, plain versions and (K12m-b) index_add_; K3, K3a, K4a and
+     K4 at the caustic-glass-mlt frame's first 8,192-lane evaluation as at
+     phase 9's launches; K12 on the caustic-glass-mlt frame's first 8192-lane
      evaluation as on phase 9's waves (plain, yardstick bits, both entry
      points timed in turns with the yardsticks), and no yardstick or packed
      copy in either MLT frame;
@@ -578,6 +588,146 @@ def tri_stages(o, d, t_max, p0, p1, p2):
                                  p2[None])
 
 
+def dense_empty_ms():
+    """Device ms of an empty launch in a graph: a one-element torch add,
+    graph-timed as the kernels are (the floor under a small wave)."""
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: one.add_(0.0))
+
+
+def dense_modes(kind, args):
+    """{label: fn} launching the dense kernel `kind` ("tris", "any" or
+    "disks") through its C entry on `args` (the wrapper's arguments) in
+    each mode and launch shape its wrapper can pick: K3 in its wide-wave
+    mode (G 1) and its small-wave mode at G 1, 2, 4, 8; K3a and K4a in
+    either mode. Each fn writes its own outputs, kept as fn.out."""
+    from pbrt_tpu_torch.geometry import intersect as ix
+
+    o, d, t_ = args[:3]
+    R, dev = o.shape[0], o.device
+    stream = lambda: ix._stream(dev)
+    lib = ix._dense_lib()
+    fns = {}
+
+    def entry(label, call, out):
+        def fn():
+            require(call(*(x.data_ptr() for x in out)) == 0, label, "launch failed")
+        fn.out = out
+        fns[label] = fn
+
+    ray = [o.data_ptr(), d.data_ptr(), t_.data_ptr()]
+    if kind in ("tris", "any"):
+        p0, p1, p2 = args[3:6]
+        T, any_hit = p0.shape[0], int(kind == "any")
+        ptrs = [x.data_ptr() for x in (p0, p1, p2)]
+        for g, wide in ((1, 1), (1, 0)) + (() if any_hit else ((2, 0), (4, 0), (8, 0))):
+            entry(f"G{g} {'wide' if wide else 'small'}",
+                  lambda t, p, b, g=g, wide=wide: lib.pbrt_dense_tris(
+                      *ptrs, T, *ray, R, t, p, b, any_hit, g, ix.dense_tri_stride(T), wide,
+                      stream()),
+                  (torch.empty(R, device=dev),
+                   torch.empty(R, dtype=torch.bool if any_hit else torch.int64, device=dev),
+                   torch.empty((R, 3), device=dev)))
+    else:
+        soa = args[3]
+        n, tab, partial = soa.center.shape[0], soa.table.data_ptr(), int(soa.xaxis is not None)
+        for wide in (0, 1):
+            entry("wide" if wide else "small",
+                  lambda t, i, p, nn, wide=wide: lib.pbrt_dense_disks(
+                      tab, n, *ray, R, t, i, p, nn, partial, wide, stream()),
+                  (torch.empty(R, device=dev), torch.empty(R, dtype=torch.int64, device=dev),
+                   torch.empty((R, 3), device=dev), torch.empty((R, 3), device=dev)))
+    return fns
+
+
+def dense_bound(kind, args):
+    """(least ms, "bytes" or "operations", hits, note) of the dense sweep on
+    these rays. K3: each live lane's tests by exit stage against its fixed
+    t_max (the any-hit sweep up to its first hit) and the winner's
+    barycentrics; every lane's t_max read, a live lane's (t_max > 0) o and
+    d (24 bytes: a masked lane needs no ray), the table once, 24 bytes out
+    a lane (t, an int64 prim, b; any hit: a bool). K4a: live lanes x disks
+    x DISK_TEST_OPS, the same reads, 36 bytes out (t, an int64 index, p,
+    n)."""
+    from pbrt_tpu_torch.geometry import intersect as ix
+
+    o, d, t_ = args[:3]
+    R = o.shape[0]
+    ray_b = R * 4 + int((t_ > 0).sum()) * 24
+    if kind == "disks":
+        soa = args[3]
+        n_q = soa.center.shape[0]
+        n_h = int((ix.intersect_disks_dense_plain(o, d, t_, soa)[1] >= 0).sum())
+        b = bound(ray_b + n_q * 60 + R * 36, int((t_ > 0).sum()) * n_q * DISK_TEST_OPS)
+        return b[0], b[1], n_h, f"{n_h} hits"
+    tris = args[3:6]
+    T = tris[0].shape[0]
+    edge, in_range = tri_stages(o, d, t_, *tris)
+    tested = (t_ > 0)[:, None].expand(R, T)
+    if kind == "any":
+        _, hit = ix.intersect_tri_block(o, ix.ray_shear(d), t_, *tris)
+        first_hit = torch.where(hit.any(1), hit.int().argmax(1), T)
+        tested = tested & (torch.arange(T, device=o.device)[None] <= first_hit[:, None])
+        n_h, out_b = int(hit.any(1).sum()), R
+    else:
+        n_h, out_b = int((ix.intersect_tris_dense_plain(o, d, t_, *tris).prim >= 0).sum()), R * 24
+    n_t, n_e, n_r = (int(x.sum()) for x in (tested, tested & edge, tested & in_range))
+    ops = tri_test_ops(n_t, n_e, n_r) + (0 if kind == "any" else n_h * TRI_BARY_OPS)
+    b = bound(ray_b + T * 36 + out_b, ops)
+    return b[0], b[1], n_h, (f"{n_h} {'occluded' if kind == 'any' else 'hits'}, {n_t} tests, "
+                             f"{n_e} past the edge test, {n_r} past t range")
+
+
+def dense_time(kind, args, label, empty=None):
+    """K3 ("tris", "any") or K4a ("disks") on the arguments of one main-path
+    launch: the wrapper graph-timed and host-paced at its launch shape,
+    every other mode and launch shape the wrapper can pick (dense_modes)
+    held bit-equal to its outputs, the plain version, the bound and an
+    empty launch; a line printed. -> the kernels line's dict."""
+    from pbrt_tpu_torch.geometry import intersect as ix
+
+    o, d, t_ = args[:3]
+    R = o.shape[0]
+    if kind == "disks":
+        wrap = lambda: ix.dense_disks_cuda(*args)
+        plain = lambda: ix.intersect_disks_dense_plain(*args)
+        n_prim = args[3].center.shape[0]
+        shape = "wide" if ix.dense_wide(R) else "small"
+    else:
+        wrap = lambda: ix.dense_tris_cuda(*args, any_hit=kind == "any")
+        plain = lambda: (ix.occluded_tris_dense_plain(*args) if kind == "any"
+                         else ix.intersect_tris_dense_plain(*args))
+        n_prim = args[3].shape[0]
+        shape = (f"G{1 if kind == 'any' else ix.dense_tri_group(R, n_prim)} "
+                 f"{'wide' if ix.dense_wide(R) else 'small'}")
+    ref = wrap()
+    ref = ref if kind == "disks" else (ref,)
+    fns = dense_modes(kind, args)
+    for k, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        if kind == "any":
+            same = torch.equal(fn.out[1], ref[0])
+        elif kind == "tris":
+            same = (torch.equal(fn.out[1], ref[0].prim) and torch.equal(fn.out[0], ref[0].t)
+                    and torch.equal(fn.out[2], ref[0].b))
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(fn.out, ref))
+        require(same, kind, label, k, "differs from the wrapper's outputs")
+    ms, call = kernel_ms(wrap)
+    empty = dense_empty_ms() if empty is None else empty
+    ms_plain = events_ms(plain, 3)
+    b_ms, by, n_h, note = dense_bound(kind, args)
+    name = {"tris": "dense_tri_closest", "any": "dense_tri_any", "disks": "dense_disks"}[kind]
+    what = "disks" if kind == "disks" else "tris"
+    log(f"{name} at {label} ({R} lanes x {n_prim} {what}, {note}; {shape}): kernel {ms:.5f} ms "
+        f"(host-paced {call:.5f} ms), {ms / b_ms:.2f}x its bound {b_ms:.5f} ms ({by}), "
+        f"{ms / empty:.2f}x an empty launch {empty:.5f} ms; plain {ms_plain:.3f} ms; the bits "
+        f"of {', '.join(fns)} equal the wrapper's")
+    return dict(ms=ms, plain_ms=ms_plain, bound_ms=b_ms, bound_by=by, library_ms=None,
+                lanes=R, launch_shape=shape, empty_ms=empty)
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -818,6 +968,47 @@ def main():
                 dict(c), frame)
     require(checked == {"mutate_kernel", "accept_splat_kernel"}, "K12m's kernels in the SASS",
             checked)
+    # K3's and K4a's kernels as compiled (csrc/dense_intersect.cu): every
+    # instantiation of dense_tri_kernel (any hit, G: the small-wave mode;
+    # closest hit at G 1, 2, 4, 8, any hit at G 1),
+    # dense_tri_wide_kernel (any hit) and dense_disk_kernel (partial, wide)
+    # with neither a local-memory stack nor spills; their registers
+    # printed, K4's sphere kernel beside them
+    report = built["dense_intersect"][1].splitlines()
+    checked = set()
+    for fn, c in sass_memory_ops(subprocess.run(
+            [str(cuobjdump), "-sass", str(kernels.library_path("dense_intersect"))],
+            capture_output=True, text=True, timeout=120).stdout).items():
+        tri = (re.search(r"dense_tri_kernelILb([01])ELi(\d+)E", fn)
+               or re.search(r"dense_tri_(wide)_kernelILb([01])E", fn))
+        dsk = re.search(r"dense_disk_kernelILb([01])ELb([01])E", fn)
+        if tri and tri.group(1) == "wide":
+            short = f"dense_tri_wide_kernel<{'any hit' if tri.group(2) == '1' else 'closest'}>"
+        elif tri:
+            short = (f"dense_tri_kernel<{'any hit' if tri.group(1) == '1' else 'closest'}, "
+                     f"G {tri.group(2)}>")
+        elif dsk:
+            short = (f"dense_disk_kernel<{'partial' if dsk.group(1) == '1' else 'full'}, "
+                     f"{'wide' if dsk.group(2) == '1' else 'small'}>")
+        elif "dense_sphere_kernel" in fn:
+            short = f"dense_sphere_kernel<{'partial' if 'ILb1E' in fn else 'full'}>"
+        else:
+            continue
+        at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                  and fn in line)
+        frame = report[at + 1].strip()
+        regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                    if "registers" in line)
+        local = [k for k in c if k.startswith(("LDL", "STL"))]
+        log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
+        if tri or dsk:
+            checked.add(tri.groups() if tri else dsk.groups())
+            require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                   "0 bytes spill loads"),
+                    "K3's or K4a's kernels: a local stack or spills", short, dict(c), frame)
+    want = {("0", str(g)) for g in (1, 2, 4, 8)} | {("1", "1")} | {
+        (p_, st) for p_ in "01" for st in "01"} | {("wide", a) for a in "01"}
+    require(checked == want, "K3's and K4a's instantiations in the SASS", sorted(checked))
     # the samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle)
     # against the library's sinf and cosf on every float below 105615
     mism = layered.trig_mismatches(dev)
@@ -1775,56 +1966,67 @@ def main():
         f"(R, 3) rgb {ms_lib:.4f} ms, of the (R, 4) (w rgb, w) rows {ms_lib4:.4f} ms, bound "
         f"{b[0]:.4f} ms ({b[1]})")
 
-    # K3 on cornell's first launches
-    for any_hit in (False, True):
-        name = "dense_tri_any" if any_hit else "dense_tri_closest"
-        (o_, d_, t_, *tris), _, _ = first("cornell", name)
-        R_, T_ = o_.shape[0], tris[0].shape[0]
-        n_h, err = compare_dense_tris(o_, d_, t_, tris, any_hit)
-        # each live lane tests every triangle against its fixed t_max, the
-        # any-hit sweep up to its first hit; the closest-hit winner is refit
-        edge, in_range = tri_stages(o_, d_, t_, *tris)
-        tested = (t_ > 0)[:, None].expand(R_, T_)
-        if any_hit:
-            _, hit = ix.intersect_tri_block(o_, ix.ray_shear(d_), t_, *tris)
-            first_hit = torch.where(hit.any(1), hit.int().argmax(1), T_)
-            tested = tested & (torch.arange(T_, device=dev)[None] <= first_hit[:, None])
-            out_b = R_ * 4
-        else:
-            out_b = R_ * 20
-        n_t, n_e, n_r = (int(x.sum()) for x in (tested, tested & edge, tested & in_range))
-        ops = tri_test_ops(n_t, n_e, n_r) + (0 if any_hit else n_h * (TRI_FULL_OPS
-                                                                        + TRI_BARY_OPS))
-        ms, call = kernel_ms(lambda: ix.dense_tris_cuda(o_, d_, t_, *tris, any_hit=any_hit))
-        plain = ix.occluded_tris_dense_plain if any_hit else ix.intersect_tris_dense_plain
-        ms_plain = events_ms(lambda: plain(o_, d_, t_, *tris), 3)
-        b = bound(R_ * 28 + T_ * 36 + out_b, ops)
-        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                            library_ms=None, max_abs_err=err)
-        log(f"{name} at the main path's launch ({R_} lanes x {T_} tris, {n_h} "
-            f"{'occluded' if any_hit else 'hits'}, {n_t} tests, {n_e} past the edge test, "
-            f"{n_r} past t range): kernel {ms:.4f} ms (host-paced {call:.4f} ms), "
-            f"plain {ms_plain:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); bit-exact")
+    # K3 and K3a at cornell's and caustic-glass BDPT's first launches, K4a at
+    # caustic-glass's path frame's (9,216 lanes) and BDPT frame's (2^20):
+    # against the plain version, every other launch shape the wrapper can
+    # pick bit-equal, an empty launch and the bound (dense_time); caustic-glass-mlt's
+    # 8,192-lane launches in phase 10
+    dense_empty = dense_empty_ms()
 
-    # K4 on the first launches of cornell (spheres) and caustic-glass (disks)
-    for name, tag, kind, test_ops, hit_ops, width in (
-            ("dense_spheres", "cornell", "spheres", SPHERE_TEST_OPS, SPHERE_HIT_OPS, 64),
-            ("dense_disks", "caustic", "disks", DISK_TEST_OPS, 0, 60)):
-        (o_, d_, t_, soa), _, orig = first(tag, name)
+    def dense_check(kind, args):
+        """The wrapper against the plain version (phase 5's criteria) ->
+        max abs err of t."""
+        if kind == "disks":
+            return compare_quadrics("disks", *args)[2]
+        return compare_dense_tris(*args[:3], args[3:6], kind == "any")[1]
+
+    def occluded_rays(tag):
+        """The rays of the frame's first occluded dispatch: K3a's first
+        launch's (dispatch.occluded runs the closest-hit sphere and disk
+        sweeps on the same shadow rays)."""
+        return first(tag, "dense_tri_any")[0][:3]
+
+    for name, kind, shapes in (
+            ("dense_tri_closest", "tris", (("cornell", "cornell's first launch"),
+                                           ("caustic_bdpt", "caustic-glass BDPT's first launch"))),
+            ("dense_tri_any", "any", (("cornell", "cornell's first launch"),
+                                      ("caustic_bdpt", "caustic-glass BDPT's first launch"))),
+            ("dense_disks", "disks", (("caustic", "caustic-glass 48^2 x 4's first launch"),
+                                      ("caustic_bdpt", "caustic-glass BDPT's first launch"),
+                                      ("caustic_bdpt_occluded",
+                                       "caustic-glass BDPT's first occluded dispatch")))):
+        for tag, label in shapes:
+            args = (occluded_rays("caustic_bdpt") + (dispatch._disks(s_cgf, m_cgf),)
+                    if tag == "caustic_bdpt_occluded" else first(tag, name)[0])
+            err = dense_check(kind, args)
+            t_d = dict(dense_time(kind, args, label, empty=dense_empty), max_abs_err=err)
+            if name not in timing:
+                timing[name] = t_d
+            else:
+                timing[name][tag] = t_d
+                timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
+
+    # K4 (spheres, as ported) on cornell's first launch
+    def sphere_time(args, label):
+        o_, d_, t_, soa = args
         R_, n_q = o_.shape[0], soa.center.shape[0]
-        n_h, n_edge, err = compare_quadrics(kind, o_, d_, t_, soa)
-        ms, call = kernel_ms(lambda: orig(o_, d_, t_, soa))
-        plain = (ix.intersect_spheres_dense_plain if kind == "spheres"
-                 else ix.intersect_disks_dense_plain)
-        ms_plain = events_ms(lambda: plain(o_, d_, t_, soa), 3)
-        b = bound(R_ * 28 + n_q * width + R_ * 32,
-                  int((t_ > 0).sum()) * n_q * test_ops + n_h * hit_ops)
-        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                            library_ms=None, max_abs_err=err)
-        log(f"{name} at the main path's launch ({R_} lanes x {n_q} {kind}, {n_h} hits, "
-            f"{n_edge} edge disagreements): kernel {ms:.4f} ms (host-paced {call:.4f} "
-            f"ms), plain {ms_plain:.3f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]}); max abs err t {err:.2e}")
+        n_h, n_edge, err = compare_quadrics("spheres", o_, d_, t_, soa)
+        ms, call = kernel_ms(lambda: ix.dense_spheres_cuda(o_, d_, t_, soa))
+        ms_plain = events_ms(lambda: ix.intersect_spheres_dense_plain(o_, d_, t_, soa), 3)
+        b = bound(R_ * 28 + n_q * 64 + R_ * 32,
+                  int((t_ > 0).sum()) * n_q * SPHERE_TEST_OPS + n_h * SPHERE_HIT_OPS)
+        log(f"dense_spheres at {label} ({R_} lanes x {n_q} spheres, {n_h} hits, {n_edge} edge "
+            f"disagreements): kernel {ms:.5f} ms (host-paced {call:.5f} ms), plain "
+            f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}), {ms / dense_empty:.2f}x an "
+            f"empty launch; max abs err t {err:.2e}")
+        return dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], library_ms=None,
+                    max_abs_err=err, lanes=R_)
+
+    timing["dense_spheres"] = sphere_time(first("cornell", "dense_spheres")[0],
+                                          "cornell's first launch")
+    timing["dense_spheres"]["caustic_bdpt_occluded"] = sphere_time(
+        occluded_rays("caustic_bdpt") + (dispatch._spheres(s_cgf, m_cgf),),
+        "caustic-glass BDPT's first occluded dispatch")
 
     # K8 on terrain's first launch, as the main path calls it (no rank)
     (fin, inf_, cnt, total, *_), _, _ = first("terrain", "wavefront_recycle")
@@ -2502,6 +2704,26 @@ def main():
         log(f"{tag}: K12m-a and K12m-b launched once a pass ({n_passes}); image mean "
             f"{frame_means[tag]:.5f} vs the {ref} frame's {frame_means[ref]:.5f}: {rel:.3%} "
             f"apart (<= {mlt_cases.FRAME_MEAN_RTOL[tag]:.0%})")
+
+    # K3, K3a, K4a and K4 at the cut caustic-glass-mlt frame's first
+    # 8,192-lane evaluation (its K3a: 35 strategies' shadow rays a lane)
+    for name, kind, tag in (("dense_tri_closest", "tris", "caustic_mlt"),
+                            ("dense_tri_any", "any", "caustic_mlt"),
+                            ("dense_disks", "disks", "caustic_mlt"),
+                            ("dense_disks", "disks", "caustic_mlt_occluded")):
+        args = (occluded_rays("caustic_mlt") + (dispatch._disks(s_cgm, m_cgm),)
+                if tag == "caustic_mlt_occluded" else first(tag, name)[0])
+        err = dense_check(kind, args)
+        timing[name][tag] = dict(dense_time(
+            kind, args, "caustic-glass-mlt's first " + (
+                "occluded dispatch" if tag == "caustic_mlt_occluded" else "evaluation"),
+            empty=dense_empty), max_abs_err=err)
+        timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
+    timing["dense_spheres"]["caustic_mlt"] = sphere_time(
+        first("caustic_mlt", "dense_spheres")[0], "caustic-glass-mlt's first evaluation")
+    timing["dense_spheres"]["caustic_mlt_occluded"] = sphere_time(
+        occluded_rays("caustic_mlt") + (dispatch._spheres(s_cgm, m_cgm),),
+        "caustic-glass-mlt's first occluded dispatch")
 
     # the cut cornell-mesh mltpath frame's passes on either route of the path
     # step (the plain one chosen by this script): 1 mutation per pixel (8

@@ -53,24 +53,21 @@ __device__ __forceinline__ Shear ray_shear(float dx, float dy, float dz) {
   return s;
 }
 
-// Watertight test of one triangle (vertices at v[0..8]) against the ray;
-// returns true and sets t when the ray hits it strictly inside (0, t_max).
-// With `b` given, also writes the barycentrics (e0, e1, e2) / det. With
-// `stage` given, also writes how far the test went, for operation counts:
-// 0 out at the edge-sign test (30 float ops: 9 subtractions, 12 shear, 9
-// edge functions), 1 out at the det or t-range test (11 more), 2 past it
-// to the t error bound (33 more; abs is a free operand modifier, compares
-// are not counted).
-__device__ __forceinline__ bool watertight(const float* __restrict__ v,
-                                           float ox, float oy, float oz,
-                                           const Shear& s, float t_max,
-                                           float& t_out, float* b = nullptr,
-                                           int* stage = nullptr) {
+// Watertight test of one triangle whose vertices are already translated to
+// the ray's origin and permuted by its kz: a = (v0 - o) permuted, b and c
+// likewise. Returns true and sets t when the ray hits it strictly inside (0,
+// t_max). With `b` given, also writes the barycentrics (e0, e1, e2) / det.
+// With `stage` given, also writes how far the test went, for operation
+// counts: 0 out at the edge-sign test (30 float ops: 9 subtractions, 12
+// shear, 9 edge functions), 1 out at the det or t-range test (11 more), 2
+// past it to the t error bound (33 more; abs is a free operand modifier,
+// compares are not counted).
+__device__ __forceinline__ bool watertight_core(float a0, float a1, float a2, float b0,
+                                                float b1, float b2, float c0, float c1,
+                                                float c2, const Shear& s, float t_max,
+                                                float& t_out, float* b = nullptr,
+                                                int* stage = nullptr) {
   if (stage) *stage = 0;
-  float a0, a1, a2, b0, b1, b2, c0, c1, c2;
-  permute(v[0] - ox, v[1] - oy, v[2] - oz, s.kz, a0, a1, a2);
-  permute(v[3] - ox, v[4] - oy, v[5] - oz, s.kz, b0, b1, b2);
-  permute(v[6] - ox, v[7] - oy, v[8] - oz, s.kz, c0, c1, c2);
   float ax = a0 + s.sx * a2;
   float ay = a1 + s.sy * a2;
   float bx = b0 + s.sx * b2;
@@ -118,6 +115,20 @@ __device__ __forceinline__ bool watertight(const float* __restrict__ v,
     b[2] = e2 * inv_det;
   }
   return true;
+}
+
+// The same test of one triangle (vertices at v[0..8]) against the ray: the
+// vertices translated and permuted here, then watertight_core.
+__device__ __forceinline__ bool watertight(const float* __restrict__ v,
+                                           float ox, float oy, float oz,
+                                           const Shear& s, float t_max,
+                                           float& t_out, float* b = nullptr,
+                                           int* stage = nullptr) {
+  float a0, a1, a2, b0, b1, b2, c0, c1, c2;
+  permute(v[0] - ox, v[1] - oy, v[2] - oz, s.kz, a0, a1, a2);
+  permute(v[3] - ox, v[4] - oy, v[5] - oz, s.kz, b0, b1, b2);
+  permute(v[6] - ox, v[7] - oy, v[8] - oz, s.kz, c0, c1, c2);
+  return watertight_core(a0, a1, a2, b0, b1, b2, c0, c1, c2, s, t_max, t_out, b, stage);
 }
 
 }  // namespace pbrt_wt

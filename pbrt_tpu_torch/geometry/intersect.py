@@ -334,13 +334,61 @@ def _dense_lib():
     lib = kernels.load("dense_intersect")
     if not hasattr(lib, "declared"):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.pbrt_dense_tris.argtypes = [P, P, P, I, P, P, P, I, P, P, P, I, P]
-        for fn in (lib.pbrt_dense_spheres, lib.pbrt_dense_disks):
-            fn.argtypes = [P, I, P, P, P, I, P, P, P, P, I, P]
+        lib.pbrt_dense_tris.argtypes = [P, P, P, I, P, P, P, I, P, P, P, I, I, I, I, P]
+        lib.pbrt_dense_spheres.argtypes = [P, I, P, P, P, I, P, P, P, P, I, P]
+        lib.pbrt_dense_disks.argtypes = [P, I, P, P, P, I, P, P, P, P, I, I, P]
         for fn in (lib.pbrt_dense_tris, lib.pbrt_dense_spheres, lib.pbrt_dense_disks):
             fn.restype = I
         lib.declared = True
     return lib
+
+
+# bytes of K3's three staged copies (csrc/dense_intersect.cu SMEM_MAX)
+DENSE_SMEM_MAX = 46 * 1024
+
+
+def dense_tri_group(n_rays, n_tris):
+    """G, the lanes of K3's group that share one ray (lane j tests
+    triangles j, j + G, ...): on a small wave (not `dense_wide`) the largest
+    power of two up to 8 and up to the triangle count that keeps the
+    launch under 2^17 lanes (n_rays G), so that the wave reaches every SM;
+    on a wide wave 1. At cornell's 2^20 rays G = 1; at caustic-glass-mlt's
+    8,192 rays and 4 triangles G = 4."""
+    g = 1
+    while g < 8 and 2 * g <= n_tris and n_rays * 2 * g < 1 << 17:
+        g *= 2
+    return g
+
+
+def dense_tri_stride(n_tris):
+    """Floats between K3's three staged copies of the table (one a kz):
+    12 a row (three 16-byte loads), padded to 4 (mod 32) so that a warp's
+    lanes reading one row of the three copies meet three disjoint 4-bank
+    windows."""
+    s = 12 * n_tris
+    return s + (4 - s) % 32
+
+
+# the most triangles K3's wide mode stages (three copies in DENSE_SMEM_MAX;
+# the small mode reads the rows through the read-only path and takes any
+# count); the BVH route takes scenes of 64 and more (accel/bvh.py
+# MIN_TRIS_FOR_BVH)
+DENSE_MAX_TRIS = max(n for n in range(1024) if 12 * dense_tri_stride(n) <= DENSE_SMEM_MAX)
+
+
+def dense_wide(n_rays):
+    """The mode of K3 and K4a (csrc/dense_intersect.cu WIDE) for a wave of
+    n_rays: from 2^19 rays the table is staged in shared memory (K3: three
+    pre-permuted copies behind one block barrier, each block sweeping many
+    rays, a warp's live rays queued and swept 32 at a time) and a lane
+    reads its ray only when its t_max is > 0 (a BDPT wave's shadow rays
+    and its later walk steps are mostly masked lanes); on a smaller wave
+    the rows are read through the read-only path with no barrier and the
+    ray's loads issued with t_max's. (On an H100 the wide mode was 14 %
+    faster at caustic-glass BDPT's masked 2^20-ray walk launches and 3x at
+    its shadow wave, and 3-8 % slower at caustic-glass-mlt's 286,720 shadow
+    rays.)"""
+    return n_rays >= 1 << 19
 
 
 def _check_rays(what, o, d, t_max):
@@ -361,7 +409,9 @@ def _stream(dev):
 
 def dense_tris_cuda(o, d, t_max, p0, p1, p2, any_hit=False):
     """Launch K3 on the current stream and count the launch. Closest hit ->
-    TriHit (prim int64, -1 on a miss); any hit -> (R,) bool."""
+    TriHit (prim int64, -1 on a miss); any hit -> (R,) bool. Its group size
+    G is `dense_tri_group`'s; the any-hit sweep runs G = 1 with its early
+    exit."""
     from pbrt_tpu_torch import kernels
 
     R, dev = _check_rays("dense triangles", o, d, t_max)
@@ -371,19 +421,24 @@ def dense_tris_cuda(o, d, t_max, p0, p1, p2, any_hit=False):
                 or not x.is_contiguous():
             raise ValueError(f"dense triangles: {name} must be a contiguous float32 "
                              f"({T}, 3) tensor on {dev}")
-    prim = torch.empty(R, dtype=torch.int32, device=dev)
+    wide = dense_wide(R)
+    if wide and T > DENSE_MAX_TRIS:
+        raise ValueError(f"dense triangles: {T} triangles; the wide mode stages at most "
+                         f"{DENSE_MAX_TRIS} (the BVH route takes more)")
+    prim = torch.empty(R, dtype=torch.bool if any_hit else torch.int64, device=dev)
     t = torch.empty(0 if any_hit else R, dtype=torch.float32, device=dev)
     b = torch.empty((0 if any_hit else R, 3), dtype=torch.float32, device=dev)
     if R:
+        group = 1 if any_hit else dense_tri_group(R, T)
         err = _dense_lib().pbrt_dense_tris(
             p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), T, o.data_ptr(), d.data_ptr(),
             t_max.data_ptr(), R, t.data_ptr(), prim.data_ptr(), b.data_ptr(), int(any_hit),
-            _stream(dev))
+            group, dense_tri_stride(T), int(wide), _stream(dev))
         kernels.check(err, "dense_intersect (triangles)")
         launches["dense_tri_any" if any_hit else "dense_tri_closest"] += 1
     if any_hit:
-        return prim >= 0
-    return TriHit(t=t, prim=prim.long(), b=b)
+        return prim
+    return TriHit(t=t, prim=prim, b=b)
 
 
 def _dense_quadrics_cuda(kind, q, width, partial, o, d, t_max):
@@ -402,17 +457,19 @@ def _dense_quadrics_cuda(kind, q, width, partial, o, d, t_max):
     if table.device != dev:
         raise ValueError(f"dense {kind}: table on {table.device}, rays on {dev}")
     t = torch.empty(R, dtype=torch.float32, device=dev)
-    idx = torch.empty(R, dtype=torch.int32, device=dev)
+    # the disk kernel writes int64 indices, the sphere kernel int32
+    idx = torch.empty(R, dtype=torch.int64 if kind == "disks" else torch.int32, device=dev)
     p = torch.empty((R, 3), dtype=torch.float32, device=dev)
     nrm = torch.empty((R, 3), dtype=torch.float32, device=dev)
     if R:
         fn = getattr(_dense_lib(), f"pbrt_dense_{kind}")
+        shape = (int(dense_wide(R)),) if kind == "disks" else ()
         err = fn(table.data_ptr(), n, o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
                  t.data_ptr(), idx.data_ptr(), p.data_ptr(), nrm.data_ptr(), int(partial),
-                 _stream(dev))
+                 *shape, _stream(dev))
         kernels.check(err, f"dense_intersect ({kind})")
         launches[f"dense_{kind}"] += 1
-    return t, idx.long(), p, nrm
+    return t, idx if kind == "disks" else idx.long(), p, nrm
 
 
 def dense_spheres_cuda(o, d, t_max, sph: SphereSoA):

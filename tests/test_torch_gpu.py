@@ -423,16 +423,63 @@ def uniform_rays(n, seed, device, scale=1.0):
     return tuple(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (o, d, t_max))
 
 
+def _dense_table(n_tris, device):
+    """K3 test tables: cornell's 12 triangles, caustic-glass's 4, the first
+    of cornell's, or 63 random triangles in [-1, 1]^3 (the dense route's
+    most, accel/bvh.py MIN_TRIS_FOR_BVH - 1); with the bounds of the rays'
+    origins (the scene's triangles', the soup's)."""
+    from pbrt_tpu_torch.scene.compile import load_scene
+
+    if n_tris == 4:
+        sc, _ = load_scene("scenes/caustic-glass.pbrt", device=device, spp=1, integrator="path")
+    else:
+        sc, _ = ts.cornell(res=16, spp=1, device=device)
+    tris = (sc.tri_p0, sc.tri_p1, sc.tri_p2)
+    pts = torch.cat(tris)
+    if n_tris == 1:
+        tris = tuple(x[:1].contiguous() for x in tris)
+    elif n_tris == 63:
+        g = np.random.default_rng(63)
+        c = g.uniform(-1.0, 1.0, (63, 1, 3))
+        v = (c + 0.3 * g.normal(size=(63, 3, 3))).astype(np.float32)
+        tris = tuple(torch.as_tensor(np.ascontiguousarray(v[:, i]), device=device)
+                     for i in range(3))
+        pts = torch.cat(tris)
+    assert tris[0].shape[0] == n_tris
+    return tris, pts.min(0).values, pts.max(0).values
+
+
+@pytest.mark.parametrize("n_rays", [8192, 20000, 530000])
+@pytest.mark.parametrize("n_tris", [1, 4, 12, 63])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_dense_tri_kernel_matches_plain(cuda, any_hit):
+def test_dense_tri_kernel_matches_plain(cuda, any_hit, n_tris, n_rays):
     """K3: prim ids, t and barycentrics equal to the plain version bit for bit
-    (--fmad=false), ties to the lowest index."""
-    scene, _ = ts.cornell(res=16, spp=1, device=cuda)
-    pts = torch.cat([scene.tri_p0, scene.tri_p1, scene.tri_p2])
-    lo, hi = pts.min(0).values, pts.max(0).values
-    o, d, t_max = uniform_rays(20000, 7, cuda)
+    (--fmad=false), ties to the lowest index, at the group size the wrapper
+    picks for the wave (dense_tri_group, dense_tri_staged); a quarter of the
+    rays aimed inside the table's triangles, and on cornell's and
+    caustic-glass's tables a quarter through their shared edges, where two
+    triangles are hit at the same t. 530,000 rays take the wide mode
+    (dense_wide), with 90 % of the other lanes masked, as in a shadow
+    wave."""
+    import dense_cases
+
+    tris, lo, hi = _dense_table(n_tris, cuda)
+    o, d, t_max = uniform_rays(n_rays, 7, cuda)
     o = (lo + (hi - lo) * (0.5 + 0.45 * o)).contiguous()
-    tris = (scene.tri_p0, scene.tri_p1, scene.tri_p2)
+    q = n_rays // 4
+    o_a, d_a, t_a = dense_cases.aimed_rays(*tris, lo, hi, q, 13)
+    o, d, t_max = (torch.cat([x[:-q], y]) for x, y in ((o, o_a), (d, d_a), (t_max, t_a)))
+    if n_tris in (4, 12):
+        o_t, d_t, t_t = dense_cases.tie_rays(*tris, q, 11)
+        o, d, t_max = (torch.cat([x[:-2 * q], y, x[-q:]]) for x, y in ((o, o_t), (d, d_t),
+                                                                       (t_max, t_t)))
+        assert int(dense_cases.exact_ties(o, d, t_max, *tris).sum()) > q // 20
+    if ix.dense_wide(n_rays):
+        g = torch.Generator().manual_seed(70)
+        masked = (torch.rand(n_rays, generator=g) < 0.9).to(cuda)
+        masked[-2 * q:] = False
+        t_max = torch.where(masked, 0.0, t_max)
+    o, d, t_max = (x.contiguous() for x in (o, d, t_max))
     n0 = ix.launches["dense_tri_any" if any_hit else "dense_tri_closest"]
     k = ix.dense_tris_cuda(o, d, t_max, *tris, any_hit=any_hit)
     assert ix.launches["dense_tri_any" if any_hit else "dense_tri_closest"] == n0 + 1
@@ -440,17 +487,45 @@ def test_dense_tri_kernel_matches_plain(cuda, any_hit):
         assert torch.equal(k, ix.occluded_tris_dense_plain(o, d, t_max, *tris))
         return
     p = ix.intersect_tris_dense_plain(o, d, t_max, *tris)
-    assert torch.equal(k.prim, p.prim) and int((p.prim >= 0).sum()) > 5000
+    # a quarter of the rays are aimed inside the table's triangles, unmasked;
+    # cornell's 20,000 rays held to the 5,000 hits they were first held to
+    floor = max(n_rays // 5, 5000 if (n_tris, n_rays) == (12, 20000) else 0)
+    assert torch.equal(k.prim, p.prim) and int((p.prim >= 0).sum()) > floor
     assert torch.equal(k.t, p.t) and torch.equal(k.b, p.b)
 
 
-@pytest.mark.parametrize("kind", ["spheres", "disks"])
+def test_dense_tri_wrapper_refuses_a_table_past_its_stage(cuda):
+    """K3's wide mode stages at most DENSE_MAX_TRIS triangles; the wrapper
+    raises past them on a wide wave, and a small wave (rows through the
+    read-only path) sweeps such a table as the plain version does."""
+    T = ix.DENSE_MAX_TRIS + 1
+    g = np.random.default_rng(5)
+    c = g.uniform(-1.0, 1.0, (T, 1, 3))
+    v = (c + 0.3 * g.normal(size=(T, 3, 3))).astype(np.float32)
+    tris = tuple(torch.as_tensor(np.ascontiguousarray(v[:, i]), device=cuda) for i in range(3))
+    o, d, t_max = uniform_rays(1 << 19, 3, cuda)
+    assert ix.dense_wide(o.shape[0])
+    with pytest.raises(ValueError, match="stages at most"):
+        ix.dense_tris_cuda(o, d, t_max, *tris)
+    o, d, t_max = (x[:4096].contiguous() for x in (o, d, t_max))
+    k = ix.dense_tris_cuda(o, d, t_max, *tris)
+    p = ix.intersect_tris_dense_plain(o, d, t_max, *tris)
+    assert torch.equal(k.prim, p.prim) and int((p.prim >= 0).sum()) > 2048
+    assert torch.equal(k.t, p.t) and torch.equal(k.b, p.b)
+    assert torch.equal(ix.dense_tris_cuda(o, d, t_max, *tris, any_hit=True),
+                       ix.occluded_tris_dense_plain(o, d, t_max, *tris))
+
+
+@pytest.mark.parametrize("kind,n_rays", [("spheres", 50000), ("disks", 50000),
+                                          ("disks", 8192), ("disks", 530000)])
 @pytest.mark.parametrize("partial", [False, True])
-def test_dense_quadric_kernels_match_plain(cuda, kind, partial):
+def test_dense_quadric_kernels_match_plain(cuda, kind, partial, n_rays):
     """K4: the same winners as the plain version, but for lanes within 1e-5
-    of a clip edge (atan2f vs torch.atan2); t, p, n to 1e-6 relative."""
+    of a clip edge (atan2f vs torch.atan2); t, p, n to 1e-6 relative. The
+    disks also at a small wave's 8,192 rays and at 530,000, a wide wave
+    (dense_wide: rows staged, a lane's ray read only when live)."""
     sph, dsk = quadric_soup(24, 11, cuda, partial)
-    o, d, t_max = uniform_rays(50000, 12, cuda)
+    o, d, t_max = uniform_rays(n_rays, 12, cuda)
     soa = ix.with_table(sph if kind == "spheres" else dsk)
     cuda_fn = ix.dense_spheres_cuda if kind == "spheres" else ix.dense_disks_cuda
     plain_fn = ix.intersect_spheres_dense_plain if kind == "spheres" else \
@@ -464,7 +539,7 @@ def test_dense_quadric_kernels_match_plain(cuda, kind, partial):
                                        dsk if kind == "disks" else None)
         assert bool((margin < 1e-5).all()), margin.max()
     same = ~differ & (ip >= 0)
-    assert int(same.sum()) > 1000
+    assert int(same.sum()) > n_rays // 50
     assert torch.allclose(tk[same], tp[same], rtol=1e-6)
     assert torch.allclose(pk[same], pp[same], rtol=1e-6, atol=1e-6)
     assert torch.allclose(nk[same], np_[same], rtol=1e-6, atol=1e-6)

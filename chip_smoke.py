@@ -6,11 +6,12 @@ Phases, each printed on its own line; any failure exits non-zero before the
 result line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the kernels from the sources in this checkout (one nvcc per CUDA
-     source, all started together; Triton's JIT for the splat kernel); read
+     source, all started together); read
      the SASS (cuobjdump -sass) and ptxas report of K1's and K1i's kernels
      (csrc/bvh_wide.cuh `wide_kernel`, `inst_wide_kernel`): 16-byte global
      loads required, at most 80 registers, and no local loads or stores,
-     stack frame or spills; K5's and K8's SASS;
+     stack frame or spills; K5's, K5s's and K8's SASS (the scatter and splat
+     entries' adds all RED, the tiled entry without atomics);
      K12's (csrc/bdpt.cu): the tiled `connect_weight_tile_kernel` must load
      from shared memory where it stages (up to 35 vertex slots) and not
      where it reads in place, with no local loads or stores, stack frame or
@@ -29,9 +30,11 @@ result line:
      registers printed; K12m's (csrc/mlt.cu): mutate_kernel and
      accept_splat_kernel with no local loads or stores, stack frame or
      spills, the accept kernel's atomics all RED, their registers printed;
-     K3's and K4a's (csrc/dense_intersect.cu): every instantiation of
-     dense_tri_kernel, dense_tri_wide_kernel and dense_disk_kernel with no
-     local loads or stores, stack frame or spills, their registers printed;
+     K3's, K4's and K4a's (csrc/dense_intersect.cu): every instantiation of
+     dense_tri_kernel, dense_tri_wide_kernel, dense_sphere_kernel,
+     dense_sphere_wide_kernel (closest and any hit) and dense_disk_kernel
+     with no local loads or stores, stack frame or spills, their registers
+     printed;
   3. the BVH traversal kernel K1 (closest hit and any hit) against its plain
      version on cornell-mesh (levels 5, 16,396 triangles), 65,536 camera rays
      plus 65,536 random interior rays;
@@ -39,12 +42,15 @@ result line:
      plain versions, 131,072 lanes with NaN, zero-pdf and zero-weight lanes
      into a 256^2 film: the scatter entry on random pixel ids within rtol
      1e-5 (the order of its atomic adds), the tiled one on two replicates of
-     the pixel grid bit for bit; the splat kernel (K5s) likewise, three
+     the pixel grid bit for bit; the splat entry (K5s) likewise, three
      strategies' splats over 43,690 lanes' wavelengths;
   5. the dense kernels (K3 triangles, K4 spheres and disks) against their
      plain versions on 131,072 camera and interior rays of the plain cornell
      box and of caustic-glass, and on synthetic partial spheres and disks
-     (z window, phimax < 2 pi, inner radius) with masked lanes;
+     (z window, phimax < 2 pi, inner radius) with masked lanes; K4's any-hit
+     entry the closest-hit entry's idx >= 0 bit for bit (on those rays and
+     on shadow rays of random lengths) and the plain version's but on
+     clip-edge lanes;
   6. the wavefront recycle kernel (K8, a single-pass scan) against
      torch.cumsum's plain version on random finished masks at the pool size
      and at a size that is not a multiple of its tile, with and without the
@@ -99,8 +105,10 @@ result line:
      depth 7, four waves of 2^20 lanes). Each is driven with the launch
      counts set to 0 just before it and read just after; every kernel of its
      path must have launched (a BDPT frame: exactly K12's two entry points,
-     one K5, one K5s and one occluded dispatch a wave, and 2 max_depth + 1
-     closest-hit dispatches; neither K12's yardstick entries nor the packed
+     one K5, one K5s and one occluded dispatch a wave (K3a, K4's any-hit
+     entry, K4a), and 2 max_depth + 1 closest-hit dispatches; the cornell
+     and testball frames K4's two entries (their counts printed); neither
+     K12's yardstick entries nor the packed
      copy they read, bdpt.pack_vertices / pack_endpoints). The batched and
      BDPT frames launch K5's tiled entry, the wavefront frame its scatter
      entry and K8; every frame of the path family on the card (the "cuda"
@@ -129,11 +137,14 @@ result line:
      all on the arguments of its first
      launch in the full-width render of its path: the shapes and data the
      main path gives it; K3 and K3a at cornell's and caustic-glass BDPT's
-     first launches and K4a at caustic-glass's path and BDPT frames' first
+     first launches, K4 (closest hit and any hit) at cornell's, testball's
+     and caustic-glass BDPT's first launches (its first walk launch and its
+     first occluded dispatch) and over that wave's 15 walk launches summed,
+     and K4a at caustic-glass's path and BDPT frames' first
      launches, each timed at the launch shape its wrapper picks, beside an
      empty launch in a graph, with every other launch shape the wrapper
-     can pick (K3's group size G and mode; K3a's and K4a's mode) bit-equal
-     to the wrapper's; K7's
+     can pick (K3's group size G and mode; K3a's, K4's and K4a's mode)
+     bit-equal to the wrapper's; K7's
      three entry points on their first launches in the staircase and
      testball frames, against the plain version on the coated lanes and
      against their yardsticks' bits, timed in turns with them on both (the
@@ -151,7 +162,8 @@ result line:
      over the packed copy: bdpt_cases.compare_yardstick, the same bits), both
      timed on caustic-glass's in turns with the yardsticks (yardstick, K12,
      K12, yardstick), and the caustic-glass frame's peak device memory; K5s
-     on caustic-glass's first launch; K8 on
+     on caustic-glass's and cornell-bdpt's first launches (live splats and
+     the most on one pixel printed); K8 on
      terrain's first launch with and without the rank, and under
      torch.profiler one device kernel a call; the refit of K1's winners
      (bvh_refit, csrc/bvh_traverse.cu: the hit record's glue in one
@@ -210,8 +222,9 @@ result line:
      (draws and chain state bit-exact, splat sums within 1e-5) and timed on
      both (caustic-glass: D 160, C 8; cornell-mesh: D 66, C 1) beside their
      byte bounds, plain versions and (K12m-b) index_add_; K3, K3a, K4a and
-     K4 at the caustic-glass-mlt frame's first 8,192-lane evaluation as at
-     phase 9's launches; K12 on the caustic-glass-mlt frame's first 8192-lane
+     K4 (closest and any hit) at the caustic-glass-mlt frame's first
+     8,192-lane evaluation and its occluded dispatch as at phase 9's
+     launches; K12 on the caustic-glass-mlt frame's first 8192-lane
      evaluation as on phase 9's waves (plain, yardstick bits, both entry
      points timed in turns with the yardsticks), and no yardstick or packed
      copy in either MLT frame;
@@ -329,8 +342,8 @@ TRI_FULL_OPS = TRI_EDGE_OPS + TRI_RANGE_OPS + TRI_BOUND_OPS
 SPHERE_TEST_OPS = 35
 SPHERE_HIT_OPS = 30
 DISK_TEST_OPS = 36
-# float ops of one film lane, counted from csrc/film.cu (the splat kernel of
-# film/film_kernel.py does the same per splat)
+# float ops of one film lane, counted from csrc/film.cu (its splat entry does
+# the same per splat whose L row is not all zero)
 FILM_LANE_OPS = 4 * 10 + 3 * 2 + 4
 # float ops of K12 per lane and strategy, counted from csrc/bdpt.cu and
 # csrc/bxdf.cuh and rounded down: bdpt_connect_rays forms a strategy's
@@ -596,11 +609,12 @@ def dense_empty_ms():
 
 
 def dense_modes(kind, args):
-    """{label: fn} launching the dense kernel `kind` ("tris", "any" or
-    "disks") through its C entry on `args` (the wrapper's arguments) in
-    each mode and launch shape its wrapper can pick: K3 in its wide-wave
-    mode (G 1) and its small-wave mode at G 1, 2, 4, 8; K3a and K4a in
-    either mode. Each fn writes its own outputs, kept as fn.out."""
+    """{label: fn} launching the dense kernel `kind` ("tris", "any",
+    "spheres", "spheres_any" or "disks") through its C entry on `args` (the
+    wrapper's arguments) in each mode and launch shape its wrapper can
+    pick: K3 in its wide-wave mode (G 1) and its small-wave mode at G 1, 2,
+    4, 8; K3a, K4 (closest and any hit) and K4a in either mode. Each fn
+    writes its own outputs, kept as fn.out."""
     from pbrt_tpu_torch.geometry import intersect as ix
 
     o, d, t_ = args[:3]
@@ -628,6 +642,17 @@ def dense_modes(kind, args):
                   (torch.empty(R, device=dev),
                    torch.empty(R, dtype=torch.bool if any_hit else torch.int64, device=dev),
                    torch.empty((R, 3), device=dev)))
+    elif kind in ("spheres", "spheres_any"):
+        soa = args[3]
+        n, tab, partial = soa.center.shape[0], soa.table.data_ptr(), int(soa.rot is not None)
+        any_hit = int(kind == "spheres_any")
+        for wide in (0, 1):
+            entry("wide" if wide else "small",
+                  lambda t, i, p, nn, wide=wide: lib.pbrt_dense_spheres(
+                      tab, n, *ray, R, t, i, p, nn, partial, wide, any_hit, stream()),
+                  (torch.empty(R, device=dev),
+                   torch.empty(R, dtype=torch.bool if any_hit else torch.int64, device=dev),
+                   torch.empty((R, 3), device=dev), torch.empty((R, 3), device=dev)))
     else:
         soa = args[3]
         n, tab, partial = soa.center.shape[0], soa.table.data_ptr(), int(soa.xaxis is not None)
@@ -648,12 +673,31 @@ def dense_bound(kind, args):
     d (24 bytes: a masked lane needs no ray), the table once, 24 bytes out
     a lane (t, an int64 prim, b; any hit: a bool). K4a: live lanes x disks
     x DISK_TEST_OPS, the same reads, 36 bytes out (t, an int64 index, p,
-    n)."""
+    n). K4: live lanes x spheres x SPHERE_TEST_OPS and a hit's
+    SPHERE_HIT_OPS, the same reads (64-byte rows), 36 bytes out; its any-hit
+    entry a live lane's spheres up to its first passing root and 1 byte
+    out."""
     from pbrt_tpu_torch.geometry import intersect as ix
 
     o, d, t_ = args[:3]
     R = o.shape[0]
-    ray_b = R * 4 + int((t_ > 0).sum()) * 24
+    n_live = int((t_ > 0).sum())
+    ray_b = R * 4 + n_live * 24
+    if kind in ("spheres", "spheres_any"):
+        soa = args[3]
+        n_q = soa.center.shape[0]
+        _, ok = ix._sphere_candidates(o, d, t_, soa)
+        ok = ok & (t_ > 0)[:, None]
+        hit = ok.any(1)
+        n_h = int(hit.sum())
+        if kind == "spheres":
+            b = bound(ray_b + n_q * 64 + R * 36,
+                      n_live * n_q * SPHERE_TEST_OPS + n_h * SPHERE_HIT_OPS)
+            return b[0], b[1], n_h, f"{n_h} hits"
+        first_hit = torch.where(hit, ok.int().argmax(1) + 1, n_q)
+        n_t = int(first_hit[t_ > 0].sum())
+        b = bound(ray_b + n_q * 64 + R, n_t * SPHERE_TEST_OPS)
+        return b[0], b[1], n_h, f"{n_h} occluded, {n_t} tests"
     if kind == "disks":
         soa = args[3]
         n_q = soa.center.shape[0]
@@ -678,17 +722,29 @@ def dense_bound(kind, args):
                              f"{n_e} past the edge test, {n_r} past t range")
 
 
+DENSE_NAMES = {"tris": "dense_tri_closest", "any": "dense_tri_any", "spheres": "dense_spheres",
+               "spheres_any": "dense_spheres_any", "disks": "dense_disks"}
+
+
 def dense_time(kind, args, label, empty=None):
-    """K3 ("tris", "any") or K4a ("disks") on the arguments of one main-path
-    launch: the wrapper graph-timed and host-paced at its launch shape,
-    every other mode and launch shape the wrapper can pick (dense_modes)
-    held bit-equal to its outputs, the plain version, the bound and an
-    empty launch; a line printed. -> the kernels line's dict."""
+    """K3 ("tris", "any"), K4 ("spheres", "spheres_any") or K4a ("disks")
+    on the arguments of one main-path launch: the wrapper graph-timed and
+    host-paced at its launch shape, every other mode and launch shape the
+    wrapper can pick (dense_modes) held bit-equal to its outputs, the plain
+    version, the bound and an empty launch; a line printed. -> the kernels
+    line's dict."""
     from pbrt_tpu_torch.geometry import intersect as ix
 
     o, d, t_ = args[:3]
     R = o.shape[0]
-    if kind == "disks":
+    if kind in ("spheres", "spheres_any"):
+        any_hit = kind == "spheres_any"
+        wrap = lambda: ix.dense_spheres_cuda(*args, any_hit=any_hit)
+        plain = lambda: (ix.occluded_spheres_dense_plain(*args) if any_hit
+                         else ix.intersect_spheres_dense_plain(*args))
+        n_prim = args[3].center.shape[0]
+        shape = "wide" if ix.dense_wide(R) else "small"
+    elif kind == "disks":
         wrap = lambda: ix.dense_disks_cuda(*args)
         plain = lambda: ix.intersect_disks_dense_plain(*args)
         n_prim = args[3].center.shape[0]
@@ -701,12 +757,12 @@ def dense_time(kind, args, label, empty=None):
         shape = (f"G{1 if kind == 'any' else ix.dense_tri_group(R, n_prim)} "
                  f"{'wide' if ix.dense_wide(R) else 'small'}")
     ref = wrap()
-    ref = ref if kind == "disks" else (ref,)
+    ref = ref if kind in ("disks", "spheres") else (ref,)
     fns = dense_modes(kind, args)
     for k, fn in fns.items():
         fn()
         torch.cuda.synchronize()
-        if kind == "any":
+        if kind in ("any", "spheres_any"):
             same = torch.equal(fn.out[1], ref[0])
         elif kind == "tris":
             same = (torch.equal(fn.out[1], ref[0].prim) and torch.equal(fn.out[0], ref[0].t)
@@ -718,8 +774,8 @@ def dense_time(kind, args, label, empty=None):
     empty = dense_empty_ms() if empty is None else empty
     ms_plain = events_ms(plain, 3)
     b_ms, by, n_h, note = dense_bound(kind, args)
-    name = {"tris": "dense_tri_closest", "any": "dense_tri_any", "disks": "dense_disks"}[kind]
-    what = "disks" if kind == "disks" else "tris"
+    name = DENSE_NAMES[kind]
+    what = {"disks": "disks", "spheres": "spheres", "spheres_any": "spheres"}.get(kind, "tris")
     log(f"{name} at {label} ({R} lanes x {n_prim} {what}, {note}; {shape}): kernel {ms:.5f} ms "
         f"(host-paced {call:.5f} ms), {ms / b_ms:.2f}x its bound {b_ms:.5f} ms ({by}), "
         f"{ms / empty:.2f}x an empty launch {empty:.5f} ms; plain {ms_plain:.3f} ms; the bits "
@@ -785,23 +841,29 @@ def main():
                 log(f"  ptxas: {line.split(' for ', 1)[1].strip()}")
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    # K5's two entries and K8 as compiled: the scatter entry's adds must be
-    # RED (no returned value), the tiled entry must hold no atomic
+    # K5's and K5s's entries and K8 as compiled: the scatter and splat
+    # entries' adds must be RED (no returned value), the tiled entry must
+    # hold no atomic
     cuobjdump = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    checked = set()
     for name in ("film", "wavefront"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(kernels.library_path(name))],
                               capture_output=True, text=True, timeout=120).stdout
         ops = sass_memory_ops(sass)
         for fn, c in ops.items():
             short = next(k for k in ("film_add_scatter_kernel", "film_add_tiled_kernel",
-                                     "recycle_kernel") if k in fn)
+                                     "film_add_splats_kernel", "recycle_kernel") if k in fn)
+            checked.add(short)
             log(f"  sass {short}: {dict(sorted(c.items()))}")
             atomics = [k for k in c if k.startswith(("ATOM", "RED"))]
-            if short == "film_add_scatter_kernel":
+            if short in ("film_add_scatter_kernel", "film_add_splats_kernel"):
                 require(atomics and all(k.startswith("RED") for k in atomics),
-                        "the scatter entry's adds are not RED", atomics)
+                        f"{short}'s adds are not RED", atomics)
             elif short == "film_add_tiled_kernel":
                 require(not atomics, "the tiled entry holds atomics", atomics)
+    require(checked == {"film_add_scatter_kernel", "film_add_tiled_kernel",
+                        "film_add_splats_kernel", "recycle_kernel"}, "K5's, K5s's and K8's "
+            "kernels in the SASS", checked)
     # K1's and K1i's kernels as compiled (csrc/bvh_wide.cuh wide_kernel and
     # inst_wide_kernel, each in its four instantiations): 16-byte global
     # loads of whole rows, at most 80 registers (6 blocks an SM), and
@@ -968,12 +1030,13 @@ def main():
                 dict(c), frame)
     require(checked == {"mutate_kernel", "accept_splat_kernel"}, "K12m's kernels in the SASS",
             checked)
-    # K3's and K4a's kernels as compiled (csrc/dense_intersect.cu): every
-    # instantiation of dense_tri_kernel (any hit, G: the small-wave mode;
-    # closest hit at G 1, 2, 4, 8, any hit at G 1),
-    # dense_tri_wide_kernel (any hit) and dense_disk_kernel (partial, wide)
-    # with neither a local-memory stack nor spills; their registers
-    # printed, K4's sphere kernel beside them
+    # K3's, K4's and K4a's kernels as compiled (csrc/dense_intersect.cu):
+    # every instantiation of dense_tri_kernel (any hit, G: the small-wave
+    # mode; closest hit at G 1, 2, 4, 8, any hit at G 1),
+    # dense_tri_wide_kernel (any hit), dense_sphere_kernel and
+    # dense_sphere_wide_kernel (partial, any hit) and dense_disk_kernel
+    # (partial, wide) with neither a local-memory stack nor spills; their
+    # registers printed
     report = built["dense_intersect"][1].splitlines()
     checked = set()
     for fn, c in sass_memory_ops(subprocess.run(
@@ -982,6 +1045,7 @@ def main():
         tri = (re.search(r"dense_tri_kernelILb([01])ELi(\d+)E", fn)
                or re.search(r"dense_tri_(wide)_kernelILb([01])E", fn))
         dsk = re.search(r"dense_disk_kernelILb([01])ELb([01])E", fn)
+        sph = re.search(r"dense_sphere_(wide_)?kernelILb([01])ELb([01])E", fn)
         if tri and tri.group(1) == "wide":
             short = f"dense_tri_wide_kernel<{'any hit' if tri.group(2) == '1' else 'closest'}>"
         elif tri:
@@ -990,8 +1054,10 @@ def main():
         elif dsk:
             short = (f"dense_disk_kernel<{'partial' if dsk.group(1) == '1' else 'full'}, "
                      f"{'wide' if dsk.group(2) == '1' else 'small'}>")
-        elif "dense_sphere_kernel" in fn:
-            short = f"dense_sphere_kernel<{'partial' if 'ILb1E' in fn else 'full'}>"
+        elif sph:
+            short = (f"dense_sphere_{sph.group(1) or ''}kernel<"
+                     f"{'partial' if sph.group(2) == '1' else 'full'}, "
+                     f"{'any hit' if sph.group(3) == '1' else 'closest'}>")
         else:
             continue
         at = next(i for i, line in enumerate(report) if "Function properties for" in line
@@ -1001,26 +1067,22 @@ def main():
                     if "registers" in line)
         local = [k for k in c if k.startswith(("LDL", "STL"))]
         log(f"  sass {short}: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
-        if tri or dsk:
-            checked.add(tri.groups() if tri else dsk.groups())
-            require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
-                                                   "0 bytes spill loads"),
-                    "K3's or K4a's kernels: a local stack or spills", short, dict(c), frame)
+        checked.add(("sphere",) + sph.groups() if sph else tri.groups() if tri else dsk.groups())
+        require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                               "0 bytes spill loads"),
+                "K3's, K4's or K4a's kernels: a local stack or spills", short, dict(c), frame)
     want = {("0", str(g)) for g in (1, 2, 4, 8)} | {("1", "1")} | {
-        (p_, st) for p_ in "01" for st in "01"} | {("wide", a) for a in "01"}
-    require(checked == want, "K3's and K4a's instantiations in the SASS", sorted(checked))
+        (p_, st) for p_ in "01" for st in "01"} | {("wide", a) for a in "01"} | {
+        ("sphere", w, p_, a) for w in (None, "wide_") for p_ in "01" for a in "01"}
+    require(checked == want, "K3's, K4's and K4a's instantiations in the SASS",
+            sorted(checked, key=str))
     # the samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle)
     # against the library's sinf and cosf on every float below 105615
     mism = layered.trig_mismatches(dev)
     require(mism == 0, "sin_angle / cos_angle differ from sinf / cosf", mism)
     log(f"bxdf sin_angle and cos_angle against sinf and cosf on every float of magnitude <= "
         f"{layered.TRIG_LIMIT}: {mism} mismatches")
-    probe = filmlib.new_film((4, 4), dev)
-    film_kernel.add_splats_triton(
-        probe.splat, torch.zeros(1, dtype=torch.int64, device=dev), torch.ones((1, 4), device=dev),
-        torch.full((1, 4), 550.0, device=dev), torch.ones((1, 4), device=dev))
-    torch.cuda.synchronize()
-    log(f"build total (nvcc + triton jit of the splat kernel): {time.time() - t0:.1f} s")
+    log(f"build total (nvcc, every source in parallel): {time.time() - t0:.1f} s")
 
     # sampler streams: bit-exact between the card and the CPU
     pix = torch.arange(4096, dtype=torch.int64) * 7919 % 65536
@@ -1179,7 +1241,7 @@ def main():
     def compare_splats(args):
         """K5s vs its plain version into fresh 256^2 films -> max abs err."""
         fk, fp = filmlib.new_film((256, 256), dev), filmlib.new_film((256, 256), dev)
-        film_kernel.add_splats_triton(fk.splat, *args)
+        film_kernel.add_splats_cuda(fk.splat, *args)
         film_kernel.add_splats_plain(fp.splat, *args)
         scale = float(fp.splat.abs().max())
         err = float((fk.splat - fp.splat).abs().max())
@@ -1231,7 +1293,26 @@ def main():
         require(torch.allclose(pk[same], pp[same], rtol=1e-6, atol=1e-6), kind, "p differs")
         require(torch.allclose(nk[same], np_[same], rtol=1e-6, atol=1e-6), kind, "n differs")
         err = float((tk[same] - tp[same]).abs().max()) if bool(same.any()) else 0.0
+        if kind == "spheres":
+            compare_sphere_any(o, d, t_max, soa, ik)
         return int((ip >= 0).sum()), n_edge, err
+
+    def compare_sphere_any(o, d, t_max, soa, idx=None):
+        """K4's any-hit entry: its bools the closest-hit entry's idx >= 0 bit
+        for bit, and the plain version's but on lanes within 1e-5 of a clip
+        edge. -> lanes occluded."""
+        if idx is None:
+            idx = ix.dense_spheres_cuda(o, d, t_max, soa)[1]
+        k = ix.dense_spheres_cuda(o, d, t_max, soa, any_hit=True)
+        require(k.dtype == torch.bool and torch.equal(k, idx >= 0),
+                "spheres: the any-hit entry differs from the closest hit's idx >= 0",
+                int((k != (idx >= 0)).sum()))
+        differ = k != ix.occluded_spheres_dense_plain(o, d, t_max, soa)
+        if bool(differ.any()):
+            margin = clip_edge_distance(o[differ], d[differ], soa, None)
+            require(bool((margin < 1e-5).all()), "spheres any hit: a disagreement off the clip "
+                    "edges", float(margin.max()))
+        return int(k.sum())
 
     s_corn, m_corn = ts.cornell(res=256, spp=16, device=dev)
     s_caus, m_caus = load_scene(str(ROOT / "scenes" / "caustic-glass.pbrt"), device=dev,
@@ -1244,9 +1325,11 @@ def main():
         n_o, _ = compare_dense_tris(o, d, shadow_t(t_cl), tris, any_hit=True)
         msg = f"dense kernels vs plain on {label} ({o.shape[0]} rays): tris {n_h} hits " \
               f"(prim/t/b bit-exact), {n_o} occluded (identical)"
-        n_s = compare_quadrics("spheres", o, d, t_max, ix.SphereSoA(
-            sc.sph_center, sc.sph_radius, table=sc.sph_table))
-        msg += f"; spheres {n_s[0]} hits, max abs err t {n_s[2]:.2e}"
+        sph_s = ix.SphereSoA(sc.sph_center, sc.sph_radius, table=sc.sph_table)
+        n_s = compare_quadrics("spheres", o, d, t_max, sph_s)
+        n_so = compare_sphere_any(o, d, shadow_t(t_cl), sph_s)
+        msg += (f"; spheres {n_s[0]} hits, max abs err t {n_s[2]:.2e}, any hit {n_so} occluded "
+                f"on shadow rays (the closest hit's idx >= 0, bit for bit)")
         if mt.n_disks:
             n_d = compare_quadrics("disks", o, d, t_max, ix.DiskSoA(
                 sc.dsk_center, sc.dsk_normal, sc.dsk_radius, sc.dsk_inner, table=sc.dsk_table))
@@ -1274,7 +1357,9 @@ def main():
     for kind, soa in (("spheres", sph_p), ("disks", dsk_p)):
         n_h, n_edge, err = compare_quadrics(kind, o_q, d_q, t_q, soa)
         log(f"partial {kind} ({nq}) vs plain on 131072 rays: {n_h} hits, {n_edge} "
-            f"disagreements, all within 1e-5 of a clip edge; max abs err t {err:.2e}")
+            f"disagreements, all within 1e-5 of a clip edge; max abs err t {err:.2e}"
+            + ("; the any-hit entry the closest hit's idx >= 0 bit for bit" if kind == "spheres"
+               else ""))
 
     log(f"[phase 6 starts at {time.time() - t_start:.1f} s]")
     # ---- 6. K8 vs torch.cumsum's plain version at the pool size and at a
@@ -1527,13 +1612,15 @@ def main():
         (film_kernel, "add_samples_cuda", lambda a, k: "film_add_scatter"),
         (ix, "dense_tris_cuda",
          lambda a, k: "dense_tri_any" if k.get("any_hit") else "dense_tri_closest"),
-        (ix, "dense_spheres_cuda", lambda a, k: "dense_spheres"),
+        (ix, "dense_spheres_cuda",
+         lambda a, k: "dense_spheres_any" if (a[4] if len(a) > 4 else k.get("any_hit"))
+         else "dense_spheres"),
         (ix, "dense_disks_cuda", lambda a, k: "dense_disks"),
         (rd, "recycle_cuda", lambda a, k: "wavefront_recycle"),
         (layered, "layered_f_cuda", lambda a, k: "layered_f"),
         (layered, "layered_sample_cuda", lambda a, k: "layered_sample"),
         (layered, "layered_pdf_cuda", lambda a, k: "layered_pdf"),
-        (film_kernel, "add_splats_triton", lambda a, k: "film_add_splats"),
+        (film_kernel, "add_splats_cuda", lambda a, k: "film_add_splats"),
         (bdpt, "connect_rays_cuda", lambda a, k: "bdpt_connect_rays"),
         (bdpt, "connect_weight_cuda", lambda a, k: "bdpt_connect_weight"),
         (bdpt, "connect_all_cuda", lambda a, k: "bdpt_wave"),
@@ -1563,6 +1650,9 @@ def main():
         (tag, k) for tag in ("cornell_mesh", "cornell", "terrain") for k in K6} | {
         (tag, k) for tag in ("staircase", "testball") for k in K6C}
     wave_kept = {("staircase", "path_shade"), ("staircase", "layered_sample")}
+    # the first BDPT wave's walk launches of K4 (2 max_depth + 1), timed as a
+    # sum in phase 9
+    walk_kept = {("caustic_bdpt", "dense_spheres")}
     n_calls = {}
 
     clone = path_cases.clone
@@ -1580,7 +1670,8 @@ def main():
                 key = _key(a, k)
                 n = n_calls[tag, key] = n_calls.get((tag, key), 0) + 1
                 if n == 1 or (n == 3 and (tag, key) in third) or (
-                        (tag, key) in wave_kept and n <= mt.max_depth):
+                        (tag, key) in wave_kept and n <= mt.max_depth) or (
+                        (tag, key) in walk_kept and n <= 2 * mt.max_depth + 1):
                     first_args[key if n == 1 else f"{key}#{n}"] = (
                         tuple(clone(x) for x in a), {m: clone(v) for m, v in k.items()}, _orig)
                 return _orig(*a, **k)
@@ -1717,7 +1808,10 @@ def main():
         "weight_sum bit-identical")
     del films
     full_render("cornell", s_corn, m_corn, ("dense_tri_closest", "dense_tri_any",
-                                            "dense_spheres", "film_add_samples") + K6)
+                                            "dense_spheres", "dense_spheres_any",
+                                            "film_add_samples") + K6)
+    log(f"cornell: K4 {main_counts_frame['dense_spheres']} closest-hit and "
+        f"{main_counts_frame['dense_spheres_any']} any-hit launches")
     t0 = time.time()
     s_terr, m_terr = ts.terrain(res=256, spp=16, device=dev)
     log(f"terrain compile: {time.time() - t0:.2f} s ({m_terr.n_tris} tris, PLY written and "
@@ -1790,7 +1884,9 @@ def main():
     s_tb, m_tb = load_scene(str(ROOT / "scenes" / "material-testball.pbrt"), device=dev)
     require(m_tb.sph_partial and m_tb.layered, "testball: partial sphere, coated")
     full_render("testball", s_tb, m_tb, ("bvh_closest_hit", "bvh_any_hit", "dense_spheres",
-                                         "film_add_samples") + k7 + K6C)
+                                         "dense_spheres_any", "film_add_samples") + k7 + K6C)
+    log(f"testball: K4 {main_counts_frame['dense_spheres']} closest-hit and "
+        f"{main_counts_frame['dense_spheres_any']} any-hit launches (the partial sphere's)")
     k7_frame_counts("testball", m_tb)
 
     # BDPT at the bench's settings: every kernel of a wave launched exactly
@@ -1818,15 +1914,15 @@ def main():
     def bdpt_launches(mt):
         """{kernel: launches} of a BDPT frame: per wave K12's two entry
         points, one K5, one K5s, one occluded dispatch for every strategy's
-        shadow ray (K3a and K4), and max_depth + 1 camera and max_depth light
-        closest-hit dispatches (K3, K4)."""
+        shadow ray (K3a, K4's any-hit entry and K4a), and max_depth + 1
+        camera and max_depth light closest-hit dispatches (K3, K4, K4a)."""
         waves = sum(1 for _ in rd.wave_lanes(mt.resolution[0] * mt.resolution[1], mt.spp,
                                              "cpu"))
         walk = 2 * mt.max_depth + 1
         out = {"bdpt_connect_rays": waves, "bdpt_connect_weight": waves,
                "film_add_samples": waves, "film_add_splats": waves,
                "dense_tri_closest": waves * walk, "dense_tri_any": waves,
-               "dense_spheres": waves * (walk + 1)}
+               "dense_spheres": waves * walk, "dense_spheres_any": waves}
         if mt.n_disks:
             out["dense_disks"] = waves * (walk + 1)
         return out, waves
@@ -1966,27 +2062,39 @@ def main():
         f"(R, 3) rgb {ms_lib:.4f} ms, of the (R, 4) (w rgb, w) rows {ms_lib4:.4f} ms, bound "
         f"{b[0]:.4f} ms ({b[1]})")
 
-    # K3 and K3a at cornell's and caustic-glass BDPT's first launches, K4a at
-    # caustic-glass's path frame's (9,216 lanes) and BDPT frame's (2^20):
-    # against the plain version, every other launch shape the wrapper can
-    # pick bit-equal, an empty launch and the bound (dense_time); caustic-glass-mlt's
-    # 8,192-lane launches in phase 10
+    # K3 and K3a at cornell's and caustic-glass BDPT's first launches, K4
+    # (closest and any hit) at cornell's, testball's and caustic-glass
+    # BDPT's, K4a at caustic-glass's path frame's (9,216 lanes) and BDPT
+    # frame's (2^20): against the plain version, every other launch shape
+    # the wrapper can pick bit-equal, an empty launch and the bound
+    # (dense_time); caustic-glass-mlt's 8,192-lane launches in phase 10
     dense_empty = dense_empty_ms()
 
     def dense_check(kind, args):
         """The wrapper against the plain version (phase 5's criteria) ->
         max abs err of t."""
-        if kind == "disks":
-            return compare_quadrics("disks", *args)[2]
+        if kind in ("disks", "spheres"):
+            return compare_quadrics(kind, *args)[2]
+        if kind == "spheres_any":
+            compare_sphere_any(*args)
+            return 0.0
         return compare_dense_tris(*args[:3], args[3:6], kind == "any")[1]
 
     def occluded_rays(tag):
         """The rays of the frame's first occluded dispatch: K3a's first
-        launch's (dispatch.occluded runs the closest-hit sphere and disk
-        sweeps on the same shadow rays)."""
+        launch's (dispatch.occluded runs the sphere and disk sweeps on the
+        same shadow rays)."""
         return first(tag, "dense_tri_any")[0][:3]
 
     for name, kind, shapes in (
+            ("dense_spheres", "spheres", (("cornell", "cornell's first launch"),
+                                          ("testball", "testball's first launch"),
+                                          ("caustic_bdpt",
+                                           "caustic-glass BDPT's first walk launch"))),
+            ("dense_spheres_any", "spheres_any", (
+                ("cornell", "cornell's first occluded dispatch"),
+                ("testball", "testball's first occluded dispatch"),
+                ("caustic_bdpt", "caustic-glass BDPT's first occluded dispatch"))),
             ("dense_tri_closest", "tris", (("cornell", "cornell's first launch"),
                                            ("caustic_bdpt", "caustic-glass BDPT's first launch"))),
             ("dense_tri_any", "any", (("cornell", "cornell's first launch"),
@@ -2006,27 +2114,26 @@ def main():
                 timing[name][tag] = t_d
                 timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
 
-    # K4 (spheres, as ported) on cornell's first launch
-    def sphere_time(args, label):
-        o_, d_, t_, soa = args
-        R_, n_q = o_.shape[0], soa.center.shape[0]
-        n_h, n_edge, err = compare_quadrics("spheres", o_, d_, t_, soa)
-        ms, call = kernel_ms(lambda: ix.dense_spheres_cuda(o_, d_, t_, soa))
-        ms_plain = events_ms(lambda: ix.intersect_spheres_dense_plain(o_, d_, t_, soa), 3)
-        b = bound(R_ * 28 + n_q * 64 + R_ * 32,
-                  int((t_ > 0).sum()) * n_q * SPHERE_TEST_OPS + n_h * SPHERE_HIT_OPS)
-        log(f"dense_spheres at {label} ({R_} lanes x {n_q} spheres, {n_h} hits, {n_edge} edge "
-            f"disagreements): kernel {ms:.5f} ms (host-paced {call:.5f} ms), plain "
-            f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}), {ms / dense_empty:.2f}x an "
-            f"empty launch; max abs err t {err:.2e}")
-        return dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], library_ms=None,
-                    max_abs_err=err, lanes=R_)
-
-    timing["dense_spheres"] = sphere_time(first("cornell", "dense_spheres")[0],
-                                          "cornell's first launch")
-    timing["dense_spheres"]["caustic_bdpt_occluded"] = sphere_time(
-        occluded_rays("caustic_bdpt") + (dispatch._spheres(s_cgf, m_cgf),),
-        "caustic-glass BDPT's first occluded dispatch")
+    # K4 over caustic-glass BDPT's first wave's 2 max_depth + 1 walk launches
+    # (live on fewer lanes at each step): each mode's bits equal the
+    # wrapper's, the wrapper's graph-timed launches summed
+    walk = [first("caustic_bdpt", "dense_spheres" if n == 1 else f"dense_spheres#{n}")[0]
+            for n in range(1, 2 * m_cgf.max_depth + 2)]
+    walk_ms, live = 0.0, []
+    for args in walk:
+        ref = ix.dense_spheres_cuda(*args)
+        for k, fn in dense_modes("spheres", args).items():
+            fn()
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(fn.out, ref)), "spheres walk", k,
+                    "differs from the wrapper's outputs")
+        walk_ms += graph_ms(lambda: ix.dense_spheres_cuda(*args))
+        live.append(float((args[2] > 0).float().mean()))
+    timing["dense_spheres"]["caustic_bdpt_walk_sum_ms"] = walk_ms
+    log(f"dense_spheres over caustic-glass BDPT's first wave's {len(walk)} walk launches "
+        f"({walk[0][0].shape[0]} lanes, live on {', '.join(f'{x:.2f}' for x in live)} of them): "
+        f"{walk_ms:.5f} ms summed; every mode's bits equal the wrapper's")
+    del walk
 
     # K8 on terrain's first launch, as the main path calls it (no rank)
     (fin, inf_, cnt, total, *_), _, _ = first("terrain", "wavefront_recycle")
@@ -2623,21 +2730,54 @@ def main():
         f"{frame_peaks['caustic_bdpt']:.2f} GiB; bdpt_connect_weight: {bdpt.CONNECT_WARPS} warps "
         f"a 32-lane tile")
 
-    # K5s on caustic-glass's first launch
-    sp_args = first("caustic_bdpt", "film_add_splats")[0][1:]
-    n_s5, n_lam5 = sp_args[0].shape[0], sp_args[2].shape[0]
-    err = compare_splats(sp_args)
-    fk = filmlib.new_film((256, 256), dev)
-    ms = graph_ms(lambda: film_kernel.add_splats_triton(fk.splat, *sp_args))
-    ms_plain = events_ms(lambda: film_kernel.add_splats_plain(fk.splat, *sp_args), 20)
-    rgb_s = torch.rand((n_s5, 3), device=dev)
-    ms_lib = graph_ms(lambda: fk.splat.index_add_(0, sp_args[0], rgb_s))
-    b = bound(n_s5 * (8 + 16) + n_lam5 * 32 + 3 * 471 * 4 + n_px * 3 * 4, n_s5 * FILM_LANE_OPS)
-    timing["film_add_splats"] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
-                                     library_ms=ms_lib, max_abs_err=max(err, splat_err))
-    log(f"film_add_splats at caustic-glass's first launch ({n_s5} splats over {n_lam5} lanes): "
-        f"kernel {ms:.4f} ms, plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]}); max abs err {err:.2e}")
+    # K5s on caustic-glass's and cornell-bdpt's first launches: its live
+    # splats and their most on one pixel (the atomics' contention), the
+    # bound recounted from them
+    def splat_time(tag, label):
+        sp_args = first(tag, "film_add_splats")[0][1:]
+        pix_s, L_s, lam_s = sp_args[:3]
+        n_s, n_lam_s = pix_s.shape[0], lam_s.shape[0]
+        err = compare_splats(sp_args)
+        fk = filmlib.new_film((256, 256), dev)
+        ms = graph_ms(lambda: film_kernel.add_splats_cuda(fk.splat, *sp_args))
+        ms_plain = events_ms(lambda: film_kernel.add_splats_plain(fk.splat, *sp_args), 20)
+        rgb_s = torch.rand((n_s, 3), device=dev)
+        ms_lib = graph_ms(lambda: fk.splat.index_add_(0, pix_s, rgb_s))
+        # live: a splat whose L row is not all zero (it reads its pixel id)
+        # and whose XYZ is not zero (it adds)
+        nonzero = (L_s != 0).any(1)
+        reps_s = n_s // n_lam_s
+        v = film_kernel.lane_values(L_s, lam_s.repeat(reps_s, 1), sp_args[3].repeat(reps_s, 1),
+                                    torch.ones(n_s, device=dev))[:, :3]
+        adds = (v != 0).any(1)
+        lanes_read = int(nonzero.view(reps_s, n_lam_s).any(0).sum())
+        px_live, px_count = torch.unique(pix_s[adds], return_counts=True)
+        most = int(px_count.max()) if px_count.numel() else 0
+        # adds that a warp could merge: a pixel's second and later adds among
+        # one warp's 32 lanes at one strategy (splat m n_lam + j: warp j // 32)
+        split = torch.arange(n_s, device=dev)
+        group = (split // n_lam_s) * ((n_lam_s + 31) // 32) + (split % n_lam_s) // 32
+        mergeable = int(adds.sum()) - torch.unique(
+            torch.stack([group[adds], pix_s[adds]]), dim=1).shape[1]
+        b = bound(n_s * 16 + int(nonzero.sum()) * 8 + lanes_read * 32 + 3 * 471 * 4
+                  + px_live.numel() * 24, int(nonzero.sum()) * FILM_LANE_OPS)
+        log(f"film_add_splats at {label} ({n_s} splats over {n_lam_s} lanes; {int(nonzero.sum())} "
+            f"rows not all zero ({int(nonzero.sum()) / n_s:.2%}), {int(adds.sum())} adds into "
+            f"{px_live.numel()} pixels, at most {most} on one pixel, {mergeable} on a pixel that "
+            f"an earlier lane of the same warp and strategy adds to; {lanes_read} lanes read "
+            f"their wavelengths): kernel {ms:.4f} ms, {ms / b[0]:.2f}x its bound {b[0]:.4f} ms "
+            f"({b[1]}), plain {ms_plain:.3f} ms, index_add_ {ms_lib:.4f} ms; max abs err "
+            f"{err:.2e} (rtol 1e-5)")
+        return dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], library_ms=ms_lib,
+                    max_abs_err=err, splats=n_s, live=int(adds.sum()), most_on_a_pixel=most,
+                    mergeable_in_a_warp=mergeable)
+
+    timing["film_add_splats"] = splat_time("caustic_bdpt", "caustic-glass BDPT's first launch")
+    timing["film_add_splats"]["cornell_bdpt"] = splat_time("cornell_bdpt",
+                                                           "cornell-bdpt's first launch")
+    timing["film_add_splats"]["max_abs_err"] = max(
+        splat_err, timing["film_add_splats"]["max_abs_err"],
+        timing["film_add_splats"]["cornell_bdpt"]["max_abs_err"])
 
     log(f"[phase 10 starts at {time.time() - t_start:.1f} s]")
     # ---- 10. MLT (K12m): cornell 24^2 on the card and the CPU with one
@@ -2681,8 +2821,8 @@ def main():
              m_cmm.n_tris) == ((256, 256), 7, 100, 5, 16396), "MLT frame settings")
     mlt_frames = (
         ("caustic_mlt", s_cgm, dataclasses.replace(m_cgm, mutations_per_pixel=4), "caustic_bdpt",
-         ("dense_tri_closest", "dense_tri_any", "dense_spheres", "dense_disks",
-          "bdpt_connect_rays", "bdpt_connect_weight")),
+         ("dense_tri_closest", "dense_tri_any", "dense_spheres", "dense_spheres_any",
+          "dense_disks", "bdpt_connect_rays", "bdpt_connect_weight")),
         ("cornell_mesh_mlt", s_cmm, dataclasses.replace(m_cmm, mutations_per_pixel=8),
          "cornell_mesh", ("bvh_closest_hit", "bvh_any_hit")))
     log("MLT frames at full width (256^2, the scene's max depth, 8192 chains), cut from 100 "
@@ -2705,8 +2845,9 @@ def main():
             f"{frame_means[tag]:.5f} vs the {ref} frame's {frame_means[ref]:.5f}: {rel:.3%} "
             f"apart (<= {mlt_cases.FRAME_MEAN_RTOL[tag]:.0%})")
 
-    # K3, K3a, K4a and K4 at the cut caustic-glass-mlt frame's first
-    # 8,192-lane evaluation (its K3a: 35 strategies' shadow rays a lane)
+    # K3, K3a, K4a and K4 (closest and any hit) at the cut caustic-glass-mlt
+    # frame's first 8,192-lane evaluation (its occluded dispatch: 35
+    # strategies' shadow rays a lane)
     for name, kind, tag in (("dense_tri_closest", "tris", "caustic_mlt"),
                             ("dense_tri_any", "any", "caustic_mlt"),
                             ("dense_disks", "disks", "caustic_mlt"),
@@ -2719,11 +2860,14 @@ def main():
                 "occluded dispatch" if tag == "caustic_mlt_occluded" else "evaluation"),
             empty=dense_empty), max_abs_err=err)
         timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
-    timing["dense_spheres"]["caustic_mlt"] = sphere_time(
-        first("caustic_mlt", "dense_spheres")[0], "caustic-glass-mlt's first evaluation")
-    timing["dense_spheres"]["caustic_mlt_occluded"] = sphere_time(
-        occluded_rays("caustic_mlt") + (dispatch._spheres(s_cgm, m_cgm),),
-        "caustic-glass-mlt's first occluded dispatch")
+    for name, kind, label in (
+            ("dense_spheres", "spheres", "caustic-glass-mlt's first evaluation"),
+            ("dense_spheres_any", "spheres_any", "caustic-glass-mlt's first occluded dispatch")):
+        args = first("caustic_mlt", name)[0]
+        err = dense_check(kind, args)
+        timing[name]["caustic_mlt"] = dict(dense_time(kind, args, label, empty=dense_empty),
+                                           max_abs_err=err)
+        timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
 
     # the cut cornell-mesh mltpath frame's passes on either route of the path
     # step (the plain one chosen by this script): 1 mutation per pixel (8
@@ -3622,6 +3766,8 @@ def main():
                           "pbrt_tpu/geometry/intersect.py:244"),
         "dense_spheres": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
                           "pbrt_tpu/geometry/intersect.py:267"),
+        "dense_spheres_any": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
+                              "pbrt_tpu/accel/dispatch.py:321"),
         "dense_disks": ("cuda", "pbrt_tpu_torch/csrc/dense_intersect.cu",
                         "pbrt_tpu/geometry/intersect.py:358"),
         "wavefront_recycle": ("cuda", "pbrt_tpu_torch/csrc/wavefront.cu",
@@ -3632,7 +3778,7 @@ def main():
                            "pbrt_tpu/materials/layered.py:334"),
         "layered_pdf": ("cuda", "pbrt_tpu_torch/csrc/layered.cu",
                         "pbrt_tpu/materials/layered.py:475"),
-        "film_add_splats": ("triton", "pbrt_tpu_torch/film/film_kernel.py",
+        "film_add_splats": ("cuda", "pbrt_tpu_torch/csrc/film.cu",
                             "pbrt_tpu/film/film.py:70"),
         "bdpt_connect_rays": ("cuda", "pbrt_tpu_torch/csrc/bdpt.cu",
                               "pbrt_tpu/integrators/bdpt.py:731"),

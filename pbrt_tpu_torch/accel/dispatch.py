@@ -248,7 +248,7 @@ def occluded(scene, meta, o, d, t_max):
             occ = occ | ix.occluded_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1,
                                                scene.tri_p2)
     if scene.sph_center.shape[0] > 0:
-        occ = occ | (ix.intersect_spheres_dense(o, d, t_max, _spheres(scene, meta))[1] >= 0)
+        occ = occ | ix.occluded_spheres_dense(o, d, t_max, _spheres(scene, meta))
     if scene.dsk_center.shape[0] > 0:
         occ = occ | (ix.intersect_disks_dense(o, d, t_max, _disks(scene, meta))[1] >= 0)
     return occ

@@ -1,7 +1,9 @@
-// K5: film sample accumulation for Hopper (sm_90a), two entry points.
+// K5 and K5s: film sample and splat accumulation for Hopper (sm_90a), three
+// entry points.
 //
-// Replaces the TPU hot path pbrt_tpu/film/film.py:44 `add_samples` and :54
-// `add_samples_tiled` (with colorspace.py:50 `to_sensor_rgb`). Per lane:
+// Replaces the TPU hot paths pbrt_tpu/film/film.py:44 `add_samples`, :54
+// `add_samples_tiled` (K5) and :70 `add_splats` (K5s), with colorspace.py:50
+// `to_sensor_rgb`. Per lane:
 // look up the CIE X, Y, Z curves at the 4 wavelengths (nearest 1 nm bin,
 // round half to even), s = L / pdf (0 where pdf == 0, and +0, or NaN for a
 // NaN pdf, where L == 0, without dividing), x = ((X0 s0 + X1 s1)
@@ -25,6 +27,21 @@
 //                          +-0 to a film that starts at +0 changes nothing).
 //                          The order of the adds is free, so the sums agree
 //                          with the plain version to float rounding.
+//   pbrt_film_add_splats   BDPT's light-tracing (t = 1) splats, weight 1, into
+//                          the splat film (K5s): a wave's splats are its n_lam
+//                          lanes' strategies stacked, splat m n_lam + j read
+//                          against lane j's wavelengths. A thread takes a wave
+//                          lane j and goes through its splats j, j + n_lam,
+//                          ... in order, so a warp's loads of L are
+//                          coalesced; it reads j's lam and pdf rows once, at
+//                          its first splat whose L row is not all zero. Most
+//                          splats are zero (strategies that did not connect):
+//                          a row of four zeros gives s = 0 (or NaN, zeroed),
+//                          so such a splat reads nothing more and takes no
+//                          atomic, nor does one whose XYZ is zero. The adds
+//                          are relaxed atomics whose result is unused (RED),
+//                          so the sums agree with the plain version
+//                          (`add_splats_plain`) to float rounding.
 //
 // What bounds it on the H100: bytes. A lane is 52 bytes (L, lambda and pdf
 // as three 16-byte rows, and its weight), read once with 16-byte vector
@@ -36,7 +53,10 @@
 // each pixel once (16 bytes read, 16 written), so at cornell-mesh's 2^20
 // lanes over 65,536 pixels it moves ~57 MB. G is chosen by the wrapper
 // (`tile_group`): 2 where k allows (8 lanes a thread at k = 16, their loads
-// independent of each other), more only for waves of few pixels.
+// independent of each other), more only for waves of few pixels. The splat
+// entry must read every splat's 16-byte L row, a live splat's pixel id and
+// its pixel (read and written), and its lanes' lam and pdf rows once; a
+// thread issues SPLAT_UNROLL of its L rows at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -159,6 +179,46 @@ film_add_scatter_kernel(const long long* __restrict__ pix, const float4* __restr
   }
 }
 
+// splats a thread has in flight
+constexpr int SPLAT_UNROLL = 4;
+
+__global__ void __launch_bounds__(THREADS)
+film_add_splats_kernel(const long long* __restrict__ pix, const float4* __restrict__ L,
+                       const float4* __restrict__ lam, const float4* __restrict__ pdf,
+                       int n_lam, int reps, const float* __restrict__ cie, int lambda_min,
+                       int range, float* __restrict__ splat) {
+  extern __shared__ float4 s_cie[];
+  stage_cie(cie, range, s_cie);
+  for (int j = blockIdx.x * THREADS + threadIdx.x; j < n_lam; j += gridDim.x * THREADS) {
+    float4 lam_j = make_float4(0.0f, 0.0f, 0.0f, 0.0f), pdf_j = lam_j;
+    bool have = false;
+    for (int m0 = 0; m0 < reps; m0 += SPLAT_UNROLL) {
+      float4 Ls[SPLAT_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SPLAT_UNROLL; ++u)
+        Ls[u] = m0 + u < reps ? __ldcs(L + (long long)(m0 + u) * n_lam + j)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < SPLAT_UNROLL; ++u) {
+        const float4 l = Ls[u];
+        if (l.x == 0.0f && l.y == 0.0f && l.z == 0.0f && l.w == 0.0f) continue;
+        if (!have) {
+          lam_j = __ldg(lam + j);
+          pdf_j = __ldg(pdf + j);
+          have = true;
+        }
+        const float4 v = lane_value(l, lam_j, pdf_j, 1.0f, s_cie, lambda_min, range);
+        if (v.x == 0.0f && v.y == 0.0f && v.z == 0.0f) continue;
+        const long long q = __ldcs(pix + (long long)(m0 + u) * n_lam + j);
+        // relaxed, result unused: compiles to RED.E.ADD.F32
+        atomicAdd(splat + 3 * q, v.x);
+        atomicAdd(splat + 3 * q + 1, v.y);
+        atomicAdd(splat + 3 * q + 2, v.z);
+      }
+    }
+  }
+}
+
 int grid_for(long long items, int per_block) {
   const long long b = (items + per_block - 1) / per_block;
   return (int)(b < MAX_BLOCKS ? (b > 0 ? b : 1) : MAX_BLOCKS);
@@ -191,5 +251,19 @@ extern "C" int pbrt_film_add_scatter(const long long* pix, const float* L, const
   film_add_scatter_kernel<<<grid_for(n, THREADS), THREADS, range * sizeof(float4), stream>>>(
       pix, (const float4*)L, (const float4*)lam, (const float4*)pdf, w, n, cie, lambda_min,
       range, rgb_sum, weight_sum);
+  return (int)cudaGetLastError();
+}
+
+// pix (reps n_lam,) int64 any ids; L (reps n_lam, 4) float32 rows, lam and
+// pdf (n_lam, 4), all 16-byte aligned; splat (P, 3) updated in place.
+extern "C" int pbrt_film_add_splats(const long long* pix, const float* L, const float* lam,
+                                    const float* pdf, int n_lam, int reps, const float* cie,
+                                    int lambda_min, int range, float* splat,
+                                    cudaStream_t stream) {
+  if (n_lam <= 0 || reps <= 0) return 0;
+  film_add_splats_kernel<<<grid_for(n_lam, THREADS), THREADS, range * sizeof(float4),
+                           stream>>>(pix, (const float4*)L, (const float4*)lam,
+                                     (const float4*)pdf, n_lam, reps, cie, lambda_min, range,
+                                     splat);
   return (int)cudaGetLastError();
 }

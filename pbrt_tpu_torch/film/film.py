@@ -3,11 +3,11 @@
 
 The film is three accumulators, rgb_sum (H*W, 3), weight_sum (H*W,) and
 BDPT's splat (H*W, 3), updated in place (the JAX package returns a new film
-per add). On CUDA tensors `add_samples_tiled` and `add_samples` launch the
-two entry points of the CUDA film kernel (K5, csrc/film.cu: the tiled one
-without atomics, the scatter one with them) and `add_splats` the Triton
-splat kernel (K5s), all through film_kernel.py; on CPU tensors they run the
-kernels' plain versions.
+per add). On CUDA tensors `add_samples_tiled`, `add_samples` and
+`add_splats` launch the three entry points of the CUDA film kernel
+csrc/film.cu (K5: the tiled one without atomics, the scatter one with
+them; K5s: the splats, with them), through film_kernel.py; on CPU tensors
+they run the kernels' plain versions.
 """
 from typing import NamedTuple
 
@@ -56,7 +56,7 @@ def add_splats(film: Film, pixel_idx, L, lam, pdf):
     """Unnormalized add of (R,) splats (weight 1) into film.splat, in place;
     lam and pdf may have fewer rows than L, which then reads row i % rows
     (BDPT's t = 1 strategies of one wave share their lanes' wavelengths)."""
-    fn = film_kernel.add_splats_triton if film.splat.is_cuda else film_kernel.add_splats_plain
+    fn = film_kernel.add_splats_cuda if film.splat.is_cuda else film_kernel.add_splats_plain
     fn(film.splat, pixel_idx, L, lam, pdf)
     return film
 

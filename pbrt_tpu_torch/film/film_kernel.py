@@ -1,12 +1,11 @@
 """Film sample and splat accumulation (K5, K5s): the wrappers of the CUDA
-film kernel csrc/film.cu (K5), the Triton splat kernel (K5s), and the plain
-versions of all three entry points.
+film kernel csrc/film.cu and the plain versions of its three entry points.
 
 K5 replaces the TPU hot path pbrt_tpu/film/film.py:44 `add_samples` and :54
 `add_samples_tiled` (with colorspace.py:50 `to_sensor_rgb`): per lane, look
 up the CIE X, Y, Z curves at the 4 wavelengths (nearest 1 nm bin), divide L
 by the wavelength pdf, average, zero non-finite components, weight, and add
-into the film's rgb_sum (H*W, 3) and weight_sum (H*W,). Two entry points
+into the film's rgb_sum (H*W, 3) and weight_sum (H*W,). Three entry points
 (csrc/film.cu says how each is laid out on the card):
   - tiled (`film_add_samples`): a wave of k replicates of n distinct pixel
     ids, lane j n + p, as the batched loop, BDPT and the pixel-parallel
@@ -16,19 +15,18 @@ into the film's rgb_sum (H*W, 3) and weight_sum (H*W,). Two entry points
   - scatter (`film_add_scatter`): any pixel ids (the wavefront loop); one
     relaxed atomic add a component, none for a lane of weight 0, so the
     order of the sums, and their last bits, vary from run to run.
+  - splats (`film_add_splats`, K5s): pbrt_tpu/film/film.py:70 `add_splats`,
+    BDPT's light-tracing (t = 1) contributions, the same value with weight 1
+    into the film's splat (H*W, 3), no weight sum. The wave's splats are its
+    lanes' t = 1 strategies stacked, so splat i reads its wavelengths as row
+    i % n_lam of the wave's (n_lam, 4) lam and pdf instead of a repeated
+    copy. A thread takes a wave lane and its strategies in order; a splat
+    whose L row is all zero reads nothing more and takes no atomic.
 The JAX package pre-reduces the k replicates with a reshape-sum before
 its scatter because the TPU's scatter is scalar-bound; the tiled entry
 takes the same layout and needs no scatter at all.
-
-K5s replaces pbrt_tpu/film/film.py:70 `add_splats`, BDPT's light-tracing
-(t = 1) contributions: the same pass into the film's splat (H*W, 3), with
-no weight sum and weight 1, as a Triton kernel with atomics. The wave's
-splats are its lanes' t = 1 strategies stacked, so they read their
-wavelengths as row i % n_lam of the wave's (n_lam, 4) lam and pdf instead
-of a repeated copy.
 """
 import ctypes
-import os
 
 import torch
 
@@ -37,8 +35,6 @@ from pbrt_tpu_torch.spectral import cie, colorspace, spectra
 # launches of each entry point (plain ints, added to where they launch)
 launches = {"film_add_samples": 0, "film_add_scatter": 0, "film_add_splats": 0}
 
-BLOCK = 256
-_KERNEL = []
 _CIE = {}
 
 
@@ -107,73 +103,14 @@ def add_samples_tiled_plain(rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight,
 
 
 def add_splats_plain(splat, pixel_idx, L, lam, pdf):
-    """Plain version of K5s: the torch op chain plus index_add_ (in place).
-    Splat i reads wavelength row i % lam.shape[0]."""
+    """Plain version of K5s (in place): each splat's value in csrc/film.cu's
+    order (`lane_values` with weight 1), then index_add_. Splat i reads
+    wavelength row i % lam.shape[0]."""
     reps = L.shape[0] // max(lam.shape[0], 1)
     if reps != 1:
         lam, pdf = lam.repeat(reps, 1), pdf.repeat(reps, 1)
-    rgb = colorspace.to_sensor_rgb(L, lam, pdf, cie_table(L.device))
-    rgb = torch.where(torch.isfinite(rgb), rgb, 0.0)
-    splat.index_add_(0, pixel_idx, rgb)
-
-
-def _build():
-    """Define the Triton splat kernel (triton is imported here, at first
-    launch)."""
-    from pbrt_tpu_torch.kernels import BUILD_DIR
-
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def sensor_xyz(offs, lrow, m, L_ptr, lam_ptr, pdf_ptr, cie_ptr,
-                   LAMBDA_MIN: tl.constexpr, LAMBDA_RANGE: tl.constexpr, BLOCK: tl.constexpr):
-        # sensor XYZ of lanes offs (wavelengths of rows lrow), non-finite
-        # components zeroed
-        x = tl.zeros([BLOCK], dtype=tl.float32)
-        y = tl.zeros([BLOCK], dtype=tl.float32)
-        z = tl.zeros([BLOCK], dtype=tl.float32)
-        for j in tl.static_range(4):
-            Lj = tl.load(L_ptr + offs * 4 + j, mask=m, other=0.0)
-            lamj = tl.load(lam_ptr + lrow * 4 + j, mask=m, other=0.0)
-            pdfj = tl.load(pdf_ptr + lrow * 4 + j, mask=m, other=1.0)
-            s = tl.where(pdfj != 0.0, Lj / tl.where(pdfj == 0.0, 1.0, pdfj), 0.0)
-            # round half to even, then the 1 nm bin (spectra.lam_bins)
-            fl = tl.floor(lamj)
-            frac = lamj - fl
-            fi = fl.to(tl.int32)
-            r = fi + tl.where((frac > 0.5) | ((frac == 0.5) & ((fi & 1) == 1)), 1, 0)
-            b = tl.minimum(tl.maximum(r - LAMBDA_MIN, 0), LAMBDA_RANGE - 1)
-            x += tl.load(cie_ptr + b, mask=m, other=0.0) * s
-            y += tl.load(cie_ptr + LAMBDA_RANGE + b, mask=m, other=0.0) * s
-            z += tl.load(cie_ptr + 2 * LAMBDA_RANGE + b, mask=m, other=0.0) * s
-        x = x / 4.0
-        y = y / 4.0
-        z = z / 4.0
-        # NaN guard: |v| <= FLT_MAX is false for NaN and +-inf
-        x = tl.where(tl.abs(x) <= 3.4028234663852886e38, x, 0.0)
-        y = tl.where(tl.abs(y) <= 3.4028234663852886e38, y, 0.0)
-        z = tl.where(tl.abs(z) <= 3.4028234663852886e38, z, 0.0)
-        return x, y, z
-
-    @triton.jit
-    def film_splat_kernel(pix_ptr, L_ptr, lam_ptr, pdf_ptr, cie_ptr, splat_ptr, n, n_lam,
-                          LAMBDA_MIN: tl.constexpr, LAMBDA_RANGE: tl.constexpr,
-                          BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        m = offs < n
-        pix = tl.load(pix_ptr + offs, mask=m, other=0)
-        x, y, z = sensor_xyz(offs, offs % n_lam, m, L_ptr, lam_ptr, pdf_ptr, cie_ptr,
-                             LAMBDA_MIN, LAMBDA_RANGE, BLOCK)
-        # zero splats (strategies that did not connect: most of them, all
-        # clamped onto one pixel) add nothing and take no atomic
-        live = m & ((x != 0.0) | (y != 0.0) | (z != 0.0))
-        tl.atomic_add(splat_ptr + pix * 3, x, mask=live)
-        tl.atomic_add(splat_ptr + pix * 3 + 1, y, mask=live)
-        tl.atomic_add(splat_ptr + pix * 3 + 2, z, mask=live)
-
-    return film_splat_kernel
+    v = lane_values(L, lam, pdf, torch.ones(L.shape[0], dtype=L.dtype, device=L.device))
+    splat.index_add_(0, pixel_idx, v[:, :3])
 
 
 def _check_args(what, dev, checks):
@@ -195,6 +132,8 @@ def _film_lib():
         lib.pbrt_film_add_tiled.restype = I
         lib.pbrt_film_add_scatter.argtypes = [P] * 5 + [I, P, I, I, P, P, P]
         lib.pbrt_film_add_scatter.restype = I
+        lib.pbrt_film_add_splats.argtypes = [P] * 4 + [I, I, P, I, I, P, P]
+        lib.pbrt_film_add_splats.restype = I
         lib.declared = True
     return lib
 
@@ -259,10 +198,12 @@ def add_samples_tiled_cuda(rgb_sum, weight_sum, pixel_idx, L, lam, pdf, weight, 
     launches["film_add_samples"] += 1
 
 
-def add_splats_triton(splat, pixel_idx, L, lam, pdf):
-    """Launch K5s on the current stream (in place) and count the launch;
-    same contract as add_splats_plain (R splats, n_lam wavelength rows with
-    n_lam dividing R)."""
+def add_splats_cuda(splat, pixel_idx, L, lam, pdf):
+    """Launch K5s, the splat entry of csrc/film.cu, on the current stream (in
+    place) and count the launch; same contract as add_splats_plain (R
+    splats, n_lam wavelength rows with n_lam dividing R)."""
+    from pbrt_tpu_torch import kernels
+
     R, n_lam = pixel_idx.shape[0], lam.shape[0]
     dev = splat.device
     _check_args("film_add_splats", dev, (
@@ -270,14 +211,21 @@ def add_splats_triton(splat, pixel_idx, L, lam, pdf):
         ("pixel_idx", pixel_idx, torch.int64, (R,)),
         ("L", L, torch.float32, (R, 4)), ("lam", lam, torch.float32, (n_lam, 4)),
         ("pdf", pdf, torch.float32, (n_lam, 4))))
+    if not splat.is_cuda or R >= 1 << 31:
+        raise ValueError(f"film_add_splats: needs CUDA tensors and fewer than 2^31 splats, got "
+                         f"{R} on {dev}")
     if R and (n_lam == 0 or R % n_lam):
         raise ValueError(f"film_add_splats: {n_lam} wavelength rows do not divide {R} splats")
-    if not _KERNEL:
-        _KERNEL.append(_build())
+    for name, x in (("L", L), ("lam", lam), ("pdf", pdf)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"film_add_splats: {name} rows must be 16-byte aligned (read as "
+                             f"float4)")
+    lib = _film_lib()
     if R == 0:
         return
-    grid = ((R + BLOCK - 1) // BLOCK,)
-    _KERNEL[0][grid](pixel_idx, L, lam, pdf, cie_table(dev), splat, R, n_lam,
-                     LAMBDA_MIN=cie.LAMBDA_MIN, LAMBDA_RANGE=cie.LAMBDA_RANGE,
-                     BLOCK=BLOCK, num_warps=4)
+    err = lib.pbrt_film_add_splats(
+        pixel_idx.data_ptr(), L.data_ptr(), lam.data_ptr(), pdf.data_ptr(), n_lam, R // n_lam,
+        cie_table(dev).data_ptr(), cie.LAMBDA_MIN, cie.LAMBDA_RANGE, splat.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "film_add_splats")
     launches["film_add_splats"] += 1

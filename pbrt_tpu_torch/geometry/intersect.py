@@ -8,11 +8,13 @@ triangle, and the refit against the winning triangle after traversal.
 
 The dense sweeps over every primitive of a small scene, K3
 (`intersect_tris_dense`, `occluded_tris_dense`) and K4
-(`intersect_spheres_dense`, `intersect_disks_dense`), launch
-csrc/dense_intersect.cu on CUDA tensors and run their plain versions
-(`*_plain`) on CPU tensors. Contract, as in the JAX package: closest hit
-(t, index, ...), index -1 and t = INFINITY on a miss, the lowest index
-winning ties as argmin does; p and n are 0 on a miss. The plain quadric
+(`intersect_spheres_dense`, `occluded_spheres_dense`,
+`intersect_disks_dense`), launch csrc/dense_intersect.cu on CUDA tensors
+and run their plain versions (`*_plain`) on CPU tensors. Contract, as in
+the JAX package: closest hit (t, index, ...), index -1 and t = INFINITY on
+a miss, the lowest index winning ties as argmin does; p and n are 0 on a
+miss. The any-hit sphere sweep answers the closest hit's `index >= 0`, which
+is what the JAX package's `occluded` computes from it. The plain quadric
 versions spell sums of three products as (x + y) + z, the order the kernel
 uses, so on the card the two agree but for atan2 in the phi clip.
 """
@@ -200,7 +202,7 @@ def with_table(q):
 
 # launches of the dense kernels (plain ints, added to where they launch)
 launches = {"dense_tri_closest": 0, "dense_tri_any": 0, "dense_spheres": 0,
-            "dense_disks": 0}
+            "dense_spheres_any": 0, "dense_disks": 0}
 
 
 def _dot3(a, b):
@@ -288,6 +290,13 @@ def intersect_spheres_dense_plain(o, d, t_max, sph: SphereSoA):
     return t_best, idx, torch.where(f3, p, 0.0), torch.where(f3, n, 0.0)
 
 
+def occluded_spheres_dense_plain(o, d, t_max, sph: SphereSoA):
+    """K4 any-hit plain version: True where some sphere has a passing root
+    in (EPS, t_max) (R,), the closest hit's `idx >= 0` (JAX's `occluded`,
+    pbrt_tpu/accel/dispatch.py:321-322)."""
+    return intersect_spheres_dense_plain(o, d, t_max, sph)[1] >= 0
+
+
 def fma_f32(a, b, c):
     """a * b + c of float32 tensors rounded once to float32, as CUDA's
     __fmaf_rn: the float64 product is exact, and where the float64 sum lies
@@ -335,7 +344,7 @@ def _dense_lib():
     if not hasattr(lib, "declared"):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.pbrt_dense_tris.argtypes = [P, P, P, I, P, P, P, I, P, P, P, I, I, I, I, P]
-        lib.pbrt_dense_spheres.argtypes = [P, I, P, P, P, I, P, P, P, P, I, P]
+        lib.pbrt_dense_spheres.argtypes = [P, I, P, P, P, I, P, P, P, P, I, I, I, P]
         lib.pbrt_dense_disks.argtypes = [P, I, P, P, P, I, P, P, P, P, I, I, P]
         for fn in (lib.pbrt_dense_tris, lib.pbrt_dense_spheres, lib.pbrt_dense_disks):
             fn.restype = I
@@ -377,17 +386,20 @@ DENSE_MAX_TRIS = max(n for n in range(1024) if 12 * dense_tri_stride(n) <= DENSE
 
 
 def dense_wide(n_rays):
-    """The mode of K3 and K4a (csrc/dense_intersect.cu WIDE) for a wave of
-    n_rays: from 2^19 rays the table is staged in shared memory (K3: three
-    pre-permuted copies behind one block barrier, each block sweeping many
-    rays, a warp's live rays queued and swept 32 at a time) and a lane
-    reads its ray only when its t_max is > 0 (a BDPT wave's shadow rays
-    and its later walk steps are mostly masked lanes); on a smaller wave
-    the rows are read through the read-only path with no barrier and the
-    ray's loads issued with t_max's. (On an H100 the wide mode was 14 %
+    """The mode of K3, K4 and K4a (csrc/dense_intersect.cu WIDE) for a
+    wave of n_rays: from 2^19 rays the table is staged in shared memory
+    (K3: three pre-permuted copies behind one block barrier, each block
+    sweeping many rays, a warp's live rays queued and swept 32 at a time;
+    K4: blocks striding over the rays) and a lane reads its ray only when
+    its t_max is > 0 (a BDPT wave's shadow rays and its later walk steps
+    are mostly masked lanes); on a smaller wave the rows are read through
+    the read-only path with no barrier and the ray's loads issued with
+    t_max's. (On an NVIDIA H100 80GB HBM3 at 700 W, K3's wide mode was 14 %
     faster at caustic-glass BDPT's masked 2^20-ray walk launches and 3x at
     its shadow wave, and 3-8 % slower at caustic-glass-mlt's 286,720 shadow
-    rays.)"""
+    rays; K4's wide mode 4 % slower than its small one at an all-live 2^20
+    launch, 4 % faster over a BDPT wave's 15 walk launches and 16 % at its
+    shadow wave.)"""
     return n_rays >= 1 << 19
 
 
@@ -441,7 +453,7 @@ def dense_tris_cuda(o, d, t_max, p0, p1, p2, any_hit=False):
     return TriHit(t=t, prim=prim, b=b)
 
 
-def _dense_quadrics_cuda(kind, q, width, partial, o, d, t_max):
+def _dense_quadrics_cuda(kind, q, width, partial, o, d, t_max, any_hit=False):
     from pbrt_tpu_torch import kernels
 
     n, table = q.center.shape[0], q.table
@@ -456,26 +468,36 @@ def _dense_quadrics_cuda(kind, q, width, partial, o, d, t_max):
     R, dev = _check_rays(f"dense {kind}", o, d, t_max)
     if table.device != dev:
         raise ValueError(f"dense {kind}: table on {table.device}, rays on {dev}")
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    # the disk kernel writes int64 indices, the sphere kernel int32
-    idx = torch.empty(R, dtype=torch.int64 if kind == "disks" else torch.int32, device=dev)
-    p = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    nrm = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    if kind == "spheres" and table.data_ptr() % 16:
+        raise ValueError("dense spheres: the table's rows must be 16-byte aligned (read as "
+                         "float4)")
+    # the any-hit sweep writes only its bools
+    idx = torch.empty(R, dtype=torch.bool if any_hit else torch.int64, device=dev)
+    R_f = 0 if any_hit else R
+    t = torch.empty(R_f, dtype=torch.float32, device=dev)
+    p = torch.empty((R_f, 3), dtype=torch.float32, device=dev)
+    nrm = torch.empty((R_f, 3), dtype=torch.float32, device=dev)
     if R:
-        fn = getattr(_dense_lib(), f"pbrt_dense_{kind}")
-        shape = (int(dense_wide(R)),) if kind == "disks" else ()
-        err = fn(table.data_ptr(), n, o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
-                 t.data_ptr(), idx.data_ptr(), p.data_ptr(), nrm.data_ptr(), int(partial),
-                 *shape, _stream(dev))
+        lib = _dense_lib()
+        ptrs = (table.data_ptr(), n, o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
+                t.data_ptr(), idx.data_ptr(), p.data_ptr(), nrm.data_ptr(), int(partial),
+                int(dense_wide(R)))
+        if kind == "spheres":
+            err = lib.pbrt_dense_spheres(*ptrs, int(any_hit), _stream(dev))
+        else:
+            err = lib.pbrt_dense_disks(*ptrs, _stream(dev))
         kernels.check(err, f"dense_intersect ({kind})")
-        launches[f"dense_{kind}"] += 1
-    return t, idx if kind == "disks" else idx.long(), p, nrm
+        launches[f"dense_{kind}" + ("_any" if any_hit else "")] += 1
+    return idx if any_hit else (t, idx, p, nrm)
 
 
-def dense_spheres_cuda(o, d, t_max, sph: SphereSoA):
+def dense_spheres_cuda(o, d, t_max, sph: SphereSoA, any_hit=False):
     """Launch K4 (spheres) on the current stream over `sph.table` and count
-    the launch; the clip code runs when the SoA has its clip fields."""
-    return _dense_quadrics_cuda("spheres", sph, SPH_W, sph.rot is not None, o, d, t_max)
+    the launch; the clip code runs when the SoA has its clip fields. Closest
+    hit -> (t, idx int64, p, n); any hit -> (R,) bool, counted as
+    `dense_spheres_any`."""
+    return _dense_quadrics_cuda("spheres", sph, SPH_W, sph.rot is not None, o, d, t_max,
+                                any_hit)
 
 
 def dense_disks_cuda(o, d, t_max, dsk: DiskSoA):
@@ -504,6 +526,13 @@ def intersect_spheres_dense(o, d, t_max, sph: SphereSoA):
     if o.is_cuda:
         return dense_spheres_cuda(o, d, t_max, sph)
     return intersect_spheres_dense_plain(o, d, t_max, sph)
+
+
+def occluded_spheres_dense(o, d, t_max, sph: SphereSoA):
+    """Any-hit shadow query against all spheres (K4): True where blocked."""
+    if o.is_cuda:
+        return dense_spheres_cuda(o, d, t_max, sph, any_hit=True)
+    return occluded_spheres_dense_plain(o, d, t_max, sph)
 
 
 def intersect_disks_dense(o, d, t_max, dsk: DiskSoA):

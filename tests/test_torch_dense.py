@@ -1,8 +1,9 @@
-"""The dense triangle and disk sweeps (K3, K4a; pbrt_tpu_torch/csrc/
+"""The dense sweeps (K3, K4 and K4a; pbrt_tpu_torch/csrc/
 dense_intersect.cu) without a card: the wrappers' launch-shape rules, a
 mirror of K3's group reduction and of its staged table, held bit for bit to
-the plain versions, and the plain versions against pbrt_tpu's on
-caustic-glass's own tables.
+the plain versions, the plain versions against pbrt_tpu's on
+caustic-glass's own tables, and the occluded dispatch's any-hit sphere
+route.
 
 K3 gives a ray a group of G lanes: lane j tests triangles j, j + G, ...,
 keeps its best (a candidate replaces it only when strictly nearer, and
@@ -235,3 +236,50 @@ def test_caustic_glass_tables_match_jax():
     np.testing.assert_allclose(gt.numpy()[hit], wt[hit], rtol=2e-5)
     np.testing.assert_allclose(gp.numpy()[hit], wp[hit], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gn.numpy()[hit], wn[hit], rtol=2e-5, atol=2e-5)
+
+
+def test_sphere_sweep_modes_and_the_occluded_route(monkeypatch):
+    """K4's mode at the waves it runs (wide from 2^19 rays: cornell's,
+    testball's and caustic-glass BDPT's 2^20 closest hits and a BDPT wave's
+    36,700,160 shadow rays; small: caustic-glass-mlt's 8,192 and 286,720),
+    and dispatch.occluded's sphere test through the any-hit entry
+    `occluded_spheres_dense`: on CPU tensors its plain version, never the
+    CUDA wrapper, the closest-hit sweep not called, and the same bools as the
+    closest hit's `idx >= 0` that the dispatch used before (JAX's
+    `occluded`)."""
+    from pbrt_tpu_torch.accel import dispatch
+
+    for n in (1 << 20, 36700160, 1 << 19):
+        assert ix.dense_wide(n)
+    for n in (8192, 286720, 9216, (1 << 19) - 1):
+        assert not ix.dense_wide(n)
+    sc, meta = load_scene(CAUSTIC, device="cpu", spp=1)
+    assert sc.sph_center.shape[0] == 2 and sc.tri_p0.shape[0] == 4 and sc.dsk_center.shape[0]
+    tris = (sc.tri_p0, sc.tri_p1, sc.tri_p2)
+    o, d, t_max = _rays(tris, 3000, 23)
+    t_max = torch.where(t_max == ix.INFINITY, 40.0, t_max)
+    sph, dsk = dispatch._spheres(sc, meta), dispatch._disks(sc, meta)
+    calls = {"any": 0}
+    any_plain = ix.occluded_spheres_dense
+
+    def counted(*a, **k):
+        calls["any"] += 1
+        return any_plain(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA wrapper reached with CPU tensors")
+
+    monkeypatch.setattr(ix, "occluded_spheres_dense", counted)
+    monkeypatch.setattr(ix, "intersect_spheres_dense", refuse)
+    monkeypatch.setattr(ix, "dense_spheres_cuda", refuse)
+    got = dispatch.occluded(sc, meta, o, d, t_max)
+    assert calls["any"] == 1
+    sph_hit = ix.intersect_spheres_dense_plain(o, d, t_max, sph)[1] >= 0
+    want = (ix.occluded_tris_dense_plain(o, d, t_max, *tris) | sph_hit
+            | (ix.intersect_disks_dense_plain(o, d, t_max, dsk)[1] >= 0))
+    assert torch.equal(got, want)
+    assert torch.equal(any_plain(o, d, t_max, sph), sph_hit)
+    assert 100 < int(sph_hit.sum()) < o.shape[0] and int(want.sum()) < o.shape[0]
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        ix.dense_spheres_cuda(o, d, t_max, sph, any_hit=True)

@@ -8,7 +8,8 @@ repeated pixel ids (or, tiled, k replicates of a pixel tile that starts past
 pixel 0) must accumulate as pbrt_tpu.film.film.add_samples,
 add_samples_tiled and add_splats do, within 1e-5 relative (summation
 order); the tiled sums must equal, bit for bit, a float32 numpy evaluation
-of the documented order; develop (with its 0.25 |weight_sum| clamp and
+of the documented order, and the splat kernel's order (a thread a wave lane
+over its strategies, all-zero rows skipped) is mirrored in numpy; develop (with its 0.25 |weight_sum| clamp and
 BDPT's splat term) and to_srgb8 must match. The kernels themselves are held
 against the plain versions on the card by tests/test_torch_gpu.py."""
 import numpy as np
@@ -183,3 +184,57 @@ def test_develop_with_splats_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
     plain = tfilm.develop(tf, RES, out_matrix=m, imaging_ratio=1.5).numpy()
     assert np.abs(got - plain).max() > 1e-3 * np.abs(plain).max()
+
+
+def _splat_mirror(n_px, pix, L, lam, pdf):
+    """K5s (csrc/film.cu film_add_splats_kernel) in float32 numpy, its
+    threads one after another: lane j's splats j, j + n_lam, ... in order, a
+    splat whose L row is all zero skipped before anything else is read, one
+    whose XYZ is zero adding nothing. -> (splat film, adds made)."""
+    n_lam = lam.shape[0]
+    reps = L.shape[0] // n_lam
+    v = _lane_values_np(L, np.tile(lam, (reps, 1)), np.tile(pdf, (reps, 1)),
+                        np.ones(L.shape[0], np.float32))[:, :3]
+    film = np.zeros((n_px, 3), np.float32)
+    adds = 0
+    for j in range(n_lam):
+        for m in range(reps):
+            i = m * n_lam + j
+            if not L[i].any() or not v[i].any():
+                continue
+            film[pix[i]] = film[pix[i]] + v[i]
+            adds += 1
+    return film, adds
+
+
+@pytest.mark.parametrize("n_lam,reps,pixels", [(1, 600, 5), (400, 7, None), (700, 3, 24 * 16),
+                                               (333, 5, 1)],
+                         ids=["one lane", "distinct pixels", "a wave", "one pixel"])
+def test_splat_kernel_order_mirror(n_lam, reps, pixels):
+    """The splat kernel's order against `add_splats_plain` (index_add_ in
+    splat order): bit for bit on a wave of one lane (its strategies in
+    order are the splat order) and where every splat has a pixel of its own;
+    elsewhere (a wave's splats over the film, every splat on one pixel)
+    within float rounding, rtol 1e-5, the order of the adds. Zero splats
+    (all-zero rows, +0 and -0, over NaN and zero pdfs) take no add."""
+    g = np.random.default_rng(n_lam + reps)
+    n = n_lam * reps
+    _, L, lam, pdf, _ = _samples(30 + reps, n)
+    lam, pdf = lam[:n_lam].copy(), pdf[:n_lam].copy()
+    pdf[2::5, 1] = np.nan
+    L[::3] = 0.0
+    L[1::7] = -0.0
+    if pixels is None:
+        pix = g.permutation(n).astype(np.int64)
+    else:
+        pix = g.integers(0, pixels, n).astype(np.int64)
+    n_px = max(n, RES[0] * RES[1])
+    want, adds = _splat_mirror(n_px, pix, L, lam, pdf)
+    got = torch.zeros((n_px, 3))
+    film_kernel.add_splats_plain(got, torch.from_numpy(pix), *map(torch.from_numpy, (L, lam, pdf)))
+    v = _lane_values_np(L, np.tile(lam, (reps, 1)), np.tile(pdf, (reps, 1)), np.ones(n, np.float32))
+    assert adds == int((v[:, :3] != 0).any(1).sum()) and n // 3 < adds < n
+    if n_lam == 1 or pixels is None:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())

@@ -26,7 +26,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA and Triton kernels have no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -516,14 +516,15 @@ def test_dense_tri_wrapper_refuses_a_table_past_its_stage(cuda):
                        ix.occluded_tris_dense_plain(o, d, t_max, *tris))
 
 
-@pytest.mark.parametrize("kind,n_rays", [("spheres", 50000), ("disks", 50000),
+@pytest.mark.parametrize("kind,n_rays", [("spheres", 50000), ("spheres", 8192),
+                                          ("spheres", 530000), ("disks", 50000),
                                           ("disks", 8192), ("disks", 530000)])
 @pytest.mark.parametrize("partial", [False, True])
 def test_dense_quadric_kernels_match_plain(cuda, kind, partial, n_rays):
     """K4: the same winners as the plain version, but for lanes within 1e-5
     of a clip edge (atan2f vs torch.atan2); t, p, n to 1e-6 relative. The
-    disks also at a small wave's 8,192 rays and at 530,000, a wide wave
-    (dense_wide: rows staged, a lane's ray read only when live)."""
+    spheres and disks also at a small wave's 8,192 rays and at 530,000, a
+    wide wave (dense_wide: rows staged, a lane's ray read only when live)."""
     sph, dsk = quadric_soup(24, 11, cuda, partial)
     o, d, t_max = uniform_rays(n_rays, 12, cuda)
     soa = ix.with_table(sph if kind == "spheres" else dsk)
@@ -544,6 +545,36 @@ def test_dense_quadric_kernels_match_plain(cuda, kind, partial, n_rays):
     assert torch.allclose(pk[same], pp[same], rtol=1e-6, atol=1e-6)
     assert torch.allclose(nk[same], np_[same], rtol=1e-6, atol=1e-6)
     assert bool((tk[ik < 0] == ix.INFINITY).all())
+
+
+@pytest.mark.parametrize("n_rays", [8192, 530000])
+@pytest.mark.parametrize("n_sph", [2, 24, 150])
+@pytest.mark.parametrize("partial", [False, True])
+def test_sphere_any_hit_matches_closest_bits(cuda, partial, n_sph, n_rays):
+    """K4's any-hit entry (the occluded dispatch's): one bool a lane, the
+    closest-hit entry's idx >= 0 bit for bit, on masked lanes (t_max 0), on
+    short shadow lengths up to the closest hit and past it, and on partial
+    spheres (z window, phimax), in either mode (8,192 rays small, 530,000
+    wide) and with more spheres than one staged tile (150 > 64); counted
+    as dense_spheres_any."""
+    sph, _ = quadric_soup(n_sph, 31, cuda, partial)
+    sph = ix.with_table(sph)
+    o, d, t_max = uniform_rays(n_rays, 32, cuda)
+    t_cl, idx_cl, _, _ = ix.dense_spheres_cuda(o, d, t_max, sph)
+    g = torch.Generator().manual_seed(n_sph)
+    u = (2.0 * torch.rand(n_rays, generator=g)).to(cuda)
+    t_sh = torch.where(idx_cl >= 0, t_cl * u, t_max).contiguous()
+    t_sh[::7] = 0.0
+    for t in (t_max, t_sh):
+        n0 = ix.launches["dense_spheres_any"]
+        k = ix.dense_spheres_cuda(o, d, t, sph, any_hit=True)
+        assert ix.launches["dense_spheres_any"] == n0 + 1
+        idx = ix.dense_spheres_cuda(o, d, t, sph)[1]
+        assert k.dtype == torch.bool and k.shape == (n_rays,)
+        assert torch.equal(k, idx >= 0)
+        assert not bool(k[t <= 0].any())
+        assert n_rays // 100 < int(k.sum()) < n_rays
+        assert torch.equal(ix.occluded_spheres_dense(o, d, t, sph), k)
 
 
 @pytest.mark.parametrize("density,left", [(0.02, 10 ** 9), (0.5, 10 ** 9), (0.5, 777),
@@ -583,7 +614,7 @@ def test_dense_and_wavefront_renders_on_card(cuda):
     img_gpu = render(scene, meta).cpu().numpy()
     img_cpu = render(scene, meta, device="cpu").numpy()
     assert all(ix.launches[k] > n0[k] for k in ("dense_tri_closest", "dense_tri_any",
-                                                 "dense_spheres"))
+                                                 "dense_spheres", "dense_spheres_any"))
     err = np.abs(img_gpu - img_cpu)
     assert float((err > 5e-3 + 0.05 * np.abs(img_cpu)).mean()) < 0.005
     scene, meta = ts.terrain(res=24, spp=4, n=16, device=cuda)
@@ -785,13 +816,17 @@ def test_layered_kernel_in_coated_render(cuda):
     assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean()
 
 
-def test_splat_kernel_matches_plain(cuda):
-    """K5s: three strategies' splats over one wave's lanes (wavelength row
-    i % n_lam), NaN and zero-pdf lanes, zero splats (no atomic)."""
-    g = torch.Generator().manual_seed(4)
-    n_lam, reps = 7000, 3
+@pytest.mark.parametrize("n_lam,reps,n_px", [(7000, 3, 64), (5000, 4, 1), (1037, 7, 4096)],
+                         ids=["wave", "one pixel", "odd count"])
+def test_splat_kernel_matches_plain(cuda, n_lam, reps, n_px):
+    """K5s (csrc/film.cu's splat entry): the strategies' splats over one
+    wave's lanes (wavelength row i % n_lam), NaN and zero-pdf lanes, zero
+    splats (no atomic), within rtol 1e-5 of the plain version (the order of
+    the atomic adds); a wave whose splats all land on one pixel, and a wave
+    of lanes and splats that are no multiple of the block (256)."""
+    g = torch.Generator().manual_seed(4 + reps)
     n = n_lam * reps
-    pix = torch.randint(0, 64, (n,), generator=g)
+    pix = torch.randint(0, n_px, (n,), generator=g)
     L = torch.rand((n, 4), generator=g) * 4.0
     L[::31, 1] = float("nan")
     lam = 360.0 + 470.0 * torch.rand((n_lam, 4), generator=g)
@@ -799,14 +834,17 @@ def test_splat_kernel_matches_plain(cuda):
     pdf[::29, 2] = 0.0
     L[::5] = 0.0
     pix, L, lam, pdf = (x.to(cuda) for x in (pix, L, lam, pdf))
-    fk, fp = filmlib.new_film((8, 8), cuda), filmlib.new_film((8, 8), cuda)
+    fk, fp = filmlib.new_film((64, 64), cuda), filmlib.new_film((64, 64), cuda)
     n0 = film_kernel.launches["film_add_splats"]
-    film_kernel.add_splats_triton(fk.splat, pix, L, lam, pdf)
+    film_kernel.add_splats_cuda(fk.splat, pix, L, lam, pdf)
     assert film_kernel.launches["film_add_splats"] == n0 + 1
     film_kernel.add_splats_plain(fp.splat, pix, L, lam, pdf)
     scale = float(fp.splat.abs().max())
+    assert scale > 0
     assert torch.allclose(fk.splat, fp.splat, rtol=1e-5, atol=1e-6 * scale)
     assert float(fk.rgb_sum.abs().sum()) == 0.0 and float(fk.weight_sum.abs().sum()) == 0.0
+    if n_px == 1:
+        assert bool((fk.splat[1:] == 0).all())
 
 
 @pytest.mark.parametrize("name", ["cornell", "caustic-glass", "four lights"])

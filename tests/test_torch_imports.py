@@ -3,8 +3,9 @@ not the test helpers it imports (tests/quadric_edges.py,
 tests/layered_cases.py, tests/bdpt_cases.py, tests/mlt_cases.py,
 tests/instancing_cases.py, tests/path_cases.py) and not
 tests/parallel_cases.py, whose spawned ranks must not load JAX, imports jax
-or anything of the JAX package pbrt_tpu (AST scan), and the port ships its
-own copies of the data tables."""
+or anything of the JAX package pbrt_tpu (AST scan), none imports triton
+(every kernel is CUDA C++), and the port ships its own copies of the data
+tables."""
 import ast
 import pathlib
 
@@ -37,6 +38,14 @@ def _forbidden(name):
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_pbrt_tpu_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, (str(path), bad)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_triton_imports(path):
+    """Every kernel of the port is CUDA C++ built by kernels.py: no module
+    imports triton, at its top or inside a function."""
+    bad = [m for m in _imports(path) if m.split(".")[0] == "triton"]
     assert not bad, (str(path), bad)
 
 

@@ -220,3 +220,59 @@ def test_quadric_kernel_wrapper_checks_its_table(kind):
         fn(o, d, t_max, ix.with_table(soa))
     with pytest.raises(ValueError, match="table must be"):
         fn(o, d, t_max, soa._replace(table=ix.with_table(soa).table[:, :-1]))
+
+
+def _aimed_rays(centers, radii, seed, n=N_RAYS):
+    """n rays from around the origin towards points within 1.3 radii of the
+    spheres' centers, with _rays' masked and short lanes."""
+    g = np.random.default_rng(seed)
+    k = g.integers(0, len(centers), n)
+    jitter = g.normal(size=(n, 3))
+    target = centers[k] + 1.3 * radii[k, None] * jitter / np.linalg.norm(jitter, axis=1,
+                                                                         keepdims=True)
+    o = g.uniform(-0.3, 0.3, (n, 3))
+    d = (target - o) / np.linalg.norm(target - o, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32), _rays(seed + 1, n)[2]
+
+
+def _scene_spheres(path):
+    """(port SphereSoA, JAX SphereSoA) of a scene file's compiled spheres,
+    each package's dispatch choosing the clip fields."""
+    from pbrt_tpu.accel import dispatch as jdispatch
+    from pbrt_tpu.scene.compile import load_scene as j_load
+    from pbrt_tpu_torch.accel import dispatch
+    from pbrt_tpu_torch.scene.compile import load_scene
+
+    ja, _ = j_load(path, spp=1)
+    scene, meta = load_scene(path, device="cpu", spp=1)
+    return dispatch._spheres(scene, meta), jdispatch._spheres(ja)
+
+
+@pytest.mark.parametrize("case", ["caustic-glass", "material-testball", "soup full",
+                                  "soup partial"])
+def test_occluded_spheres_match_jax(case):
+    """K4's any-hit entry, plain version: `occluded_spheres_dense_plain`
+    (what the card's ANY_HIT sweep answers) against JAX's
+    `intersect_spheres_dense(...)[1] >= 0` (pbrt_tpu/accel/dispatch.py:
+    321-322), bool for bool, on caustic-glass's full spheres, the testball's
+    partial pedestal sphere (z window) and the full and partial soup, with
+    masked and short lanes; and the same bools as the port's closest-hit
+    plain version's `idx >= 0`."""
+    if case.startswith("soup"):
+        sph, _ = _quadrics(3, 16, case == "soup partial")
+        soa = ix.SphereSoA(**{k: _t(v) for k, v in sph.items()})
+        jsoa = jix.SphereSoA(**{k: jnp.asarray(v) for k, v in sph.items()})
+        o, d, t_max = _rays(8)
+    else:
+        soa, jsoa = _scene_spheres(f"scenes/{case}.pbrt")
+        assert (soa.rot is not None) == (case == "material-testball")
+        o, d, t_max = _aimed_rays(soa.center.numpy(), soa.radius.numpy(), 9)
+    got = ix.occluded_spheres_dense(_t(o), _t(d), _t(t_max), soa)
+    assert got.dtype == torch.bool
+    want = np.asarray(jix.intersect_spheres_dense(jnp.asarray(o), jnp.asarray(d),
+                                                  jnp.asarray(t_max), jsoa)[1]) >= 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > N_RAYS // 10 and (~want).sum() > N_RAYS // 10
+    assert not got.numpy()[t_max == 0.0].any()
+    assert torch.equal(got, ix.intersect_spheres_dense_plain(_t(o), _t(d), _t(t_max), soa)[1]
+                       >= 0)

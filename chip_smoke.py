@@ -15,17 +15,20 @@ result line:
      K12's (csrc/bdpt.cu): the tiled `connect_weight_tile_kernel` must load
      from shared memory where it stages (up to 35 vertex slots) and not
      where it reads in place, with no local loads or stores, stack frame or
-     spills in either; every K12 kernel's registers printed; K7's
+     spills in any of its four instantiations (staged or in place, with
+     media or without); every K12 kernel's registers printed; K7's
      (csrc/layered.cu): the redesigned layered_f, layered_pdf and
      layered_sample kernels with no local loads or stores, stack frame or
      spills, printed beside the yardsticks' (csrc/layered_lane.cu), and the
      samplers' sines and cosines (csrc/bxdf.cuh sin_angle, cos_angle) the
      bits of the library's sinf and cosf on every float below 105615; K6's
      five kernels (csrc/path_step.cu: path_rr, path_shade, path_bsdf,
-     path_coat, path_resolve) and the shading yardstick path_shade_lane with
-     their registers, stack frame, spills and local loads and stores
-     printed, path_shade and path_bsdf required to have no stack frame and
-     no spills; K11's (csrc/scene_shard.cu): parts_wide_kernel with 16-byte
+     path_coat, path_resolve), their VOLUMETRIC variants (path_shade_vol,
+     path_bsdf_vol, path_resolve_vol) and the shading yardstick
+     path_shade_lane with their registers, stack frame, spills and local
+     loads and stores printed, path_shade and path_bsdf required to have no
+     stack frame and no spills; K6t's (csrc/transmit.cu transmit_hop_kernel)
+     with no local loads or stores, stack frame or spills; K11's (csrc/scene_shard.cu): parts_wide_kernel with 16-byte
      loads and no local loads or stores, stack frame or spills, its
      registers printed; K12m's (csrc/mlt.cu): mutate_kernel and
      accept_splat_kernel with no local loads or stores, stack frame or
@@ -147,11 +150,11 @@ result line:
      bit-equal to the wrapper's; K7's
      three entry points on their first launches in the staircase and
      testball frames, against the plain version on the coated lanes and
-     against their yardsticks' bits, timed in turns with them on both (the
-     share of coated lanes whose sample reflects at the coat printed), the
-     kernels line taking staircase's, each bound from the bytes its lanes'
-     BxDF kinds need, then layered_sample over staircase's first wave in
-     turns with its yardstick, times the frame's waves; K12 on the first waves of the two BDPT frames, on a
+     against their yardsticks' bits, timed on both (the share of coated
+     lanes whose sample reflects at the coat printed), the kernels line
+     taking staircase's, each bound from the bytes its lanes' BxDF kinds
+     need, then layered_sample over staircase's first wave (each launch
+     the yardstick's bits), times the frame's waves; K12 on the first waves of the two BDPT frames, on a
      24^2 x 2 wave of tests/bdpt_cases.py's four-light scene (distant, spot,
      uniform infinite and three kinds of area light) and on 24^2 x 2 cornell
      waves at max depth 8 (one staged buffer) and 17 (vertices read in
@@ -160,8 +163,8 @@ result line:
      99.99 % of its live lanes, equal ray counts) and both entry points
      against their yardsticks, K12 as first written (one thread per lane
      over the packed copy: bdpt_cases.compare_yardstick, the same bits), both
-     timed on caustic-glass's in turns with the yardsticks (yardstick, K12,
-     K12, yardstick), and the caustic-glass frame's peak device memory; K5s
+     timed on caustic-glass's, and the caustic-glass frame's and one wave's
+     connections' peak device memory; K5s
      on caustic-glass's and cornell-bdpt's first launches (live splats and
      the most on one pixel printed); K8 on
      terrain's first launch with and without the rank, and under
@@ -179,9 +182,9 @@ result line:
      path_shade and path_bsdf against their yardstick path_shade_lane's bits
      on every lane of each of those bounces (and of staircase's and
      testball's), each kernel timed on cornell-mesh's first bounce beside
-     its bound and its plain part, path_shade and path_bsdf together in
-     turns with the yardstick at cornell-mesh's and staircase's first
-     bounces beside the function's bound and over staircase's first wave
+     its bound and its plain part, path_shade and path_bsdf together at
+     cornell-mesh's and staircase's first bounces beside the function's
+     bound and over staircase's first wave
      (every bounce) times its waves, the device kernels of that bounce on
      either route under
      torch.profiler (the CUDA step's at most a twentieth of the plain
@@ -226,8 +229,11 @@ result line:
      8,192-lane evaluation and its occluded dispatch as at phase 9's
      launches; K12 on the caustic-glass-mlt frame's first 8192-lane
      evaluation as on phase 9's waves (plain, yardstick bits, both entry
-     points timed in turns with the yardsticks), and no yardstick or packed
-     copy in either MLT frame;
+     points timed), and no yardstick or packed copy in either MLT frame.
+     The yardsticks (path_shade_lane, layered_*_lane, K12's *_lane) are
+     held to their bits in phases 6b, 9 and 10 and no longer timed (PERF.md
+     records them in turns); those phases' seconds are printed beside
+     YARDSTICK_PHASES_S, what they took when they still timed them;
  11. scene sharding (K11a `bvh_closest_hit_parts`, K11b `bvh_any_hit_parts`,
      `shard_select`, csrc/scene_shard.cu): (a) cornell-mesh levels 5 split
      into 8 morton parts (per-part tables under a quarter of the unsharded
@@ -308,7 +314,28 @@ result line:
      met or missed; the refit of the frame's first closest hits (instanced
      winners' object rays formed in the kernel) bit-exact with its plain
      version;
- 13. a `kernels` JSON line; the last line is the JSON result.
+ 13. participating media on volumetric-caustic (homogeneous fog as the
+     camera's and the spot light's medium, a glass ball in the beam):
+     16^2, max depth 3, with the path integrator and BDPT on the card
+     against the CPU (4x4 block means within check_image, ray counts within
+     0.1 %); then through render() BDPT at the bench's 128^2 x 8, the path
+     integrator at its file's 128^2 x 16 and its file's MLT over BDPT (128^2,
+     max depth 7, 376 primary samples a chain) cut from 100 to 8 mutations
+     per pixel (16 passes), each with the launch counts set to 0 just
+     before it and read just after: the path frame path_rr and the
+     VOLUMETRIC kernels path_shade_vol, path_bsdf_vol and path_resolve_vol
+     2 max_depth + 4 times a wave and K6t (transmit_hop, csrc/transmit.cu)
+     8 times that, none of the other K6 kernels; BDPT K6t 8 times a wave;
+     MLT 8 times an evaluation (frame walls, ray counts, peak memory
+     printed); K6t bit-exact with transmit_hop_plain at the path and BDPT
+     frames' first launches; the VOLUMETRIC kernels against the plain parts
+     at the path frame's first and third bounces (draws, masks, medium and
+     depth bit-exact, floats to tests/path_cases.py's criteria); K12's MEDIA
+     instantiations on the BDPT frame's wave (the segments bit-exact with
+     connect_segments_plain, the stage with the transmittance loop to
+     tests/bdpt_cases.py's criterion); each graph-timed beside its bound
+     and plain version;
+ 14. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
 import contextlib
@@ -391,6 +418,17 @@ FRAME_ROUNDS = 10
 # ~30, the NEE term and its weight ~35) ~120; path_resolve per NEE lane 8.
 # Of a shading lane's ~600, path_bsdf's (the BSDF sample, the new beta and
 # ray, the draws past NEE's) ~200, path_shade's the rest
+# float ops of the media kernels, counted from csrc/path_step.cu and
+# csrc/transmit.cu and rounded: the distance event of a lane in a medium (two
+# sigma rows at four wavelengths, log1p, a division, four exps or the sigma_s
+# / sigma_t scale: ~120); path_resolve_vol per NEE lane (the transmittance's
+# mean, the weight, the term: ~40); K6t per live lane (four exps and the
+# attenuation, the offset origin: ~110) and per lane (the next t_max: ~10)
+# seconds of phases 6b, 9 and 10 when they still timed the yardsticks in turns
+# with their kernels, by this script on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md records the run)
+YARDSTICK_PHASES_S = 406.4
+VOL_OPS = {"event": 120, "resolve": 40, "hop": 110, "hop_lane": 10}
 K6_OPS = {"rr": 12, "shade": 600, "emit": 300, "escape": 15, "layer": 150, "coat": 120,
           "resolve": 8, "shade_bsdf": 200}
 # float ops of K12m-a per chain and dimension, counted from csrc/mlt.cu:
@@ -815,6 +853,13 @@ def main():
     counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches,
                 bdpt.launches, mlt.launches, ss.launches, pth.launches)
 
+    phase_t = {}
+
+    def phase_start(name):
+        """Log and keep the script's clock at the start of a phase."""
+        phase_t[name] = time.time() - t_start
+        log(f"[phase {name} starts at {phase_t[name]:.1f} s]")
+
     def reset_counts():
         for c in counters:
             for k in c:
@@ -936,8 +981,13 @@ def main():
             if short is None:
                 continue
             tiled = short == "connect_weight_tile_kernel"
+            media = re.search(r"connect_weight_tile_kernelILb[01]ELb1E|connect_rays_kernelILb1E",
+                              fn)
             if tiled:
-                short += "<staged>" if "ILb1E" in fn else "<in place>"
+                short += ("<staged" if "ILb1E" in fn else "<in place") + (
+                    ", media>" if media else ">")
+            elif short == "connect_rays_kernel":
+                short += "<media>" if media else "<>"
             at = next(i for i, line in enumerate(report) if "Function properties for" in line
                       and fn in line)
             frame = report[at + 1].strip()
@@ -987,7 +1037,9 @@ def main():
             capture_output=True, text=True, timeout=120).stdout).items():
         short = next((k for k in ("path_rr_kernel", "path_shade_kernel", "path_bsdf_kernel",
                                   "path_shade_lane_kernel", "path_coat_kernel",
-                                  "path_resolve_kernel") if k in fn), None)
+                                  "path_resolve_kernel", "path_shade_vol_kernel",
+                                  "path_bsdf_vol_kernel", "path_resolve_vol_kernel")
+                      if k in fn), None)
         if short is None:
             continue
         at = next(i for i, line in enumerate(report) if "Function properties for" in line
@@ -1002,6 +1054,24 @@ def main():
             require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                    "0 bytes spill loads"),
                     "K6's shading kernels: a local stack or spills", short, dict(c), frame)
+    # K6t as compiled (csrc/transmit.cu): neither a local-memory stack nor
+    # spills, its registers printed
+    report = built["transmit"][1].splitlines()
+    for fn, c in sass_memory_ops(subprocess.run(
+            [str(cuobjdump), "-sass", str(kernels.library_path("transmit"))],
+            capture_output=True, text=True, timeout=120).stdout).items():
+        if "transmit_hop_kernel" not in fn:
+            continue
+        at = next(i for i, line in enumerate(report) if "Function properties for" in line
+                  and fn in line)
+        frame = report[at + 1].strip()
+        regs = next(line.split(":", 1)[1].strip() for line in report[at + 1:]
+                    if "registers" in line)
+        local = {k: v for k, v in c.items() if k.startswith(("LDL", "STL"))}
+        log(f"  sass transmit_hop_kernel: {dict(sorted(c.items()))}; ptxas: {frame}; {regs}")
+        require(not local and frame.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                               "0 bytes spill loads"),
+                "K6t: a local stack or spills", dict(c), frame)
     # K12m's kernels as compiled (csrc/mlt.cu, a lane group a chain): neither
     # a local-memory stack nor spills, the accept kernel's adds RED (no
     # returned value); their registers printed
@@ -1124,7 +1194,7 @@ def main():
         t[::89] = 0.0
         return t.contiguous()
 
-    log(f"[phase 3 starts at {time.time() - t_start:.1f} s]")
+    phase_start("3")
     # ---- 3. BVH traversal vs plain on camera + interior rays, cornell-mesh l5
     scene, meta = compile_scene(ts.cornell_mesh_builder(levels=5, res=256), 16, device=dev)
     rows, n_int, depth = scene.bvh_rows, meta.bvh_nint, meta.bvh_depth
@@ -1192,7 +1262,7 @@ def main():
         f"(verified), max rel err t {t_err:.2e} b {b_err:.2e}; any hit {n_occ} occluded, "
         f"0 disagree")
 
-    log(f"[phase 4 starts at {time.time() - t_start:.1f} s]")
+    phase_start("4")
     # ---- 4. film kernels vs plain with NaN lanes, zero pdfs and zero
     # weights, 256^2 film
     n_lanes, n_px = 131072, 256 * 256
@@ -1254,7 +1324,7 @@ def main():
     log(f"film_add_splats vs plain on {3 * n_lam} splats over {n_lam} lanes' wavelengths with "
         f"NaN/zero-pdf lanes: max abs err {splat_err:.2e} (rtol 1e-5: atomic order)")
 
-    log(f"[phase 5 starts at {time.time() - t_start:.1f} s]")
+    phase_start("5")
     # ---- 5. dense kernels (K3, K4) vs plain
     def compare_dense_tris(o, d, t_max, tris, any_hit=False):
         """K3 vs plain: prim ids, t and barycentrics bit for bit; any hit
@@ -1361,7 +1431,7 @@ def main():
             + ("; the any-hit entry the closest hit's idx >= 0 bit for bit" if kind == "spheres"
                else ""))
 
-    log(f"[phase 6 starts at {time.time() - t_start:.1f} s]")
+    phase_start("6")
     # ---- 6. K8 vs torch.cumsum's plain version at the pool size and at a
     # size that is not a multiple of its tile, with and without the rank,
     # back to back on the kernel's scratch
@@ -1388,7 +1458,7 @@ def main():
         f"(next_work up to 3 past the end, rank on every other call): rank, work, recycle, "
         f"in_flight and counters bit-exact")
 
-    log(f"[phase 6b starts at {time.time() - t_start:.1f} s]")
+    phase_start("6b")
     # ---- 6b. K7 vs plain on synthetic lanes
     def sub_params(p, idx):
         def bx(b):
@@ -1477,20 +1547,15 @@ def main():
         return int(st_k)
 
     def k7_turns(name, p, args, mask):
-        """A K7 entry timed in turns with its yardstick
-        (yardstick, kernel, kernel, yardstick; graph replays) -> (kernel ms,
-        yardstick ms, the four turns)."""
+        """A K7 entry graph-timed twice -> (kernel ms, the two times). Its
+        yardstick is held to its bits (k7_yardstick) and not timed: PERF.md
+        records the two in turns."""
         new_fn = getattr(layered, f"{name}_cuda")
-        yard_fn = getattr(layered, f"{name}_lane_cuda")
-        turns = [graph_ms(f) for f in (lambda: yard_fn(p, *args, mask),
-                                       lambda: new_fn(p, *args, mask),
-                                       lambda: new_fn(p, *args, mask),
-                                       lambda: yard_fn(p, *args, mask))]
-        return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
+        turns = [graph_ms(lambda: new_fn(p, *args, mask)) for _ in range(2)]
+        return (turns[0] + turns[1]) / 2, turns
 
-    # the yardsticks' bits and timing in turns on all-coated lanes (no mask:
-    # only the refill, the loads and the layout can win), the synthetic ones
-    # and a deep medium, whose walks run to max_depth
+    # the yardsticks' bits on all-coated lanes, the synthetic ones and a
+    # deep medium, whose walks run to max_depth; the kernels timed
     lanes_deep = {k: torch.as_tensor(v, device=dev)
                   for k, v in deep_medium_lanes(n7, 11).items()}
     p_deep = layered.LayeredParams(
@@ -1503,15 +1568,14 @@ def main():
             args = ((l_["wo"], l_["uc"], l_["u2"]) if name == "layered_sample"
                     else (l_["wo"], l_["wi"]))
             n_steps = k7_yardstick(name, p_, args, None, label)
-            ms_k, ms_y, turns = k7_turns(name, p_, args, None)
-            k7_synthetic[f"{name} {label}"] = dict(ms=ms_k, yardstick_ms=ms_y, turns=turns)
+            ms_k, turns = k7_turns(name, p_, args, None)
+            k7_synthetic[f"{name} {label}"] = dict(ms=ms_k, turns=turns)
             log(f"{name} on {n7} all-coated {label} lanes: the yardstick's bits and step counts "
                 f"({n_steps} "
                 f"{'reached the base' if name == 'layered_pdf' else 'steps'}); kernel "
-                f"{turns[1]:.4f} / {turns[2]:.4f} ms, yardstick {turns[0]:.4f} / {turns[3]:.4f} "
-                f"ms in turns, speed-up {ms_y / ms_k:.3f}x")
+                f"{turns[0]:.4f} / {turns[1]:.4f} ms")
 
-    log(f"[phase 7 starts at {time.time() - t_start:.1f} s]")
+    phase_start("7")
     # ---- 7. small renders vs golden and vs CPU
     goldens = np.load(ROOT / "tests" / "goldens.npz")
     for label, (sc, mt), key in (
@@ -1598,7 +1662,7 @@ def main():
         log(f"{msg}; rays card {n_g} cpu {n_c}; means {img_gpu.mean():.5f} / "
             f"{img_cpu.mean():.5f}; launches {counts}")
 
-    log(f"[phase 8 starts at {time.time() - t_start:.1f} s]")
+    phase_start("8")
     # ---- 8. full-width renders through the normal entry point, each once,
     # with the launch counts set to 0 just before it and read just after. The
     # render keeps a copy of the arguments of each kernel's first launch (the
@@ -1637,6 +1701,10 @@ def main():
         (pth, "shade_cuda", lambda a, k: "path_shade"),
         (pth, "coat_cuda", lambda a, k: "path_coat"),
         (pth, "resolve_cuda", lambda a, k: "path_resolve"),
+        (pth, "shade_vol_cuda", lambda a, k: "path_shade_vol"),
+        (pth, "resolve_vol_cuda", lambda a, k: "path_resolve_vol"),
+        (pth, "transmit_hop_cuda", lambda a, k: "transmit_hop"),
+        (bdpt, "connect_segments_cuda", lambda a, k: "bdpt_connect_segments"),
     ]
     captured = {}
     # the K1 launches whose third call is kept too: the bounce rays; and
@@ -1648,7 +1716,8 @@ def main():
     third = {("cornell_mesh", "bvh_closest_hit"), ("cornell_mesh", "bvh_any_hit"),
              ("staircase", "bvh_closest_hit"), ("staircase", "bvh_any_hit")} | {
         (tag, k) for tag in ("cornell_mesh", "cornell", "terrain") for k in K6} | {
-        (tag, k) for tag in ("staircase", "testball") for k in K6C}
+        (tag, k) for tag in ("staircase", "testball") for k in K6C} | {
+        ("vol_path", "path_shade_vol")}
     wave_kept = {("staircase", "path_shade"), ("staircase", "layered_sample")}
     # the first BDPT wave's walk launches of K4 (2 max_depth + 1), timed as a
     # sum in phase 9
@@ -1688,14 +1757,20 @@ def main():
 
     # the path integrator's evaluations of an MLT frame (mlt.eval_x), counted
     # by this script's wrapper: K6 launches max_depth times one
-    mlt_evals = {"n": 0}
-    eval_x = mlt.eval_x
+    mlt_evals = {"n": 0, "bdpt": 0}
+    eval_x, eval_x_bdpt = mlt.eval_x, mlt.eval_x_bdpt
 
     def counted_eval_x(*a, **k):
         mlt_evals["n"] += 1
         return eval_x(*a, **k)
 
-    mlt.eval_x = counted_eval_x
+    def counted_eval_x_bdpt(*a, **k):
+        mlt_evals["bdpt"] += 1
+        return eval_x_bdpt(*a, **k)
+
+    mlt.eval_x, mlt.eval_x_bdpt = counted_eval_x, counted_eval_x_bdpt
+    # the volumetric scenes' kernels: the VOLUMETRIC K6 variants and K6t
+    K6V = ("path_shade_vol", "path_bsdf_vol", "path_resolve_vol", "transmit_hop")
 
     def k6_launches(sc, mt, counts, kw):
         """{K6 kernel: launches} that a frame must show. On the "cuda" route
@@ -1705,7 +1780,23 @@ def main():
         wavefront loop (as many as K8's), max_depth an evaluation of an
         mltpath frame (path_shade and path_bsdf each); path_coat as often
         where the scene has coated materials, else none; BDPT and MLT over
-        BDPT none of them; the shading yardstick path_shade_lane never."""
+        BDPT none of them; the shading yardstick path_shade_lane never. A
+        volumetric frame: of the path family path_rr and the VOLUMETRIC
+        variants iterations (2 max_depth + 4) a wave and K6t MAX_HOPS times
+        that, the other K6 kernels none; BDPT K6t MAX_HOPS a wave, MLT over
+        BDPT MAX_HOPS an evaluation; a frame without media none of K6V."""
+        waves = sum(1 for _ in rd.wave_lanes(mt.resolution[0] * mt.resolution[1], mt.spp, "cpu"))
+        if mt.volumetric:
+            out = dict.fromkeys(K6C + ("path_shade_lane",) + K6V, 0)
+            if mt.integrator in bd.PATH_INTEGRATORS:
+                n = pth.iterations(mt) * waves
+                out.update(path_rr=n, path_shade_vol=n, path_bsdf_vol=n, path_resolve_vol=n,
+                           transmit_hop=pth.MAX_HOPS * n)
+            elif mt.integrator == "bdpt":
+                out.update(transmit_hop=pth.MAX_HOPS * waves)
+            else:
+                out.update(transmit_hop=pth.MAX_HOPS * mlt_evals["bdpt"])
+            return out
         if mt.integrator == "mltpath":
             n = mt.max_depth * mlt_evals["n"]
         elif mt.integrator not in bd.PATH_INTEGRATORS or pth.step_route(dev, mt) != "cuda":
@@ -1713,9 +1804,9 @@ def main():
         elif mt.open_scene and sc.shard is None and not kw.get("shard_parts"):
             n = counts.get("wavefront_recycle", 0)
         else:
-            n = mt.max_depth * sum(1 for _ in rd.wave_lanes(
-                mt.resolution[0] * mt.resolution[1], mt.spp, "cpu"))
-        return dict(dict.fromkeys(K6, n), path_coat=n if mt.layered else 0, path_shade_lane=0)
+            n = mt.max_depth * waves
+        return dict(dict.fromkeys(K6, n), path_coat=n if mt.layered else 0, path_shade_lane=0,
+                    **dict.fromkeys(K6V, 0))
 
     def full_render(tag, sc, mt, must, **kw):
         """The measured render of a full-width frame, its kernels'
@@ -1723,7 +1814,7 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         reset_counts()
-        mlt_evals["n"] = 0
+        mlt_evals["n"] = mlt_evals["bdpt"] = 0
         torch.cuda.synchronize()
         t0 = time.time()
         img, stats = render_captured(tag, sc, mt, return_stats=True, **kw)
@@ -1738,7 +1829,7 @@ def main():
                 tag, "non-finite pixels")
         require(all(counts.get(k, 0) > 0 for k in must), tag, "kernel not launched", counts)
         want_k6 = k6_launches(sc, mt, counts, kw)
-        got_k6 = {k: counts.get(k, 0) for k in K6C + ("path_shade_lane",)}
+        got_k6 = {k: counts.get(k, 0) for k in K6C + ("path_shade_lane",) + K6V}
         require(got_k6 == want_k6, tag, "K6 launches", got_k6, "expected", want_k6)
         for k in must:  # a kernel on several paths: counted on its first
             main_counts.setdefault(k, counts[k])
@@ -1749,7 +1840,8 @@ def main():
         frame_peaks[tag] = torch.cuda.max_memory_allocated() / 2**30
         per = (f"{mt.mutations_per_pixel} mutations/pixel" if mt.integrator in bd.MLT_INTEGRATORS
                else f"{mt.spp} spp {mt.filter_kind}")
-        evals = f"; {mlt_evals['n']} path evaluations" if mlt_evals["n"] else ""
+        evals = (f"; {mlt_evals['n']} path evaluations" if mlt_evals["n"] else
+                 f"; {mlt_evals['bdpt']} BDPT evaluations" if mlt_evals["bdpt"] else "")
         log(f"full render {tag} {mt.integrator} {mt.resolution[0]}^2 x {per} depth "
             f"{mt.max_depth}: {wall:.3f} s wall (first-launch copies included), "
             f"{stats['closest']} closest + {stats['shadow']} shadow rays = "
@@ -1949,7 +2041,7 @@ def main():
     for k in ("bdpt_connect_rays", "bdpt_connect_weight", "film_add_splats"):
         main_counts[k] = bdpt_got["caustic_bdpt"][k]
 
-    log(f"[phase 9 starts at {time.time() - t_start:.1f} s]")
+    phase_start("9")
     # ---- 9. each kernel against its plain version and timed, on the
     # arguments of its first main-path launch
     timing = {}
@@ -2406,14 +2498,13 @@ def main():
                     max_abs_err=k6_err[name], host_paced_ms=call, bytes=n_bytes, ops=n_ops)
 
     def shade_turns(key, tag):
-        """path_shade and path_bsdf (shade_cuda) timed in turns with their
-        yardstick path_shade_lane (yardstick, kernels, kernels, yardstick;
-        graph replays) on the shading launch `key` of frame `tag` ->
-        (kernels ms, yardstick ms, the four turns)."""
+        """path_shade and path_bsdf (shade_cuda) graph-timed twice on the
+        shading launch `key` of frame `tag` -> (kernels ms, the two times).
+        Their yardstick path_shade_lane is held to its bits above and not
+        timed: PERF.md records the two in turns."""
         args_ = first(tag, key)[0]
-        turns = [graph_ms(lambda f=f: f(*args_)) for f in (
-            pth.shade_lane_cuda, pth.shade_cuda, pth.shade_cuda, pth.shade_lane_cuda)]
-        return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
+        turns = [graph_ms(lambda: pth.shade_cuda(*args_)) for _ in range(2)]
+        return (turns[0] + turns[1]) / 2, turns
 
     timed_parts = dict(k6_parts, path_shade=(shade_split[0][0], shade_split[0][1], None),
                        path_bsdf=(shade_split[1][0], shade_split[1][1], None))
@@ -2428,31 +2519,27 @@ def main():
     # (targets: <= 0.21 and <= 0.28 ms), then over staircase's first wave
     # (every bounce), times its waves: the replayed frame's total
     for tag, target in (("cornell_mesh", 0.21), ("staircase", 0.28)):
-        ms_k, ms_y, turns = shade_turns("path_shade", tag)
+        ms_k, turns = shade_turns("path_shade", tag)
         n_bytes, n_ops, work = k6_work("path_shade_pair", first(tag, "path_shade")[0])
         b = bound(n_bytes, n_ops)
         timing["path_shade"][f"{tag} pair"] = dict(
-            ms=ms_k, yardstick_ms=ms_y, turns=turns, bound_ms=b[0], bound_by=b[1],
+            ms=ms_k, turns=turns, bound_ms=b[0], bound_by=b[1],
             bytes=n_bytes, ops=n_ops, share_of_bound=b[0] / ms_k, target_ms=target)
-        log(f"path_shade + path_bsdf at {tag}'s first bounce ({work}): {turns[1]:.4f} / "
-            f"{turns[2]:.4f} ms, yardstick path_shade_lane {turns[0]:.4f} / {turns[3]:.4f} ms in "
-            f"turns, speed-up {ms_y / ms_k:.3f}x; the function's bound {b[0]:.5f} ms ({b[1]}: "
-            f"{n_bytes} bytes), {b[0] / ms_k:.1%} of it reached (yardstick {b[0] / ms_y:.1%}); "
+        log(f"path_shade + path_bsdf at {tag}'s first bounce ({work}): {turns[0]:.4f} / "
+            f"{turns[1]:.4f} ms; the function's bound {b[0]:.5f} ms ({b[1]}: "
+            f"{n_bytes} bytes), {b[0] / ms_k:.1%} of it reached; "
             f"target <= {target} ms: {'met' if ms_k <= target else 'missed'}")
     waves_st = sum(1 for _ in rd.wave_lanes(m_st.resolution[0] * m_st.resolution[1], m_st.spp,
                                             "cpu"))
-    replay = {"kernels": 0.0, "yardstick": 0.0}
+    replay = {"kernels": 0.0}
     for n in range(1, m_st.max_depth + 1):
-        ms_k, ms_y, _ = shade_turns("path_shade" if n == 1 else f"path_shade#{n}", "staircase")
-        replay["kernels"] += ms_k
-        replay["yardstick"] += ms_y
+        replay["kernels"] += shade_turns("path_shade" if n == 1 else f"path_shade#{n}",
+                                         "staircase")[0]
     timing["path_shade"]["staircase_frame_replayed"] = {
         k: v * waves_st for k, v in replay.items()}
-    log(f"path_shade + path_bsdf over staircase's first wave ({m_st.max_depth} bounces, in turns "
-        f"with the yardstick a bounce): {replay['kernels']:.3f} ms, yardstick "
-        f"{replay['yardstick']:.3f} ms; x{waves_st} waves: a frame's "
-        f"{waves_st * m_st.max_depth} launches of each {replay['kernels'] * waves_st:.2f} ms, "
-        f"yardstick {replay['yardstick'] * waves_st:.2f} ms")
+    log(f"path_shade + path_bsdf over staircase's first wave ({m_st.max_depth} bounces): "
+        f"{replay['kernels']:.3f} ms; x{waves_st} waves: a frame's "
+        f"{waves_st * m_st.max_depth} launches of each {replay['kernels'] * waves_st:.2f} ms")
     for tag, label in (("bounce", "cornell-mesh's first wave"),
                        ("staircase bounce", "staircase's first wave")):
         kb = {r: k6_prof[f"{tag} {r}"] for r in ("plain", "cuda")}
@@ -2532,8 +2619,7 @@ def main():
 
     # K7 on its first launches in the coated frames: against the plain
     # version on the coated lanes of both, against their yardsticks' bits
-    # and step counts, and timed in turns with the yardstick on both
-    # launches (layered_sample: the share of coated lanes whose sample
+    # and step counts, and timed on both launches (layered_sample: the share of coated lanes whose sample
     # reflects at the coat, which its set-up pass writes at once); the
     # kernels line takes staircase's (2^20 lanes); then layered_sample over
     # staircase's first wave, times its waves
@@ -2547,8 +2633,8 @@ def main():
             log(f"{name} vs plain on {tag}'s first launch ({args_[0].shape[0]} lanes, the "
                 f"coated ones compared): {agreement(res)}")
             n_steps = k7_yardstick(name, p_, args_, mask_, tag)
-            ms_k, ms_y, turns = k7_turns(name, p_, args_, mask_)
-            launches_k7[tag] = dict(ms=ms_k, yardstick_ms=ms_y, turns=turns, lanes=mask_.numel(),
+            ms_k, turns = k7_turns(name, p_, args_, mask_)
+            launches_k7[tag] = dict(ms=ms_k, turns=turns, lanes=mask_.numel(),
                                     coated=int(mask_.sum()), steps=n_steps)
             at_once = ""
             if name == "layered_sample":
@@ -2557,14 +2643,12 @@ def main():
                 at_once = (f"; {share:.2%} of the coated lanes' samples reflect at the coat (the "
                            f"set-up pass writes them), {int(walks.sum())} walk")
             log(f"{name} on {tag}'s first launch: the yardstick's bits and step counts "
-                f"({n_steps}); kernel {turns[1]:.4f} / {turns[2]:.4f} ms, yardstick "
-                f"{turns[0]:.4f} / {turns[3]:.4f} ms in turns, speed-up {ms_y / ms_k:.3f}x"
-                f"{at_once}")
+                f"({n_steps}); kernel {turns[0]:.4f} / {turns[1]:.4f} ms{at_once}")
         R_, n_live = args_[0].shape[0], int(mask_.sum())
         steps = torch.zeros(1, dtype=torch.int64, device=dev)
         cuda_fn(p_, *args_, mask_, steps)
         n_steps = int(steps.item())
-        ms, ms_y = launches_k7["staircase"]["ms"], launches_k7["staircase"]["yardstick_ms"]
+        ms = launches_k7["staircase"]["ms"]
         call = events_ms(lambda: cuda_fn(p_, *args_, mask_), 50)
         ms_plain = events_ms(lambda: plain_fn(p_, *args_), 1)
         n_bytes, read = k7_bytes(name, p_, args_, mask_)
@@ -2580,35 +2664,27 @@ def main():
         timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
                             library_ms=None, max_abs_err=max(res["max_abs_err"],
                                                              layered_err[name]))
-        timing[name].update(yardstick_ms=ms_y, host_paced_ms=call, launches_timed=launches_k7,
+        timing[name].update(host_paced_ms=call, launches_timed=launches_k7,
                             synthetic={k: v for k, v in k7_synthetic.items()
                                        if k.startswith(name + " ")})
         log(f"{name} at the main path's launch (staircase, {R_} lanes, {n_live} coated, "
-            f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms), yardstick {ms_y:.4f} ms "
-            f"in turns, plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}: {n_bytes} bytes), "
+            f"{work}): kernel {ms:.4f} ms (host-paced {call:.4f} ms), "
+            f"plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}: {n_bytes} bytes), "
             f"{b[0] / ms:.1%} of it reached"
             + (" (target <= 0.065 ms: " + ("met)" if ms <= 0.065 else "missed)")
                if name == "layered_sample" else ""))
-    replay = {"kernel": 0.0, "yardstick": 0.0}
+    replay = {"kernel": 0.0}
     for n in range(1, m_st.max_depth + 1):
         (p_, *args_, mask_), _, _ = first("staircase", "layered_sample" if n == 1
                                           else f"layered_sample#{n}")
         k7_yardstick("layered_sample", p_, args_, mask_, f"staircase's bounce {n}")
-        ms_k, ms_y, _ = k7_turns("layered_sample", p_, args_, mask_)
-        replay["kernel"] += ms_k
-        replay["yardstick"] += ms_y
+        replay["kernel"] += k7_turns("layered_sample", p_, args_, mask_)[0]
     timing["layered_sample"]["staircase_frame_replayed"] = {
         k: v * waves_st for k, v in replay.items()}
     log(f"layered_sample over staircase's first wave ({m_st.max_depth} launches, each the "
-        f"yardstick's bits, in turns with it): {replay['kernel']:.3f} ms, yardstick "
-        f"{replay['yardstick']:.3f} ms; x{waves_st} waves: a frame's "
+        f"yardstick's bits): {replay['kernel']:.3f} ms; x{waves_st} waves: a frame's "
         f"{waves_st * m_st.max_depth} launches {replay['kernel'] * waves_st:.2f} ms (target <= "
-        f"13 ms: {'met' if replay['kernel'] * waves_st <= 13 else 'missed'}), yardstick "
-        f"{replay['yardstick'] * waves_st:.2f} ms")
-    slower = [(n_, t_) for n_ in k7
-              for t_, v in list(timing[n_]["launches_timed"].items())
-              + list(timing[n_]["synthetic"].items()) if v["ms"] > v["yardstick_ms"]]
-    log(f"K7 launches slower than the yardstick: {slower or 'none'}")
+        f"13 ms: {'met' if replay['kernel'] * waves_st <= 13 else 'missed'})")
 
     # K12 on the first waves of the BDPT frames, on a 24^2 x 2 wave of the
     # four-light scene (lens; distant, spot and uniform infinite lights,
@@ -2617,8 +2693,7 @@ def main():
     # (37 slots: it reads them in place): against its plain version,
     # and both entry points against their yardsticks' bits (the
     # one-thread-per-lane kernels over the packed copy, as first written);
-    # then timed on caustic-glass's in turns with the yardsticks (graph
-    # replays of 5 calls: each call allocates its outputs, ~1 GB of shadow
+    # then timed on caustic-glass's (graph replays of 5 calls: each call allocates its outputs, ~1 GB of shadow
     # rays and 0.7 GB of per-strategy L at 2^20 lanes). Phase 10 does the
     # same at the MLT frame's 8192 lanes.
     s_fl, m_fl = compile_scene(bdpt_cases.four_lights_builder(24), 2, device=dev,
@@ -2653,70 +2728,49 @@ def main():
         return res["max_abs_err"]
 
     def k12_times(label, wave, a_rays, a_wt, calls):
-        """Both K12 entries at one main-path launch, timed in turns with
-        their yardsticks (yardstick, kernel, kernel, yardstick), beside the
-        plain version and the bound (each 4-byte vertex field and endpoint
-        field read once, as the packed copy holds them, whatever layout the
-        kernel reads); then the yardsticks' packing time and one wave's
-        peak memory either way, logged -> {name: timing}."""
+        """Both K12 entries at one main-path launch, graph-timed twice, beside
+        the plain version and the bound (each 4-byte vertex field and
+        endpoint field read once, as the packed copy holds them, whatever
+        layout the kernel reads); then one wave's peak memory, logged ->
+        {name: timing}. The yardsticks are held to their bits (k12_check)
+        and not timed: PERF.md records the two in turns."""
         scene_, meta_, light_vs, cam_vs, lam_, table_, samples_ = wave
-        _, ft, st = a_rays
-        R_, n_slots, n_cam_ = ft.R, len(ft.vertex), ft.n_cam
+        _, ft, st = a_rays[:3]
+        R_, n_slots = ft.R, len(ft.vertex)
         occ = a_wt[4]
-        verts = bdpt.pack_vertices(cam_vs, light_vs)
-        ends = bdpt.pack_endpoints(table_, samples_, R_, dev)
         in_b = (n_slots * bdpt.NF + len(ft.ends) * bdpt.NSF) * R_ * 4 + len(st.rows) * 5 * 4
-        plain_rays = lambda: bdpt.connect_rays_plain(scene_, light_vs, cam_vs, table_, samples_)
+        media = pth.has_media(scene_)
+        seg_plain = bdpt.connect_segments_plain if media else bdpt.connect_rays_plain
+        plain_rays = lambda: seg_plain(scene_, light_vs, cam_vs, table_, samples_)
         conns = plain_rays()[0]
         plain_wt = lambda: bdpt.connect_weight_plain(scene_, meta_, light_vs, cam_vs, lam_,
                                                      table_, samples_, conns, occ)
+        rays_fn = bdpt.connect_segments_cuda if media else bdpt.connect_rays_cuda
         n_con, out = st.n_ray, {}
-        for name, fn, yard, plain, out_b, extra_in, n_s in (
-                ("bdpt_connect_rays", lambda: bdpt.connect_rays_cuda(*a_rays),
-                 lambda: bdpt.connect_rays_lane_cuda(scene_, verts, ends, st, n_cam_,
-                                                     n_slots - n_cam_),
-                 plain_rays, n_con * R_ * 28 + 8, 0, n_con),
-                ("bdpt_connect_weight", lambda: bdpt.connect_weight_cuda(*a_wt),
-                 lambda: bdpt.connect_weight_lane_cuda(scene_, verts, ends, st, n_cam_,
-                                                       n_slots - n_cam_, *a_wt[3:]),
-                 plain_wt, R_ * 16 + st.n_t1 * R_ * 24, R_ * 16 + n_con * R_ + 471 * 4 * (
+        vis_b = n_con * R_ * (16 if media else 1)
+        for name, fn, plain, out_b, extra_in, n_s in (
+                ("bdpt_connect_rays", lambda: rays_fn(*a_rays), plain_rays,
+                 n_con * R_ * (48 if media else 28) + 8, 0, n_con),
+                ("bdpt_connect_weight", lambda: bdpt.connect_weight_cuda(*a_wt), plain_wt,
+                 R_ * 16 + st.n_t1 * R_ * 24, R_ * 16 + vis_b + 471 * 4 * (
                      1 + scene_.lt_type.shape[0]), len(table_))):
-            turns = [graph_ms(f, calls=calls) for f in (yard, fn, fn, yard)]
-            ms, ms_y = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            turns = [graph_ms(fn, calls=calls) for _ in range(2)]
+            ms = (turns[0] + turns[1]) / 2
             ms_plain = events_ms(plain, 1)
             b = bound(in_b + extra_in + out_b, R_ * n_s * K12_OPS[name])
-            out[name] = dict(ms=ms, yardstick_ms=ms_y, plain_ms=ms_plain, bound_ms=b[0],
-                             bound_by=b[1], lanes=R_)
+            out[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1], lanes=R_)
             log(f"{name} at {label} ({R_} lanes, {n_slots} vertex slots, {n_s} strategies): "
-                f"kernel {turns[1]:.4f} / {turns[2]:.4f} ms, yardstick {turns[0]:.4f} / "
-                f"{turns[3]:.4f} ms in turns, speed-up {ms_y / ms:.3f}x; plain "
+                f"kernel {turns[0]:.4f} / {turns[1]:.4f} ms; plain "
                 f"{ms_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]}; "
                 f"{(in_b + extra_in + out_b) / 1e9:.3f} GB), kernel {ms / b[0]:.2f}x it")
-        # what the yardsticks' packed copy costs, and one wave's connections'
-        # peak memory either way (over what is held before them)
-        ms_pack = graph_ms(lambda: (bdpt.pack_vertices(cam_vs, light_vs),
-                                    bdpt.pack_endpoints(table_, samples_, R_, dev)), calls=calls)
-        del verts, ends
-        peaks = {}
-        for way in ("kernel", "yardstick"):
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            if way == "kernel":
-                bdpt.connect_all_cuda(scene_, meta_, light_vs, cam_vs, lam_, table_, samples_)
-            else:
-                v_ = bdpt.pack_vertices(cam_vs, light_vs)
-                e_ = bdpt.pack_endpoints(table_, samples_, R_, dev)
-                o_ = bdpt.connect_rays_lane_cuda(scene_, v_, e_, st, n_cam_, n_slots - n_cam_)
-                c_ = dispatch.occluded(scene_, meta_, *o_[:3]).contiguous()
-                bdpt.connect_weight_lane_cuda(scene_, v_, e_, st, n_cam_, n_slots - n_cam_, lam_,
-                                              c_, meta_.resolution)
-                del v_, e_, o_, c_
-            torch.cuda.synchronize()
-            peaks[way] = (torch.cuda.max_memory_allocated() - held) / 2**30
-        log(f"K12 at {label}: the yardsticks' packing {ms_pack:.4f} ms a wave; one wave's "
-            f"connections peak at {peaks['kernel']:.3f} GiB (the yardsticks with their "
-            f"packing: {peaks['yardstick']:.3f} GiB)")
+        # one wave's connections' peak memory (over what is held before them)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bdpt.connect_all_cuda(scene_, meta_, light_vs, cam_vs, lam_, table_, samples_)
+        torch.cuda.synchronize()
+        log(f"K12 at {label}: one wave's connections peak at "
+            f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB")
         return out
 
     for tag, wave in waves_b.items():
@@ -2779,7 +2833,7 @@ def main():
         splat_err, timing["film_add_splats"]["max_abs_err"],
         timing["film_add_splats"]["cornell_bdpt"]["max_abs_err"])
 
-    log(f"[phase 10 starts at {time.time() - t_start:.1f} s]")
+    phase_start("10")
     # ---- 10. MLT (K12m): cornell 24^2 on the card and the CPU with one
     # seed; the two full-width frames, cut in mutations per pixel; both
     # kernels against their plain versions at the frames' first passes, and
@@ -2898,7 +2952,7 @@ def main():
 
     # K12 at the MLT shape: the cut caustic-glass-mlt frame's first 8192-lane
     # evaluation (a bootstrap batch), against its plain version and its
-    # yardsticks' bits, and timed in turns with them
+    # yardsticks' bits, and timed
     wave_m = first("caustic_mlt", "bdpt_wave")[0]
     k12_err = max(k12_err, k12_check("caustic_mlt", wave_m))
     for name, t in k12_times("the caustic-glass-mlt frame's first 8192-lane evaluation", wave_m,
@@ -2985,7 +3039,12 @@ def main():
             timing["mlt_mutate"]["cornell_mesh_mltpath"] = t_m
             timing["mlt_accept_splat"]["cornell_mesh_mltpath"] = t_a
 
-    log(f"[phase 11 starts at {time.time() - t_start:.1f} s]")
+    phase_start("11")
+    yard_s = (phase_t["7"] - phase_t["6b"]) + (phase_t["11"] - phase_t["9"])
+    log(f"phases 6b, 9 and 10 took {yard_s:.1f} s without the yardsticks' timings in turns "
+        f"(path_shade_lane, layered_*_lane, K12's *_lane; their bits are still checked): "
+        f"{YARDSTICK_PHASES_S - yard_s:.1f} s less than the {YARDSTICK_PHASES_S} s the same "
+        f"phases took with them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)")
     # ---- 11. scene sharding: K11a, K11b and the select kernel
     # (a) against their plain versions, the unfused yardstick and K1 on
     # phase 3's rays over cornell-mesh levels 5 in 8 parts
@@ -3334,7 +3393,7 @@ def main():
         f"(host-paced {call:.4f} ms), plain {ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}); "
         f"bit-exact")
 
-    log(f"[phase 12 starts at {time.time() - t_start:.1f} s]")
+    phase_start("12")
     # ---- 12. instancing (K1i) on the instanced cornell box
     def inst_scene(levels, mode, res=256, spp=16, filt=None, integrator=None):
         """(builder, scene, meta) of the instanced cornell box under
@@ -3749,8 +3808,214 @@ def main():
     require(ov == 0, "traversal overflow lanes", ov)
     log("traversal overflow counter: 0")
 
-    log(f"[phase 13 starts at {time.time() - t_start:.1f} s]")
-    # ---- 13. kernels line and result
+    phase_start("13")
+    # ---- 13. participating media on volumetric-caustic (homogeneous fog as
+    # the camera's and the spot light's medium, the spot beam through a glass
+    # ball): small renders on the card against the CPU; then the scene through
+    # render() with BDPT at the bench's 128^2 x 8, the path integrator at its
+    # file's 128^2 x 16 and its file's MLT over BDPT (128^2, max depth 7),
+    # cut in mutations per pixel; K6t, the VOLUMETRIC K6 kernels and K12's
+    # MEDIA instantiations against their plain versions on those frames'
+    # captured launches, graph-timed beside their bounds
+    import medium_cases
+    for integ, spp_s in (("path", 2), ("bdpt", 1)):
+        b_s = bd.SceneBuilder().parse_file(str(medium_cases.CAUSTIC))
+        b_s.film["xresolution"] = b_s.film["yresolution"] = 16
+        b_s.integrator["maxdepth"] = 3
+        b_s.filter = {"type": "box"}
+        imgs_s, rays_s = [], []
+        for d_ in (dev, torch.device("cpu")):
+            sc_s, mt_s = compile_scene(b_s, spp_s, device=d_, integrator_override=integ)
+            img_s, st_s = rd.render(sc_s, mt_s, device=d_, return_stats=True)
+            imgs_s.append(img_s.cpu().numpy())
+            rays_s.append(st_s["closest"] + st_s["shadow"])
+        check_image(blocks(imgs_s[0], 4), blocks(imgs_s[1], 4),
+                    f"volumetric-caustic {integ} 16^2 card vs cpu (4x4 block means)")
+        require(abs(rays_s[0] - rays_s[1]) <= 1e-3 * rays_s[1], "volumetric-caustic", integ,
+                "rays card vs cpu", rays_s)
+        log(f"small render volumetric-caustic {integ} 16^2 x {spp_s}, max depth 3, card vs cpu: "
+            f"4x4 block means within tests/test_parity.py's criterion, means "
+            f"{imgs_s[0].mean():.5f} / {imgs_s[1].mean():.5f}, rays {rays_s[0]} / {rays_s[1]}")
+    vc = str(medium_cases.CAUSTIC)
+    s_vb, m_vb = load_scene(vc, device=dev, spp=8, integrator="bdpt")
+    s_vp, m_vp = load_scene(vc, device=dev, integrator="path")
+    s_vm, m_vm = load_scene(vc, device=dev)
+    require((m_vb.resolution, m_vb.spp, m_vp.spp, m_vm.integrator, m_vm.max_depth,
+             m_vm.mutations_per_pixel, mlt.bdpt_dims(m_vm), m_vp.volumetric) ==
+            ((128, 128), 8, 16, "mlt", 7, 100, 376, True), "volumetric-caustic settings")
+    VOL_MUT = 8
+    log(f"volumetric-caustic MLT frame at full width (128^2, max depth 7, 8192 chains, "
+        f"{mlt.bdpt_dims(m_vm)} primary samples a chain) cut from 100 mutations per pixel "
+        f"(200 passes) to {VOL_MUT} ({VOL_MUT * 128 * 128 // mlt.N_CHAINS} passes) so that "
+        f"this phase fits the script's time; python -m pbrt_tpu_torch.profile_render renders "
+        f"it uncut")
+    vol_tri = ("dense_tri_closest", "dense_spheres", "transmit_hop")
+    full_render("vol_bdpt", s_vb, m_vb, vol_tri + ("bdpt_connect_rays", "bdpt_connect_weight",
+                                                   "film_add_samples", "film_add_splats"))
+    full_render("vol_path", s_vp, m_vp, vol_tri + ("path_rr", "film_add_samples") + K6V[:3])
+    full_render("vol_mlt", s_vm, dataclasses.replace(m_vm, mutations_per_pixel=VOL_MUT),
+                vol_tri + ("bdpt_connect_rays", "bdpt_connect_weight", "mlt_mutate",
+                           "mlt_accept_splat"))
+    log(f"volumetric-caustic image means: BDPT {frame_means['vol_bdpt']:.5f}, path "
+        f"{frame_means['vol_path']:.5f} (no caustic: a specular chain cannot reach the delta "
+        f"spot light from the camera), MLT {frame_means['vol_mlt']:.5f} "
+        f"({frame_means['vol_mlt'] / frame_means['vol_bdpt'] - 1:+.2%} of BDPT's)")
+    require(frame_means["vol_mlt"] > 0 and frame_means["vol_bdpt"] > 0, "volumetric-caustic "
+            "frames carry no light")
+
+    def vol_bits(a, b):
+        return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y)
+                   for x, y in zip(a, b))
+
+    # K6t: bit-exact with transmit_hop_plain at the path frame's and the BDPT
+    # frame's first launches; timed at the BDPT one (its n_ray R lanes),
+    # each call from the same inputs (restored by copies, whose time is
+    # taken out)
+    hop_err = 0.0
+    for tag in ("vol_path", "vol_bdpt"):
+        sc_h, hit_h, o_h, d_h, p1_h, m_h, lam_h, tr_h, dn_h = first(tag, "transmit_hop")[0]
+        want = pth.transmit_hop_plain(sc_h, hit_h, o_h, d_h, p1_h, m_h, lam_h, tr_h, dn_h)
+        got = pth.transmit_hop_cuda(sc_h, hit_h, o_h.clone(), d_h, p1_h, m_h.clone(), lam_h,
+                                    tr_h.clone(), dn_h.clone())
+        require(vol_bits(got, want), tag, "K6t differs from transmit_hop_plain")
+        live = ~dn_h
+        n_l = int(live.sum())
+        n_if = int((live & hit_h.valid & (hit_h.mat < 0)).sum())
+        log(f"transmit_hop at {tag}'s first launch ({o_h.shape[0]} lanes, {n_l} live, "
+            f"{int((live & hit_h.valid).sum())} of them with a hit, {n_if} crossing an "
+            f"interface): bit-exact with its plain version")
+    R_h = o_h.shape[0]
+    o_w, m_w, tr_w, dn_w = o_h.clone(), m_h.clone(), tr_h.clone(), dn_h.clone()
+
+    def restore():
+        o_w.copy_(o_h)
+        m_w.copy_(m_h)
+        tr_w.copy_(tr_h)
+        dn_w.copy_(dn_h)
+
+    ms_c = graph_ms(restore)
+    ms_t = graph_ms(lambda: (restore(), pth.transmit_hop_cuda(sc_h, hit_h, o_w, d_h, p1_h, m_w,
+                                                               lam_h, tr_w, dn_w)))
+    ms_hop = ms_t - ms_c
+    ms_plain = events_ms(lambda: pth.transmit_hop_plain(sc_h, hit_h, o_h, d_h, p1_h, m_h, lam_h,
+                                                        tr_h, dn_h), 3)
+    # bytes: every lane its done flag in and t_max out; a live lane its
+    # origin, end, medium, hit flag, wavelengths and transmittance in and
+    # the transmittance out; a live lane with a hit its t and material; an
+    # interface lane the hit point, normal, direction and media in, its
+    # origin and medium out; a lane done at this hop its flag out; the
+    # sigma rows once
+    live_hit = live & hit_h.valid
+    n_lv = int(live_hit.sum())
+    n_end = n_l - n_if
+    hop_b = (R_h * (1 + 4) + n_l * (12 + 12 + 8 + 1 + 16 + 32) + n_lv * (4 + 8)
+             + n_if * (36 + 16 + 20) + n_end + 2 * sc_h.med_sigma_a.numel() * 4)
+    b = bound(hop_b, n_l * VOL_OPS["hop"] + R_h * VOL_OPS["hop_lane"])
+    timing["transmit_hop"] = dict(ms=ms_hop, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                                  library_ms=None, max_abs_err=hop_err, restore_ms=ms_c,
+                                  lanes=R_h, live=n_l, interface=n_if)
+    log(f"transmit_hop at vol_bdpt's first launch ({R_h} lanes): kernel {ms_hop:.4f} ms "
+        f"({ms_t:.4f} with the inputs' restore, which alone takes {ms_c:.4f}), plain "
+        f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}: {hop_b} bytes), {ms_hop / b[0]:.1f}x "
+        f"it; {pth.MAX_HOPS} launches a transmittance")
+
+    # the VOLUMETRIC K6 kernels at the path frame's first and third bounces:
+    # the draws, masks, medium and depth bit-exact with the plain parts, the
+    # floats to tests/path_cases.py's criteria; timed at the first, each
+    # alone
+    vol_err = dict.fromkeys(K6V[:3], 0.0)
+    for nth in ("", "#3"):
+        args_v = first("vol_path", "path_shade_vol" + nth)[0]
+        sc_v, mt_v, st_v, hit_v = args_v[:4]
+        (sp, shp, pp, _), (sk, shk, pk, _) = (pth.shade_vol_plain(*args_v),
+                                              pth.shade_vol_cuda(*args_v))
+        rep_v = path_cases.Report()
+        path_cases.compare_state(rep_v, sk, sp, path_cases.STATE_FLOATS + ("trans_pdf",))
+        exact = {k: torch.equal(getattr(sk, k), getattr(sp, k))
+                 for k in ("active", "specular", "depth", "medium")}
+        exact.update(smp=torch.equal(sk.smp.state, sp.smp.state)
+                     and torch.equal(sk.smp.dim, sp.smp.dim), nee=torch.equal(pk.mask, pp.mask))
+        require(rep_v.ok() and all(exact.values()), "VOLUMETRIC K6 against the plain parts at "
+                f"vol_path's bounce {nth or '#1'}", exact, str(rep_v))
+        m_ = pp.mask
+        trans_v = pth.transmittance(sc_v, mt_v, shp.o, shp.d, shp.p, shp.medium, sp.lam,
+                                    shp.t_max)
+        rp, rk = pth.resolve_vol_plain(sp, pp, trans_v), pth.resolve_vol_cuda(sp, pp, trans_v)
+        rep_r = path_cases.Report()
+        rep_r.near("L", rk.L, rp.L)
+        require(rep_r.ok() and int(rk.n_shadow) == int(rp.n_shadow), "path_resolve_vol",
+                str(rep_r))
+        # each kernel's own outputs: path_shade_vol's L, path_bsdf_vol's beta
+        # and transmittance pdf, path_resolve_vol's L
+        for name, rep_, fields in (("path_shade_vol", rep_v, ("L",)),
+                                   ("path_bsdf_vol", rep_v, ("beta", "trans_pdf")),
+                                   ("path_resolve_vol", rep_r, ("L",))):
+            vol_err[name] = max(vol_err[name], *(rep_.max_abs[f] for f in fields))
+        scat = int((sp.active & (sp.medium >= 0) & (sp.prev_ns == 0).all(-1)).sum())
+        log(f"path_shade_vol, path_bsdf_vol, path_resolve_vol at vol_path's bounce {nth or '#1'} "
+            f"({st_v.o.shape[0]} lanes, {int(m_.sum())} with NEE, ~{scat} scattered in the fog): "
+            f"draws, masks, medium and depth bit-exact {exact}; {rep_v.worst()}; shadow segments' "
+            f"media equal on the NEE lanes: {torch.equal(shk.medium[m_], shp.medium[m_])}")
+    args_v = first("vol_path", "path_shade_vol")[0]
+    sc_v, mt_v, st_v, hit_v = args_v[:4]
+    R_v = st_v.o.shape[0]
+    n_hit = int((st_v.active & hit_v.valid).sum())
+    n_med = int((st_v.active & (st_v.medium >= 0)).sum())
+    shade_b = R_v * (187 + 149) + n_hit * 56
+    bsdf_b = R_v * (127 + 86) + n_hit * 64
+    res_args = first("vol_path", "path_resolve_vol")[0]
+    n_nee = int(res_args[1].mask.sum())
+    res_b = R_v * (17 + 16) + n_nee * 56 + 16
+    for name, fn, plain, nb, ops in (
+            ("path_shade_vol", lambda: pth.shade_vol_cuda(*args_v, kernels=("path_shade_vol",)),
+             lambda: pth.shade_light_vol_plain(*args_v), shade_b,
+             n_hit * K6_OPS["shade"] + n_med * VOL_OPS["event"]),
+            ("path_bsdf_vol", lambda: pth.shade_vol_cuda(*args_v, kernels=("path_bsdf_vol",)),
+             lambda: pth.shade_bsdf_vol_plain(*args_v), bsdf_b,
+             n_hit * K6_OPS["shade_bsdf"] + n_med * VOL_OPS["event"]),
+            ("path_resolve_vol", lambda: pth.resolve_vol_cuda(*res_args),
+             lambda: pth.resolve_vol_plain(*res_args), res_b, n_nee * VOL_OPS["resolve"])):
+        ms, call = kernel_ms(fn)
+        ms_plain = events_ms(plain, 3)
+        b = bound(nb, ops)
+        timing[name] = dict(ms=ms, plain_ms=ms_plain, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None, max_abs_err=vol_err[name], host_paced_ms=call,
+                            bytes=nb, ops=ops)
+        log(f"{name} at vol_path's first bounce ({R_v} lanes, {n_hit} hits, {n_med} in the fog, "
+            f"{n_nee} NEE): kernel {ms:.4f} ms (host-paced {call:.4f} ms), plain "
+            f"{ms_plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}: {nb} bytes, {ops} ops), "
+            f"{ms / b[0]:.1f}x it; max abs err of its own outputs over bounces #1 and #3 "
+            f"{vol_err[name]:.3e}")
+
+    # K12's MEDIA instantiations on the BDPT frame's first wave: the
+    # segments bit-exact with connect_segments_plain, the whole stage with
+    # the transmittance loop against connect_all_plain (tests/bdpt_cases.py's
+    # criterion); then both entry points timed beside their bounds
+    wave_v = first("vol_bdpt", "bdpt_wave")[0]
+    # the captured pointer table names the frame's own (freed) tensors: a new
+    # one over the kept copies
+    ft_v = bdpt.field_table(wave_v[3], wave_v[2], wave_v[5], bdpt.contiguous_samples(wave_v[6]))
+    a_seg = (wave_v[0], ft_v, bdpt.strategy_table(wave_v[5], dev))
+    got_s = bdpt.connect_segments_cuda(*a_seg)
+    want_s = bdpt.connect_segments_plain(*wave_v[:1], *wave_v[2:4], *wave_v[5:7])
+    require(vol_bits([x.reshape(-1) for x in got_s], [y.reshape(-1) for y in want_s[1:]]),
+            "K12 MEDIA segments differ from connect_segments_plain")
+    res_v = bdpt_cases.compare(*wave_v)
+    bdpt_cases.require_agreement(res_v)
+    n_med_v = sum(int((v.vtype == bdpt.VT_MEDIUM).sum()) for v in wave_v[2] + wave_v[3])
+    log(f"K12 MEDIA on vol_bdpt's wave ({res_v['lanes']} lanes x {res_v['strategies']} "
+        f"strategies, {n_med_v} medium vertices): segments bit-exact with the plain version; "
+        f"against plain, worst strategy {res_v['worst']} agrees on {res_v['frac']:.6%} of its "
+        f"live lanes, L {res_v['L_frac']:.6%}; rays {res_v['rays_kernel']} = plain "
+        f"{res_v['rays_plain']}; max abs err {res_v['max_abs_err']:.3e}")
+    for name, t in k12_times("vol_bdpt's wave (MEDIA)", wave_v, a_seg,
+                             a_seg + tuple(first("vol_bdpt", "bdpt_connect_weight")[0][3:]),
+                             5).items():
+        timing[name]["volumetric"] = dict(t, max_abs_err=res_v["max_abs_err"])
+
+    phase_start("14")
+    # ---- 14. kernels line and result
     meta_k = {
         "bvh_closest_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                             "pbrt_tpu/accel/bvh.py:909"),
@@ -3809,6 +4074,14 @@ def main():
                       "pbrt_tpu/integrators/path.py:193"),
         "path_resolve": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
                          "pbrt_tpu/integrators/path.py:193"),
+        "path_shade_vol": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                           "pbrt_tpu/integrators/path.py:193"),
+        "path_bsdf_vol": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                          "pbrt_tpu/integrators/path.py:193"),
+        "path_resolve_vol": ("cuda", "pbrt_tpu_torch/csrc/path_step.cu",
+                             "pbrt_tpu/integrators/path.py:193"),
+        "transmit_hop": ("cuda", "pbrt_tpu_torch/csrc/transmit.cu",
+                         "pbrt_tpu/integrators/path.py:98"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

@@ -18,7 +18,8 @@
 //
 // Inputs: the walks' own tensors, read through a per-wave table of field
 // pointers in device memory (`Fields`): for each vertex slot (camera slots
-// first) the 21 field groups of integrators/bdpt.py VERTEX_GROUPS, each
+// first) the 24 field groups of integrators/bdpt.py VERTEX_GROUPS (the last
+// three, the medium ids, read in place and only on a scene with media), each
 // (R,) or (R, w) contiguous with its fixed dtype (float32, int32 vtype, bool
 // delta, int64 light and kind); then for each endpoint row the groups of
 // CAMERA_SAMPLE_GROUPS or LIGHT_SAMPLE_GROUPS. No packed copy is made, and
@@ -56,6 +57,17 @@
 // for the branch a lane selects; 3-term dot products are (x + y) + z and the
 // file is built with --fmad=false.
 //
+// On a scene with homogeneous media (JAX bdpt.py's media branches) both
+// entry points run their MEDIA instantiations: bdpt_connect_rays also
+// writes each segment's end and the medium it starts in (`_conn_medium`:
+// the sending vertex's medium on the segment's side of an interface) and
+// the first hop's t_max from the offset origin, for the transmittance hop
+// loop (K6t, csrc/transmit.cu); bdpt_connect_weight takes that loop's
+// (n_ray R, 4) transmittance in place of the occluded bits, and a VT_MEDIUM
+// vertex's f and pdf are the HG phase function of its medium (no cosine in
+// its density conversions, as for every vertex off a surface). A scene
+// without media launches the instantiations it did before.
+//
 // The two entry points as first written (one thread per lane over a packed
 // copy of the walks) are the yardsticks in csrc/bdpt_lane.cu.
 #include <cuda_runtime.h>
@@ -70,21 +82,22 @@ using namespace pbrt_bxdf;
 namespace {
 
 constexpr int LT_F = 10, LAMBDA_MIN = 360, LAMBDA_RANGE = 471;
-// vertex field groups (integrators/bdpt.py VERTEX_GROUPS), in this order
-constexpr int NG = 21;
+// vertex field groups (integrators/bdpt.py VERTEX_GROUPS), in this order;
+// the first NGS are staged, the medium ids after them are read in place
+constexpr int NG = 24, NGS = 21;
 constexpr int G_VTYPE = 0, G_P = 1, G_NG = 2, G_NS = 3, G_BETA = 4, G_PDF_FWD = 5,
               G_PDF_REV = 6, G_DELTA = 7, G_LIGHT = 8, G_WO = 9, G_KIND = 10, G_REFL = 11,
               G_TRANS = 12, G_ETA_RE = 13, G_ETA_IM = 14, G_ETA = 15, G_AX = 16, G_AY = 17,
-              G_FX = 18, G_FY = 19, G_FZ = 20;
+              G_FX = 18, G_FY = 19, G_FZ = 20, G_MED = 21, G_MED_IN = 22, G_MED_OUT = 23;
 // float32 components of a group, and its bytes a lane (int32 vtype 4, bool
-// delta 1, int64 light and kind 8)
+// delta 1, int64 light, kind and medium ids 8)
 __host__ __device__ constexpr int g_width(int g) {
-  return (g == G_P || g == G_NG || g == G_NS || g == G_WO || g >= G_FX) ? 3
-         : (g == G_BETA || (g >= G_REFL && g <= G_ETA_IM))             ? 4
-                                                                        : 1;
+  return (g == G_P || g == G_NG || g == G_NS || g == G_WO || (g >= G_FX && g <= G_FZ)) ? 3
+         : (g == G_BETA || (g >= G_REFL && g <= G_ETA_IM))                            ? 4
+                                                                                       : 1;
 }
 __host__ __device__ constexpr int g_bytes(int g) {
-  return g == G_DELTA ? 1 : (g == G_LIGHT || g == G_KIND) ? 8 : 4 * g_width(g);
+  return g == G_DELTA ? 1 : (g == G_LIGHT || g == G_KIND || g >= G_MED) ? 8 : 4 * g_width(g);
 }
 __host__ __device__ constexpr int g_offset(int g) {  // bytes a lane before group g
   int o = 0;
@@ -94,7 +107,7 @@ __host__ __device__ constexpr int g_offset(int g) {  // bytes a lane before grou
 // a tile: 32 lanes; the warps of a block; a slot's staged records; endpoint
 // groups; the most slots a block stages (past them it reads in place)
 constexpr int TILE = 32, WARPS = 16;
-constexpr int SLOT_BYTES = TILE * g_offset(NG);
+constexpr int SLOT_BYTES = TILE * g_offset(NGS);
 static_assert(SLOT_BYTES == 6560 && SLOT_BYTES % 16 == 0, "slot bytes");
 constexpr int NEG = 8;
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on the H100
@@ -117,7 +130,8 @@ constexpr int S_CFR = 0, S_RFC = 16, S_Z = 32, S_COS_TOTAL = 35, S_A = 36, S_RES
 // light table columns
 constexpr int L_TYPE = 0, L_PMF_COL = 1, L_TWO = 2, L_AREA = 3, L_SHAPE = 4, L_DIR = 5,
               L_COS_END = 8, L_SCALE = 9;
-constexpr int VT_NONE = 0, VT_CAMERA = 1, VT_LIGHT = 2, VT_SURFACE = 3, VT_LIGHT_INF = 4;
+constexpr int VT_NONE = 0, VT_CAMERA = 1, VT_LIGHT = 2, VT_SURFACE = 3, VT_LIGHT_INF = 4,
+              VT_MEDIUM = 5;
 constexpr int LIGHT_AREA = 0, LIGHT_DISTANT = 1, LIGHT_UNIFORM_INFINITE = 2, LIGHT_SPOT = 4;
 constexpr int K_COATED_DIFFUSE = 4, K_COATED_CONDUCTOR = 5;
 // Python constants folded in double precision, then rounded once
@@ -147,6 +161,7 @@ __device__ __forceinline__ V3 scale(V3 a, float k) { return {a.x * k, a.y * k, a
 struct CtxBase {
   const float* sc;  // scene constants
   const float* lt;  // (L, LT_F)
+  const float* med_g;  // (n_media,) HG asymmetry (the MEDIA instantiations)
   int n_cam, R, lane, gl;
   __device__ float light(int li, int f) const { return lt[(size_t)li * LT_F + f]; }
 };
@@ -156,8 +171,13 @@ struct CtxBase {
 // memory). Each is read by one strategy, so through the L2 only (__ldcg),
 // keeping the small L1 that the tile leaves for data read again.
 struct FieldEnds : CtxBase {
+  static constexpr bool MEDIA = false;
   Fields F;
   const unsigned long long* et;
+  // a medium id (group G_MED .. G_MED_OUT) of a walk slot, read in place
+  __device__ int vmed(int slot, int g) const {
+    return __ldg(static_cast<const int*>(table_ptr(F.v, slot * NG + g)) + 2 * (size_t)gl);
+  }
   __device__ const void* ep(int e, int g) const {
     return reinterpret_cast<const void*>(et[e * NEG + g]);
   }
@@ -268,6 +288,12 @@ __device__ __forceinline__ Vtx load_vtx(const C& c, int slot) {
   return v;
 }
 
+// a context of the MEDIA instantiations
+template <class B>
+struct WithMedia : B {
+  static constexpr bool MEDIA = true;
+};
+
 __device__ __forceinline__ bool exists(const Vtx& v) { return v.vtype != VT_NONE; }
 __device__ __forceinline__ bool connectible(const Vtx& v) { return exists(v) && !v.delta; }
 
@@ -327,6 +353,11 @@ __device__ __forceinline__ V3 to_local(V3 fx, V3 fy, V3 fz, V3 w) {
 // dir_to(v.p, p)); zero for non-surfaces
 template <class C>
 __device__ __forceinline__ S4 vertex_f(const C& c, const Vtx& v, V3 wi) {
+  if constexpr (C::MEDIA) {
+    // a medium vertex: the HG phase function of its medium (bdpt.py _vertex_f)
+    if (v.vtype == VT_MEDIUM)
+      return s4(henyey_greenstein(dot(v.wo, wi), c.med_g[c.vmed(v.slot, G_MED)]));
+  }
   if (v.vtype != VT_SURFACE) return s4(0.f);
   Bxdf b;
   V3 fx, fy, fz;
@@ -406,6 +437,8 @@ __device__ __forceinline__ float vertex_pdf(const C& c, const Vtx& v, V3 wp, V3 
   } else if (v.vtype == VT_LIGHT) {
     float pos;
     pdf_le(c, v.light, v.ng, wn, pos, pdf_dir);
+  } else if (C::MEDIA && v.vtype == VT_MEDIUM) {
+    pdf_dir = henyey_greenstein(dot(wp, wn), c.med_g[c.vmed(v.slot, G_MED)]);
   } else {
     Bxdf b;
     V3 fx, fy, fz;
@@ -632,7 +665,8 @@ __device__ __forceinline__ S4 emitted(const C& c, const Junction& j, const float
 }
 
 // L * MIS weight of strategy (s, t) at the lane, given the occluded bits of
-// its ray row r. The weight is formed first: holding it (one float) through
+// its ray row r (the MEDIA instantiations: its (n_ray R, 4) transmittance,
+// through the same pointer). The weight is formed first: holding it (one float) through
 // the connection, and not the connection's L through the weight, keeps the
 // kernel within 128 registers, without spills.
 template <class C>
@@ -643,10 +677,18 @@ __device__ __forceinline__ S4 strategy_L(const C& c, int s, int t, int e, int r,
   const float w = mis_weight(c, s, t, j);
   if (s == 0) return emitted(c, j, lam, emission, uinf) * w;
   const Conn cn = connection(c, s, t, e, j);
-  const float vis =
-      __ldcg(reinterpret_cast<const unsigned char*>(occluded) + (size_t)r * c.R + c.gl) ? 0.f
-                                                                                     : 1.f;
-  S4 Lst = cn.has_g ? cn.L * (cn.g * vis) : cn.L * vis;
+  S4 Lst;
+  if constexpr (C::MEDIA) {
+    // the segment's transmittance (n_ray R, 4)
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(occluded) + (size_t)r * c.R + c.gl);
+    const S4 tr = {{x.x, x.y, x.z, x.w}};
+    Lst = cn.has_g ? cn.L * (tr * cn.g) : cn.L * tr;
+  } else {
+    const float vis =
+        __ldcg(reinterpret_cast<const unsigned char*>(occluded) + (size_t)r * c.R + c.gl) ? 0.f
+                                                                                       : 1.f;
+    Lst = cn.has_g ? cn.L * (cn.g * vis) : cn.L * vis;
+  }
   if (!cn.attempt) Lst = s4(0.f);
   return Lst * w;
 }
@@ -661,11 +703,15 @@ __device__ __forceinline__ long long splat_pixel(const C& c, int e, int res_x, i
 
 // bdpt_connect_rays: one thread per lane over the walks' tensors, each row
 // of blocks (blockIdx.y) taking every gridDim.y-th strategy, so that a wave
-// of few lanes (an MLT pass's 8192) still fills the card
+// of few lanes (an MLT pass's 8192) still fills the card. MEDIA: also each
+// segment's end ray_p and start medium ray_med, and t_max from the offset
+// origin (the transmittance loop's first hop)
+template <bool MEDIA>
 __global__ void __launch_bounds__(128)
 connect_rays_kernel(Fields F, CtxBase base, const int* table, int n_strat, float* ray_o,
-                    float* ray_d, float* ray_t, unsigned long long* count) {
-  FieldCtx c;
+                    float* ray_d, float* ray_t, unsigned long long* count, float* ray_p,
+                    long long* ray_med) {
+  typename std::conditional<MEDIA, WithMedia<FieldCtx>, FieldCtx>::type c;
   static_cast<CtxBase&>(c) = base;
   c.F = F;
   c.et = F.e;
@@ -675,8 +721,24 @@ connect_rays_kernel(Fields F, CtxBase base, const int* table, int n_strat, float
     const int s = table[5 * k], t = table[5 * k + 1], e = table[5 * k + 2],
               r = table[5 * k + 3];
     if (s == 0) continue;
-    const Conn cn = connection(c, s, t, e, junction<false>(c, s, t, e));
+    const Junction j = junction<false>(c, s, t, e);
+    Conn cn = connection(c, s, t, e, j);
     const size_t i = (size_t)r * c.R + c.lane;
+    if constexpr (MEDIA) {
+      // the segment from the sending vertex a (pt for s = 1, else qs) to
+      // p_to, and the medium on a's side of it (bdpt.py _conn_medium)
+      // (each picked by value, not by reference)
+      const int slot = s == 1 ? j.pt.slot : j.qs.slot;
+      const V3 a_ng = s == 1 ? j.pt.ng : j.qs.ng, p_to = s == 1 ? j.qs.p : j.pt.p;
+      const int m = c.vmed(slot, G_MED), m_in = c.vmed(slot, G_MED_IN),
+                m_out = c.vmed(slot, G_MED_OUT);
+      ray_med[i] = m_in != m_out ? (dot(cn.d, a_ng) > 0.f ? m_out : m_in) : m;
+      ray_p[3 * i] = p_to.x;
+      ray_p[3 * i + 1] = p_to.y;
+      ray_p[3 * i + 2] = p_to.z;
+      const V3 v = sub(cn.o, p_to);
+      cn.t_max = cn.attempt ? sqrtf(fmaxf(dot(v, v), 0.f)) * SHADOW_SHORTEN : 0.f;
+    }
     ray_o[3 * i] = cn.o.x;
     ray_o[3 * i + 1] = cn.o.y;
     ray_o[3 * i + 2] = cn.o.z;
@@ -702,12 +764,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
 // group's 32 lanes are 32 to 512 bytes); bytes past lane R - 1 are zeros.
 __device__ void stage_tile(const Fields& F, unsigned char* buf, int n_slots, int lane0, int R) {
   const int warp = threadIdx.x >> 5, i = threadIdx.x & 31;
-  for (int pr = warp; pr < n_slots * NG; pr += WARPS) {
-    const int slot = pr / NG, g = pr - slot * NG, gb = g_bytes(g);
+  for (int pr = warp; pr < n_slots * NGS; pr += WARPS) {
+    const int slot = pr / NGS, g = pr - slot * NGS, gb = g_bytes(g);
     if (i < 2 * gb) {
       const long long left = (long long)(R - lane0) * gb - 16 * i;
       const int n = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
-      const char* base = static_cast<const char*>(table_ptr(F.v, pr));
+      const char* base = static_cast<const char*>(table_ptr(F.v, slot * NG + g));
       cp_async16(buf + slot * SLOT_BYTES + TILE * g_offset(g) + 16 * i,
                  n ? base + (size_t)lane0 * gb + 16 * i : base, n);
     }
@@ -725,7 +787,7 @@ __device__ void stage_tile(const Fields& F, unsigned char* buf, int n_slots, int
 // order[w] .. order[w + 1] - 1 index order[WARPS + 1 ..], which holds table
 // rows. per_strategy (n_strat, R, 4) receives every strategy's L; after a
 // barrier one warp sums the tile's t > 1 rows in table order.
-template <bool STAGED>
+template <bool STAGED, bool MEDIA>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 connect_weight_tile_kernel(Fields F, CtxBase base, int n_slots, int n_end, int n_bufs,
                            const int* table, const int* order, int n_strat, const float* lam,
@@ -735,7 +797,8 @@ connect_weight_tile_kernel(Fields F, CtxBase base, int n_slots, int n_end, int n
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, n_tiles = (base.R + TILE - 1) / TILE;
   const int buf_bytes = n_slots * SLOT_BYTES;
-  typename std::conditional<STAGED, TileCtx, FieldCtx>::type c;
+  using Ctx = typename std::conditional<STAGED, TileCtx, FieldCtx>::type;
+  typename std::conditional<MEDIA, WithMedia<Ctx>, Ctx>::type c;
   static_cast<CtxBase&>(c) = base;
   c.F = F;
   c.et = F.e;
@@ -797,18 +860,37 @@ connect_weight_tile_kernel(Fields F, CtxBase base, int n_slots, int n_end, int n
 
 // the staged kernel's launch attributes, set once: shared memory past 48 KB
 // and the largest shared-memory carveout
+template <bool MEDIA>
 int prepare_staged() {
   static bool ready = false;
   if (ready) return 0;
-  cudaError_t err = cudaFuncSetAttribute(connect_weight_tile_kernel<true>,
+  cudaError_t err = cudaFuncSetAttribute(connect_weight_tile_kernel<true, MEDIA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          MAX_SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(connect_weight_tile_kernel<true>,
+    err = cudaFuncSetAttribute(connect_weight_tile_kernel<true, MEDIA>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   ready = err == cudaSuccess;
   return (int)err;
+}
+
+template <bool MEDIA>
+void launch_weight(int grid, int bufs, cudaStream_t stream, Fields F, CtxBase base, int n_slots,
+                   int n_end, const int* table, const int* order, int n_strat, const float* lam,
+                   const float* emission, const float* uinf, const bool* vis, int res_x,
+                   int res_y, float* L_out, float* splat_L, long long* splat_pix,
+                   float* per_strategy) {
+  if (bufs) {
+    connect_weight_tile_kernel<true, MEDIA>
+        <<<grid, WARPS * 32, bufs * n_slots * SLOT_BYTES + n_end * NEG * 8, stream>>>(
+            F, base, n_slots, n_end, bufs, table, order, n_strat, lam, emission, uinf, vis,
+            res_x, res_y, L_out, splat_L, splat_pix, per_strategy);
+  } else {
+    connect_weight_tile_kernel<false, MEDIA><<<grid, WARPS * 32, 0, stream>>>(
+        F, base, n_slots, n_end, 0, table, order, n_strat, lam, emission, uinf, vis, res_x,
+        res_y, L_out, splat_L, splat_pix, per_strategy);
+  }
 }
 
 // tile buffers that fit a block's shared memory beside the endpoint rows'
@@ -840,54 +922,66 @@ extern "C" int pbrt_bdpt_layout(int what) {
     case 2: return SLOT_BYTES;
     case 3: return WARPS;
     case 4: return STAGED_SLOTS;
+    case 5: return NGS;
     default: return -1;
   }
 }
 
 // `fields`: the wave's pointer table on the device, n_slots x NG vertex group
 // pointers then the endpoint rows' NEG each
+// med_g, ray_p and ray_med non-null: the MEDIA instantiation
 extern "C" int pbrt_bdpt_connect_rays(const unsigned long long* fields, int n_slots,
                                       const float* sc, const float* lt, const int* table,
                                       int n_strat, int n_cam, int R, float* ray_o, float* ray_d,
                                       float* ray_t, unsigned long long* count,
+                                      const float* med_g, float* ray_p, long long* ray_med,
                                       cudaStream_t stream) {
   if (n_slots < 1) return (int)cudaErrorInvalidValue;
-  const CtxBase base{sc, lt, n_cam, R, 0, 0};
+  const CtxBase base{sc, lt, med_g, n_cam, R, 0, 0};
   const Fields F{fields, fields + (size_t)n_slots * NG};
   // rows of strategies: about 1024 threads an SM in all
   const int rows = min(max((sm_count() * 1024 + R - 1) / R, 1), max(n_strat, 1));
-  connect_rays_kernel<<<dim3((R + 127) / 128, rows), 128, 0, stream>>>(
-      F, base, table, n_strat, ray_o, ray_d, ray_t, count);
+  const dim3 grid((R + 127) / 128, rows);
+  if (ray_med != nullptr) {
+    connect_rays_kernel<true><<<grid, 128, 0, stream>>>(F, base, table, n_strat, ray_o, ray_d,
+                                                         ray_t, count, ray_p, ray_med);
+  } else {
+    connect_rays_kernel<false><<<grid, 128, 0, stream>>>(F, base, table, n_strat, ray_o, ray_d,
+                                                          ray_t, count, nullptr, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
+// med_g non-null: the MEDIA instantiation, `vis` the (n_ray R, 4) float32
+// transmittance; else `vis` the (n_ray R,) occluded bits
 extern "C" int pbrt_bdpt_connect_weight(const unsigned long long* fields, int n_slots,
                                         int n_end, const float* sc, const float* lt,
                                         const int* table,
                                         const int* order, int n_strat, int n_cam, int R,
                                         const float* lam, const float* emission,
-                                        const float* uinf, const bool* occluded, int res_x,
+                                        const float* uinf, const bool* vis, int res_x,
                                         int res_y, float* L_out, float* splat_L,
                                         long long* splat_pix, float* per_strategy,
-                                        cudaStream_t stream) {
+                                        const float* med_g, cudaStream_t stream) {
   if (n_slots < 1 || n_end < 0) return (int)cudaErrorInvalidValue;
-  const CtxBase base{sc, lt, n_cam, R, 0, 0};
+  const CtxBase base{sc, lt, med_g, n_cam, R, 0, 0};
   const Fields F{fields, fields + (size_t)n_slots * NG};
   // persistent: one block an SM (126 registers a thread fill its register
   // file), at most one a tile
   const int grid = min((R + TILE - 1) / TILE, sm_count());
   const int bufs = tile_buffers(n_slots, n_end);
   if (bufs) {
-    const int err = prepare_staged();
+    const int err = med_g != nullptr ? prepare_staged<true>() : prepare_staged<false>();
     if (err) return err;
-    connect_weight_tile_kernel<true>
-        <<<grid, WARPS * 32, bufs * n_slots * SLOT_BYTES + n_end * NEG * 8, stream>>>(
-            F, base, n_slots, n_end, bufs, table, order, n_strat, lam, emission, uinf, occluded,
-            res_x, res_y, L_out, splat_L, splat_pix, per_strategy);
+  }
+  if (med_g != nullptr) {
+    launch_weight<true>(grid, bufs, stream, F, base, n_slots, n_end, table, order, n_strat, lam,
+                        emission, uinf, vis, res_x, res_y, L_out, splat_L, splat_pix,
+                        per_strategy);
   } else {
-    connect_weight_tile_kernel<false><<<grid, WARPS * 32, 0, stream>>>(
-        F, base, n_slots, n_end, 0, table, order, n_strat, lam, emission, uinf, occluded, res_x,
-        res_y, L_out, splat_L, splat_pix, per_strategy);
+    launch_weight<false>(grid, bufs, stream, F, base, n_slots, n_end, table, order, n_strat,
+                         lam, emission, uinf, vis, res_x, res_y, L_out, splat_L, splat_pix,
+                         per_strategy);
   }
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,34 @@
 // follows on the card for every render of the path integrator (and MLT's
 // path evaluations); path.step_route sends only CPU tensors to the plain
 // step.
+// On a volumetric scene (homogeneous media, material-less interfaces:
+// bounce_step's volumetric branches, JAX path.py:236-425) three VOLUMETRIC
+// variants take the place of path_shade, path_bsdf and path_resolve
+// (path_shade_vol, path_bsdf_vol, path_resolve_vol: kernels of their own,
+// with a second argument record VolArgs, so that a scene without media
+// launches exactly the kernels it did before); plain versions
+// shade_light_vol_plain, shade_bsdf_vol_plain, resolve_vol_plain:
+//   path_shade_vol  a lane in a medium draws its exponential distance first
+//                   and scatters where it falls short of the hit (beta *=
+//                   sigma_s / sigma_t) or multiplies its transmittance pdf
+//                   by the segment's transmittance; the MIS pdfs of
+//                   emission are weighted by that pdf; NEE from a surface or
+//                   from a scatter point (there f and pdf are those of a
+//                   fresh HG sample, drawn after the light draws, as the JAX
+//                   package does); the shadow segment with its end and start
+//                   medium, and the pending term with its MIS pdfs;
+//                   interfaces cost 0.3 depth;
+//   (K6t, csrc/transmit.cu, MAX_HOPS rounds with dispatch.intersect: the
+//    shadow segments' transmittance)
+//   path_bsdf_vol   the draws of path_shade_vol stepped past, the HG
+//                   continuation of a scatter, the straight pass through an
+//                   interface, the BSDF sample, and the medium the next ray
+//                   travels in;
+//   path_resolve_vol L += beta * the NEE term times the transmittance, its
+//                   power heuristic against pdf_bsdf times the
+//                   transmittance's mean, where some transmittance is left.
+// Coated materials in a volumetric scene are not covered (the wrapper
+// raises).
 //
 // One thread a lane. A lane evaluates only the branches it takes (its
 // material's kind, its light's type and shape, the sampling branch of a
@@ -137,13 +165,38 @@ struct StepArgs {
   long long n, n_lights, n_tris, max_depth, stratified, spp, sqrt_spp, open_scene, mlt_d;
 };
 
+// the VOLUMETRIC variants' second record, mirrored by integrators/path.py
+// `_VolArgs`: every field 8 bytes
+struct VolArgs {
+  // in: the closest hits' t and media, the lanes' medium and transmittance
+  // pdf (R, 4)
+  const float* hit_t;
+  const long long *hit_med_in, *hit_med_out, *medium;
+  const float* trans_pdf;
+  // out (path_bsdf_vol): the next medium and transmittance pdf
+  long long* medium_out;
+  float* trans_pdf_out;
+  // out (path_shade_vol): the shadow segments' ends and start media, the
+  // pending term's throughput (R, 4) and MIS pdfs (R, 2) [pdf_light,
+  // pdf_bsdf or -1 for a delta light]; in (path_resolve_vol): those and the
+  // segments' transmittance (R, 4)
+  float* sh_p;
+  long long* sh_med;
+  float *nee_beta, *nee_mis;
+  const float* trans;
+  // media rows: sigma_a, sigma_s (n_media, 471), the HG asymmetry (n_media,)
+  const float *sigma_a, *sigma_s, *med_g;
+  long long n_media;
+};
+
 namespace {
 
 using namespace pbrt_bxdf;
 
 constexpr int THREADS = 128;
-// path_shade's and path_bsdf's blocks an SM: at most 80 registers a thread
-constexpr int SHADE_BLOCKS = 6;
+// path_shade's and path_bsdf's blocks an SM: at most 80 registers a thread;
+// path_shade_vol's: at most 128 (at 80 it spilled 264 bytes a thread)
+constexpr int SHADE_BLOCKS = 6, SHADE_VOL_BLOCKS = 4;
 constexpr int LAMBDA_MIN = 360, LAMBDA_RANGE = 471;
 // material rows (path.MAT_F columns)
 constexpr int MAT_F = 22;
@@ -170,6 +223,8 @@ constexpr float FOUR_PI_F = (float)(4.0 * 3.141592653589793);
 constexpr float MIN_SPHERICAL_AREA = 3e-4f, MAX_SPHERICAL_AREA = 6.22f;
 constexpr float SMALL_CONE = 0.00068523f;
 constexpr float ONE_THIRD = (float)(1.0 / 3.0);
+constexpr float INTERFACE_COST = 0.3f;               // path.INTERFACE_BOUNCE_COST
+constexpr float U_DIST_MAX = (float)(1.0 - 1e-7);    // the distance draw's clamp
 
 // ------------------------------------------------------------- vectors
 
@@ -1355,6 +1410,283 @@ __device__ __forceinline__ bool resolve_lane(const StepArgs& a, int i) {
   return nee;
 }
 
+
+// ------------------------------------------------- the VOLUMETRIC variants
+
+__device__ __forceinline__ float mean4(const S4& x) {
+  return (((x.v[0] + x.v[1]) + x.v[2]) + x.v[3]) / 4.f;
+}
+
+// a volumetric bounce's distance sample (path._medium_event): on a lane in a
+// medium, the exponential draw against the average sigma_t, the scatter
+// decision against the hit's t, beta *= sigma_s / sigma_t at a scatter,
+// the transmittance pdf times the segment's transmittance otherwise
+struct Event {
+  bool scatter;
+  V3 p;
+};
+
+__device__ __forceinline__ Event medium_event(const StepArgs& a, const VolArgs& v, int i,
+                                              Smp& s, bool active, bool hit, long long medium,
+                                              const S4& lam, S4& beta, S4& trans_pdf) {
+  Event ev;
+  ev.scatter = false;
+  ev.p = ld3(a.o, i);
+  if (v.n_media == 0 || !active || medium < 0) return ev;
+  const S4 sig_s = table4(v.sigma_s, medium, lam);
+  const S4 sig_t = table4(v.sigma_a, medium, lam) + sig_s;
+  const float u = get_1d(a, s, true);
+  const float t_samp = -log1pf(-clampf(u, 0.f, U_DIST_MAX)) / fmaxf(mean4(sig_t), 1e-12f);
+  const float t_hit = hit ? v.hit_t[i] : INF_T;
+  ev.scatter = t_samp < t_hit;
+  if (ev.scatter) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) beta.v[k] = (beta.v[k] * sig_s.v[k]) / fmaxf(sig_t.v[k], 1e-12f);
+    ev.p = add(ev.p, mul(ld3(a.d, i), t_samp));
+  } else {
+    const float seg = fminf(t_hit, 1e20f);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) trans_pdf.v[k] = trans_pdf.v[k] * expf(-sig_t.v[k] * seg);
+  }
+  return ev;
+}
+
+// the medium beyond a hit going on along w (path.medium_after), on a hit
+__device__ __forceinline__ long long medium_after(const VolArgs& v, int i, V3 ng, V3 w,
+                                                  long long current) {
+  const long long m_in = v.hit_med_in[i], m_out = v.hit_med_out[i];
+  if (m_in == m_out) return current;
+  return dot(w, ng) > 0.f ? m_out : m_in;
+}
+
+// path_shade_vol's lane: shade_light_vol_plain
+__device__ __forceinline__ void light_vol_lane(const StepArgs& a, const VolArgs& v, int i) {
+  const V3 d = ld3(a.d, i);
+  S4 L = ld4(a.L, i), beta = ld4(a.beta, i);
+  const S4 lam = ld4(a.lam, i);
+  const bool hit = a.hit_valid[i] != 0;
+  bool active = a.active[i] != 0;
+  const float depth = a.depth[i];
+  const long long medium = v.medium[i];
+  Smp s = load_smp(a, i);
+  S4 trans_pdf = ld4(v.trans_pdf, i);
+  const Event ev = medium_event(a, v, i, s, active, hit, medium, lam, beta, trans_pdf);
+  const bool ms = ev.scatter;
+  const bool first_or_spec = depth == 0.f || a.specular[i] != 0;
+  const float dir_pdf_prev = a.prev_pdf[i] * mean4(trans_pdf);
+
+  // escaped rays collect the uniform infinite lights (MIS)
+  if (a.open_scene && active && !hit && !ms) {
+    const float w = first_or_spec ? 1.f : power_heuristic(dir_pdf_prev, a.scal[S_INF_DENSITY]);
+    L = L + (beta * w) * table4(a.uinf, 0, lam);
+  }
+  active = active && (hit || ms);
+  V3 hp = {0.f, 0.f, 0.f}, hng = hp, hns = hp;
+  long long mat = -1;
+  bool iface = false;
+  {
+    V3 prev_p = ld3(a.prev_p, i), prev_ns = ld3(a.prev_ns, i);
+    if (active && !ms) {
+      hp = ld3(a.hit_p, i);
+      hng = ld3(a.hit_ng, i);
+      hns = ld3(a.hit_ns, i);
+      // emissive surface hit (MIS)
+      const long long light = a.hit_light[i];
+      if (light >= 0) {
+        const float* row = light_row(a, light);
+        if (dot(hng, neg(d)) > 0.f || row[L_TWO] != 0.f) {
+          const float pdf_li =
+              area_light_pdf_li(a, light, prev_p, prev_ns, d, hp, hng);
+          const float w =
+              first_or_spec ? 1.f : power_heuristic(dir_pdf_prev, row[L_PMF] * pdf_li);
+          L = L + (beta * w) * emission(a, light, lam);
+        }
+      }
+      mat = a.hit_mat[i];
+      iface = mat < 0;
+      if (mat >= 0) {
+        prev_p = hp;
+        prev_ns = hns;
+      }
+    } else if (ms) {
+      prev_p = ev.p;
+      prev_ns = {0.f, 0.f, 0.f};
+    }
+    st3(a.prev_p_out, i, prev_p);
+    st3(a.prev_ns_out, i, prev_ns);
+  }
+  st4(a.L_out, i, L);
+  a.depth_out[i] = depth + (mat >= 0 || ms ? 1.f : (iface ? INTERFACE_COST : 0.f));
+
+  bool nee = false;
+  Bxdf b;
+  if (mat >= 0) {
+    bool dispersive;
+    b = make_bsdf(a, mat, lam, dispersive);
+    S4 pdf_lam = ld4(a.lam_pdf, i);
+    if (dispersive) {
+      const bool already = pdf_lam.v[1] == 0.f && pdf_lam.v[2] == 0.f && pdf_lam.v[3] == 0.f;
+      pdf_lam = {{already ? pdf_lam.v[0] : pdf_lam.v[0] / 4.f, 0.f, 0.f, 0.f}};
+    }
+    st4(a.lam_pdf_out, i, pdf_lam);
+    const bool spec_only =
+        (b.kind == K_CONDUCTOR || b.kind == K_DIELECTRIC) && effectively_smooth(b.ax, b.ay);
+    nee = !spec_only && a.n_lights > 0;
+  } else {
+    st4(a.lam_pdf_out, i, ld4(a.lam_pdf, i));
+  }
+  const bool nee_any = nee || ms;
+  V3 sh_o = ld3(a.o, i), sh_d = {0.f, 0.f, 1.f}, sh_p = sh_o;
+  float sh_t = 0.f, pdf_light = 0.f, pdf_bsdf = 0.f;
+  long long sh_med = medium;
+  S4 ld = s4(0.f);
+  float u_l = 0.f, u0 = 0.f, u1 = 0.f, ph0 = 0.f, ph1 = 0.f;
+  if (nee_any) {
+    // the NEE draws, taken in a scene without lights too (a scatter point's
+    // lane), as the plain part's masked draws are
+    u_l = get_1d(a, s, true);
+    get_2d(a, s, true, u0, u1);
+    if (v.n_media > 0 && ms) get_2d(a, s, true, ph0, ph1);
+  }
+  if (nee_any && a.n_lights > 0) {
+    const V3 p = ms ? ev.p : hp, ns = ms ? V3{0.f, 0.f, 0.f} : hns;
+    float pmf;
+    const long long li = pick_light(a, u_l, pmf);
+    const LiSample ls = sample_li(a, li, p, ns, u0, u1, lam);
+    pdf_light = pmf * ls.pdf;
+    S4 f;
+    if (ms) {
+      // a fresh HG sample's pdf, not HG at the light's direction (JAX
+      // path.py:147-153)
+      V3 wi_ph;
+      const float pdf_ph = sample_henyey_greenstein(neg(d), v.med_g[medium], ph0, ph1, wi_ph);
+      f = s4(pdf_ph);
+      pdf_bsdf = pdf_ph;
+    } else {
+      V3 fx, fy, fz;
+      frame_from_z(hns, fx, fy, fz);
+      const V3 wo_l = to_local(fx, fy, fz, neg(d)), wi_l = to_local(fx, fy, fz, ls.wi);
+      f = bxdf_f(b, wo_l, wi_l) * fabsf(dot(ls.wi, ns));
+      pdf_bsdf = bxdf_pdf(b, wo_l, wi_l, true, true);
+      sh_med = medium_after(v, i, hng, ls.wi, medium);
+    }
+    const bool ok = ls.valid && any_pos(f) && pdf_light > 0.f;
+    if (ok) ld = f * ls.L;
+    if (!ok) pdf_light = 0.f;
+    if (ls.delta) pdf_bsdf = -1.f;
+    sh_o = offset_ray_origin(p, ms ? V3{0.f, 0.f, 0.f} : hng, ls.wi, a.scal[S_OFFSET]);
+    sh_d = ls.wi;
+    sh_p = ls.p;
+    sh_t = len(sub(sh_o, ls.p)) * SHADOW_SHORTEN;
+  }
+  st3(a.sh_o, i, sh_o);
+  st3(a.sh_d, i, sh_d);
+  a.sh_t[i] = sh_t;
+  st3(v.sh_p, i, sh_p);
+  v.sh_med[i] = sh_med;
+  a.nee_out[i] = nee_any;
+  st4(a.ld_out, i, ld);
+  st4(v.nee_beta, i, beta);
+  v.nee_mis[2 * i] = pdf_light;
+  v.nee_mis[2 * i + 1] = pdf_bsdf;
+}
+
+// path_bsdf_vol's lane: shade_bsdf_vol_plain
+__device__ __forceinline__ void bsdf_vol_lane(const StepArgs& a, const VolArgs& v, int i) {
+  V3 o = ld3(a.o, i), d = ld3(a.d, i);
+  S4 beta = ld4(a.beta, i);
+  const S4 lam = ld4(a.lam, i);
+  Smp s = load_smp(a, i);
+  const bool active = a.active[i] != 0, hit = a.hit_valid[i] != 0;
+  bool specular = a.specular[i] != 0, cont = false;
+  float prev_pdf = a.prev_pdf[i];
+  long long medium = v.medium[i];
+  S4 trans_pdf = ld4(v.trans_pdf, i);
+  const Event ev = medium_event(a, v, i, s, active, hit, medium, lam, beta, trans_pdf);
+  const bool ms = ev.scatter;
+  const long long mat = active && hit && !ms ? a.hit_mat[i] : -1;
+  const bool iface = active && hit && !ms && mat < 0;
+  bool nee_any = ms;
+  Bxdf b;
+  if (mat >= 0) {
+    bool dispersive;
+    b = make_bsdf(a, mat, lam, dispersive);
+    const bool spec_only =
+        (b.kind == K_CONDUCTOR || b.kind == K_DIELECTRIC) && effectively_smooth(b.ax, b.ay);
+    nee_any = !spec_only && a.n_lights > 0;
+  }
+  if (nee_any) {
+    // the NEE draws (path_shade_vol's): the stream stepped past them
+    float u0, u1;
+    get_1d(a, s, true);
+    get_2d(a, s, true, u0, u1);
+  }
+  if (ms) {
+    // the phase draw of NEE, stepped past; the HG continuation
+    float u0, u1;
+    get_2d(a, s, true, u0, u1);
+    get_2d(a, s, true, u0, u1);
+    V3 wi;
+    prev_pdf = sample_henyey_greenstein(neg(d), v.med_g[medium], u0, u1, wi);
+    o = ev.p;
+    d = wi;
+    specular = false;
+  } else if (iface) {
+    // straight on through a material-less interface, into the medium beyond
+    const V3 hng = ld3(a.hit_ng, i);
+    o = offset_ray_origin(ld3(a.hit_p, i), hng, d, a.scal[S_OFFSET]);
+    medium = medium_after(v, i, hng, d, medium);
+  } else if (mat >= 0) {
+    const float uc = get_1d(a, s, true);
+    float u0, u1;
+    get_2d(a, s, true, u0, u1);
+    const V3 hns = ld3(a.hit_ns, i);
+    V3 fx, fy, fz;
+    frame_from_z(hns, fx, fy, fz);
+    const BSample bs = bxdf_sample(b, to_local(fx, fy, fz, neg(d)), uc, u0, u1, true, true, true);
+    const V3 wi = comb3(bs.wi.x, fx, bs.wi.y, fy, bs.wi.z, fz);
+    const float cos_term = fabsf(dot(wi, hns));
+    const S4 beta_new = (beta * bs.f) * (cos_term / fmaxf(bs.pdf, 1e-20f));
+    cont = bs.valid && any_pos(beta_new);
+    if (cont) {
+      const V3 hng = ld3(a.hit_ng, i);
+      o = offset_ray_origin(ld3(a.hit_p, i), hng, wi, a.scal[S_OFFSET]);
+      d = wi;
+      beta = beta_new;
+      specular = (bs.flags & F_SPECULAR) != 0;
+      prev_pdf = bs.pdf;
+      medium = medium_after(v, i, hng, wi, medium);
+    }
+  }
+  if (cont || ms) trans_pdf = s4(1.f);
+  st3(a.o_out, i, o);
+  st3(a.d_out, i, d);
+  st4(a.beta_out, i, beta);
+  store_smp(a, i, s);
+  a.active_out[i] = cont || ms || iface;
+  a.specular_out[i] = specular;
+  a.prev_pdf_out[i] = prev_pdf;
+  v.medium_out[i] = medium;
+  st4(v.trans_pdf_out, i, trans_pdf);
+}
+
+// path_resolve_vol's lane: resolve_vol_plain -> whether the lane traced a
+// shadow segment
+__device__ __forceinline__ bool resolve_vol_lane(const StepArgs& a, const VolArgs& v, int i) {
+  S4 L = ld4(a.L, i);
+  const bool nee = a.nee[i] != 0;
+  if (nee) {
+    const S4 tr = ld4(v.trans, i);
+    const float pdf_light = v.nee_mis[2 * i], pdf_bsdf = v.nee_mis[2 * i + 1];
+    const S4 contrib = (ld4(a.ld, i) * tr) / fmaxf(pdf_light, 1e-20f);
+    const float w = pdf_bsdf < 0.f ? 1.f : power_heuristic(pdf_light, pdf_bsdf * mean4(tr));
+    const bool ok = pdf_light > 0.f && any_pos(tr);
+    L = L + ld4(v.nee_beta, i) * (ok ? contrib * w : s4(0.f));
+  }
+  st4(a.L_out, i, L);
+  return nee;
+}
+
 // *count_out = *count_in + the lanes of the launch that pass `flag`. Every
 // thread of every block calls it once.
 __device__ __forceinline__ void count_lanes(const StepArgs& a, bool flag) {
@@ -1411,6 +1743,25 @@ __global__ void __launch_bounds__(THREADS) path_resolve_kernel(const StepArgs a)
   count_lanes(a, shadow);
 }
 
+__global__ void __launch_bounds__(THREADS, SHADE_VOL_BLOCKS)
+    path_shade_vol_kernel(const StepArgs a, const VolArgs v) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < a.n) light_vol_lane(a, v, i);
+}
+
+__global__ void __launch_bounds__(THREADS, SHADE_BLOCKS)
+    path_bsdf_vol_kernel(const StepArgs a, const VolArgs v) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < a.n) bsdf_vol_lane(a, v, i);
+}
+
+__global__ void __launch_bounds__(THREADS) path_resolve_vol_kernel(const StepArgs a,
+                                                                   const VolArgs v) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  const bool shadow = i < a.n && resolve_vol_lane(a, v, i);
+  count_lanes(a, shadow);
+}
+
 int blocks(long long n) { return (int)((n + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -1450,5 +1801,25 @@ extern "C" int pbrt_path_coat(const StepArgs* a, void* stream) {
 extern "C" int pbrt_path_resolve(const StepArgs* a, void* stream) {
   if (a->n <= 0) return 0;
   path_resolve_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pbrt_path_vol_args_bytes() { return (int)sizeof(VolArgs); }
+
+extern "C" int pbrt_path_shade_vol(const StepArgs* a, const VolArgs* v, void* stream) {
+  if (a->n <= 0) return 0;
+  path_shade_vol_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a, *v);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pbrt_path_bsdf_vol(const StepArgs* a, const VolArgs* v, void* stream) {
+  if (a->n <= 0) return 0;
+  path_bsdf_vol_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a, *v);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pbrt_path_resolve_vol(const StepArgs* a, const VolArgs* v, void* stream) {
+  if (a->n <= 0) return 0;
+  path_resolve_vol_kernel<<<blocks(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a, *v);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""Bidirectional path tracing (counterpart of pbrt_tpu/integrators/bdpt.py
-without media; reference integrators/bdpt.cu, pbrt-v4's BDPT).
+"""Bidirectional path tracing (counterpart of pbrt_tpu/integrators/bdpt.py;
+reference integrators/bdpt.cu, pbrt-v4's BDPT).
 
 Camera and light subpaths are random walks over dense lane batches, one
 Python step per bounce around `dispatch.intersect` (K1 or K3/K4), with
@@ -22,6 +22,18 @@ film; s = 1 a camera vertex connected to a sampled light point; s, t > 1 a
 vertex-to-vertex connection with G and visibility. Coated (layered) vertices
 are walked with their full layered BSDF but connected through their bottom
 diffuse lobe, as in the JAX package.
+
+Media (bdpt.cu:431-472, as the JAX package has them): on a scene with
+homogeneous media each walk segment crosses up to 4 material-less
+interfaces (without attenuation) and, in a medium, draws an exponential
+distance against the average sigma_t at every leg; a scatter makes a
+VT_MEDIUM vertex (no normal, beta *= sigma_s / sigma_t, the HG phase
+function as its f and pdf, no cosine in its density conversions) and the
+walk goes on by an HG sample. Camera subpaths start in the camera's medium,
+light subpaths in their light's. A connection's segment carries its
+transmittance (path.transmittance, K6t's hop loop) from the sending
+vertex's medium on the segment's side (`_conn_medium`) in place of the
+visibility bit.
 """
 import ctypes
 from typing import NamedTuple
@@ -31,6 +43,7 @@ import torch
 from pbrt_tpu_torch.accel import dispatch
 from pbrt_tpu_torch.cameras import perspective
 from pbrt_tpu_torch.geometry.ray import offset_ray_origin
+from pbrt_tpu_torch.integrators import path as path_integrator
 from pbrt_tpu_torch.integrators.path import _pick_light
 from pbrt_tpu_torch.lights import lights
 from pbrt_tpu_torch.materials import bxdfs, materials
@@ -44,6 +57,9 @@ VT_CAMERA = 1
 VT_LIGHT = 2
 VT_SURFACE = 3
 VT_LIGHT_INF = 4   # escaped camera ray captured as an infinite-light vertex
+VT_MEDIUM = 5      # a scatter in a medium (f and pdf the HG phase function)
+# the material-less interfaces a walk segment crosses (JAX bdpt.py _walk)
+WALK_HOPS = 4
 
 # launches of the two K12 entry points and of their yardsticks, which only
 # chip_smoke.py reaches (plain ints, added to where they launch)
@@ -69,6 +85,9 @@ class V(NamedTuple):
     fx: torch.Tensor       # (R,3) shading frame
     fy: torch.Tensor
     fz: torch.Tensor
+    med: torch.Tensor      # (R,) i64 medium of the arriving segment (-1 none)
+    med_in: torch.Tensor   # (R,) i64 the surface's inside and outside media
+    med_out: torch.Tensor
 
 
 def _axis(R, dev, i):
@@ -92,15 +111,17 @@ def _empty_vertex(R, dev):
              light=torch.full((R,), -1, dtype=torch.int64, device=dev),
              mat=torch.full((R,), -1, dtype=torch.int64, device=dev),
              wo=torch.zeros((R, 3), device=dev), bx=zero_bx,
-             fx=_axis(R, dev, 0), fy=_axis(R, dev, 1), fz=_axis(R, dev, 2))
+             fx=_axis(R, dev, 0), fy=_axis(R, dev, 1), fz=_axis(R, dev, 2),
+             med=torch.full((R,), -1, dtype=torch.int64, device=dev),
+             med_in=torch.full((R,), -1, dtype=torch.int64, device=dev),
+             med_out=torch.full((R,), -1, dtype=torch.int64, device=dev))
 
 
 # ------------------------------------------------------- vertex helpers
 # 3-term dot products are spelled (x + y) + z, the order of csrc/bdpt.cu
 
 
-def _dot(a, b):
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+_dot = path_integrator.dot3
 
 
 def _absdot(a, b):
@@ -144,11 +165,20 @@ def _cheap_params(bx: bxdfs.BxdfParams):
     return bx._replace(kind=torch.where(materials.is_coated(bx.kind), bxdfs.K_DIFFUSE, bx.kind))
 
 
-def _vertex_f(v: V, to_p):
-    """BSDF value at v towards the point to_p (bdpt.h Vertex::f); zero for
-    endpoints."""
+def _hg(scene, v: V, cos):
+    """The HG phase function of v's medium at cos."""
+    return warps.henyey_greenstein(cos, scene.med_g[torch.clamp(v.med, min=0)])
+
+
+def _vertex_f(scene, v: V, to_p):
+    """BSDF value at v towards the point to_p (bdpt.h Vertex::f), the HG
+    phase function at a medium vertex; zero for endpoints."""
     wi, _ = _dir_to(v.p, to_p)
     f = bxdfs.f(_cheap_params(v.bx), _to_local(v, v.wo), _to_local(v, wi))
+    if scene.med_g.shape[0] > 0:
+        f = torch.where((v.vtype == VT_MEDIUM)[..., None], _hg(scene, v, _dot(v.wo, wi))[..., None],
+                        f)
+        return torch.where(((v.vtype == VT_SURFACE) | (v.vtype == VT_MEDIUM))[..., None], f, 0.0)
     return torch.where((v.vtype == VT_SURFACE)[..., None], f, 0.0)
 
 
@@ -177,6 +207,8 @@ def _vertex_pdf(scene, v: V, prev: V, nxt: V, prev_valid: bool):
     wn, _ = _dir_to(v.p, nxt.p)
     wp_eff = _dir_to(v.p, prev.p)[0] if prev_valid else v.wo
     pdf_surf = bxdfs.pdf(_cheap_params(v.bx), _to_local(v, wp_eff), _to_local(v, wn))
+    if scene.med_g.shape[0] > 0:
+        pdf_surf = torch.where(v.vtype == VT_MEDIUM, _hg(scene, v, _dot(wp_eff, wn)), pdf_surf)
     _, pdf_cam = perspective.pdf_we(scene, v.p, wn)
     _, pdf_light = lights.pdf_le(scene, v.light, v.ng, wn)
     pdf_dir = torch.where(v.vtype == VT_CAMERA, pdf_cam,
@@ -215,58 +247,132 @@ def _remap0(f):
 # ---------------------------------------------------------------- walks
 
 
-def _walk(scene, meta, o, d, beta0, pdf_dir0, wl, smp, skind, spp, n_steps, mode_radiance):
+def _select_hit(keep, a: dispatch.SceneHit, b: dispatch.SceneHit):
+    """a where `keep`, else b, field by field."""
+    return dispatch.SceneHit(*(torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+                               for x, y in zip(a, b)))
+
+
+def _walk_hops(scene, meta, cur_o, cur_d, active, medium, beta, wl, smp, skind, spp):
+    """A walk segment on a scene with media (JAX bdpt.py:316-364): up to
+    WALK_HOPS legs, each a closest hit; in a medium a leg draws an
+    exponential distance against the average sigma_t and scatters where it
+    falls short of the hit (beta *= sigma_s / sigma_t); a material-less
+    interface is crossed without attenuation into the medium beyond. ->
+    (the segment's last hit, scattered (R,) bool, the scatter point, its
+    medium, beta, sampler)."""
+    scat = torch.zeros_like(active)
+    p_scat, o_h, med_h, done, hit = cur_o, cur_o, medium, ~active, None
+    for _ in range(WALK_HOPS):
+        h = dispatch.intersect(scene, meta, o_h, cur_d, torch.where(done, 0.0, INFINITY))
+        seg = torch.where(h.valid, h.t, INFINITY)
+        in_med = ~done & (med_h >= 0)
+        smp, u = samplers.get_1d(smp, in_med, skind, spp)
+        m = torch.clamp(med_h, min=0)
+        sig_s = spectra.sample_table(scene.med_sigma_s, m, wl.lam)
+        sig_t = spectra.sample_table(scene.med_sigma_a, m, wl.lam) + sig_s
+        t_samp = path_integrator.distance_draw(u, sig_t)
+        now = in_med & (t_samp < seg)
+        beta = torch.where(now[..., None], beta * sig_s / torch.clamp(sig_t, min=1e-12), beta)
+        p_scat = torch.where(now[..., None], o_h + t_samp[..., None] * cur_d, p_scat)
+        scat = scat | now
+        hit = h if hit is None else _select_hit(done, hit, h)
+        iface = h.valid & (h.mat < 0) & ~done & ~now
+        o_h = torch.where(iface[..., None],
+                          offset_ray_origin(h.p, h.ng, cur_d, scene.ray_offset_scale), o_h)
+        med_h = torch.where(iface, path_integrator.medium_after(h, cur_d, med_h), med_h)
+        done = done | ~iface | now
+    return hit, scat, p_scat, med_h, beta, smp
+
+
+def _walk(scene, meta, o, d, beta0, pdf_dir0, wl, smp, skind, spp, n_steps, mode_radiance,
+          medium0=None):
     """Random walk of n_steps bounces (bdpt.cu:394-520 random_walk) ->
     (vertices [V] * n_steps, the first step's reverse directional pdf,
-    sampler, closest-hit rays traced (0-dim int64)). Both walks sample the
-    BSDF in radiance mode, as the JAX package does."""
+    sampler, closest-hit rays traced (0-dim int64): a segment counts once,
+    whatever interfaces it crosses, as in the JAX package). Both walks
+    sample the BSDF in radiance mode, as the JAX package does. medium0 (R,)
+    int64: the media the walk starts in (None: vacuum)."""
     R, dev = o.shape[0], o.device
+    media = path_integrator.has_media(scene)
     beta, pdf_fwd_dir = beta0, pdf_dir0
     active = torch.any(beta0 > 0, dim=-1) & (pdf_dir0 > 0)
     prev_p, cur_o, cur_d = o, o, d
+    none = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    medium = none if medium0 is None else medium0
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     verts, rev_dirs = [], []
     for _ in range(n_steps):
         n_rays = n_rays + active.sum()
-        hit = dispatch.intersect(scene, meta, cur_o, cur_d, torch.where(active, INFINITY, 0.0))
-        found = active & hit.valid & (hit.mat >= 0)
-        esc_v = active & ~hit.valid & mode_radiance
+        if media:
+            hit, scat, p_scat, medium, beta, smp = _walk_hops(
+                scene, meta, cur_o, cur_d, active, medium, beta, wl, smp, skind, spp)
+        else:
+            hit = dispatch.intersect(scene, meta, cur_o, cur_d,
+                                     torch.where(active, INFINITY, 0.0))
+            scat = torch.zeros_like(active)
+        found = active & ~scat & hit.valid & (hit.mat >= 0)
+        esc_v = active & ~scat & ~hit.valid & mode_radiance
         b_full, _ = materials.make_bsdf(scene, hit.mat, hit.ns, wl, meta.layered)
-        w_in, dist2 = _dir_to(prev_p, hit.p)
-        pdf_fwd = torch.where(found, pdf_fwd_dir * _absdot(hit.ng, w_in)
-                              / torch.clamp(dist2, min=1e-24), 0.0)
+        s3 = scat[..., None]
+        v_p = torch.where(s3, p_scat, hit.p) if media else hit.p
+        w_in, dist2 = _dir_to(prev_p, v_p)
+        cos = _absdot(hit.ng, w_in)
+        if media:
+            cos = torch.where(scat, 1.0, cos)
+        pdf_fwd = torch.where(found | scat, pdf_fwd_dir * cos / torch.clamp(dist2, min=1e-24), 0.0)
         smp, uc = samplers.get_1d(smp, found, skind, spp)
         smp, u2 = samplers.get_2d(smp, found, skind, spp)
         bs = materials.bsdf_sample(b_full, hit.wo, uc, u2)
         pdf_dir_mis = materials.mis_direction_pdf(b_full, hit.wo, bs)
         spec = bxdfs.is_specular(bs.flags)
+        if media:
+            # the HG continuation (bdpt.cu:456-466): beta unchanged, the
+            # reverse density the forward one
+            smp, u_ph = samplers.get_2d(smp, scat, skind, spp)
+            wi_med, pdf_med = warps.sample_henyey_greenstein(
+                -cur_d, scene.med_g[torch.clamp(medium, min=0)], u_ph)
         beta_next = beta * bs.f * (_absdot(bs.wi, hit.ns)
                                    / torch.clamp(bs.pdf, min=1e-20))[..., None]
         cont = found & bs.valid & torch.any(beta_next > 0, dim=-1)
         # reverse directional pdf towards the previous vertex (diffuse lobe
         # for coated lanes)
         b_cheap = materials.Bsdf(_cheap_params(b_full.params), b_full.fx, b_full.fy, b_full.fz)
-        rev_dirs.append(torch.where(spec, 0.0, materials.bsdf_pdf(b_cheap, bs.wi, hit.wo)))
+        rev_dir = torch.where(spec, 0.0, materials.bsdf_pdf(b_cheap, bs.wi, hit.wo))
+        rev_dirs.append(torch.where(scat, pdf_med, rev_dir) if media else rev_dir)
 
         e3 = esc_v[..., None]
+        ng = torch.where(e3, -cur_d, hit.ng)
+        ns = torch.where(e3, -cur_d, hit.ns)
+        if media:
+            ng, ns = torch.where(s3, 0.0, ng), torch.where(s3, 0.0, ns)
         verts.append(V(
-            vtype=torch.where(found, VT_SURFACE,
-                              torch.where(esc_v, VT_LIGHT_INF, VT_NONE)).to(torch.int32),
-            p=torch.where(e3, cur_o + cur_d * (4.0 * scene.scene_radius), hit.p),
-            ng=torch.where(e3, -cur_d, hit.ng), ns=torch.where(e3, -cur_d, hit.ns),
-            beta=torch.where((found | esc_v)[..., None], beta, 0.0),
+            vtype=torch.where(found, VT_SURFACE, torch.where(
+                scat, VT_MEDIUM, torch.where(esc_v, VT_LIGHT_INF, VT_NONE))).to(torch.int32),
+            p=torch.where(e3, cur_o + cur_d * (4.0 * scene.scene_radius), v_p), ng=ng, ns=ns,
+            beta=torch.where((found | esc_v | scat)[..., None], beta, 0.0),
             pdf_fwd=torch.where(esc_v, pdf_fwd_dir, pdf_fwd),
             pdf_rev=torch.zeros((R,), device=dev), delta=found & spec,
             light=torch.where(found, hit.light, -1), mat=torch.where(found, hit.mat, -1),
-            wo=torch.where(e3, -cur_d, hit.wo), bx=b_full.params,
-            fx=b_full.fx, fy=b_full.fy, fz=b_full.fz))
+            wo=torch.where((esc_v | scat)[..., None], -cur_d, hit.wo), bx=b_full.params,
+            fx=b_full.fx, fy=b_full.fy, fz=b_full.fz,
+            med=torch.where(found | scat, medium, -1), med_in=torch.where(found, hit.med_in, -1),
+            med_out=torch.where(found, hit.med_out, -1)))
 
         beta = torch.where(cont[..., None], beta_next, beta)
         pdf_fwd_dir = torch.where(spec, 0.0, pdf_dir_mis)
+        new_o = offset_ray_origin(hit.p, hit.ng, bs.wi, scene.ray_offset_scale)
+        if media:
+            pdf_fwd_dir = torch.where(scat, pdf_med, pdf_fwd_dir)
+            medium = torch.where(cont, path_integrator.medium_after(hit, bs.wi, medium), medium)
+            cont = cont | (scat & (pdf_med > 0.0))
+            new_o = torch.where(s3, p_scat, new_o)
+            cur_d = torch.where(s3, wi_med, bs.wi)
+        else:
+            cur_d = bs.wi
         active = cont
-        prev_p = hit.p
-        cur_o = offset_ray_origin(hit.p, hit.ng, bs.wi, scene.ray_offset_scale)
-        cur_d = bs.wi
+        prev_p = v_p
+        cur_o = new_o
 
     # slot i's pdf_rev: slot i+1's reverse directional pdf as an area density
     for i in range(n_steps - 1):
@@ -276,7 +382,8 @@ def _walk(scene, meta, o, d, beta0, pdf_dir0, wl, smp, skind, spp, n_steps, mode
         w = w / torch.sqrt(torch.clamp(dist2, min=1e-24))[..., None]
         cos = torch.where(cur.vtype == VT_SURFACE, _absdot(cur.ng, w), 1.0)
         verts[i] = cur._replace(pdf_rev=torch.where(
-            nxt.vtype == VT_SURFACE, rev_dirs[i + 1] * cos / torch.clamp(dist2, min=1e-24), 0.0))
+            (nxt.vtype == VT_SURFACE) | (nxt.vtype == VT_MEDIUM),
+            rev_dirs[i + 1] * cos / torch.clamp(dist2, min=1e-24), 0.0))
     ep_rev = rev_dirs[0] if n_steps else torch.zeros((R,), device=dev)
     return verts, ep_rev, smp, n_rays
 
@@ -287,12 +394,14 @@ def camera_path(scene, meta, p_film, smp, wl, skind, spp):
     rays traced)."""
     R, dev = p_film.shape[0], p_film.device
     rays = perspective.generate_rays(scene, p_film, torch.zeros((R, 2), device=dev))
+    med0 = scene.camera_medium.long().expand(R).contiguous()
     cam_v = _empty_vertex(R, dev)._replace(
         vtype=torch.full((R,), VT_CAMERA, dtype=torch.int32, device=dev), p=rays.o,
-        beta=torch.ones((R, 4), device=dev), pdf_fwd=torch.ones((R,), device=dev))
+        beta=torch.ones((R, 4), device=dev), pdf_fwd=torch.ones((R,), device=dev), med=med0)
     _, pdf_dir = perspective.pdf_we(scene, rays.o, rays.d)
     surf, ep_rev, smp, n_rays = _walk(scene, meta, rays.o, rays.d, torch.ones((R, 4), device=dev),
-                                      pdf_dir, wl, smp, skind, spp, meta.max_depth + 1, True)
+                                      pdf_dir, wl, smp, skind, spp, meta.max_depth + 1, True,
+                                      med0)
     _, dist2 = _dir_to(surf[0].p, cam_v.p)
     cam_v = cam_v._replace(pdf_rev=torch.where(
         _exists(surf[0]), ep_rev / torch.clamp(dist2, min=1e-24), 0.0))
@@ -321,7 +430,8 @@ def light_path(scene, meta, smp, wl, skind, spp):
     beta0 = torch.where(ok[..., None], beta0, 0.0)
     o = offset_ray_origin(p, ng, w, scene.ray_offset_scale)
     surf, ep_rev, smp, n_rays = _walk(scene, meta, o, w, beta0, torch.where(ok, pdf_dir, 0.0),
-                                      wl, smp, skind, spp, meta.max_depth, False)
+                                      wl, smp, skind, spp, meta.max_depth, False,
+                                      scene.lt_medium[li].long())
     if surf:
         first = surf[0]
         w_b, dist2 = _dir_to(first.p, light_v.p)
@@ -476,18 +586,28 @@ class Connection(NamedTuple):
     o: torch.Tensor        # (R,3) shadow ray
     d: torch.Tensor        # (R,3)
     t_max: torch.Tensor    # (R,) 0 without an attempt
+    p: torch.Tensor = None       # (R,3) media: the segment's end
+    medium: torch.Tensor = None  # (R,) int64 media: the medium it starts in
+
+
+def _conn_medium(a: V, w):
+    """The medium on the w side of vertex a (JAX bdpt.py `_conn_medium`)."""
+    chosen = torch.where(_dot(w, a.ng) > 0.0, a.med_out, a.med_in)
+    return torch.where(a.med_in != a.med_out, chosen, a.med)
 
 
 def _connection(scene, light_vs, cam_vs, s, t, sample):
     """Vertex factors, attempt and shadow ray of strategy (s, t), s >= 1
-    (connect_bdpt and compute_G without media). The shadow ray leaves the
-    sending vertex (the light-side one, or the camera vertex of s = 1) by
-    offset_ray_origin and stops 0.1 % short of the target."""
+    (connect_bdpt and compute_G). The shadow ray leaves the sending vertex
+    (the light-side one, or the camera vertex of s = 1) by offset_ray_origin
+    and stops 0.1 % short of the target; on a scene with media it is the
+    transmittance segment's first hop (its length from the offset origin)
+    with the segment's end and start medium."""
     g = None
     if t == 1:
         a = light_vs[s - 1]
         p_to = sample.p_lens
-        f = _vertex_f(a, p_to)
+        f = _vertex_f(scene, a, p_to)
         ns_cos = torch.where(a.vtype == VT_SURFACE, _absdot(a.ns, sample.wi), 1.0)
         L = a.beta * f * (sample.we / torch.clamp(sample.pdf, min=1e-12))[..., None] \
             * ns_cos[..., None]
@@ -495,7 +615,7 @@ def _connection(scene, light_vs, cam_vs, s, t, sample):
     elif s == 1:
         a, ls = cam_vs[t - 1], sample.ls
         p_to = ls.p_light
-        f = _vertex_f(a, p_to)
+        f = _vertex_f(scene, a, p_to)
         cos_pt = torch.where(a.vtype == VT_SURFACE, _absdot(a.ns, ls.wi), 1.0)
         L = a.beta * f * cos_pt[..., None] * ls.L / torch.clamp(
             sample.pmf * ls.pdf, min=1e-20)[..., None]
@@ -503,7 +623,7 @@ def _connection(scene, light_vs, cam_vs, s, t, sample):
     else:
         a, b = light_vs[s - 1], cam_vs[t - 1]
         p_to = b.p
-        f_a, f_b = _vertex_f(a, b.p), _vertex_f(b, a.p)
+        f_a, f_b = _vertex_f(scene, a, b.p), _vertex_f(scene, b, a.p)
         attempt = (_is_connectible(a) & _is_connectible(b)
                    & torch.any(f_a > 0, dim=-1) & torch.any(f_b > 0, dim=-1))
         w, dist2 = _dir_to(a.p, b.p)
@@ -513,6 +633,11 @@ def _connection(scene, light_vs, cam_vs, s, t, sample):
         L = a.beta * f_a * f_b * b.beta
     w, dist2 = _dir_to(a.p, p_to)
     o = offset_ray_origin(a.p, a.ng, w, scene.ray_offset_scale)
+    if path_integrator.has_media(scene):
+        # JAX's compute_transmittance runs on every lane; a lane without an
+        # attempt, whose answer is not used, traces t_max 0
+        t_max = torch.where(attempt, path_integrator.distance(o, p_to) * (1.0 - 1e-3), 0.0)
+        return Connection(attempt, L, g, o, w, t_max, p_to, _conn_medium(a, w))
     t_max = torch.where(attempt, torch.sqrt(torch.clamp(dist2, min=1e-24)) * (1.0 - 1e-3), 0.0)
     return Connection(attempt, L, g, o, w, t_max)
 
@@ -530,12 +655,13 @@ def _emitted(scene, light_vs, cam_vs, t, lam):
 
 
 def _finish(scene, light_vs, cam_vs, s, t, lam, sample, conn, occ):
-    """L * MIS weight of strategy (s, t) given its visibility `occ` (R,)
-    bool (unused for s = 0)."""
+    """L * MIS weight of strategy (s, t) given its visibility `occ`, (R,)
+    bool occluded bits or on a scene with media the (R,4) transmittance
+    (unused for s = 0)."""
     if s == 0:
         return _emitted(scene, light_vs, cam_vs, t, lam) * _mis_weight(
             scene, light_vs, cam_vs, s, t)[..., None]
-    vis = torch.where(occ[..., None], 0.0, 1.0)
+    vis = torch.where(occ[..., None], 0.0, 1.0) if occ.dtype == torch.bool else occ
     L = conn.L * (vis if conn.g is None else conn.g[..., None] * vis)
     L = torch.where(conn.attempt[..., None], L, 0.0)
     sampled_v = _sampled_vertex(scene, s, t, sample, cam_vs) if s == 1 or t == 1 else None
@@ -557,9 +683,16 @@ def connect(scene, meta, light_vs, cam_vs, s, t, lam, sample=None):
         return (_finish(scene, light_vs, cam_vs, s, t, lam, None, None, None), None,
                 torch.zeros((), dtype=torch.int64, device=lam.device))
     c = _connection(scene, light_vs, cam_vs, s, t, sample)
-    occ = dispatch.occluded(scene, meta, c.o, c.d, c.t_max)
-    L = _finish(scene, light_vs, cam_vs, s, t, lam, sample, c, occ)
+    L = _finish(scene, light_vs, cam_vs, s, t, lam, sample, c, _visibility(scene, meta, c, lam))
     return L, (sample.raster if t == 1 else None), c.attempt.sum()
+
+
+def _visibility(scene, meta, c, lam):
+    """The occluded bits of connection rays c, or on a scene with media
+    their segments' transmittance (path.transmittance) at lam."""
+    if c.p is None:
+        return dispatch.occluded(scene, meta, c.o, c.d, c.t_max)
+    return path_integrator.transmittance(scene, meta, c.o, c.d, c.p, c.medium, lam, c.t_max)
 
 
 def connect_rays_plain(scene, light_vs, cam_vs, table, samples):
@@ -578,14 +711,27 @@ def connect_rays_plain(scene, light_vs, cam_vs, table, samples):
             sum(c.attempt.sum() for c in conns.values()))
 
 
+def connect_segments_plain(scene, light_vs, cam_vs, table, samples):
+    """connect_rays_plain on a scene with media: also each ray's segment end
+    p (n_ray R, 3) and start medium (n_ray R,) int64 -> (conns, o, d,
+    t_max, attempts, p, medium)."""
+    conns, o, d, t_max, n = connect_rays_plain(scene, light_vs, cam_vs, table, samples)
+    if not conns:
+        return conns, o, d, t_max, n, o, torch.zeros((0,), dtype=torch.int64, device=o.device)
+    return (conns, o, d, t_max, n, torch.cat([c.p for c in conns.values()]),
+            torch.cat([c.medium for c in conns.values()]))
+
+
 def connect_weight_plain(scene, meta, light_vs, cam_vs, lam, table, samples, conns, occluded,
                          per_strategy=None):
     """Plain version of K12's second entry point: L * MIS weight of every
     strategy given the occluded bits (n_ray R,) of connect_rays_plain's
-    rays -> (L (R,4) summed over t > 1, splat L (n_t1 R, 4), splat pixel
-    ids (n_t1 R,) int64). per_strategy, a list, receives each strategy's L."""
+    rays, or on a scene with media their transmittance (n_ray R, 4) ->
+    (L (R,4) summed over t > 1, splat L (n_t1 R, 4), splat pixel ids (n_t1
+    R,) int64). per_strategy, a list, receives each strategy's L."""
     R, dev = lam.shape[0], lam.device
-    occ = dict(zip(conns, occluded.reshape(len(conns), R))) if conns else {}
+    occ = (dict(zip(conns, occluded.reshape((len(conns), R) + tuple(occluded.shape[1:]))))
+           if conns else {})
     L = torch.zeros((R, 4), device=dev)
     splat_L, splat_pix = [], []
     for st in table:
@@ -608,8 +754,15 @@ def connect_all_plain(scene, meta, light_vs, cam_vs, lam, table, samples, per_st
     call for all their shadow rays -> (L (R,4) summed over t > 1, splat L
     (n_t1 R, 4), splat pixel ids (n_t1 R,) int64, shadow rays traced
     (0-dim int64)). per_strategy, a list, receives each strategy's L."""
-    conns, o, d, t_max, n = connect_rays_plain(scene, light_vs, cam_vs, table, samples)
-    occ = dispatch.occluded(scene, meta, o, d, t_max) if conns else None
+    if path_integrator.has_media(scene):
+        conns, o, d, t_max, n, p, medium = connect_segments_plain(scene, light_vs, cam_vs, table,
+                                                                  samples)
+        occ = (path_integrator.transmittance(scene, meta, o, d, p, medium,
+                                             lam.repeat(len(conns), 1), t_max)
+               if conns else None)
+    else:
+        conns, o, d, t_max, n = connect_rays_plain(scene, light_vs, cam_vs, table, samples)
+        occ = dispatch.occluded(scene, meta, o, d, t_max) if conns else None
     L, splat_L, splat_pix = connect_weight_plain(scene, meta, light_vs, cam_vs, lam, table,
                                                  samples, conns, occ, per_strategy)
     return L, splat_L, splat_pix, n
@@ -631,13 +784,17 @@ VERTEX_GROUPS = (
     ("pdf_fwd", F32, 1), ("pdf_rev", F32, 1), ("delta", torch.bool, 1),
     ("light", torch.int64, 1), ("wo", F32, 3), ("kind", torch.int64, 1), ("refl", F32, 4),
     ("trans", F32, 4), ("eta_re", F32, 4), ("eta_im", F32, 4), ("eta", F32, 1),
-    ("ax", F32, 1), ("ay", F32, 1), ("fx", F32, 3), ("fy", F32, 3), ("fz", F32, 3))
+    ("ax", F32, 1), ("ay", F32, 1), ("fx", F32, 3), ("fy", F32, 3), ("fz", F32, 3),
+    ("med", torch.int64, 1), ("med_in", torch.int64, 1), ("med_out", torch.int64, 1))
+# the groups bdpt_connect_weight stages (and the yardsticks pack); the medium
+# ids after them are read in place, by the MEDIA instantiations only
+STAGED_GROUPS = 21
 CAMERA_SAMPLE_GROUPS = (("wi", F32, 3), ("we", F32, 1), ("pdf", F32, 1), ("raster", F32, 2),
                         ("p_lens", F32, 3), ("valid", torch.bool, 1))
 LIGHT_SAMPLE_GROUPS = (("light", torch.int64, 1), ("pmf", F32, 1), ("p_light", F32, 3),
                        ("n_light", F32, 3), ("wi", F32, 3), ("L", F32, 4), ("pdf", F32, 1),
                        ("valid", torch.bool, 1))
-NF = sum(w for _, _, w in VERTEX_GROUPS)            # 50
+NF = sum(w for _, _, w in VERTEX_GROUPS[:STAGED_GROUPS])   # 50
 NSF = sum(w for _, _, w in LIGHT_SAMPLE_GROUPS)     # 17
 # csrc/bdpt.cu's sizes: the pointers of an endpoint row; a tile's lanes and
 # its bytes a vertex slot; the most slots bdpt_connect_weight stages in
@@ -646,7 +803,7 @@ NSF = sum(w for _, _, w in LIGHT_SAMPLE_GROUPS)     # 17
 NEG = 8
 TILE = 32
 SLOT_BYTES = TILE * sum(w * torch.tensor([], dtype=dt).element_size()
-                        for _, dt, w in VERTEX_GROUPS)   # 6560
+                        for _, dt, w in VERTEX_GROUPS[:STAGED_GROUPS])   # 6560
 STAGED_SLOTS = 35
 N_SCENE_F = 45
 LT_F = 10
@@ -657,7 +814,8 @@ CONNECT_WARPS = 16
 def _vertex_fields(v: V):
     b = v.bx
     return (v.vtype, v.p, v.ng, v.ns, v.beta, v.pdf_fwd, v.pdf_rev, v.delta, v.light, v.wo,
-            b.kind, b.refl, b.trans, b.eta_re, b.eta_im, b.eta, b.ax, b.ay, v.fx, v.fy, v.fz)
+            b.kind, b.refl, b.trans, b.eta_re, b.eta_im, b.eta, b.ax, b.ay, v.fx, v.fy, v.fz,
+            v.med, v.med_in, v.med_out)
 
 
 def _sample_fields(x):
@@ -678,7 +836,7 @@ def pack_vertices(cam_vs, light_vs):
     out = torch.empty((len(vs), NF, R), device=vs[0].p.device)
     for i, v in enumerate(vs):
         f = 0
-        for x in _vertex_fields(v):
+        for x in _vertex_fields(v)[:STAGED_GROUPS]:
             x = x.reshape(R, -1)
             out[i, f:f + x.shape[1]] = x.T
             f += x.shape[1]
@@ -868,14 +1026,14 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.pbrt_bdpt_layout.argtypes = [I]
         lib.pbrt_bdpt_layout.restype = I
-        want = (len(VERTEX_GROUPS), NEG, SLOT_BYTES, CONNECT_WARPS, STAGED_SLOTS)
+        want = (len(VERTEX_GROUPS), NEG, SLOT_BYTES, CONNECT_WARPS, STAGED_SLOTS, STAGED_GROUPS)
         got = tuple(lib.pbrt_bdpt_layout(i) for i in range(len(want)))
         if got != want:
             raise RuntimeError(f"csrc/bdpt.cu's layout {got} is not integrators/bdpt.py's {want}")
-        lib.pbrt_bdpt_connect_rays.argtypes = [P, I] + [P] * 3 + [I] * 3 + [P] * 4 + [P]
+        lib.pbrt_bdpt_connect_rays.argtypes = [P, I] + [P] * 3 + [I] * 3 + [P] * 4 + [P] * 3 + [P]
         lib.pbrt_bdpt_connect_rays.restype = I
         lib.pbrt_bdpt_connect_weight.argtypes = ([P, I, I] + [P] * 4 + [I] * 3 + [P] * 4
-                                                 + [I] * 2 + [P] * 4 + [P])
+                                                 + [I] * 2 + [P] * 4 + [P] + [P])
         lib.pbrt_bdpt_connect_weight.restype = I
         lib.declared = True
     return lib
@@ -932,10 +1090,7 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def connect_rays_cuda(scene, ft, st):
-    """K12's first entry point, over the walks' tensors of FieldTable ft:
-    the shadow rays of every s >= 1 strategy of StrategyTable st -> (o
-    (n_ray R, 3), d (n_ray R, 3), t_max (n_ray R,), attempts (1,) int64)."""
+def _connect_rays(scene, ft, st, media):
     from pbrt_tpu_torch import kernels
 
     dev, R = ft.device, ft.R
@@ -944,13 +1099,43 @@ def connect_rays_cuda(scene, ft, st):
     d = torch.empty((st.n_ray * R, 3), device=dev)
     t_max = torch.empty((st.n_ray * R,), device=dev)
     count = torch.zeros((1,), dtype=torch.int64, device=dev)
+    p = medium = None
+    ptrs = (0, 0, 0)
+    if media:
+        p = torch.empty((st.n_ray * R, 3), device=dev)
+        medium = torch.empty((st.n_ray * R,), dtype=torch.int64, device=dev)
+        ptrs = (_media_g(scene).data_ptr(), p.data_ptr(), medium.data_ptr())
     err = _lib().pbrt_bdpt_connect_rays(
         ft.ptrs.data_ptr(), len(ft.vertex), scene_f.data_ptr(), lt.data_ptr(), st.tab.data_ptr(),
         len(st.rows), ft.n_cam, R, o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-        count.data_ptr(), _stream(dev))
+        count.data_ptr(), *ptrs, _stream(dev))
     kernels.check(err, "bdpt_connect_rays")
     launches["bdpt_connect_rays"] += 1
-    return o, d, t_max, count
+    return o, d, t_max, count, p, medium
+
+
+def _media_g(scene):
+    if not path_integrator.has_media(scene):
+        raise ValueError("bdpt kernel: the MEDIA instantiations need a scene with media")
+    g = scene.med_g.contiguous()
+    if g.dtype != torch.float32 or g.device != scene.device:
+        raise ValueError("bdpt kernel: med_g must be float32 on the scene's device")
+    return g
+
+
+def connect_rays_cuda(scene, ft, st):
+    """K12's first entry point, over the walks' tensors of FieldTable ft:
+    the shadow rays of every s >= 1 strategy of StrategyTable st -> (o
+    (n_ray R, 3), d (n_ray R, 3), t_max (n_ray R,), attempts (1,) int64)."""
+    return _connect_rays(scene, ft, st, False)[:4]
+
+
+def connect_segments_cuda(scene, ft, st):
+    """connect_segments_plain's contract: K12's first entry point in its
+    MEDIA instantiation -> (o, d, t_max (the transmittance loop's first
+    hop), attempts (1,) int64, segment ends p (n_ray R, 3), start media
+    (n_ray R,) int64)."""
+    return _connect_rays(scene, ft, st, True)
 
 
 def connect_weight_cuda(scene, ft, st, lam, occluded, res, per_strategy=None):
@@ -962,13 +1147,22 @@ def connect_weight_cuda(scene, ft, st, lam, occluded, res, per_strategy=None):
     connect_rays_cuda's rays -> (L (R,4) summed over t > 1 in table order,
     splat L (n_t1 R, 4), splat pixel ids (n_t1 R,) int64). Every strategy's
     L goes to per_strategy, an (n_strat, R, 4) float32 tensor (allocated
-    here when not given), which the t > 1 sum reads."""
+    here when not given), which the t > 1 sum reads. On a scene with media
+    `occluded` is the segments' transmittance (n_ray R, 4) float32 and the
+    MEDIA instantiation runs."""
     from pbrt_tpu_torch import kernels
 
     dev, R = ft.device, ft.R
     scene_f, lt, emission, uinf = _check_fields(scene, ft, st)
     _check("lam", lam, torch.float32, (R, 4), dev)
-    _check("occluded", occluded, torch.bool, (st.n_ray * R,), dev)
+    med_g = 0
+    if occluded.dtype == torch.float32:
+        _check("transmittance", occluded, torch.float32, (st.n_ray * R, 4), dev)
+        if occluded.data_ptr() % 16:
+            raise ValueError("bdpt kernel: the transmittance rows must be 16-byte aligned")
+        med_g = _media_g(scene).data_ptr()
+    else:
+        _check("occluded", occluded, torch.bool, (st.n_ray * R,), dev)
     _check("warp lists", st.order, torch.int32, (CONNECT_WARPS + 1 + len(st.rows),), dev)
     if per_strategy is None:
         per_strategy = torch.empty((len(st.rows), R, 4), device=dev)
@@ -981,13 +1175,15 @@ def connect_weight_cuda(scene, ft, st, lam, occluded, res, per_strategy=None):
         st.tab.data_ptr(), st.order.data_ptr(), len(st.rows), ft.n_cam, R,
         lam.data_ptr(), emission.data_ptr(), uinf.data_ptr(), occluded.data_ptr(),
         int(res[0]), int(res[1]), L.data_ptr(), splat_L.data_ptr(), splat_pix.data_ptr(),
-        per_strategy.data_ptr(), _stream(dev))
+        per_strategy.data_ptr(), med_g, _stream(dev))
     kernels.check(err, "bdpt_connect_weight")
     launches["bdpt_connect_weight"] += 1
     return L, splat_L, splat_pix
 
 
-def _check_packed(verts, ends, n_cam, n_light):
+def _check_packed(verts, ends, n_cam, n_light, scene=None):
+    if scene is not None and path_integrator.has_media(scene):
+        raise ValueError("bdpt kernel: the yardsticks do not cover scenes with media")
     dev, R = verts.device, verts.shape[-1]
     _check("verts", verts, torch.float32, (n_cam + n_light, NF, R), dev)
     _check("endpoints", ends, torch.float32, (ends.shape[0], NSF, R), dev)
@@ -1000,7 +1196,7 @@ def connect_rays_lane_cuda(scene, verts, ends, st, n_cam, n_light):
     pack_endpoints); for chip_smoke.py only."""
     from pbrt_tpu_torch import kernels
 
-    dev, R = _check_packed(verts, ends, n_cam, n_light)
+    dev, R = _check_packed(verts, ends, n_cam, n_light, scene)
     scene_f, lt, _, _ = _check_wave(scene, dev, R, st, ends.shape[0])
     o = torch.empty((st.n_ray * R, 3), device=dev)
     d = torch.empty((st.n_ray * R, 3), device=dev)
@@ -1022,7 +1218,7 @@ def connect_weight_lane_cuda(scene, verts, ends, st, n_cam, n_light, lam, occlud
     copy, every strategy in table order; for chip_smoke.py only."""
     from pbrt_tpu_torch import kernels
 
-    dev, R = _check_packed(verts, ends, n_cam, n_light)
+    dev, R = _check_packed(verts, ends, n_cam, n_light, scene)
     scene_f, lt, emission, uinf = _check_wave(scene, dev, R, st, ends.shape[0])
     _check("lam", lam, torch.float32, (R, 4), dev)
     _check("occluded", occluded, torch.bool, (st.n_ray * R,), dev)
@@ -1056,8 +1252,13 @@ def connect_all_cuda(scene, meta, light_vs, cam_vs, lam, table, samples, per_str
     strategies' shadow rays."""
     st = strategy_table(table, lam.device)
     ft = field_table(cam_vs, light_vs, table, contiguous_samples(samples))
-    o, d, t_max, count = connect_rays_cuda(scene, ft, st)
-    occ = dispatch.occluded(scene, meta, o, d, t_max).contiguous()
+    if path_integrator.has_media(scene):
+        o, d, t_max, count, p, medium = connect_segments_cuda(scene, ft, st)
+        occ = path_integrator.transmittance(scene, meta, o, d, p, medium,
+                                            lam.repeat(st.n_ray, 1), t_max)
+    else:
+        o, d, t_max, count = connect_rays_cuda(scene, ft, st)
+        occ = dispatch.occluded(scene, meta, o, d, t_max).contiguous()
     L, splat_L, splat_pix = connect_weight_cuda(scene, ft, st, lam.contiguous(), occ,
                                                 meta.resolution, per_strategy)
     return L, splat_L, splat_pix, count[0]
@@ -1071,6 +1272,8 @@ def li_bdpt(scene, meta, p_film, smp, wl, skind, spp):
     pixel ids (n_t1 R,), splat L (n_t1 R, 4)), {"closest": walk rays,
     "shadow": connection rays} as 0-dim int64). The connections run in K12
     on CUDA tensors and in plain torch on CPU tensors."""
+    if meta.volumetric:
+        path_integrator.check_volumetric(scene, meta)
     cam_vs, smp, n_cam = camera_path(scene, meta, p_film, smp, wl, skind, spp)
     light_vs, smp, n_light = light_path(scene, meta, smp, wl, skind, spp)
     table = strategies(len(cam_vs), len(light_vs), meta.max_depth)

@@ -431,10 +431,18 @@ def render_mlt_bdpt(scene, meta, n_chains=N_CHAINS, n_bootstrap=None, seed=0, ve
                     return_heatmap=False, device=None, on_pass=None):
     """MLT over the BDPT estimator ("mlt", "mltbdpt"; JAX mlt.py:267-337)
     -> ((H, W, 3) linear RGB, [heatmap (H, W),] {"closest", "shadow",
-    "mutations"}). D = 16 + 16 (max_depth + 2) primary samples a chain.
+    "mutations"}). D = bdpt_dims(meta) primary samples a chain.
     on_pass(i, a), if given, is called after each pass with its acceptances."""
-    return _render_chains(scene, meta, 16 + 16 * (meta.max_depth + 2), n_chains, n_bootstrap,
-                          seed, verbose, return_heatmap, device, on_pass)
+    return _render_chains(scene, meta, bdpt_dims(meta), n_chains, n_bootstrap, seed, verbose,
+                          return_heatmap, device, on_pass)
+
+
+def bdpt_dims(meta):
+    """Primary samples a chain of MLT over BDPT (JAX mlt.py:201): 16 + 16
+    (max_depth + 2), or 16 + 40 (max_depth + 2) on a volumetric scene, whose
+    walks draw ~9 dimensions a step (4 distance draws, the BSDF's 3, the
+    phase function's 2)."""
+    return 16 + (40 if meta.volumetric else 16) * (meta.max_depth + 2)
 
 
 def render_mlt(scene, meta, n_chains=N_CHAINS, n_bootstrap=None, seed=0, verbose=False,

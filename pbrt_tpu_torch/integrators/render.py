@@ -243,14 +243,18 @@ def render_wavefront(scene, meta, film, pix0=0, n_pix=None, pool=None):
     def camera_lane(work):
         pix = pix0 + work % n_pix
         rays, wl, r, weight = camera_lanes(scene, meta, pix, work // n_pix, use_lens)
-        return pix, weight, path_integrator.initial_state(rays, wl, r)
+        return pix, weight, path_integrator.initial_state(
+            rays, wl, r, path_integrator.camera_medium(scene, meta))
 
     pix, weight, state = camera_lane(torch.arange(R, device=dev))
     in_flight = torch.ones(R, dtype=torch.bool, device=dev)
     counters = torch.tensor([R, R], dtype=torch.int64, device=dev)  # next_work, n_in_flight
-    # a path ends at the latest one step after its max_depth-th bounce; the
-    # loop leaves as soon as no lane is in flight
-    it_bound = (-(-total // R) + 2) * (meta.max_depth + 1)
+    # a path ends at the latest one step after its max_depth-th bounce (on a
+    # volumetric scene interface crossings add 0.3 depth a step: ceil(max_depth
+    # / 0.3) + 2 steps, JAX render.py:297-298); the loop leaves as soon as no
+    # lane is in flight
+    per_path = (-(-meta.max_depth * 10 // 3) + 2 if meta.volumetric else meta.max_depth + 1)
+    it_bound = (-(-total // R) + 2) * per_path
     n_in_flight, it = R, 0
     while n_in_flight > 0 and it < it_bound:
         st = path_integrator.bounce_step(scene, meta, state, meta.sampler, meta.spp)

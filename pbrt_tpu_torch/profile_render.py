@@ -3,7 +3,8 @@
     python -m pbrt_tpu_torch.profile_render
         [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass
                  |caustic-glass-mlt|cornell-mesh-mltpath|cornell-instanced
-                 |cornell-instanced-flat]
+                 |cornell-instanced-flat|volumetric-caustic|volumetric-caustic-bdpt
+                 |volumetric-caustic-path]
         [--shard-scene N] [--traversal | --layered]
         [--out build/pbrt_tpu_torch/profile_render.json]
 
@@ -17,7 +18,11 @@ cornell box at 128^2 x 8, max depth 5) and caustic-glass
 (scenes/caustic-glass.pbrt: 256^2 x 64, max depth 7); cornell-instanced
 (testscenes.instanced_cornell_pbrt at levels (6, 5) under instancing
 "auto": 1,310,732 world triangles, 42 instances of 2 prototypes under the
-two-level BVH) and its flattened twin at cornell-mesh's settings. One warm-up render,
+two-level BVH) and its flattened twin at cornell-mesh's settings;
+volumetric-caustic (scenes/volumetric-caustic.pbrt: homogeneous fog, a
+spot beam through a glass ball, 128^2, max depth 7) with its file's MLT
+over BDPT (uncut, 100 mutations per pixel), with BDPT at 8 spp and with the
+path integrator at its file's 16 spp. One warm-up render,
 REPS timed renders (11; 3 for staircase, whose frame is ~25x a cornell-mesh
 frame's work, and for caustic-glass; 5 for testball), host clock around a synchronized render (the
 honest rays/s of each, and their median and quartiles), then one render
@@ -98,7 +103,7 @@ KERNELS = {"bvh": "pbrt_wide::wide_kernel", "bvh_inst": "inst_wide_kernel",
            "film_scatter": "film_add_scatter_kernel", "layered": "LayeredArgs", "bdpt": "connect_",
            "splat": "film_splat_kernel", "mlt": "mutate_kernel|accept_splat_kernel",
            "shard": "parts_wide_kernel|select_kernel",
-           "path_step": "path_rr_kernel|path_shade_kernel|path_coat_kernel|path_resolve_kernel"}
+           "path_step": "StepArgs", "transmit": "transmit_hop_kernel"}
 
 
 def _device_us(e):
@@ -405,6 +410,18 @@ def _scene(name):
         mode = "flatten" if name.endswith("flat") else "auto"
         return (compile_scene(ts.instanced_cornell_builder(res=RES, spp=SPP, instancing=mode)),
                 f"cornell-instanced (levels (6, 5), instancing {mode!r}, 1,310,732 world tris)")
+    if name.startswith("volumetric-caustic"):
+        from pbrt_tpu_torch.scene.compile import load_scene
+
+        path = str(Path(__file__).resolve().parent.parent / "scenes" / "volumetric-caustic.pbrt")
+        if name.endswith("bdpt"):
+            return (load_scene(path, spp=8, integrator="bdpt"),
+                    "volumetric-caustic bdpt (128^2 x 8, max depth 7, fog)")
+        if name.endswith("path"):
+            return (load_scene(path, integrator="path"),
+                    "volumetric-caustic path (128^2 x 16, max depth 7, fog)")
+        return (load_scene(path), "volumetric-caustic mlt (its file: MLT over BDPT, 100 "
+                                  "mutations/px, fog)")
     if name in SCENE_FILES:
         from pbrt_tpu_torch.scene.compile import load_scene
 
@@ -418,7 +435,9 @@ def main(argv=None):
     ap.add_argument("--scene", choices=("cornell-mesh", "cornell", "terrain", "staircase",
                                         "testball", "cornell-bdpt", "caustic-glass",
                                         "caustic-glass-mlt", "cornell-mesh-mltpath",
-                                        "cornell-instanced", "cornell-instanced-flat"),
+                                        "cornell-instanced", "cornell-instanced-flat",
+                                        "volumetric-caustic", "volumetric-caustic-bdpt",
+                                        "volumetric-caustic-path"),
                     default="cornell-mesh")
     ap.add_argument("--shard-scene", type=int, default=0, metavar="N",
                     help="split the triangles into N parts (path family)")

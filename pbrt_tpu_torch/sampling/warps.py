@@ -50,6 +50,11 @@ def sample_uniform_sphere(u):
 UNIFORM_SPHERE_PDF = 1.0 / (4.0 * PI)
 
 
+def sample_exponential(u, a):
+    """t with density a exp(-a t) (reference sampling.h)."""
+    return -torch.log(torch.clamp(1.0 - u, min=1e-38)) / a
+
+
 def henyey_greenstein(cos_theta, g):
     """Henyey-Greenstein phase function value (reference sampling.h)."""
     denom = 1.0 + g * g + 2.0 * g * cos_theta

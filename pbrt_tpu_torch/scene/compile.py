@@ -78,6 +78,15 @@ class Scene:
     dsk_xaxis: torch.Tensor      # (D, 3) in-plane frame for phi clipping
     dsk_yaxis: torch.Tensor
     dsk_phimax: torch.Tensor     # (D,) radians
+    # homogeneous media and each shape's (inside, outside) medium (-1 vacuum;
+    # tri_med in the triangles' order, also columns 19:21 of tri_rec)
+    med_sigma_a: torch.Tensor    # (NM, 471) f32
+    med_sigma_s: torch.Tensor    # (NM, 471) f32
+    med_g: torch.Tensor          # (NM,) f32 HG asymmetry
+    tri_med: torch.Tensor        # (T, 2) i32
+    sph_med: torch.Tensor        # (S, 2) i32
+    dsk_med: torch.Tensor        # (D, 2) i32
+    camera_medium: torch.Tensor  # () i32 the medium camera rays start in
     # materials
     mat_type: torch.Tensor       # (M,) i32
     mat_refl_c: torch.Tensor     # (M, 3) sigmoid coefficients
@@ -109,6 +118,7 @@ class Scene:
     lt_position: torch.Tensor    # (L, 3) spot position (render space)
     lt_cos_start: torch.Tensor   # (L,) spot falloff
     lt_cos_end: torch.Tensor
+    lt_medium: torch.Tensor      # (L,) i32 light subpaths start in it
     lt_pmf: torch.Tensor         # (L,)
     lt_alias_rows: torch.Tensor  # (L, 3) [q, alias, pmf]
     filt: filterlib.FilterTables  # of tensors
@@ -203,6 +213,8 @@ class SceneMeta:
     dsk_partial: bool             # some disk is clipped (phimax)
     layered: bool                 # some material is coated: make_bsdf builds
                                   # the layered parameters (K7)
+    volumetric: bool              # media or material-less interfaces: the
+                                  # integrators take their medium branches
     mutations_per_pixel: int      # MLT: mutations per pixel of a frame
 
 
@@ -300,7 +312,7 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
     tri_mat = np.asarray(b.tri_mat, np.int32).reshape(T)
     tri_light = np.asarray(b.tri_light, np.int32).reshape(T)
     tri_rev = np.asarray(b.tri_rev, bool).reshape(T)
-    tri_med = np.full((T, 2), -1, np.int32)
+    tri_med = np.asarray(b.tri_med, np.int32).reshape(T, 2)
     tri_newpos = np.arange(T, dtype=np.int32)
     instances, protos = b.instances, b.protos
     n_inst = len(instances)
@@ -331,7 +343,8 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
             cat(tp, "P"), cat(tn, "N"), cat(tuv, "UV"), cat(has_n, "has_n"),
             cat(tri_mat, "mat"), cat(tri_rev, "rev"))
         tri_light = np.concatenate([tri_light, np.full(tp.shape[0] - T, -1, np.int32)])
-        tri_med = np.full((tp.shape[0], 2), -1, np.int32)
+        # prototypes carry no media (the builder refuses them)
+        tri_med = np.concatenate([tri_med, np.full((tp.shape[0] - T, 2), -1, np.int32)])
         m4 = np.tile(np.eye(4), (n_inst, 1, 1))
         m4[:, :3, :4] = o2w
         inst_w2o = np.linalg.inv(m4)[:, :3, :4].reshape(n_inst, 12).astype(f32)
@@ -495,6 +508,15 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         dsk_mat=col(b.disks, "mat", (), np.int32), dsk_light=col(b.disks, "light", (), np.int32),
         dsk_xaxis=col(b.disks, "xaxis", (3,), f32), dsk_yaxis=col(b.disks, "yaxis", (3,), f32),
         dsk_phimax=col(b.disks, "phimax", (), f32),
+        med_sigma_a=(np.stack([m["sigma_a"] for m in b.media]).astype(f32) if b.media
+                     else np.zeros((0, cie.LAMBDA_RANGE), f32)),
+        med_sigma_s=(np.stack([m["sigma_s"] for m in b.media]).astype(f32) if b.media
+                     else np.zeros((0, cie.LAMBDA_RANGE), f32)),
+        med_g=np.array([m["g"] for m in b.media], f32),
+        tri_med=tri_med,
+        sph_med=col(b.spheres, "med", (2,), np.int32),
+        dsk_med=col(b.disks, "med", (2,), np.int32),
+        camera_medium=np.asarray(b.camera_medium, np.int32),
         mat_type=mat_type,
         mat_refl_c=mat_refl_c.astype(f32), mat_trans_c=mat_trans_c.astype(f32),
         mat_urough=np.array([m.uroughness for m in mats], f32),
@@ -526,6 +548,7 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
                               for l in lights], f32).reshape(L, 3),
         lt_cos_start=np.array([l.cos_falloff_start for l in lights], f32),
         lt_cos_end=np.array([l.cos_falloff_end for l in lights], f32),
+        lt_medium=np.array([l.medium for l in lights], np.int32),
         lt_pmf=lt_pmf, lt_alias_rows=lt_alias_rows,
         filt=filt,
         camera_from_raster=np.asarray(camera_from_raster, f32),
@@ -565,6 +588,8 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         sph_partial=any(sp["partial"] for sp in b.spheres),
         dsk_partial=any(dk["partial"] for dk in b.disks),
         layered=any(m.type in (bd.MAT_COATED_DIFFUSE, bd.MAT_COATED_CONDUCTOR) for m in mats),
+        volumetric=bool(b.media or any(m < 0 for m in b.tri_mat)
+                        or any(sp["mat"] < 0 for sp in b.spheres)),
         mutations_per_pixel=b.integrator.get("mutations", 100),
     )
     return arrays, meta

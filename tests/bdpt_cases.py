@@ -77,8 +77,8 @@ AttributeEnd
 def vertices_from_arrays(vs):
     """The JAX package's vertex records (any objects with its V fields whose
     arrays numpy can read) as the port's CPU `bdpt.V` records, bit for bit:
-    ids widen to int64; uv and the medium ids, which the port does not
-    keep, are dropped."""
+    ids (the medium ids too) widen to int64; uv, which the port does not
+    keep, is dropped."""
     import numpy as np
     from pbrt_tpu_torch.integrators import bdpt
     from pbrt_tpu_torch.materials import bxdfs
@@ -95,7 +95,8 @@ def vertices_from_arrays(vs):
                           beta=t(v.beta), pdf_fwd=t(v.pdf_fwd), pdf_rev=t(v.pdf_rev),
                           delta=t(v.delta, torch.bool), light=t(v.light, torch.int64),
                           mat=t(v.mat, torch.int64), wo=t(v.wo), bx=bx, fx=t(v.fx),
-                          fy=t(v.fy), fz=t(v.fz)))
+                          fy=t(v.fy), fz=t(v.fz), med=t(v.med, torch.int64),
+                          med_in=t(v.med_in, torch.int64), med_out=t(v.med_out, torch.int64)))
     return out
 
 

@@ -475,8 +475,9 @@ def test_warp_lists_cover_every_strategy_once(name, n_warps):
 
 def _read_like_kernel(ft):
     """The FieldTable ft read as csrc/bdpt.cu reads it, from the addresses in
-    ft.ptrs: vertex slot i, group j at ptrs[i NG + j], staged 32 lanes at a
-    time (zeros past lane R - 1); endpoint row i, group j at ptrs[n_slots
+    ft.ptrs: vertex slot i, group j at ptrs[i NG + j], the STAGED_GROUPS
+    staged 32 lanes at a time (zeros past lane R - 1; the medium ids after
+    them are read in place, and only on a scene with media); endpoint row i, group j at ptrs[n_slots
     NG + i NEG + j]; per lane the float32 components, the int32 vtype, the
     low word of an int64 id, a bool's byte -> ((n_slots, NF, R), (n_end,
     NSF, R)) float32."""
@@ -504,7 +505,8 @@ def _read_like_kernel(ft):
 
     ptrs = ft.ptrs.tolist()
     verts = torch.stack([torch.cat([lanes(ptrs[i * ng + j], dt, w, True)
-                                    for j, (_, dt, w) in enumerate(tbdpt.VERTEX_GROUPS)])
+                                    for j, (_, dt, w) in enumerate(
+                                        tbdpt.VERTEX_GROUPS[:tbdpt.STAGED_GROUPS])])
                          for i in range(len(ft.vertex))])
     base = len(ft.vertex) * ng
     ends = [torch.cat([lanes(ptrs[base + i * tbdpt.NEG + j], dt, w, False)
@@ -543,6 +545,7 @@ def test_field_table_reads_back_the_packed_records(name, R):
     assert len(ft.ends) == sum(1 for st in p["table"] if st in samples)
     for v, fields in zip(cam + light, ft.vertex):   # in place: the walks' own storage
         assert fields[1].data_ptr() == v.p.data_ptr() and fields[11] is v.bx.refl
+        assert fields[tbdpt.STAGED_GROUPS] is v.med
     verts, ends = _read_like_kernel(ft)
     want_v = tbdpt.pack_vertices(cam, light)
     want_e = tbdpt.pack_endpoints(p["table"], samples, R, "cpu")

@@ -1135,7 +1135,8 @@ def test_path_step_kernels_match_plain(cuda, skind, lanes):
     kern, plain = _path_parts()
     reps, seen = pc.compare_parts(scene, meta, state, skind, 4, kern, plain, pc.shade_parts())
     assert {k: path.launches[k] - n0[k] for k in n0} == dict(
-        path_rr=1, path_shade=2, path_bsdf=2, path_coat=0, path_resolve=1, path_shade_lane=0)
+        path_rr=1, path_shade=2, path_bsdf=2, path_coat=0, path_resolve=1, path_shade_lane=0,
+        transmit_hop=0, path_shade_vol=0, path_bsdf_vol=0, path_resolve_vol=0)
     assert {"shade.light", "shade.bsdf"} <= set(reps)
     for name, rep in reps.items():
         assert rep.ok(), (name, str(rep))
@@ -1179,7 +1180,8 @@ def test_path_step_kernels_match_plain_coated_and_mlt(cuda, case, lanes):
                   else dict.fromkeys(k7, 0))
     assert {k: path.launches[k] - n0[k] for k in n0} == dict(
         path_rr=1, path_shade=1, path_bsdf=1, path_coat=int(coated), path_resolve=1,
-        path_shade_lane=0)
+        path_shade_lane=0, transmit_hop=0, path_shade_vol=0, path_bsdf_vol=0,
+        path_resolve_vol=0)
 
 
 @pytest.mark.parametrize("case", ["independent", "stratified", "coated", "mlt6"])
@@ -1292,7 +1294,8 @@ def test_path_step_render_on_card_matches_cpu(cuda, skind):
     img_gpu, st_gpu = render(scene, meta, return_stats=True)
     its = rd.launches["wavefront_recycle"] - k0
     assert its > 0 and {k: path.launches[k] - n0[k] for k in n0} == dict(
-        dict.fromkeys(k6, its), path_coat=0, path_shade_lane=0)
+        dict.fromkeys(k6, its), path_coat=0, path_shade_lane=0,
+        **dict.fromkeys(("transmit_hop", "path_shade_vol", "path_bsdf_vol", "path_resolve_vol"), 0))
     films = [filmlib.new_film(meta.resolution, cuda) for _ in range(2)]
     n0 = dict(path.launches)
     for f in films:
@@ -1385,3 +1388,239 @@ def test_bvh_refit_kernel_matches_plain(cuda):
     assert int((got[1] >= 0).sum()) > 1000
     bvh.closest_hit_tris(scene, meta, o, d, t_max)
     assert bvh.launches["bvh_refit"] == n0 + 2
+
+
+# ------------------------------------------------------------ media (K6t, K6 and K12 MEDIA)
+
+
+def _media_scene(name, cuda, integrator="path", res=24, spp=2, max_depth=None):
+    """FOG_SPHERE (tests/medium_cases.py; fog behind a material-less
+    interface) or volumetric-caustic on the card."""
+    import medium_cases as mc
+    from pbrt_tpu_torch.scene import builder as bd, lexer as lx
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    if name == "fog":
+        b = bd.SceneBuilder()
+        b.parse_tokens(lx.tokenize(mc.fog_text(0.3, 0.6, 0.3)))
+    else:
+        b = bd.SceneBuilder().parse_file(str(mc.CAUSTIC))
+    b.film["xresolution"] = b.film["yresolution"] = res
+    if max_depth is not None:
+        b.integrator["maxdepth"] = max_depth
+    return compile_scene(b, spp, device=cuda, integrator_override=integrator)
+
+
+def _segments(scene, meta, n, seed, cuda):
+    """n transmittance segments of the scene: random points of its bounds to
+    random ends of twice its bounds (so that real surfaces block), random media (-1 or a medium) and wavelengths, a tenth done
+    from the start, transmittance below 1."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.cat([scene.tri_p0, scene.tri_p1, scene.tri_p2, scene.sph_center]).cpu()
+    lo, hi = pts.min(0).values, pts.max(0).values
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=g)
+    p1 = lo + (hi - lo) * (2.0 * torch.rand((n, 3), generator=g) - 0.5)
+    d = (p1 - o) / (p1 - o).norm(dim=-1, keepdim=True)
+    medium = torch.randint(-1, scene.med_g.shape[0], (n,), generator=g)
+    lam = 360.0 + 470.0 * torch.rand((n, 4), generator=g)
+    trans = 0.2 + 0.8 * torch.rand((n, 4), generator=g)
+    done = torch.rand(n, generator=g) < 0.1
+    t_max = torch.where(done, 0.0, (o - p1).norm(dim=-1) * (1.0 - 1e-3))
+    return [x.to(cuda) for x in (o, d, p1, medium, lam, trans, done, t_max)]
+
+
+@pytest.mark.parametrize("name", ["fog", "caustic"])
+def test_transmit_hop_kernel_matches_plain(cuda, name):
+    """K6t (csrc/transmit.cu) against transmit_hop_plain hop by hop over the
+    closest hits of 2^16 random segments of the scene, the hop loop run to
+    MAX_HOPS: every output bit-exact on every lane (the card's torch.exp is
+    the kernel's expf); one launch a hop; interfaces crossed and surfaces
+    blocking on some lanes."""
+    from pbrt_tpu_torch.accel import dispatch
+    from pbrt_tpu_torch.integrators import path
+
+    scene, meta = _media_scene(name, cuda)
+    o, d, p1, medium, lam, trans, done, t_max = _segments(scene, meta, 1 << 16, 3, cuda)
+    n0 = path.launches["transmit_hop"]
+    crossed = blocked = 0
+    for _ in range(path.MAX_HOPS):
+        hit = dispatch.intersect(scene, meta, o, d, t_max)
+        want = path.transmit_hop_plain(scene, hit, o, d, p1, medium, lam, trans, done)
+        got = path.transmit_hop_cuda(scene, hit, o.clone(), d, p1, medium.clone(), lam,
+                                     trans.clone(), done.clone())
+        for k, x, y in zip(("o", "medium", "trans", "done", "t_max"), got, want):
+            assert torch.equal(x, y), (k, int((x != y).sum()))
+        crossed += int((hit.valid & (hit.mat < 0) & ~done).sum())
+        blocked += int((hit.valid & (hit.mat >= 0) & ~done).sum())
+        o, medium, trans, done, t_max = want
+    assert path.launches["transmit_hop"] == n0 + path.MAX_HOPS
+    assert blocked > 0 and (crossed > 0 or name == "caustic")
+
+
+@pytest.mark.parametrize("name", ["fog", "caustic"])
+def test_path_step_vol_kernels_match_plain(cuda, name):
+    """The VOLUMETRIC K6 kernels (path_shade_vol, path_bsdf_vol,
+    path_resolve_vol) and K6t against the plain parts over three bounces of
+    the scene's 24^2 x 2 camera lanes (FOG_SPHERE) or 2^16 synthetic lanes in
+    and out of the fog (volumetric-caustic), each bounce from the plain
+    chain's state: the draws (sampler state and dimension), the masks
+    (active, specular, the NEE lanes), the medium and depth bit-exact on
+    every lane, the ray counts equal, the float fields to path_cases'
+    criteria; each kernel launched once a bounce, K6t MAX_HOPS times, the
+    non-volumetric shading kernels not at all."""
+    import medium_cases as mc
+    import path_cases as pc
+    from pbrt_tpu_torch.accel import dispatch
+    from pbrt_tpu_torch.integrators import path
+
+    scene, meta = _media_scene(name, cuda)
+    assert meta.volumetric
+    if name == "fog":
+        state = pc.camera_state(scene, meta)
+        state = state._replace(medium=torch.full_like(state.smp.dim, -1),
+                               trans_pdf=torch.ones_like(state.L))
+    else:
+        state = mc.synthetic_fog_lanes(scene, meta, 1 << 16, 5)
+    scattered = 0
+    for bounce in range(3):
+        st, t_max = path.rr_plain(meta, state, "independent", 2)
+        hit = dispatch.intersect(scene, meta, st.o, st.d, t_max)
+        n0 = dict(path.launches)
+        kp = path.shade_vol_plain(scene, meta, st, hit, "independent", 2)
+        kc = path.shade_vol_cuda(scene, meta, st, hit, "independent", 2)
+        (sp, shp, pp, _), (sc, shc, pc_, _) = kp, kc
+        rep = pc.Report()
+        pc.compare_state(rep, sc, sp, pc.STATE_FLOATS + ("trans_pdf",))
+        rep.exact("medium", sc.medium, sp.medium)
+        rep.exact("nee", pc_.mask, pp.mask)
+        assert rep.ok(), (bounce, str(rep))
+        for k in ("smp_state", "smp_dim"):
+            x, y = getattr(sc.smp, k[4:]), getattr(sp.smp, k[4:])
+            assert torch.equal(x, y), (bounce, k)
+        for k in ("active", "specular", "depth", "medium"):
+            assert torch.equal(getattr(sc, k), getattr(sp, k)), (bounce, k)
+        assert torch.equal(pc_.mask, pp.mask)
+        m = pp.mask
+        assert torch.equal(shc.medium[m], shp.medium[m]) and torch.equal(pc_.mis[m][:, 1] < 0,
+                                                                          pp.mis[m][:, 1] < 0)
+        trans = path.transmittance(scene, meta, shp.o, shp.d, shp.p, shp.medium, sp.lam,
+                                   shp.t_max)
+        rp = path.resolve_vol_plain(sp, pp, trans)
+        rc = path.resolve_vol_cuda(sp, pp, trans)
+        assert int(rc.n_shadow) == int(rp.n_shadow)
+        rep = pc.Report()
+        rep.near("L", rc.L, rp.L)
+        assert rep.ok(), (bounce, str(rep))
+        d = {k: path.launches[k] - n0[k] for k in n0}
+        assert d == dict(path_rr=0, path_shade=0, path_bsdf=0, path_coat=0, path_resolve=0,
+                         path_shade_lane=0, transmit_hop=path.MAX_HOPS, path_shade_vol=1,
+                         path_bsdf_vol=1, path_resolve_vol=1), d
+        scattered += int((sp.active & (sp.medium >= 0)).sum())
+        state = rp
+    assert scattered > 0
+
+
+def test_path_step_vol_kernels_without_lights_match_plain(cuda):
+    """path_shade_vol and path_bsdf_vol on FOG_SPHERE without its light
+    against the plain parts over three bounces of 24^2 x 2 camera lanes:
+    the lanes that scatter in the fog take the NEE draws with no light to
+    pick (the kernel reads no light row); the draws, masks, medium and depth
+    bit-exact, the floats to path_cases' criteria, no shadow segments."""
+    import medium_cases as mc
+    import path_cases as pc
+    from pbrt_tpu_torch.accel import dispatch
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.scene import builder as bd, lexer as lx
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    b = bd.SceneBuilder()
+    b.parse_tokens(lx.tokenize(mc.fog_text(0.3, 0.6, 0.3, lights=False)))
+    b.film["xresolution"] = b.film["yresolution"] = 24
+    scene, meta = compile_scene(b, 2, device=cuda, integrator_override="path")
+    assert meta.volumetric and scene.lt_pmf.shape[0] == 0
+    state = pc.camera_state(scene, meta)
+    state = state._replace(medium=torch.full_like(state.smp.dim, -1),
+                           trans_pdf=torch.ones_like(state.L))
+    scattered = 0
+    for bounce in range(3):
+        st, t_max = path.rr_plain(meta, state, "independent", 2)
+        hit = dispatch.intersect(scene, meta, st.o, st.d, t_max)
+        sp, shp, pp, _ = path.shade_vol_plain(scene, meta, st, hit, "independent", 2)
+        sc, shc, pc_, _ = path.shade_vol_cuda(scene, meta, st, hit, "independent", 2)
+        assert shp is shc is pp is pc_ is None
+        rep = pc.Report()
+        pc.compare_state(rep, sc, sp, pc.STATE_FLOATS + ("trans_pdf",))
+        assert rep.ok(), (bounce, str(rep))
+        assert torch.equal(sc.smp.state, sp.smp.state) and torch.equal(sc.smp.dim, sp.smp.dim)
+        for k in ("active", "specular", "depth", "medium"):
+            assert torch.equal(getattr(sc, k), getattr(sp, k)), (bounce, k)
+        assert float(sc.L.abs().max()) == 0.0
+        scattered += int((sp.active & (sp.medium >= 0) & (sp.prev_ns == 0).all(-1)).sum())
+        state = sp
+    assert scattered > 0
+
+
+@pytest.mark.parametrize("lanes, depth", [(1000, 7), (8192, 7), (500, 8)],
+                         ids=["1000-depth 7", "8192-depth 7", "500-depth 8"])
+def test_bdpt_media_kernel_matches_plain(cuda, lanes, depth):
+    """K12's MEDIA instantiations on a wave of volumetric-caustic lanes,
+    no multiple of the tile but 8192 (the MLT shape), at max depth 7 (two
+    staged buffers) and 8 (one): bdpt_connect_rays' segments (origin,
+    direction, first hop's t_max, end, start medium) and the attempt count
+    bit-exact with connect_segments_plain's; the whole stage with the
+    transmittance hop loop against connect_all_plain to tests/bdpt_cases.py's
+    criterion; medium vertices in the walks."""
+    from bdpt_cases import compare, require_agreement, wave_inputs
+    from pbrt_tpu_torch.integrators import bdpt
+
+    scene, meta = _media_scene("caustic", cuda, integrator="bdpt", res=64, spp=2,
+                               max_depth=depth)
+    pix = torch.arange(64 * 64, device=cuda).repeat(2)[:lanes]
+    sample = torch.arange(2, device=cuda).repeat_interleave(64 * 64)[:lanes]
+    wave = wave_inputs(scene, meta, pix, sample)
+    light_vs, cam_vs, lam, table, samples = wave
+    assert any(bool((v.vtype == bdpt.VT_MEDIUM).any()) for v in cam_vs + light_vs)
+    st = bdpt.strategy_table(table, cuda)
+    ft = bdpt.field_table(cam_vs, light_vs, table, bdpt.contiguous_samples(samples))
+    got = bdpt.connect_segments_cuda(scene, ft, st)
+    want = bdpt.connect_segments_plain(scene, light_vs, cam_vs, table, samples)
+    for k, x, y in zip(("o", "d", "t_max", "attempts", "p", "medium"), got, want[1:]):
+        assert torch.equal(x.reshape(-1), y.reshape(-1)), k
+    require_agreement(compare(scene, meta, *wave))
+
+
+def test_volumetric_renders_on_card_match_cpu(cuda):
+    """volumetric-caustic at 16^2 through the path integrator (4 spp) and
+    BDPT (2 spp), max depth 4, on the card and on the CPU: the VOLUMETRIC
+    kernels, K6t and K12's MEDIA instantiations launched; the images on
+    4x4 block means to tests/test_parity.py's criterion, ray counts within
+    0.1 %."""
+    import medium_cases as mc
+    from layered_cases import blocks
+    from pbrt_tpu_torch.integrators import bdpt, path
+    from pbrt_tpu_torch.scene import builder as bd
+    from pbrt_tpu_torch.scene.compile import compile_scene
+    from test_torch_render import _check
+
+    for integrator, spp in (("path", 4), ("bdpt", 2)):
+        b = bd.SceneBuilder().parse_file(str(mc.CAUSTIC))
+        b.film["xresolution"] = b.film["yresolution"] = 16
+        b.integrator["maxdepth"] = 4
+        b.filter = {"type": "box"}
+        imgs, counts = [], []
+        for dev in (cuda, "cpu"):
+            scene, meta = compile_scene(b, spp, device=dev, integrator_override=integrator)
+            n0 = dict(path.launches), dict(bdpt.launches)
+            img, stats = render(scene, meta, device=dev, return_stats=True)
+            imgs.append(img.cpu().numpy())
+            counts.append(stats["closest"] + stats["shadow"])
+            if dev == cuda:
+                assert path.launches["transmit_hop"] > n0[0]["transmit_hop"]
+                if integrator == "path":
+                    assert path.launches["path_shade_vol"] > n0[0]["path_shade_vol"]
+                    assert path.launches["path_shade"] == n0[0]["path_shade"]
+                else:
+                    assert bdpt.launches["bdpt_connect_weight"] > n0[1]["bdpt_connect_weight"]
+        _check(blocks(imgs[0], 4), blocks(imgs[1], 4), f"volumetric-caustic {integrator}")
+        assert abs(counts[0] - counts[1]) <= 1e-3 * counts[1], counts
+

@@ -1,7 +1,7 @@
 """The port stands alone: no file of pbrt_tpu_torch/, not chip_smoke.py and
 not the test helpers it imports (tests/quadric_edges.py,
 tests/layered_cases.py, tests/bdpt_cases.py, tests/mlt_cases.py,
-tests/instancing_cases.py, tests/path_cases.py) and not
+tests/instancing_cases.py, tests/path_cases.py, tests/medium_cases.py) and not
 tests/parallel_cases.py, whose spawned ranks must not load JAX, imports jax
 or anything of the JAX package pbrt_tpu (AST scan), none imports triton
 (every kernel is CUDA C++), and the port ships its own copies of the data
@@ -19,6 +19,7 @@ FILES = sorted((ROOT / "pbrt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py
                                                           ROOT / "tests" / "mlt_cases.py",
                                                           ROOT / "tests" / "instancing_cases.py",
                                                           ROOT / "tests" / "path_cases.py",
+                                                          ROOT / "tests" / "medium_cases.py",
                                                           ROOT / "tests" / "parallel_cases.py"]
 
 

@@ -88,6 +88,20 @@ def test_mlt_entry_points(tmp_path):
 
 
 def test_volumetric_caustic_still_raises_for_media():
-    """The repo's own MLT scene needs homogeneous media, a later slice."""
-    with pytest.raises(NotImplementedError, match="media"):
-        load_scene(str(ROOT / "scenes" / "volumetric-caustic.pbrt"), device="cpu")
+    """The repo's own MLT scene, which once raised for its media, loads with
+    the JAX package's tables: the medium's sigma rows and g, the shapes'
+    media, the camera's and the light's medium, volumetric, and MLT over
+    BDPT's 16 + 40 (max_depth + 2) = 376 primary samples a chain. (The
+    name is kept from when the scene was refused.)"""
+    import jax  # noqa: F401  (tests/conftest.py pins JAX to the CPU)
+    from pbrt_tpu.scene.compile import load_scene as j_load
+
+    scene, meta = load_scene(str(ROOT / "scenes" / "volumetric-caustic.pbrt"), device="cpu")
+    js, jm = j_load(str(ROOT / "scenes" / "volumetric-caustic.pbrt"))
+    assert meta.integrator == jm.integrator == "mlt" and meta.volumetric and jm.volumetric
+    for k in ("tri_med", "sph_med", "camera_medium", "lt_medium", "med_g"):
+        np.testing.assert_array_equal(getattr(scene, k).numpy(), np.asarray(getattr(js, k)), k)
+    for k in ("med_sigma_a", "med_sigma_s"):
+        np.testing.assert_allclose(getattr(scene, k).numpy(), np.asarray(getattr(js, k)),
+                                   rtol=1e-6)
+    assert mlt.bdpt_dims(meta) == 376

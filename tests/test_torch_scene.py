@@ -28,7 +28,7 @@ EXACT = ["bvh_rows", "tri_rec", "mat_type", "mat_remap",
          "lt_tri", "lt_alias_rows", "tri_p0", "tri_p1", "tri_p2",
          "tri_n0", "tri_n1", "tri_n2", "tri_has_n", "tri_uv0", "tri_uv1", "tri_uv2",
          "tri_mat", "tri_light", "tri_rev", "sph_mat", "sph_light", "dsk_mat", "dsk_light",
-         "lt_sph", "lt_dsk"]
+         "lt_sph", "lt_dsk", "tri_med", "sph_med", "dsk_med", "camera_medium", "lt_medium"]
 CLOSE = ["mat_refl_c", "mat_trans_c", "mat_urough", "mat_vrough", "mat_eta",
          "spec_table", "lt_emission", "lt_scale", "lt_pmf", "camera_from_raster",
          "render_from_camera", "camera_lens_radius", "camera_focal_distance",
@@ -37,7 +37,8 @@ CLOSE = ["mat_refl_c", "mat_trans_c", "mat_urough", "mat_vrough", "mat_eta",
          "dsk_center", "dsk_normal", "dsk_radius", "dsk_inner", "dsk_xaxis", "dsk_yaxis",
          "dsk_phimax", "lt_direction", "lt_position", "lt_cos_start", "lt_cos_end",
          "mat_albedo_c", "mat_thickness", "mat_ieta", "mat_lay_g", "mat_crough_u", "mat_crough_v",
-         "camera_A", "camera_cos_total", "camera_res", "scene_center"]
+         "camera_A", "camera_cos_total", "camera_res", "scene_center", "med_sigma_a",
+         "med_sigma_s", "med_g"]
 SCENES = ["cornell-mesh mitchell", "cornell-mesh box", "cornell", "caustic-glass",
           "partial quadrics", "terrain", "testball", "staircase"]
 SCENE_FILES = {"testball": "material-testball.pbrt", "staircase": "staircase.pbrt"}
@@ -135,7 +136,7 @@ def test_filter_tables_and_meta(both):
     assert tm.layered == (ja.lay_marker.shape[0] > 0)
     for k in ("resolution", "spp", "sampler", "integrator", "max_depth", "n_tris",
               "n_spheres", "n_disks", "n_lights", "filter_kind", "film_imaging_ratio",
-              "open_scene", "mutations_per_pixel"):
+              "open_scene", "mutations_per_pixel", "volumetric"):
         assert getattr(tm, k) == getattr(jm, k), k
     np.testing.assert_allclose(tm.film_out_matrix, jm.film_out_matrix, rtol=1e-6)
 
@@ -172,14 +173,33 @@ def test_entry_points_need_a_device_choice():
 UNPORTED = {
     "image infinite light": 'WorldBegin\nLightSource "infinite" "string filename" "sky.exr"',
     "texture": 'WorldBegin\nTexture "t" "spectrum" "checkerboard"',
-    "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
     "mix material": 'WorldBegin\nMaterial "mix"',
-    "interface": 'WorldBegin\nMaterial "interface"',
-    "mlt": 'Integrator "mlt"\nMakeNamedMedium "m" "string type" "homogeneous"',
     "aov integrator": 'Integrator "ambientocclusion"',
     "gaussian filter": 'PixelFilter "gaussian"',
     "named material": 'WorldBegin\nNamedMaterial "a"',
 }
+
+
+# what earlier slices refused and this one ports: each parses and compiles
+PORTED = {
+    "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
+    "interface": 'WorldBegin\nMaterial "interface"',
+    "mlt": 'Integrator "mlt"\nMakeNamedMedium "m" "string type" "homogeneous"',
+}
+
+
+@pytest.mark.parametrize("what", sorted(PORTED))
+def test_ported_features_parse_and_compile(what):
+    """Media, material-less interfaces and the MLT scene's medium parse and
+    compile: a medium (or an interface material) makes the scene
+    volumetric."""
+    b = tbd.SceneBuilder()
+    b.parse_tokens(tlx.tokenize(PORTED[what]))
+    arrays, meta = compile_arrays(b)
+    assert meta.volumetric == (what != "interface")
+    assert arrays["med_sigma_a"].shape == (0 if what == "interface" else 1, 471)
+    if what == "mlt":
+        assert meta.integrator == "mlt"
 
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))

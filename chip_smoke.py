@@ -285,9 +285,11 @@ result line:
      flattened render, at 24^2 x 8 through BDPT (K12, K5s and K1i launched)
      against the CPU, and 1024 chains of mltpath at 24^2 on the card and the
      CPU with one seed (tests/mlt_cases.py's criteria); (c) the full-width
-     frame cornell-instanced at levels (6, 5) under instancing "auto"
-     (1,310,732 world triangles: 253,964 flattened, 29 + 13 instances of 2
-     prototypes of 40,960 triangles) at 256^2 x 16, max depth 5, mitchell,
+     frame cornell-instanced at levels INST_LEVELS (5, 5) under instancing
+     "auto" (425,996 world triangles: 253,964 flattened, 21 instances of 2
+     prototypes of 16,384 triangles; cut from (6, 5), 1,310,732 world
+     triangles, whose flattened twin's host build took ~85 s) at 256^2 x 16,
+     max depth 5, mitchell,
      through render(): K1i launched and K1 not, its compile seconds, peak
      memory and table bytes; then the same file flattened (K1), then the
      two frames in turns (instanced, twin, twin, instanced, FRAME_ROUNDS
@@ -309,9 +311,9 @@ result line:
      rays (a yardstick, not a library call), beside the bound from
      bvh.traversal_work's two-level oracle count, the plain version, the
      rows each kernel reads (their own stats) and the time recorded for the
-     loop K1i ran on before its redesign (K1I_OLD_LOOP_MS), the targets
-     (K1i <= 0.55 ms, K1i-a <= 0.40 ms, each <= 1.3x the twin's) printed
-     met or missed; the refit of the frame's first closest hits (instanced
+     loop K1i ran on before its redesign at levels (6, 5) (K1I_OLD_LOOP_MS),
+     the targets set at levels (6, 5) (K1i <= 0.55 ms, K1i-a <= 0.40 ms,
+     each <= 1.3x the twin's) printed met or missed; the refit of the frame's first closest hits (instanced
      winners' object rays formed in the kernel) bit-exact with its plain
      version;
  13. participating media on volumetric-caustic (homogeneous fog as the
@@ -335,7 +337,30 @@ result line:
      connect_segments_plain, the stage with the transmittance loop to
      tests/bdpt_cases.py's criterion); each graph-timed beside its bound
      and plain version;
- 14. a `kernels` JSON line; the last line is the JSON result.
+ 14. textures, mix and named materials: K13 (csrc/texture.cu tex_eval)
+     against its plain version (textures.eval_lanes_plain) on
+     tests/texture_cases.py's synthetic lanes (every node type, mapping,
+     wrap mode, image format and textured slot, a mix material) with and
+     without footprints, materials and slot masks bit-exact and the values
+     to texture_cases' criterion; then through render() the textured
+     cornell-mesh's (testscenes.textured_cornell_mesh_pbrt, levels 5) path
+     frame (256^2 x 16, depth 5), its BDPT frame (128^2 x 8) and its mltpath
+     frame cut to 1 mutation per pixel (8 passes), K13 once a bounce on the
+     path and mltpath frames and once a walk step on the BDPT frame (every
+     earlier frame, untextured, is required to launch none), BDPT's and
+     mltpath's means within 10 % of the path frame's; rows 192-207 of the
+     path frame against the same rows' lanes rendered on the CPU (the same
+     random numbers) to tests/test_parity.py's criterion on 4x4 block
+     means (the mix hashes float bits that the kernels and the plain step
+     round apart, so some paths go on independently), rays within 1 %; the
+     means of card
+     frames at 32^2 x 16, 32^2 x 1024 and 256^2 x 16 under a box filter
+     logged beside the path frame's; K13 and path_shade / path_bsdf on the
+     path frame's first bounce against their plain versions, K13
+     graph-timed beside its bound (texture_cases.tex_work) and plain
+     version; each of K13's walk launches of the BDPT frame's wave against
+     its plain version, timed and summed;
+ 15. a `kernels` JSON line; the last line is the JSON result.
 Without a card, or outside a checkout of the repository, it fails.
 """
 import contextlib
@@ -405,6 +430,10 @@ INST_ENTRY_OPS = 55
 K1I_OLD_LOOP_MS = {"bvh_closest_hit_inst": 1.0008, "bvh_any_hit_inst": 0.7279}
 # rounds of phase 12's instanced frame and its flattened twin in turns
 FRAME_ROUNDS = 10
+# phase 12's instanced frame: levels of its balls and gems, cut from (6, 5)
+# (1,310,732 world triangles, 42 instances; the twin's host build ~85 s) to
+# keep the script within half its time limit; profile_render renders (6, 5)
+INST_LEVELS = (5, 5)
 # float ops of K6, counted from csrc/path_step.cu and csrc/bxdf.cuh and
 # rounded: path_rr per lane due for RR (the uniform, the max, four
 # divisions); path_shade per shading lane (the material's spectra and frame
@@ -843,15 +872,16 @@ def main():
     from pbrt_tpu_torch.materials import bxdfs, layered
     from pbrt_tpu_torch.parallel import scene_shard as ss
     from pbrt_tpu_torch.sampling import samplers
-    from pbrt_tpu_torch.scene import builder as bd, testscenes as ts
+    from pbrt_tpu_torch.scene import builder as bd, lexer as lx, testscenes as ts
     from pbrt_tpu_torch.scene.compile import compile_scene, load_scene
+    from pbrt_tpu_torch.textures import textures as texlib
     from pbrt_tpu_torch.cameras import perspective
     from pbrt_tpu_torch.utils.math import INFINITY
 
     dev = torch.device("cuda")
     t_start = time.time()
     counters = (bvh.launches, film_kernel.launches, ix.launches, rd.launches, layered.launches,
-                bdpt.launches, mlt.launches, ss.launches, pth.launches)
+                bdpt.launches, mlt.launches, ss.launches, pth.launches, texlib.launches)
 
     phase_t = {}
 
@@ -1704,6 +1734,7 @@ def main():
         (pth, "shade_vol_cuda", lambda a, k: "path_shade_vol"),
         (pth, "resolve_vol_cuda", lambda a, k: "path_resolve_vol"),
         (pth, "transmit_hop_cuda", lambda a, k: "transmit_hop"),
+        (texlib, "eval_lanes_cuda", lambda a, k: "tex_eval"),
         (bdpt, "connect_segments_cuda", lambda a, k: "bdpt_connect_segments"),
     ]
     captured = {}
@@ -1720,8 +1751,8 @@ def main():
         ("vol_path", "path_shade_vol")}
     wave_kept = {("staircase", "path_shade"), ("staircase", "layered_sample")}
     # the first BDPT wave's walk launches of K4 (2 max_depth + 1), timed as a
-    # sum in phase 9
-    walk_kept = {("caustic_bdpt", "dense_spheres")}
+    # sum in phase 9, and of K13, held to its plain version in phase 14
+    walk_kept = {("caustic_bdpt", "dense_spheres"), ("tex_bdpt", "tex_eval")}
     n_calls = {}
 
     clone = path_cases.clone
@@ -1754,6 +1785,7 @@ def main():
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     main_counts, main_counts_frame, frame_means, frame_imgs, frame_peaks = {}, {}, {}, {}, {}
+    frame_counts, frame_walls = {}, {}
 
     # the path integrator's evaluations of an MLT frame (mlt.eval_x), counted
     # by this script's wrapper: K6 launches max_depth times one
@@ -1823,6 +1855,7 @@ def main():
         counts = {k: v for k, v in read_counts().items() if v}
         main_counts_frame.clear()
         main_counts_frame.update(counts)
+        frame_counts[tag], frame_walls[tag] = counts, wall
         img = img.cpu().numpy()
         n_rays = stats["closest"] + stats["shadow"]
         require(img.shape == (mt.resolution[1], mt.resolution[0], 3) and np.isfinite(img).all(),
@@ -1831,6 +1864,18 @@ def main():
         want_k6 = k6_launches(sc, mt, counts, kw)
         got_k6 = {k: counts.get(k, 0) for k in K6C + ("path_shade_lane",) + K6V}
         require(got_k6 == want_k6, tag, "K6 launches", got_k6, "expected", want_k6)
+        # K13 on a textured scene: once a shading launch of the path family
+        # (shade_cuda launches it) and once a walk step of BDPT (2 max_depth
+        # + 1 a wave, MLT over BDPT an evaluation); never on an untextured one
+        steps = 2 * mt.max_depth + 1
+        want_tex = (0 if not mt.textured else
+                    steps * sum(1 for _ in rd.wave_lanes(mt.resolution[0] * mt.resolution[1],
+                                                         mt.spp, "cpu"))
+                    if mt.integrator == "bdpt" else steps * mlt_evals["bdpt"]
+                    if mt.integrator in ("mlt", "mltbdpt")
+                    else want_k6["path_shade"] + want_k6["path_shade_vol"])
+        require(counts.get("tex_eval", 0) == want_tex, tag, "K13 launches",
+                counts.get("tex_eval", 0), "expected", want_tex)
         for k in must:  # a kernel on several paths: counted on its first
             main_counts.setdefault(k, counts[k])
         out_png = kernels.BUILD_DIR / f"{tag}.png"
@@ -3623,13 +3668,13 @@ def main():
     inst_frame = {}
     for tag, mode in (("cornell_instanced", "auto"), ("cornell_instanced_flat", "flatten")):
         t0 = time.time()
-        b_, sc, mt = inst_scene((6, 5), mode)
+        b_, sc, mt = inst_scene(INST_LEVELS, mode)
         compile_s = time.time() - t0
         n_flat = len(b_.tri_p)
         n_proto = sum(p["P"].shape[0] for p in b_.protos)
         n_world = n_flat + sum(b_.protos[i["proto"]]["P"].shape[0] for i in b_.instances)
-        require(n_world == 1310732 and (mode == "flatten" or (
-            n_flat, len(b_.instances), len(b_.protos), n_proto) == (253964, 42, 2, 40960)),
+        require(n_world == 425996 and (mode == "flatten" or (
+            n_flat, len(b_.instances), len(b_.protos), n_proto) == (253964, 21, 2, 16384)),
             tag, "triangle split", n_world, n_flat, len(b_.instances), n_proto)
         log(f"{tag} compile: {compile_s:.2f} s (parse, loop subdivision, host build of "
             f"{'both levels' if mt.bvh_ninst else 'one level'}): {n_world} world triangles, "
@@ -3784,12 +3829,12 @@ def main():
             f"abs err of t {err:.3e}; kernel {turns['k1i']} ms (host-paced {call:.4f} ms), the "
             f"flattened frame's {'K1a' if any_hit else 'K1'} on the same rays {turns['k1']} ms "
             f"in turns ({ms / ms_f:.3f}x it; hit masks equal on {agree:.6%}); the stepper loop "
-            f"K1i ran on before its redesign, recorded at this launch: {old} ms "
-            f"({old / ms:.2f}x the kernel); plain {ms_plain:.1f} ms; oracle work (rows, tri "
+            f"K1i ran on before its redesign, recorded at this launch of the levels (6, 5) frame: "
+            f"{old} ms; plain {ms_plain:.1f} ms; oracle work (rows, tri "
             f"tests, past edge, past range, instance entries) {oracle}, bound {b[0]:.4f} ms "
             f"({b[1]}), kernel {ms / b[0]:.1f}x it; own stats {own}, the twin's {own_f} (rows "
-            f"read {own[0] / own_f[0]:.2f}x the twin's); targets <= {targets_i[name]} ms "
-            f"{'met' if ms <= targets_i[name] else 'missed'}, <= 1.3x the twin's "
+            f"read {own[0] / own_f[0]:.2f}x the twin's); targets <= {targets_i[name]} ms (set "
+            f"at levels (6, 5)) {'met' if ms <= targets_i[name] else 'missed'}, <= 1.3x the twin's "
             f"{'met' if ms <= 1.3 * ms_f else 'missed'}")
     # the refit of K1i's winners at the instanced frame's first closest-hit
     # launch, the object rays of instanced winners formed in the kernel:
@@ -4015,7 +4060,166 @@ def main():
         timing[name]["volumetric"] = dict(t, max_abs_err=res_v["max_abs_err"])
 
     phase_start("14")
-    # ---- 14. kernels line and result
+    # ---- 14. textures, mix and named materials (K13, csrc/texture.cu): K13
+    # against its plain version on tests/texture_cases.py's synthetic lanes
+    # (every node type, mapping, wrap mode, image format, textured slot and a
+    # mix) with and without footprints; then the full-width textured
+    # cornell-mesh through render() with the path integrator (256^2 x 16,
+    # depth 5), BDPT (the bench's cornell-bdpt 128^2 x 8) and mltpath (256^2,
+    # cut to 8 passes), K13 once a bounce or walk step; rows of the path frame
+    # against the CPU; K13 and the shading kernels on the path frame's first
+    # bounce against their plain versions; K13 graph-timed there beside its
+    # bound, and at each walk launch of the BDPT frame's wave
+    import texture_cases
+    tex_dir = kernels.BUILD_DIR / "textures"
+    b_tc = bd.SceneBuilder()
+    b_tc.parse_tokens(lx.tokenize(texture_cases.scene_text(tex_dir / "cases")))
+    s_tc, m_tc = compile_scene(b_tc, device=dev)
+    require(m_tc.textured, "texture_cases' scene is not textured")
+    tex_err = 0.0
+    for fp in (False, True):
+        L = texture_cases.synthetic_lanes(s_tc, 1 << 17, 11, fp, dev)
+        a_t = (s_tc, L["lanes"], L["mat"], L["p"], L["wo"], L["uv"], L["ns"], L["lam"],
+               L["duv"])
+        res_t = texture_cases.compare(texlib.eval_lanes_cuda(*a_t), texlib.eval_lanes_plain(*a_t))
+        require(texture_cases.agree(res_t), "K13 against its plain version on synthetic lanes",
+                "with" if fp else "without", "footprints", res_t)
+        tex_err = max(tex_err, res_t["max_abs"])
+        log(f"tex_eval on texture_cases' {1 << 17} synthetic lanes "
+            f"({'with' if fp else 'without'} footprints; {s_tc.tex.type.shape[0]} nodes, every "
+            f"node type, mapping, wrap mode and textured slot, a mix): materials and slot masks "
+            f"bit-exact; {res_t['slots']} slot values, {res_t['frac_far']:.3e} of them beyond "
+            f"{texture_cases.TEX_ATOL}, max abs err {res_t['max_abs']:.3e}")
+    s_tp, m_tp = compile_scene(ts.textured_cornell_mesh_builder(image_dir=tex_dir), device=dev)
+    s_tb, m_tb = compile_scene(ts.textured_cornell_mesh_builder(image_dir=tex_dir, res=128,
+                                                                spp=8), device=dev,
+                               integrator_override="bdpt")
+    s_tm, m_tm = compile_scene(ts.textured_cornell_mesh_builder(image_dir=tex_dir), device=dev,
+                               integrator_override="mltpath")
+    require((m_tp.n_tris, m_tp.resolution, m_tp.spp, m_tp.max_depth, m_tb.resolution, m_tb.spp,
+             m_tp.textured) == (16396, (256, 256), 16, 5, (128, 128), 8, True),
+            "textured cornell-mesh settings")
+    tex_k6 = ("path_rr", "path_shade", "path_bsdf", "path_resolve")
+    full_render("tex_path", s_tp, m_tp, ("bvh_closest_hit", "bvh_any_hit", "film_add_samples",
+                                         "tex_eval") + tex_k6)
+    full_render("tex_bdpt", s_tb, m_tb, ("bvh_closest_hit", "bdpt_connect_rays",
+                                         "bdpt_connect_weight", "film_add_splats", "tex_eval"))
+    full_render("tex_mlt", s_tm, dataclasses.replace(m_tm, mutations_per_pixel=1),
+                ("tex_eval", "mlt_mutate", "mlt_accept_splat") + tex_k6)
+
+    # the path frame against the CPU on its own lanes: image rows 192-207
+    # (across both balls) of the 256^2 x 16 frame rendered on the CPU through
+    # render_batched, the same (pixel, sample) lanes and so the same random
+    # numbers, held to tests/test_parity.py's criterion on 4x4 block means
+    # (256 samples a block) and the rows' mean: the mix hashes the bits of the
+    # hit point and wo, so a path whose bounce the kernels round an ulp apart
+    # from the plain step may pick the other material there and go on
+    # independently (with the mix ball made its diffuse, the card's and the
+    # CPU's frames agree per pixel: test_torch_gpu.py::
+    # test_textured_renders_on_card_match_cpu)
+    band = range(192, 208)
+    cpu = torch.device("cpu")
+    t_band = time.time()
+    s_rc, m_rc = compile_scene(ts.textured_cornell_mesh_builder(image_dir=tex_dir), device=cpu)
+    w_rc = m_rc.resolution[0]
+    film_rc = filmlib.new_film(m_rc.resolution, cpu)
+    st_rc = rd.render_batched(s_rc, m_rc, film_rc, pix0=band.start * w_rc,
+                              n_pix=len(band) * w_rc)
+    r_cpu = filmlib.develop(film_rc, m_rc.resolution, out_matrix=m_rc.film_out_matrix,
+                            imaging_ratio=m_rc.film_imaging_ratio)[band.start:band.stop].numpy()
+    t_band = time.time() - t_band
+    st_rg = rd.render_batched(s_tp, m_tp, filmlib.new_film(m_tp.resolution, dev),
+                              pix0=band.start * w_rc, n_pix=len(band) * w_rc)
+    n_rc, n_rg = (int(x["closest"] + x["shadow"]) for x in (st_rc, st_rg))
+    r_card = frame_imgs["tex_path"][band.start:band.stop]
+    px_bad = float((np.abs(r_card - r_cpu) > 5e-3 + 0.05 * np.abs(r_cpu)).mean())
+    check_image(blocks(r_card, 4), blocks(r_cpu, 4), "textured cornell-mesh rows 192-207 card vs "
+                "cpu (4x4 block means)")
+    require(abs(n_rg - n_rc) <= 1e-2 * n_rc, "textured rows' rays card vs cpu", n_rg, n_rc)
+    log(f"textured cornell-mesh 256^2 x 16 rows {band.start}-{band.stop - 1}, the path frame's "
+        f"against those rows' lanes on the cpu ({t_band:.1f} s): 4x4 block means and the mean "
+        f"within tests/test_parity.py's criterion ({px_bad:.3%} of values outside it per pixel: "
+        f"the mix), means {r_card.mean():.5f} / {r_cpu.mean():.5f}, rays card / cpu "
+        f"{n_rg} / {n_rc}")
+    # the means' noise: card frames of the scene at 32^2 x 16 (16,384
+    # samples, the frame the path frame was first held to), 32^2 x 1024 (the path frame's
+    # 2^20) under a box filter and 256^2 x 16 under a box filter
+    noise = {}
+    for res_, spp_ in ((32, 16), (32, 1024), (256, 16)):
+        b_n = ts.textured_cornell_mesh_builder(image_dir=tex_dir, res=res_, spp=spp_)
+        b_n.filter = {"type": "box"}
+        noise[res_, spp_] = float(rd.render(*compile_scene(b_n, device=dev)).mean())
+    log(f"textured cornell-mesh image means: path {frame_means['tex_path']:.5f}, BDPT "
+        f"{frame_means['tex_bdpt']:.5f}, mltpath {frame_means['tex_mlt']:.5f}; card frames "
+        f"under a box filter: 32^2 x 16 {noise[32, 16]:.5f}, 32^2 x 1024 {noise[32, 1024]:.5f}, "
+        f"256^2 x 16 {noise[256, 16]:.5f} (the path frame "
+        f"{frame_means['tex_path'] / noise[32, 16] - 1:+.2%} of the first, "
+        f"{frame_means['tex_path'] / noise[32, 1024] - 1:+.2%} of the second, "
+        f"{frame_means['tex_path'] / noise[256, 16] - 1:+.2%} of the third)")
+    for tag in ("tex_bdpt", "tex_mlt"):
+        require(abs(frame_means[tag] / frame_means["tex_path"] - 1) < 0.1, tag,
+                "image mean against the path frame's", frame_means[tag])
+    # K13 on the path frame's first bounce: against its plain version, then
+    # graph-timed beside its bound (tests/texture_cases.tex_work) and plain
+    a_k = first("tex_path", "tex_eval")[0]
+    res_k = texture_cases.compare(texlib.eval_lanes_cuda(*a_k), texlib.eval_lanes_plain(*a_k))
+    require(texture_cases.agree(res_k), "K13 against its plain version on tex_path's first "
+            "bounce", res_k)
+    tex_err = max(tex_err, res_k["max_abs"])
+    out_k = texlib.eval_lanes_plain(*a_k)
+    nb_k, ops_k = texture_cases.tex_work(a_k[0], a_k[1], a_k[2], out_k, a_k[5], a_k[3],
+                                         a_k[8])
+    ms_k, call_k = kernel_ms(lambda: texlib.eval_lanes_cuda(*a_k))
+    ms_kp = events_ms(lambda: texlib.eval_lanes_plain(*a_k), 3)
+    b_k = bound(nb_k, ops_k)
+    n_lanes, n_ev = a_k[2].shape[0], int(a_k[1].sum())
+    # K13 in BDPT's walk: each of the tex_bdpt wave's 2 max_depth + 1 walk
+    # launches (camera walk, then light walk) against its plain version,
+    # graph-timed and summed beside their summed bounds and plain times
+    walk = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=2 * m_tb.max_depth + 1,
+                evaluated=0, slots=0, frac_far=0.0)
+    for n in range(1, walk["launches"] + 1):
+        a_w = first("tex_bdpt", "tex_eval" if n == 1 else f"tex_eval#{n}")[0]
+        out_w = texlib.eval_lanes_plain(*a_w)
+        res_w = texture_cases.compare(texlib.eval_lanes_cuda(*a_w), out_w)
+        require(texture_cases.agree(res_w), "K13 against its plain version at tex_bdpt's walk "
+                "launch", n, res_w)
+        tex_err = max(tex_err, res_w["max_abs"])
+        walk["ms"] += graph_ms(lambda: texlib.eval_lanes_cuda(*a_w))
+        walk["plain_ms"] += events_ms(lambda: texlib.eval_lanes_plain(*a_w), 1)
+        walk["bound_ms"] += bound(*texture_cases.tex_work(a_w[0], a_w[1], a_w[2], out_w, a_w[5],
+                                                          a_w[3], a_w[8]))[0]
+        walk["evaluated"] += int(a_w[1].sum())
+        walk["frac_far"] = max(walk["frac_far"], res_w["frac_far"])
+        walk["slots"] += res_w["slots"]
+    log(f"tex_eval in tex_bdpt's walk ({walk['launches']} launches of "
+        f"{first('tex_bdpt', 'tex_eval')[0][2].shape[0]} lanes, {walk['evaluated']} evaluated): "
+        f"each against its plain version, materials and masks bit-exact, at most "
+        f"{walk['frac_far']:.3e} of a launch's slot values beyond {texture_cases.TEX_ATOL}; "
+        f"kernel {walk['ms']:.4f} ms summed, bound {walk['bound_ms']:.5f}, plain "
+        f"{walk['plain_ms']:.3f} ms; launches a frame {frame_counts['tex_bdpt']['tex_eval']}, "
+        f"{walk['ms'] / frame_walls['tex_bdpt'] / 10:.4f} % of the frame's wall")
+    timing["tex_eval"] = dict(ms=ms_k, plain_ms=ms_kp, bound_ms=b_k[0], bound_by=b_k[1],
+                              library_ms=None, max_abs_err=tex_err, host_paced_ms=call_k,
+                              lanes=n_lanes, evaluated=n_ev, bytes=nb_k, ops=ops_k,
+                              bdpt_walk=walk)
+    log(f"tex_eval at tex_path's first bounce ({n_lanes} lanes, {n_ev} evaluated, "
+        f"{int((out_k.mat != a_k[2]).sum())} resolved from a mix): materials and masks "
+        f"bit-exact, {res_k['frac_far']:.3e} of {res_k['slots']} slot values beyond "
+        f"{texture_cases.TEX_ATOL}; kernel {ms_k:.4f} ms (host-paced {call_k:.4f}), plain "
+        f"{ms_kp:.3f} ms, bound {b_k[0]:.5f} ms ({b_k[1]}: {nb_k} bytes, {ops_k} ops), "
+        f"{ms_k / b_k[0]:.1f}x it; launches a frame {main_counts['tex_eval']}")
+    # the shading kernels on that bounce (reading K13's overrides) against
+    # the plain parts, path_cases' criteria (draws and masks bit-exact)
+    args_s = first("tex_path", "path_shade")[0]
+    rep_s = path_cases.compare_shade(args_s, pth.shade_cuda, pth.shade_plain)
+    require(rep_s.ok(), "path_shade and path_bsdf on tex_path's first bounce against "
+            "shade_plain", str(rep_s))
+    log(f"path_shade and path_bsdf on tex_path's first bounce (K13's overrides) against "
+        f"shade_plain (the plain K13): {rep_s.worst()}")
+
+    phase_start("15")
+    # ---- 15. kernels line and result
     meta_k = {
         "bvh_closest_hit": ("cuda", "pbrt_tpu_torch/csrc/bvh_traverse.cu",
                             "pbrt_tpu/accel/bvh.py:909"),
@@ -4082,6 +4286,8 @@ def main():
                              "pbrt_tpu/integrators/path.py:193"),
         "transmit_hop": ("cuda", "pbrt_tpu_torch/csrc/transmit.cu",
                          "pbrt_tpu/integrators/path.py:98"),
+        "tex_eval": ("cuda", "pbrt_tpu_torch/csrc/texture.cu",
+                     "pbrt_tpu/textures/textures.py:370"),
     }
     kern = [dict(name=name, route=route, source=src, replaces=rep, launches=main_counts[name],
                  **timing[name], ok=True)

@@ -10,9 +10,12 @@ JAX package), and the hit record is assembled as it does: from the packed
 per-triangle `tri_rec` row on BVH scenes, from the per-column tables on
 dense ones, with the sphere uv of reference sphere.h:74-81, and on a
 scene with media the shape's inside and outside medium (med_in, med_out;
--1 on a miss, and everywhere on a scene without media). Its
-uv-derivative columns are read only by the texture slice and are not
-assembled here. On a scene-sharded render (Scene.shard set) triangles go
+-1 on a miss, and everywhere on a scene without media). The surface's uv
+derivatives dpdu and dpdv (tri_rec's columns 21:27 on the BVH route, zeros
+on dense triangles and spheres; a disk keeps its losing candidate's, as in
+the JAX package) are assembled only when a caller asks for them
+(`derivatives`: a render with texture footprints), and returned beside the
+record. On a scene-sharded render (Scene.shard set) triangles go
 through the parts' traversal of parallel/scene_shard.py (K11a/K11b) instead,
 whose winner arrives with its tri_rec row and vertices; the same record
 assembly serves both. On an instanced scene (a two-level table) the BVH
@@ -124,10 +127,10 @@ def _triangle_record(p0, p1, p2, b, fields, inst=None):
     return p_t, ng_adj, ns_t, uv_t, mat_t, light_t, med_t
 
 
-def _closest_triangles(scene, meta, o, d, t_max, media):
+def _closest_triangles(scene, meta, o, d, t_max, media, derivatives=False):
     """Closest triangle hit and its record on the scene's route -> (t (R,),
     INFINITY on a miss, (p, ng, ns, uv, mat, light, media; media only where
-    `media`, else None)).
+    `media`, else None), (dpdu, dpdv) where `derivatives`, else None).
       - scene-sharded (scene.shard set; JAX dispatch.py:80-93, 122-145): the
         parts' traversal (K11a) delivers the winner's record row and
         vertices, and the hit is refit against them (the BVH route's refit,
@@ -141,14 +144,18 @@ def _closest_triangles(scene, meta, o, d, t_max, media):
         lane = torch.where(valid, torch.arange(o.shape[0], device=o.device), -1)
         refit = bvh.refit_cuda if o.is_cuda else bvh.refit_plain
         t, _, b = refit(p0, p1, p2, o, d, t_max, lane)
-        return t, _triangle_record(p0, p1, p2, b, _record_fields(rec, media))
-    inst = None
+        derivs = (rec[:, 21:24], rec[:, 24:27]) if derivatives else None
+        return t, _triangle_record(p0, p1, p2, b, _record_fields(rec, media)), derivs
+    inst = derivs = None
     if scene.bvh_rows.shape[0] > 0:
         th = bvh.closest_hit_tris(scene, meta, o, d, t_max)
         tri = torch.clamp(th.prim, min=0)
-        fields = _record_fields(scene.tri_rec[tri], media)
+        rec = scene.tri_rec[tri]
+        fields = _record_fields(rec, media)
         if th.inst is not None:
             inst = _to_world(scene, th.inst)
+        if derivatives:
+            derivs = (rec[:, 21:24], rec[:, 24:27])
     else:
         th = ix.intersect_tris_dense(o, d, t_max, scene.tri_p0, scene.tri_p1, scene.tri_p2)
         tri = torch.clamp(th.prim, min=0)
@@ -156,8 +163,10 @@ def _closest_triangles(scene, meta, o, d, t_max, media):
                   scene.tri_uv1[tri], scene.tri_uv2[tri], scene.tri_mat[tri].long(),
                   scene.tri_light[tri].long(), scene.tri_rev[tri], scene.tri_has_n[tri],
                   scene.tri_med[tri].long() if media else None)
+        if derivatives:
+            derivs = (torch.zeros_like(o), torch.zeros_like(o))
     return th.t, _triangle_record(scene.tri_p0[tri], scene.tri_p1[tri], scene.tri_p2[tri],
-                                  th.b, fields, inst)
+                                  th.b, fields, inst), derivs
 
 
 def _sphere_uv(scene, sph, p_s):
@@ -182,7 +191,10 @@ def _sphere_uv(scene, sph, p_s):
     return torch.stack([u, v], dim=-1)
 
 
-def intersect(scene, meta, o, d, t_max) -> SceneHit:
+def intersect(scene, meta, o, d, t_max, derivatives=False):
+    """The closest hits of the rays o + t d, t < t_max -> their SceneHit;
+    with `derivatives`, (SceneHit, dpdu (R, 3), dpdv (R, 3)), the surface's
+    uv derivatives (0 on a miss)."""
     R = o.shape[0]
     dev = o.device
     have_tris = scene.tri_p0.shape[0] > 0
@@ -193,8 +205,12 @@ def intersect(scene, meta, o, d, t_max) -> SceneHit:
     inf = torch.full((R,), INFINITY, device=dev)
 
     t_tri = t_s = t_d = inf
+    dpdu = dpdv = torch.zeros((R, 3), device=dev) if derivatives else None
     if have_tris:
-        t_tri, tri_record = _closest_triangles(scene, meta, o, d, t_max, media)
+        t_tri, tri_record, derivs = _closest_triangles(scene, meta, o, d, t_max, media,
+                                                       derivatives)
+        if derivatives:
+            dpdu, dpdv = derivs
     if have_sph:
         t_s, idx_s, p_s, n_s = ix.intersect_spheres_dense(o, d, t_max, _spheres(scene, meta))
     if have_dsk:
@@ -223,6 +239,8 @@ def intersect(scene, meta, o, d, t_max) -> SceneHit:
         light = torch.where(use_sphere, scene.sph_light[sph].long(), light)
         if media:
             med = torch.where(s3, scene.sph_med[sph].long(), med)
+        if derivatives:
+            dpdu, dpdv = torch.where(s3, 0.0, dpdu), torch.where(s3, 0.0, dpdv)
     if have_dsk:
         dk = torch.clamp(idx_d, min=0)
         d3 = use_disk[..., None]
@@ -241,7 +259,7 @@ def intersect(scene, meta, o, d, t_max) -> SceneHit:
     zaxis = torch.zeros_like(ng)
     zaxis[..., 2] = 1.0
     v3 = valid[..., None]
-    return SceneHit(
+    hit = SceneHit(
         valid=valid,
         t=torch.where(valid, t, 1.0),
         p=torch.where(v3, p_hit, o),
@@ -254,6 +272,9 @@ def intersect(scene, meta, o, d, t_max) -> SceneHit:
         med_out=med_out,
         wo=-d,
     )
+    if derivatives:
+        return hit, torch.where(v3, dpdu, 0.0), torch.where(v3, dpdv, 0.0)
+    return hit
 
 
 def occluded(scene, meta, o, d, t_max):

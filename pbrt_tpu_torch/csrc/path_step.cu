@@ -125,6 +125,12 @@ struct StepArgs {
   const uint8_t* hit_valid;
   const float *hit_p, *hit_ng, *hit_ns;
   const long long *hit_mat, *hit_light;
+  // a textured scene's K13 answer (csrc/texture.cu; hit_mat then holds its
+  // resolved material): per lane the textured reflectance and transmittance
+  // (R, 4), u and v roughness, and the mask of the slots it wrote (bits 1,
+  // 2, 4, 8); tex_mask is null on a scene without textures
+  const float *tex_refl, *tex_trans, *tex_urough, *tex_vrough;
+  const uint8_t* tex_mask;
   const uint8_t* nee;
   const float* ld;
   const uint8_t* occluded;
@@ -434,12 +440,27 @@ __device__ __forceinline__ float k_from_reflectance(float refl) {
   return (2.f * sqrtf(fmaxf(r, 1e-12f))) / sqrtf(clampf(1.f - r, 1e-7f, 1.f));
 }
 
-// make_bsdf: the lane's BxDF parameters (the fields its kind reads; a coated
-// kind only its kind and the coat's roughness, its layer is store_layer's);
-// `dispersive`: a dielectric with a spectral eta
-__device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, long long mat, const S4& lam,
+// the slots of lane i that K13 wrote (0 on a scene without textures)
+__device__ __forceinline__ int tex_slots(const StepArgs& a, int i) {
+  return a.tex_mask != nullptr ? a.tex_mask[i] : 0;
+}
+
+// the reflectance (slot 1) or transmittance (slot 2) of lane i: K13's where
+// it wrote it, else the material's sigmoid spectrum from column `col`
+__device__ __forceinline__ S4 slot_spectrum(const StepArgs& a, int i, int slots, int bit,
+                                            const float* row, int col, const S4& lam) {
+  if (slots & bit) return ld4(bit == 1 ? a.tex_refl : a.tex_trans, i);
+  return sigmoid4(row + col, lam);
+}
+
+// make_bsdf: lane i's BxDF parameters (the fields its kind reads; a coated
+// kind only its kind and the coat's roughness, its layer is store_layer's),
+// with a textured scene's overrides; `dispersive`: a dielectric with a
+// spectral eta
+__device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, int i, long long mat, const S4& lam,
                                           bool& dispersive) {
   const float* row = a.mat + MAT_F * (mat < 0 ? 0 : mat);
+  const int slots = tex_slots(a, i);
   const int mtype = (int)row[M_TYPE];
   Bxdf b;
   b.kind = mtype == MAT_DIFFUSE            ? K_DIFFUSE
@@ -449,8 +470,8 @@ __device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, long long mat, cons
            : mtype == MAT_COATED_CONDUCTOR ? K_COATED_CONDUCTOR
                                            : K_DIFF_TRANS;
   const bool remap = row[M_REMAP] != 0.f;
-  b.ax = alpha_of(remap, row[M_UROUGH]);
-  b.ay = alpha_of(remap, row[M_VROUGH]);
+  b.ax = alpha_of(remap, (slots & 4) ? a.tex_urough[i] : row[M_UROUGH]);
+  b.ay = alpha_of(remap, (slots & 8) ? a.tex_vrough[i] : row[M_VROUGH]);
   const long long eta_spec = (long long)row[M_ETA_SPEC];
   b.refl = s4(0.f);
   b.trans = s4(0.f);
@@ -459,12 +480,12 @@ __device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, long long mat, cons
   b.eta = 1.f;
   dispersive = false;
   if (b.kind == K_DIFFUSE || b.kind == K_DIFF_TRANS) {
-    b.refl = sigmoid4(row + M_REFL_C, lam);
-    if (b.kind == K_DIFF_TRANS) b.trans = sigmoid4(row + M_TRANS_C, lam);
+    b.refl = slot_spectrum(a, i, slots, 1, row, M_REFL_C, lam);
+    if (b.kind == K_DIFF_TRANS) b.trans = slot_spectrum(a, i, slots, 2, row, M_TRANS_C, lam);
   } else if (b.kind == K_CONDUCTOR) {
     if (row[M_REFL_MODE] != 0.f) {
       // reflectance mode: eta = 1, k = 2 sqrt(r) / sqrt(1 - r)
-      const S4 refl = sigmoid4(row + M_REFL_C, lam);
+      const S4 refl = slot_spectrum(a, i, slots, 1, row, M_REFL_C, lam);
 #pragma unroll
       for (int k = 0; k < 4; ++k) b.eta_im.v[k] = k_from_reflectance(refl.v[k]);
     } else {
@@ -488,15 +509,17 @@ __device__ __forceinline__ Bxdf make_bsdf(const StepArgs& a, long long mat, cons
 // bottom diffuse (coateddiffuse) or a conductor of the spectrum rows eta
 // and k and the conductor roughness (coatedconductor); both carry the
 // reflectance, transmittance and complex IOR make_bsdf gives every lane,
-// and the base the dielectric eta, as the plain version does. Each field is
-// stored as soon as it is formed.
+// and the base the dielectric eta, as the plain version does (a textured
+// reflectance or transmittance in both). Each field is stored as soon as it
+// is formed.
 __device__ __forceinline__ void store_layer(const StepArgs& a, int i, long long mat, int kind,
                                             const S4& lam, float ax, float ay) {
   const float* row = a.mat + MAT_F * mat;
-  const S4 refl = sigmoid4(row + M_REFL_C, lam);
+  const int slots = tex_slots(a, i);
+  const S4 refl = slot_spectrum(a, i, slots, 1, row, M_REFL_C, lam);
   st4(a.top_refl, i, refl);
   st4(a.bot_refl, i, refl);
-  const S4 trans = sigmoid4(row + M_TRANS_C, lam);
+  const S4 trans = slot_spectrum(a, i, slots, 2, row, M_TRANS_C, lam);
   st4(a.top_trans, i, trans);
   st4(a.bot_trans, i, trans);
   const long long eta_spec = (long long)row[M_ETA_SPEC], k_spec = (long long)row[M_K_SPEC];
@@ -1049,7 +1072,7 @@ __device__ __forceinline__ void shade_lane(const StepArgs& a, int i) {
   if (mat >= 0) {
     // the BSDF around the shading normal
     bool dispersive;
-    const Bxdf b = make_bsdf(a, mat, lam, dispersive);
+    const Bxdf b = make_bsdf(a, i, mat, lam, dispersive);
     coated = b.kind == K_COATED_DIFFUSE || b.kind == K_COATED_CONDUCTOR;
     S4 pdf_lam = ld4(a.lam_pdf, i);
     if (dispersive) {
@@ -1232,7 +1255,7 @@ __device__ __forceinline__ void light_lane(const StepArgs& a, int i) {
     // and pdf read them, after the light sample, and the frame too, so
     // that fewer values stay live through the sample
     bool dispersive;
-    const Bxdf bk = make_bsdf(a, mat, lam, dispersive);
+    const Bxdf bk = make_bsdf(a, i, mat, lam, dispersive);
     coated = bk.kind == K_COATED_DIFFUSE || bk.kind == K_COATED_CONDUCTOR;
     S4 pdf_lam = ld4(a.lam_pdf, i);
     if (dispersive) {
@@ -1271,7 +1294,7 @@ __device__ __forceinline__ void light_lane(const StepArgs& a, int i) {
         a.light_ok[i] = ls.valid && pdf_light > 0.f;
         a.light_delta[i] = ls.delta;
       } else {
-        const Bxdf b = make_bsdf(a, mat, lam, dispersive);
+        const Bxdf b = make_bsdf(a, i, mat, lam, dispersive);
         const V3 wo_l = to_local(fx, fy, fz, neg(ld3(a.d, i)));
         const S4 f = bxdf_f(b, wo_l, wi_l) * fabsf(dot(ls.wi, hns));
         if (ls.valid && any_pos(f) && pdf_light > 0.f) {
@@ -1312,7 +1335,7 @@ __device__ __forceinline__ void bsdf_lane(const StepArgs& a, int i) {
   const long long mat = a.active[i] != 0 && a.hit_valid[i] != 0 ? a.hit_mat[i] : -1;
   if (mat >= 0) {
     bool dispersive;
-    const Bxdf b = make_bsdf(a, mat, ld4(a.lam, i), dispersive);
+    const Bxdf b = make_bsdf(a, i, mat, ld4(a.lam, i), dispersive);
     const bool coated = b.kind == K_COATED_DIFFUSE || b.kind == K_COATED_CONDUCTOR;
     const bool spec_only =
         (b.kind == K_CONDUCTOR || b.kind == K_DIELECTRIC) && effectively_smooth(b.ax, b.ay);
@@ -1522,7 +1545,7 @@ __device__ __forceinline__ void light_vol_lane(const StepArgs& a, const VolArgs&
   Bxdf b;
   if (mat >= 0) {
     bool dispersive;
-    b = make_bsdf(a, mat, lam, dispersive);
+    b = make_bsdf(a, i, mat, lam, dispersive);
     S4 pdf_lam = ld4(a.lam_pdf, i);
     if (dispersive) {
       const bool already = pdf_lam.v[1] == 0.f && pdf_lam.v[2] == 0.f && pdf_lam.v[3] == 0.f;
@@ -1610,7 +1633,7 @@ __device__ __forceinline__ void bsdf_vol_lane(const StepArgs& a, const VolArgs& 
   Bxdf b;
   if (mat >= 0) {
     bool dispersive;
-    b = make_bsdf(a, mat, lam, dispersive);
+    b = make_bsdf(a, i, mat, lam, dispersive);
     const bool spec_only =
         (b.kind == K_CONDUCTOR || b.kind == K_DIELECTRIC) && effectively_smooth(b.ax, b.ay);
     nee_any = !spec_only && a.n_lights > 0;

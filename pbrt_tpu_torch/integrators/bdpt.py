@@ -34,6 +34,11 @@ light subpaths in their light's. A connection's segment carries its
 transmittance (path.transmittance, K6t's hop loop) from the sending
 vertex's medium on the segment's side (`_conn_medium`) in place of the
 visibility bit.
+
+Textures (JAX bdpt.py:370-371): a walk vertex's BSDF takes its mix choice
+and textured slots from textures.eval_lanes, a launch of K13 (csrc/
+texture.cu) a walk step on the card; the vertex caches the BSDF (`bx`), so
+K12 reads the textured values as it reads every other.
 """
 import ctypes
 from typing import NamedTuple
@@ -50,6 +55,7 @@ from pbrt_tpu_torch.materials import bxdfs, materials
 from pbrt_tpu_torch.sampling import samplers, warps
 from pbrt_tpu_torch.scene import builder as bd
 from pbrt_tpu_torch.spectral import spectra
+from pbrt_tpu_torch.textures import textures as texlib
 from pbrt_tpu_torch.utils.math import INFINITY
 
 VT_NONE = 0
@@ -313,7 +319,12 @@ def _walk(scene, meta, o, d, beta0, pdf_dir0, wl, smp, skind, spp, n_steps, mode
             scat = torch.zeros_like(active)
         found = active & ~scat & hit.valid & (hit.mat >= 0)
         esc_v = active & ~scat & ~hit.valid & mode_radiance
-        b_full, _ = materials.make_bsdf(scene, hit.mat, hit.ns, wl, meta.layered)
+        # a textured scene's mix choice and textured slots (JAX
+        # bdpt.py:370-371): K13 on the card, once a walk step
+        tex = (texlib.eval_lanes(scene, found, hit.mat, hit.p, hit.wo, hit.uv, hit.ns, wl.lam)
+               if meta.textured else None)
+        b_full, _ = materials.make_bsdf(scene, hit.mat if tex is None else tex.mat, hit.ns, wl,
+                                        meta.layered, tex=tex)
         s3 = scat[..., None]
         v_p = torch.where(s3, p_scat, hit.p) if media else hit.p
         w_in, dist2 = _dir_to(prev_p, v_p)

@@ -32,6 +32,14 @@ Semantics:
     sample, not HG at the light direction, as the JAX package does
     (megakernel_path.cu:248-263). Coated materials in a volumetric scene
     are not covered and raise.
+  - on a textured scene (SceneMeta.textured: texture slots or mix
+    materials) each shading lane's material is resolved from a mix by a
+    hash of the hit point's and wo's bits, and its textured reflectance,
+    transmittance and roughness are evaluated at the hit (uv, p, and with
+    `footprints` the uv footprint of the camera differentials) before its
+    BSDF is built: K13 (textures.eval_lanes, csrc/texture.cu) on the card,
+    launched by shade_cuda before the shading kernels, which read its
+    overrides; textures.eval_lanes_plain in the plain parts.
 Image infinite lights are a later slice; the scene builder refuses them.
 
 A bounce (bounce_step) is the parts around the two visibility dispatches:
@@ -60,10 +68,12 @@ from pbrt_tpu_torch.utils.math import INFINITY, power_heuristic
 from pbrt_tpu_torch.geometry import vecmath as vm
 from pbrt_tpu_torch.geometry.ray import offset_ray_origin
 from pbrt_tpu_torch.accel import dispatch
+from pbrt_tpu_torch.cameras import differentials
 from pbrt_tpu_torch.materials import materials, bxdfs, layered, scattering as sc
 from pbrt_tpu_torch.lights import lights
 from pbrt_tpu_torch.sampling import samplers, warps
 from pbrt_tpu_torch.spectral import sampled, spectra
+from pbrt_tpu_torch.textures import textures as texlib
 
 RR_START_DEPTH = 8.0
 RR_CLAMP = 0.95
@@ -200,10 +210,38 @@ class _Surface(NamedTuple):
     coat: object
 
 
-def _surface(scene, meta, state: PathState, hit: dispatch.SceneHit):
+def tex_lanes(state: PathState, hit: dispatch.SceneHit):
+    """The lanes whose textures a bounce evaluates: those that trace and
+    hit a material (on a volumetric scene also those that scatter before
+    the hit, whose answer is not read)."""
+    return state.active & hit.valid & (hit.mat >= 0)
+
+
+def closest_hits(scene, meta, state: PathState, t_max, spp, footprints):
+    """dispatch.intersect of the lanes' rays -> (SceneHit, the hits' uv
+    footprints (R, 4) (dudx, dvdx, dudy, dvdy) from the camera
+    differentials where `footprints` on a textured scene (JAX
+    path.py:322-334), else None)."""
+    if not (footprints and meta.textured):
+        return dispatch.intersect(scene, meta, state.o, state.d, t_max), None
+    hit, dpdu, dpdv = dispatch.intersect(scene, meta, state.o, state.d, t_max, derivatives=True)
+    deltas = tuple(scene.cam_ray_deltas[i] for i in range(4))
+    dpdx, dpdy = differentials.approximate_dp_dxy(hit.p, hit.ns, state.o, state.d, deltas,
+                                                  max(spp, 1))
+    return hit, torch.stack(differentials.duv_dxy(dpdx, dpdy, dpdu, dpdv), dim=-1)
+
+
+def _surface(scene, meta, state: PathState, hit: dispatch.SceneHit, duv=None):
+    """On a textured scene each lane's material and textured slots come from
+    the plain version of K13 (with footprints `duv` or None)."""
     shade = state.active & hit.valid & (hit.mat >= 0)
     wl = sampled.Wavelengths(lam=state.lam, pdf=state.lam_pdf)
-    bsdf, wl2 = materials.make_bsdf(scene, hit.mat, hit.ns, wl, meta.layered)
+    tex = None
+    if meta.textured:
+        tex = texlib.eval_lanes_plain(scene, tex_lanes(state, hit), hit.mat, hit.p, hit.wo,
+                                      hit.uv, hit.ns, state.lam, duv)
+    bsdf, wl2 = materials.make_bsdf(scene, hit.mat if tex is None else tex.mat, hit.ns, wl,
+                                    meta.layered, tex=tex)
     kind = bsdf.params.kind
     # NEE is skipped for specular-only lobes (coated kinds always run it)
     spec_only = (((kind == bxdfs.K_CONDUCTOR) | (kind == bxdfs.K_DIELECTRIC))
@@ -215,7 +253,7 @@ def _surface(scene, meta, state: PathState, hit: dispatch.SceneHit):
 
 
 def shade_light_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
-                      skind="independent", spp=0, surf=None):
+                      skind="independent", spp=0, surf=None, duv=None):
     """shade_plain's first part, the plain version of csrc/path_step.cu
     `path_shade`: escaped rays collect the uniform infinite lights and
     area-light hits their emission (MIS-weighted), the BSDF's wavelengths,
@@ -224,8 +262,9 @@ def shade_light_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
     prev_p and prev_ns of the next state, its other fields as they came; the
     shadow rays; the pending direct-light term; the coated lanes without
     their BSDF draws (uc, u2 None), or None in a scene without coated
-    materials). `surf`: _surface's answer, where the caller has it."""
-    surf = _surface(scene, meta, state, hit) if surf is None else surf
+    materials). `surf`: _surface's answer, where the caller has it; else
+    _surface's with a textured scene's footprints `duv` or None."""
+    surf = _surface(scene, meta, state, hit, duv) if surf is None else surf
     r = state.smp
     active = state.active
     beta = state.beta
@@ -303,7 +342,7 @@ BSDF_FIELDS = ("o", "d", "beta", "smp", "active", "specular", "prev_pdf")
 
 
 def shade_bsdf_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
-                     skind="independent", spp=0, surf=None):
+                     skind="independent", spp=0, surf=None, duv=None):
     """shade_plain's second part, the plain version of csrc/path_step.cu
     `path_bsdf`: the BSDF draws, after the NEE draws (drawn and left
     unused: shade_light_plain takes them), the BSDF sample and the new
@@ -312,7 +351,7 @@ def shade_bsdf_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
     (R, 2), or None in a scene without coated materials). Coated lanes keep their ray,
     throughput, specular flag and MIS pdf and are not active until K7 and
     `coat` finish them."""
-    surf = _surface(scene, meta, state, hit) if surf is None else surf
+    surf = _surface(scene, meta, state, hit, duv) if surf is None else surf
     shade, bsdf, coat = surf.shade, surf.bsdf, surf.coat
     r, _ = samplers.get_1d(state.smp, surf.nee, skind, spp)
     r, _ = samplers.get_2d(r, surf.nee, skind, spp)
@@ -341,7 +380,7 @@ def shade_bsdf_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
 
 
 def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="independent",
-                spp=0):
+                spp=0, duv=None):
     """Everything of a bounce from the escaped-ray branch to the new ray,
     on the state rr_plain returned and its closest hits: shade_light_plain
     (emission, NEE) and shade_bsdf_plain (the BSDF sample, the new ray) on
@@ -351,8 +390,10 @@ def shade_plain(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="in
     all of this that does not depend on their layered walk; their ray,
     throughput, specular flag and MIS pdf stay as they came, they are not
     active, and their pending term is 0, until K7 and `coat` finish them
-    (bounce_step)."""
-    surf = _surface(scene, meta, state, hit)
+    (bounce_step). On a textured scene the plain version of K13 (with
+    footprints `duv` or None) chooses each lane's material and its textured
+    slots."""
+    surf = _surface(scene, meta, state, hit, duv)
     return merge_shade(shade_light_plain(scene, meta, state, hit, skind, spp, surf),
                        shade_bsdf_plain(scene, meta, state, hit, skind, spp, surf))
 
@@ -452,7 +493,7 @@ def _hg_g(scene, medium):
 
 
 def shade_light_vol_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
-                          skind="independent", spp=0, surf=None):
+                          skind="independent", spp=0, surf=None, duv=None):
     """shade_light_plain on a volumetric scene, the plain version of
     csrc/path_step.cu `path_shade<VOLUMETRIC>`: the distance draw first
     (lanes in a medium), then the escaped rays and emission with the MIS pdf
@@ -461,7 +502,7 @@ def shade_light_vol_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
     their start media (VolShadow) and the pending term whose MIS weight
     waits for their transmittance. -> (state with L, lam_pdf, depth, prev_p
     and prev_ns of the next state; VolShadow; NeePending; None)."""
-    surf = _surface(scene, meta, state, hit) if surf is None else surf
+    surf = _surface(scene, meta, state, hit, duv) if surf is None else surf
     ev = _medium_event(scene, state, hit, skind, spp)
     r, ms, beta = ev.r, ev.scatter, ev.beta
     active = state.active
@@ -535,7 +576,7 @@ BSDF_VOL_FIELDS = BSDF_FIELDS + ("medium", "trans_pdf")
 
 
 def shade_bsdf_vol_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
-                         skind="independent", spp=0, surf=None):
+                         skind="independent", spp=0, surf=None, duv=None):
     """shade_bsdf_plain on a volumetric scene, the plain version of
     csrc/path_step.cu `path_bsdf<VOLUMETRIC>`: the draws of
     shade_light_vol_plain stepped past, the HG continuation draw, the BSDF
@@ -544,7 +585,7 @@ def shade_bsdf_vol_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
     it travels in, beta, the flags, the MIS pdf and the transmittance pdf
     (1 after a real scatter). -> (state with BSDF_VOL_FIELDS of the next
     state, None)."""
-    surf = _surface(scene, meta, state, hit) if surf is None else surf
+    surf = _surface(scene, meta, state, hit, duv) if surf is None else surf
     ev = _medium_event(scene, state, hit, skind, spp)
     r, ms = ev.r, ev.scatter
     shade, bsdf = surf.shade & ~ms, surf.bsdf
@@ -584,10 +625,10 @@ def shade_bsdf_vol_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
 
 
 def shade_vol_plain(scene, meta, state: PathState, hit: dispatch.SceneHit,
-                    skind="independent", spp=0):
+                    skind="independent", spp=0, duv=None):
     """shade_plain on a volumetric scene: shade_light_vol_plain and
     shade_bsdf_vol_plain on one make_bsdf."""
-    surf = _surface(scene, meta, state, hit)
+    surf = _surface(scene, meta, state, hit, duv)
     return merge_shade(shade_light_vol_plain(scene, meta, state, hit, skind, spp, surf),
                        shade_bsdf_vol_plain(scene, meta, state, hit, skind, spp, surf),
                        BSDF_VOL_FIELDS)
@@ -750,12 +791,15 @@ def iterations(meta):
     return 2 * meta.max_depth + 4 if meta.volumetric else meta.max_depth
 
 
-def li(scene, meta, rays, wl: sampled.Wavelengths, r, skind="independent", spp=0):
+def li(scene, meta, rays, wl: sampled.Wavelengths, r, skind="independent", spp=0,
+       footprints=False):
     """Radiance of a batch of camera rays -> (L (R,4), final wavelengths,
-    {"closest", "shadow"} counts of rays actually traced, as 0-dim tensors)."""
+    {"closest", "shadow"} counts of rays actually traced, as 0-dim tensors).
+    `footprints`: image textures average over the camera differentials'
+    uv footprint (off by default, as in the JAX package)."""
     state = initial_state(rays, wl, r, camera_medium(scene, meta))
     for _ in range(iterations(meta)):
-        state = bounce_step(scene, meta, state, skind, spp)
+        state = bounce_step(scene, meta, state, skind, spp, footprints)
     return (state.L, sampled.Wavelengths(state.lam, state.lam_pdf),
             {"closest": state.n_closest, "shadow": state.n_shadow})
 
@@ -844,6 +888,8 @@ _ARG_FIELDS = (
     "prev_p", "prev_ns", "count_in",
     # closest hits (path_shade, path_coat); the pending term and shadow answers (path_resolve)
     "hit_valid", "hit_p", "hit_ng", "hit_ns", "hit_mat", "hit_light",
+    # a textured scene's K13 overrides (hit_mat then K13's resolved material)
+    "tex_refl", "tex_trans", "tex_urough", "tex_vrough", "tex_mask",
     "nee", "ld", "occluded",
     # outputs
     "o_out", "d_out", "L_out", "beta_out", "lam_pdf_out", "smp_state_out", "smp_dim_out",
@@ -1137,13 +1183,37 @@ def _coat_outputs(a: _Args, beta, hit, light_wi):
         light_pdf=light[2], light_ok=light[3], light_delta=light[4])
 
 
+def _put_hit(a: _Args, scene, meta, state, hit, duv):
+    """Point the shading kernels' hit fields at the record; on a textured
+    scene hit_mat at the resolved material and the override fields at the
+    answer of a K13 launch made here (with footprints duv or None)."""
+    a.put("hit_valid", hit.valid, dtype=torch.bool)
+    for k in ("p", "ng", "ns"):
+        a.put(f"hit_{k}", getattr(hit, k), 3)
+    a.put("hit_light", hit.light, dtype=torch.int64)
+    tex = None
+    if meta.textured:
+        tex = texlib.eval_lanes_cuda(scene, tex_lanes(state, hit), hit.mat, hit.p, hit.wo,
+                                     hit.uv, hit.ns, state.lam, duv)
+    a.put("hit_mat", hit.mat if tex is None else tex.mat, dtype=torch.int64)
+    if tex is not None:
+        a.put("tex_refl", tex.refl, 4)
+        a.put("tex_trans", tex.trans, 4)
+        a.put("tex_urough", tex.urough)
+        a.put("tex_vrough", tex.vrough)
+        a.put("tex_mask", tex.mask, dtype=torch.uint8)
+
+
 def shade_cuda(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="independent",
-               spp=0, kernels=SHADE_KERNELS):
+               spp=0, kernels=SHADE_KERNELS, duv=None):
     """shade_plain's contract in launches of csrc/path_step.cu `path_shade`
     and `path_bsdf` (its two parts, shade_light_plain and shade_bsdf_plain;
     either alone writes only its part's outputs) or, with kernels=
     SHADE_YARDSTICK, of their yardstick `path_shade_lane`; a scene without
-    lights gives (state, None, None, lanes) as the plain version does."""
+    lights gives (state, None, None, lanes) as the plain version does. On a
+    textured scene a launch of K13 (textures.eval_lanes_cuda, with
+    footprints `duv` or None) comes first and the kernels read its
+    answer."""
     if not set(kernels) <= set(SHADE_KERNELS + SHADE_YARDSTICK):
         raise ValueError(f"path step kernel: {kernels} are not shading kernels")
     if meta.volumetric:
@@ -1152,11 +1222,7 @@ def shade_cuda(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="ind
     a.state(state, ("o", "d", "L", "beta", "lam", "lam_pdf", "smp_state", "smp_inc",
                     "smp_pixel", "smp_sample", "smp_dim", "active", "specular", "depth",
                     "prev_pdf", "prev_p", "prev_ns"))
-    a.put("hit_valid", hit.valid, dtype=torch.bool)
-    for k in ("p", "ng", "ns"):
-        a.put(f"hit_{k}", getattr(hit, k), 3)
-    for k in ("mat", "light"):
-        a.put(f"hit_{k}", getattr(hit, k), dtype=torch.int64)
+    _put_hit(a, scene, meta, state, hit, duv)
     tab = step_tables(scene)
     n_l, n_t = scene.lt_type.shape[0], scene.tri_p0.shape[0]
     a.c.n_lights, a.c.n_tris = n_l, n_t
@@ -1193,11 +1259,12 @@ VOL_SHADE_KERNELS = ("path_shade_vol", "path_bsdf_vol")
 
 
 def shade_vol_cuda(scene, meta, state: PathState, hit: dispatch.SceneHit, skind="independent",
-                   spp=0, kernels=VOL_SHADE_KERNELS):
+                   spp=0, kernels=VOL_SHADE_KERNELS, duv=None):
     """shade_vol_plain's contract in launches of csrc/path_step.cu
     `path_shade_vol` and `path_bsdf_vol` (either alone writes only its
     part's outputs) -> (state, VolShadow, NeePending with its MIS pdfs,
-    None); (state, None, None, None) in a scene without lights."""
+    None); (state, None, None, None) in a scene without lights. A textured
+    scene's overrides as in shade_cuda."""
     if not set(kernels) <= set(VOL_SHADE_KERNELS):
         raise ValueError(f"path step kernel: {kernels} are not the volumetric shading kernels")
     if meta.layered:
@@ -1209,12 +1276,10 @@ def shade_vol_cuda(scene, meta, state: PathState, hit: dispatch.SceneHit, skind=
                     "prev_pdf", "prev_p", "prev_ns"))
     a.put("medium", state.medium, dtype=torch.int64)
     a.put("trans_pdf", state.trans_pdf, 4)
-    a.put("hit_valid", hit.valid, dtype=torch.bool)
     a.put("hit_t", hit.t)
-    for k in ("p", "ng", "ns"):
-        a.put(f"hit_{k}", getattr(hit, k), 3)
-    for k in ("mat", "light", "med_in", "med_out"):
+    for k in ("med_in", "med_out"):
         a.put(f"hit_{k}", getattr(hit, k), dtype=torch.int64)
+    _put_hit(a, scene, meta, state, hit, duv)
     tab = step_tables(scene)
     n_l, n_t = scene.lt_type.shape[0], scene.tri_p0.shape[0]
     a.c.n_lights, a.c.n_tris = n_l, n_t
@@ -1345,9 +1410,12 @@ def check_volumetric(scene, meta):
         raise ValueError("volumetric scene rendered scene-sharded is not supported")
 
 
-def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
+def bounce_step(scene, meta, state: PathState, skind="independent", spp=0, footprints=False):
     """One bounce for all lanes -> the updated PathState: the loop head (RR),
-    the closest hits, shading with the NEE light sample and the BSDF sample,
+    the closest hits, on a textured scene each shading lane's material and
+    textured slots (K13, launched by shade_cuda; with `footprints` over the
+    uv footprint of the camera differentials), shading with the NEE light
+    sample and the BSDF sample,
     on coated lanes K7's walks (layered_f and layered_pdf at the light, the
     layered sample) and their finish (coat), the MIS pdf of the coated lanes
     that go on (K7's layered_pdf), the shadow rays, and the direct light
@@ -1360,8 +1428,8 @@ def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
         rr, shade, resolve = ((rr_cuda, shade_vol_cuda, resolve_vol_cuda) if cuda
                               else (rr_plain, shade_vol_plain, resolve_vol_plain))
         state, t_max = rr(meta, state, skind, spp)
-        hit = dispatch.intersect(scene, meta, state.o, state.d, t_max)
-        state, sh, pending, _ = shade(scene, meta, state, hit, skind, spp)
+        hit, duv = closest_hits(scene, meta, state, t_max, spp, footprints)
+        state, sh, pending, _ = shade(scene, meta, state, hit, skind, spp, duv=duv)
         if pending is None:
             return state
         return resolve(state, pending, transmittance(scene, meta, sh.o, sh.d, sh.p, sh.medium,
@@ -1371,8 +1439,8 @@ def bounce_step(scene, meta, state: PathState, skind="independent", spp=0):
     else:
         rr, shade, coat, resolve = rr_plain, shade_plain, coat_plain, resolve_plain
     state, t_max = rr(meta, state, skind, spp)
-    hit = dispatch.intersect(scene, meta, state.o, state.d, t_max)
-    state, shadow, pending, lanes = shade(scene, meta, state, hit, skind, spp)
+    hit, duv = closest_hits(scene, meta, state, t_max, spp, footprints)
+    state, shadow, pending, lanes = shade(scene, meta, state, hit, skind, spp, duv=duv)
     mis = None
     if lanes is not None:
         state, pending, mis_mask, mis_wi = coat(scene, state, pending, lanes,

@@ -112,13 +112,14 @@ def wave_lanes(n_pix, spp, device, pix0=0):
         s0 += k
 
 
-def render_wave(scene, meta, film, ids, sample_ids, k):
+def render_wave(scene, meta, film, ids, sample_ids, k, footprints=False):
     """Trace the (pixel, sample) lanes ids, sample_ids (R,), a tile of R / k
     distinct pixels repeated k times (wave_lanes), and add them to `film` in
     place (the tiled film add). -> {"closest", "shadow"} ray counts
-    (0-dim)."""
+    (0-dim). `footprints`: path.li's."""
     rays, wl, r, weight = camera_lanes(scene, meta, ids, sample_ids, _use_lens(scene))
-    L, wl_out, stats = path_integrator.li(scene, meta, rays, wl, r, meta.sampler, meta.spp)
+    L, wl_out, stats = path_integrator.li(scene, meta, rays, wl, r, meta.sampler, meta.spp,
+                                          footprints)
     filmlib.add_samples_tiled(film, ids[:ids.shape[0] // k], L, wl_out.lam, wl_out.pdf,
                               weight, k)
     return stats
@@ -226,7 +227,7 @@ def _merge(new, old, mask):
     return type(old)(*out)
 
 
-def render_wavefront(scene, meta, film, pix0=0, n_pix=None, pool=None):
+def render_wavefront(scene, meta, film, pix0=0, n_pix=None, pool=None, footprints=False):
     """All meta.spp samples of the pixels pix0 .. pix0 + n_pix - 1 (default:
     the whole frame) through the wavefront loop (pbrt_tpu/integrators/
     render.py:228-345), a pool of `pool` lanes (default POOL_LANES). Work
@@ -257,7 +258,7 @@ def render_wavefront(scene, meta, film, pix0=0, n_pix=None, pool=None):
     it_bound = (-(-total // R) + 2) * per_path
     n_in_flight, it = R, 0
     while n_in_flight > 0 and it < it_bound:
-        st = path_integrator.bounce_step(scene, meta, state, meta.sampler, meta.spp)
+        st = path_integrator.bounce_step(scene, meta, state, meta.sampler, meta.spp, footprints)
         finished = in_flight & ~st.active
         filmlib.add_samples(film, pix, st.L, st.lam, st.lam_pdf,
                             torch.where(finished, weight, 0.0))
@@ -274,7 +275,7 @@ def render_wavefront(scene, meta, film, pix0=0, n_pix=None, pool=None):
     return {"closest": state.n_closest, "shadow": state.n_shadow}, dropped
 
 
-def render_batched(scene, meta, film, pix0=0, n_pix=None):
+def render_batched(scene, meta, film, pix0=0, n_pix=None, footprints=False):
     """All meta.spp samples of the pixels pix0 .. pix0 + n_pix - 1 (default:
     the whole frame) through the batched loop (pbrt_tpu/integrators/
     render.py `_spp_loop`): waves of up to LANES_PER_WAVE lanes, each traced
@@ -284,7 +285,7 @@ def render_batched(scene, meta, film, pix0=0, n_pix=None):
     n_pix = res_x * res_y if n_pix is None else n_pix
     n_closest = n_shadow = 0
     for ids, sample_ids, k in wave_lanes(n_pix, meta.spp, film.rgb_sum.device, pix0):
-        st = render_wave(scene, meta, film, ids, sample_ids, k)
+        st = render_wave(scene, meta, film, ids, sample_ids, k, footprints)
         n_closest = n_closest + st["closest"]
         n_shadow = n_shadow + st["shadow"]
     return {"closest": n_closest, "shadow": n_shadow}
@@ -333,7 +334,7 @@ def shard_scene(scene, n_parts):
     return scene.with_shard(shard.local(pdist.rank(), pdist.world()).to(scene.device))
 
 
-def render_pixel_parallel(scene, meta, film):
+def render_pixel_parallel(scene, meta, film, footprints=False):
     """The path family under a process group of W ranks (pbrt_tpu/
     integrators/render.py:361-450, `render_wavefront_sharded` and
     `render_spp_fused_sharded`): rank r renders the pixels [r n / W, (r + 1)
@@ -350,9 +351,10 @@ def render_pixel_parallel(scene, meta, film):
     dropped = 0
     if meta.open_scene:
         stats, dropped = render_wavefront(scene, meta, film, pix0, n_loc,
-                                          pool=max(1024, POOL_LANES // W) if split else None)
+                                          pool=max(1024, POOL_LANES // W) if split else None,
+                                          footprints=footprints)
     else:
-        stats = render_batched(scene, meta, film, pix0, n_loc)
+        stats = render_batched(scene, meta, film, pix0, n_loc, footprints)
     if split:
         pdist.all_reduce_film(film)
         dev = film.rgb_sum.device
@@ -363,7 +365,8 @@ def render_pixel_parallel(scene, meta, film):
     return stats, dropped
 
 
-def render(scene, meta, device=None, return_stats=False, heatmap_path=None, shard_parts=0):
+def render(scene, meta, device=None, return_stats=False, heatmap_path=None, shard_parts=0,
+           footprints=False):
     """Full render -> (H, W, 3) linear RGB tensor on `device` (None means
     "cuda"; without a card that raises). MLT scenes take mlt.render_mlt
     (and write their sampling-density heatmap to heatmap_path, if given);
@@ -378,7 +381,9 @@ def render(scene, meta, device=None, return_stats=False, heatmap_path=None, shar
     and attempted connections; MLT: of every evaluation, and "mutations"),
     and a path-family render prints its bounce step's route
     (path.step_route: "cuda", the kernels of csrc/path_step.cu, or
-    "plain")."""
+    "plain"). `footprints` (the path family, as JAX render.py:168, :231):
+    image textures average four taps over the uv footprint of the camera
+    differentials; off by default."""
     device = resolve_device(device)
     check_integrator(meta.integrator)
     if scene.device != device:
@@ -395,12 +400,12 @@ def render(scene, meta, device=None, return_stats=False, heatmap_path=None, shar
     film = filmlib.new_film(meta.resolution, device)
     splat_scale = 0.0
     if scene.shard is not None:
-        stats = render_batched(scene, meta, film)
+        stats = render_batched(scene, meta, film, footprints=footprints)
     elif meta.integrator == "bdpt":
         stats = render_bdpt(scene, meta, film)
         splat_scale = 1.0 / meta.spp
     else:
-        stats, dropped = render_pixel_parallel(scene, meta, film)
+        stats, dropped = render_pixel_parallel(scene, meta, film, footprints)
         if dropped != 0:
             raise RuntimeError(f"wavefront loop dropped {dropped} work items "
                                "(its iteration bound tripped)")

@@ -22,7 +22,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "pbrt_tpu_torch"
 SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
            for name in ("bvh_traverse", "dense_intersect", "wavefront", "layered",
                         "layered_lane", "bdpt", "bdpt_lane", "mlt", "scene_shard", "film",
-                        "path_step", "transmit")}
+                        "path_step", "transmit", "texture")}
 # --fmad=false: no contraction into fused multiply-adds, so every float op
 # rounds as the plain torch version's does (the watertight test needs it)
 NVCC_FLAGS = [

@@ -1,16 +1,21 @@
 """Material evaluation: material table rows + hit context -> BxdfParams
-(counterpart of pbrt_tpu/materials/materials.py without textures and mix
-materials; reference materials/*.cu get_bxdf()). Coated materials
-(coateddiffuse, coatedconductor) carry the parameters of a layered BxDF
-(materials/layered.py, K7) beside the per-lane BxdfParams."""
+(counterpart of pbrt_tpu/materials/materials.py; reference materials/*.cu
+get_bxdf()). Coated materials (coateddiffuse, coatedconductor) carry the
+parameters of a layered BxDF (materials/layered.py, K7) beside the per-lane
+BxdfParams. A mix material is resolved to one of its two materials per hit
+(resolve_mix); textured slots override the material's constant
+reflectance, transmittance and roughness (textures.slot_values, or K13's
+TexLanes)."""
 from typing import NamedTuple, Optional
 
 import torch
 
 from pbrt_tpu_torch.geometry import vecmath as vm
 from pbrt_tpu_torch.materials import bxdfs, layered, scattering as sc
+from pbrt_tpu_torch.sampling import rng
 from pbrt_tpu_torch.spectral import spectra, sampled
 from pbrt_tpu_torch.scene import builder as bd
+from pbrt_tpu_torch.textures import textures as texlib
 
 
 class Bsdf(NamedTuple):
@@ -24,11 +29,40 @@ class Bsdf(NamedTuple):
     lay: Optional[layered.LayeredParams] = None
 
 
-def make_bsdf(scene, mat_idx, ns, wl: sampled.Wavelengths, layered_scene=False):
+def _float_bits(x):
+    """The u32 bits of float32 x, in int64."""
+    return x.contiguous().view(torch.int32).long() & rng.M32
+
+
+def resolve_mix(scene, mat_idx, p, wo):
+    """Each lane's material with mix materials resolved (JAX materials.py:30;
+    reference base/interaction.cu:49-52: u = the Murmur64A hash of the bits
+    of p and wo as 2^-32 of its low word; mix_material.cu:18-21: u < amount
+    ? m1 : m2). A mix never resolves to a material-less interface or another
+    mix (the builder refuses both), so a material >= 0 stays >= 0. Lanes
+    with a material < 0 or not a mix keep theirs."""
+    m = torch.clamp(mat_idx, min=0).long()
+    words = [_float_bits(p[..., i]) for i in range(3)] + [_float_bits(wo[..., i])
+                                                            for i in range(3)]
+    u = (rng.murmur64a_u32_words(words) & rng.M32).to(torch.float32) * 2.0 ** -32
+    chosen = torch.where(u < scene.mat_mix_amount[m], scene.mat_mix_m1[m],
+                         scene.mat_mix_m2[m]).long()
+    return torch.where((scene.mat_type[m] == bd.MAT_MIX) & (mat_idx >= 0), chosen,
+                       mat_idx.long())
+
+
+def make_bsdf(scene, mat_idx, ns, wl: sampled.Wavelengths, layered_scene=False, uv=None, p=None,
+              duv=None, tex=None):
     """Material mat_idx (R,) -> (Bsdf around ns, new wavelengths): a
     dispersive dielectric terminates the secondary wavelengths (reference
     dielectric_material.cu:40-47). `layered_scene` (SceneMeta.layered) builds
-    the layered parameters of coated materials."""
+    the layered parameters of coated materials. On a scene with textures the
+    slots whose node is >= 0 override the constant reflectance,
+    transmittance and roughness, before the roughness becomes alpha and the
+    conductor's reflectance mode takes its k (JAX materials.py:79-92): from
+    `tex` (a TexLanes whose mat is mat_idx: K13's or its plain version's),
+    or evaluated here at uv (R, 2), p (R, 3) and footprints duv (R, 4) or
+    None (textures.slot_values)."""
     m = torch.clamp(mat_idx, min=0).long()
     mtype = scene.mat_type[m]
     remap = scene.mat_remap[m]
@@ -40,6 +74,15 @@ def make_bsdf(scene, mat_idx, ns, wl: sampled.Wavelengths, layered_scene=False):
 
     refl = torch.clamp(spectra.sigmoid_polynomial(scene.mat_refl_c[m], wl.lam), 0.0, 1.0)
     trans = torch.clamp(spectra.sigmoid_polynomial(scene.mat_trans_c[m], wl.lam), 0.0, 1.0)
+    if tex is None and uv is not None and scene.tex.type.shape[0] > 0:
+        tex = texlib.TexLanes(mat_idx, *texlib.slot_values(scene, m, uv, ns, wl.lam, p, duv))
+    if tex is not None:
+        def slot(bit):
+            return (tex.mask & bit) != 0
+        refl = torch.where(slot(texlib.SLOT_REFL)[..., None], tex.refl, refl)
+        trans = torch.where(slot(texlib.SLOT_TRANS)[..., None], tex.trans, trans)
+        urough = torch.where(slot(texlib.SLOT_UROUGH), tex.urough, urough)
+        vrough = torch.where(slot(texlib.SLOT_VROUGH), tex.vrough, vrough)
 
     ax = torch.clamp(torch.where(remap, sc.roughness_to_alpha(urough), urough), min=1e-4)
     ay = torch.clamp(torch.where(remap, sc.roughness_to_alpha(vrough), vrough), min=1e-4)

@@ -4,7 +4,7 @@
         [--scene cornell-mesh|cornell|terrain|staircase|testball|cornell-bdpt|caustic-glass
                  |caustic-glass-mlt|cornell-mesh-mltpath|cornell-instanced
                  |cornell-instanced-flat|volumetric-caustic|volumetric-caustic-bdpt
-                 |volumetric-caustic-path]
+                 |volumetric-caustic-path|textured-cornell-mesh]
         [--shard-scene N] [--traversal | --layered]
         [--out build/pbrt_tpu_torch/profile_render.json]
 
@@ -22,7 +22,10 @@ two-level BVH) and its flattened twin at cornell-mesh's settings;
 volumetric-caustic (scenes/volumetric-caustic.pbrt: homogeneous fog, a
 spot beam through a glass ball, 128^2, max depth 7) with its file's MLT
 over BDPT (uncut, 100 mutations per pixel), with BDPT at 8 spp and with the
-path integrator at its file's 16 spp. One warm-up render,
+path integrator at its file's 16 spp; textured-cornell-mesh
+(testscenes.textured_cornell_mesh_pbrt, levels 5, at cornell-mesh's
+settings: checkerboard, imagemap, mix and named materials, K13). One
+warm-up render,
 REPS timed renders (11; 3 for staircase, whose frame is ~25x a cornell-mesh
 frame's work, and for caustic-glass; 5 for testball), host clock around a synchronized render (the
 honest rays/s of each, and their median and quartiles), then one render
@@ -422,6 +425,11 @@ def _scene(name):
                     "volumetric-caustic path (128^2 x 16, max depth 7, fog)")
         return (load_scene(path), "volumetric-caustic mlt (its file: MLT over BDPT, 100 "
                                   "mutations/px, fog)")
+    if name == "textured-cornell-mesh":
+        from pbrt_tpu_torch.scene.compile import compile_scene
+
+        return (compile_scene(ts.textured_cornell_mesh_builder(levels=LEVELS, res=RES, spp=SPP)),
+                f"textured cornell-mesh levels {LEVELS} (checkerboard, imagemap, mix, K13)")
     if name in SCENE_FILES:
         from pbrt_tpu_torch.scene.compile import load_scene
 
@@ -437,7 +445,7 @@ def main(argv=None):
                                         "caustic-glass-mlt", "cornell-mesh-mltpath",
                                         "cornell-instanced", "cornell-instanced-flat",
                                         "volumetric-caustic", "volumetric-caustic-bdpt",
-                                        "volumetric-caustic-path"),
+                                        "volumetric-caustic-path", "textured-cornell-mesh"),
                     default="cornell-mesh")
     ap.add_argument("--shard-scene", type=int, default=0, metavar="N",
                     help="split the triangles into N parts (path family)")

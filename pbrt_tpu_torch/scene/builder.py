@@ -3,8 +3,12 @@
 Counterpart of pbrt_tpu/scene/builder.py (reference scene/scene_builder.cu),
 trimmed to what the port renders so far: transforms, the perspective camera,
 film, independent/stratified samplers, box and mitchell pixel filters,
-attribute blocks, diffuse/conductor/dielectric/diffusetransmission and
-coateddiffuse/coatedconductor materials, diffuse area lights, distant/uniform-infinite/spot light
+attribute blocks, diffuse/conductor/dielectric/diffusetransmission,
+coateddiffuse/coatedconductor and mix materials, named materials
+(MakeNamedMaterial/NamedMaterial), textures (Texture: constant, scale, mix,
+checkerboard, directionmix and imagemap nodes under uv, spherical,
+cylindrical or planar mappings) bound to the material parameters the JAX
+package textures, diffuse area lights, distant/uniform-infinite/spot light
 sources, triangle meshes (trianglemesh, loopsubdiv, plymesh), full or
 partial spheres and disks, named coordinate systems, object instancing
 (ObjectBegin/ObjectEnd/ObjectInstance: small scenes replay the definition's
@@ -30,6 +34,7 @@ from pbrt_tpu_torch.scene import lexer as lx
 from pbrt_tpu_torch.scene.params import ParameterDict, parse_parameters
 from pbrt_tpu_torch.geometry import transform as tf
 from pbrt_tpu_torch.spectral import cie, spectra
+from pbrt_tpu_torch.textures import textures as texlib
 
 # material type codes (device dispatch; same values as the JAX package);
 # a material-less interface is material -1
@@ -40,11 +45,12 @@ MAT_DIELECTRIC = 2
 MAT_DIFFUSE_TRANSMISSION = 3
 MAT_COATED_DIFFUSE = 4
 MAT_COATED_CONDUCTOR = 5
+MAT_MIX = 6
 
 LIGHT_AREA = 0
 LIGHT_DISTANT = 1
 LIGHT_UNIFORM_INFINITE = 2
-# 3 is the image-infinite light of the JAX package (textures slice)
+# 3 is the image-infinite light of the JAX package (a later slice)
 LIGHT_SPOT = 4
 
 PATH_INTEGRATORS = ("path", "volpath", "megakernelpath")
@@ -108,6 +114,16 @@ class MaterialSpec:
     conductor_k_spec: int = -1
     crough_u: float = 0.0
     crough_v: float = 0.0
+    # mix: two material indices (neither a mix nor an interface) and the
+    # amount, the probability of the second
+    mix_m1: int = -1
+    mix_m2: int = -1
+    mix_amount: float = 0.5
+    # texture slots (node index into SceneBuilder.textures, -1: the constant)
+    refl_tex: int = -1
+    trans_tex: int = -1
+    urough_tex: int = -1
+    vrough_tex: int = -1
 
 
 @dataclass
@@ -150,10 +166,14 @@ def _swaps_handedness(m):
     return np.linalg.det(np.asarray(m)[:3, :3]) < 0
 
 
-def _no_textures(pd: ParameterDict, names):
+def _no_textures(pd: ParameterDict, mtype, names):
+    """Refuse a texture bound to a parameter that the JAX package reads as a
+    constant only (it would fall back to the default there)."""
     for n in names:
         if pd.get_texture_name(n) is not None:
-            raise _later(f"texture parameter {n!r}", "textures")
+            raise ValueError(f"texture parameter {n!r} of material {mtype!r} is not supported "
+                             f"(the JAX package textures only reflectance, transmittance and "
+                             f"roughness slots)")
 
 
 class SceneBuilder:
@@ -164,6 +184,11 @@ class SceneBuilder:
         self._search_dir = "."
 
         self.materials = [MaterialSpec(type=MAT_DIFFUSE, reflectance_rgb=np.array([0.5, 0.5, 0.5]))]
+        self.named_materials = {}
+        self.float_textures = {}     # name -> (class, params, ctm)
+        self.spectrum_textures = {}
+        self.textures = []           # list[TexSpec], the flat node table
+        self._texture_index = {}     # (name, is_spectrum) -> node index
         self.spectra_rows = []  # list of (471,) float64
         self._spectra_index = {}
         self.tri_p = []
@@ -254,6 +279,109 @@ class SceneBuilder:
         dense = cie.illum_d65()
         return dense, cie.inner_product(dense, cie.Y())
 
+    # ------------------------------------------------------------ textures
+
+    def _const_tex(self, is_spectrum, rgb=None, value=0.0):
+        self.textures.append(texlib.TexSpec(kind="constant", is_spectrum=is_spectrum, rgb=rgb,
+                                            value=value))
+        return len(self.textures) - 1
+
+    def _child_tex(self, pd: ParameterDict, name, is_spectrum, default=None):
+        """A tex1/tex2/amount parameter that may name a texture, hold an
+        rgb or float constant, or be absent -> node index or -1."""
+        tn = pd.get_texture_name(name)
+        if tn is not None:
+            return self.texture_index(tn, is_spectrum)
+        if is_spectrum:
+            rgb = pd.get_rgb(name)
+            if rgb is not None:
+                return self._const_tex(True, rgb=np.asarray(rgb))
+            v = pd.get_float(name, None)
+            if v is not None:
+                return self._const_tex(True, rgb=np.array([v, v, v]))
+        else:
+            v = pd.get_float(name, None)
+            if v is not None:
+                return self._const_tex(False, value=float(v))
+        if default is not None:
+            if is_spectrum:
+                return self._const_tex(True, rgb=np.array([default] * 3))
+            return self._const_tex(False, value=float(default))
+        return -1
+
+    def texture_index(self, name, is_spectrum):
+        """A named texture -> its node index in self.textures, built (with its
+        children) at first use (reference base/spectrum_texture.cu:15-50,
+        base/float_texture.cu:11-24; JAX builder.py:297-367)."""
+        key = (name, is_spectrum)
+        if key in self._texture_index:
+            return self._texture_index[key]
+        table = self.spectrum_textures if is_spectrum else self.float_textures
+        if name not in table:
+            # pbrt lets a spectrum slot name a float texture and the reverse
+            other = self.float_textures if is_spectrum else self.spectrum_textures
+            if name not in other:
+                raise ValueError(f"unknown texture {name!r}")
+            table = other
+        tclass, pd, tex_ctm = table[name]
+        mapping = pd.get_string("mapping", "uv")
+        if mapping not in ("uv", "spherical", "cylindrical", "planar"):
+            raise ValueError(f"texture mapping {mapping!r} not supported")
+        spec = texlib.TexSpec(
+            kind=tclass, is_spectrum=is_spectrum,
+            uscale=pd.get_float("uscale", 1.0), vscale=pd.get_float("vscale", 1.0),
+            udelta=pd.get_float("udelta", 0.0), vdelta=pd.get_float("vdelta", 0.0),
+            mapping=mapping,
+            v1=np.asarray(pd.get_vector3("v1", np.array([1.0, 0.0, 0.0]))),
+            v2=np.asarray(pd.get_vector3("v2", np.array([0.0, 1.0, 0.0]))),
+            # the world -> texture transform of the Texture's declaration
+            tex_from_world=np.linalg.inv(tex_ctm))
+        if tclass == "constant":
+            vtype = pd.type_of("value") if "value" in pd else None
+            rgb = pd.get_rgb("value") if vtype in ("rgb", "color") else None
+            v = pd.get_float("value", 1.0) if rgb is None else None
+            if is_spectrum:
+                spec.rgb = np.asarray(rgb) if rgb is not None else np.array([v, v, v])
+            else:
+                spec.value = float(rgb[0] if v is None else v)
+        elif tclass == "imagemap":
+            spec.filename = pd.get_string("filename")
+            spec.image_scale = pd.get_float("scale", 1.0)
+            spec.invert = pd.get_bool("invert", False)
+            spec.wrap = pd.get_string("wrap", "repeat")
+        elif tclass == "scale":
+            spec.tex1 = self._child_tex(pd, "tex", is_spectrum, default=1.0)
+            spec.amount_tex = self._child_tex(pd, "scale", False)
+            spec.amount = pd.get_float("scale", 1.0)
+        elif tclass == "mix":
+            spec.tex1 = self._child_tex(pd, "tex1", is_spectrum, default=0.0)
+            spec.tex2 = self._child_tex(pd, "tex2", is_spectrum, default=1.0)
+            spec.amount_tex = self._child_tex(pd, "amount", False)
+            spec.amount = pd.get_float("amount", 0.5)
+        elif tclass in ("checkerboard", "directionmix"):
+            spec.tex1 = self._child_tex(pd, "tex1", is_spectrum, default=0.0)
+            spec.tex2 = self._child_tex(pd, "tex2", is_spectrum, default=1.0)
+            if tclass == "directionmix":
+                d = pd.get_vector3("dir", np.array([0.0, 1.0, 0.0]))
+                spec.dir = tex_ctm[:3, :3] @ np.asarray(d)
+        else:
+            raise ValueError(f"texture class {tclass!r} not supported")
+        self.textures.append(spec)
+        idx = len(self.textures) - 1
+        self._texture_index[key] = idx
+        return idx
+
+    def _tex_slot(self, pd: ParameterDict, name, spectrum=True):
+        """The node of a material parameter bound to a texture, else -1."""
+        tn = pd.get_texture_name(name)
+        return -1 if tn is None else self.texture_index(tn, spectrum)
+
+    def _rough_slots(self, pd: ParameterDict):
+        """(urough node, vrough node): each of u/vroughness, else roughness."""
+        r = self._tex_slot(pd, "roughness", False)
+        return tuple(self._tex_slot(pd, n, False) if pd.get_texture_name(n) else r
+                     for n in ("uroughness", "vroughness"))
+
     # --------------------------------------------------------------- media
 
     def make_medium(self, pd: ParameterDict) -> int:
@@ -295,13 +423,12 @@ class SceneBuilder:
         if mtype in ("", "interface", "none"):
             return MAT_INTERFACE
         if mtype == "diffuse":
-            _no_textures(pd, ["reflectance"])
             spec = MaterialSpec(
                 type=MAT_DIFFUSE,
                 reflectance_rgb=np.asarray(pd.get_rgb("reflectance", np.array([0.5, 0.5, 0.5]))),
+                refl_tex=self._tex_slot(pd, "reflectance"),
             )
         elif mtype == "conductor":
-            _no_textures(pd, ["reflectance", "roughness", "uroughness", "vroughness"])
             eta_idx = self.resolve_spectrum(pd, "eta")
             k_idx = self.resolve_spectrum(pd, "k")
             refl = pd.get_rgb("reflectance")
@@ -320,9 +447,10 @@ class SceneBuilder:
                 uroughness=pd.get_float("uroughness", rough),
                 vroughness=pd.get_float("vroughness", rough),
                 remap_roughness=pd.get_bool("remaproughness", True),
+                refl_tex=self._tex_slot(pd, "reflectance"),
             )
+            spec.urough_tex, spec.vrough_tex = self._rough_slots(pd)
         elif mtype == "dielectric":
-            _no_textures(pd, ["roughness", "uroughness", "vroughness"])
             eta_f = (pd.get_float("eta", None)
                      if ("eta" not in pd or pd.type_of("eta") == "float")
                      else None)
@@ -338,17 +466,19 @@ class SceneBuilder:
                 vroughness=pd.get_float("vroughness", rough),
                 remap_roughness=pd.get_bool("remaproughness", True),
             )
+            spec.urough_tex, spec.vrough_tex = self._rough_slots(pd)
         elif mtype == "diffusetransmission":
-            _no_textures(pd, ["reflectance", "transmittance"])
             spec = MaterialSpec(
                 type=MAT_DIFFUSE_TRANSMISSION,
                 reflectance_rgb=np.asarray(pd.get_rgb("reflectance", np.array([0.25, 0.25, 0.25]))),
                 transmittance_rgb=np.asarray(
                     pd.get_rgb("transmittance", np.array([0.25, 0.25, 0.25]))),
+                refl_tex=self._tex_slot(pd, "reflectance"),
+                trans_tex=self._tex_slot(pd, "transmittance"),
             )
         elif mtype == "coateddiffuse":
-            _no_textures(pd, ["reflectance", "roughness", "uroughness", "vroughness",
-                              "thickness", "g", "albedo"])
+            _no_textures(pd, mtype, ["roughness", "uroughness", "vroughness", "thickness", "g",
+                                     "albedo"])
             rough = pd.get_float("roughness", 0.0)
             spec = MaterialSpec(
                 type=MAT_COATED_DIFFUSE,
@@ -362,9 +492,10 @@ class SceneBuilder:
                 albedo_rgb=np.asarray(pd.get_rgb("albedo", np.array([0.0, 0.0, 0.0]))),
                 max_depth=pd.get_integer("maxdepth", 10),
                 n_samples=pd.get_integer("nsamples", 1),
+                refl_tex=self._tex_slot(pd, "reflectance"),
             )
         elif mtype == "coatedconductor":
-            _no_textures(pd, ["interface.roughness", "interface.uroughness",
+            _no_textures(pd, mtype, ["interface.roughness", "interface.uroughness",
                               "interface.vroughness", "conductor.roughness",
                               "conductor.uroughness", "conductor.vroughness", "reflectance",
                               "thickness", "g", "albedo"])
@@ -395,7 +526,16 @@ class SceneBuilder:
                 crough_v=pd.get_float("conductor.vroughness", crough),
             )
         elif mtype == "mix":
-            raise _later("material 'mix'", "textures")
+            names = pd._get("materials", {"string"}, None)
+            if names is None or len(names) != 2:
+                raise ValueError("mix material needs 2 named materials")
+            m1, m2 = (self.named_materials[n] for n in names)
+            for n, m in zip(names, (m1, m2)):
+                if m < 0 or self.materials[m].type == MAT_MIX:
+                    raise ValueError(f"mix material of {n!r}: a mix of a material-less interface "
+                                     f"or of another mix is not supported")
+            spec = MaterialSpec(type=MAT_MIX, mix_m1=m1, mix_m2=m2,
+                                mix_amount=pd.get_float("amount", 0.5))
         else:
             raise ValueError(f"material type {mtype!r} not implemented")
         self.materials.append(spec)
@@ -635,7 +775,7 @@ class SceneBuilder:
                 direction=d / np.linalg.norm(d), medium=self.state.outside_medium))
         elif ltype == "infinite":
             if pd.get_string("filename", None) is not None:
-                raise _later("image infinite lights", "textures")
+                raise _later("image infinite lights", "image infinite light")
             dense, photometric = self.illuminant_dense(pd, "L")
             self.lights.append(LightSpec(
                 type=LIGHT_UNIFORM_INFINITE, emission_dense=dense,
@@ -849,9 +989,22 @@ class SceneBuilder:
                 self._add_light_source(ltype, pd)
                 continue
             if kw == "Texture":
-                raise _later("textures", "textures")
-            if kw in ("MakeNamedMaterial", "NamedMaterial"):
-                raise _later("named materials", "textures (mix and named materials)")
+                tname, ttype, tclass = (t.value for t in tokens[i:i + 3])
+                i += 3
+                pd, i = parse_parameters(tokens, i)
+                table = self.float_textures if ttype == "float" else self.spectrum_textures
+                table[tname] = (tclass, pd, self.state.ctm.copy())
+                continue
+            if kw == "MakeNamedMaterial":
+                mname = tokens[i].value
+                i += 1
+                pd, i = parse_parameters(tokens, i)
+                self.named_materials[mname] = self.make_material(pd.get_string("type"), pd)
+                continue
+            if kw == "NamedMaterial":
+                self.state.material_idx = self.named_materials[tokens[i].value]
+                i += 1
+                continue
             if kw == "MakeNamedMedium":
                 mname = tokens[i].value
                 i += 1

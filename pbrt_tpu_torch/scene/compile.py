@@ -14,6 +14,7 @@ partial quadrics, coated materials) become plain ints and bools of
 `SceneMeta`.
 """
 import copy
+from types import SimpleNamespace
 from dataclasses import dataclass, fields
 from functools import cached_property
 
@@ -21,11 +22,13 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.accel import bvh as bvhlib
+from pbrt_tpu_torch.cameras import differentials
 from pbrt_tpu_torch.distribution.distributions import alias_table_build
 from pbrt_tpu_torch.filters import filters as filterlib
 from pbrt_tpu_torch.geometry import intersect as ix, transform as tf
 from pbrt_tpu_torch.scene import builder as bd
 from pbrt_tpu_torch.spectral import cie, colorspace as cspace, rgb2spec
+from pbrt_tpu_torch.textures import textures as texlib
 from pbrt_tpu_torch.utils.device import resolve_device
 
 
@@ -105,6 +108,15 @@ class Scene:
     mat_albedo_c: torch.Tensor   # (M, 3) medium albedo sigmoid coefficients
     mat_crough_u: torch.Tensor   # (M,) conductor (bottom) roughness
     mat_crough_v: torch.Tensor
+    # mix materials (MAT_MIX rows): the two materials and the amount
+    mat_mix_m1: torch.Tensor     # (M,) i32
+    mat_mix_m2: torch.Tensor
+    mat_mix_amount: torch.Tensor  # (M,)
+    # texture slots: a node of `tex` or -1 (the constant columns above)
+    mat_refl_tex: torch.Tensor   # (M,) i32
+    mat_trans_tex: torch.Tensor
+    mat_urough_tex: torch.Tensor
+    mat_vrough_tex: torch.Tensor
     spec_table: torch.Tensor     # (NS, 471) f32
     # lights: area (triangle, sphere, disk), distant, uniform infinite, spot
     lt_type: torch.Tensor        # (L,) i32
@@ -133,6 +145,10 @@ class Scene:
     scene_radius: torch.Tensor   # ()
     scene_center: torch.Tensor   # (3,) bounding-sphere center (sample_le disks)
     ray_offset_scale: torch.Tensor  # () epsilon of spawned rays
+    cam_ray_deltas: torch.Tensor  # (4, 3) one-pixel camera ray deltas (do_dx, dd_dx,
+                                  # do_dy, dd_dy) of footprint-aware texture lookups
+    tex: texlib.TexArrays         # the texture node table, of tensors (0 rows
+                                  # on a scene without textures)
     # the parts of the triangle soup this rank traverses (parallel/
     # scene_shard.SceneShard, JAX compile.py:170-174): None unless a
     # scene-sharded render sets it (with_shard). Not a dataclass field: the
@@ -144,8 +160,8 @@ class Scene:
         kw = {}
         for f in fields(self):
             v = getattr(self, f.name)
-            kw[f.name] = (filterlib.FilterTables(*(x.to(device) for x in v))
-                          if f.name == "filt" else v.to(device))
+            kw[f.name] = (filterlib.FilterTables(*(x.to(device) for x in v)) if f.name == "filt"
+                          else texlib.to_device(v, device) if f.name == "tex" else v.to(device))
         return Scene(**kw).with_shard(None if self.shard is None else self.shard.to(device))
 
     def with_shard(self, shard):
@@ -215,6 +231,8 @@ class SceneMeta:
                                   # the layered parameters (K7)
     volumetric: bool              # media or material-less interfaces: the
                                   # integrators take their medium branches
+    textured: bool                # textured material slots or mix materials:
+                                  # a bounce evaluates them (K13)
     mutations_per_pixel: int      # MLT: mutations per pixel of a frame
 
 
@@ -227,10 +245,18 @@ def scene_from_arrays(arrays, meta, device):
     `arrays['bvh_nint']`, `['bvh_depth']`, `['bvh_ninst']`, `['bvh_iterb']`,
     `['sph_partial_marker']`, `['dsk_partial_marker']` and layered from
     `['lay_marker']` when present. The JAX package has no bvh_leaves: a
-    two-level scene needs them in `meta`; one level takes ()."""
+    two-level scene needs them in `meta`; one level takes (). `arrays['tex']`
+    is a TexArrays of arrays (absent or None: no textures); a meta without
+    `textured` (the JAX package's) takes it from that table and the
+    material types."""
     device = torch.device(device)
     kw = {}
+    get = arrays.get if hasattr(arrays, "get") else (lambda k: None)
     for f in fields(Scene):
+        if f.name == "tex":
+            tex = get("tex")
+            kw["tex"] = texlib.to_device(texlib.empty_arrays() if tex is None else tex, device)
+            continue
         v = arrays[f.name]
         if f.name == "filt":
             items = v._asdict() if hasattr(v, "_asdict") else dict(v)
@@ -240,7 +266,6 @@ def scene_from_arrays(arrays, meta, device):
         else:
             kw[f.name] = torch.as_tensor(np.array(v)).to(device)
     m = {f.name: getattr(meta, f.name, None) for f in fields(SceneMeta)}
-    get = arrays.get if hasattr(arrays, "get") else (lambda k: None)
     for marker in ("bvh_nint", "bvh_depth", "bvh_ninst", "bvh_iterb"):
         a = get(marker)
         if a is not None and np.ndim(a) == 2:
@@ -251,6 +276,8 @@ def scene_from_arrays(arrays, meta, device):
             m[name] = np.shape(get(marker))[0] > 0
     if m["bvh_leaves"] is None and m["bvh_ninst"] == 0:
         m["bvh_leaves"] = ()
+    if m["textured"] is None:
+        m["textured"] = bool(kw["tex"].type.shape[0] > 0 or (kw["mat_type"] == bd.MAT_MIX).any())
     missing = [k for k, v in m.items() if v is None]
     if missing:
         raise ValueError(f"scene_from_arrays: meta lacks {missing}")
@@ -288,7 +315,8 @@ def _dpduv(tp_, tuv_):
 
 
 def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=None):
-    """Host compile -> ({field: numpy array} for every Scene field, SceneMeta)."""
+    """Host compile -> ({field: numpy array} for every Scene field, `filt` a
+    FilterTables and `tex` a textures.TexArrays of them, SceneMeta)."""
     f32 = np.float32
     integrator = integrator_override or b.integrator["type"]
     bd.check_integrator(integrator)
@@ -532,6 +560,13 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         mat_albedo_c=mat_albedo_c.astype(f32),
         mat_crough_u=np.array([m.crough_u for m in mats], f32),
         mat_crough_v=np.array([m.crough_v for m in mats], f32),
+        mat_mix_m1=np.array([m.mix_m1 for m in mats], np.int32),
+        mat_mix_m2=np.array([m.mix_m2 for m in mats], np.int32),
+        mat_mix_amount=np.array([m.mix_amount for m in mats], f32),
+        mat_refl_tex=np.array([m.refl_tex for m in mats], np.int32),
+        mat_trans_tex=np.array([m.trans_tex for m in mats], np.int32),
+        mat_urough_tex=np.array([m.urough_tex for m in mats], np.int32),
+        mat_vrough_tex=np.array([m.vrough_tex for m in mats], np.int32),
         spec_table=spec_table,
         lt_type=np.array([l.type for l in lights], np.int32),
         lt_emission=(np.stack([l.emission_dense for l in lights]).astype(f32)
@@ -562,6 +597,14 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         scene_center=np.asarray(center, f32),
         ray_offset_scale=np.asarray(min(radius * 1e-5, 1e-3) / max(radius, 1e-6), f32),
     )
+    # the texture nodes (JAX compile.py:464, the same camera position)
+    arrays["tex"] = texlib.build_tex_arrays(b.textures, b._search_dir, cam_pos=cam_pos)
+    # footprint-aware texture lookups' camera deltas (JAX compile.py:777-783)
+    cam = SimpleNamespace(**{k: torch.as_tensor(arrays[k]) for k in (
+        "camera_from_raster", "render_from_camera", "camera_lens_radius",
+        "camera_focal_distance")})
+    arrays["cam_ray_deltas"] = torch.stack(
+        differentials.pixel_ray_deltas(cam, resolution[0])).numpy()
     spp = spp_override or b.sampler["pixelsamples"]
     if b.sampler["type"] == "stratified" and int(round(spp ** 0.5)) ** 2 != spp:
         spp = max(1, int(spp ** 0.5)) ** 2  # nearest square below
@@ -590,6 +633,7 @@ def compile_arrays(b: bd.SceneBuilder, spp_override=None, integrator_override=No
         layered=any(m.type in (bd.MAT_COATED_DIFFUSE, bd.MAT_COATED_CONDUCTOR) for m in mats),
         volumetric=bool(b.media or any(m < 0 for m in b.tri_mat)
                         or any(sp["mat"] < 0 for sp in b.spheres)),
+        textured=bool(b.textures) or any(m.type == bd.MAT_MIX for m in mats),
         mutations_per_pixel=b.integrator.get("mutations", 100),
     )
     return arrays, meta

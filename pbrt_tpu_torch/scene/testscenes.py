@@ -1,7 +1,8 @@
 """Built-in test scenes (no external files needed): the Cornell box (12
 triangles and two spheres, the dense route), its BVH variant with the two
 spheres replaced by subdivided triangle meshes, an instanced variant of it
-(ObjectBegin/ObjectInstance), and the terrain height field
+(ObjectBegin/ObjectInstance), a textured variant of it (images written
+from a seed), and the terrain height field
 under a sky and a sun, written as a PLY file (counterpart of
 pbrt_tpu/scene/testscenes.py; the classic Cornell box dimensions are
 public-domain measurement data)."""
@@ -149,6 +150,116 @@ def instanced_cornell_pbrt(levels_a, levels_b, res=256, spp=16):
                    '  Scale 30 30 30\n  ObjectInstance "gem"\n')
     out.append("AttributeEnd\n")
     return "".join(out)
+
+
+def textured_images(image_dir, seed=0, size=256):
+    """Write the textured cornell box's two images into image_dir, made from
+    `seed` with numpy and written as 8-bit PNG by film/png.py: the back
+    wall's size x size mosaic of 8 x 8 random colours under a diagonal
+    ramp, and a (size / 4)^2 grey roughness image. -> (wall path, roughness
+    path), absolute."""
+    from pbrt_tpu_torch.film import png
+
+    rng = np.random.default_rng(seed)
+    cell = size // 8
+    mosaic = np.kron(rng.uniform(0.15, 0.95, (8, 8, 3)), np.ones((cell, cell, 1)))
+    ramp = np.linspace(0.6, 1.0, size)[:, None, None] * np.linspace(1.0, 0.7, size)[None, :, None]
+    rough = np.repeat(rng.uniform(0.0, 1.0, (size // 4, size // 4, 1)), 3, axis=2)
+    image_dir = Path(image_dir).resolve()
+    image_dir.mkdir(parents=True, exist_ok=True)
+    paths = image_dir / "wall.png", image_dir / "rough.png"
+    for path, img in zip(paths, (mosaic * ramp, rough)):
+        png.write_png(str(path), np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8))
+    return tuple(str(p) for p in paths)
+
+
+def textured_cornell_mesh_pbrt(levels=5, image_dir=None, res=256, spp=16, coated=False):
+    """cornell_mesh_pbrt(levels) dressed in textures (the BVH route, 16,396
+    triangles at levels 5): a uv checkerboard floor, a 256^2 imagemap back
+    wall, walls through MakeNamedMaterial / NamedMaterial, one ball a mix
+    (amount 0.5) of a diffuse and a conductor whose roughness is a float
+    scale of an imagemap, the other a diffuse transmitter whose reflectance
+    is a planar-mapped checkerboard and whose transmittance a directionmix.
+    The images are written into image_dir (default: under SCENE_CACHE) by
+    textured_images. `coated`: the floor a coateddiffuse over the
+    checkerboard (the layered BxDF, K7, with a textured reflectance)."""
+    wall, rough = textured_images(SCENE_CACHE / "textured" if image_dir is None else image_dir)
+    ball1 = _octahedron_pbrt(400, 90, 350, 90, levels)
+    ball2 = _octahedron_pbrt(160, 90, 200, 90, levels)
+    return f"""
+Integrator "path" "integer maxdepth" [5]
+Sampler "independent" "integer pixelsamples" [{spp}]
+Film "rgb" "integer xresolution" [{res}] "integer yresolution" [{res}]
+    "string filename" ["textured-cornell.png"]
+LookAt 278 273 -800   278 273 0   0 1 0
+Camera "perspective" "float fov" [38]
+
+WorldBegin
+
+Texture "floor-checks" "spectrum" "checkerboard" "float uscale" [8] "float vscale" [8]
+  "rgb tex1" [0.8 0.8 0.75] "rgb tex2" [0.1 0.1 0.12]
+Texture "wall-image" "spectrum" "imagemap" "string filename" ["{wall}"]
+Texture "rough-image" "float" "imagemap" "string filename" ["{rough}"] "string wrap" ["clamp"]
+Texture "rough" "float" "scale" "texture tex" ["rough-image"] "float scale" [0.4]
+Texture "ball-checks" "spectrum" "checkerboard" "string mapping" ["planar"]
+  "vector3 v1" [0.04 0 0] "vector3 v2" [0 0.04 0] "rgb tex1" [0.85 0.85 0.85]
+  "rgb tex2" [0.2 0.3 0.7]
+Texture "ball-dirmix" "spectrum" "directionmix" "rgb tex1" [0.9 0.5 0.1]
+  "rgb tex2" [0.1 0.4 0.8] "vector3 dir" [0 1 0]
+
+MakeNamedMaterial "white" "string type" ["diffuse"] "rgb reflectance" [0.73 0.73 0.73]
+MakeNamedMaterial "red" "string type" ["diffuse"] "rgb reflectance" [0.63 0.065 0.05]
+MakeNamedMaterial "green" "string type" ["diffuse"] "rgb reflectance" [0.12 0.45 0.15]
+MakeNamedMaterial "floor" "string type" ["{'coateddiffuse' if coated else 'diffuse'}"]
+  "texture reflectance" ["floor-checks"]
+MakeNamedMaterial "back" "string type" ["diffuse"] "texture reflectance" ["wall-image"]
+MakeNamedMaterial "matte" "string type" ["diffuse"] "rgb reflectance" [0.7 0.6 0.4]
+MakeNamedMaterial "brushed" "string type" ["conductor"] "texture roughness" ["rough"]
+MakeNamedMaterial "ball-mix" "string type" ["mix"] "string materials" ["matte" "brushed"]
+  "float amount" [0.5]
+
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [18.4 15.6 8.0]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point3 P" [213 548.7 227   343 548.7 227   343 548.7 332   213 548.7 332]
+AttributeEnd
+
+NamedMaterial "floor"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point3 P" [552.8 0 0   0 0 0   0 0 559.2   549.6 0 559.2]
+  "point2 uv" [1 0   0 0   0 1   1 1]
+NamedMaterial "white"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point3 P" [556 548.8 0   556 548.8 559.2   0 548.8 559.2   0 548.8 0]
+NamedMaterial "back"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point3 P" [549.6 0 559.2   0 0 559.2   0 548.8 559.2   556 548.8 559.2]
+  "point2 uv" [1 0   0 0   0 1   1 1]
+NamedMaterial "green"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point3 P" [0 0 559.2   0 0 0   0 548.8 0   0 548.8 559.2]
+NamedMaterial "red"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point3 P" [552.8 0 0   549.6 0 559.2   556 548.8 559.2   556 548.8 0]
+
+AttributeBegin
+  NamedMaterial "ball-mix"
+  {ball1}
+AttributeEnd
+AttributeBegin
+  Material "diffusetransmission" "texture reflectance" ["ball-checks"]
+    "texture transmittance" ["ball-dirmix"]
+  {ball2}
+AttributeEnd
+"""
+
+
+def textured_cornell_mesh_builder(levels=5, image_dir=None, res=256, spp=16, coated=False):
+    """SceneBuilder of textured_cornell_mesh_pbrt."""
+    b = bd.SceneBuilder()
+    b.parse_tokens(lx.tokenize(textured_cornell_mesh_pbrt(levels, image_dir, res, spp, coated)))
+    return b
 
 
 def instanced_cornell_builder(levels=(6, 5), res=256, spp=16, instancing="auto",

@@ -1624,3 +1624,144 @@ def test_volumetric_renders_on_card_match_cpu(cuda):
         _check(blocks(imgs[0], 4), blocks(imgs[1], 4), f"volumetric-caustic {integrator}")
         assert abs(counts[0] - counts[1]) <= 1e-3 * counts[1], counts
 
+
+
+# ------------------------------------------------- K13: textures and mix
+
+def _textured_scene(dev, tmp_path):
+    """tests/texture_cases.py's scene (every node type, mapping, wrap mode,
+    textured slot and a mix) compiled on `dev`."""
+    import texture_cases as tc
+    from pbrt_tpu_torch.scene import builder as bd, lexer as lx
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    b = bd.SceneBuilder()
+    b.parse_tokens(lx.tokenize(tc.scene_text(tmp_path)))
+    return compile_scene(b, device=dev)
+
+
+@pytest.mark.parametrize("footprints", [False, True])
+@pytest.mark.parametrize("lanes", [1000, 1 << 17])
+def test_tex_kernel_matches_plain(cuda, tmp_path, footprints, lanes):
+    """K13 (csrc/texture.cu) against eval_lanes_plain on texture_cases'
+    synthetic lanes, with footprints and without: materials (mix resolved)
+    and slot masks bit for bit, the values within texture_cases' criterion;
+    one launch."""
+    import texture_cases as tc
+    from pbrt_tpu_torch.textures import textures as tx
+
+    scene, meta = _textured_scene(cuda, tmp_path)
+    L = tc.synthetic_lanes(scene, lanes, 5, footprints, cuda)
+    args = (scene, L["lanes"], L["mat"], L["p"], L["wo"], L["uv"], L["ns"], L["lam"], L["duv"])
+    n0 = tx.launches["tex_eval"]
+    got = tx.eval_lanes(*args)
+    assert tx.launches["tex_eval"] == n0 + 1
+    res = tc.compare(got, tx.eval_lanes_plain(*args))
+    assert tc.agree(res), res
+    assert bool((got.mat != L["mat"]).any()) and res["slots"] > 0
+
+
+def test_tex_kernel_wrapper_refuses_cpu_tensors(cuda, tmp_path):
+    """The kernel's wrapper takes CUDA tensors only: no quiet plain route."""
+    import texture_cases as tc
+    from pbrt_tpu_torch.textures import textures as tx
+
+    scene, _ = _textured_scene(cuda, tmp_path)
+    L = tc.synthetic_lanes(scene, 64, 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tx.eval_lanes_cuda(scene, L["lanes"], L["mat"], L["p"], L["wo"], L["uv"], L["ns"],
+                           L["lam"])
+
+
+def test_textured_shading_kernels_match_plain(cuda, tmp_path):
+    """K6 on a textured bounce (path_shade and path_bsdf reading K13's
+    overrides) against the plain parts (shade_plain with the plain K13) on
+    path_cases' synthetic state over texture_cases' scene: path_cases'
+    criteria, draws and masks bit-exact; K13 launched by shade_cuda."""
+    import path_cases as pc
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.textures import textures as tx
+
+    scene, meta = _textured_scene(cuda, tmp_path)
+    assert meta.textured
+    state = pc.synthetic_state(scene, meta, 1 << 16, 9)
+    n0 = tx.launches["tex_eval"]
+    kern, plain = _path_parts()
+    reps, seen = pc.compare_parts(scene, meta, state, "independent", 2, kern, plain,
+                                  pc.shade_parts())
+    for name, rep in reps.items():
+        assert rep.ok(), (name, str(rep))
+    assert tx.launches["tex_eval"] > n0 and seen["hits"] > 0
+
+
+def test_textured_renders_on_card_match_cpu(cuda, tmp_path):
+    """The textured cornell-mesh (levels 2) 32^2 x 8 with the path integrator
+    (K13 max_depth times a wave) and BDPT (K13 2 max_depth + 1 times a wave,
+    once a walk step) on the card against the CPU, ray counts within 1 %:
+    with the mix ball made its diffuse ("matte"), tests/test_parity.py's
+    criterion per pixel; as it is, on 4x4 block means (the mix hashes the
+    bits of the hit point and wo, and a direction the kernels round an ulp
+    apart from the plain step's picks the other material, so those paths go
+    on independently); the untextured cornell-mesh launches no K13."""
+    from layered_cases import blocks
+    from pbrt_tpu_torch.scene import builder as bd, lexer as lx
+    from pbrt_tpu_torch.scene.compile import compile_scene
+    from pbrt_tpu_torch.textures import textures as tx
+
+    text = ts.textured_cornell_mesh_pbrt(levels=2, image_dir=tmp_path, res=32, spp=8)
+    mix_ball = '\n  NamedMaterial "ball-mix"'
+    assert text.count(mix_ball) == 1
+    for mix in (False, True):
+        b = bd.SceneBuilder()
+        b.parse_tokens(lx.tokenize(text if mix else text.replace(mix_ball,
+                                                                 '\n  NamedMaterial "matte"')))
+        b.filter = {"type": "box"}
+        for integ in ("path", "bdpt"):
+            scene, meta = compile_scene(b, device=cuda, integrator_override=integ)
+            n0 = tx.launches["tex_eval"]
+            img_gpu, st_gpu = render(scene, meta, return_stats=True)
+            waves = sum(1 for _ in rd.wave_lanes(32 * 32, meta.spp, "cpu"))
+            assert tx.launches["tex_eval"] - n0 == (meta.max_depth if integ == "path" else
+                                                     (2 * meta.max_depth + 1) * waves)
+            img_cpu, st_cpu = render(scene, meta, device="cpu", return_stats=True)
+            img_gpu, img_cpu = img_gpu.cpu().numpy(), img_cpu.numpy()
+            n_gpu, n_cpu = sum(st_gpu.values()), sum(st_cpu.values())
+            assert abs(n_gpu - n_cpu) <= 1e-2 * n_cpu, (integ, mix)
+            a, b_ = (blocks(img_gpu, 4), blocks(img_cpu, 4)) if mix else (img_gpu, img_cpu)
+            assert float((np.abs(a - b_) > 5e-3 + 0.05 * np.abs(b_)).mean()) < 0.005, (integ, mix)
+            assert abs(img_gpu.mean() - img_cpu.mean()) < 0.01 * img_cpu.mean(), (integ, mix)
+    scene, meta = ts.cornell_mesh(res=16, spp=1, levels=2, device=cuda)
+    n0 = tx.launches["tex_eval"]
+    render(scene, meta)
+    assert tx.launches["tex_eval"] == n0
+
+
+@pytest.mark.parametrize("integrator", ["path", "bdpt", "mltpath", "mlt"])
+def test_textured_dense_frames_on_card(cuda, tmp_path, integrator):
+    """texture_cases' scene (the dense route) through render() on the card
+    with every integrator family: finite and lit; K13 launched by the path
+    integrator's bounces (mltpath's evaluations too) and by BDPT's walk
+    steps, 2 max_depth + 1 a wave (MLT over BDPT's evaluations too)."""
+    import texture_cases as tc
+    from pbrt_tpu_torch.integrators import mlt
+    from pbrt_tpu_torch.scene import builder as bd, lexer as lx
+    from pbrt_tpu_torch.scene.compile import compile_scene
+    from pbrt_tpu_torch.textures import textures as tx
+
+    b = bd.SceneBuilder()
+    b.parse_tokens(lx.tokenize(tc.scene_text(tmp_path)))
+    b.film["xresolution"] = b.film["yresolution"] = 16
+    scene, meta = compile_scene(b, device=cuda, integrator_override=integrator)
+    assert meta.textured and scene.bvh_rows.shape[0] == 0
+    n0 = tx.launches["tex_eval"]
+    if integrator.startswith("mlt"):
+        meta = dataclasses.replace(meta, mutations_per_pixel=8)
+        img = mlt.render_mlt(scene, meta, n_chains=1024, n_bootstrap=4096, device=cuda)[0]
+    else:
+        img = render(scene, meta)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    launched = tx.launches["tex_eval"] - n0
+    assert launched > 0
+    if integrator == "bdpt":
+        waves = sum(1 for _ in rd.wave_lanes(16 * 16, meta.spp, "cpu"))
+        assert launched == (2 * meta.max_depth + 1) * waves, launched

@@ -145,10 +145,13 @@ def test_scene_from_arrays_round_trip(both):
     ja, jm, ta, tm = both
     scene, meta = scene_from_arrays(ta, tm, "cpu")
     for f in dataclasses.fields(Scene):
-        if f.name != "filt":
+        if f.name not in ("filt", "tex"):
             np.testing.assert_array_equal(getattr(scene, f.name).numpy(), ta[f.name])
     for k, v in ta["filt"]._asdict().items():
         np.testing.assert_array_equal(getattr(scene.filt, k).numpy(), v)
+    for k, v in ta["tex"]._asdict().items():
+        if k != "imgs":
+            np.testing.assert_array_equal(getattr(scene.tex, k).numpy(), v)
     assert meta == tm
     # the JAX package's SceneArrays, field by field through np.asarray
     j_dict = {k: np.asarray(v) if k != "filt" else v for k, v in ja._asdict().items()
@@ -172,32 +175,37 @@ def test_entry_points_need_a_device_choice():
 
 UNPORTED = {
     "image infinite light": 'WorldBegin\nLightSource "infinite" "string filename" "sky.exr"',
-    "texture": 'WorldBegin\nTexture "t" "spectrum" "checkerboard"',
-    "mix material": 'WorldBegin\nMaterial "mix"',
     "aov integrator": 'Integrator "ambientocclusion"',
     "gaussian filter": 'PixelFilter "gaussian"',
-    "named material": 'WorldBegin\nNamedMaterial "a"',
 }
 
 
-# what earlier slices refused and this one ports: each parses and compiles
+# what earlier slices refused and later ones port: each parses and compiles
 PORTED = {
     "medium": 'MakeNamedMedium "m" "string type" "homogeneous"',
     "interface": 'WorldBegin\nMaterial "interface"',
     "mlt": 'Integrator "mlt"\nMakeNamedMedium "m" "string type" "homogeneous"',
+    "texture": 'WorldBegin\nTexture "t" "spectrum" "checkerboard"',
+    "mix material": 'WorldBegin\nMakeNamedMaterial "a" "string type" "diffuse"\n'
+                    'Material "mix" "string materials" ["a" "a"]',
+    "named material": 'WorldBegin\nMakeNamedMaterial "a" "string type" "diffuse"\n'
+                      'NamedMaterial "a"',
 }
 
 
 @pytest.mark.parametrize("what", sorted(PORTED))
 def test_ported_features_parse_and_compile(what):
-    """Media, material-less interfaces and the MLT scene's medium parse and
-    compile: a medium (or an interface material) makes the scene
-    volumetric."""
+    """Media, material-less interfaces, the MLT scene's medium, textures,
+    mix and named materials parse and compile: a medium makes the scene
+    volumetric (an interface material no shape uses does not), a mix
+    material textured (a texture no material uses does not)."""
     b = tbd.SceneBuilder()
     b.parse_tokens(tlx.tokenize(PORTED[what]))
     arrays, meta = compile_arrays(b)
-    assert meta.volumetric == (what != "interface")
-    assert arrays["med_sigma_a"].shape == (0 if what == "interface" else 1, 471)
+    media = what in ("medium", "mlt")
+    assert meta.volumetric == media
+    assert arrays["med_sigma_a"].shape == (1 if media else 0, 471)
+    assert meta.textured == (what == "mix material")
     if what == "mlt":
         assert meta.integrator == "mlt"
 

@@ -81,7 +81,8 @@ def _f64(scene):
     def up(x):
         return x.double() if x.is_floating_point() else x
     kw = {f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)}
-    kw = {k: (type(v)(*map(up, v)) if k == "filt" else up(v)) for k, v in kw.items()}
+    kw = {k: (type(v)(*map(up, v)) if k == "filt" else v if k == "tex" else up(v))
+          for k, v in kw.items()}
     return type(scene)(**kw)
 
 
